@@ -6,14 +6,27 @@
 Phases, one line each; any failure raises and the exit code is not 0:
 
 1. device  — refuse to run without CUDA; the card's name and power limit.
-2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
-3. kernels — each kernel against its plain PyTorch version at the shapes of
-   ViL-Small 224² inference (f32 and bf16), plus a biased and a small odd
-   case of each; kernel and plain times (CUDA events, median of 20).
-4. slice   — ViL-Small 224², 1000 classes, bf16, batch 64, random seeded
+2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
+   nvcc per source, all at once.
+3. kernels — each kernel against its plain PyTorch version on the same
+   inputs: the forwards (with their log-sum-exp against ``torch.logsumexp``
+   of the plain scores) and the backwards (with the same upstream gradient)
+   at the shapes of ViL-Small 224² at batch 64, in f32 and bf16, plus biased,
+   cyclic 2×2 and long-sequence cases. Kernel, plain and, for the dense
+   kernels, ``scaled_dot_product_attention`` times (CUDA events, median of
+   20), and each kernel's bound on this card.
+4. serve   — ViL-Small 224², 1000 classes, bf16, batch 64, random seeded
    weights: six requests of uint8 images; the launch counts must be 3
-   (sliding-chunk) and 9 (dense) per forward; then the same weights in f32
-   with the kernels and with the plain versions must agree.
+   (sliding-chunk forward) and 9 (dense forward) per forward and 0 for the
+   backwards; then the same weights in f32 with the kernels and with the
+   plain versions must agree.
+5. train   — the ViL-Small 224² training step of configs/msvit.yaml (AdamW
+   with the no-decay set, mixup/cutmix with soft-target CE and label
+   smoothing 0.1, drop path 0.1, f32 parameters under bf16 compute) at batch
+   64 for six steps; launches must rise by 3, 3, 9 and 9 per step and every
+   loss be finite. Then one f32 step with the kernels and one with the plain
+   versions, from the same weights, images and generator seed: losses and
+   every parameter gradient must agree.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 every kernel's record, and the line before that the card as
@@ -22,6 +35,7 @@ every kernel's record, and the line before that the card as
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -31,9 +45,18 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 64
 REQUESTS = 6  # the first is the warm-up, left out of the img/s median
+STEPS = 6  # training steps; the first is the warm-up
 F32_TOL = 1e-4  # kernel vs plain, f32 inputs: f32 sums in another order
 BF16_TOL = 2e-2  # kernel on bf16 inputs vs plain in f32 on the same values
+LSE_TOL = 2e-5  # kernel vs logsumexp of the plain scores, either dtype (measured ≤ 3.8e-6)
+# backward, max|err| / max(1, max|ref|) (measured ≤ 2.4e-6 and ≤ 3.4e-3)
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 LOGITS_TOL = 1e-3  # whole model in f32, kernels vs plain versions
+LOSS_TOL = 1e-4  # one f32 training step, kernels vs plain versions
+PARAM_GRAD_TOL = 1e-4  # the same step: max|err| / max|ref| per parameter (measured 1.7e-6)
+# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(name: str, msg: str) -> None:
@@ -66,62 +89,167 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(moved_bytes: int, flops: float) -> tuple[float, float]:
+    """(ms at the HBM rate, ms at the dense bf16 rate) for one call."""
+    return moved_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
 def check_kernels(torch, records):
-    """Phase 3. Fills ``records[name]`` with errors and per-forward times."""
+    """Phase 3. Fills ``records[name]`` with errors and per-step times."""
+    import torch.nn.functional as F
+
     from vil_tpu_torch.ops import masks as masks_lib
     from vil_tpu_torch.ops import sliding_chunk as sc
     from vil_tpu_torch.ops.kernels import (
-        full_attention_fwd, full_attention_reference, mask_to_additive,
-        vil_attention_fwd, vil_attention_reference,
+        full_attention_bwd, full_attention_bwd_reference, full_attention_fwd,
+        full_attention_reference, mask_to_additive, vil_attention_bwd,
+        vil_attention_bwd_reference, vil_attention_fwd, vil_attention_reference,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    cast = lambda ts, dtype: [None if t is None else t.to(dtype) for t in ts]
 
-    def compare(name, label, kernel, plain, acts, rest, dtype, tol, per_forward=0):
-        """kernel(*acts, *rest) against plain() in f32 on the same values;
-        ``acts`` (q, k, v, ...) take ``dtype``, ``rest`` (tables, H) stay."""
-        acts = [None if a is None else a.to(dtype) for a in acts]
-        args = acts + rest
-        out = kernel(*args)
-        ref = plain(*[None if a is None else a.float() for a in acts], *rest)
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        rec = records[name]
-        msg = f"{name} {label} {str(dtype)[6:]}: max|err| {err:.3e} (tol {tol:g})"
-        if per_forward:
-            ms = time_ms(lambda: kernel(*args))
-            plain_ms = time_ms(lambda: plain(*args))
-            msg += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"x{per_forward} per forward")
-            if dtype == torch.bfloat16:  # the main path's type
-                rec["ms"] += per_forward * ms
-                rec["plain_ms"] += per_forward * plain_ms
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        phase("kernels", msg)
+    def max_err(out, ref):
+        return (out.float() - ref.float()).abs().max().item()
+
+    def rel_err(out, ref):
+        return max_err(out, ref) / max(1.0, ref.float().abs().max().item())
+
+    def check(what, err, tol):
         if not err <= tol:
-            raise AssertionError(f"{name} {label} {dtype}: max|err| {err} > {tol}")
+            raise AssertionError(f"{what}: error {err} > {tol}")
 
-    def vil_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, per_forward=0):
+    def account(name, per_step, ms, plain_ms, moved, flops, library_ms=None):
+        """Add one launch shape's per-step share to the kernel's record."""
+        rec = records[name]
+        t_bytes, t_ops = bound_ms(moved, flops)
+        rec["ms"] += per_step * ms
+        rec["plain_ms"] += per_step * plain_ms
+        rec["bound_ms"] += per_step * max(t_bytes, t_ops)
+        rec["_bytes_ms"] += per_step * t_bytes
+        rec["_ops_ms"] += per_step * t_ops
+        if library_ms is not None:
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + per_step * library_ms
+        return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
+                f"ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+    def vil_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, per_step=0):
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2 = w * w
+        cols = nglo + 9 * w2
         mask = torch.from_numpy(mask_to_additive(
             masks_lib.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo,
         )).to(dev)
         acts = [randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
         acts += [randn(B, nglo, C) if nglo else None for _ in range(2)]
-        rest = [randn(H, w2, nglo + 9 * w2, scale=0.5) if with_bias else None, mask, H]
+        g0 = randn(B, mx, my, w2, C)
+        bias = randn(H, w2, cols, scale=0.5) if with_bias else None
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            compare("vil_attention_fwd", label, vil_attention_fwd,
-                    vil_attention_reference, acts, rest, dtype, tol, per_forward)
+            a = cast(acts, dtype)
+            g = g0.to(dtype)
+            a32 = cast(a, torch.float32)
+            out, lse = vil_attention_fwd(*a, bias, mask, H, with_lse=True)
+            ref, ref_lse = vil_attention_reference(*a32, bias, mask, H, with_lse=True)
+            grads = vil_attention_bwd(*a, bias, g, mask, lse, H)
+            refs = vil_attention_bwd_reference(*a32, bias, g.float(), mask, H)
+            torch.cuda.synchronize()
+            e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+            e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
+            e_abs = max(max_err(x, r) for x, r in zip(grads, refs) if r is not None)
+            dt = str(dtype)[6:]
+            phase("kernels", f"vil_attention {label} {dt}: out {e_out:.3e} (tol {tol:g}), lse "
+                             f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
+                             f"(tol {GRAD_TOL[dt]:g})")
+            check(f"vil fwd {label} {dt}", e_out, tol)
+            check(f"vil lse {label} {dt}", e_lse, LSE_TOL)
+            check(f"vil bwd {label} {dt}", e_grad, GRAD_TOL[dt])
+            if per_step and dtype == torch.bfloat16:  # the training step's type
+                records["vil_attention_fwd"]["max_abs_err"] = max(
+                    records["vil_attention_fwd"]["max_abs_err"], e_out)
+                records["vil_attention_bwd"]["max_abs_err"] = max(
+                    records["vil_attention_bwd"]["max_abs_err"], e_abs)
+                act = B * mx * my * w2 * C
+                fwd_flops = 4.0 * act * cols
+                msg = account(
+                    "vil_attention_fwd", per_step,
+                    time_ms(lambda: vil_attention_fwd(*a, bias, mask, H, with_lse=True)),
+                    time_ms(lambda: vil_attention_reference(*a, bias, mask, H, with_lse=True)),
+                    nbytes(*a, bias, mask, out, lse), fwd_flops)
+                phase("kernels", f"  vil_attention_fwd with lse, x{per_step} per step: {msg}")
+                msg = account(
+                    "vil_attention_bwd", per_step,
+                    time_ms(lambda: vil_attention_bwd(*a, bias, g, mask, lse, H)),
+                    time_ms(lambda: vil_attention_bwd_reference(*a, bias, g, mask, H)),
+                    nbytes(*a, bias, mask, lse, g, *grads), 2.5 * fwd_flops)
+                phase("kernels", f"  vil_attention_bwd, x{per_step} per step: {msg}")
+                serve_ms = time_ms(lambda: vil_attention_fwd(*a, bias, mask, H))
+                phase("kernels", f"  vil_attention_fwd without lse (serving): {serve_ms:.4f} ms")
 
-    def full_case(label, B, N, C, H, with_bias, per_forward=0):
+    def full_case(label, B, N, C, H, with_bias, per_step=0):
+        M = C // H
         acts = [randn(B, N, C, scale=C ** -0.25) for _ in range(3)]
-        rest = [randn(H, N, N, scale=0.5) if with_bias else None, H]
+        g0 = randn(B, N, C)
+        bias = randn(H, N, N, scale=0.5) if with_bias else None
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            compare("full_attention_fwd", label, full_attention_fwd,
-                    full_attention_reference, acts, rest, dtype, tol, per_forward)
+            a = cast(acts, dtype)
+            g = g0.to(dtype)
+            a32 = cast(a, torch.float32)
+            out, lse = full_attention_fwd(*a, bias, H, with_lse=True)
+            ref, ref_lse = full_attention_reference(*a32, bias, H, with_lse=True)
+            grads = full_attention_bwd(*a, bias, g, lse, H)
+            refs = full_attention_bwd_reference(*a32, bias, g.float(), H)
+            torch.cuda.synchronize()
+            e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+            e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
+            e_abs = max(max_err(x, r) for x, r in zip(grads, refs) if r is not None)
+            dt = str(dtype)[6:]
+            phase("kernels", f"full_attention {label} {dt}: out {e_out:.3e} (tol {tol:g}), lse "
+                             f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
+                             f"(tol {GRAD_TOL[dt]:g})")
+            check(f"full fwd {label} {dt}", e_out, tol)
+            check(f"full lse {label} {dt}", e_lse, LSE_TOL)
+            check(f"full bwd {label} {dt}", e_grad, GRAD_TOL[dt])
+            if per_step and dtype == torch.bfloat16:
+                records["full_attention_fwd"]["max_abs_err"] = max(
+                    records["full_attention_fwd"]["max_abs_err"], e_out)
+                records["full_attention_bwd"]["max_abs_err"] = max(
+                    records["full_attention_bwd"]["max_abs_err"], e_abs)
+                # the library comparator: SDPA on the same values (q is
+                # pre-scaled, so scale=1), heads as a batch dimension
+                q4, k4, v4 = (t.view(B, N, H, M).transpose(1, 2).detach().requires_grad_()
+                              for t in a)
+                g4 = g.view(B, N, H, M).transpose(1, 2)
+                sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+                with torch.no_grad():
+                    lib_fwd = time_ms(sdpa)
+                o4 = sdpa()
+                lib_bwd = time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                                              retain_graph=True))
+                lib_both = time_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), g4))
+                fwd_flops = 4.0 * B * N * N * C
+                msg = account(
+                    "full_attention_fwd", per_step,
+                    time_ms(lambda: full_attention_fwd(*a, bias, H, with_lse=True)),
+                    time_ms(lambda: full_attention_reference(*a, bias, H, with_lse=True)),
+                    nbytes(*a, bias, out, lse), fwd_flops, lib_fwd)
+                phase("kernels", f"  full_attention_fwd with lse, x{per_step} per step: {msg}, "
+                                 f"SDPA forward {lib_fwd:.4f} ms")
+                msg = account(
+                    "full_attention_bwd", per_step,
+                    time_ms(lambda: full_attention_bwd(*a, bias, g, lse, H)),
+                    time_ms(lambda: full_attention_bwd_reference(*a, bias, g, H)),
+                    nbytes(*a, bias, lse, g, *grads), 2.5 * fwd_flops, lib_bwd)
+                phase("kernels", f"  full_attention_bwd, x{per_step} per step: {msg}, SDPA "
+                                 f"backward {lib_bwd:.4f} ms, SDPA forward+backward "
+                                 f"{lib_both:.4f} ms")
+                serve_ms = time_ms(lambda: full_attention_fwd(*a, bias, H))
+                phase("kernels", f"  full_attention_fwd without lse (serving): {serve_ms:.4f} ms")
 
     # ViL-Small 224²: stage 1 (1 block) and stage 2 (2 blocks) sliding-chunk
     vil_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, 1)
@@ -136,24 +264,19 @@ def check_kernels(torch, records):
     full_case("N 1025", 2, 1025, 192, 3, False)
 
 
-def run_slice(torch, kernels):
+def launch_counts(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def run_serve(torch, kernels):
     """Phase 4: the inference path of ViL-Small 224²."""
-    from vil_tpu_torch.models import ARCH_ZOO, MsViT
+    from vil_tpu_torch.train import recipe
 
     dev = torch.device("cuda")
-
-    def build(dtype, use_kernels):
-        return MsViT(
-            arch=ARCH_ZOO["vil_small"], img_size=224, num_classes=1000,
-            attn_type="longformerhand", sharew=True, norm_embed=True,
-            dtype=dtype, device=dev, use_kernels=use_kernels,
-            generator=torch.Generator().manual_seed(0),
-        ).eval()
-
     gen = torch.Generator(device=dev).manual_seed(1)
     images = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
                             dtype=torch.uint8) for _ in range(REQUESTS)]
-    model = build(torch.bfloat16, True)
+    model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev).eval()
     for fn in kernels:
         fn.launches = 0
     secs = []
@@ -166,14 +289,15 @@ def run_slice(torch, kernels):
             secs.append(time.perf_counter() - t0)
             if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
                 raise AssertionError(f"bad logits {tuple(logits.shape)}")
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    want = {"vil_attention_fwd": 3 * REQUESTS, "full_attention_fwd": 9 * REQUESTS}
-    phase("slice", f"ViL-Small 224^2 bf16 batch {BATCH}: {REQUESTS} requests, "
+    launches = launch_counts(kernels)
+    want = {"vil_attention_fwd": 3 * REQUESTS, "full_attention_fwd": 9 * REQUESTS,
+            "vil_attention_bwd": 0, "full_attention_bwd": 0}
+    phase("serve", f"ViL-Small 224^2 bf16 batch {BATCH}: {REQUESTS} requests, "
                    f"launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     img_s = BATCH / statistics.median(secs[1:])
-    phase("slice", f"bf16 forward: median {statistics.median(secs[1:]) * 1e3:.3f} ms "
+    phase("serve", f"bf16 forward: median {statistics.median(secs[1:]) * 1e3:.3f} ms "
                    f"per batch, {img_s:.1f} img/s (requests 2..{REQUESTS}); first "
                    f"request {secs[0] * 1e3:.1f} ms")
     del model
@@ -182,15 +306,80 @@ def run_slice(torch, kernels):
     outs = {}
     with torch.inference_mode():
         for use_kernels in (True, False):
-            m = build(torch.float32, use_kernels)
+            m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev).eval()
             outs[use_kernels] = m(x)
             del m
     err = (outs[True] - outs[False]).abs().max().item()
-    phase("slice", f"f32 logits, kernels vs plain versions: max|err| {err:.3e} "
+    phase("serve", f"f32 logits, kernels vs plain versions: max|err| {err:.3e} "
                    f"(tol {LOGITS_TOL:g}); |logits| max {outs[False].abs().max().item():.3f}")
     if not (torch.isfinite(outs[True]).all() and err <= LOGITS_TOL):
         raise AssertionError(f"f32 logits disagree: {err}")
-    return launches, img_s
+    return launches
+
+
+def run_train(torch, kernels):
+    """Phase 5: the training step of ViL-Small 224² at batch 64."""
+    from vil_tpu_torch.train import recipe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+    step = recipe.train_step(model, dev)
+    per_step = {"vil_attention_fwd": 3, "full_attention_fwd": 9,
+                "vil_attention_bwd": 3, "full_attention_bwd": 9}
+    step_gen = torch.Generator(device=dev).manual_seed(3)
+    for fn in kernels:
+        fn.launches = 0
+    secs, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STEPS):
+        before = launch_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(images, labels, step_gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        if rose != per_step:
+            raise AssertionError(f"step {i}: launches rose by {rose}, want {per_step}")
+    launches = launch_counts(kernels)
+    phase("train", f"ViL-Small 224^2 bf16 compute, f32 parameters, batch {BATCH}: {STEPS} "
+                   f"steps, launches {launches} ({per_step} per step)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses not finite: {losses}")
+    med = statistics.median(secs[1:])
+    phase("train", f"step: median {med * 1e3:.3f} ms, {BATCH / med:.1f} img/s "
+                   f"(steps 2..{STEPS}); first step {secs[0] * 1e3:.1f} ms; losses "
+                   f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, step
+
+    # one f32 step, kernels vs plain versions, same weights, images and draws
+    results = {}
+    for use_kernels in (True, False):
+        m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev)
+        s = recipe.train_step(m, dev)
+        loss = s(images, labels, torch.Generator(device=dev).manual_seed(3))["loss"].item()
+        results[use_kernels] = (loss, {n: p.grad.clone() for n, p in m.named_parameters()})
+        del m, s
+    (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
+    loss_err = abs(loss_k - loss_p)
+    grad_err, worst = 0.0, ""
+    for name, ref in grads_p.items():
+        if ref.numel() == 0:  # the (1, 0, C) position table of a stage without globals
+            continue
+        err = ((grads_k[name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if not math.isfinite(err) or err > grad_err:
+            grad_err, worst = err, name
+    phase("train", f"f32 step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+                   f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max "
+                   f"rel err {grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g})")
+    if not (loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+        raise AssertionError(f"f32 step disagrees: loss {loss_err}, gradients {grad_err}")
+    return launches
 
 
 def main() -> int:
@@ -213,27 +402,39 @@ def main() -> int:
     lib_path = build.build()
     build.load()
     phase("build", f"{os.path.relpath(lib_path, REPO)} from vil_tpu_torch/csrc "
-                   f"(nvcc {' '.join(build.NVCC_FLAGS[:2])}) in "
+                   f"(nvcc {' '.join(build.NVCC_FLAGS[:2])}, one process per source) in "
                    f"{time.perf_counter() - t0:.1f} s")
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "spill" in line and not line.strip().startswith("0 bytes stack"):
                 phase("build", line.strip())
 
     sources = {
         "vil_attention_fwd": ("vil_tpu_torch/csrc/vil_attention_fwd.cu",
                               "vil_tpu/ops/pallas/vil_kernel.py:1086"),
+        "vil_attention_bwd": ("vil_tpu_torch/csrc/vil_attention_bwd.cu",
+                              "vil_tpu/ops/pallas/vil_backward.py:1576"),
         "full_attention_fwd": ("vil_tpu_torch/csrc/full_attention_fwd.cu",
                                "vil_tpu/ops/pallas/full_attention.py:127"),
+        "full_attention_bwd": ("vil_tpu_torch/csrc/full_attention_bwd.cu",
+                               "vil_tpu/ops/pallas/full_attention.py:664"),
     }
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bound_by": "", "library_ms": None,
+                      "_bytes_ms": 0.0, "_ops_ms": 0.0}
                for name, (src, rep) in sources.items()}
     check_kernels(torch, records)
-    launches, _ = run_slice(torch, KERNELS)
-    for name, n in launches.items():
-        records[name]["launches"] = n
+    served = run_serve(torch, KERNELS)
+    trained = run_train(torch, KERNELS)
+    for name, rec in records.items():
+        rec["launches"] = trained[name]  # this slice's main path: the train step
+        rec["launches_serve"] = served[name]
+        rec["bound_by"] = "bytes" if rec.pop("_bytes_ms") >= rec.pop("_ops_ms") else "operations"
+        phase("record", f"{name}: {rec['ms']:.3f} ms per train step (plain {rec['plain_ms']:.3f},"
+                        f" bound {rec['bound_ms']:.4f} by {rec['bound_by']}, library "
+                        f"{rec['library_ms']}), launches {rec['launches']}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

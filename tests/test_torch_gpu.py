@@ -8,7 +8,8 @@ runs on a host without them, without the repo's ``conftest.py``:
 
 Tolerances: 1e-4 for f32 inputs (sums in another order); 2e-2 for bf16
 inputs, against the plain version in f32 on the same bf16 values (the kernel
-rounds its output to bf16 once).
+rounds its output to bf16 once). Gradients are held relative to the largest
+magnitude of the reference: 1e-4 in f32, 3e-2 in bf16.
 """
 import numpy as np
 import pytest
@@ -19,9 +20,14 @@ from vil_tpu_torch.ops import masks
 from vil_tpu_torch.ops import sliding_chunk as sc
 from vil_tpu_torch.ops.kernels import (
     KERNELS,
+    full_attention,
+    full_attention_bwd,
+    full_attention_bwd_reference,
     full_attention_fwd,
     full_attention_reference,
     mask_to_additive,
+    vil_attention_bwd,
+    vil_attention_bwd_reference,
     vil_attention_fwd,
     vil_attention_reference,
 )
@@ -42,6 +48,12 @@ def cuda():
 
 def _max_err(out, ref):
     return (out.float() - ref).abs().max().item()
+
+
+def _rel_err(out, ref):
+    """max |out - ref| / max(1, max |ref|)."""
+    ref = ref.float()
+    return (out.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
@@ -72,7 +84,52 @@ def test_kernels_match_plain_versions(cuda, dtype, tol):
         out = full_attention_fwd(q, k, v, bias, 3)
         ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3)
         assert out.dtype == dtype and _max_err(out, ref) <= tol
-    assert [fn.launches for fn in KERNELS] == [4, 3]
+    assert [fn.launches for fn in KERNELS] == [4, 3, 0, 0]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
+    """B2 on a padded grid with bias and nglo 2, a 2×2 cyclic grid with
+    SW_EXACT 1 and nglo 0, and W=2 with 5 global keys; B4 at ragged N with
+    and without bias, and at N=1025. The lse comes from the forward kernel."""
+    rng = np.random.default_rng(6)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    for nx, ny, w, exact, nglo, with_bias in ((13, 15, 7, 0, 2, True), (13, 14, 7, 1, 0, False),
+                                              (9, 8, 2, -1, 5, True)):
+        w2 = w * w
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        acts = [rnd(2, mx, my, w2, 64) * 0.5 for _ in range(3)]
+        acts += [rnd(2, nglo, 64) if nglo else None for _ in range(2)]
+        acts = [None if a is None else a.to(dtype) for a in acts]
+        bias = rnd(2, w2, nglo + 9 * w2) if with_bias else None
+        mask = torch.from_numpy(mask_to_additive(
+            masks.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(cuda)
+        g = rnd(2, mx, my, w2, 64).to(dtype)
+        _, lse = vil_attention_fwd(*acts, bias, mask, 2, with_lse=True)
+        _, lse_ref = vil_attention_reference(*[None if a is None else a.float() for a in acts],
+                                             bias, mask, 2, with_lse=True)
+        assert _max_err(lse, lse_ref) <= tol
+        grads = vil_attention_bwd(*acts, bias, g, mask, lse, 2)
+        refs = vil_attention_bwd_reference(*[None if a is None else a.float() for a in acts],
+                                           bias, g.float(), mask, 2)
+        for name, out, ref in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), grads, refs):
+            assert (out is None) == (ref is None), name
+            if ref is not None:
+                assert _rel_err(out, ref) <= tol, (name, nx, w, _rel_err(out, ref))
+    for N, with_bias in ((49, False), (197, True), (1025, False)):
+        q, k, v, g = (torch.randn(2, N, 96, device=cuda).to(dtype) for _ in range(4))
+        bias = torch.randn(3, N, N, device=cuda) if with_bias else None
+        _, lse = full_attention_fwd(q, k, v, bias, 3, with_lse=True)
+        _, lse_ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3,
+                                              with_lse=True)
+        assert _max_err(lse, lse_ref) <= tol
+        grads = full_attention_bwd(q, k, v, bias, g, lse, 3)
+        refs = full_attention_bwd_reference(q.float(), k.float(), v.float(), bias, g.float(), 3)
+        for name, out, ref in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+            assert (out is None) == (ref is None), name
+            if ref is not None:
+                assert _rel_err(out, ref) <= tol, (name, N, _rel_err(out, ref))
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3]
 
 
 def test_model_runs_through_the_kernels(cuda):
@@ -88,9 +145,42 @@ def test_model_runs_through_the_kernels(cuda):
                           norm_embed=True, device=cuda, use_kernels=use_kernels,
                           generator=torch.Generator().manual_seed(0)).eval()
             logits[use_kernels] = model(x)
-    assert [fn.launches for fn in KERNELS] == [3, 3]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 0, 0]
     assert torch.isfinite(logits[True]).all()
     assert _max_err(logits[True], logits[False]) <= 1e-3
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        q = torch.zeros(1, 9, 64, device=cuda, requires_grad=True)
-        full_attention_fwd(q, q, q, None, 1)
+    # with a gradient to take, the autograd Function runs both kernels
+    q = torch.randn(1, 9, 64, device=cuda, requires_grad=True)
+    full_attention(q, q, q, None, 1).sum().backward()
+    assert torch.isfinite(q.grad).all()
+    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1]
+
+
+def test_train_step_runs_through_the_kernels(cuda):
+    """One training step of a narrow 4-stage 224² model (drop path, mixup,
+    AdamW) in f32: 3 launches of each kernel per step, and the loss and
+    every parameter gradient equal to the plain path's from the same
+    weights, images and generator seed."""
+    from vil_tpu_torch.data.mixup import make_mixup_fn
+    from vil_tpu_torch.train import engine, loss, optim
+
+    arch = ("l1,h2,d64,n1,s1,g1,p4,f7_l2,h2,d64,n2,s1,g1,p2,f7_"
+            "l3,h2,d128,n2,s0,g1,p2,f7_l4,h2,d128,n1,s0,g0,p2,f7")
+    x = torch.randn(4, 224, 224, 3, device=cuda)
+    y = torch.randint(0, 10, (4,), device=cuda)
+    results = {}
+    for use_kernels in (True, False):
+        model = MsViT(arch, img_size=224, num_classes=10, sharew=True, norm_embed=True,
+                      drop_path_rate=0.1, device=cuda, use_kernels=use_kernels,
+                      generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.AdamW(optim.param_groups(model, 0.05, 0.0, decoupled=True))
+        step = engine.make_train_step(model, loss.soft_target_cross_entropy, opt,
+                                      mixup_fn=make_mixup_fn(num_classes=10), device=cuda)
+        metrics = step(x, y, torch.Generator(device=cuda).manual_seed(1))
+        results[use_kernels] = (metrics["loss"].item(),
+                                {n: p.grad for n, p in model.named_parameters()})
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3]
+    (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
+    assert abs(loss_k - loss_p) <= 1e-4
+    for name, ref in grads_p.items():
+        if ref.numel():
+            assert _max_err(grads_k[name], ref) <= 1e-3 * ref.abs().max().item(), name

@@ -1,0 +1,197 @@
+"""The port's backward kernel modules against the JAX package's, on the CPU.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version: the
+forwards' log-sum-exp, and the backwards by autograd through the plain
+forward in f32. They are compared here with ``vil_tpu``'s Pallas kernels in
+interpret mode (``_pallas_forward_mh``/``_pallas_forward`` with the LSE,
+``vil_attention_backward``/``_pallas_backward`` from it) and with
+``jax.vjp`` of the XLA references, in f32 at atol 1e-5. The CUDA kernels run
+only on a card: ``test_torch_gpu.py`` and ``chip_smoke.py`` compare them with
+these plain versions there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vil_tpu.ops.pallas import full_attention as jax_full_attention
+from vil_tpu.ops.pallas import vil_backward as jax_vil_backward
+from vil_tpu.ops.pallas import vil_kernel as jax_vil_kernel
+
+from vil_tpu_torch.ops import masks
+from vil_tpu_torch.ops import sliding_chunk as sc
+from vil_tpu_torch.ops.kernels import (
+    KERNELS,
+    full_attention,
+    full_attention_bwd,
+    full_attention_fwd,
+    full_attention_reference,
+    mask_to_additive,
+    vil_attention,
+    vil_attention_bwd,
+    vil_attention_fwd,
+    vil_attention_reference,
+)
+
+ATOL = 1e-5
+
+
+def _vil_inputs(seed, B, nx, ny, w, C, H, nglo, exact, with_bias):
+    rng = np.random.default_rng(seed)
+    padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+    w2 = w * w
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v, g = (f(B, mx, my, w2, C) for _ in range(4))
+    kg = f(B, nglo, C) if nglo else None
+    vg = f(B, nglo, C) if nglo else None
+    bias = f(H, w2, nglo + 9 * w2) * 0.5 if with_bias else None
+    mask = mask_to_additive(masks.invalid_mask(mx, my, padx, pady, w, exact, 0),
+                            mx, my, w2, nglo)
+    return q, k, v, kg, vg, bias, g, mask
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _close(ours, ref, name=""):
+    assert (ours is None) == (ref is None), name
+    if ref is not None:
+        np.testing.assert_allclose(np.asarray(ours), np.asarray(ref), atol=ATOL, rtol=ATOL,
+                                   err_msg=name)
+
+
+def _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, H):
+    """jax.vjp of the XLA reference, (dq, dk, dv, dk_glo, dv_glo, dbias)."""
+    operands = tuple(map(_j, (q, k, v, kg, vg, bias)))
+    present = [a for a in operands if a is not None]
+
+    def fn(*args):
+        it = iter(args)
+        full = [None if a is None else next(it) for a in operands]
+        return jax_vil_kernel._xla_reference_mh(*full, mask, H)
+
+    _, vjp = jax.vjp(fn, *present)
+    grads = iter(vjp(jnp.asarray(g)))
+    return tuple(None if a is None else next(grads) for a in operands)
+
+
+@pytest.mark.parametrize("exact", [0, -1, 1])
+@pytest.mark.parametrize("H", [1, 3])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("nglo", [0, 1])
+def test_vil_backward_matches_pallas_and_xla(nglo, with_bias, H, exact):
+    """Padded 3×3 grid of 3×3 chunks: masked keys in all three semantics.
+    The lse of the plain forward matches the Pallas forward's, and the plain
+    backward the Pallas backward from that lse and the XLA vjp."""
+    q, k, v, kg, vg, bias, g, mask = _vil_inputs(0, 2, 7, 8, 3, 8 * H, H, nglo, exact,
+                                                 with_bias)
+    out, lse = vil_attention_fwd(*map(_t, (q, k, v, kg, vg, bias, mask)), H, with_lse=True)
+    jargs = tuple(map(_j, (q, k, v, kg, vg, bias)))
+    p_out, p_lse = jax_vil_kernel._pallas_forward_mh(*jargs, mask, H, interpret=True,
+                                                     with_lse=True)
+    _close(out.numpy(), p_out, "out")
+    _close(lse.numpy(), p_lse, "lse")
+    ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g, mask)), lse, H)
+    pallas = jax_vil_backward.vil_attention_backward(*jargs, jnp.asarray(g), mask, H,
+                                                     lse=p_lse, interpret=True)
+    xla = _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, H)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dk_glo", "dv_glo", "dbias"),
+                             ours, pallas, xla):
+        _close(None if a is None else a.numpy(), b, name + " vs pallas")
+        _close(None if a is None else a.numpy(), c, name + " vs xla")
+
+
+def test_vil_backward_cyclic_small_grid():
+    """mx = my = 2: a key chunk is several neighbours of one query chunk and
+    each occurrence adds; nglo 0 with SW_EXACT 1 leaves pad rows fully
+    masked, whose gradient is that of a uniform average, not NaN."""
+    q, k, v, kg, vg, bias, g, mask = _vil_inputs(1, 2, 13, 14, 7, 16, 2, 0, 1, True)
+    _, lse = vil_attention_fwd(*map(_t, (q, k, v, kg, vg, bias, mask)), 2, with_lse=True)
+    ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g, mask)), lse, 2)
+    xla = _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, 2)
+    for name, a, b in zip(("dq", "dk", "dv", "dk_glo", "dv_glo", "dbias"), ours, xla):
+        assert a is None or torch.isfinite(a).all(), name
+        _close(None if a is None else a.numpy(), b, name)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("H,N", [(1, 9), (3, 20), (2, 70)])
+def test_full_backward_matches_pallas_and_xla(with_bias, H, N):
+    rng = np.random.default_rng(2)
+    C = 8 * H
+    q, k, v, g = (rng.standard_normal((2, N, C)).astype(np.float32) for _ in range(4))
+    bias = (rng.standard_normal((H, N, N)) * 0.5).astype(np.float32) if with_bias else None
+    out, lse = full_attention_fwd(*map(_t, (q, k, v, bias)), H, with_lse=True)
+    jargs = tuple(map(_j, (q, k, v, bias)))
+    p_out, p_lse = jax_full_attention._pallas_forward(*jargs, H, interpret=True,
+                                                      with_lse=True)
+    _close(out.numpy(), p_out, "out")
+    _close(lse.numpy(), p_lse, "lse")
+    ours = full_attention_bwd(*map(_t, (q, k, v, bias, g)), lse, H)
+    pallas = jax_full_attention._pallas_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g), p_lse, _j(bias), H,
+        interpret=True)
+    present = [a for a in jargs if a is not None]
+    _, vjp = jax.vjp(lambda *a: jax_full_attention._xla_reference(
+        *a, *([None] if bias is None else []), H), *present)
+    xla = vjp(jnp.asarray(g))
+    for i, name in enumerate(("dq", "dk", "dv", "dbias")):
+        if name == "dbias" and bias is None:
+            assert ours[3] is None
+            continue
+        _close(ours[i].numpy(), pallas[i], name + " vs pallas")
+        _close(ours[i].numpy(), xla[i], name + " vs xla")
+
+
+def test_autograd_functions_match_autograd_of_plain_versions():
+    """The differentiable entry points (the autograd Functions, which run
+    the backward wrappers) give the gradients of autograd through the plain
+    versions, and launch nothing on the CPU."""
+    for fn in KERNELS:
+        fn.launches = 0
+    q, k, v, kg, vg, bias, g, mask = _vil_inputs(3, 2, 7, 8, 3, 16, 2, 1, 0, True)
+    mask_t = _t(mask)
+    for attend in (vil_attention, vil_attention_reference):
+        leaves = [_t(a).clone().requires_grad_() for a in (q, k, v, kg, vg, bias)]
+        attend(*leaves, mask_t, 2).backward(_t(g))
+        if attend is vil_attention:
+            ours = [t.grad for t in leaves]
+    for a, b in zip(ours, leaves):
+        torch.testing.assert_close(a, b.grad, atol=1e-6, rtol=1e-6)
+    x = [torch.randn(2, 11, 16, requires_grad=True) for _ in range(3)]
+    gx = torch.randn(2, 11, 16)
+    full_attention(*x, None, 2).backward(gx)
+    ours = [t.grad.clone() for t in x]
+    for t in x:
+        t.grad = None
+    full_attention_reference(*x, None, 2).backward(gx)
+    for a, t in zip(ours, x):
+        torch.testing.assert_close(a, t.grad, atol=1e-6, rtol=1e-6)
+    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take():
+    q, k, v, kg, vg, bias, g, mask = map(_t, _vil_inputs(4, 1, 6, 6, 3, 16, 2, 1, 0, True))
+    _, lse = vil_attention_fwd(q, k, v, kg, vg, bias, mask, 2, with_lse=True)
+    bad = [
+        (g[..., :8], lse),                    # g of another shape
+        (g.double(), lse),                    # g of another dtype
+        (g, lse[:, :1]),                      # lse of another shape
+        (g, lse.double()),                    # lse not f32
+        (g.transpose(1, 2), lse),             # g not contiguous
+    ]
+    for g_bad, lse_bad in bad:
+        with pytest.raises(ValueError):
+            vil_attention_bwd(q, k, v, kg, vg, bias, g_bad, mask, lse_bad, 2)
+    x = torch.zeros(2, 5, 16)
+    _, lse = full_attention_fwd(x, x, x, None, 2, with_lse=True)
+    with pytest.raises(ValueError):
+        full_attention_bwd(x, x, x, None, x, lse[:, :, :4], 2)
+    with pytest.raises(ValueError):
+        full_attention_bwd(x, x, x, None, x[:, :4], lse, 2)

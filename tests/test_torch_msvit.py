@@ -66,7 +66,7 @@ def _run_msvit_pair(arch, img, batch=2, num_classes=10, **kw):
     x = _rng_array(1, (batch, img, img, 3))
     # the param tree does not depend on use_pallas: init without kernels
     params = _init(JaxMsViT(**common), jnp.asarray(x))
-    ours = load_jax_params(MsViT(**common), params).eval()
+    ours = load_jax_params(MsViT(device="cpu", **common), params).eval()
     ref = JaxMsViT(use_pallas=True, **common).apply({"params": params}, jnp.asarray(x))
     with torch.inference_mode():
         out = ours(_t(x)).numpy()
@@ -96,7 +96,7 @@ def test_build_model_matches_jax_build_model(interpret):
         "MODEL.VIT.MSVIT.ARCH", ARCH_PAD, "INPUT.IMAGE_SIZE", "56",
         "DATA.NUM_CLASSES", "7", "TPU.COMPUTE_DTYPE", "float32",
     ])
-    ours = build_model(cfg).eval()
+    ours = build_model(cfg, device="cpu").eval()
     assert ours.head.out_features == 7 and ours.head.weight.dtype == torch.float32
     jax_model = jax_build_model(cfg, use_pallas=True)
     x = _rng_array(2, (2, 56, 56, 3))
@@ -107,7 +107,11 @@ def test_build_model_matches_jax_build_model(interpret):
         out = ours(_t(x)).numpy()
     np.testing.assert_allclose(out, np.asarray(ref), atol=2e-4, rtol=1e-3)
     cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "bfloat16"])
-    assert build_model(cfg).head.weight.dtype == torch.bfloat16
+    bf16 = build_model(cfg, device="cpu")
+    # bf16 compute over f32 parameters, as the JAX package keeps them
+    assert bf16.dtype == torch.bfloat16 and bf16.head.weight.dtype == torch.float32
+    assert build_model(cfg, device="cpu", param_dtype=torch.bfloat16
+                       ).head.weight.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("nglo,norm_embed,ape", [(1, True, True), (0, False, True),
@@ -190,19 +194,20 @@ def test_plain_path_matches_kernel_wrappers_and_counters_stay_zero():
     x = torch.from_numpy(_rng_array(8, (2, 56, 56, 3)))
     outs = []
     for use_kernels in (True, False):
-        model = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True,
+        model = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True, device="cpu",
                       use_kernels=use_kernels, generator=gen()).eval()
         with torch.inference_mode():
             outs.append(model(x))
     torch.testing.assert_close(outs[0], outs[1], atol=0, rtol=0)
-    assert [fn.launches for fn in KERNELS] == [0, 0]
+    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
 
 
 def test_init_weights_is_seeded():
-    a = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True,
+    a = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True, device="cpu",
               generator=torch.Generator().manual_seed(3))
-    b = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True,
-              generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16)
+    b = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True, device="cpu",
+              generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16,
+              param_dtype=torch.bfloat16)
     for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         torch.testing.assert_close(pa.to(torch.bfloat16), pb, atol=0, rtol=0, msg=name)
     w = a.stage1_block0_attn.attn.query.weight
@@ -212,7 +217,7 @@ def test_init_weights_is_seeded():
 
 
 def test_bf16_forward_is_finite():
-    model = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True,
+    model = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True, device="cpu",
                   dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).eval()
     x = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 56, 56, 3),
                                                           dtype=np.uint8))
@@ -223,19 +228,20 @@ def test_bf16_forward_is_finite():
 
 
 def test_unported_features_raise():
+    cpu = dict(img_size=56, device="cpu")
     with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD.replace("f4", "f4,a0"), img_size=56, sharew=True)
+        MsViT(ARCH_PAD.replace("f4", "f4,a0"), sharew=True, **cpu)
     with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, img_size=56, sharew=True, mode=1)
+        MsViT(ARCH_PAD, sharew=True, mode=1, **cpu)
     with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, img_size=56, sharew=True, only_glo=True)
+        MsViT(ARCH_PAD, sharew=True, only_glo=True, **cpu)
     with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, img_size=56, sharew=False)
+        MsViT(ARCH_PAD, sharew=False, **cpu)
     with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, img_size=56, sharew=True, attn_type="performer")
-    # training mode with a nonzero rate raises instead of running as eval
-    model = MsViT(ARCH_PAD, img_size=56, num_classes=5, sharew=True,
-                  drop_path_rate=0.1)
+        MsViT(ARCH_PAD, sharew=True, attn_type="performer", **cpu)
+    # training mode with a nonzero dropout rate raises instead of running as
+    # eval (stochastic depth is ported: test_torch_train.py)
+    model = MsViT(ARCH_PAD, num_classes=5, sharew=True, drop_rate=0.1, **cpu)
     x = torch.zeros(1, 56, 56, 3)
     with torch.inference_mode():
         model.eval()(x)
@@ -258,7 +264,9 @@ def test_load_jax_params_is_strict():
 
 def test_port_imports_no_jax():
     code = ("import sys; import vil_tpu_torch, vil_tpu_torch.models, "
-            "vil_tpu_torch.ops.kernels, vil_tpu_torch.utils.jax_import; "
+            "vil_tpu_torch.ops.kernels, vil_tpu_torch.utils.jax_import, "
+            "vil_tpu_torch.train.engine, vil_tpu_torch.train.recipe, "
+            "vil_tpu_torch.data.mixup, vil_tpu_torch.tools.profile_step; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vil_tpu' or m.startswith('vil_tpu.')); print(bad); "
             "sys.exit(1 if bad else 0)")

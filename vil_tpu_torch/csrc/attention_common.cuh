@@ -1,4 +1,4 @@
-// Device helpers shared by the attention forward kernels of this directory.
+// Device helpers shared by the attention kernels of this directory.
 //
 // Both kernels are one thread block of kThreads threads per output tile. A
 // query row belongs to one warp for the whole kernel. Keys are staged in
@@ -137,6 +137,140 @@ __device__ __forceinline__ void store_row(T* dst, const float* acc_s, const floa
                                           int lane) {
   const float inv = 1.f / l_s[r];
   for (int d = lane; d < M; d += 32) dst[d] = from_float<T>(acc_s[r * M + d] * inv);
+}
+
+// ---------------------------------------------------------------------------
+// Backward helpers. The backward kernels recompute each score exactly as the
+// forward formed it: the same fmaf chain over d = 0..M-1, then bias, then
+// mask. So P = exp(S - lse) uses the very S whose log-sum-exp the forward
+// stored.
+
+// a · b over M elements, in the forward's order of summation.
+template <int M>
+__device__ __forceinline__ float dot_m(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < M; ++d) acc = fmaf(a[d], b[d], acc);
+  return acc;
+}
+
+// Per-lane slice (dims lane + 32 i) of an M-vector kept in shared memory.
+template <int M>
+struct LaneVec {
+  static constexpr int kDims = (M + 31) / 32;
+  float v[kDims];
+  __device__ __forceinline__ void load(const float* src, int lane) {
+#pragma unroll
+    for (int i = 0; i < kDims; ++i) {
+      const int d = lane + 32 * i;
+      v[i] = (M % 32 == 0 || d < M) ? src[d] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* dst, int lane) const {
+#pragma unroll
+    for (int i = 0; i < kDims; ++i) {
+      const int d = lane + 32 * i;
+      if (M % 32 == 0 || d < M) dst[d] = v[i];
+    }
+  }
+  // v += w * row (row in shared memory, M floats)
+  __device__ __forceinline__ void fma(float w, const float* row, int lane) {
+#pragma unroll
+    for (int i = 0; i < kDims; ++i) {
+      const int d = lane + 32 * i;
+      if (M % 32 == 0 || d < M) v[i] = fmaf(w, row[d], v[i]);
+    }
+  }
+};
+
+// Row-wise pass over keys [0, nkeys) of a staged K/V tile (both with row
+// stride M + 1) for one query row; lane j takes keys j, j + 32, ...
+//   q, g       the query row and its upstream gradient (M floats each)
+//   add0/1     score terms per key (bias, mask) or nullptr
+//   lse        the row's log-sum-exp from the forward
+// Returns rowsum(P ∘ dP) over the tile, in every lane.
+template <int M>
+__device__ __forceinline__ float row_delta(const float* q, const float* g, const float* ks,
+                                           const float* vs, int nkeys, const float* add0,
+                                           const float* add1, float lse, int lane) {
+  float part = 0.f;
+  for (int key = lane; key < nkeys; key += 32) {
+    float s = dot_m<M>(q, ks + key * (M + 1));
+    if (add0 != nullptr) s += add0[key];
+    if (add1 != nullptr) s += add1[key];
+    part = fmaf(expf(s - lse), dot_m<M>(g, vs + key * (M + 1)), part);
+  }
+  return warp_sum(part);
+}
+
+// The same pass, second sweep: dS = P ∘ (dP - delta) per key, folded into
+// dq += dS · K (lane holds dims lane + 32 i). Optional outputs, indexed by
+// key: p_out and ds_out receive P and dS, db accumulates dS.
+template <int M>
+__device__ __forceinline__ void row_dq(LaneVec<M>& dq, const float* q, const float* g,
+                                       const float* ks, const float* vs, int nkeys,
+                                       const float* add0, const float* add1, float lse,
+                                       float delta, float* p_out, float* ds_out, float* db,
+                                       int lane) {
+  for (int t0 = 0; t0 < nkeys; t0 += 32) {
+    const int key = t0 + lane;
+    float ds = 0.f;
+    if (key < nkeys) {
+      float s = dot_m<M>(q, ks + key * (M + 1));
+      if (add0 != nullptr) s += add0[key];
+      if (add1 != nullptr) s += add1[key];
+      const float p = expf(s - lse);
+      ds = p * (dot_m<M>(g, vs + key * (M + 1)) - delta);
+      if (p_out != nullptr) {
+        p_out[key] = p;
+        ds_out[key] = ds;
+      }
+      if (db != nullptr) db[key] += ds;
+    }
+    const int n = min(32, nkeys - t0);
+    for (int j = 0; j < n; ++j)
+      dq.fma(__shfl_sync(kFullMask, ds, j), ks + (t0 + j) * (M + 1), lane);
+  }
+}
+
+// Column-wise pass for one key row (k_t, v_t: M floats in shared memory)
+// over nq staged query rows (q_s, g_s with row stride M + 1; lse_s, delta_s
+// per row); lane j takes query rows j, j + 32, ... Accumulates
+// dk += dSᵀ · q and dv += Pᵀ · g. add0/add1 point at this key's score term
+// of query row 0; row l's is add[l * stride].
+template <int M>
+__device__ __forceinline__ void col_dkdv(LaneVec<M>& dk, LaneVec<M>& dv, const float* k_t,
+                                         const float* v_t, const float* q_s, const float* g_s,
+                                         const float* lse_s, const float* delta_s, int nq,
+                                         const float* add0, long stride0, const float* add1,
+                                         long stride1, int lane) {
+  for (int l0 = 0; l0 < nq; l0 += 32) {
+    const int l = l0 + lane;
+    float p = 0.f, ds = 0.f;
+    if (l < nq) {
+      float s = dot_m<M>(q_s + l * (M + 1), k_t);
+      if (add0 != nullptr) s += add0[l * stride0];
+      if (add1 != nullptr) s += add1[l * stride1];
+      p = expf(s - lse_s[l]);
+      ds = p * (dot_m<M>(g_s + l * (M + 1), v_t) - delta_s[l]);
+    }
+    const int n = min(32, nq - l0);
+    for (int j = 0; j < n; ++j) {
+      const int row = (l0 + j) * (M + 1);
+      dk.fma(__shfl_sync(kFullMask, ds, j), q_s + row, lane);
+      dv.fma(__shfl_sync(kFullMask, p, j), g_s + row, lane);
+    }
+  }
+}
+
+// Write rows [0, rows) of an M-wide f32 tile in shared memory to global
+// memory as T, `stride` elements apart.
+template <int M, typename T>
+__device__ __forceinline__ void store_rows(T* dst, long stride, const float* src, int rows) {
+  for (int idx = threadIdx.x; idx < rows * M; idx += blockDim.x) {
+    const int r = idx / M, d = idx % M;
+    dst[r * stride + d] = from_float<T>(src[idx]);
+  }
 }
 
 // Set the kernel's dynamic shared memory limit (needed above 48 KB) and

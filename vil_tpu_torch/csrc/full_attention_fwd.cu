@@ -5,6 +5,7 @@
 // (_tiled_kernel). For every image b and head h:
 //
 //   out = softmax(q · kᵀ + bias) · v        (softmax in f32)
+//   lse = log Σ exp(q · kᵀ + bias)  per query row, f32, when asked for
 //
 // q, k, v and out are (B, N, C) with the heads packed in C (head h is
 // channels h*M .. h*M+M-1); q arrives scaled by M^-1/2. bias is an optional
@@ -34,7 +35,7 @@ template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
 full_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const float* __restrict__ bias,
-                          T* __restrict__ out, int N, int C) {
+                          T* __restrict__ out, float* __restrict__ lse, int N, int C) {
   extern __shared__ float smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * kTileQ;
@@ -74,25 +75,30 @@ full_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   for (int r = warp; r < nq; r += nwarps) store_row<M>(row_ptr(out, q0 + r), acc_s, l_s, r, lane);
+  if (lse != nullptr) {  // (B, H, N): m + log l of the online softmax
+    float* lse_t = lse + ((long)b * gridDim.y + h) * N + q0;
+    for (int r = threadIdx.x; r < nq; r += blockDim.x) lse_t[r] = m_s[r] + logf(l_s[r]);
+  }
 }
 
 template <typename T, int M>
 cudaError_t launch_full(const void* q, const void* k, const void* v, const float* bias, void* out,
-                        int B, int N, int C, int H, cudaStream_t stream) {
+                        float* lse, int B, int N, int C, int H, cudaStream_t stream) {
   // q_s, acc_s, m_s, l_s for kTileQ rows; k_s, v_s for kTileK rows
   const size_t smem = sizeof(float) * ((size_t)kTileQ * (2 * M + 2) + kTileK * (2 * M + 1));
   const dim3 grid((N + kTileQ - 1) / kTileQ, H, B);
   return launch(full_attention_fwd_kernel<T, M>, grid, smem, stream, (const T*)q, (const T*)k,
-                (const T*)v, bias, (T*)out, N, C);
+                (const T*)v, bias, (T*)out, lse, N, C);
 }
 
 template <typename T>
 cudaError_t dispatch_full(const void* q, const void* k, const void* v, const float* bias,
-                          void* out, int B, int N, int C, int H, cudaStream_t stream) {
+                          void* out, float* lse, int B, int N, int C, int H,
+                          cudaStream_t stream) {
   switch (C / H) {
 #define FULL_CASE(M) \
   case M:            \
-    return launch_full<T, M>(q, k, v, bias, out, B, N, C, H, stream);
+    return launch_full<T, M>(q, k, v, bias, out, lse, B, N, C, H, stream);
     FULL_CASE(8)
     FULL_CASE(16)
     FULL_CASE(32)
@@ -106,14 +112,15 @@ cudaError_t dispatch_full(const void* q, const void* k, const void* v, const flo
 
 }  // namespace vil
 
-// q, k, v, out (B, N, C); bias (H, N, N) f32 or null. All contiguous.
-// Returns the launch's error.
+// q, k, v, out (B, N, C); bias (H, N, N) f32 or null; lse (B, H, N) f32 or
+// null. All contiguous. Returns the launch's error.
 extern "C" int full_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                                  void* out, int B, int N, int C, int H, int is_bf16,
+                                  void* out, void* lse, int B, int N, int C, int H, int is_bf16,
                                   void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
+  auto* lse_f = static_cast<float*>(lse);
   if (is_bf16)
-    return vil::dispatch_full<__nv_bfloat16>(q, k, v, bias_f, out, B, N, C, H, s);
-  return vil::dispatch_full<float>(q, k, v, bias_f, out, B, N, C, H, s);
+    return vil::dispatch_full<__nv_bfloat16>(q, k, v, bias_f, out, lse_f, B, N, C, H, s);
+  return vil::dispatch_full<float>(q, k, v, bias_f, out, lse_f, B, N, C, H, s);
 }

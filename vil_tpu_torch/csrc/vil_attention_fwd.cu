@@ -7,6 +7,7 @@
 //
 //   S   = q · [K_glo ‖ K of the 3x3 cyclic chunk neighbourhood]ᵀ + bias + mask
 //   out = softmax(S) · [V_glo ‖ V_nbh]              (softmax in f32)
+//   lse = log Σ exp(S)   per query row, f32, when asked for (training)
 //
 // Neighbour n = 0..8 is chunk ((i + dx) mod mx, (j + dy) mod my) with
 // (dx, dy) = (n / 3 - 1, n % 3 - 1), the order of masks.NEIGHBOR_OFFSETS.
@@ -39,8 +40,9 @@ __global__ void __launch_bounds__(kThreads)
 vil_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ k_glo,
                          const T* __restrict__ v_glo, const float* __restrict__ bias,
-                         const float* __restrict__ mask, T* __restrict__ out, int mx, int my,
-                         int w2, int C, int nglo, int wq) {
+                         const float* __restrict__ mask, T* __restrict__ out,
+                         float* __restrict__ lse, int mx, int my, int w2, int C, int nglo,
+                         int wq) {
   extern __shared__ float smem[];
   const int chunk = blockIdx.x;  // i * my + j
   const int h = blockIdx.y, b = blockIdx.z;
@@ -102,29 +104,33 @@ vil_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   T* out_c = chunk_ptr(out, i, j);
   for (int r = warp; r < w2; r += nwarps) store_row<M>(out_c + (long)r * C, acc_s, l_s, r, lane);
+  if (lse != nullptr) {  // (B, H, mx, my, w2): m + log l of the online softmax
+    float* lse_c = lse + (((long)b * gridDim.y + h) * mx * my + chunk) * w2;
+    for (int r = threadIdx.x; r < w2; r += blockDim.x) lse_c[r] = m_s[r] + logf(l_s[r]);
+  }
 }
 
 template <typename T, int M>
 cudaError_t launch_vil(const void* q, const void* k, const void* v, const void* k_glo,
-                       const void* v_glo, const float* bias, const float* mask, void* out, int B,
-                       int mx, int my, int w2, int C, int H, int nglo, int wq,
+                       const void* v_glo, const float* bias, const float* mask, void* out,
+                       float* lse, int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
                        cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)w2 * (4 * M + 3);
   return launch(vil_attention_fwd_kernel<T, M>, dim3(mx * my, H, B), smem, stream,
                 (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo, (const T*)v_glo, bias,
-                mask, (T*)out, mx, my, w2, C, nglo, wq);
+                mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
 }
 
 template <typename T>
 cudaError_t dispatch_vil(const void* q, const void* k, const void* v, const void* k_glo,
                          const void* v_glo, const float* bias, const float* mask, void* out,
-                         int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
+                         float* lse, int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
                          cudaStream_t stream) {
   switch (C / H) {
 #define VIL_CASE(M)                                                                      \
   case M:                                                                                \
-    return launch_vil<T, M>(q, k, v, k_glo, v_glo, bias, mask, out, B, mx, my, w2, C, H, \
-                            nglo, wq, stream);
+    return launch_vil<T, M>(q, k, v, k_glo, v_glo, bias, mask, out, lse, B, mx, my, w2, C, \
+                            H, nglo, wq, stream);
     VIL_CASE(8)
     VIL_CASE(16)
     VIL_CASE(32)
@@ -140,19 +146,21 @@ cudaError_t dispatch_vil(const void* q, const void* k, const void* v, const void
 
 // q, k, v, out (B, mx, my, w2, C); k_glo, v_glo (B, nglo, C) or null when
 // nglo is 0; bias (H, w2, nglo + 9 w2) f32 or null; mask
-// (mx, my, wq, nglo + 9 w2) f32. All contiguous. Returns the launch's error.
+// (mx, my, wq, nglo + 9 w2) f32; lse (B, H, mx, my, w2) f32 or null. All
+// contiguous. Returns the launch's error.
 extern "C" int vil_attention_fwd(const void* q, const void* k, const void* v, const void* k_glo,
                                  const void* v_glo, const void* bias, const void* mask,
-                                 void* out, int B, int mx, int my, int w2, int C, int H,
-                                 int nglo, int wq, int is_bf16, void* stream) {
+                                 void* out, void* lse, int B, int mx, int my, int w2, int C,
+                                 int H, int nglo, int wq, int is_bf16, void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
+  auto* lse_f = static_cast<float*>(lse);
   if (is_bf16)
-    return vil::dispatch_vil<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, B, mx,
-                                            my, w2, C, H, nglo, wq, s);
-  return vil::dispatch_vil<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, B, mx, my, w2, C,
-                                  H, nglo, wq, s);
+    return vil::dispatch_vil<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B,
+                                            mx, my, w2, C, H, nglo, wq, s);
+  return vil::dispatch_vil<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx, my,
+                                  w2, C, H, nglo, wq, s);
 }
 
 extern "C" const char* vil_cuda_error_string(int err) {

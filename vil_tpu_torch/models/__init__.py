@@ -4,17 +4,19 @@ from __future__ import annotations
 import torch
 
 from .arch import ARCH_ZOO, StageCfg, parse_arch
-from .msvit import MsViT
+from .msvit import NO_WEIGHT_DECAY_SUBSTRINGS, MsViT
 
 
 def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
-                generator=None) -> MsViT:
+                generator=None, param_dtype: torch.dtype = torch.float32) -> MsViT:
     """Construct the model from a config tree, read by attribute as
     ``vil_tpu.models.build_model`` reads it (MODEL.ARCH may name an
     ``ARCH_ZOO`` entry or ``msvit``; the tree is not modified).
 
-    ``dtype`` defaults to TPU.COMPUTE_DTYPE; it is the type of the parameters
-    and of the computation alike."""
+    ``dtype``, the type of the computation, defaults to TPU.COMPUTE_DTYPE;
+    the parameters are kept in ``param_dtype`` (f32, as the JAX package keeps
+    them). The model is built on the CUDA card unless ``device`` names
+    another (``device="cpu"``)."""
     name = cfg.MODEL.ARCH
     if name in ARCH_ZOO:
         arch = ARCH_ZOO[name]
@@ -44,8 +46,10 @@ def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
         use_kernels=use_kernels,
         device=device,
         dtype=dtype,
+        param_dtype=param_dtype,
         generator=generator,
     )
 
 
-__all__ = ["ARCH_ZOO", "MsViT", "StageCfg", "build_model", "parse_arch"]
+__all__ = ["ARCH_ZOO", "MsViT", "NO_WEIGHT_DECAY_SUBSTRINGS", "StageCfg", "build_model",
+           "parse_arch"]

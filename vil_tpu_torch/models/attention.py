@@ -1,40 +1,34 @@
 """Attention modules for MsViT.
 
-Counterpart of ``vil_tpu/models/attention.py`` for the inference slice:
+Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
 
 * ``FullAttention`` — dense multi-head self-attention without RPE, through
-  the dense attention kernel (``ops/kernels/full_attention.py``).
+  the dense attention kernels (``ops/kernels/full_attention.py``).
 * ``VilAttention``  — 2-D sliding-chunk local attention with global tokens at
   neighbour mode 0 without RPE, on the stage-resident chunked layout. The
-  local branch runs the sliding-chunk kernel (``ops/kernels/vil_attention.py``);
-  the global tokens' dense attention over all tokens is plain PyTorch.
+  local branch runs the sliding-chunk kernels (``ops/kernels/vil_attention.py``);
+  the global tokens' dense attention over all tokens is plain PyTorch, and
+  takes its gradient from autograd, as the JAX package's takes it from XLA.
 
-q is scaled by M^-½ before either kernel. ``use_kernels=False`` calls the
-kernels' plain versions directly instead of the kernel wrappers.
+q is scaled by M^-½ before either kernel. With a gradient to take, the
+kernels run through their autograd Functions (forward with the log-sum-exp,
+then the backward kernel); ``use_kernels=False`` calls the plain versions
+directly instead, and autograd differentiates them.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import masks as masks_lib
 from ..ops import sliding_chunk as sc
-from ..ops.kernels.full_attention import full_attention_fwd, full_attention_reference
+from ..ops.kernels.full_attention import full_attention, full_attention_reference
 from ..ops.kernels.vil_attention import (
     mask_to_additive,
-    vil_attention_fwd,
+    vil_attention,
     vil_attention_reference,
 )
-from .layers import check_eval_only
-
-
-def _linear_part(layer: nn.Linear, part: int, n_parts: int, x: torch.Tensor):
-    """Output slice ``part`` of ``layer(x)``, computed alone so that it comes
-    out contiguous (the kernels take contiguous q, k and v)."""
-    out = layer.out_features // n_parts
-    rows = slice(part * out, (part + 1) * out)
-    return F.linear(x, layer.weight[rows], layer.bias[rows])
+from .layers import Linear, check_eval_only
 
 
 class FullAttention(nn.Module):
@@ -42,24 +36,25 @@ class FullAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_kernels: bool = True, device=None,
-                 dtype=None):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.dim, self.num_heads = dim, num_heads
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.use_kernels = use_kernels
-        self.qkv = nn.Linear(dim, 3 * dim, **kw)
-        self.proj = nn.Linear(dim, dim, **kw)
+        self.qkv = Linear(dim, 3 * dim, **kw)
+        self.proj = Linear(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
         check_eval_only(self, self.attn_drop, "attention dropout")
         check_eval_only(self, self.proj_drop, "projection dropout")
         H = self.num_heads
         scale = (self.dim // H) ** -0.5
-        q = _linear_part(self.qkv, 0, 3, x) * scale
-        k = _linear_part(self.qkv, 1, 3, x)
-        v = _linear_part(self.qkv, 2, 3, x)
-        attend = full_attention_fwd if self.use_kernels else full_attention_reference
+        q = self.qkv.part(x, 0, 3) * scale
+        k = self.qkv.part(x, 1, 3)
+        v = self.qkv.part(x, 2, 3)
+        attend = full_attention if self.use_kernels else full_attention_reference
         return self.proj(attend(q, k, v, None, H))
 
 
@@ -74,16 +69,18 @@ class VilAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, nglo: int = 1,
-                 exact: int = 0, use_kernels: bool = True, device=None, dtype=None):
+                 exact: int = 0, use_kernels: bool = True, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.dim, self.num_heads, self.w, self.nglo = dim, num_heads, w, nglo
         self.exact = exact
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.use_kernels = use_kernels
-        self.query = nn.Linear(dim, dim, **kw)
-        self.kv = nn.Linear(dim, 2 * dim, **kw)
-        self.proj = nn.Linear(dim, dim, **kw)
+        self.query = Linear(dim, dim, **kw)
+        self.kv = Linear(dim, 2 * dim, **kw)
+        self.proj = Linear(dim, dim, **kw)
         self._masks: dict = {}  # (nx, ny, device) → additive mask table
 
     def _mask(self, nx: int, ny: int, device) -> torch.Tensor:
@@ -111,14 +108,14 @@ class VilAttention(nn.Module):
         scale = M ** -0.5
 
         q_img = self.query(x_img) * scale  # (B, mx, my, W², C)
-        k_img = _linear_part(self.kv, 0, 2, x_img)
-        v_img = _linear_part(self.kv, 1, 2, x_img)
+        k_img = self.kv.part(x_img, 0, 2)
+        v_img = self.kv.part(x_img, 1, 2)
         kg = vg = None
         if Nglo >= 1:
-            kg = _linear_part(self.kv, 0, 2, x_glo)  # (B, Nglo, C)
-            vg = _linear_part(self.kv, 1, 2, x_glo)
+            kg = self.kv.part(x_glo, 0, 2)  # (B, Nglo, C)
+            vg = self.kv.part(x_glo, 1, 2)
 
-        attend = vil_attention_fwd if self.use_kernels else vil_attention_reference
+        attend = vil_attention if self.use_kernels else vil_attention_reference
         x1 = attend(q_img, k_img, v_img, kg, vg, None,
                     self._mask(nx, ny, x_img.device), H)
         x1 = self.proj(x1)
@@ -129,7 +126,8 @@ class VilAttention(nn.Module):
         # The local keys stay in chunk order (softmax over keys does not care
         # about their order) and the softmax over [glo ‖ local] is taken in
         # two parts that share one max and one denominator; pad positions of
-        # a padded chunk grid are masked.
+        # a padded chunk grid are masked. The max is a constant to autograd,
+        # as under the JAX package's stop_gradient.
         f32 = torch.float32
         qg = (self.query(x_glo) * scale).reshape(B, Nglo, H, M)
         k6 = k_img.reshape(B, mx, my, W2, H, M)
@@ -142,7 +140,8 @@ class VilAttention(nn.Module):
             s_loc = s_loc.masked_fill(
                 ~valid.to(s_loc.device)[None, :, :, :, None, None], float("-inf")
             )
-        m0 = torch.maximum(s_loc.amax(dim=(1, 2, 3)), s_glo.amax(dim=1))  # (B, H, Nglo)
+        m0 = torch.maximum(s_loc.amax(dim=(1, 2, 3)),
+                           s_glo.amax(dim=1)).detach()  # (B, H, Nglo)
         e_loc = torch.exp(s_loc - m0[:, None, None, None])
         e_glo = torch.exp(s_glo - m0[:, None])
         den = e_loc.sum(dim=(1, 2, 3)) + e_glo.sum(dim=1)

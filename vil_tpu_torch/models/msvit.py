@@ -1,14 +1,14 @@
-"""MsViT: multi-stage vision transformer, inference slice.
+"""MsViT: multi-stage vision transformer, inference and training.
 
 Counterpart of ``vil_tpu/models/msvit.py``. Stages of conv patch embedding
 (factorised APE, global tokens) followed by pre-LN attention and MLP blocks,
 selected per stage by the ARCH string. Images are NHWC.
 
 Ported: ``longformerhand`` (and its aliases) at neighbour mode 0 with shared
-weights and any SW_EXACT, ``full`` attention, APE. Not ported yet, and
-refused at construction: RPE (``a0``), MODE≠0, ``only_glo``, ``sharew=False``
-and the other attention families. Dropout and stochastic depth raise in
-training mode.
+weights and any SW_EXACT, ``full`` attention, APE, stochastic depth. Not
+ported yet, and refused at construction: RPE (``a0``), MODE≠0,
+``only_glo``, ``sharew=False`` and the other attention families. Dropout
+raises in training mode.
 
 Sub-modules carry the flax module names (``stage1_patch_embed``,
 ``stage3_block0_attn``, ``stage2_block1_mlp``, ``norm``, ``head``), so the
@@ -24,11 +24,24 @@ import torch
 from torch import nn
 
 from ..ops import sliding_chunk as sc
+from ..utils.device import resolve_device
 from .arch import StageCfg, parse_arch
 from .attention import FullAttention, VilAttention
-from .layers import DropPath, Mlp, PatchEmbed
+from .layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed
 
 LONGFORMER_TYPES = ("longformerhand", "longformerauto", "longformer_cuda")
+
+# parameter-name substrings excluded from weight decay (vil_tpu/models/msvit.py
+# NO_WEIGHT_DECAY_SUBSTRINGS, there matched against '/'-joined flax paths; the
+# port's names are the same paths joined by '.'). 'norm' covers norm_embed,
+# every block norm and the final norm.
+NO_WEIGHT_DECAY_SUBSTRINGS = (
+    "pos_embed",
+    "cls_token",
+    "norm",
+    "relative_position",
+    "head.bias",
+)
 
 
 class AttnBlock(nn.Module):
@@ -39,10 +52,12 @@ class AttnBlock(nn.Module):
                  w: int = 7, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  sw_exact: int = 0, ln_eps: float = 1e-6,
-                 use_kernels: bool = True, device=None, dtype=None):
+                 use_kernels: bool = True, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.norm = nn.LayerNorm(dim, eps=ln_eps, **kw)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.norm = LayerNorm(dim, eps=ln_eps, **kw)
         common = dict(dim=dim, num_heads=num_heads,
                       attn_drop=attn_drop, proj_drop=drop,
                       use_kernels=use_kernels, **kw)
@@ -54,15 +69,15 @@ class AttnBlock(nn.Module):
             raise NotImplementedError(f"attention type {attn_type!r} is not ported")
         self.droppath = DropPath(drop_path)
 
-    def forward(self, x, nx: int, ny: int):
+    def forward(self, x, nx: int, ny: int, generator: Optional[torch.Generator] = None):
         if isinstance(x, tuple):
             x_glo, x_img = x
             y_glo, y_img = self.droppath(self.attn(
                 (None if x_glo is None else self.norm(x_glo), self.norm(x_img)),
                 nx, ny,
-            ))
+            ), generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
-        return x + self.droppath(self.attn(self.norm(x), nx, ny))
+        return x + self.droppath(self.attn(self.norm(x), nx, ny), generator)
 
 
 class MlpBlock(nn.Module):
@@ -71,31 +86,33 @@ class MlpBlock(nn.Module):
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, drop: float = 0.0,
                  drop_path: float = 0.0, ln_eps: float = 1e-6, device=None,
-                 dtype=None):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.norm = nn.LayerNorm(dim, eps=ln_eps, **kw)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.norm = LayerNorm(dim, eps=ln_eps, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, **kw)
         self.droppath = DropPath(drop_path)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         if isinstance(x, tuple):
             x_glo, x_img = x
             y_glo = None if x_glo is None else self.mlp(self.norm(x_glo))
-            y_glo, y_img = self.droppath((y_glo, self.mlp(self.norm(x_img))))
+            y_glo, y_img = self.droppath((y_glo, self.mlp(self.norm(x_img))), generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
-        return x + self.droppath(self.mlp(self.norm(x)))
+        return x + self.droppath(self.mlp(self.norm(x)), generator)
 
 
 class MsViT(nn.Module):
     """Multi-stage ViT. NHWC RGB images (B, H, W, 3) → (B, num_classes)
     logits (features when ``num_classes`` is 0).
 
-    ``dtype`` is the type of the parameters and of the computation (the JAX
-    package keeps f32 parameters and casts them to its compute dtype at use,
-    which rounds them the same way). ``use_kernels`` is the twin of
-    ``use_pallas``. Weights are drawn by :meth:`init_weights` from
-    ``generator``.
+    ``dtype`` is the type of the computation and of the residual stream,
+    ``param_dtype`` that of the parameters, which are cast to ``dtype`` where
+    they are used (flax's pair; f32 parameters for training). The model is
+    built on ``device``, the CUDA card unless the caller names another
+    (``device="cpu"``). ``use_kernels`` is the twin of ``use_pallas``.
+    Weights are drawn by :meth:`init_weights` from ``generator``.
     """
 
     def __init__(self, arch: str, img_size: int = 512, num_classes: int = 1000,
@@ -108,9 +125,11 @@ class MsViT(nn.Module):
                  input_std: tuple = (0.229, 0.224, 0.225),
                  use_kernels: bool = True, device=None,
                  dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype, param_dtype=param_dtype)
+        self.dtype = dtype
         cfgs = parse_arch(arch)
         self.layer_cfgs: list[StageCfg] = cfgs
         self.img_size, self.avg_pool = img_size, avg_pool
@@ -162,8 +181,8 @@ class MsViT(nn.Module):
                 ))
                 names.append((attn_name, mlp_name))
             self.stage_blocks.append(names)
-        self.norm = nn.LayerNorm(cfgs[-1].dim, eps=ln_eps, **kw)
-        self.head = nn.Linear(cfgs[-1].dim, num_classes, **kw) if num_classes > 0 else None
+        self.norm = LayerNorm(cfgs[-1].dim, eps=ln_eps, **kw)
+        self.head = Linear(cfgs[-1].dim, num_classes, **kw) if num_classes > 0 else None
         self.init_weights(generator)
 
     def grid_sizes(self) -> list[tuple[int, int]]:
@@ -205,7 +224,8 @@ class MsViT(nn.Module):
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.LayerNorm)) and mod.bias is not None:
                 mod.bias.zero_()
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B = x.shape[0]
         grids = self.grid_sizes()
         nglos = [c.nglo for c in self.layer_cfgs]
@@ -222,8 +242,8 @@ class MsViT(nn.Module):
                 x = (x[:, :g] if g > 0 else None,
                      sc.chunkify(x[:, g:], nx, ny, w_s))
             for attn_name, mlp_name in names:
-                x = getattr(self, attn_name)(x, nx, ny)
-                x = getattr(self, mlp_name)(x)
+                x = getattr(self, attn_name)(x, nx, ny, generator)
+                x = getattr(self, mlp_name)(x, generator)
             if chunked:
                 x_glo, x_img = x
                 loc = sc.unchunkify(x_img, nx, ny, w_s)
@@ -233,7 +253,9 @@ class MsViT(nn.Module):
             return x[:, 0]
         return x.mean(dim=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, C) NHWC images → (B, num_classes) logits."""
-        feats = self.forward_features(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (B, H, W, C) NHWC images → (B, num_classes) logits. In training
+        mode stochastic depth draws from ``generator`` (on x's device)."""
+        feats = self.forward_features(x, generator)
         return feats if self.head is None else self.head(feats)

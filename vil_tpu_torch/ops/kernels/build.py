@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is loaded with
-``ctypes``. Pointers and the CUDA stream are passed as ``c_void_p``, sizes as
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``. Pointers and the CUDA stream are passed as ``c_void_p``, sizes as
 ``c_int``; each entry point returns the ``cudaError_t`` of its launch.
 
 The library is built at first use under ``build/vil_tpu_torch/`` beside the
@@ -26,17 +26,23 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "vil_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point, in the order of its C signature
 SIGNATURES = {
-    # q, k, v, k_glo, v_glo, bias, mask, out,
+    # q, k, v, k_glo, v_glo, bias, mask, out, lse,
     # B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
-    "vil_attention_fwd": [_P] * 8 + [_I] * 9 + [_P],
-    # q, k, v, bias, out, B, N, C, H, is_bf16, stream
-    "full_attention_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "vil_attention_fwd": [_P] * 9 + [_I] * 9 + [_P],
+    # q, k, v, k_glo, v_glo, g, bias, mask, lse, delta, dq, dk, dv, p_glo,
+    # ds_glo, dbias_part, B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
+    "vil_attention_bwd": [_P] * 16 + [_I] * 9 + [_P],
+    # q, k, v, bias, out, lse, B, N, C, H, is_bf16, stream
+    "full_attention_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    # q, k, v, g, bias, lse, delta, dq, dk, dv, dbias_part,
+    # B, N, C, H, is_bf16, stream
+    "full_attention_bwd": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 
@@ -63,25 +69,40 @@ def _digest() -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
 
-    The compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills of every kernel) is kept beside the library, with suffix .log."""
+    One ``nvcc -c`` per source, all started together, then one link. The
+    compilers' reports (``-Xptxas -v``: registers, shared memory and spills
+    of every kernel) are kept beside the library, with suffix .log."""
     out = BUILD_DIR / f"libvil_tpu_torch_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    tmp_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        jobs = []
+        for src in _sources():
+            obj = tmp_dir / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = tmp_dir / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return out
 
 

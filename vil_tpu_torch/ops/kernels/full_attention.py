@@ -1,14 +1,18 @@
-"""Dense multi-head attention forward: the Hopper kernel and its plain version.
+"""Dense multi-head attention: the Hopper kernels and their plain versions.
 
-Counterpart of ``vil_tpu/ops/pallas/full_attention.py::_pallas_forward`` (the
-kernel, ``csrc/full_attention_fwd.cu``, which also covers the q-tiled tier
-``_pallas_forward_tiled``) and of ``_xla_reference`` (the plain version,
+Counterpart of ``vil_tpu/ops/pallas/full_attention.py``: ``_pallas_forward``
+(the forward kernel, ``csrc/full_attention_fwd.cu``, which also covers the
+q-tiled tier ``_pallas_forward_tiled``), ``_pallas_backward`` and its q-tiled
+tier ``_pallas_backward_tiled`` (the backward kernel,
+``csrc/full_attention_bwd.cu``), ``make_fused_full_attention``
+(:class:`FullAttentionFunction`) and ``_xla_reference`` (the plain version,
 :func:`full_attention_reference`):
 
-    out = softmax(q · kᵀ + bias) · v    per image and head
+    out = softmax(q · kᵀ + bias) · v,    lse = log Σ exp(q · kᵀ + bias)
 
-q, k, v, out are (B, N, C) with the heads packed in C; q arrives scaled by
-M^-½; bias is an optional (H, N, N) f32 table.
+per image and head. q, k, v, out are (B, N, C) with the heads packed in C;
+q arrives scaled by M^-½ (dq is with respect to that scaled q); bias is an
+optional (H, N, N) f32 table; lse is (B, H, N) f32.
 """
 from __future__ import annotations
 
@@ -20,9 +24,9 @@ from . import build
 from .vil_attention import HEAD_DIMS
 
 
-def full_attention_reference(q, k, v, bias, num_heads: int) -> torch.Tensor:
+def full_attention_reference(q, k, v, bias, num_heads: int, with_lse: bool = False):
     """Plain PyTorch version: the same function in f32; the output is
-    rounded to q's dtype."""
+    rounded to q's dtype. With ``with_lse`` it returns (out, lse)."""
     B, N, C = q.shape
     H = num_heads
     M = C // H
@@ -31,7 +35,21 @@ def full_attention_reference(q, k, v, bias, num_heads: int) -> torch.Tensor:
     if bias is not None:
         scores = scores + bias.float()[None]
     out = torch.softmax(scores, dim=-1) @ v4
-    return out.transpose(1, 2).reshape(B, N, C).to(q.dtype)
+    out = out.transpose(1, 2).reshape(B, N, C).to(q.dtype)
+    return (out, torch.logsumexp(scores, dim=-1)) if with_lse else out
+
+
+def full_attention_bwd_reference(q, k, v, bias, g, num_heads: int):
+    """Plain PyTorch version of the backward: autograd through
+    :func:`full_attention_reference` in f32. Returns (dq, dk, dv, dbias), each
+    in its operand's dtype; dbias is None without a bias."""
+    operands = (q, k, v, bias)
+    leaves = [None if t is None else t.detach().float().requires_grad_() for t in operands]
+    with torch.enable_grad():
+        out = full_attention_reference(*leaves, num_heads)
+        present = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(out, present, g.float()))
+    return tuple(None if t is None else next(grads).to(t.dtype) for t in operands)
 
 
 def _check(q, k, v, bias, num_heads):
@@ -55,34 +73,102 @@ def _check(q, k, v, bias, num_heads):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-    return tensors
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def full_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+                       bias: Optional[torch.Tensor], num_heads: int,
+                       with_lse: bool = False):
     """Dense attention forward. On a CUDA device this launches the
-    hand-written kernel (or raises); on the CPU it runs the plain version."""
-    tensors = _check(q, k, v, bias, num_heads)
+    hand-written kernel (or raises); on the CPU it runs the plain version.
+    With ``with_lse`` it returns (out, lse). It records no gradient: the
+    differentiable form is :func:`full_attention`."""
+    _check(q, k, v, bias, num_heads)
     if q.device.type == "cpu":
-        return full_attention_reference(q, k, v, bias, num_heads)
+        with torch.no_grad():
+            return full_attention_reference(q, k, v, bias, num_heads, with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"device {q.device} is not supported")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "full_attention_fwd has no backward kernel yet; run under "
-            "torch.no_grad() or torch.inference_mode()")
     B, N, C = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty(B, num_heads, N, device=q.device, dtype=torch.float32)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         err = build.load().full_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse),
             B, N, C, num_heads, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "full_attention_fwd")
     full_attention_fwd.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 full_attention_fwd.launches = 0
+
+
+def full_attention_bwd(q, k, v, bias, g, lse, num_heads: int):
+    """Dense attention backward from the forward's ``lse``: returns
+    (dq, dk, dv, dbias), dbias None without a bias. On a CUDA device this
+    launches the hand-written kernels (or raises); on the CPU it runs the
+    plain version, which recomputes the softmax and ignores ``lse``. dbias is
+    the sum over images of the kernel's per-image partials."""
+    _check(q, k, v, bias, num_heads)
+    B, N, C = q.shape
+    H = num_heads
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must match q: {g.dtype} {tuple(g.shape)} on {g.device}")
+    if lse.shape != (B, H, N) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 {(B, H, N)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if not (g.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("g and lse must be contiguous")
+    if q.device.type == "cpu":
+        return full_attention_bwd_reference(q, k, v, bias, g, H)
+    if q.device.type != "cuda":
+        raise ValueError(f"device {q.device} is not supported")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
+    dbias_part = (torch.zeros(B, H, N, N, device=q.device, dtype=torch.float32)
+                  if bias is not None else None)
+    with torch.cuda.device(q.device):
+        err = build.load().full_attention_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(bias), _ptr(lse), _ptr(delta),
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias_part), B, N, C, H,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "full_attention_bwd")
+    full_attention_bwd.launches += 1
+    return dq, dk, dv, None if bias is None else dbias_part.sum(dim=0)
+
+
+full_attention_bwd.launches = 0
+
+
+class FullAttentionFunction(torch.autograd.Function):
+    """Dense attention with the hand-written backward: the forward keeps its
+    per-row log-sum-exp, the backward launches :func:`full_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads):
+        out, lse = full_attention_fwd(q, k, v, bias, num_heads, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, lse = ctx.saved_tensors
+        return (*full_attention_bwd(q, k, v, bias, g.contiguous(), lse, ctx.num_heads), None)
+
+
+def full_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
+    """Dense attention through the kernels: the forward alone where no
+    gradient is needed, else :class:`FullAttentionFunction`."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, bias)):
+        return FullAttentionFunction.apply(q, k, v, bias, num_heads)
+    return full_attention_fwd(q, k, v, bias, num_heads)

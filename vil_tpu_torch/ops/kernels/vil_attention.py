@@ -1,16 +1,20 @@
-"""Sliding-chunk attention forward: the Hopper kernel and its plain version.
+"""Sliding-chunk attention: the Hopper kernels and their plain versions.
 
 Counterpart of ``vil_tpu/ops/pallas/vil_kernel.py::_pallas_forward_mh`` (the
-kernel, ``csrc/vil_attention_fwd.cu``) and of ``_xla_reference_mh`` (the plain
+forward kernel, ``csrc/vil_attention_fwd.cu``), of
+``vil_tpu/ops/pallas/vil_backward.py::vil_attention_backward`` (the backward
+kernel, ``csrc/vil_attention_bwd.cu``), of ``make_fused_vil_attention_mh``
+(:class:`VilAttentionFunction`) and of ``_xla_reference_mh`` (the plain
 version, :func:`vil_attention_reference`). Per query chunk and head:
 
     S   = q · [K_glo ‖ K of the 3×3 cyclic chunk neighbourhood]ᵀ + bias + mask
-    out = softmax(S) · [V_glo ‖ V_nbh]
+    out = softmax(S) · [V_glo ‖ V_nbh],    lse = log Σ exp(S)
 
 Layouts are the JAX package's: q, k, v, out (B, mx, my, W², C) with the heads
 packed in C; k_glo, v_glo (B, Nglo, C); bias (H, W², Nglo+9W²) f32 or None;
-mask (mx, my, Wq, Nglo+9W²) f32 with Wq ∈ {1, W²}. Score columns are in front
-order [glo ‖ neighbour 0 … 8]. q arrives scaled by M^-½.
+mask (mx, my, Wq, Nglo+9W²) f32 with Wq ∈ {1, W²}; lse (B, H, mx, my, W²)
+f32. Score columns are in front order [glo ‖ neighbour 0 … 8]. q arrives
+scaled by M^-½; the gradient dq is with respect to that scaled q.
 """
 from __future__ import annotations
 
@@ -47,38 +51,64 @@ def mask_to_additive(mask_bool: np.ndarray, mx: int, my: int, w2: int,
     return add
 
 
-def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add,
-                            num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version: the same function in f32, through the
-    neighbourhood-concat matmuls of ``ops.sliding_chunk``; the output is
-    rounded to q's dtype."""
-    B, mx, my, w2, C = q.shape
-    H = num_heads
-    M = C // H
-    nglo = 0 if k_glo is None else k_glo.shape[1]
+def _heads(t, H):
+    """(B, mx, my, W², C) → (B·H, mx, my, W², M) f32."""
+    B, mx, my, w2, C = t.shape
+    return (t.float().reshape(B, mx, my, w2, H, C // H)
+            .permute(0, 4, 1, 2, 3, 5).reshape(B * H, mx, my, w2, C // H))
 
-    def heads(t):  # (B, mx, my, W², C) → (B·H, mx, my, W², M) f32
-        return (t.float().reshape(B, mx, my, w2, H, M)
-                .permute(0, 4, 1, 2, 3, 5).reshape(B * H, mx, my, w2, M))
 
-    def glo_heads(t):  # (B, Nglo, C) → (B·H, Nglo, M) f32
-        return t.float().reshape(B, nglo, H, M).transpose(1, 2).reshape(B * H, nglo, M)
+def _glo_heads(t, H):
+    """(B, Nglo, C) → (B·H, Nglo, M) f32."""
+    B, nglo, C = t.shape
+    return t.float().reshape(B, nglo, H, C // H).transpose(1, 2).reshape(B * H, nglo, C // H)
 
-    qh, kh, vh = heads(q), heads(k), heads(v)
-    scores = sc.sliding_chunk_qk(qh, kh, 0)  # (B·H, mx, my, W², 9W²)
-    if nglo > 0:
-        s_glo = torch.einsum("bxylm,btm->bxylt", qh, glo_heads(k_glo))
+
+def _scores(q, k, k_glo, bias, mask_add, H):
+    """S in f32, (B·H, mx, my, W², Nglo+9W²), columns in front order."""
+    B = q.shape[0]
+    qh = _heads(q, H)
+    scores = sc.sliding_chunk_qk(qh, _heads(k, H), 0)  # (B·H, mx, my, W², 9W²)
+    if k_glo is not None:
+        s_glo = torch.einsum("bxylm,btm->bxylt", qh, _glo_heads(k_glo, H))
         scores = torch.cat([s_glo, scores], dim=-1)
     if bias is not None:  # row b·H + h takes bias[h]
         scores = scores + bias.float().repeat(B, 1, 1)[:, None, None]
-    scores = scores + mask_add.float()[None]
+    return scores + mask_add.float()[None]
+
+
+def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+                            with_lse: bool = False):
+    """Plain PyTorch version: the same function in f32, through the
+    neighbourhood-concat matmuls of ``ops.sliding_chunk``; the output is
+    rounded to q's dtype. With ``with_lse`` it returns (out, lse)."""
+    B, mx, my, w2, C = q.shape
+    H = num_heads
+    nglo = 0 if k_glo is None else k_glo.shape[1]
+    scores = _scores(q, k, k_glo, bias, mask_add, H)
     probs = torch.softmax(scores, dim=-1)
-    out = sc.sliding_chunk_av(probs[..., nglo:], vh, 0)
+    out = sc.sliding_chunk_av(probs[..., nglo:], _heads(v, H), 0)
     if nglo > 0:
         out = out + torch.einsum("bxylt,btm->bxylm", probs[..., :nglo],
-                                 glo_heads(v_glo))
-    out = out.reshape(B, H, mx, my, w2, M).permute(0, 2, 3, 4, 1, 5)
-    return out.reshape(B, mx, my, w2, C).to(q.dtype)
+                                 _glo_heads(v_glo, H))
+    out = out.reshape(B, H, mx, my, w2, C // H).permute(0, 2, 3, 4, 1, 5)
+    out = out.reshape(B, mx, my, w2, C).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(B, H, mx, my, w2)
+
+
+def vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_heads: int):
+    """Plain PyTorch version of the backward: autograd through
+    :func:`vil_attention_reference` in f32. Returns (dq, dk, dv, dk_glo,
+    dv_glo, dbias), each in its operand's dtype, None where the operand is."""
+    operands = (q, k, v, k_glo, v_glo, bias)
+    leaves = [None if t is None else t.detach().float().requires_grad_() for t in operands]
+    with torch.enable_grad():
+        out = vil_attention_reference(*leaves, mask_add, num_heads)
+        present = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(out, present, g.float()))
+    return tuple(None if t is None else next(grads).to(t.dtype) for t in operands)
 
 
 def _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
@@ -117,39 +147,127 @@ def _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-    return tensors
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def vil_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k_glo: Optional[torch.Tensor], v_glo: Optional[torch.Tensor],
                       bias: Optional[torch.Tensor], mask_add: torch.Tensor,
-                      num_heads: int) -> torch.Tensor:
+                      num_heads: int, with_lse: bool = False):
     """Sliding-chunk attention forward. On a CUDA device this launches the
-    hand-written kernel (or raises); on the CPU it runs the plain version."""
-    tensors = _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
+    hand-written kernel (or raises); on the CPU it runs the plain version.
+    With ``with_lse`` it returns (out, lse). It records no gradient: the
+    differentiable form is :func:`vil_attention`."""
+    _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
     if q.device.type == "cpu":
-        return vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add,
-                                       num_heads)
+        with torch.no_grad():
+            return vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add,
+                                           num_heads, with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"device {q.device} is not supported")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "vil_attention_fwd has no backward kernel yet; run under "
-            "torch.no_grad() or torch.inference_mode()")
     B, mx, my, w2, C = q.shape
     nglo = 0 if k_glo is None else k_glo.shape[1]
     out = torch.empty_like(q)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    lse = (torch.empty(B, num_heads, mx, my, w2, device=q.device, dtype=torch.float32)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         err = build.load().vil_attention_fwd(
-            ptr(q), ptr(k), ptr(v), ptr(k_glo), ptr(v_glo), ptr(bias),
-            ptr(mask_add), ptr(out), B, mx, my, w2, C, num_heads, nglo,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(bias),
+            _ptr(mask_add), _ptr(out), _ptr(lse), B, mx, my, w2, C, num_heads, nglo,
             mask_add.shape[2], int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "vil_attention_fwd")
     vil_attention_fwd.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 vil_attention_fwd.launches = 0
+
+
+def vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g, mask_add, lse, num_heads: int):
+    """Sliding-chunk attention backward from the forward's ``lse``: returns
+    (dq, dk, dv, dk_glo, dv_glo, dbias), None where the operand is. On a CUDA
+    device this launches the hand-written kernels (or raises); on the CPU it
+    runs the plain version, which recomputes the softmax and ignores ``lse``.
+    dK_glo and dV_glo come from the kernel's P_glo and dS_glo columns by one
+    einsum each; dbias is the sum over images of the kernel's partials."""
+    _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
+    B, mx, my, w2, C = q.shape
+    H = num_heads
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must match q: {g.dtype} {tuple(g.shape)} on {g.device}")
+    if (lse.shape != (B, H, mx, my, w2) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be float32 {(B, H, mx, my, w2)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if not (g.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("g and lse must be contiguous")
+    if q.device.type == "cpu":
+        return vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, H)
+    if q.device.type != "cuda":
+        raise ValueError(f"device {q.device} is not supported")
+    nglo = 0 if k_glo is None else k_glo.shape[1]
+    cols = nglo + 9 * w2
+    f32 = dict(device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, mx, my, w2, **f32)
+    p_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
+    ds_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
+    dbias_part = torch.zeros(B, H, w2, cols, **f32) if bias is not None else None
+    with torch.cuda.device(q.device):
+        err = build.load().vil_attention_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(g), _ptr(bias),
+            _ptr(mask_add), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
+            _ptr(p_glo), _ptr(ds_glo), _ptr(dbias_part), B, mx, my, w2, C, H, nglo,
+            mask_add.shape[2], int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, "vil_attention_bwd")
+    vil_attention_bwd.launches += 1
+    dkg = dvg = None
+    if nglo:
+        M = C // H
+        q6 = q.reshape(B, mx, my, w2, H, M).float()
+        g6 = g.reshape(B, mx, my, w2, H, M).float()
+        dkg = torch.einsum("bhxylt,bxylhm->bthm", ds_glo, q6).reshape(B, nglo, C)
+        dvg = torch.einsum("bhxylt,bxylhm->bthm", p_glo, g6).reshape(B, nglo, C)
+        dkg, dvg = dkg.to(k_glo.dtype), dvg.to(v_glo.dtype)
+    dbias = None if bias is None else dbias_part.sum(dim=0)
+    return dq, dk, dv, dkg, dvg, dbias
+
+
+vil_attention_bwd.launches = 0
+
+
+class VilAttentionFunction(torch.autograd.Function):
+    """Sliding-chunk attention with the hand-written backward: the forward
+    keeps its per-row log-sum-exp, the backward launches
+    :func:`vil_attention_bwd` from it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
+        out, lse = vil_attention_fwd(q, k, v, k_glo, v_glo, bias, mask_add, num_heads,
+                                     with_lse=True)
+        ctx.save_for_backward(q, k, v, k_glo, v_glo, bias, mask_add, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, k_glo, v_glo, bias, mask_add, lse = ctx.saved_tensors
+        grads = vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g.contiguous(), mask_add,
+                                  lse, ctx.num_heads)
+        return (*grads, None, None)
+
+
+def vil_attention(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int) -> torch.Tensor:
+    """Sliding-chunk attention through the kernels: the forward alone where
+    no gradient is needed, else :class:`VilAttentionFunction`."""
+    operands = (q, k, v, k_glo, v_glo, bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        return VilAttentionFunction.apply(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
+    return vil_attention_fwd(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)

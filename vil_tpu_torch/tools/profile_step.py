@@ -1,0 +1,126 @@
+"""Where the time of a ViL-Small 224² step goes on one CUDA card.
+
+    python -m vil_tpu_torch.tools.profile_step [--mode train|serve] [--out profile_train.json]
+
+Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
+compute; f32 parameters for training, bf16 for serving) under
+``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
+kernel family and the top kernels, the wall time per step and the device's
+busy share (kernel time over wall time). The profiler's own host work
+lengthens the wall time, so that share is a lower bound. The same numbers go
+to ``--out`` as JSON, with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import time
+
+import torch
+
+WARMUP, STEPS = 3, 5
+
+# kernel-name patterns → family, first match wins
+FAMILIES = [
+    ("B1 sliding-chunk fwd", r"vil_attention_fwd_kernel"),
+    ("B2 sliding-chunk bwd", r"vil_attention_bwd_pass"),
+    ("B3 dense fwd", r"full_attention_fwd_kernel"),
+    ("B4 dense bwd", r"full_attention_bwd_pass"),
+    ("GEMM", r"gemm|cutlass|xmma|nvjet|cublas|matmul|sm90_"),
+    ("convolution", r"conv|cudnn|implicit"),
+    ("LayerNorm", r"layer_norm|LayerNorm"),
+    ("optimizer", r"multi_tensor|adam|Adam"),
+    ("softmax", r"softmax|Softmax"),
+    ("reduction", r"reduce|Reduce"),
+    ("copy, cat, index", r"copy|Copy|cat|Cat|Memcpy|Memset|memset|index|Index|gather|scatter"),
+    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
+]
+
+
+def family(name: str) -> str:
+    for fam, pattern in FAMILIES:
+        if re.search(pattern, name):
+            return fam
+    return "other"
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("train", "serve"), default="train")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA card")
+    from ..train import recipe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images = torch.randn(recipe.BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (recipe.BATCH,), generator=gen, device=dev)
+    if args.mode == "train":
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+        step_fn = recipe.train_step(model, dev)
+        step_gen = torch.Generator(device=dev).manual_seed(3)
+        run = lambda: step_fn(images, labels, step_gen)
+    else:
+        model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev).eval()
+        images = torch.randint(0, 256, images.shape, generator=gen, device=dev,
+                               dtype=torch.uint8)  # normalised on the device
+
+        def run():
+            with torch.inference_mode():
+                return model(images)
+
+    for _ in range(WARMUP):
+        run()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    kernels = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
+        # GPU-side user annotations (e.g. Optimizer.step#AdamW.step) span
+        # kernels already counted: kernels only
+        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / STEPS
+    device_ms = sum(kernels.values())
+    fams = {}
+    for name, ms in kernels.items():
+        fams[family(name)] = fams.get(family(name), 0.0) + ms
+    card = card_line()
+    result = {
+        "mode": args.mode, "batch": recipe.BATCH, "steps": STEPS, "card": card,
+        "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+        "busy_share": device_ms / wall_ms if wall_ms else None,
+        "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:30]),
+    }
+    print(f"{card}; ViL-Small 224^2 {args.mode} bf16 batch {recipe.BATCH}: wall "
+          f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
+    for fam, ms in result["families_ms"].items():
+        print(f"  {fam:24s} {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%")
+    for name, ms in result["top_kernels_ms"].items():
+        print(f"  {ms:9.3f} ms  {name[:110]}")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
