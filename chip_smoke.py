@@ -12,9 +12,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
    inputs: the forwards (with their log-sum-exp against ``torch.logsumexp``
    of the plain scores) and the backwards (with the same upstream gradient)
    at the shapes of ViL-Small 224² at batch 64, in f32 and bf16, plus biased,
-   cyclic 2×2 and long-sequence cases. Kernel, plain and, for the dense
-   kernels, ``scaled_dot_product_attention`` times (CUDA events, median of
-   20), and each kernel's bound on this card.
+   padded, cyclic 1×2 and 2×2 and long-sequence cases; the sampled-neighbour
+   kernels of random-shift training at two modes per stage. Kernel, plain
+   and library times (CUDA events, median of 20; the library call is
+   ``scaled_dot_product_attention``, for the sliding-chunk kernels on the
+   materialised key neighbourhood, whose concatenation is timed on its own
+   line), and each kernel's bound on this card. The dense kernels are also
+   timed at N=4097, ViL-Small 1024²'s stage-3 length, where the JAX package
+   switches to its q-tiled kernels.
 4. serve   — ViL-Small 224², 1000 classes, bf16, batch 64, random seeded
    weights: six requests of uint8 images; the launch counts must be 3
    (sliding-chunk forward) and 9 (dense forward) per forward and 0 for the
@@ -23,14 +28,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
 5. train   — the ViL-Small 224² training step of configs/msvit.yaml (AdamW
    with the no-decay set, mixup/cutmix with soft-target CE and label
    smoothing 0.1, drop path 0.1, f32 parameters under bf16 compute) at batch
-   64 for six steps; launches must rise by 3, 3, 9 and 9 per step and every
-   loss be finite. Then one f32 step with the kernels and one with the plain
-   versions, from the same weights, images and generator seed: losses and
-   every parameter gradient must agree.
+   64 for six steps; launches must rise by 3, 3, 9 and 9 per step (B1, B2,
+   B3, B4) and every loss be finite. Then one f32 step with the kernels and
+   one with the plain versions, from the same weights, images and generator
+   seed: losses and every parameter gradient must agree.
+6. train_shift — the same step with random shifting (MODE 1, one sampled
+   neighbour mode per attention block drawn each step from a seeded CPU
+   generator, printed): launches must rise by 3, 3, 9 and 9 per step for the
+   sampled-neighbour pair (B5, B6) and the dense pair, and by 0 for B1 and
+   B2; then the f32 kernels-vs-plain step with the first step's modes.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-every kernel's record, and the line before that the card as
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
+Each of phases 4-6 sets the launch counts to 0 before it and reads them
+after it. The last line is ``{"ok": true, "device": {...}}``; the line
+before it holds every kernel's record (``launches`` is the sum over the three
+paths, ``launches_serve``, ``launches_train`` and ``launches_shift`` each
+path's), and the line before that the card as ``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`` gives it.
 """
 from __future__ import annotations
 
@@ -108,6 +121,8 @@ def check_kernels(torch, records):
         full_attention_bwd, full_attention_bwd_reference, full_attention_fwd,
         full_attention_reference, mask_to_additive, vil_attention_bwd,
         vil_attention_bwd_reference, vil_attention_fwd, vil_attention_reference,
+        vil_mode_attention_bwd, vil_mode_attention_bwd_reference, vil_mode_attention_fwd,
+        vil_mode_attention_reference,
     )
 
     dev = torch.device("cuda")
@@ -139,12 +154,36 @@ def check_kernels(torch, records):
         return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
                 f"ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
 
-    def vil_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, per_step=0):
+    def sdpa_times(q, k, v, g, attn_mask=None):
+        """(forward ms, backward-alone ms, forward+backward ms) of
+        scaled_dot_product_attention on the same values (q is pre-scaled, so
+        scale=1), (batch, H, rows, M) operands."""
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask, scale=1.0)
+        with torch.no_grad():
+            fwd = time_ms(sdpa)
+        o = sdpa()
+        bwd = time_ms(lambda: torch.autograd.grad(o, leaves, g, retain_graph=True))
+        both = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g))
+        return fwd, bwd, both
+
+    def chunk_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, mode=0, per_step=0.0):
+        """A sliding-chunk case: B1/B2 at mode 0, B5/B6 (the sampled
+        neighbour of ``mode``) at modes 1..8. ``per_step`` is the case's
+        share of one training step's launches."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
-        w2 = w * w
-        cols = nglo + 9 * w2
+        w2, M = w * w, C // H
+        cols = nglo + (9 if mode == 0 else 2) * w2
+        if mode == 0:
+            name, fwd, bwd = "vil_attention", vil_attention_fwd, vil_attention_bwd
+            fwd_ref, bwd_ref = vil_attention_reference, vil_attention_bwd_reference
+            tail = ()
+        else:
+            name, fwd, bwd = "vil_mode_attention", vil_mode_attention_fwd, vil_mode_attention_bwd
+            fwd_ref, bwd_ref = vil_mode_attention_reference, vil_mode_attention_bwd_reference
+            tail = (mode,)
         mask = torch.from_numpy(mask_to_additive(
-            masks_lib.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo,
+            masks_lib.invalid_mask(mx, my, padx, pady, w, exact, mode), mx, my, w2, nglo,
         )).to(dev)
         acts = [randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
         acts += [randn(B, nglo, C) if nglo else None for _ in range(2)]
@@ -154,44 +193,70 @@ def check_kernels(torch, records):
             a = cast(acts, dtype)
             g = g0.to(dtype)
             a32 = cast(a, torch.float32)
-            out, lse = vil_attention_fwd(*a, bias, mask, H, with_lse=True)
-            ref, ref_lse = vil_attention_reference(*a32, bias, mask, H, with_lse=True)
-            grads = vil_attention_bwd(*a, bias, g, mask, lse, H)
-            refs = vil_attention_bwd_reference(*a32, bias, g.float(), mask, H)
+            out, lse = fwd(*a, bias, mask, H, *tail, with_lse=True)
+            ref, ref_lse = fwd_ref(*a32, bias, mask, H, *tail, with_lse=True)
+            grads = bwd(*a, bias, g, mask, lse, H, *tail)
+            refs = bwd_ref(*a32, bias, g.float(), mask, H, *tail)
             torch.cuda.synchronize()
             e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
             e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
             e_abs = max(max_err(x, r) for x, r in zip(grads, refs) if r is not None)
             dt = str(dtype)[6:]
-            phase("kernels", f"vil_attention {label} {dt}: out {e_out:.3e} (tol {tol:g}), lse "
+            phase("kernels", f"{name} {label} {dt}: out {e_out:.3e} (tol {tol:g}), lse "
                              f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
                              f"(tol {GRAD_TOL[dt]:g})")
-            check(f"vil fwd {label} {dt}", e_out, tol)
-            check(f"vil lse {label} {dt}", e_lse, LSE_TOL)
-            check(f"vil bwd {label} {dt}", e_grad, GRAD_TOL[dt])
+            check(f"{name} fwd {label} {dt}", e_out, tol)
+            check(f"{name} lse {label} {dt}", e_lse, LSE_TOL)
+            check(f"{name} bwd {label} {dt}", e_grad, GRAD_TOL[dt])
             if per_step and dtype == torch.bfloat16:  # the training step's type
-                records["vil_attention_fwd"]["max_abs_err"] = max(
-                    records["vil_attention_fwd"]["max_abs_err"], e_out)
-                records["vil_attention_bwd"]["max_abs_err"] = max(
-                    records["vil_attention_bwd"]["max_abs_err"], e_abs)
+                records[f"{name}_fwd"]["max_abs_err"] = max(
+                    records[f"{name}_fwd"]["max_abs_err"], e_out)
+                records[f"{name}_bwd"]["max_abs_err"] = max(
+                    records[f"{name}_bwd"]["max_abs_err"], e_abs)
+                # the library comparator: SDPA over the materialised
+                # [glo ‖ neighbourhood] keys, one batch row per (image, chunk)
+                heads = lambda t: t.view(B * mx * my, -1, H, M).transpose(1, 2)
+
+                def materialise():
+                    kv = []
+                    for t, t_glo in ((a[1], a[3]), (a[2], a[4])):
+                        nbh = sc.neighborhood(t, mode)  # (B, mx, my, K·W², C)
+                        if nglo:
+                            nbh = torch.cat([t_glo[:, None, None].expand(B, mx, my, nglo, C),
+                                             nbh], dim=3)
+                        kv.append(heads(nbh))
+                    return kv
+
+                cat_ms = time_ms(materialise)
+                k_cat, v_cat = materialise()
+                attn_mask = (mask.to(dtype)[None].expand(B, -1, -1, -1, -1)
+                             .reshape(B * mx * my, 1, mask.shape[2], cols))
+                lib_fwd, lib_bwd, lib_both = sdpa_times(heads(a[0]), k_cat, v_cat, heads(g),
+                                                        attn_mask)
                 act = B * mx * my * w2 * C
                 fwd_flops = 4.0 * act * cols
                 msg = account(
-                    "vil_attention_fwd", per_step,
-                    time_ms(lambda: vil_attention_fwd(*a, bias, mask, H, with_lse=True)),
-                    time_ms(lambda: vil_attention_reference(*a, bias, mask, H, with_lse=True)),
-                    nbytes(*a, bias, mask, out, lse), fwd_flops)
-                phase("kernels", f"  vil_attention_fwd with lse, x{per_step} per step: {msg}")
+                    f"{name}_fwd", per_step,
+                    time_ms(lambda: fwd(*a, bias, mask, H, *tail, with_lse=True)),
+                    time_ms(lambda: fwd_ref(*a, bias, mask, H, *tail, with_lse=True)),
+                    nbytes(*a, bias, mask, out, lse), fwd_flops, lib_fwd)
+                phase("kernels", f"  {name}_fwd with lse, x{per_step:g} per step: {msg}, SDPA "
+                                 f"forward {lib_fwd:.4f} ms")
                 msg = account(
-                    "vil_attention_bwd", per_step,
-                    time_ms(lambda: vil_attention_bwd(*a, bias, g, mask, lse, H)),
-                    time_ms(lambda: vil_attention_bwd_reference(*a, bias, g, mask, H)),
-                    nbytes(*a, bias, mask, lse, g, *grads), 2.5 * fwd_flops)
-                phase("kernels", f"  vil_attention_bwd, x{per_step} per step: {msg}")
-                serve_ms = time_ms(lambda: vil_attention_fwd(*a, bias, mask, H))
-                phase("kernels", f"  vil_attention_fwd without lse (serving): {serve_ms:.4f} ms")
+                    f"{name}_bwd", per_step,
+                    time_ms(lambda: bwd(*a, bias, g, mask, lse, H, *tail)),
+                    time_ms(lambda: bwd_ref(*a, bias, g, mask, H, *tail)),
+                    nbytes(*a, bias, mask, lse, g, *grads), 2.5 * fwd_flops, lib_bwd)
+                phase("kernels", f"  {name}_bwd, x{per_step:g} per step: {msg}, SDPA backward "
+                                 f"{lib_bwd:.4f} ms, SDPA forward+backward {lib_both:.4f} ms")
+                phase("kernels", f"  concatenating the [glo | {cols // w2}-chunk] keys and "
+                                 f"values for SDPA (not in its times): {cat_ms:.4f} ms")
+                if mode == 0:
+                    serve_ms = time_ms(lambda: fwd(*a, bias, mask, H))
+                    phase("kernels", f"  {name}_fwd without lse (serving): {serve_ms:.4f} ms")
 
-    def full_case(label, B, N, C, H, with_bias, per_step=0):
+    def full_case(label, B, N, C, H, with_bias, per_step=0, timed=False):
+        """A dense case; ``timed`` times it without a share of the step."""
         M = C // H
         acts = [randn(B, N, C, scale=C ** -0.25) for _ in range(3)]
         g0 = randn(B, N, C)
@@ -215,53 +280,60 @@ def check_kernels(torch, records):
             check(f"full fwd {label} {dt}", e_out, tol)
             check(f"full lse {label} {dt}", e_lse, LSE_TOL)
             check(f"full bwd {label} {dt}", e_grad, GRAD_TOL[dt])
-            if per_step and dtype == torch.bfloat16:
-                records["full_attention_fwd"]["max_abs_err"] = max(
-                    records["full_attention_fwd"]["max_abs_err"], e_out)
-                records["full_attention_bwd"]["max_abs_err"] = max(
-                    records["full_attention_bwd"]["max_abs_err"], e_abs)
-                # the library comparator: SDPA on the same values (q is
-                # pre-scaled, so scale=1), heads as a batch dimension
-                q4, k4, v4 = (t.view(B, N, H, M).transpose(1, 2).detach().requires_grad_()
-                              for t in a)
-                g4 = g.view(B, N, H, M).transpose(1, 2)
-                sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-                with torch.no_grad():
-                    lib_fwd = time_ms(sdpa)
-                o4 = sdpa()
-                lib_bwd = time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
-                                                              retain_graph=True))
-                lib_both = time_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), g4))
+            if (per_step or timed) and dtype == torch.bfloat16:
+                if per_step:
+                    records["full_attention_fwd"]["max_abs_err"] = max(
+                        records["full_attention_fwd"]["max_abs_err"], e_out)
+                    records["full_attention_bwd"]["max_abs_err"] = max(
+                        records["full_attention_bwd"]["max_abs_err"], e_abs)
+                # the library comparator: SDPA on the same values, heads as a
+                # batch dimension
+                lib_fwd, lib_bwd, lib_both = sdpa_times(
+                    *(t.view(B, N, H, M).transpose(1, 2) for t in (*a, g)))
                 fwd_flops = 4.0 * B * N * N * C
+                share = f"x{per_step} per step" if per_step else "per call, not on the path"
                 msg = account(
                     "full_attention_fwd", per_step,
                     time_ms(lambda: full_attention_fwd(*a, bias, H, with_lse=True)),
                     time_ms(lambda: full_attention_reference(*a, bias, H, with_lse=True)),
                     nbytes(*a, bias, out, lse), fwd_flops, lib_fwd)
-                phase("kernels", f"  full_attention_fwd with lse, x{per_step} per step: {msg}, "
+                phase("kernels", f"  full_attention_fwd with lse, {share}: {msg}, "
                                  f"SDPA forward {lib_fwd:.4f} ms")
                 msg = account(
                     "full_attention_bwd", per_step,
                     time_ms(lambda: full_attention_bwd(*a, bias, g, lse, H)),
                     time_ms(lambda: full_attention_bwd_reference(*a, bias, g, H)),
                     nbytes(*a, bias, lse, g, *grads), 2.5 * fwd_flops, lib_bwd)
-                phase("kernels", f"  full_attention_bwd, x{per_step} per step: {msg}, SDPA "
+                phase("kernels", f"  full_attention_bwd, {share}: {msg}, SDPA "
                                  f"backward {lib_bwd:.4f} ms, SDPA forward+backward "
                                  f"{lib_both:.4f} ms")
                 serve_ms = time_ms(lambda: full_attention_fwd(*a, bias, H))
                 phase("kernels", f"  full_attention_fwd without lse (serving): {serve_ms:.4f} ms")
 
     # ViL-Small 224²: stage 1 (1 block) and stage 2 (2 blocks) sliding-chunk
-    vil_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, 1)
-    vil_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, 2)
-    vil_case("biased, padded 3x3 grid, nglo 2", 2, 19, 20, 7, 64, 2, 2, 0, True)
-    vil_case("SW_EXACT 1, 2x2 grid, nglo 0", 2, 13, 14, 7, 32, 1, 0, 1, True)
-    vil_case("SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False)
+    chunk_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, per_step=1)
+    chunk_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, per_step=2)
+    chunk_case("biased, padded 3x3 grid, nglo 2", 2, 19, 20, 7, 64, 2, 2, 0, True)
+    chunk_case("SW_EXACT 1, 2x2 grid, nglo 0", 2, 13, 14, 7, 32, 1, 0, 1, True)
+    chunk_case("SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False)
+    # the same blocks in random-shift training, at two sampled neighbours
+    # each: a step's share is the mean over the two modes
+    for mode in (1, 6):
+        chunk_case(f"mode {mode} stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False,
+                   mode, per_step=0.5)
+        chunk_case(f"mode {mode} stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0,
+                   False, mode, per_step=1)
+    chunk_case("mode 3 biased, padded 3x4 grid, nglo 2", 2, 19, 25, 7, 64, 2, 2, 0, True, 3)
+    chunk_case("mode 2 cyclic 1x2 grid (sampled = self)", 2, 7, 14, 7, 32, 1, 1, 0, False, 2)
+    chunk_case("mode 7 cyclic 2x2 grid, biased, nglo 0", 2, 13, 14, 7, 32, 1, 0, 0, True, 7)
+    chunk_case("mode 5 SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False, 5)
     # stage 3 (8 blocks) and stage 4 (1 block) dense
     full_case("stage3 (64,197,384) H6", 64, 197, 384, 6, False, 8)
     full_case("stage4 (64,49,768) H12", 64, 49, 768, 12, False, 1)
     full_case("biased N 130", 2, 130, 96, 3, True)
     full_case("N 1025", 2, 1025, 192, 3, False)
+    # ViL-Small 1024² stage 3: the q-tiled tiers' length (B3t, B4b)
+    full_case("N 4097", 1, 4097, 384, 6, False, timed=True)
 
 
 def launch_counts(kernels) -> dict:
@@ -291,7 +363,8 @@ def run_serve(torch, kernels):
                 raise AssertionError(f"bad logits {tuple(logits.shape)}")
     launches = launch_counts(kernels)
     want = {"vil_attention_fwd": 3 * REQUESTS, "full_attention_fwd": 9 * REQUESTS,
-            "vil_attention_bwd": 0, "full_attention_bwd": 0}
+            "vil_attention_bwd": 0, "full_attention_bwd": 0, "vil_mode_attention_fwd": 0,
+            "vil_mode_attention_bwd": 0}
     phase("serve", f"ViL-Small 224^2 bf16 batch {BATCH}: {REQUESTS} requests, "
                    f"launches {launches} (want {want})")
     if launches != want:
@@ -317,22 +390,26 @@ def run_serve(torch, kernels):
     return launches
 
 
-def run_train(torch, kernels):
-    """Phase 5: the training step of ViL-Small 224² at batch 64."""
+def run_train(torch, kernels, random_shift=False):
+    """Phase 5 (or, with ``random_shift``, phase 6): the training step of
+    ViL-Small 224² at batch 64."""
     from vil_tpu_torch.train import recipe
 
+    name = "train_shift" if random_shift else "train"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
     model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
-    step = recipe.train_step(model, dev)
-    per_step = {"vil_attention_fwd": 3, "full_attention_fwd": 9,
-                "vil_attention_bwd": 3, "full_attention_bwd": 9}
+    step = recipe.train_step(model, dev, random_shift)
+    chunk, other = ("vil_mode_attention", "vil_attention") if random_shift else (
+        "vil_attention", "vil_mode_attention")
+    per_step = {f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
+                "full_attention_bwd": 9, f"{other}_fwd": 0, f"{other}_bwd": 0}
     step_gen = torch.Generator(device=dev).manual_seed(3)
     for fn in kernels:
         fn.launches = 0
-    secs, losses = [], []
+    secs, losses, modes = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(STEPS):
         before = launch_counts(kernels)
@@ -342,41 +419,47 @@ def run_train(torch, kernels):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
+        modes.append(metrics.get("modes"))
         rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
         if rose != per_step:
             raise AssertionError(f"step {i}: launches rose by {rose}, want {per_step}")
     launches = launch_counts(kernels)
-    phase("train", f"ViL-Small 224^2 bf16 compute, f32 parameters, batch {BATCH}: {STEPS} "
-                   f"steps, launches {launches} ({per_step} per step)")
+    phase(name, f"ViL-Small 224^2 bf16 compute, f32 parameters, batch {BATCH}: {STEPS} "
+                f"steps, launches {launches} ({per_step} per step)")
+    if random_shift:
+        phase(name, "per-block modes drawn by the step (12 blocks; the 9 dense blocks "
+                    f"ignore theirs): {modes}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"losses not finite: {losses}")
     med = statistics.median(secs[1:])
-    phase("train", f"step: median {med * 1e3:.3f} ms, {BATCH / med:.1f} img/s "
-                   f"(steps 2..{STEPS}); first step {secs[0] * 1e3:.1f} ms; losses "
-                   f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
-                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase(name, f"step: median {med * 1e3:.3f} ms, {BATCH / med:.1f} img/s "
+                f"(steps 2..{STEPS}); first step {secs[0] * 1e3:.1f} ms; losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, step
 
-    # one f32 step, kernels vs plain versions, same weights, images and draws
+    # one f32 step, kernels vs plain versions, same weights, images, draws
+    # and (random shift) the first step's modes
     results = {}
     for use_kernels in (True, False):
         m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev)
-        s = recipe.train_step(m, dev)
-        loss = s(images, labels, torch.Generator(device=dev).manual_seed(3))["loss"].item()
+        s = recipe.train_step(m, dev, random_shift)
+        loss = s(images, labels, torch.Generator(device=dev).manual_seed(3),
+                 modes=modes[0])["loss"].item()
         results[use_kernels] = (loss, {n: p.grad.clone() for n, p in m.named_parameters()})
         del m, s
     (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
     loss_err = abs(loss_k - loss_p)
     grad_err, worst = 0.0, ""
-    for name, ref in grads_p.items():
+    for param, ref in grads_p.items():
         if ref.numel() == 0:  # the (1, 0, C) position table of a stage without globals
             continue
-        err = ((grads_k[name] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        err = ((grads_k[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
         if not math.isfinite(err) or err > grad_err:
-            grad_err, worst = err, name
-    phase("train", f"f32 step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
-                   f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max "
-                   f"rel err {grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g})")
+            grad_err, worst = err, param
+    phase(name, f"f32 step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+                f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max "
+                f"rel err {grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g})")
     if not (loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
         raise AssertionError(f"f32 step disagrees: loss {loss_err}, gradients {grad_err}")
     return launches
@@ -419,6 +502,10 @@ def main() -> int:
                                "vil_tpu/ops/pallas/full_attention.py:127"),
         "full_attention_bwd": ("vil_tpu_torch/csrc/full_attention_bwd.cu",
                                "vil_tpu/ops/pallas/full_attention.py:664"),
+        "vil_mode_attention_fwd": ("vil_tpu_torch/csrc/vil_mode_attention_fwd.cu",
+                                   "vil_tpu/ops/pallas/vil_mode_kernel.py:559"),
+        "vil_mode_attention_bwd": ("vil_tpu_torch/csrc/vil_mode_attention_bwd.cu",
+                                   "vil_tpu/ops/pallas/vil_mode_kernel.py:678"),
     }
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -428,13 +515,18 @@ def main() -> int:
     check_kernels(torch, records)
     served = run_serve(torch, KERNELS)
     trained = run_train(torch, KERNELS)
+    shifted = run_train(torch, KERNELS, random_shift=True)
     for name, rec in records.items():
-        rec["launches"] = trained[name]  # this slice's main path: the train step
+        # the three main paths: serving, the MODE-0 and the random-shift step
+        rec["launches"] = served[name] + trained[name] + shifted[name]
         rec["launches_serve"] = served[name]
+        rec["launches_train"] = trained[name]
+        rec["launches_shift"] = shifted[name]
         rec["bound_by"] = "bytes" if rec.pop("_bytes_ms") >= rec.pop("_ops_ms") else "operations"
         phase("record", f"{name}: {rec['ms']:.3f} ms per train step (plain {rec['plain_ms']:.3f},"
                         f" bound {rec['bound_ms']:.4f} by {rec['bound_by']}, library "
-                        f"{rec['library_ms']}), launches {rec['launches']}")
+                        f"{rec['library_ms']}), launches {rec['launches']} (serve "
+                        f"{served[name]}, train {trained[name]}, train_shift {shifted[name]})")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

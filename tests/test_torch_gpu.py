@@ -30,6 +30,10 @@ from vil_tpu_torch.ops.kernels import (
     vil_attention_bwd_reference,
     vil_attention_fwd,
     vil_attention_reference,
+    vil_mode_attention_bwd,
+    vil_mode_attention_bwd_reference,
+    vil_mode_attention_fwd,
+    vil_mode_attention_reference,
 )
 
 pytestmark = pytest.mark.gpu
@@ -84,7 +88,7 @@ def test_kernels_match_plain_versions(cuda, dtype, tol):
         out = full_attention_fwd(q, k, v, bias, 3)
         ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3)
         assert out.dtype == dtype and _max_err(out, ref) <= tol
-    assert [fn.launches for fn in KERNELS] == [4, 3, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [4, 3, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -129,7 +133,41 @@ def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
             assert (out is None) == (ref is None), name
             if ref is not None:
                 assert _rel_err(out, ref) <= tol, (name, N, _rel_err(out, ref))
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0]
+
+
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
+                                                (torch.bfloat16, 2e-2, 3e-2)])
+def test_sampled_neighbour_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
+    """B5 and B6 at every mode on a padded 3×4 grid with bias and nglo 2,
+    and on cyclic 1×2 (the sampled chunk is the self chunk for some modes)
+    and 2×2 grids with SW_EXACT -1: out, LSE and every gradient."""
+    rng = np.random.default_rng(7)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    cases = [(19, 25, 0, 2, True, m) for m in range(1, 9)]
+    cases += [(7, 14, -1, 1, False, m) for m in (2, 5)] + [(13, 14, -1, 0, True, 8)]
+    for nx, ny, exact, nglo, with_bias, mode in cases:
+        w, w2 = 7, 49
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        acts = [rnd(2, mx, my, w2, 64) * 0.5 for _ in range(3)]
+        acts += [rnd(2, nglo, 64) if nglo else None for _ in range(2)]
+        acts = [None if a is None else a.to(dtype) for a in acts]
+        a32 = [None if a is None else a.float() for a in acts]
+        bias = rnd(2, w2, nglo + 2 * w2) if with_bias else None
+        mask = torch.from_numpy(mask_to_additive(
+            masks.invalid_mask(mx, my, padx, pady, w, exact, mode), mx, my, w2, nglo)).to(cuda)
+        g = rnd(2, mx, my, w2, 64).to(dtype)
+        out, lse = vil_mode_attention_fwd(*acts, bias, mask, 2, mode, with_lse=True)
+        ref, lse_ref = vil_mode_attention_reference(*a32, bias, mask, 2, mode, with_lse=True)
+        assert out.dtype == dtype and _max_err(out, ref) <= tol, (mx, my, mode)
+        assert _max_err(lse, lse_ref) <= tol, (mx, my, mode)
+        grads = vil_mode_attention_bwd(*acts, bias, g, mask, lse, 2, mode)
+        refs = vil_mode_attention_bwd_reference(*a32, bias, g.float(), mask, 2, mode)
+        for name, o, r in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), grads, refs):
+            assert (o is None) == (r is None), name
+            if r is not None:
+                assert _rel_err(o, r) <= grad_tol, (name, mx, my, mode, _rel_err(o, r))
+    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0, len(cases), len(cases)]
 
 
 def test_model_runs_through_the_kernels(cuda):
@@ -145,14 +183,14 @@ def test_model_runs_through_the_kernels(cuda):
                           norm_embed=True, device=cuda, use_kernels=use_kernels,
                           generator=torch.Generator().manual_seed(0)).eval()
             logits[use_kernels] = model(x)
-    assert [fn.launches for fn in KERNELS] == [3, 3, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 0, 0, 0, 0]
     assert torch.isfinite(logits[True]).all()
     assert _max_err(logits[True], logits[False]) <= 1e-3
     # with a gradient to take, the autograd Function runs both kernels
     q = torch.randn(1, 9, 64, device=cuda, requires_grad=True)
     full_attention(q, q, q, None, 1).sum().backward()
     assert torch.isfinite(q.grad).all()
-    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1]
+    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1, 0, 0]
 
 
 def test_train_step_runs_through_the_kernels(cuda):
@@ -178,7 +216,7 @@ def test_train_step_runs_through_the_kernels(cuda):
         metrics = step(x, y, torch.Generator(device=cuda).manual_seed(1))
         results[use_kernels] = (metrics["loss"].item(),
                                 {n: p.grad for n, p in model.named_parameters()})
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0]
     (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
     assert abs(loss_k - loss_p) <= 1e-4
     for name, ref in grads_p.items():

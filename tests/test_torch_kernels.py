@@ -118,7 +118,7 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching():
     torch.testing.assert_close(out, full_attention_reference(xb.float(), xb.float(),
                                                              xb.float(), None, 2
                                                              ).to(torch.bfloat16))
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -173,7 +173,7 @@ def test_autograd_functions_match_autograd_of_plain_versions():
     full_attention_reference(*x, None, 2).backward(gx)
     for a, t in zip(ours, x):
         torch.testing.assert_close(a, t.grad, atol=1e-6, rtol=1e-6)
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
 
 
 def test_backward_wrappers_reject_what_the_kernels_do_not_take():

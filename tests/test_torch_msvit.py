@@ -199,7 +199,7 @@ def test_plain_path_matches_kernel_wrappers_and_counters_stay_zero():
         with torch.inference_mode():
             outs.append(model(x))
     torch.testing.assert_close(outs[0], outs[1], atol=0, rtol=0)
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
 
 
 def test_init_weights_is_seeded():
@@ -231,8 +231,10 @@ def test_unported_features_raise():
     cpu = dict(img_size=56, device="cpu")
     with pytest.raises(NotImplementedError):
         MsViT(ARCH_PAD.replace("f4", "f4,a0"), sharew=True, **cpu)
-    with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, sharew=True, mode=1, **cpu)
+    # SW_EXACT 1 has no sampled-neighbour (MODE 1..8) tables, as in vil_tpu
+    exact1 = MsViT(ARCH_PAD, sharew=True, sw_exact=1, mode=1, **cpu).train()
+    with pytest.raises(ValueError, match="SW_EXACT 1"):
+        exact1(torch.zeros(1, 56, 56, 3), mode=3)
     with pytest.raises(NotImplementedError):
         MsViT(ARCH_PAD, sharew=True, only_glo=True, **cpu)
     with pytest.raises(NotImplementedError):

@@ -2,9 +2,10 @@
 
 ``vil_tpu_torch.ops.masks`` and ``vil_tpu_torch.models.arch`` are copies of
 the JAX package's pure-numpy modules: their tables must be bitwise equal.
-The sliding-chunk primitives (modes 0 and -1) must match
-``vil_tpu.ops.sliding_chunk`` in f32 at atol 1e-6, on inputs scaled so that
-the outputs are of order 1 (f32 rounds a sum of order 10 by ~1e-6 already).
+The sliding-chunk primitives (modes 0, -1 and the sampled-neighbour modes
+1..8) must match ``vil_tpu.ops.sliding_chunk`` in f32 at atol 1e-6, on
+inputs scaled so that the outputs are of order 1 (f32 rounds a sum of order
+10 by ~1e-6 already).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -66,14 +67,14 @@ def test_chunkify_unchunkify_match_jax(nx, ny, w):
     assert sc.chunk_grid(nx, ny, w) == jax_sc.chunk_grid(nx, ny, w)
 
 
-@pytest.mark.parametrize("mode", [0, -1])
+@pytest.mark.parametrize("mode", [0, -1, 1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("mx,my", [(3, 4), (2, 2), (1, 3)])
 def test_sliding_chunk_qk_av_match_jax(mode, mx, my):
     rng = np.random.default_rng(1)
     w2, M = 4, 6
     q, k, v = ((rng.standard_normal((3, mx, my, w2, M)) * 0.4).astype(np.float32)
                for _ in range(3))
-    span = (9 if mode == 0 else 1) * w2
+    span = {0: 9, -1: 1}.get(mode, 2) * w2
     attn = rng.dirichlet(np.ones(span), (3, mx, my, w2)).astype(np.float32)
     tq, tk, tv, ta = map(torch.from_numpy, (q, k, v, attn))
     np.testing.assert_allclose(
@@ -87,11 +88,21 @@ def test_sliding_chunk_qk_av_match_jax(mode, mx, my):
     np.testing.assert_array_equal(
         sc.neighborhood(tk, mode).numpy(),
         np.asarray(jax_sc.neighborhood(jnp.asarray(k), mode)))
+    if mode > 0:
+        np.testing.assert_array_equal(sc.sampled_roll(tk, mode).numpy(),
+                                      np.asarray(jax_sc.sampled_roll(jnp.asarray(k), mode)))
 
 
 def test_unported_modes_raise():
+    """Modes outside -1..8 (and non-int modes) are refused; the sampled roll
+    takes only 1..8."""
     t = torch.zeros(1, 2, 2, 4, 3)
-    with pytest.raises(NotImplementedError):
-        sc.neighborhood(t, 3)
+    for bad in (9, -2, 1.0, True):
+        with pytest.raises(ValueError):
+            sc.neighborhood(t, bad)
+    for bad in (0, -1, 9):
+        with pytest.raises(ValueError):
+            sc.sampled_roll(t, bad)
+    np.testing.assert_array_equal(sc.MODE_ROLL_SHIFTS, jax_sc.MODE_ROLL_SHIFTS)
     with pytest.raises(ValueError):
         sc.chunkify(torch.zeros(1, 10, 3), 3, 4, 2)

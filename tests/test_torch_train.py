@@ -493,7 +493,7 @@ def test_train_step_on_bf16_compute_keeps_f32_parameters():
     plain = engine.make_train_step(model, loss.cross_entropy, opt, device="cpu")
     metrics = plain(x, torch.tensor([0, 1, 2, 3]), gen)
     assert set(metrics) == {"loss", "top1", "top5"}
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
 
 
 def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch):

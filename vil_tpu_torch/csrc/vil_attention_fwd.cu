@@ -31,7 +31,11 @@
 // W²(4M+3) floats whatever the number of columns. Moving QKᵀ and P·V to
 // tensor cores (mma.sync or wgmma, several chunks per block to fill 64-row
 // tiles) is the next step.
-#include "attention_common.cuh"
+//
+// The body is sliding_chunk_fwd (sliding_chunk.cuh) over FullNbh; the
+// sampled-neighbour forward of random-shift training (vil_mode_attention_fwd.cu)
+// runs the same body over two chunks.
+#include "sliding_chunk.cuh"
 
 namespace vil {
 
@@ -43,103 +47,21 @@ vil_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ mask, T* __restrict__ out,
                          float* __restrict__ lse, int mx, int my, int w2, int C, int nglo,
                          int wq) {
-  extern __shared__ float smem[];
-  const int chunk = blockIdx.x;  // i * my + j
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int i = chunk / my, j = chunk % my;
-  const int cols = nglo + 9 * w2;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-
-  float* q_s = smem;                  // w2 x M
-  float* k_s = q_s + w2 * M;          // w2 x (M + 1)
-  float* v_s = k_s + w2 * (M + 1);    // w2 x M
-  float* acc_s = v_s + w2 * M;        // w2 x M
-  float* m_s = acc_s + w2 * M;        // w2
-  float* l_s = m_s + w2;              // w2
-
-  // head h of chunk (ci, cj): w2 rows of M elements, C apart
-  auto chunk_ptr = [&](auto* base, int ci, int cj) {
-    return base + (((long)b * mx + ci) * my + cj) * w2 * C + h * M;
-  };
-  load_rows<M>(q_s, M, chunk_ptr(q, i, j), C, w2);
-  for (int idx = threadIdx.x; idx < w2 * M; idx += blockDim.x) acc_s[idx] = 0.f;
-  for (int idx = threadIdx.x; idx < w2; idx += blockDim.x) {
-    m_s[idx] = -INFINITY;
-    l_s[idx] = 0.f;
-  }
-
-  const float* bias_h = bias != nullptr ? bias + (long)h * w2 * cols : nullptr;
-  const float* mask_c = mask + (long)chunk * wq * cols;
-  // column tiles: the global keys, w2 at a time, then the 9 neighbour chunks
-  const int n_glo_tiles = (nglo + w2 - 1) / w2;
-  for (int tile = 0; tile < n_glo_tiles + 9; ++tile) {
-    int col0, nkeys;
-    const T *ksrc, *vsrc;
-    if (tile < n_glo_tiles) {
-      col0 = tile * w2;
-      nkeys = min(w2, nglo - col0);
-      ksrc = k_glo + ((long)b * nglo + col0) * C + h * M;
-      vsrc = v_glo + ((long)b * nglo + col0) * C + h * M;
-    } else {
-      const int n = tile - n_glo_tiles;
-      const int ci = (i + n / 3 - 1 + mx) % mx, cj = (j + n % 3 - 1 + my) % my;
-      col0 = nglo + n * w2;
-      nkeys = w2;
-      ksrc = chunk_ptr(k, ci, cj);
-      vsrc = chunk_ptr(v, ci, cj);
-    }
-    __syncthreads();  // the previous tile is consumed; q and the state are set
-    load_rows<M>(k_s, M + 1, ksrc, C, nkeys);
-    load_rows<M>(v_s, M, vsrc, C, nkeys);
-    __syncthreads();
-    for (int r = warp; r < w2; r += nwarps) {
-      RowState<M> st;
-      load_state(st, m_s, l_s, acc_s, r, lane);
-      const float* bias_r = bias_h != nullptr ? bias_h + (long)r * cols + col0 : nullptr;
-      const float* mask_r = mask_c + (long)(wq == 1 ? 0 : r) * cols + col0;
-      fold_keys(st, q_s + r * M, k_s, v_s, nkeys, bias_r, mask_r, lane);
-      store_state(st, m_s, l_s, acc_s, r, lane);
-    }
-  }
-  __syncthreads();
-  T* out_c = chunk_ptr(out, i, j);
-  for (int r = warp; r < w2; r += nwarps) store_row<M>(out_c + (long)r * C, acc_s, l_s, r, lane);
-  if (lse != nullptr) {  // (B, H, mx, my, w2): m + log l of the online softmax
-    float* lse_c = lse + (((long)b * gridDim.y + h) * mx * my + chunk) * w2;
-    for (int r = threadIdx.x; r < w2; r += blockDim.x) lse_c[r] = m_s[r] + logf(l_s[r]);
-  }
+  sliding_chunk_fwd<T, M>(FullNbh{}, q, k, v, k_glo, v_glo, bias, mask, out, lse, mx, my, w2,
+                          C, nglo, wq);
 }
 
-template <typename T, int M>
+template <typename T>
 cudaError_t launch_vil(const void* q, const void* k, const void* v, const void* k_glo,
                        const void* v_glo, const float* bias, const float* mask, void* out,
                        float* lse, int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)w2 * (4 * M + 3);
-  return launch(vil_attention_fwd_kernel<T, M>, dim3(mx * my, H, B), smem, stream,
-                (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo, (const T*)v_glo, bias,
-                mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
-}
-
-template <typename T>
-cudaError_t dispatch_vil(const void* q, const void* k, const void* v, const void* k_glo,
-                         const void* v_glo, const float* bias, const float* mask, void* out,
-                         float* lse, int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
-                         cudaStream_t stream) {
-  switch (C / H) {
-#define VIL_CASE(M)                                                                      \
-  case M:                                                                                \
-    return launch_vil<T, M>(q, k, v, k_glo, v_glo, bias, mask, out, lse, B, mx, my, w2, C, \
-                            H, nglo, wq, stream);
-    VIL_CASE(8)
-    VIL_CASE(16)
-    VIL_CASE(32)
-    VIL_CASE(64)
-    VIL_CASE(128)
-#undef VIL_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch_head_dim(C / H, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return launch(vil_attention_fwd_kernel<T, M>, dim3(mx * my, H, B), fwd_smem_bytes(w2, M),
+                  stream, (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo,
+                  (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
+  });
 }
 
 }  // namespace vil
@@ -157,10 +79,10 @@ extern "C" int vil_attention_fwd(const void* q, const void* k, const void* v, co
   auto* mask_f = static_cast<const float*>(mask);
   auto* lse_f = static_cast<float*>(lse);
   if (is_bf16)
-    return vil::dispatch_vil<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B,
-                                            mx, my, w2, C, H, nglo, wq, s);
-  return vil::dispatch_vil<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx, my,
-                                  w2, C, H, nglo, wq, s);
+    return vil::launch_vil<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B,
+                                          mx, my, w2, C, H, nglo, wq, s);
+  return vil::launch_vil<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx, my,
+                                w2, C, H, nglo, wq, s);
 }
 
 extern "C" const char* vil_cuda_error_string(int err) {

@@ -4,11 +4,14 @@ Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
 
 * ``FullAttention`` — dense multi-head self-attention without RPE, through
   the dense attention kernels (``ops/kernels/full_attention.py``).
-* ``VilAttention``  — 2-D sliding-chunk local attention with global tokens at
-  neighbour mode 0 without RPE, on the stage-resident chunked layout. The
+* ``VilAttention``  — 2-D sliding-chunk local attention with global tokens
+  without RPE, on the stage-resident chunked layout. At neighbour mode 0 the
   local branch runs the sliding-chunk kernels (``ops/kernels/vil_attention.py``);
-  the global tokens' dense attention over all tokens is plain PyTorch, and
-  takes its gradient from autograd, as the JAX package's takes it from XLA.
+  at modes 1..8 (random-shift training: self + one sampled neighbour chunk)
+  the sampled-neighbour kernels (``ops/kernels/vil_mode_attention.py``). The
+  global tokens' dense attention over all tokens is plain PyTorch and does
+  not depend on the mode; it takes its gradient from autograd, as the JAX
+  package's takes it from XLA.
 
 q is scaled by M^-½ before either kernel. With a gradient to take, the
 kernels run through their autograd Functions (forward with the log-sum-exp,
@@ -28,11 +31,14 @@ from ..ops.kernels.vil_attention import (
     vil_attention,
     vil_attention_reference,
 )
+from ..ops.kernels.vil_mode_attention import vil_mode_attention, vil_mode_attention_reference
 from .layers import Linear, check_eval_only
 
 
 class FullAttention(nn.Module):
-    """Dense multi-head self-attention (no RPE)."""
+    """Dense multi-head self-attention (no RPE). It attends to every token,
+    so it takes the neighbour mode of the sliding-chunk blocks and ignores
+    it."""
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_kernels: bool = True, device=None,
@@ -46,7 +52,7 @@ class FullAttention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nx: int, ny: int, mode: int = 0) -> torch.Tensor:
         check_eval_only(self, self.attn_drop, "attention dropout")
         check_eval_only(self, self.proj_drop, "projection dropout")
         H = self.num_heads
@@ -59,12 +65,15 @@ class FullAttention(nn.Module):
 
 
 class VilAttention(nn.Module):
-    """2-D sliding-chunk self-attention with global tokens, neighbour mode 0,
-    shared local/global weights, no RPE.
+    """2-D sliding-chunk self-attention with global tokens, shared
+    local/global weights, no RPE.
 
     ``forward`` takes and returns the stage-resident chunked pair
     ``(x_glo (B, Nglo, C) | None, x_img (B, mx, my, W², C))``.
-    ``exact`` selects the mask semantics (SW_EXACT 1, 0 or -1).
+    ``exact`` selects the mask semantics (SW_EXACT 1, 0 or -1). The
+    neighbour ``mode`` is 0 (the 3×3 chunk neighbourhood) or 1..8 (self and
+    the sampled neighbour of random-shift training; SW_EXACT 1 has no tables
+    for it and raises, as in the JAX package).
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -81,22 +90,34 @@ class VilAttention(nn.Module):
         self.query = Linear(dim, dim, **kw)
         self.kv = Linear(dim, 2 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
-        self._masks: dict = {}  # (nx, ny, device) → additive mask table
+        self._masks: dict = {}  # (nx, ny, mode 0 or 1, device) → additive tables
 
-    def _mask(self, nx: int, ny: int, device) -> torch.Tensor:
-        """Additive f32 mask (mx, my, Wq, Nglo+9W²), built once per grid and
-        device (the model may be cast to bf16; the table stays f32)."""
-        key = (nx, ny, str(device))
+    def _mask(self, nx: int, ny: int, mode: int, device) -> torch.Tensor:
+        """Additive f32 mask of ``mode``: (mx, my, Wq, Nglo+9W²) for mode 0,
+        (mx, my, 1, Nglo+2W²) for modes 1..8. Built once per grid and device
+        (the model may be cast to bf16; the tables stay f32); the eight
+        sampled-neighbour tables are built together, as one stack."""
+        key = (nx, ny, min(mode, 1), str(device))
         if key not in self._masks:
             W = self.w
             padx, pady, mx, my = sc.chunk_grid(nx, ny, W)
-            mask_bool = masks_lib.invalid_mask(mx, my, padx, pady, W, self.exact, 0)
-            self._masks[key] = torch.from_numpy(
-                mask_to_additive(mask_bool, mx, my, W * W, self.nglo)
-            ).to(device)
-        return self._masks[key]
+            if mode == 0:
+                tables = [masks_lib.invalid_mask(mx, my, padx, pady, W, self.exact, 0)]
+            else:  # (8, mx·my, 2W²): modes 1..8
+                tables = masks_lib.all_mode_masks(mx, my, padx, pady, W, self.exact)
+            self._masks[key] = [
+                torch.from_numpy(mask_to_additive(t, mx, my, W * W, self.nglo)).to(device)
+                for t in tables
+            ]
+        return self._masks[key][max(mode - 1, 0)]
 
-    def forward(self, x, nx: int, ny: int):
+    def forward(self, x, nx: int, ny: int, mode: int = 0):
+        mode = sc.check_mode(mode)
+        if mode == -1:
+            raise NotImplementedError("sliding-chunk mode -1 (self chunk only) is not ported")
+        if mode > 0 and self.exact == 1:
+            raise ValueError("SW_EXACT 1 has no mask tables for the sampled-neighbour "
+                             "modes 1..8 (only mode 0)")
         check_eval_only(self, self.attn_drop, "attention dropout")
         check_eval_only(self, self.proj_drop, "projection dropout")
         x_glo, x_img = x
@@ -115,9 +136,13 @@ class VilAttention(nn.Module):
             kg = self.kv.part(x_glo, 0, 2)  # (B, Nglo, C)
             vg = self.kv.part(x_glo, 1, 2)
 
-        attend = vil_attention if self.use_kernels else vil_attention_reference
-        x1 = attend(q_img, k_img, v_img, kg, vg, None,
-                    self._mask(nx, ny, x_img.device), H)
+        mask = self._mask(nx, ny, mode, x_img.device)
+        if mode == 0:
+            attend = vil_attention if self.use_kernels else vil_attention_reference
+            x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H)
+        else:
+            attend = vil_mode_attention if self.use_kernels else vil_mode_attention_reference
+            x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H, mode)
         x1 = self.proj(x1)
         if Nglo == 0:
             return None, x1

@@ -4,9 +4,10 @@ Counterpart of ``vil_tpu/models/msvit.py``. Stages of conv patch embedding
 (factorised APE, global tokens) followed by pre-LN attention and MLP blocks,
 selected per stage by the ARCH string. Images are NHWC.
 
-Ported: ``longformerhand`` (and its aliases) at neighbour mode 0 with shared
-weights and any SW_EXACT, ``full`` attention, APE, stochastic depth. Not
-ported yet, and refused at construction: RPE (``a0``), MODE≠0,
+Ported: ``longformerhand`` (and its aliases) with shared weights, at
+neighbour mode 0 with any SW_EXACT and at the sampled-neighbour modes 1..8
+of random-shift training (SW_EXACT 0 or -1), ``full`` attention, APE,
+stochastic depth. Not ported yet, and refused at construction: RPE (``a0``),
 ``only_glo``, ``sharew=False`` and the other attention families. Dropout
 raises in training mode.
 
@@ -17,7 +18,7 @@ parameters of ``vil_tpu``'s MsViT load with ``utils.jax_import``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -69,15 +70,16 @@ class AttnBlock(nn.Module):
             raise NotImplementedError(f"attention type {attn_type!r} is not ported")
         self.droppath = DropPath(drop_path)
 
-    def forward(self, x, nx: int, ny: int, generator: Optional[torch.Generator] = None):
+    def forward(self, x, nx: int, ny: int, generator: Optional[torch.Generator] = None,
+                mode: int = 0):
         if isinstance(x, tuple):
             x_glo, x_img = x
             y_glo, y_img = self.droppath(self.attn(
                 (None if x_glo is None else self.norm(x_glo), self.norm(x_img)),
-                nx, ny,
+                nx, ny, mode,
             ), generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
-        return x + self.droppath(self.attn(self.norm(x), nx, ny), generator)
+        return x + self.droppath(self.attn(self.norm(x), nx, ny, mode), generator)
 
 
 class MlpBlock(nn.Module):
@@ -112,7 +114,9 @@ class MsViT(nn.Module):
     they are used (flax's pair; f32 parameters for training). The model is
     built on ``device``, the CUDA card unless the caller names another
     (``device="cpu"``). ``use_kernels`` is the twin of ``use_pallas``.
-    Weights are drawn by :meth:`init_weights` from ``generator``.
+    Weights are drawn by :meth:`init_weights` from ``generator``. ``mode``
+    (MODEL.VIT.MSVIT.MODE) is carried as the flax field is and not read at
+    call time: the neighbour mode is an argument of :meth:`forward`.
     """
 
     def __init__(self, arch: str, img_size: int = 512, num_classes: int = 1000,
@@ -133,15 +137,13 @@ class MsViT(nn.Module):
         cfgs = parse_arch(arch)
         self.layer_cfgs: list[StageCfg] = cfgs
         self.img_size, self.avg_pool = img_size, avg_pool
-        if mode != 0:
-            raise NotImplementedError(f"MODE {mode} is not ported (only 0)")
+        self.mode = mode
         if only_glo:
             raise NotImplementedError("only_glo is not ported")
         if any(c.rpe for c in cfgs):
             raise NotImplementedError("relative position bias (a0) is not ported")
 
-        depth = sum(c.num_blocks for c in cfgs)
-        dprs = np.linspace(0, drop_path_rate, depth)
+        dprs = np.linspace(0, drop_path_rate, self.depth)
         self.stage_blocks: list[list[tuple[str, str]]] = []
         self.stage_chunked: list[bool] = []
         i_block = 0
@@ -185,6 +187,12 @@ class MsViT(nn.Module):
         self.head = Linear(cfgs[-1].dim, num_classes, **kw) if num_classes > 0 else None
         self.init_weights(generator)
 
+    @property
+    def depth(self) -> int:
+        """Number of attention blocks, dense ones included: the length of a
+        per-layer mode vector."""
+        return sum(c.num_blocks for c in self.layer_cfgs)
+
     def grid_sizes(self) -> list[tuple[int, int]]:
         """(nx, ny) token grid of each stage."""
         sizes = []
@@ -224,9 +232,24 @@ class MsViT(nn.Module):
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.LayerNorm)) and mod.bias is not None:
                 mod.bias.zero_()
 
+    def _block_modes(self, mode: Union[int, Sequence[int]]) -> list[int]:
+        """The neighbour mode of each attention block, in order: ``mode``
+        itself for all of them, or its entries when it is a sequence of
+        ``depth`` host ints (one per block, the dense blocks included, which
+        ignore theirs). In eval mode every block runs at mode 0."""
+        if isinstance(mode, (int, np.integer)):
+            modes = [int(mode)] * self.depth
+        else:
+            modes = [int(m) for m in mode]
+            if len(modes) != self.depth:
+                raise ValueError(f"expected {self.depth} per-layer modes, got {len(modes)}")
+        return modes if self.training else [0] * self.depth
+
     def forward_features(self, x: torch.Tensor,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None,
+                         mode: Union[int, Sequence[int]] = 0) -> torch.Tensor:
         B = x.shape[0]
+        modes = iter(self._block_modes(mode))
         grids = self.grid_sizes()
         nglos = [c.nglo for c in self.layer_cfgs]
         for sid, names in enumerate(self.stage_blocks):
@@ -242,7 +265,7 @@ class MsViT(nn.Module):
                 x = (x[:, :g] if g > 0 else None,
                      sc.chunkify(x[:, g:], nx, ny, w_s))
             for attn_name, mlp_name in names:
-                x = getattr(self, attn_name)(x, nx, ny, generator)
+                x = getattr(self, attn_name)(x, nx, ny, generator, next(modes))
                 x = getattr(self, mlp_name)(x, generator)
             if chunked:
                 x_glo, x_img = x
@@ -253,9 +276,13 @@ class MsViT(nn.Module):
             return x[:, 0]
         return x.mean(dim=1)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                mode: Union[int, Sequence[int]] = 0) -> torch.Tensor:
         """x: (B, H, W, C) NHWC images → (B, num_classes) logits. In training
-        mode stochastic depth draws from ``generator`` (on x's device)."""
-        feats = self.forward_features(x, generator)
+        mode stochastic depth draws from ``generator`` (on x's device), and
+        ``mode`` is the neighbour mode of every attention block, or a
+        sequence of ``depth`` host ints, one per block in order (the dense
+        blocks included, which ignore theirs). In eval mode every block runs
+        at mode 0."""
+        feats = self.forward_features(x, generator, mode)
         return feats if self.head is None else self.head(feats)

@@ -20,15 +20,27 @@ from .vil_attention import (
     vil_attention_fwd,
     vil_attention_reference,
 )
+from .vil_mode_attention import (
+    VilModeAttentionFunction,
+    vil_mode_attention,
+    vil_mode_attention_bwd,
+    vil_mode_attention_bwd_reference,
+    vil_mode_attention_fwd,
+    vil_mode_attention_reference,
+)
 
-# every kernel wrapper, each with its launch count: the forwards serve
-# inference, all four run in a training step
-KERNELS = (vil_attention_fwd, full_attention_fwd, vil_attention_bwd, full_attention_bwd)
+# every kernel wrapper, each with its launch count: the first two forwards
+# serve inference, the first four run in a MODE-0 training step, and the
+# sampled-neighbour pair takes the sliding-chunk pair's place in a
+# random-shift (MODE > 0) training step
+KERNELS = (vil_attention_fwd, full_attention_fwd, vil_attention_bwd, full_attention_bwd,
+           vil_mode_attention_fwd, vil_mode_attention_bwd)
 
 __all__ = [
     "KERNELS",
     "FullAttentionFunction",
     "VilAttentionFunction",
+    "VilModeAttentionFunction",
     "full_attention",
     "full_attention_bwd",
     "full_attention_bwd_reference",
@@ -40,4 +52,9 @@ __all__ = [
     "vil_attention_bwd_reference",
     "vil_attention_fwd",
     "vil_attention_reference",
+    "vil_mode_attention",
+    "vil_mode_attention_bwd",
+    "vil_mode_attention_bwd_reference",
+    "vil_mode_attention_fwd",
+    "vil_mode_attention_reference",
 ]

@@ -2,8 +2,9 @@
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all at once, and the objects are linked into one shared
-library with a plain C interface, which is loaded with ``ctypes``. Pointers and the CUDA stream are passed as ``c_void_p``, sizes as
-``c_int``; each entry point returns the ``cudaError_t`` of its launch.
+library with a plain C interface, which is loaded with ``ctypes``. Pointers
+and the CUDA stream are passed as ``c_void_p``, sizes as ``c_int``; each
+entry point returns the ``cudaError_t`` of its launch.
 
 The library is built at first use under ``build/vil_tpu_torch/`` beside the
 package, named by a hash of the sources and flags, so an edited kernel is
@@ -38,6 +39,10 @@ SIGNATURES = {
     # q, k, v, k_glo, v_glo, g, bias, mask, lse, delta, dq, dk, dv, p_glo,
     # ds_glo, dbias_part, B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
     "vil_attention_bwd": [_P] * 16 + [_I] * 9 + [_P],
+    # the same as vil_attention_fwd / _bwd with the sampled chunk's offset
+    # dx, dy before is_bf16
+    "vil_mode_attention_fwd": [_P] * 9 + [_I] * 11 + [_P],
+    "vil_mode_attention_bwd": [_P] * 16 + [_I] * 11 + [_P],
     # q, k, v, bias, out, lse, B, N, C, H, is_bf16, stream
     "full_attention_fwd": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, v, g, bias, lse, delta, dq, dk, dv, dbias_part,

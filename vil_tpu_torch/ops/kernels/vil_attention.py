@@ -15,6 +15,10 @@ packed in C; k_glo, v_glo (B, Nglo, C); bias (H, W², Nglo+9W²) f32 or None;
 mask (mx, my, Wq, Nglo+9W²) f32 with Wq ∈ {1, W²}; lse (B, H, mx, my, W²)
 f32. Score columns are in front order [glo ‖ neighbour 0 … 8]. q arrives
 scaled by M^-½; the gradient dq is with respect to that scaled q.
+
+The operand checks, the launchers and the plain versions here take the
+neighbourhood as a parameter: ``vil_mode_attention.py`` (the sampled
+[self ‖ one neighbour] kernels of random-shift training) shares them.
 """
 from __future__ import annotations
 
@@ -64,11 +68,11 @@ def _glo_heads(t, H):
     return t.float().reshape(B, nglo, H, C // H).transpose(1, 2).reshape(B * H, nglo, C // H)
 
 
-def _scores(q, k, k_glo, bias, mask_add, H):
-    """S in f32, (B·H, mx, my, W², Nglo+9W²), columns in front order."""
+def _scores(q, k, k_glo, bias, mask_add, H, mode):
+    """S in f32, (B·H, mx, my, W², Nglo+K·W²), columns in front order."""
     B = q.shape[0]
     qh = _heads(q, H)
-    scores = sc.sliding_chunk_qk(qh, _heads(k, H), 0)  # (B·H, mx, my, W², 9W²)
+    scores = sc.sliding_chunk_qk(qh, _heads(k, H), mode)  # (B·H, mx, my, W², K·W²)
     if k_glo is not None:
         s_glo = torch.einsum("bxylm,btm->bxylt", qh, _glo_heads(k_glo, H))
         scores = torch.cat([s_glo, scores], dim=-1)
@@ -77,17 +81,18 @@ def _scores(q, k, k_glo, bias, mask_add, H):
     return scores + mask_add.float()[None]
 
 
-def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
-                            with_lse: bool = False):
-    """Plain PyTorch version: the same function in f32, through the
-    neighbourhood-concat matmuls of ``ops.sliding_chunk``; the output is
-    rounded to q's dtype. With ``with_lse`` it returns (out, lse)."""
+def chunk_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+                              mode: int, with_lse: bool = False):
+    """Plain PyTorch sliding-chunk attention over the neighbourhood of
+    ``mode`` (``ops.sliding_chunk``), in f32 through the neighbourhood-concat
+    matmuls; the output is rounded to q's dtype. With ``with_lse`` it
+    returns (out, lse)."""
     B, mx, my, w2, C = q.shape
     H = num_heads
     nglo = 0 if k_glo is None else k_glo.shape[1]
-    scores = _scores(q, k, k_glo, bias, mask_add, H)
+    scores = _scores(q, k, k_glo, bias, mask_add, H, mode)
     probs = torch.softmax(scores, dim=-1)
-    out = sc.sliding_chunk_av(probs[..., nglo:], _heads(v, H), 0)
+    out = sc.sliding_chunk_av(probs[..., nglo:], _heads(v, H), mode)
     if nglo > 0:
         out = out + torch.einsum("bxylt,btm->bxylm", probs[..., :nglo],
                                  _glo_heads(v_glo, H))
@@ -98,20 +103,40 @@ def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: in
     return out, torch.logsumexp(scores, dim=-1).reshape(B, H, mx, my, w2)
 
 
-def vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_heads: int):
-    """Plain PyTorch version of the backward: autograd through
-    :func:`vil_attention_reference` in f32. Returns (dq, dk, dv, dk_glo,
-    dv_glo, dbias), each in its operand's dtype, None where the operand is."""
+def chunk_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_heads: int,
+                                  mode: int):
+    """Autograd through :func:`chunk_attention_reference` in f32: (dq, dk,
+    dv, dk_glo, dv_glo, dbias), each in its operand's dtype, None where the
+    operand is."""
     operands = (q, k, v, k_glo, v_glo, bias)
     leaves = [None if t is None else t.detach().float().requires_grad_() for t in operands]
     with torch.enable_grad():
-        out = vil_attention_reference(*leaves, mask_add, num_heads)
+        out = chunk_attention_reference(*leaves, mask_add, num_heads, mode)
         present = [t for t in leaves if t is not None]
         grads = iter(torch.autograd.grad(out, present, g.float()))
     return tuple(None if t is None else next(grads).to(t.dtype) for t in operands)
 
 
-def _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
+def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+                            with_lse: bool = False):
+    """Plain PyTorch version: the same function in f32, through the
+    neighbourhood-concat matmuls of ``ops.sliding_chunk``; the output is
+    rounded to q's dtype. With ``with_lse`` it returns (out, lse)."""
+    return chunk_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, 0,
+                                     with_lse)
+
+
+def vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_heads: int):
+    """Plain PyTorch version of the backward: autograd through
+    :func:`vil_attention_reference` in f32. Returns (dq, dk, dv, dk_glo,
+    dv_glo, dbias), each in its operand's dtype, None where the operand is."""
+    return chunk_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add,
+                                         num_heads, 0)
+
+
+def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int = 9):
+    """Raise on what the kernels do not take; ``span`` is the number of key
+    chunks per query chunk (9 here, 2 for the sampled-neighbour kernels)."""
     if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share a 5-D shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -123,7 +148,7 @@ def _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
     if (k_glo is None) != (v_glo is None):
         raise ValueError("k_glo and v_glo must both be given or both be None")
     nglo = 0 if k_glo is None else k_glo.shape[1]
-    cols = nglo + 9 * w2
+    cols = nglo + span * w2
     tensors = [q, k, v]
     if k_glo is not None:
         if k_glo.shape != (B, nglo, C) or v_glo.shape != (B, nglo, C) or nglo == 0:
@@ -147,10 +172,83 @@ def _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {q.device} is not supported")
+
+
+def check_grad_operands(q, g, lse, num_heads):
+    """Raise unless g matches q and lse is the forward's f32 (B, H, mx, my, W²)."""
+    B, mx, my, w2, C = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must match q: {g.dtype} {tuple(g.shape)} on {g.device}")
+    if (lse.shape != (B, num_heads, mx, my, w2) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be float32 {(B, num_heads, mx, my, w2)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if not (g.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("g and lse must be contiguous")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def launch_fwd(entry: str, q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+               with_lse: bool, *extra: int):
+    """Launch the C forward ``entry`` (B1's signature, then ``extra`` ints)
+    on q's card; returns (out, lse | None)."""
+    B, mx, my, w2, C = q.shape
+    nglo = 0 if k_glo is None else k_glo.shape[1]
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, num_heads, mx, my, w2, device=q.device, dtype=torch.float32)
+           if with_lse else None)
+    with torch.cuda.device(q.device):
+        err = getattr(build.load(), entry)(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(bias),
+            _ptr(mask_add), _ptr(out), _ptr(lse), B, mx, my, w2, C, num_heads, nglo,
+            mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, entry)
+    return out, lse
+
+
+def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, lse,
+               num_heads: int, *extra: int):
+    """Launch the C backward ``entry`` (B2's signature, then ``extra`` ints)
+    over ``span`` key chunks per query chunk; returns (dq, dk, dv, dk_glo,
+    dv_glo, dbias). dK_glo and dV_glo come from the kernel's P_glo and dS_glo
+    columns by one einsum each; dbias is the sum over images of the
+    kernel's partials."""
+    B, mx, my, w2, C = q.shape
+    H = num_heads
+    nglo = 0 if k_glo is None else k_glo.shape[1]
+    cols = nglo + span * w2
+    f32 = dict(device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, mx, my, w2, **f32)
+    p_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
+    ds_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
+    dbias_part = torch.zeros(B, H, w2, cols, **f32) if bias is not None else None
+    with torch.cuda.device(q.device):
+        err = getattr(build.load(), entry)(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(g), _ptr(bias),
+            _ptr(mask_add), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
+            _ptr(p_glo), _ptr(ds_glo), _ptr(dbias_part), B, mx, my, w2, C, H, nglo,
+            mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, entry)
+    dkg = dvg = None
+    if nglo:
+        M = C // H
+        q6 = q.reshape(B, mx, my, w2, H, M).float()
+        g6 = g.reshape(B, mx, my, w2, H, M).float()
+        dkg = torch.einsum("bhxylt,bxylhm->bthm", ds_glo, q6).reshape(B, nglo, C)
+        dvg = torch.einsum("bhxylt,bxylhm->bthm", p_glo, g6).reshape(B, nglo, C)
+        dkg, dvg = dkg.to(k_glo.dtype), dvg.to(v_glo.dtype)
+    dbias = None if bias is None else dbias_part.sum(dim=0)
+    return dq, dk, dv, dkg, dvg, dbias
 
 
 def vil_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -161,26 +259,13 @@ def vil_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hand-written kernel (or raises); on the CPU it runs the plain version.
     With ``with_lse`` it returns (out, lse). It records no gradient: the
     differentiable form is :func:`vil_attention`."""
-    _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
+    check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
     if q.device.type == "cpu":
         with torch.no_grad():
             return vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add,
                                            num_heads, with_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"device {q.device} is not supported")
-    B, mx, my, w2, C = q.shape
-    nglo = 0 if k_glo is None else k_glo.shape[1]
-    out = torch.empty_like(q)
-    lse = (torch.empty(B, num_heads, mx, my, w2, device=q.device, dtype=torch.float32)
-           if with_lse else None)
-    with torch.cuda.device(q.device):
-        err = build.load().vil_attention_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(bias),
-            _ptr(mask_add), _ptr(out), _ptr(lse), B, mx, my, w2, C, num_heads, nglo,
-            mask_add.shape[2], int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "vil_attention_fwd")
+    out, lse = launch_fwd("vil_attention_fwd", q, k, v, k_glo, v_glo, bias, mask_add,
+                          num_heads, with_lse)
     vil_attention_fwd.launches += 1
     return (out, lse) if with_lse else out
 
@@ -192,52 +277,16 @@ def vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g, mask_add, lse, num_heads: 
     """Sliding-chunk attention backward from the forward's ``lse``: returns
     (dq, dk, dv, dk_glo, dv_glo, dbias), None where the operand is. On a CUDA
     device this launches the hand-written kernels (or raises); on the CPU it
-    runs the plain version, which recomputes the softmax and ignores ``lse``.
-    dK_glo and dV_glo come from the kernel's P_glo and dS_glo columns by one
-    einsum each; dbias is the sum over images of the kernel's partials."""
-    _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
-    B, mx, my, w2, C = q.shape
-    H = num_heads
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"g must match q: {g.dtype} {tuple(g.shape)} on {g.device}")
-    if (lse.shape != (B, H, mx, my, w2) or lse.dtype != torch.float32
-            or lse.device != q.device):
-        raise ValueError(f"lse must be float32 {(B, H, mx, my, w2)} on {q.device}, "
-                         f"got {lse.dtype} {tuple(lse.shape)}")
-    if not (g.is_contiguous() and lse.is_contiguous()):
-        raise ValueError("g and lse must be contiguous")
+    runs the plain version, which recomputes the softmax and ignores ``lse``."""
+    check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
+    check_grad_operands(q, g, lse, num_heads)
     if q.device.type == "cpu":
-        return vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, H)
-    if q.device.type != "cuda":
-        raise ValueError(f"device {q.device} is not supported")
-    nglo = 0 if k_glo is None else k_glo.shape[1]
-    cols = nglo + 9 * w2
-    f32 = dict(device=q.device, dtype=torch.float32)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(B, H, mx, my, w2, **f32)
-    p_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
-    ds_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
-    dbias_part = torch.zeros(B, H, w2, cols, **f32) if bias is not None else None
-    with torch.cuda.device(q.device):
-        err = build.load().vil_attention_bwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(g), _ptr(bias),
-            _ptr(mask_add), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
-            _ptr(p_glo), _ptr(ds_glo), _ptr(dbias_part), B, mx, my, w2, C, H, nglo,
-            mask_add.shape[2], int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "vil_attention_bwd")
+        return vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add,
+                                           num_heads)
+    grads = launch_bwd("vil_attention_bwd", 9, q, k, v, k_glo, v_glo, bias, g, mask_add,
+                       lse, num_heads)
     vil_attention_bwd.launches += 1
-    dkg = dvg = None
-    if nglo:
-        M = C // H
-        q6 = q.reshape(B, mx, my, w2, H, M).float()
-        g6 = g.reshape(B, mx, my, w2, H, M).float()
-        dkg = torch.einsum("bhxylt,bxylhm->bthm", ds_glo, q6).reshape(B, nglo, C)
-        dvg = torch.einsum("bhxylt,bxylhm->bthm", p_glo, g6).reshape(B, nglo, C)
-        dkg, dvg = dkg.to(k_glo.dtype), dvg.to(v_glo.dtype)
-    dbias = None if bias is None else dbias_part.sum(dim=0)
-    return dq, dk, dv, dkg, dvg, dbias
+    return grads
 
 
 vil_attention_bwd.launches = 0

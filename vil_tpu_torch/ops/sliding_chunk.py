@@ -1,19 +1,25 @@
 """2-D sliding-chunk attention primitives in plain PyTorch.
 
-Counterpart of ``vil_tpu/ops/sliding_chunk.py`` for the neighbour modes the
-inference slice runs:
+Counterpart of ``vil_tpu/ops/sliding_chunk.py``. Neighbour modes:
 
-  0  : all 8 neighbour chunks + self -> kv span 9W²
-  -1 : self chunk only               -> kv span W²
+  0    : all 8 neighbour chunks + self -> kv span 9W²
+  -1   : self chunk only               -> kv span W²
+  1..8 : self + one sampled neighbour  -> kv span 2W² (random-shift training)
+
+The mode is a host ``int``: PyTorch runs eagerly, so each call rolls by its
+own static shift (the JAX package's ``lax.switch`` over traced modes has no
+counterpart here).
 
 Layout is (B, mx, my, W², M): an mx × my grid of W×W chunks, head dim last.
-The 9 neighbour chunks are rolled onto the self position with ``torch.roll``
-and concatenated into one (…, 9W², M) operand, so QKᵀ and P·V are each one
-batched matmul. These functions are the plain tier the hand-written kernel in
-``ops/kernels/vil_attention.py`` is checked against.
+The neighbour chunks are rolled onto the self position with ``torch.roll``
+and concatenated into one (…, K·W², M) operand, so QKᵀ and P·V are each one
+batched matmul. These functions are the plain tier the hand-written kernels
+in ``ops/kernels/vil_attention.py`` and ``ops/kernels/vil_mode_attention.py``
+are checked against.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .masks import NEIGHBOR_OFFSETS
@@ -22,19 +28,44 @@ from .masks import NEIGHBOR_OFFSETS
 # torch.roll by (-dx, -dy) over the (mx, my) axes.
 _ROLL_SHIFTS = [(-dx, -dy) for dx, dy in NEIGHBOR_OFFSETS]
 
+# mode (1..8) -> roll shift of the sampled neighbour, the reference's
+# mode_dict (slidingchunk_2d.py:15-24); entry 0 is unused. The sampled chunk
+# of query chunk (i, j) is ((i - sx) mod mx, (j - sy) mod my).
+MODE_ROLL_SHIFTS = np.array(
+    [(0, 0), (1, 1), (1, 0), (1, -1), (0, 1), (0, -1), (-1, 1), (-1, 0), (-1, -1)],
+    dtype=np.int32,
+)
+
+
+def check_mode(mode: int) -> int:
+    """``mode`` as an int in {-1, 0, 1..8}; anything else raises ValueError."""
+    if isinstance(mode, bool) or not isinstance(mode, (int, np.integer)) or not -1 <= mode <= 8:
+        raise ValueError(f"sliding-chunk mode must be an int in -1..8, got {mode!r}")
+    return int(mode)
+
+
+def sampled_roll(t: torch.Tensor, mode: int) -> torch.Tensor:
+    """Roll that aligns the sampled neighbour chunk of ``mode`` (1..8) onto
+    the self chunk, over the chunk-grid axes (1, 2) of (B, mx, my, W², M)."""
+    if check_mode(mode) < 1:
+        raise ValueError(f"sampled_roll takes a mode in 1..8, got {mode}")
+    sx, sy = (int(s) for s in MODE_ROLL_SHIFTS[mode])
+    return torch.roll(t, shifts=(sx, sy), dims=(1, 2))
+
 
 def neighborhood(t: torch.Tensor, mode: int) -> torch.Tensor:
     """Gather the kv neighbourhood along the chunk axis.
 
-    t: (B, mx, my, W², M) → (B, mx, my, K·W², M) with K = 9 (mode 0) or
-    1 (mode -1).
+    t: (B, mx, my, W², M) → (B, mx, my, K·W², M) with K = 9 (mode 0),
+    1 (mode -1) or 2 (modes 1..8: [self ‖ sampled]).
     """
+    mode = check_mode(mode)
     if mode == 0:
         rolled = [torch.roll(t, shifts=s, dims=(1, 2)) for s in _ROLL_SHIFTS]
         return torch.cat(rolled, dim=3)
     if mode == -1:
         return t
-    raise NotImplementedError(f"sliding-chunk mode {mode} is not ported")
+    return torch.cat([t, sampled_roll(t, mode)], dim=3)
 
 
 def sliding_chunk_qk(q: torch.Tensor, k: torch.Tensor, mode: int = 0) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Where the time of a ViL-Small 224² step goes on one CUDA card.
 
-    python -m vil_tpu_torch.tools.profile_step [--mode train|serve] [--out profile_train.json]
+    python -m vil_tpu_torch.tools.profile_step [--mode train|train_shift|serve]
+                                               [--out profile_train.json]
 
 Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
-compute; f32 parameters for training, bf16 for serving) under
+compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
+the random-shift step, one sampled neighbour mode per block) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
 kernel family and the top kernels, the wall time per step and the device's
 busy share (kernel time over wall time). The profiler's own host work
@@ -29,6 +31,8 @@ FAMILIES = [
     ("B2 sliding-chunk bwd", r"vil_attention_bwd_pass"),
     ("B3 dense fwd", r"full_attention_fwd_kernel"),
     ("B4 dense bwd", r"full_attention_bwd_pass"),
+    ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
+    ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_pass"),
     ("GEMM", r"gemm|cutlass|xmma|nvjet|cublas|matmul|sm90_"),
     ("convolution", r"conv|cudnn|implicit"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
@@ -55,7 +59,7 @@ def card_line() -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("train", "serve"), default="train")
+    ap.add_argument("--mode", choices=("train", "train_shift", "serve"), default="train")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -66,9 +70,9 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(2)
     images = torch.randn(recipe.BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (recipe.BATCH,), generator=gen, device=dev)
-    if args.mode == "train":
+    if args.mode in ("train", "train_shift"):
         model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
-        step_fn = recipe.train_step(model, dev)
+        step_fn = recipe.train_step(model, dev, random_shift=args.mode == "train_shift")
         step_gen = torch.Generator(device=dev).manual_seed(3)
         run = lambda: step_fn(images, labels, step_gen)
     else:

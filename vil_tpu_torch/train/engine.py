@@ -1,15 +1,16 @@
 """Train and eval steps: counterpart of ``vil_tpu/train/engine.py``.
 
 The train step runs on the card: mixup, the forward in training mode
-(stochastic depth), the loss in f32, the backward through the hand-written
+(stochastic depth and, for random-shift training, one sampled neighbour mode
+per attention block), the loss in f32, the backward through the hand-written
 attention kernels, the LR from the schedule and the optimizer update. It
-returns its metrics as 0-d tensors, so nothing waits for the device.
-
-Not ported yet: ``sample_vil_modes`` (random-shift training, MODE > 0).
+returns its metrics as 0-d tensors, so nothing waits for the device. The
+neighbour modes are drawn on the host from a CPU generator: they choose the
+kernels' arguments, so a draw on the card would make every step wait for it.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -39,29 +40,54 @@ def topk_correct(logits: torch.Tensor, targets: torch.Tensor, topk=(1, 5),
     return torch.stack([correct[:, :min(k, maxk)].any(dim=1).float() for k in topk], dim=1)
 
 
+def sample_vil_modes(generator: torch.Generator, depth: int = 0) -> Union[int, list[int]]:
+    """Random-shift neighbour mode(s) in [1, 9), drawn on the host from a CPU
+    ``generator``: one per attention block (a list of ``depth`` ints) when
+    ``depth`` > 0, else one int shared by all blocks. The reference samples a
+    fresh mode in every attention forward (longformer2d.py:116-121)."""
+    if generator.device.type != "cpu":
+        raise ValueError(f"the modes are drawn on the host: generator on {generator.device}")
+    draws = torch.randint(1, 9, (max(depth, 1),), generator=generator).tolist()
+    return draws if depth > 0 else draws[0]
+
+
 def make_train_step(model: nn.Module, criterion: Callable, optimizer: torch.optim.Optimizer,
                     schedule: Optional[Callable[[int], float]] = None,
-                    mixup_fn: Optional[Callable] = None, device=None) -> Callable:
-    """Returns ``step(images, targets, generator) -> metrics``.
+                    mixup_fn: Optional[Callable] = None, device=None,
+                    random_shift: bool = False, per_layer_modes: bool = True,
+                    mode_generator: Optional[torch.Generator] = None) -> Callable:
+    """Returns ``step(images, targets, generator, modes=None) -> metrics``.
 
     The model is moved to ``device``, the CUDA card unless the caller names
     another (``device="cpu"``). Each call takes NHWC float images and integer
     targets, draws mixup and stochastic depth from ``generator`` (on the
     model's device), sets every parameter group's LR to ``schedule(step)``
     (step counts from 0) and updates the parameters. Metrics: ``loss``, and
-    ``top1`` / ``top5`` in percent when the targets are hard labels."""
+    ``top1`` / ``top5`` in percent when the targets are hard labels.
+
+    ``random_shift`` trains at the sampled-neighbour modes (MODE > 0): each
+    step draws, with :func:`sample_vil_modes` from the CPU ``mode_generator``,
+    one mode per attention block (``per_layer_modes``, the default, as
+    TPU.MODE_PER_LAYER) or one for all; ``modes`` given to the step replaces
+    the draw. The modes used are returned as the metric ``modes``."""
     device = resolve_device(device)
     model.to(device)
+    if random_shift and mode_generator is None:
+        raise ValueError("random_shift draws its modes from a CPU mode_generator; give one")
+    mode_depth = getattr(model, "depth", 0) if per_layer_modes else 0
     count = 0
 
-    def step(images: torch.Tensor, targets: torch.Tensor, generator: torch.Generator) -> dict:
+    def step(images: torch.Tensor, targets: torch.Tensor, generator: torch.Generator,
+             modes: Optional[Union[int, list[int]]] = None) -> dict:
         nonlocal count
         images = images.to(device, non_blocking=True)
         targets = targets.to(device, non_blocking=True)
         if mixup_fn is not None:
             images, targets = mixup_fn(generator, images, targets)
+        if modes is None:
+            modes = sample_vil_modes(mode_generator, mode_depth) if random_shift else 0
         model.train()
-        logits = model(images, generator=generator).float()
+        logits = model(images, generator=generator, mode=modes).float()
         loss = criterion(logits, targets)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -72,6 +98,8 @@ def make_train_step(model: nn.Module, criterion: Callable, optimizer: torch.opti
         optimizer.step()
         count += 1
         metrics = {"loss": loss.detach()}
+        if random_shift:
+            metrics["modes"] = modes
         if targets.dim() == 1:  # hard labels: accuracy is meaningful
             correct = topk_correct(logits.detach(), targets)
             metrics["top1"] = correct[:, 0].mean() * 100

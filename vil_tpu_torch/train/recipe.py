@@ -13,6 +13,10 @@ keys differ from the yaml:
   loader (ImageNet-1k's training set, last partial batch dropped), are set
   from that batch here.
 
+``vil_small_cfg(mode=1)`` is the random-shift recipe: MODEL.VIT.MSVIT.MODE 1,
+the reference's switch for random shifting, with one sampled neighbour mode
+per attention block (TPU.MODE_PER_LAYER).
+
 The model and the training step are built from that tree through those
 builders, the ones the tests hold to the JAX package's. ``chip_smoke.py`` and
 ``vil_tpu_torch.tools.profile_step`` drive them.
@@ -32,7 +36,7 @@ IMAGENET_TRAIN_IMAGES = 1281167
 BATCH = 64
 
 
-def vil_small_cfg() -> NS:
+def vil_small_cfg(mode: int = 0) -> NS:
     steps_per_epoch = IMAGENET_TRAIN_IMAGES // BATCH
     return NS(
         DATA=NS(NUM_CLASSES=1000),
@@ -41,8 +45,8 @@ def vil_small_cfg() -> NS:
         MODEL=NS(ARCH="msvit", VIT=NS(
             DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
             MSVIT=NS(ARCH=ARCH_ZOO["vil_small"], SHARE_W=True, ATTN_TYPE="longformerhand",
-                     ONLY_GLOBAL=False, SW_EXACT=0, LN_EPS=1e-6, MODE=0))),
-        TPU=NS(COMPUTE_DTYPE="bfloat16"),
+                     ONLY_GLOBAL=False, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
+        TPU=NS(COMPUTE_DTYPE="bfloat16", MODE_PER_LAYER=True),
         LOSS=NS(LOSS="xentropy", LABEL_SMOOTHING=0.1),
         AUG=NS(MIXUP_PROB=1.0, MIXUP=0.8, MIXCUT=1.0, MIXUP_SWITCH_PROB=0.5),
         OPTIM=NS(OPT="adamw", LR=5e-4, WD=0.05, WD0=0.0, MOM=0.9, EPOCHS=300,
@@ -62,10 +66,15 @@ def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
                        use_kernels=use_kernels, generator=torch.Generator().manual_seed(0))
 
 
-def train_step(model: MsViT, device=None) -> Callable:
+def train_step(model: MsViT, device=None, random_shift: bool = False) -> Callable:
     """``engine.make_train_step`` over ``model`` with the recipe's criterion,
-    optimizer, schedule and mixup."""
-    cfg = vil_small_cfg()
+    optimizer, schedule and mixup. ``random_shift`` takes the MODE 1 recipe:
+    per-layer neighbour modes drawn each step from a CPU generator seeded
+    with 0."""
+    cfg = vil_small_cfg(1 if random_shift else 0)
+    mode_generator = torch.Generator().manual_seed(0) if random_shift else None
     return engine.make_train_step(model, loss.get_criterion(cfg), optim.get_opt(cfg, model),
                                   schedulers.get_lr_schedule(cfg), mixup_from_cfg(cfg),
-                                  device=device)
+                                  device=device, random_shift=random_shift,
+                                  per_layer_modes=cfg.TPU.MODE_PER_LAYER,
+                                  mode_generator=mode_generator)
