@@ -37,12 +37,28 @@ Phases, one line each; any failure raises and the exit code is not 0:
    generator, printed): launches must rise by 3, 3, 9 and 9 per step for the
    sampled-neighbour pair (B5, B6) and the dense pair, and by 0 for B1 and
    B2; then the f32 kernels-vs-plain step with the first step's modes.
+7. serve_fused — phase 4 in the fused-kernel configuration (TPU.FUSED_LN and
+   the fused attention block, ``recipe.vil_small(..., fused=True)``): per
+   forward 3 fused-block (B9a), 30 LayerNorm (B8a) and 9 dense launches and
+   no sliding-chunk one; f32 logits kernels vs plain, then the fused
+   configuration's f32 logits against the classic one's, same weights.
+8. train_fused — phase 5 in the fused configuration: per step B9a 3, B9b 3,
+   B8a 30, B8b 30, B3 9, B4 9, and 0 for B1, B2, B5, B6; then the f32
+   kernels-vs-plain step.
 
-Each of phases 4-6 sets the launch counts to 0 before it and reads them
+Phase 3 also holds the LayerNorm kernels (B8a, B8b) at the six row shapes of
+ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, and
+the fused-block kernels (B9a, B9b) at stage 1 and 2 and on a biased, padded,
+cyclic 2×2 grid; no single PyTorch call computes the fused block.
+
+Each of phases 4-8 sets the launch counts to 0 before it and reads them
 after it. The last line is ``{"ok": true, "device": {...}}``; the line
-before it holds every kernel's record (``launches`` is the sum over the three
-paths, ``launches_serve``, ``launches_train`` and ``launches_shift`` each
-path's), and the line before that the card as ``nvidia-smi
+before it holds every kernel's record (``launches`` is the sum over the five
+paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
+``launches_serve_fused`` and ``launches_train_fused`` each path's; ``ms``,
+``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
+path that runs the kernel: MODE 0, random shift for B5/B6, fused for
+B8/B9), and the line before that the card as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives it.
 """
 from __future__ import annotations
@@ -119,8 +135,10 @@ def check_kernels(torch, records):
     from vil_tpu_torch.ops import sliding_chunk as sc
     from vil_tpu_torch.ops.kernels import (
         full_attention_bwd, full_attention_bwd_reference, full_attention_fwd,
-        full_attention_reference, mask_to_additive, vil_attention_bwd,
+        full_attention_reference, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
+        layer_norm_reference, mask_to_additive, vil_attention_bwd,
         vil_attention_bwd_reference, vil_attention_fwd, vil_attention_reference,
+        vil_block_bwd, vil_block_bwd_reference, vil_block_fwd, vil_block_reference,
         vil_mode_attention_bwd, vil_mode_attention_bwd_reference, vil_mode_attention_fwd,
         vil_mode_attention_reference,
     )
@@ -310,6 +328,127 @@ def check_kernels(torch, records):
                 serve_ms = time_ms(lambda: full_attention_fwd(*a, bias, H))
                 phase("kernels", f"  full_attention_fwd without lse (serving): {serve_ms:.4f} ms")
 
+    def ln_case(rows, C, per_step):
+        """A LayerNorm case: B8a and B8b at (rows, C), ``per_step`` of the
+        fused training step's launches."""
+        x0, dy0 = randn(rows, C, scale=2.0) + 0.5, randn(rows, C)
+        gamma, beta = randn(C, scale=0.2) + 1.0, randn(C, scale=0.1)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x, dy = x0.to(dtype), dy0.to(dtype)
+            y = layer_norm_fwd(x, gamma, beta)
+            grads = layer_norm_bwd(x, gamma, dy)
+            ref = layer_norm_reference(x.float(), gamma, beta)
+            refs = layer_norm_bwd_reference(x.float(), gamma, dy.float())
+            torch.cuda.synchronize()
+            e_out = max_err(y, ref)
+            e_grad = max(rel_err(a, r) for a, r in zip(grads, refs))
+            dt = str(dtype)[6:]
+            phase("kernels", f"layer_norm ({rows},{C}) {dt}: y {e_out:.3e} (tol {tol:g}); "
+                             f"dx, dgamma, dbeta rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g})")
+            check(f"layer_norm fwd ({rows},{C}) {dt}", e_out, tol)
+            check(f"layer_norm bwd ({rows},{C}) {dt}", e_grad, GRAD_TOL[dt])
+            if dtype != torch.bfloat16:
+                continue
+            records["layer_norm_fwd"]["max_abs_err"] = max(
+                records["layer_norm_fwd"]["max_abs_err"], e_out)
+            records["layer_norm_bwd"]["max_abs_err"] = max(
+                records["layer_norm_bwd"]["max_abs_err"],
+                max(max_err(a, r) for a, r in zip(grads, refs)))
+            # the library: F.layer_norm on the same bf16 values, γ and β in
+            # bf16 as nn.LayerNorm keeps them; its backward timed alone on a
+            # saved forward
+            leaves = [t.detach().requires_grad_() for t in (x, gamma.to(dtype), beta.to(dtype))]
+            lib = lambda: F.layer_norm(leaves[0], (C,), leaves[1], leaves[2], 1e-6)
+            with torch.no_grad():
+                lib_fwd = time_ms(lib)
+            y_lib = lib()
+            lib_bwd = time_ms(lambda: torch.autograd.grad(y_lib, leaves, dy, retain_graph=True))
+            elems = rows * C
+            msg = account("layer_norm_fwd", per_step,
+                          time_ms(lambda: layer_norm_fwd(x, gamma, beta)),
+                          time_ms(lambda: layer_norm_reference(x, gamma, beta)),
+                          nbytes(x, gamma, beta, y), 8.0 * elems, lib_fwd)
+            phase("kernels", f"  layer_norm_fwd ({rows},{C}), x{per_step} per step: {msg}, "
+                             f"F.layer_norm {lib_fwd:.4f} ms")
+            msg = account("layer_norm_bwd", per_step,
+                          time_ms(lambda: layer_norm_bwd(x, gamma, dy)),
+                          time_ms(lambda: layer_norm_bwd_reference(x, gamma, dy)),
+                          nbytes(x, gamma, dy, *grads), 16.0 * elems, lib_bwd)
+            phase("kernels", f"  layer_norm_bwd ({rows},{C}), x{per_step} per step: {msg}, "
+                             f"F.layer_norm backward {lib_bwd:.4f} ms")
+
+    def block_case(label, B, nx, ny, w, C, H, nglo, with_bias, per_step=0):
+        """A fused-block case: B9a and B9b, ``per_step`` of the fused
+        training step's launches."""
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        w2, M = w * w, C // H
+        cols = nglo + 9 * w2
+        mask = torch.from_numpy(mask_to_additive(
+            masks_lib.invalid_mask(mx, my, padx, pady, w, 0, 0), mx, my, w2, nglo)).to(dev)
+        x0, g0 = randn(B, mx, my, w2, C), randn(B, mx, my, w2, C)
+        # wq scale-folded as the model passes it
+        w0 = [randn(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
+        b0 = [randn(C, scale=0.02) for _ in range(4)]
+        glo0 = [randn(B, nglo, C) if nglo else None for _ in range(2)]
+        bias = randn(H, w2, cols, scale=0.5) if with_bias else None
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x, g = x0.to(dtype), g0.to(dtype)
+            ws = [t.to(dtype) for t in w0]
+            ops = [x, ws[0], b0[0], ws[1], b0[1], ws[2], b0[2], ws[3], b0[3],
+                   *cast(glo0, dtype), bias]
+            ops32 = [None if t is None else t.float() for t in ops]
+            y, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
+            grads = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+            refs = vil_block_bwd_reference(*ops32, g.float(), mask, H)
+            ry, rk, rv = vil_block_reference(*ops32, mask, H)
+            # the LSE of the plain attention over the kernel's own q and k
+            r_lse = vil_attention_reference(*(t.float() for t in (q, k, v)), *ops32[9:11],
+                                            bias, mask, H, with_lse=True)[1]
+            torch.cuda.synchronize()
+            e_out = max(max_err(a, r) for a, r in ((y, ry), (k, rk), (v, rv)))
+            e_lse = max_err(lse, r_lse)
+            # dbk (index 4) is held at dWk's scale: its exact value is 0 (a
+            # shift common to a query's scores leaves its softmax alone), so
+            # what comes out is the rounding of a sum over the rows of terms
+            # of dWk's size
+            e_grad = max(max_err(a, r) / max(1.0, refs[3 if i == 4 else i].abs().max().item())
+                         for i, (a, r) in enumerate(zip(grads, refs)) if r is not None)
+            e_abs = max(max_err(a, r) for a, r in zip(grads, refs) if r is not None)
+            dt = str(dtype)[6:]
+            phase("kernels", f"vil_block {label} {dt}: y, k, v {e_out:.3e} (tol {tol:g}), lse "
+                             f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
+                             f"(tol {GRAD_TOL[dt]:g})")
+            check(f"vil_block fwd {label} {dt}", e_out, tol)
+            check(f"vil_block lse {label} {dt}", e_lse, LSE_TOL)
+            check(f"vil_block bwd {label} {dt}", e_grad, GRAD_TOL[dt])
+            if not (per_step and dtype == torch.bfloat16):
+                continue
+            records["vil_block_fwd"]["max_abs_err"] = max(
+                records["vil_block_fwd"]["max_abs_err"], e_out)
+            records["vil_block_bwd"]["max_abs_err"] = max(
+                records["vil_block_bwd"]["max_abs_err"], e_abs)
+            R = B * mx * my * w2
+            attn_flops = 4.0 * R * C * cols
+            fwd_in = (x, *ws, *b0, *cast(glo0, dtype), bias, mask)
+            msg = account("vil_block_fwd", per_step,
+                          time_ms(lambda: vil_block_fwd(*ops, mask, H, with_lse=True,
+                                                        saved=True)),
+                          time_ms(lambda: vil_block_reference(*ops, mask, H)),
+                          nbytes(*fwd_in, y, k, v, lse), 8.0 * R * C * C + attn_flops)
+            phase("kernels", f"  vil_block_fwd with lse, q and attn, x{per_step} per step: "
+                             f"{msg}; no single PyTorch call computes the block (library: "
+                             f"null)")
+            msg = account("vil_block_bwd", per_step,
+                          time_ms(lambda: vil_block_bwd(*ops, g, mask, lse, H,
+                                                        (q, k, v, attn))),
+                          time_ms(lambda: vil_block_bwd_reference(*ops, g, mask, H)),
+                          nbytes(*fwd_in, q, k, v, attn, g, lse, *grads),
+                          16.0 * R * C * C + 2.5 * attn_flops + 4.0 * R * C * nglo)
+            phase("kernels", f"  vil_block_bwd from the saved q, k, v, attn, x{per_step} per "
+                             f"step: {msg}; library: null")
+            serve_ms = time_ms(lambda: vil_block_fwd(*ops, mask, H))
+            phase("kernels", f"  vil_block_fwd without lse (serving): {serve_ms:.4f} ms")
+
     # ViL-Small 224²: stage 1 (1 block) and stage 2 (2 blocks) sliding-chunk
     chunk_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, per_step=1)
     chunk_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, per_step=2)
@@ -334,21 +473,33 @@ def check_kernels(torch, records):
     full_case("N 1025", 2, 1025, 192, 3, False)
     # ViL-Small 1024² stage 3: the q-tiled tiers' length (B3t, B4b)
     full_case("N 4097", 1, 4097, 384, 6, False, timed=True)
+    # the fused configuration's block pre-norms, per training step: the image
+    # rows and global rows of the chunked stages' 3 blocks (attention and
+    # MLP norms), then the 9 dense blocks' tokens
+    for rows, C, per_step in ((200704, 96, 2), (64, 96, 2), (50176, 192, 4), (64, 192, 4),
+                              (12608, 384, 16), (3136, 768, 2)):
+        ln_case(rows, C, per_step)
+    # and its fused blocks: stage 1 (1 block), stage 2 (2 blocks)
+    block_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, False, per_step=1)
+    block_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, False, per_step=2)
+    block_case("biased, padded, cyclic 2x2 grid", 2, 13, 14, 7, 64, 2, 1, True)
 
 
 def launch_counts(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels}
 
 
-def run_serve(torch, kernels):
-    """Phase 4: the inference path of ViL-Small 224²."""
+def run_serve(torch, kernels, fused=False):
+    """Phase 4 (or, with ``fused``, phase 7): the inference path of ViL-Small
+    224²."""
     from vil_tpu_torch.train import recipe
 
+    name = "serve_fused" if fused else "serve"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     images = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
                             dtype=torch.uint8) for _ in range(REQUESTS)]
-    model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev).eval()
+    model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev, fused=fused).eval()
     for fn in kernels:
         fn.launches = 0
     secs = []
@@ -362,50 +513,63 @@ def run_serve(torch, kernels):
             if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
                 raise AssertionError(f"bad logits {tuple(logits.shape)}")
     launches = launch_counts(kernels)
-    want = {"vil_attention_fwd": 3 * REQUESTS, "full_attention_fwd": 9 * REQUESTS,
-            "vil_attention_bwd": 0, "full_attention_bwd": 0, "vil_mode_attention_fwd": 0,
-            "vil_mode_attention_bwd": 0}
-    phase("serve", f"ViL-Small 224^2 bf16 batch {BATCH}: {REQUESTS} requests, "
-                   f"launches {launches} (want {want})")
+    per_forward = ({"vil_block_fwd": 3, "layer_norm_fwd": 30} if fused else
+                   {"vil_attention_fwd": 3})
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({k: n * REQUESTS for k, n in per_forward.items()},
+                full_attention_fwd=9 * REQUESTS)
+    phase(name, f"ViL-Small 224^2 bf16 batch {BATCH}: {REQUESTS} requests, "
+                f"launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     img_s = BATCH / statistics.median(secs[1:])
-    phase("serve", f"bf16 forward: median {statistics.median(secs[1:]) * 1e3:.3f} ms "
-                   f"per batch, {img_s:.1f} img/s (requests 2..{REQUESTS}); first "
-                   f"request {secs[0] * 1e3:.1f} ms")
+    phase(name, f"bf16 forward: median {statistics.median(secs[1:]) * 1e3:.3f} ms "
+                f"per batch, {img_s:.1f} img/s (requests 2..{REQUESTS}); first "
+                f"request {secs[0] * 1e3:.1f} ms")
     del model
 
+    # f32 logits: kernels vs plain versions; in the fused configuration also
+    # against the classic configuration's kernels, from the same weights
     x = images[0]
     outs = {}
     with torch.inference_mode():
-        for use_kernels in (True, False):
-            m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev).eval()
-            outs[use_kernels] = m(x)
+        for key, use_kernels, f in (("kernels", True, fused), ("plain", False, fused),
+                                    ("classic", True, False)):
+            if key == "classic" and not fused:
+                continue
+            m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev, fused=f).eval()
+            outs[key] = m(x)
             del m
-    err = (outs[True] - outs[False]).abs().max().item()
-    phase("serve", f"f32 logits, kernels vs plain versions: max|err| {err:.3e} "
-                   f"(tol {LOGITS_TOL:g}); |logits| max {outs[False].abs().max().item():.3f}")
-    if not (torch.isfinite(outs[True]).all() and err <= LOGITS_TOL):
-        raise AssertionError(f"f32 logits disagree: {err}")
+    for other in [k for k in ("plain", "classic") if k in outs]:
+        err = (outs["kernels"] - outs[other]).abs().max().item()
+        what = ("kernels vs plain versions" if other == "plain" else
+                "fused vs classic configuration (both with the kernels)")
+        phase(name, f"f32 logits, {what}: max|err| {err:.3e} (tol {LOGITS_TOL:g}); "
+                    f"|logits| max {outs[other].abs().max().item():.3f}")
+        if not (torch.isfinite(outs["kernels"]).all() and err <= LOGITS_TOL):
+            raise AssertionError(f"f32 logits disagree ({what}): {err}")
     return launches
 
 
-def run_train(torch, kernels, random_shift=False):
-    """Phase 5 (or, with ``random_shift``, phase 6): the training step of
-    ViL-Small 224² at batch 64."""
+def run_train(torch, kernels, random_shift=False, fused=False):
+    """Phase 5 (with ``random_shift`` phase 6, with ``fused`` phase 8): the
+    training step of ViL-Small 224² at batch 64."""
     from vil_tpu_torch.train import recipe
 
-    name = "train_shift" if random_shift else "train"
+    name = "train_shift" if random_shift else "train_fused" if fused else "train"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
-    model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+    model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=fused)
     step = recipe.train_step(model, dev, random_shift)
-    chunk, other = ("vil_mode_attention", "vil_attention") if random_shift else (
-        "vil_attention", "vil_mode_attention")
-    per_step = {f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
-                "full_attention_bwd": 9, f"{other}_fwd": 0, f"{other}_bwd": 0}
+    per_step = {fn.__name__: 0 for fn in kernels}
+    per_step.update(full_attention_fwd=9, full_attention_bwd=9)
+    if fused:
+        per_step.update(vil_block_fwd=3, vil_block_bwd=3, layer_norm_fwd=30, layer_norm_bwd=30)
+    else:
+        chunk = "vil_mode_attention" if random_shift else "vil_attention"
+        per_step.update({f"{chunk}_fwd": 3, f"{chunk}_bwd": 3})
     step_gen = torch.Generator(device=dev).manual_seed(3)
     for fn in kernels:
         fn.launches = 0
@@ -442,7 +606,7 @@ def run_train(torch, kernels, random_shift=False):
     # and (random shift) the first step's modes
     results = {}
     for use_kernels in (True, False):
-        m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev)
+        m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev, fused=fused)
         s = recipe.train_step(m, dev, random_shift)
         loss = s(images, labels, torch.Generator(device=dev).manual_seed(3),
                  modes=modes[0])["loss"].item()
@@ -489,9 +653,12 @@ def main() -> int:
                    f"{time.perf_counter() - t0:.1f} s")
     log = lib_path.with_suffix(".log")
     if log.exists():
+        kernel = ""
         for line in log.read_text().splitlines():
+            if "Function properties for" in line:
+                kernel = line.split("Function properties for", 1)[1].strip()
             if "spill" in line and not line.strip().startswith("0 bytes stack"):
-                phase("build", line.strip())
+                phase("build", f"{kernel}: {line.strip()}")
 
     sources = {
         "vil_attention_fwd": ("vil_tpu_torch/csrc/vil_attention_fwd.cu",
@@ -506,6 +673,14 @@ def main() -> int:
                                    "vil_tpu/ops/pallas/vil_mode_kernel.py:559"),
         "vil_mode_attention_bwd": ("vil_tpu_torch/csrc/vil_mode_attention_bwd.cu",
                                    "vil_tpu/ops/pallas/vil_mode_kernel.py:678"),
+        "layer_norm_fwd": ("vil_tpu_torch/csrc/layer_norm.cu",
+                           "vil_tpu/ops/pallas/layer_norm.py:108"),
+        "layer_norm_bwd": ("vil_tpu_torch/csrc/layer_norm.cu",
+                           "vil_tpu/ops/pallas/layer_norm.py:135"),
+        "vil_block_fwd": ("vil_tpu_torch/csrc/vil_block_fwd.cu",
+                          "vil_tpu/ops/pallas/vil_block.py:512"),
+        "vil_block_bwd": ("vil_tpu_torch/csrc/vil_block_bwd.cu",
+                          "vil_tpu/ops/pallas/vil_block.py:603"),
     }
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -513,20 +688,23 @@ def main() -> int:
                       "_bytes_ms": 0.0, "_ops_ms": 0.0}
                for name, (src, rep) in sources.items()}
     check_kernels(torch, records)
-    served = run_serve(torch, KERNELS)
-    trained = run_train(torch, KERNELS)
-    shifted = run_train(torch, KERNELS, random_shift=True)
+    # the five main paths, each with its launch counts
+    paths = {
+        "serve": run_serve(torch, KERNELS),
+        "train": run_train(torch, KERNELS),
+        "shift": run_train(torch, KERNELS, random_shift=True),
+        "serve_fused": run_serve(torch, KERNELS, fused=True),
+        "train_fused": run_train(torch, KERNELS, fused=True),
+    }
     for name, rec in records.items():
-        # the three main paths: serving, the MODE-0 and the random-shift step
-        rec["launches"] = served[name] + trained[name] + shifted[name]
-        rec["launches_serve"] = served[name]
-        rec["launches_train"] = trained[name]
-        rec["launches_shift"] = shifted[name]
+        rec["launches"] = sum(counts[name] for counts in paths.values())
+        for path, counts in paths.items():
+            rec[f"launches_{path}"] = counts[name]
         rec["bound_by"] = "bytes" if rec.pop("_bytes_ms") >= rec.pop("_ops_ms") else "operations"
+        per_path = ", ".join(f"{path} {counts[name]}" for path, counts in paths.items())
         phase("record", f"{name}: {rec['ms']:.3f} ms per train step (plain {rec['plain_ms']:.3f},"
                         f" bound {rec['bound_ms']:.4f} by {rec['bound_by']}, library "
-                        f"{rec['library_ms']}), launches {rec['launches']} (serve "
-                        f"{served[name]}, train {trained[name]}, train_shift {shifted[name]})")
+                        f"{rec['library_ms']}), launches {rec['launches']} ({per_path})")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -25,11 +25,19 @@ from vil_tpu_torch.ops.kernels import (
     full_attention_bwd_reference,
     full_attention_fwd,
     full_attention_reference,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_reference,
     mask_to_additive,
     vil_attention_bwd,
     vil_attention_bwd_reference,
     vil_attention_fwd,
     vil_attention_reference,
+    vil_block_bwd,
+    vil_block_bwd_reference,
+    vil_block_fwd,
+    vil_block_reference,
     vil_mode_attention_bwd,
     vil_mode_attention_bwd_reference,
     vil_mode_attention_fwd,
@@ -88,7 +96,7 @@ def test_kernels_match_plain_versions(cuda, dtype, tol):
         out = full_attention_fwd(q, k, v, bias, 3)
         ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3)
         assert out.dtype == dtype and _max_err(out, ref) <= tol
-    assert [fn.launches for fn in KERNELS] == [4, 3, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [4, 3, 0, 0, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -133,7 +141,7 @@ def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
             assert (out is None) == (ref is None), name
             if ref is not None:
                 assert _rel_err(out, ref) <= tol, (name, N, _rel_err(out, ref))
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
@@ -167,7 +175,7 @@ def test_sampled_neighbour_kernels_match_plain_versions(cuda, dtype, tol, grad_t
             assert (o is None) == (r is None), name
             if r is not None:
                 assert _rel_err(o, r) <= grad_tol, (name, mx, my, mode, _rel_err(o, r))
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0, len(cases), len(cases)]
+    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0, len(cases), len(cases), 0, 0, 0, 0]
 
 
 def test_model_runs_through_the_kernels(cuda):
@@ -183,14 +191,14 @@ def test_model_runs_through_the_kernels(cuda):
                           norm_embed=True, device=cuda, use_kernels=use_kernels,
                           generator=torch.Generator().manual_seed(0)).eval()
             logits[use_kernels] = model(x)
-    assert [fn.launches for fn in KERNELS] == [3, 3, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 0, 0, 0, 0, 0, 0, 0, 0]
     assert torch.isfinite(logits[True]).all()
     assert _max_err(logits[True], logits[False]) <= 1e-3
     # with a gradient to take, the autograd Function runs both kernels
     q = torch.randn(1, 9, 64, device=cuda, requires_grad=True)
     full_attention(q, q, q, None, 1).sum().backward()
     assert torch.isfinite(q.grad).all()
-    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1, 0, 0, 0, 0, 0, 0]
 
 
 def test_train_step_runs_through_the_kernels(cuda):
@@ -216,9 +224,113 @@ def test_train_step_runs_through_the_kernels(cuda):
         metrics = step(x, y, torch.Generator(device=cuda).manual_seed(1))
         results[use_kernels] = (metrics["loss"].item(),
                                 {n: p.grad for n, p in model.named_parameters()})
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0, 0, 0, 0, 0]
     (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
     assert abs(loss_k - loss_p) <= 1e-4
     for name, ref in grads_p.items():
         if ref.numel():
             assert _max_err(grads_k[name], ref) <= 1e-3 * ref.abs().max().item(), name
+
+
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
+                                                (torch.bfloat16, 2e-2, 2e-2)])
+def test_layer_norm_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
+    """B8a and B8b at ViL-Small's widths and ragged ones (C = 48 .. 1000,
+    1 .. 3000 rows): y, dx, dγ and dβ against the plain versions in f32 on
+    the same values; dγ and dβ relative to max(1, max|ref|)."""
+    rng = np.random.default_rng(8)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    cases = [(1, 96), (7, 48), (64, 192), (3000, 384), (129, 768), (33, 1000)]
+    for rows, C in cases:
+        x, dy = (rnd(rows, C) * 2 + 0.5).to(dtype), rnd(rows, C).to(dtype)
+        gamma, beta = rnd(C) * 0.2 + 1, rnd(C) * 0.1
+        y = layer_norm_fwd(x, gamma, beta)
+        ref = layer_norm_reference(x.float(), gamma, beta)
+        assert y.dtype == dtype and _max_err(y, ref) <= tol, (rows, C, _max_err(y, ref))
+        grads = layer_norm_bwd(x, gamma, dy)
+        refs = layer_norm_bwd_reference(x.float(), gamma, dy.float())
+        for name, out, r in zip(("dx", "dgamma", "dbeta"), grads, refs):
+            assert _rel_err(out, r) <= grad_tol, (name, rows, C, _rel_err(out, r))
+    assert [fn.launches for fn in KERNELS] == [0] * 6 + [len(cases), len(cases), 0, 0]
+
+
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
+                                                (torch.bfloat16, 3e-2, 3e-2)])
+def test_fused_block_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
+    """B9a and B9b on a padded 2×3 grid with nglo 1, a cyclic 2×2 grid with
+    a bias and no global rows, and a 1×2 grid with nglo 2 and no qkv bias:
+    y, k, v, lse and every gradient against the plain versions in f32 on the
+    same values (the weights in x's type), gradients relative to
+    max(1, max|ref|)."""
+    rng = np.random.default_rng(9)
+    rnd = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * scale).astype(np.float32)).to(cuda)
+    cases = [(13, 20, 1, False, True, 96, 3), (13, 14, 0, True, True, 64, 2),
+             (7, 14, 2, False, False, 128, 4)]
+    for nx, ny, nglo, with_bias, qkv_bias, C, H in cases:
+        w, w2 = 7, 49
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        x = rnd(2, mx, my, w2, C).to(dtype)
+        # wq scale-folded (·M^-½), as the model passes it
+        ws = [rnd(C, C, scale=C ** -0.5 * ((C // H) ** -0.5 if i == 0 else 1.0)).to(dtype)
+              for i in range(4)]
+        bs = [rnd(C, scale=0.1) if qkv_bias or i == 3 else None for i in range(4)]
+        glo = [rnd(2, nglo, C).to(dtype) if nglo else None for _ in range(2)]
+        bias = rnd(H, w2, nglo + 9 * w2, scale=0.5) if with_bias else None
+        mask = torch.from_numpy(mask_to_additive(
+            masks.invalid_mask(mx, my, padx, pady, w, 0, 0), mx, my, w2, nglo)).to(cuda)
+        ops = [x, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3], *glo, bias]
+        ops32 = [None if t is None else t.float() for t in ops]
+        y, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
+        ry, rk, rv = vil_block_reference(*ops32, mask, H)
+        # the LSE of the plain attention over the kernel's own q and k
+        rlse = vil_attention_reference(q.float(), k.float(), v.float(), *ops32[9:11], bias,
+                                       mask, H, with_lse=True)[1]
+        for name, out, ref in (("y", y, ry), ("k", k, rk), ("v", v, rv), ("lse", lse, rlse)):
+            assert out.dtype == (torch.float32 if name == "lse" else dtype), name
+            assert _max_err(out, ref) <= tol, (name, mx, my, _max_err(out, ref))
+        g = rnd(*x.shape).to(dtype)
+        grads = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+        refs = vil_block_bwd_reference(*ops32, g.float(), mask, H)
+        for i, (out, ref) in enumerate(zip(grads, refs)):
+            assert (out is None) == (ref is None), i
+            if ref is None:
+                continue
+            # dbk's exact value is 0 (a shift common to a query's scores leaves
+            # its softmax alone): what comes out is the rounding of a sum over
+            # the rows of terms of dWk's size, so it is held at dWk's scale
+            scale = refs[3] if i == 4 else ref
+            err = (out.float() - ref).abs().max().item() / max(1.0, scale.abs().max().item())
+            assert err <= grad_tol, (i, mx, my, err)
+    assert [fn.launches for fn in KERNELS] == [0] * 8 + [len(cases), len(cases)]
+
+
+def test_fused_configuration_runs_through_the_kernels(cuda):
+    """A narrow 4-stage 224² model with the fused LayerNorm and the fused
+    block: per forward 3 fused-block launches, 2 × 2 × 3 + 2 × 3 LayerNorm
+    launches (chunked stages: global rows and image) and 3 dense ones, no
+    sliding-chunk launch; f32 logits and a training step's loss and
+    gradients equal to the classic plain path's from the same weights."""
+    arch = ("l1,h2,d64,n1,s1,g1,p4,f7_l2,h2,d64,n2,s1,g1,p2,f7_"
+            "l3,h2,d128,n2,s0,g1,p2,f7_l4,h2,d128,n1,s0,g0,p2,f7")
+    x = torch.randn(4, 224, 224, 3, device=cuda)
+    y = torch.randint(0, 10, (4,), device=cuda)
+    results = {}
+    for fused in (True, False):
+        model = MsViT(arch, img_size=224, num_classes=10, sharew=True, norm_embed=True,
+                      device=cuda, use_kernels=fused, fused_ln=fused, fused_block=fused,
+                      generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            logits = model.eval()(x)
+        if fused:
+            assert [fn.launches for fn in KERNELS] == [0, 3, 0, 0, 0, 0, 18, 0, 3, 0]
+        out = torch.nn.functional.cross_entropy(model.train()(x).float(), y)
+        out.backward()
+        results[fused] = (logits, out.item(), {n: p.grad for n, p in model.named_parameters()})
+    assert [fn.launches for fn in KERNELS] == [0, 6, 0, 3, 0, 0, 36, 18, 6, 3]
+    (l_k, loss_k, g_k), (l_p, loss_p, g_p) = results[True], results[False]
+    assert torch.isfinite(l_k).all() and _max_err(l_k, l_p.float()) <= 1e-3
+    assert abs(loss_k - loss_p) <= 1e-4
+    for name, ref in g_p.items():
+        if ref.numel():
+            assert _max_err(g_k[name], ref) <= 1e-3 * ref.abs().max().item(), name

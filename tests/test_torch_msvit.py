@@ -266,7 +266,8 @@ def test_load_jax_params_is_strict():
 
 def test_port_imports_no_jax():
     code = ("import sys; import vil_tpu_torch, vil_tpu_torch.models, "
-            "vil_tpu_torch.ops.kernels, vil_tpu_torch.utils.jax_import, "
+            "vil_tpu_torch.ops.kernels, vil_tpu_torch.ops.kernels.layer_norm, "
+            "vil_tpu_torch.ops.kernels.vil_block, vil_tpu_torch.utils.jax_import, "
             "vil_tpu_torch.train.engine, vil_tpu_torch.train.recipe, "
             "vil_tpu_torch.data.mixup, vil_tpu_torch.tools.profile_step; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

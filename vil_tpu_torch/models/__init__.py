@@ -1,6 +1,8 @@
 """Model registry: the MsViT family (counterpart of ``vil_tpu/models``)."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .arch import ARCH_ZOO, StageCfg, parse_arch
@@ -8,7 +10,8 @@ from .msvit import NO_WEIGHT_DECAY_SUBSTRINGS, MsViT
 
 
 def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
-                generator=None, param_dtype: torch.dtype = torch.float32) -> MsViT:
+                generator=None, param_dtype: torch.dtype = torch.float32,
+                fused_block=None) -> MsViT:
     """Construct the model from a config tree, read by attribute as
     ``vil_tpu.models.build_model`` reads it (MODEL.ARCH may name an
     ``ARCH_ZOO`` entry or ``msvit``; the tree is not modified).
@@ -16,7 +19,15 @@ def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
     ``dtype``, the type of the computation, defaults to TPU.COMPUTE_DTYPE;
     the parameters are kept in ``param_dtype`` (f32, as the JAX package keeps
     them). The model is built on the CUDA card unless ``device`` names
-    another (``device="cpu"``)."""
+    another (``device="cpu"``).
+
+    The fused-kernel configuration, as the JAX package selects it:
+    TPU.FUSED_LN (with the kernels) puts the LayerNorm kernels in the block
+    pre-norms, and ``fused_block`` the fused attention block at mode 0; it
+    defaults to the environment variable ``VIL_TPU_FUSED_BLOCK`` being "1",
+    read at each call, the switch of ``vil_tpu.models.attention``."""
+    if fused_block is None:
+        fused_block = os.environ.get("VIL_TPU_FUSED_BLOCK", "0") == "1"
     name = cfg.MODEL.ARCH
     if name in ARCH_ZOO:
         arch = ARCH_ZOO[name]
@@ -44,6 +55,8 @@ def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
         ln_eps=msvit.LN_EPS,
         mode=msvit.MODE,
         use_kernels=use_kernels,
+        fused_ln=bool(cfg.TPU.FUSED_LN) and use_kernels,
+        fused_block=bool(fused_block),
         device=device,
         dtype=dtype,
         param_dtype=param_dtype,

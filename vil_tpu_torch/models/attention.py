@@ -8,7 +8,10 @@ Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
   without RPE, on the stage-resident chunked layout. At neighbour mode 0 the
   local branch runs the sliding-chunk kernels (``ops/kernels/vil_attention.py``);
   at modes 1..8 (random-shift training: self + one sampled neighbour chunk)
-  the sampled-neighbour kernels (``ops/kernels/vil_mode_attention.py``). The
+  the sampled-neighbour kernels (``ops/kernels/vil_mode_attention.py``).
+  With ``fused_block`` (the JAX package's ``VIL_TPU_FUSED_BLOCK=1``), mode 0
+  runs the query/key/value projections, the attention and the output
+  projection as one fused block (``ops/kernels/vil_block.py``) instead. The
   global tokens' dense attention over all tokens is plain PyTorch and does
   not depend on the mode; it takes its gradient from autograd, as the JAX
   package's takes it from XLA.
@@ -31,6 +34,7 @@ from ..ops.kernels.vil_attention import (
     vil_attention,
     vil_attention_reference,
 )
+from ..ops.kernels.vil_block import vil_block
 from ..ops.kernels.vil_mode_attention import vil_mode_attention, vil_mode_attention_reference
 from .layers import Linear, check_eval_only
 
@@ -78,8 +82,8 @@ class VilAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, nglo: int = 1,
-                 exact: int = 0, use_kernels: bool = True, device=None,
-                 dtype: torch.dtype = torch.float32,
+                 exact: int = 0, use_kernels: bool = True, fused_block: bool = False,
+                 device=None, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
@@ -87,6 +91,7 @@ class VilAttention(nn.Module):
         self.exact = exact
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.use_kernels = use_kernels
+        self.fused_block = fused_block
         self.query = Linear(dim, dim, **kw)
         self.kv = Linear(dim, 2 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
@@ -96,7 +101,9 @@ class VilAttention(nn.Module):
         """Additive f32 mask of ``mode``: (mx, my, Wq, Nglo+9W²) for mode 0,
         (mx, my, 1, Nglo+2W²) for modes 1..8. Built once per grid and device
         (the model may be cast to bf16; the tables stay f32); the eight
-        sampled-neighbour tables are built together, as one stack."""
+        sampled-neighbour tables are built together, as one stack. They are
+        built outside inference mode, so that tables first built while
+        serving can be saved for a backward later."""
         key = (nx, ny, min(mode, 1), str(device))
         if key not in self._masks:
             W = self.w
@@ -105,10 +112,11 @@ class VilAttention(nn.Module):
                 tables = [masks_lib.invalid_mask(mx, my, padx, pady, W, self.exact, 0)]
             else:  # (8, mx·my, 2W²): modes 1..8
                 tables = masks_lib.all_mode_masks(mx, my, padx, pady, W, self.exact)
-            self._masks[key] = [
-                torch.from_numpy(mask_to_additive(t, mx, my, W * W, self.nglo)).to(device)
-                for t in tables
-            ]
+            with torch.inference_mode(False):
+                self._masks[key] = [
+                    torch.from_numpy(mask_to_additive(t, mx, my, W * W, self.nglo)).to(device)
+                    for t in tables
+                ]
         return self._masks[key][max(mode - 1, 0)]
 
     def forward(self, x, nx: int, ny: int, mode: int = 0):
@@ -128,22 +136,35 @@ class VilAttention(nn.Module):
             raise ValueError(f"expected {Nglo} global tokens")
         scale = M ** -0.5
 
-        q_img = self.query(x_img) * scale  # (B, mx, my, W², C)
-        k_img = self.kv.part(x_img, 0, 2)
-        v_img = self.kv.part(x_img, 1, 2)
         kg = vg = None
         if Nglo >= 1:
             kg = self.kv.part(x_glo, 0, 2)  # (B, Nglo, C)
             vg = self.kv.part(x_glo, 1, 2)
-
         mask = self._mask(nx, ny, mode, x_img.device)
-        if mode == 0:
-            attend = vil_attention if self.use_kernels else vil_attention_reference
-            x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H)
+        if self.fused_block and self.use_kernels and mode == 0:
+            # the fused block: projections, attention and output projection
+            # from the raw weights, in (in, out) layout and the compute type
+            # (wq and bq scale-folded); it returns k and v for the global
+            # branch below
+            cd, f32 = self.query.compute_dtype, torch.float32
+            w_in = lambda w: w.t().to(cd).contiguous()
+            b = lambda t: t.to(f32)
+            wkv, bkv = self.kv.weight, self.kv.bias
+            x1, k_img, v_img = vil_block(
+                x_img.to(cd).contiguous(), w_in(self.query.weight * scale),
+                b(self.query.bias * scale), w_in(wkv[:C]), b(bkv[:C]), w_in(wkv[C:]),
+                b(bkv[C:]), w_in(self.proj.weight), b(self.proj.bias), kg, vg, None, mask, H)
         else:
-            attend = vil_mode_attention if self.use_kernels else vil_mode_attention_reference
-            x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H, mode)
-        x1 = self.proj(x1)
+            q_img = self.query(x_img) * scale  # (B, mx, my, W², C)
+            k_img = self.kv.part(x_img, 0, 2)
+            v_img = self.kv.part(x_img, 1, 2)
+            if mode == 0:
+                attend = vil_attention if self.use_kernels else vil_attention_reference
+                x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H)
+            else:
+                attend = vil_mode_attention if self.use_kernels else vil_mode_attention_reference
+                x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H, mode)
+            x1 = self.proj(x1)
         if Nglo == 0:
             return None, x1
 

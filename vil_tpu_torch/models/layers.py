@@ -1,5 +1,5 @@
-"""Common model layers: typed Linear/Conv/LayerNorm, Mlp, stochastic depth,
-patch embedding.
+"""Common model layers: typed Linear/Conv/LayerNorm, the kernels' LayerNorm,
+Mlp, stochastic depth, patch embedding.
 
 Counterpart of ``vil_tpu/models/layers.py``. Images are NHWC, as in the JAX
 package; parameter names follow its flax tree (``proj``, ``norm_embed``,
@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.kernels.layer_norm import layer_norm
 
 
 def check_eval_only(module: nn.Module, rate: float, what: str) -> None:
@@ -87,6 +89,27 @@ class LayerNorm(nn.LayerNorm):
         dt = self.compute_dtype
         return F.layer_norm(x.to(dt), self.normalized_shape, self.weight.to(dt),
                             self.bias.to(dt), self.eps)
+
+
+class FusedLayerNorm(LayerNorm):
+    """LayerNorm through the hand-written kernels (``ops/kernels/layer_norm``),
+    the counterpart of ``vil_tpu``'s ``FusedLayerNorm`` (TPU.FUSED_LN). Its
+    parameters are LayerNorm's (``weight``/``bias``, flax's ``scale``/``bias``),
+    but it rounds otherwise: γ and β take part in f32, where
+    :class:`LayerNorm` casts them to ``dtype`` first, and the result is
+    rounded to ``dtype`` once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x.to(self.compute_dtype).contiguous(), self.weight, self.bias,
+                          self.eps)
+
+
+def make_layer_norm(fused: bool, dim: int, eps: float = 1e-6, device=None,
+                    dtype: torch.dtype = torch.float32,
+                    param_dtype: torch.dtype = torch.float32) -> LayerNorm:
+    """:class:`FusedLayerNorm` when ``fused``, else :class:`LayerNorm`."""
+    cls = FusedLayerNorm if fused else LayerNorm
+    return cls(dim, eps=eps, device=device, dtype=dtype, param_dtype=param_dtype)
 
 
 class DropPath(nn.Module):

@@ -7,9 +7,12 @@ selected per stage by the ARCH string. Images are NHWC.
 Ported: ``longformerhand`` (and its aliases) with shared weights, at
 neighbour mode 0 with any SW_EXACT and at the sampled-neighbour modes 1..8
 of random-shift training (SW_EXACT 0 or -1), ``full`` attention, APE,
-stochastic depth. Not ported yet, and refused at construction: RPE (``a0``),
-``only_glo``, ``sharew=False`` and the other attention families. Dropout
-raises in training mode.
+stochastic depth, and the fused-kernel switches of the JAX package
+(``fused_ln``: the block pre-norms through the LayerNorm kernels;
+``fused_block``: each sliding-chunk attention at mode 0 as one fused
+attention-block kernel pair). Not ported yet, and refused at construction:
+RPE (``a0``), ``only_glo``, ``sharew=False`` and the other attention
+families. Dropout raises in training mode.
 
 Sub-modules carry the flax module names (``stage1_patch_embed``,
 ``stage3_block0_attn``, ``stage2_block1_mlp``, ``norm``, ``head``), so the
@@ -28,7 +31,7 @@ from ..ops import sliding_chunk as sc
 from ..utils.device import resolve_device
 from .arch import StageCfg, parse_arch
 from .attention import FullAttention, VilAttention
-from .layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed
+from .layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed, make_layer_norm
 
 LONGFORMER_TYPES = ("longformerhand", "longformerauto", "longformer_cuda")
 
@@ -47,25 +50,29 @@ NO_WEIGHT_DECAY_SUBSTRINGS = (
 
 class AttnBlock(nn.Module):
     """Pre-LN attention block with a DropPath residual. Takes a (B, N, C)
-    token tensor, or the chunked pair (x_glo | None, x_img)."""
+    token tensor, or the chunked pair (x_glo | None, x_img). ``fused_ln`` takes
+    the kernels' LayerNorm for the pre-norm, ``fused_block`` the fused
+    attention block for a sliding-chunk attention at mode 0."""
 
     def __init__(self, dim: int, num_heads: int, attn_type: str, nglo: int = 1,
                  w: int = 7, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  sw_exact: int = 0, ln_eps: float = 1e-6,
-                 use_kernels: bool = True, device=None,
+                 use_kernels: bool = True, fused_ln: bool = False,
+                 fused_block: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.norm = LayerNorm(dim, eps=ln_eps, **kw)
+        self.norm = make_layer_norm(fused_ln, dim, eps=ln_eps, **kw)
         common = dict(dim=dim, num_heads=num_heads,
                       attn_drop=attn_drop, proj_drop=drop,
                       use_kernels=use_kernels, **kw)
         if attn_type == "full":
             self.attn = FullAttention(**common)
         elif attn_type in LONGFORMER_TYPES:
-            self.attn = VilAttention(w=w, nglo=nglo, exact=sw_exact, **common)
+            self.attn = VilAttention(w=w, nglo=nglo, exact=sw_exact, fused_block=fused_block,
+                                     **common)
         else:
             raise NotImplementedError(f"attention type {attn_type!r} is not ported")
         self.droppath = DropPath(drop_path)
@@ -87,12 +94,12 @@ class MlpBlock(nn.Module):
     token tensor or the chunked pair alike."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, drop: float = 0.0,
-                 drop_path: float = 0.0, ln_eps: float = 1e-6, device=None,
-                 dtype: torch.dtype = torch.float32,
+                 drop_path: float = 0.0, ln_eps: float = 1e-6, fused_ln: bool = False,
+                 device=None, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.norm = LayerNorm(dim, eps=ln_eps, **kw)
+        self.norm = make_layer_norm(fused_ln, dim, eps=ln_eps, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, **kw)
         self.droppath = DropPath(drop_path)
 
@@ -113,7 +120,12 @@ class MsViT(nn.Module):
     ``param_dtype`` that of the parameters, which are cast to ``dtype`` where
     they are used (flax's pair; f32 parameters for training). The model is
     built on ``device``, the CUDA card unless the caller names another
-    (``device="cpu"``). ``use_kernels`` is the twin of ``use_pallas``.
+    (``device="cpu"``). ``use_kernels`` is the twin of ``use_pallas``;
+    ``fused_ln`` (TPU.FUSED_LN) puts the kernels' LayerNorm in the block
+    pre-norms (the patch-embedding and final norms stay plain, as in the JAX
+    package), and ``fused_block`` (``VIL_TPU_FUSED_BLOCK=1`` in the JAX
+    package) runs each sliding-chunk attention at mode 0 as one fused block:
+    projections, attention and output projection.
     Weights are drawn by :meth:`init_weights` from ``generator``. ``mode``
     (MODEL.VIT.MSVIT.MODE) is carried as the flax field is and not read at
     call time: the neighbour mode is an argument of :meth:`forward`.
@@ -127,7 +139,8 @@ class MsViT(nn.Module):
                  mode: int = 0, ln_eps: float = 1e-6, avg_pool: bool = False,
                  input_mean: tuple = (0.485, 0.456, 0.406),
                  input_std: tuple = (0.229, 0.224, 0.225),
-                 use_kernels: bool = True, device=None,
+                 use_kernels: bool = True, fused_ln: bool = False,
+                 fused_block: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -176,10 +189,12 @@ class MsViT(nn.Module):
                     dim=c.dim, num_heads=c.num_heads, attn_type=stage_type,
                     nglo=c.nglo, w=c.num_feats, drop=drop_rate,
                     attn_drop=attn_drop_rate, drop_path=dpr, sw_exact=sw_exact,
-                    ln_eps=ln_eps, use_kernels=use_kernels, **kw,
+                    ln_eps=ln_eps, use_kernels=use_kernels, fused_ln=fused_ln,
+                    fused_block=fused_block, **kw,
                 ))
                 setattr(self, mlp_name, MlpBlock(
-                    dim=c.dim, drop=drop_rate, drop_path=dpr, ln_eps=ln_eps, **kw,
+                    dim=c.dim, drop=drop_rate, drop_path=dpr, ln_eps=ln_eps,
+                    fused_ln=fused_ln, **kw,
                 ))
                 names.append((attn_name, mlp_name))
             self.stage_blocks.append(names)

@@ -11,6 +11,14 @@ from .full_attention import (
     full_attention_fwd,
     full_attention_reference,
 )
+from .layer_norm import (
+    LayerNormFunction,
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_reference,
+)
 from .vil_attention import (
     VilAttentionFunction,
     mask_to_additive,
@@ -19,6 +27,14 @@ from .vil_attention import (
     vil_attention_bwd_reference,
     vil_attention_fwd,
     vil_attention_reference,
+)
+from .vil_block import (
+    VilBlockFunction,
+    vil_block,
+    vil_block_bwd,
+    vil_block_bwd_reference,
+    vil_block_fwd,
+    vil_block_reference,
 )
 from .vil_mode_attention import (
     VilModeAttentionFunction,
@@ -30,28 +46,43 @@ from .vil_mode_attention import (
 )
 
 # every kernel wrapper, each with its launch count: the first two forwards
-# serve inference, the first four run in a MODE-0 training step, and the
+# serve inference, the first four run in a MODE-0 training step, the
 # sampled-neighbour pair takes the sliding-chunk pair's place in a
-# random-shift (MODE > 0) training step
+# random-shift (MODE > 0) training step, and in the fused-kernel
+# configuration the LayerNorm pair runs in the block pre-norms and the fused
+# block pair in the sliding-chunk pair's place
 KERNELS = (vil_attention_fwd, full_attention_fwd, vil_attention_bwd, full_attention_bwd,
-           vil_mode_attention_fwd, vil_mode_attention_bwd)
+           vil_mode_attention_fwd, vil_mode_attention_bwd, layer_norm_fwd, layer_norm_bwd,
+           vil_block_fwd, vil_block_bwd)
 
 __all__ = [
     "KERNELS",
     "FullAttentionFunction",
+    "LayerNormFunction",
     "VilAttentionFunction",
+    "VilBlockFunction",
     "VilModeAttentionFunction",
     "full_attention",
     "full_attention_bwd",
     "full_attention_bwd_reference",
     "full_attention_fwd",
     "full_attention_reference",
+    "layer_norm",
+    "layer_norm_bwd",
+    "layer_norm_bwd_reference",
+    "layer_norm_fwd",
+    "layer_norm_reference",
     "mask_to_additive",
     "vil_attention",
     "vil_attention_bwd",
     "vil_attention_bwd_reference",
     "vil_attention_fwd",
     "vil_attention_reference",
+    "vil_block",
+    "vil_block_bwd",
+    "vil_block_bwd_reference",
+    "vil_block_fwd",
+    "vil_block_reference",
     "vil_mode_attention",
     "vil_mode_attention_bwd",
     "vil_mode_attention_bwd_reference",

@@ -30,9 +30,22 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point, in the order of its C signature
 SIGNATURES = {
+    # x, gamma, beta, y, rows, C, eps, is_bf16, stream
+    "layer_norm_fwd": [_P] * 4 + [_I] * 2 + [_F, _I, _P],
+    # x, gamma, dy, dx, part, out, rows, C, eps, blocks, rows_per_block,
+    # is_bf16, stream
+    "layer_norm_bwd": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 3 + [_P],
+    # x, wq, wk, wv, bq, bk, bv, wo, bo, k_glo, v_glo, bias, mask, q, k, v,
+    # attn, y, lse, B, mx, my, w2, C, H, nglo, wq_rows, is_bf16, stream
+    "vil_block_fwd": [_P] * 19 + [_I] * 9 + [_P],
+    # x, wq, wk, wv, wo, k_glo, v_glo, bias, mask, q, k, v, attn, g, lse,
+    # dattn, delta, dq, dk, dv, p_glo, ds_glo, dbias_part, dkg, dvg, part,
+    # grads, dx, B, mx, my, w2, C, H, nglo, wq_rows, slices, rows_per_slice,
+    # is_bf16, stream
+    "vil_block_bwd": [_P] * 28 + [_I] * 11 + [_P],
     # q, k, v, k_glo, v_glo, bias, mask, out, lse,
     # B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
     "vil_attention_fwd": [_P] * 9 + [_I] * 9 + [_P],

@@ -1,11 +1,12 @@
 """Where the time of a ViL-Small 224² step goes on one CUDA card.
 
     python -m vil_tpu_torch.tools.profile_step [--mode train|train_shift|serve]
-                                               [--out profile_train.json]
+                                               [--fused] [--out profile_train.json]
 
 Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
 compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
-the random-shift step, one sampled neighbour mode per block) under
+the random-shift step, one sampled neighbour mode per block; ``--fused`` the
+fused-kernel configuration, ``recipe.vil_small(..., fused=True)``) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
 kernel family and the top kernels, the wall time per step and the device's
 busy share (kernel time over wall time). The profiler's own host work
@@ -33,6 +34,10 @@ FAMILIES = [
     ("B4 dense bwd", r"full_attention_bwd_pass"),
     ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
     ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_pass"),
+    ("B8 LayerNorm fwd", r"vil_ln_fwd"),
+    ("B8 LayerNorm bwd", r"vil_ln_bwd"),
+    ("B9 fused block fwd", r"vil_block_fwd"),
+    ("B9 fused block bwd", r"vil_block_bwd"),
     ("GEMM", r"gemm|cutlass|xmma|nvjet|cublas|matmul|sm90_"),
     ("convolution", r"conv|cudnn|implicit"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
@@ -60,6 +65,8 @@ def card_line() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("train", "train_shift", "serve"), default="train")
+    ap.add_argument("--fused", action="store_true",
+                    help="the fused-kernel configuration (TPU.FUSED_LN, fused block)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -71,12 +78,13 @@ def main() -> None:
     images = torch.randn(recipe.BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (recipe.BATCH,), generator=gen, device=dev)
     if args.mode in ("train", "train_shift"):
-        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=args.fused)
         step_fn = recipe.train_step(model, dev, random_shift=args.mode == "train_shift")
         step_gen = torch.Generator(device=dev).manual_seed(3)
         run = lambda: step_fn(images, labels, step_gen)
     else:
-        model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev).eval()
+        model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev,
+                                 fused=args.fused).eval()
         images = torch.randint(0, 256, images.shape, generator=gen, device=dev,
                                dtype=torch.uint8)  # normalised on the device
 
@@ -108,13 +116,15 @@ def main() -> None:
         fams[family(name)] = fams.get(family(name), 0.0) + ms
     card = card_line()
     result = {
-        "mode": args.mode, "batch": recipe.BATCH, "steps": STEPS, "card": card,
+        "mode": args.mode, "fused": args.fused, "batch": recipe.BATCH, "steps": STEPS,
+        "card": card,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
         "busy_share": device_ms / wall_ms if wall_ms else None,
         "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:30]),
     }
-    print(f"{card}; ViL-Small 224^2 {args.mode} bf16 batch {recipe.BATCH}: wall "
+    label = args.mode + (" fused" if args.fused else "")
+    print(f"{card}; ViL-Small 224^2 {label} bf16 batch {recipe.BATCH}: wall "
           f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
     for fam, ms in result["families_ms"].items():
         print(f"  {fam:24s} {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%")

@@ -17,6 +17,11 @@ keys differ from the yaml:
 the reference's switch for random shifting, with one sampled neighbour mode
 per attention block (TPU.MODE_PER_LAYER).
 
+``vil_small_cfg(fused=True)`` and ``vil_small(..., fused=True)`` are the
+fused-kernel configuration of the same model: TPU.FUSED_LN True (the block
+pre-norms through the LayerNorm kernels) and the fused attention block at
+mode 0, the switch the JAX package reads from ``VIL_TPU_FUSED_BLOCK=1``.
+
 The model and the training step are built from that tree through those
 builders, the ones the tests hold to the JAX package's. ``chip_smoke.py`` and
 ``vil_tpu_torch.tools.profile_step`` drive them.
@@ -36,7 +41,7 @@ IMAGENET_TRAIN_IMAGES = 1281167
 BATCH = 64
 
 
-def vil_small_cfg(mode: int = 0) -> NS:
+def vil_small_cfg(mode: int = 0, fused: bool = False) -> NS:
     steps_per_epoch = IMAGENET_TRAIN_IMAGES // BATCH
     return NS(
         DATA=NS(NUM_CLASSES=1000),
@@ -46,7 +51,7 @@ def vil_small_cfg(mode: int = 0) -> NS:
             DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
             MSVIT=NS(ARCH=ARCH_ZOO["vil_small"], SHARE_W=True, ATTN_TYPE="longformerhand",
                      ONLY_GLOBAL=False, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
-        TPU=NS(COMPUTE_DTYPE="bfloat16", MODE_PER_LAYER=True),
+        TPU=NS(COMPUTE_DTYPE="bfloat16", MODE_PER_LAYER=True, FUSED_LN=fused),
         LOSS=NS(LOSS="xentropy", LABEL_SMOOTHING=0.1),
         AUG=NS(MIXUP_PROB=1.0, MIXUP=0.8, MIXCUT=1.0, MIXUP_SWITCH_PROB=0.5),
         OPTIM=NS(OPT="adamw", LR=5e-4, WD=0.05, WD0=0.0, MOM=0.9, EPOCHS=300,
@@ -59,11 +64,12 @@ def vil_small_cfg(mode: int = 0) -> NS:
 
 
 def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
-              use_kernels: bool = True, device=None) -> MsViT:
+              use_kernels: bool = True, device=None, fused: bool = False) -> MsViT:
     """The recipe's model, computed in ``dtype`` with parameters in
-    ``param_dtype``; random weights from seed 0."""
-    return build_model(vil_small_cfg(), dtype=dtype, param_dtype=param_dtype, device=device,
-                       use_kernels=use_kernels, generator=torch.Generator().manual_seed(0))
+    ``param_dtype``; random weights from seed 0 (the same with ``fused``)."""
+    return build_model(vil_small_cfg(fused=fused), dtype=dtype, param_dtype=param_dtype,
+                       device=device, use_kernels=use_kernels, fused_block=fused,
+                       generator=torch.Generator().manual_seed(0))
 
 
 def train_step(model: MsViT, device=None, random_shift: bool = False) -> Callable:
