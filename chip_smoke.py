@@ -45,21 +45,45 @@ Phases, one line each; any failure raises and the exit code is not 0:
 8. train_fused — phase 5 in the fused configuration: per step B9a 3, B9b 3,
    B8a 30, B8b 30, B3 9, B4 9, and 0 for B1, B2, B5, B6; then the f32
    kernels-vs-plain step.
+9. serve_spatial — spatial (chunk-row) parallelism on a process group of one
+   card (``nccl``, set up from a ``FileStore`` under build/; the halos go
+   through the exchange, sent by NCCL to the rank itself): the ViL-Small
+   224² bf16 batch-64 forward through ``parallel.spatial_forward``, six
+   requests; per forward 3 halo-input forward (B7a) and 9 dense launches and
+   no B1. The classic serve forward is timed before it, same weights and
+   images, outside its launch counts. Then, as a path of its own
+   (``spatial_bwd``, counted apart), one autograd backward through
+   ``spatial_local_attention_kernel`` at stage 1's shape on the same group:
+   B7a 1 and B7b 1, B7b inside the halo exchange's adjoint, which returns the
+   halo rows' gradients over NCCL (its gradients against the plain spatial
+   tier). Last, f32 logits spatial vs classic and spatial kernels vs plain.
+10. probe — the layout probe tool (``vil_tpu_torch.tools.layout_probe``):
+   producer GEMM → P → consumer GEMM in both schemes, its census of copy ops
+   and its time per pass.
 
 Phase 3 also holds the LayerNorm kernels (B8a, B8b) at the six row shapes of
-ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, and
-the fused-block kernels (B9a, B9b) at stage 1 and 2 and on a biased, padded,
-cyclic 2×2 grid; no single PyTorch call computes the fused block.
+ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, the
+fused-block kernels (B9a, B9b) at stage 1 and 2 and on a biased, padded,
+cyclic 2×2 grid (no single PyTorch call computes the fused block), the
+halo-input kernels (B7a, B7b) on every shard of stage 1 and 2 split over 1, 2
+and 4 ranks, of a biased padded grid split over 3 and of a cyclic 1×2 grid,
+in f32 and bf16 (the shards' outputs together must equal B1's on the whole
+grid, their dK/dV folded onto the rows' owners B2's; SDPA on the
+materialised halo neighbourhood as the library call), and P's two entry
+points against ``x * 2``, exactly.
 
-Each of phases 4-8 sets the launch counts to 0 before it and reads them
-after it. The last line is ``{"ok": true, "device": {...}}``; the line
-before it holds every kernel's record (``launches`` is the sum over the five
+Each path of phases 4-10 sets the launch counts to 0 before it and reads
+them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
+before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
-``launches_serve_fused`` and ``launches_train_fused`` each path's; ``ms``,
+``launches_serve_fused``, ``launches_train_fused``, ``launches_serve_spatial``,
+``launches_spatial_bwd`` and ``launches_probe`` each path's; ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
-path that runs the kernel: MODE 0, random shift for B5/B6, fused for
-B8/B9), and the line before that the card as ``nvidia-smi
---query-gpu=name,power.limit --format=csv,noheader`` gives it.
+path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
+for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
+the ``spatial_bwd`` path, one stage-1 backward on one rank; for P per call at
+the probe's shape), and the line before that the card as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
 """
 from __future__ import annotations
 
@@ -137,11 +161,14 @@ def check_kernels(torch, records):
         full_attention_bwd, full_attention_bwd_reference, full_attention_fwd,
         full_attention_reference, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
         layer_norm_reference, mask_to_additive, vil_attention_bwd,
-        vil_attention_bwd_reference, vil_attention_fwd, vil_attention_reference,
-        vil_block_bwd, vil_block_bwd_reference, vil_block_fwd, vil_block_reference,
-        vil_mode_attention_bwd, vil_mode_attention_bwd_reference, vil_mode_attention_fwd,
-        vil_mode_attention_reference,
+        vil_attention_bwd_reference, vil_attention_fwd, vil_attention_halo_bwd,
+        vil_attention_halo_bwd_reference, vil_attention_halo_fwd,
+        vil_attention_halo_reference, vil_attention_reference, vil_block_bwd,
+        vil_block_bwd_reference, vil_block_fwd, vil_block_reference, vil_mode_attention_bwd,
+        vil_mode_attention_bwd_reference, vil_mode_attention_fwd, vil_mode_attention_reference,
     )
+    from vil_tpu_torch.ops.kernels.vil_attention_halo import halo_neighborhood
+    from vil_tpu_torch.tools import layout_probe
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -449,6 +476,135 @@ def check_kernels(torch, records):
             serve_ms = time_ms(lambda: vil_block_fwd(*ops, mask, H))
             phase("kernels", f"  vil_block_fwd without lse (serving): {serve_ms:.4f} ms")
 
+    def halo_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, splits, per_fwd=0,
+                  per_bwd=0):
+        """Halo-input cases: B7a and B7b on every shard of the grid split
+        over each D of ``splits``, against their plain versions; the shards
+        together against B1 and B2 on the whole grid. ``per_fwd`` is the
+        case's share of one spatial forward's B7a launches on one rank
+        (D = 1), ``per_bwd`` its share of the spatial backward path's B7b
+        launches; with ``per_fwd`` every D's shard 0 is timed (all shards do
+        the same work)."""
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        w2, M = w * w, C // H
+        cols = nglo + 9 * w2
+        mask = torch.from_numpy(mask_to_additive(
+            masks_lib.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(dev)
+        acts = [randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
+        acts += [randn(B, nglo, C) if nglo else None for _ in range(2)]
+        g0 = randn(B, mx, my, w2, C)
+        bias = randn(H, w2, cols, scale=0.5) if with_bias else None
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            a = cast(acts, dtype)
+            g = g0.to(dtype)
+            dt = str(dtype)[6:]
+            b1_out, b1_lse = vil_attention_fwd(*a, bias, mask, H, with_lse=True)
+            b2_grads = vil_attention_bwd(*a, bias, g, mask, b1_lse, H)
+            for D in splits:
+                mxs = mx // D
+                outs, e_out, e_lse, e_grad, e_abs = [], 0.0, 0.0, 0.0, 0.0
+                dk, dv = (torch.zeros(B, mx, my, w2, C, device=dev) for _ in range(2))
+                shards = []
+                for sh in range(D):
+                    rows = [(sh * mxs - 1) % mx, *range(sh * mxs, (sh + 1) * mxs),
+                            ((sh + 1) * mxs) % mx]
+                    ops = [a[0][:, sh * mxs:(sh + 1) * mxs].contiguous(), a[1][:, rows].contiguous(),
+                           a[2][:, rows].contiguous(), a[3], a[4], bias]
+                    m_rows = mask[sh * mxs:(sh + 1) * mxs]
+                    gs = g[:, sh * mxs:(sh + 1) * mxs].contiguous()
+                    ops32 = cast(ops, torch.float32)
+                    out, lse = vil_attention_halo_fwd(*ops, m_rows, H, with_lse=True)
+                    ref, ref_lse = vil_attention_halo_reference(*ops32, m_rows, H, with_lse=True)
+                    grads = vil_attention_halo_bwd(*ops, gs, m_rows, lse, H)
+                    refs = vil_attention_halo_bwd_reference(*ops32, gs.float(), m_rows, H)
+                    torch.cuda.synchronize()
+                    e_out, e_lse = max(e_out, max_err(out, ref)), max(e_lse, max_err(lse, ref_lse))
+                    e_grad = max(e_grad, *(rel_err(x, r) for x, r in zip(grads, refs)
+                                           if r is not None))
+                    e_abs = max(e_abs, *(max_err(x, r) for x, r in zip(grads, refs)
+                                         if r is not None))
+                    outs.append(out)
+                    for e, row in enumerate(rows):  # the halo rows' owners
+                        dk[:, row] += grads[1][:, e].float()
+                        dv[:, row] += grads[2][:, e].float()
+                    shards.append((ops, m_rows, gs, out, lse, grads))
+                e_b1 = max_err(torch.cat(outs, dim=1), b1_out)
+                e_b2 = max(rel_err(dk, b2_grads[1]), rel_err(dv, b2_grads[2]))
+                phase("kernels", f"vil_attention_halo {label}, D {D} ({mxs} rows a shard) {dt}: "
+                                 f"out {e_out:.3e} (tol {tol:g}), lse {e_lse:.3e} (tol "
+                                 f"{LSE_TOL:g}); grads rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g}); "
+                                 f"shards vs B1 on the whole grid {e_b1:.3e}, folded dK/dV vs "
+                                 f"B2 rel {e_b2:.3e}")
+                check(f"halo fwd {label} D {D} {dt}", e_out, tol)
+                check(f"halo lse {label} D {D} {dt}", e_lse, LSE_TOL)
+                check(f"halo bwd {label} D {D} {dt}", e_grad, GRAD_TOL[dt])
+                check(f"halo shards vs B1 {label} D {D} {dt}", e_b1, tol)
+                check(f"halo folded dK/dV vs B2 {label} D {D} {dt}", e_b2, GRAD_TOL[dt])
+                if not (per_fwd and dtype == torch.bfloat16):
+                    continue
+                records["vil_attention_halo_fwd"]["max_abs_err"] = max(
+                    records["vil_attention_halo_fwd"]["max_abs_err"], e_out)
+                records["vil_attention_halo_bwd"]["max_abs_err"] = max(
+                    records["vil_attention_halo_bwd"]["max_abs_err"], e_abs)
+                ops, m_rows, gs, out, lse, grads = shards[0]
+                heads = lambda t: t.view(B * mxs * my, -1, H, M).transpose(1, 2)
+
+                def materialise():  # [glo ‖ 3×3 halo neighbourhood] keys, values
+                    kv = []
+                    for t, t_glo in ((ops[1], ops[3]), (ops[2], ops[4])):
+                        nbh = halo_neighborhood(t)
+                        if nglo:
+                            nbh = torch.cat([t_glo[:, None, None].expand(B, mxs, my, nglo, C),
+                                             nbh], dim=3)
+                        kv.append(heads(nbh))
+                    return kv
+
+                k_cat, v_cat = materialise()
+                attn_mask = (m_rows.to(dtype)[None].expand(B, -1, -1, -1, -1)
+                             .reshape(B * mxs * my, 1, m_rows.shape[2], cols))
+                lib_fwd, lib_bwd, _ = sdpa_times(heads(ops[0]), k_cat, v_cat, heads(gs), attn_mask)
+                act = B * mxs * my * w2 * C
+                fwd_flops = 4.0 * act * cols
+                fwd_ms = time_ms(lambda: vil_attention_halo_fwd(*ops, m_rows, H))
+                fwd_lse_ms = time_ms(lambda: vil_attention_halo_fwd(*ops, m_rows, H,
+                                                                    with_lse=True))
+                bwd_ms = time_ms(lambda: vil_attention_halo_bwd(*ops, gs, m_rows, lse, H))
+                fwd_plain = time_ms(lambda: vil_attention_halo_reference(*ops, m_rows, H))
+                bwd_plain = time_ms(lambda: vil_attention_halo_bwd_reference(*ops, gs, m_rows, H))
+                fwd_bytes = nbytes(*ops, m_rows, out)
+                bwd_bytes = nbytes(*ops, m_rows, lse, gs, *grads)
+                one_rank = D == 1  # the records hold the one-rank paths
+                f_msg = account("vil_attention_halo_fwd", per_fwd * one_rank, fwd_ms, fwd_plain,
+                                fwd_bytes, fwd_flops, lib_fwd)
+                b_msg = account("vil_attention_halo_bwd", per_bwd * one_rank, bwd_ms, bwd_plain,
+                                bwd_bytes, 2.5 * fwd_flops, lib_bwd)
+                phase("kernels", f"  vil_attention_halo_fwd {label}, D {D}, per shard (serving, "
+                                 f"no lse): {f_msg}, SDPA forward {lib_fwd:.4f} ms; with lse "
+                                 f"{fwd_lse_ms:.4f} ms")
+                phase("kernels", f"  vil_attention_halo_bwd {label}, D {D}, per shard: {b_msg}, "
+                                 f"SDPA backward {lib_bwd:.4f} ms")
+
+    def probe_case():
+        """P's two entry points at the probe's shape, bf16: exactly 2x, in
+        the base layout and on its permuted view."""
+        x = randn(layout_probe.B, layout_probe.MX, layout_probe.MY, layout_probe.W2,
+                  layout_probe.C).to(torch.bfloat16)
+        xt = x.permute(1, 2, 3, 0, 4)
+        for name, fn, arg in (("consume_base", layout_probe.consume_base, x),
+                              ("consume_perm", layout_probe.consume_perm, xt)):
+            y = fn(arg)
+            torch.cuda.synchronize()
+            err = max_err(y, arg * 2)
+            phase("kernels", f"{name} (P) {tuple(arg.shape)} bf16, strides {arg.stride()}: "
+                             f"max|err| vs x*2 {err:.3e} (tol 0)")
+            check(f"{name} vs x*2", err, 0.0)
+            records[name]["max_abs_err"] = err
+            msg = account(name, 1, time_ms(lambda: fn(arg)),
+                          time_ms(lambda: layout_probe.scale2_reference(arg)),
+                          nbytes(arg, y), float(arg.numel()), time_ms(lambda: torch.mul(arg, 2)))
+            phase("kernels", f"  {name} per call: {msg}, library torch.mul "
+                             f"{records[name]['library_ms']:.4f} ms")
+
     # ViL-Small 224²: stage 1 (1 block) and stage 2 (2 blocks) sliding-chunk
     chunk_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, per_step=1)
     chunk_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, per_step=2)
@@ -483,6 +639,15 @@ def check_kernels(torch, records):
     block_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, False, per_step=1)
     block_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, False, per_step=2)
     block_case("biased, padded, cyclic 2x2 grid", 2, 13, 14, 7, 64, 2, 1, True)
+    # spatial parallelism: the halo-input kernels on every shard of stage 1
+    # (1 block) and stage 2 (2 blocks) over 1, 2 and 4 ranks
+    halo_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, (1, 2, 4),
+              per_fwd=1, per_bwd=1)
+    halo_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, (1, 2, 4),
+              per_fwd=2)
+    halo_case("biased, padded 3x3 grid, nglo 2", 2, 19, 20, 7, 64, 2, 2, 0, True, (1, 3))
+    halo_case("cyclic 1x2 grid", 2, 7, 14, 7, 32, 1, 1, 0, False, (1,))
+    probe_case()
 
 
 def launch_counts(kernels) -> dict:
@@ -629,6 +794,143 @@ def run_train(torch, kernels, random_shift=False, fused=False):
     return launches
 
 
+def run_serve_spatial(torch, kernels):
+    """Phase 9: spatial (chunk-row) parallelism of ViL-Small 224² on a
+    process group of one card, through ``parallel.spatial_forward``, and
+    one backward through the spatial kernel tier. Returns the launch counts
+    of the two paths: the serving forwards, and the backward."""
+    import torch.distributed as dist
+
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.ops import masks as masks_lib
+    from vil_tpu_torch.ops.kernels import mask_to_additive
+    from vil_tpu_torch.train import recipe
+
+    name = "serve_spatial"
+    dev = torch.device("cuda")
+    store = os.path.join(REPO, "build", f"spatial_store.{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    parallel.init_process_group(store, 0, 1, backend="nccl")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        images = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
+                                dtype=torch.uint8) for _ in range(REQUESTS)]
+        model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev).eval()
+        forward = lambda m, x: parallel.spatial_forward(m, parallel.shard_image(x))
+
+        def timed(fn):
+            secs = []
+            with torch.inference_mode():
+                for x in images:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits = fn(x)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
+                        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+            return secs
+
+        # the classic forward first, same weights and images, outside the
+        # path's launch counts
+        classic = timed(model)
+        for fn in kernels:
+            fn.launches = 0
+        secs = timed(lambda x: forward(model, x))
+        launches = launch_counts(kernels)
+        want = {fn.__name__: 0 for fn in kernels}
+        want.update(vil_attention_halo_fwd=3 * REQUESTS, full_attention_fwd=9 * REQUESTS)
+        phase(name, f"ViL-Small 224^2 bf16 batch {BATCH} on a group of "
+                    f"{parallel.get_world_size()} ({dist.get_backend()}): {REQUESTS} requests, "
+                    f"launches {launches} (want {want})")
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        med, med_c = statistics.median(secs[1:]), statistics.median(classic[1:])
+        phase(name, f"bf16 spatial forward: median {med * 1e3:.3f} ms per batch, "
+                    f"{BATCH / med:.1f} img/s (requests 2..{REQUESTS}); first request "
+                    f"{secs[0] * 1e3:.1f} ms; classic forward in the same phase "
+                    f"{med_c * 1e3:.3f} ms, {BATCH / med_c:.1f} img/s")
+        del model
+
+        # the spatial_bwd path: one backward through the kernel tier at
+        # stage 1's shape, B7b inside the halo exchange's adjoint, against
+        # the plain spatial tier
+        mask = torch.from_numpy(mask_to_additive(
+            masks_lib.invalid_mask(8, 8, 0, 0, 7, 0, 0), 8, 8, 49, 1)).to(dev)
+        shapes = [(BATCH, 8, 8, 49, 96)] * 3 + [(BATCH, 1, 96)] * 2
+        ops = [torch.randn(*s, generator=gen, device=dev) * 96 ** -0.25 for s in shapes]
+        g_out = torch.randn(*shapes[0], generator=gen, device=dev)
+        route = type(parallel.halo_rows(ops[1].requires_grad_())[0].grad_fn).__name__
+        if route != "_HaloExchangeBackward":
+            raise AssertionError(f"the halos bypass the exchange: grad_fn {route}")
+        grads = {}
+        for fn in kernels:
+            fn.launches = 0
+        for tier, fn in (("kernels", parallel.spatial_local_attention_kernel),
+                         ("plain", parallel.spatial_local_attention)):
+            dtype = torch.bfloat16 if tier == "kernels" else torch.float32
+            leaves = [t.detach().to(dtype).requires_grad_() for t in ops]
+            fn(*leaves, None, mask, 3).backward(g_out.to(dtype))
+            grads[tier] = [t.grad.float() for t in leaves]
+        launches_bwd = launch_counts(kernels)
+        want = {fn.__name__: 0 for fn in kernels}
+        want.update(vil_attention_halo_fwd=1, vil_attention_halo_bwd=1)
+        phase(name, f"spatial_bwd: halos through {route} over {dist.get_backend()}; launches "
+                    f"{launches_bwd} (want {want})")
+        if launches_bwd != want:
+            raise AssertionError(f"spatial backward launch counts {launches_bwd} != {want}")
+        errs = [(k - p).abs().max().item() / max(1.0, p.abs().max().item())
+                for k, p in zip(grads["kernels"], grads["plain"])]
+        phase(name, f"spatial_bwd: backward through spatial_local_attention_kernel, stage 1 "
+                    f"({BATCH},8,8,49,96) bf16: dq, dk, dv, dk_glo, dv_glo rel err vs the plain "
+                    f"spatial tier in f32 {max(errs):.3e} (tol {GRAD_TOL['bfloat16']:g})")
+        if not max(errs) <= GRAD_TOL["bfloat16"]:
+            raise AssertionError(f"spatial backward disagrees: {errs}")
+
+        # f32 logits: spatial vs classic (kernels), spatial kernels vs plain
+        x, outs = images[0], {}
+        with torch.inference_mode():
+            for use_kernels in (True, False):
+                m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev).eval()
+                outs[use_kernels] = forward(m, x)
+                if use_kernels:
+                    outs["classic"] = m(x)
+                del m
+        for other, what in ((False, "spatial kernels vs spatial plain versions"),
+                            ("classic", "spatial vs classic forward (both with the kernels)")):
+            err = (outs[True] - outs[other]).abs().max().item()
+            phase(name, f"f32 logits, {what}: max|err| {err:.3e} (tol {LOGITS_TOL:g}); "
+                        f"|logits| max {outs[other].abs().max().item():.3f}")
+            if not (torch.isfinite(outs[True]).all() and err <= LOGITS_TOL):
+                raise AssertionError(f"f32 logits disagree ({what}): {err}")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return launches, launches_bwd
+
+
+def run_probe(torch, kernels):
+    """Phase 10: the layout probe tool, once: P between two GEMMs in both
+    schemes, its census of copy ops and its time per pass."""
+    from vil_tpu_torch.tools import layout_probe
+
+    for fn in kernels:
+        fn.launches = 0
+    results = layout_probe.run()
+    launches = launch_counts(kernels)
+    for scheme, res in results.items():
+        copies = ", ".join(f"{k} {v:g}" for k, v in res["copies"].items())
+        phase("probe", f"[{scheme}] ({layout_probe.B}, {layout_probe.MX}, {layout_probe.MY}, "
+                       f"{layout_probe.W2}, {layout_probe.C}) bf16, GEMM -> P -> GEMM: copy ops "
+                       f"per pass {copies}; {res['ms']:.4f} ms per pass")
+    phase("probe", f"launches {launches}")
+    others = [n for n, v in launches.items() if v and n not in ("consume_base", "consume_perm")]
+    if not (launches["consume_base"] and launches["consume_perm"]) or others:
+        raise AssertionError(f"probe launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -637,6 +939,9 @@ def main() -> int:
                          "this script runs only on a CUDA card")
     sys.path.insert(0, REPO)
     from vil_tpu_torch.ops.kernels import KERNELS, build
+    from vil_tpu_torch.tools import layout_probe
+
+    kernels = (*KERNELS, *layout_probe.KERNELS)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -681,6 +986,12 @@ def main() -> int:
                           "vil_tpu/ops/pallas/vil_block.py:512"),
         "vil_block_bwd": ("vil_tpu_torch/csrc/vil_block_bwd.cu",
                           "vil_tpu/ops/pallas/vil_block.py:603"),
+        "vil_attention_halo_fwd": ("vil_tpu_torch/csrc/vil_attention_halo_fwd.cu",
+                                   "vil_tpu/ops/pallas/vil_kernel.py:821"),
+        "vil_attention_halo_bwd": ("vil_tpu_torch/csrc/vil_attention_halo_bwd.cu",
+                                   "vil_tpu/ops/pallas/vil_backward.py:757"),
+        "consume_base": ("vil_tpu_torch/csrc/layout_probe.cu", "tools/layout_probe.py:36"),
+        "consume_perm": ("vil_tpu_torch/csrc/layout_probe.cu", "tools/layout_probe.py:48"),
     }
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -688,23 +999,28 @@ def main() -> int:
                       "_bytes_ms": 0.0, "_ops_ms": 0.0}
                for name, (src, rep) in sources.items()}
     check_kernels(torch, records)
-    # the five main paths, each with its launch counts
+    # the eight main paths, each with its launch counts
     paths = {
-        "serve": run_serve(torch, KERNELS),
-        "train": run_train(torch, KERNELS),
-        "shift": run_train(torch, KERNELS, random_shift=True),
-        "serve_fused": run_serve(torch, KERNELS, fused=True),
-        "train_fused": run_train(torch, KERNELS, fused=True),
+        "serve": run_serve(torch, kernels),
+        "train": run_train(torch, kernels),
+        "shift": run_train(torch, kernels, random_shift=True),
+        "serve_fused": run_serve(torch, kernels, fused=True),
+        "train_fused": run_train(torch, kernels, fused=True),
     }
+    paths["serve_spatial"], paths["spatial_bwd"] = run_serve_spatial(torch, kernels)
+    paths["probe"] = run_probe(torch, kernels)
     for name, rec in records.items():
         rec["launches"] = sum(counts[name] for counts in paths.values())
         for path, counts in paths.items():
             rec[f"launches_{path}"] = counts[name]
         rec["bound_by"] = "bytes" if rec.pop("_bytes_ms") >= rec.pop("_ops_ms") else "operations"
         per_path = ", ".join(f"{path} {counts[name]}" for path, counts in paths.items())
-        phase("record", f"{name}: {rec['ms']:.3f} ms per train step (plain {rec['plain_ms']:.3f},"
-                        f" bound {rec['bound_ms']:.4f} by {rec['bound_by']}, library "
-                        f"{rec['library_ms']}), launches {rec['launches']} ({per_path})")
+        phase("record", f"{name}: {rec['ms']:.3f} ms per step of its path (plain "
+                        f"{rec['plain_ms']:.3f}, bound {rec['bound_ms']:.4f} by {rec['bound_by']}, "
+                        f"library {rec['library_ms']}), launches {rec['launches']} ({per_path})")
+    idle = [name for name, rec in records.items() if not rec["launches"]]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -33,6 +33,10 @@ from vil_tpu_torch.ops.kernels import (
     vil_attention_bwd,
     vil_attention_bwd_reference,
     vil_attention_fwd,
+    vil_attention_halo_bwd,
+    vil_attention_halo_bwd_reference,
+    vil_attention_halo_fwd,
+    vil_attention_halo_reference,
     vil_attention_reference,
     vil_block_bwd,
     vil_block_bwd_reference,
@@ -96,7 +100,7 @@ def test_kernels_match_plain_versions(cuda, dtype, tol):
         out = full_attention_fwd(q, k, v, bias, 3)
         ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3)
         assert out.dtype == dtype and _max_err(out, ref) <= tol
-    assert [fn.launches for fn in KERNELS] == [4, 3, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [4, 3] + [0] * 10
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -141,7 +145,7 @@ def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
             assert (out is None) == (ref is None), name
             if ref is not None:
                 assert _rel_err(out, ref) <= tol, (name, N, _rel_err(out, ref))
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3] + [0] * 8
 
 
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
@@ -175,7 +179,7 @@ def test_sampled_neighbour_kernels_match_plain_versions(cuda, dtype, tol, grad_t
             assert (o is None) == (r is None), name
             if r is not None:
                 assert _rel_err(o, r) <= grad_tol, (name, mx, my, mode, _rel_err(o, r))
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0, len(cases), len(cases), 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * 4 + [len(cases)] * 2 + [0] * 6
 
 
 def test_model_runs_through_the_kernels(cuda):
@@ -191,14 +195,14 @@ def test_model_runs_through_the_kernels(cuda):
                           norm_embed=True, device=cuda, use_kernels=use_kernels,
                           generator=torch.Generator().manual_seed(0)).eval()
             logits[use_kernels] = model(x)
-    assert [fn.launches for fn in KERNELS] == [3, 3, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3] + [0] * 10
     assert torch.isfinite(logits[True]).all()
     assert _max_err(logits[True], logits[False]) <= 1e-3
     # with a gradient to take, the autograd Function runs both kernels
     q = torch.randn(1, 9, 64, device=cuda, requires_grad=True)
     full_attention(q, q, q, None, 1).sum().backward()
     assert torch.isfinite(q.grad).all()
-    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1] + [0] * 8
 
 
 def test_train_step_runs_through_the_kernels(cuda):
@@ -224,7 +228,7 @@ def test_train_step_runs_through_the_kernels(cuda):
         metrics = step(x, y, torch.Generator(device=cuda).manual_seed(1))
         results[use_kernels] = (metrics["loss"].item(),
                                 {n: p.grad for n, p in model.named_parameters()})
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3] + [0] * 8
     (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
     assert abs(loss_k - loss_p) <= 1e-4
     for name, ref in grads_p.items():
@@ -251,7 +255,7 @@ def test_layer_norm_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
         refs = layer_norm_bwd_reference(x.float(), gamma, dy.float())
         for name, out, r in zip(("dx", "dgamma", "dbeta"), grads, refs):
             assert _rel_err(out, r) <= grad_tol, (name, rows, C, _rel_err(out, r))
-    assert [fn.launches for fn in KERNELS] == [0] * 6 + [len(cases), len(cases), 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * 6 + [len(cases)] * 2 + [0] * 4
 
 
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
@@ -302,7 +306,7 @@ def test_fused_block_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
             scale = refs[3] if i == 4 else ref
             err = (out.float() - ref).abs().max().item() / max(1.0, scale.abs().max().item())
             assert err <= grad_tol, (i, mx, my, err)
-    assert [fn.launches for fn in KERNELS] == [0] * 8 + [len(cases), len(cases)]
+    assert [fn.launches for fn in KERNELS] == [0] * 8 + [len(cases)] * 2 + [0] * 2
 
 
 def test_fused_configuration_runs_through_the_kernels(cuda):
@@ -323,14 +327,121 @@ def test_fused_configuration_runs_through_the_kernels(cuda):
         with torch.inference_mode():
             logits = model.eval()(x)
         if fused:
-            assert [fn.launches for fn in KERNELS] == [0, 3, 0, 0, 0, 0, 18, 0, 3, 0]
+            assert [fn.launches for fn in KERNELS] == [0, 3, 0, 0, 0, 0, 18, 0, 3, 0, 0, 0]
         out = torch.nn.functional.cross_entropy(model.train()(x).float(), y)
         out.backward()
         results[fused] = (logits, out.item(), {n: p.grad for n, p in model.named_parameters()})
-    assert [fn.launches for fn in KERNELS] == [0, 6, 0, 3, 0, 0, 36, 18, 6, 3]
+    assert [fn.launches for fn in KERNELS] == [0, 6, 0, 3, 0, 0, 36, 18, 6, 3, 0, 0]
     (l_k, loss_k, g_k), (l_p, loss_p, g_p) = results[True], results[False]
     assert torch.isfinite(l_k).all() and _max_err(l_k, l_p.float()) <= 1e-3
     assert abs(loss_k - loss_p) <= 1e-4
     for name, ref in g_p.items():
         if ref.numel():
             assert _max_err(g_k[name], ref) <= 1e-3 * ref.abs().max().item(), name
+
+
+def _halo_shard(t, s, mxs):
+    """Shard s of mxs chunk rows of the whole (B, mx, ...) tensor between its
+    cyclic halo rows: (B, mxs + 2, ...)."""
+    mx = t.shape[1]
+    rows = [(s * mxs - 1) % mx, *range(s * mxs, (s + 1) * mxs), ((s + 1) * mxs) % mx]
+    return t[:, rows].contiguous(), rows
+
+
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
+                                                (torch.bfloat16, 2e-2, 3e-2)])
+def test_halo_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
+    """B7a and B7b on every shard of splits into 1, 2 and 4 chunk rows of an
+    8-row grid (nglo 1), of a padded 4-row grid with a bias, SW_EXACT 1 and
+    nglo 2, and of a cyclic 2x2 grid with nglo 0 (the column neighbours
+    repeat): out, LSE and every gradient against the plain versions in f32
+    on the same values. The shards' outputs together are B1's on the whole
+    grid, and their dK/dV folded onto the rows' owners B2's."""
+    rng = np.random.default_rng(10)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    cases = [(56, 21, 0, 1, False, mxs) for mxs in (1, 2, 4)]
+    cases += [(26, 20, 1, 2, True, 2), (13, 14, 0, 0, False, 1)]
+    launches = 0
+    for nx, ny, exact, nglo, with_bias, mxs in cases:
+        w, w2 = 7, 49
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        acts = [rnd(2, mx, my, w2, 64) * 0.5 for _ in range(3)]
+        acts += [rnd(2, nglo, 64) if nglo else None for _ in range(2)]
+        acts = [None if a is None else a.to(dtype) for a in acts]
+        q, k, v, kg, vg = acts
+        bias = rnd(2, w2, nglo + 9 * w2) if with_bias else None
+        mask = torch.from_numpy(mask_to_additive(
+            masks.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(cuda)
+        g = rnd(2, mx, my, w2, 64).to(dtype)
+        f32 = lambda ts: [None if t is None else t.float() for t in ts]
+        outs = []
+        dk, dv = (torch.zeros(t.shape, device=cuda) for t in (k, v))
+        for sh in range(mx // mxs):
+            sl = slice(sh * mxs, (sh + 1) * mxs)
+            (k_ext, rows), (v_ext, _) = _halo_shard(k, sh, mxs), _halo_shard(v, sh, mxs)
+            ops = [q[:, sl].contiguous(), k_ext, v_ext, kg, vg, bias]
+            out, lse = vil_attention_halo_fwd(*ops, mask[sl], 2, with_lse=True)
+            ref, lse_ref = vil_attention_halo_reference(*f32(ops), mask[sl], 2, with_lse=True)
+            assert out.dtype == dtype and _max_err(out, ref) <= tol, (nx, mxs, sh)
+            assert _max_err(lse, lse_ref) <= tol, (nx, mxs, sh)
+            gs = g[:, sl].contiguous()
+            grads = vil_attention_halo_bwd(*ops, gs, mask[sl], lse, 2)
+            refs = vil_attention_halo_bwd_reference(*f32(ops), gs.float(), mask[sl], 2)
+            for name, o, r in zip(("dq", "dk_ext", "dv_ext", "dkg", "dvg", "dbias"), grads, refs):
+                assert (o is None) == (r is None), name
+                if r is not None:
+                    assert _rel_err(o, r) <= grad_tol, (name, nx, mxs, sh, _rel_err(o, r))
+            outs.append(out.float())
+            for e, row in enumerate(rows):
+                dk[:, row] += grads[1][:, e].float()
+                dv[:, row] += grads[2][:, e].float()
+            launches += 1
+        whole = vil_attention_reference(*f32(acts), bias, mask, 2)
+        assert _max_err(torch.cat(outs, 1), whole) <= tol
+        whole_grads = vil_attention_bwd_reference(*f32(acts), bias, g.float(), mask, 2)
+        assert _rel_err(dk, whole_grads[1]) <= grad_tol
+        assert _rel_err(dv, whole_grads[2]) <= grad_tol
+    assert [fn.launches for fn in KERNELS] == [0] * 10 + [launches] * 2
+
+
+def test_spatial_forward_runs_through_the_halo_kernels(cuda):
+    """The spatial forward of a narrow 4-stage 224² model on one rank (no
+    process group): per forward 3 halo launches, 3 dense ones and no B1;
+    f32 logits equal to the classic forward's within 1e-3; one backward
+    through the halo pair."""
+    from vil_tpu_torch import parallel
+
+    arch = ("l1,h2,d64,n1,s1,g1,p4,f7_l2,h2,d64,n2,s1,g1,p2,f7_"
+            "l3,h2,d128,n2,s0,g1,p2,f7_l4,h2,d128,n1,s0,g0,p2,f7")
+    x = torch.randint(0, 256, (4, 224, 224, 3), dtype=torch.uint8, device=cuda)
+    model = MsViT(arch, img_size=224, num_classes=10, sharew=True, norm_embed=True,
+                  device=cuda, generator=torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode():
+        spatial = parallel.spatial_forward(model, x)
+        assert [fn.launches for fn in KERNELS] == [0, 3] + [0] * 8 + [3, 0]
+        classic = model(x)
+    assert torch.isfinite(spatial).all() and _max_err(spatial, classic.float()) <= 1e-3
+    q, k, v = (torch.randn(2, 4, 3, 49, 64, device=cuda, requires_grad=True) for _ in range(3))
+    mask = torch.zeros(4, 3, 1, 9 * 49, device=cuda)
+    parallel.spatial_local_attention_kernel(q, k, v, None, None, None, mask, 2).sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    assert [fn.launches for fn in KERNELS][10:] == [4, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_probe_kernel_doubles_in_place_of_any_layout(cuda, dtype):
+    """P through both entry points, on the base layout and on its permuted
+    view (read through the strides, no copy): exactly 2x, in the input's
+    strides."""
+    from vil_tpu_torch.tools import layout_probe
+
+    for fn in layout_probe.KERNELS:
+        fn.launches = 0
+    x = torch.randn(4, 2, 3, 5, 8, device=cuda).to(dtype)
+    y = layout_probe.consume_base(x)
+    assert y.stride() == x.stride() and torch.equal(y, x * 2)
+    xt = x.permute(1, 2, 3, 0, 4)
+    yt = layout_probe.consume_perm(xt)
+    assert yt.stride() == xt.stride() and torch.equal(yt, xt * 2)
+    assert torch.equal(layout_probe.scheme_b(x), layout_probe.scheme_a(x))
+    assert [fn.launches for fn in layout_probe.KERNELS] == [2, 2]

@@ -269,7 +269,9 @@ def test_port_imports_no_jax():
             "vil_tpu_torch.ops.kernels, vil_tpu_torch.ops.kernels.layer_norm, "
             "vil_tpu_torch.ops.kernels.vil_block, vil_tpu_torch.utils.jax_import, "
             "vil_tpu_torch.train.engine, vil_tpu_torch.train.recipe, "
-            "vil_tpu_torch.data.mixup, vil_tpu_torch.tools.profile_step; "
+            "vil_tpu_torch.data.mixup, vil_tpu_torch.tools.profile_step, "
+            "vil_tpu_torch.parallel, vil_tpu_torch.ops.kernels.vil_attention_halo, "
+            "vil_tpu_torch.tools.layout_probe; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vil_tpu' or m.startswith('vil_tpu.')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -2,8 +2,10 @@
 // the forward (B1, B5) and backward (B2, B6) kernels of this directory.
 //
 // Each query chunk (i, j) of an mx x my grid of W x W chunks attends to the
-// global keys and to Nbh::kCount key chunks, neighbour n being chunk
-// ((i + nbh.dx(n)) mod mx, (j + nbh.dy(n)) mod my). Score columns are in
+// global keys and to Nbh::kCount key chunks, neighbour n being K/V chunk
+// (key_row(nbh, i, n, mx), (j + nbh.dy(n)) mod my) of a K/V grid of
+// kv_rows(nbh, mx) x my chunks: ((i + nbh.dx(n)) mod mx, ...) for the cyclic
+// neighbourhoods, whose K/V share q's grid. Score columns are in
 // front order [glo ‖ nbh 0 ‖ ... ‖ nbh kCount-1], as the bias
 // (H, W², cols) and mask (mx, my, Wq, cols) tables have them, with
 // cols = nglo + kCount W²; Wq is 1 (one mask row per chunk) or W² (one per
@@ -14,6 +16,12 @@
 //                masks.NEIGHBOR_OFFSETS: (dx, dy) = (n / 3 - 1, n % 3 - 1)
 //   SampledNbh   [self ‖ one sampled neighbour] of MODE 1..8 (random-shift
 //                training): (0, 0), then (dx, dy) = -MODE_ROLL_SHIFTS[mode]
+//   HaloNbh      FullNbh's neighbours over halo-extended K/V (spatial
+//                parallelism): K/V hold mx + 2 chunk rows, a shard's own rows
+//                between the previous shard's last row (row 0) and the next
+//                shard's first (row mx + 1), so neighbour (dx, dy) of query
+//                row i is K/V row i + dx + 1, never wrapped; columns still
+//                wrap over my
 // Each entry point (vil_attention_*.cu, vil_mode_attention_*.cu) wraps these
 // bodies in __global__ kernels of its own name.
 #pragma once
@@ -36,6 +44,33 @@ struct SampledNbh {
   __device__ __forceinline__ int dx(int n) const { return n == 0 ? 0 : sdx; }
   __device__ __forceinline__ int dy(int n) const { return n == 0 ? 0 : sdy; }
 };
+
+struct HaloNbh : FullNbh {};
+
+// Row addressing. A cyclic neighbourhood reads K/V of q's mx rows and wraps
+// the row index; HaloNbh reads mx + 2 rows and does not wrap.
+template <typename Nbh>
+__device__ __forceinline__ int kv_rows(const Nbh&, int mx) { return mx; }
+// the K/V row of neighbour n of query row i
+template <typename Nbh>
+__device__ __forceinline__ int key_row(const Nbh& nbh, int i, int n, int mx) {
+  return (i + nbh.dx(n) + mx) % mx;
+}
+// the query row whose neighbour n is K/V row r, or -1 when there is none
+template <typename Nbh>
+__device__ __forceinline__ int query_row(const Nbh& nbh, int r, int n, int mx) {
+  return (r - nbh.dx(n) + mx) % mx;
+}
+
+__device__ __forceinline__ int kv_rows(const HaloNbh&, int mx) { return mx + 2; }
+__device__ __forceinline__ int key_row(const HaloNbh& nbh, int i, int n, int) {
+  return i + nbh.dx(n) + 1;
+}
+// the halo rows 0 and mx + 1 are seen by query rows 0 and mx - 1 only
+__device__ __forceinline__ int query_row(const HaloNbh& nbh, int r, int n, int mx) {
+  const int i = r - 1 - nbh.dx(n);
+  return i >= 0 && i < mx ? i : -1;
+}
 
 // Forward, one block per (query chunk, head, image): an online softmax over
 // the column tiles (the global keys w2 at a time, then the kCount neighbour
@@ -62,9 +97,14 @@ __device__ __forceinline__ void sliding_chunk_fwd(
   float* m_s = acc_s + w2 * M;        // w2
   float* l_s = m_s + w2;              // w2
 
-  // head h of chunk (ci, cj): w2 rows of M elements, C apart
+  // head h of chunk (ci, cj) of q's grid, or of the K/V grid of mxk rows:
+  // w2 rows of M elements, C apart
+  const int mxk = kv_rows(nbh, mx);
   auto chunk_ptr = [&](auto* base, int ci, int cj) {
     return base + (((long)b * mx + ci) * my + cj) * w2 * C + h * M;
+  };
+  auto kv_ptr = [&](auto* base, int ci, int cj) {
+    return base + (((long)b * mxk + ci) * my + cj) * w2 * C + h * M;
   };
   load_rows<M>(q_s, M, chunk_ptr(q, i, j), C, w2);
   for (int idx = threadIdx.x; idx < w2 * M; idx += blockDim.x) acc_s[idx] = 0.f;
@@ -86,11 +126,11 @@ __device__ __forceinline__ void sliding_chunk_fwd(
       vsrc = v_glo + ((long)b * nglo + col0) * C + h * M;
     } else {
       const int n = tile - n_glo_tiles;
-      const int ci = (i + nbh.dx(n) + mx) % mx, cj = (j + nbh.dy(n) + my) % my;
+      const int ci = key_row(nbh, i, n, mx), cj = (j + nbh.dy(n) + my) % my;
       col0 = nglo + n * w2;
       nkeys = w2;
-      ksrc = chunk_ptr(k, ci, cj);
-      vsrc = chunk_ptr(v, ci, cj);
+      ksrc = kv_ptr(k, ci, cj);
+      vsrc = kv_ptr(v, ci, cj);
     }
     __syncthreads();  // the previous tile is consumed; q and the state are set
     load_rows<M>(k_s, M + 1, ksrc, C, nkeys);
@@ -143,8 +183,12 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass1(
   float* lse_s = dq_s + w2 * M;       // w2
   float* delta_s = lse_s + w2;        // w2
 
+  const int mxk = kv_rows(nbh, mx);
   auto chunk_ptr = [&](auto* base, int ci, int cj) {
     return base + (((long)b * mx + ci) * my + cj) * w2 * C + h * M;
+  };
+  auto kv_ptr = [&](auto* base, int ci, int cj) {
+    return base + (((long)b * mxk + ci) * my + cj) * w2 * C + h * M;
   };
   const float* bias_h = bias != nullptr ? bias + (long)h * w2 * cols : nullptr;
   const int n_glo_tiles = (nglo + w2 - 1) / w2;
@@ -174,11 +218,11 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass1(
           vsrc = v_glo + ((long)b * nglo + col0) * C + h * M;
         } else {
           const int n = tile - n_glo_tiles;
-          const int ci = (i + nbh.dx(n) + mx) % mx, cj = (j + nbh.dy(n) + my) % my;
+          const int ci = key_row(nbh, i, n, mx), cj = (j + nbh.dy(n) + my) % my;
           col0 = nglo + n * w2;
           nkeys = w2;
-          ksrc = chunk_ptr(k, ci, cj);
-          vsrc = chunk_ptr(v, ci, cj);
+          ksrc = kv_ptr(k, ci, cj);
+          vsrc = kv_ptr(v, ci, cj);
         }
         __syncthreads();  // the previous tile is consumed; rows and sums are set
         load_rows<M>(k_s, M + 1, ksrc, C, nkeys);
@@ -218,13 +262,14 @@ constexpr size_t pass1_smem_bytes(int w2, int M) {
   return sizeof(float) * (size_t)w2 * (5 * M + 4);
 }
 
-// Backward pass 2, one block per (key chunk (r, c), head, image): for each
-// neighbour n it stages the query chunk that sees this key chunk as its
-// neighbour n, ((r - dx(n)) mod mx, (c - dy(n)) mod my), recomputes P and dS
-// against it from the stored L and δ, and accumulates dK += dSᵀ · q and
-// dV += Pᵀ · g. A key chunk that is several neighbours of one query chunk
-// (cyclic grids with mx or my ≤ 2) adds each occurrence, as the forward
-// visits each one.
+// Backward pass 2, one block per (key chunk (r, c) of the K/V grid, head,
+// image): for each neighbour n it stages the query chunk that sees this key
+// chunk as its neighbour n, (query_row(nbh, r, n, mx), (c - dy(n)) mod my),
+// if there is one, recomputes P and dS against it from the stored L and δ,
+// and accumulates dK += dSᵀ · q and dV += Pᵀ · g. A key chunk that is
+// several neighbours of one query chunk (cyclic grids with mx or my ≤ 2, a
+// halo shard of one row) adds each occurrence, as the forward visits each
+// one.
 template <typename T, int M, typename Nbh>
 __device__ __forceinline__ void sliding_chunk_bwd_pass2(
     Nbh nbh, const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -232,9 +277,10 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass2(
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
     T* __restrict__ dv, int mx, int my, int w2, int C, int nglo, int wq) {
   extern __shared__ float smem[];
-  const int chunk = blockIdx.x;  // the key chunk r * my + c
+  const int chunk = blockIdx.x;  // the key chunk r * my + c of the K/V grid
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int r = chunk / my, c = chunk % my;
+  const int mxk = kv_rows(nbh, mx);
   const int cols = nglo + Nbh::kCount * w2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
 
@@ -250,8 +296,11 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass2(
   auto chunk_ptr = [&](auto* base, int ci, int cj) {
     return base + (((long)b * mx + ci) * my + cj) * w2 * C + h * M;
   };
-  load_rows<M>(k_s, M, chunk_ptr(k, r, c), C, w2);
-  load_rows<M>(v_s, M, chunk_ptr(v, r, c), C, w2);
+  auto kv_ptr = [&](auto* base, int ci, int cj) {
+    return base + (((long)b * mxk + ci) * my + cj) * w2 * C + h * M;
+  };
+  load_rows<M>(k_s, M, kv_ptr(k, r, c), C, w2);
+  load_rows<M>(v_s, M, kv_ptr(v, r, c), C, w2);
   for (int idx = threadIdx.x; idx < w2 * M; idx += blockDim.x) {
     dk_s[idx] = 0.f;
     dv_s[idx] = 0.f;
@@ -261,7 +310,8 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass2(
   for (int n = 0; n < Nbh::kCount; ++n) {
     // this key chunk is neighbour n of query chunk (r - dx, c - dy), at its
     // columns nglo + n * w2 ...
-    const int qi = (r - nbh.dx(n) + mx) % mx, qj = (c - nbh.dy(n) + my) % my;
+    const int qi = query_row(nbh, r, n, mx), qj = (c - nbh.dy(n) + my) % my;
+    if (qi < 0) continue;  // the same for the whole block
     const int qchunk = qi * my + qj;
     const long row0 = (((long)b * H + h) * mx * my + qchunk) * w2;
     __syncthreads();  // the previous query chunk is consumed
@@ -286,8 +336,8 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass2(
     }
   }
   __syncthreads();
-  store_rows<M>(chunk_ptr(dk, r, c), C, dk_s, w2);
-  store_rows<M>(chunk_ptr(dv, r, c), C, dv_s, w2);
+  store_rows<M>(kv_ptr(dk, r, c), C, dk_s, w2);
+  store_rows<M>(kv_ptr(dv, r, c), C, dv_s, w2);
 }
 
 constexpr size_t pass2_smem_bytes(int w2, int M) {

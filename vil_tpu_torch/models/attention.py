@@ -16,6 +16,14 @@ Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
   not depend on the mode; it takes its gradient from autograd, as the JAX
   package's takes it from XLA.
 
+  Under spatial parallelism (a ``parallel.spatial.SpatialContext``, from
+  ``parallel.spatial_forward``) the module holds its rank's chunk rows: the
+  local branch exchanges halos and runs the halo-input kernels
+  (``ops/kernels/vil_attention_halo.py``; the plain spatial tier with
+  ``use_kernels=False``) at mode 0, and the global branch spreads its
+  softmax over the ranks. The fused block has no halo form: a module built
+  with ``fused_block`` raises under a spatial context.
+
 q is scaled by M^-½ before either kernel. With a gradient to take, the
 kernels run through their autograd Functions (forward with the log-sum-exp,
 then the backward kernel); ``use_kernels=False`` calls the plain versions
@@ -36,6 +44,11 @@ from ..ops.kernels.vil_attention import (
 )
 from ..ops.kernels.vil_block import vil_block
 from ..ops.kernels.vil_mode_attention import vil_mode_attention, vil_mode_attention_reference
+from ..parallel.spatial import (
+    global_branch,
+    spatial_local_attention,
+    spatial_local_attention_kernel,
+)
 from .layers import Linear, check_eval_only
 
 
@@ -77,7 +90,8 @@ class VilAttention(nn.Module):
     ``exact`` selects the mask semantics (SW_EXACT 1, 0 or -1). The
     neighbour ``mode`` is 0 (the 3×3 chunk neighbourhood) or 1..8 (self and
     the sampled neighbour of random-shift training; SW_EXACT 1 has no tables
-    for it and raises, as in the JAX package).
+    for it and raises, as in the JAX package). With a ``spatial`` context
+    x_img holds this rank's chunk rows of the (nx, ny) grid, at mode 0.
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -119,10 +133,16 @@ class VilAttention(nn.Module):
                 ]
         return self._masks[key][max(mode - 1, 0)]
 
-    def forward(self, x, nx: int, ny: int, mode: int = 0):
+    def forward(self, x, nx: int, ny: int, mode: int = 0, spatial=None):
         mode = sc.check_mode(mode)
         if mode == -1:
             raise NotImplementedError("sliding-chunk mode -1 (self chunk only) is not ported")
+        if spatial is not None and mode != 0:
+            raise NotImplementedError("spatial parallelism runs the sliding-chunk attention "
+                                      "at mode 0 only")
+        if spatial is not None and self.fused_block and self.use_kernels:
+            raise NotImplementedError("the fused attention block has no halo form: build "
+                                      "the model without fused_block for spatial parallelism")
         if mode > 0 and self.exact == 1:
             raise ValueError("SW_EXACT 1 has no mask tables for the sampled-neighbour "
                              "modes 1..8 (only mode 0)")
@@ -141,6 +161,8 @@ class VilAttention(nn.Module):
             kg = self.kv.part(x_glo, 0, 2)  # (B, Nglo, C)
             vg = self.kv.part(x_glo, 1, 2)
         mask = self._mask(nx, ny, mode, x_img.device)
+        if spatial is not None:
+            mask = spatial.rows(mask)  # this rank's chunk rows of the table
         if self.fused_block and self.use_kernels and mode == 0:
             # the fused block: projections, attention and output projection
             # from the raw weights, in (in, out) layout and the compute type
@@ -158,7 +180,14 @@ class VilAttention(nn.Module):
             q_img = self.query(x_img) * scale  # (B, mx, my, W², C)
             k_img = self.kv.part(x_img, 0, 2)
             v_img = self.kv.part(x_img, 1, 2)
-            if mode == 0:
+            if spatial is not None:
+                if self.use_kernels:
+                    x1 = spatial_local_attention_kernel(q_img, k_img, v_img, kg, vg, None,
+                                                        mask, H, spatial.group)
+                else:
+                    x1 = spatial_local_attention(q_img, k_img, v_img, kg, vg, None, mask, H,
+                                                 spatial.group)
+            elif mode == 0:
                 attend = vil_attention if self.use_kernels else vil_attention_reference
                 x1 = attend(q_img, k_img, v_img, kg, vg, None, mask, H)
             else:
@@ -168,32 +197,15 @@ class VilAttention(nn.Module):
         if Nglo == 0:
             return None, x1
 
-        # global branch: the global queries attend densely over all tokens.
-        # The local keys stay in chunk order (softmax over keys does not care
-        # about their order) and the softmax over [glo ‖ local] is taken in
-        # two parts that share one max and one denominator; pad positions of
-        # a padded chunk grid are masked. The max is a constant to autograd,
-        # as under the JAX package's stop_gradient.
-        f32 = torch.float32
-        qg = (self.query(x_glo) * scale).reshape(B, Nglo, H, M)
-        k6 = k_img.reshape(B, mx, my, W2, H, M)
-        v6 = v_img.reshape(B, mx, my, W2, H, M)
-        kg4, vg4 = kg.reshape(B, Nglo, H, M), vg.reshape(B, Nglo, H, M)
-        s_loc = torch.einsum("bxylhm,bghm->bxylhg", k6, qg).to(f32)
-        s_glo = torch.einsum("bthm,bghm->bthg", kg4, qg).to(f32)
-        if mx * my * W2 != nx * ny:
-            valid = torch.from_numpy(masks_lib.chunk_valid(nx, ny, self.w))
-            s_loc = s_loc.masked_fill(
-                ~valid.to(s_loc.device)[None, :, :, :, None, None], float("-inf")
-            )
-        m0 = torch.maximum(s_loc.amax(dim=(1, 2, 3)),
-                           s_glo.amax(dim=1)).detach()  # (B, H, Nglo)
-        e_loc = torch.exp(s_loc - m0[:, None, None, None])
-        e_glo = torch.exp(s_glo - m0[:, None])
-        den = e_loc.sum(dim=(1, 2, 3)) + e_glo.sum(dim=1)
-        p_loc = (e_loc / den[:, None, None, None]).to(x_img.dtype)
-        p_glo = (e_glo / den[:, None]).to(x_img.dtype)
-        x0 = (torch.einsum("bxylhg,bxylhm->bghm", p_loc, v6).to(f32)
-              + torch.einsum("bthg,bthm->bghm", p_glo, vg4).to(f32))
-        x0 = self.proj(x0.to(x_img.dtype).reshape(B, Nglo, C))
+        # global branch: the global queries attend densely over all tokens,
+        # their softmax spread over the ranks under the split; pad positions
+        # of a padded chunk grid are masked
+        qg = (self.query(x_glo) * scale).reshape(B, Nglo, H, M).transpose(1, 2)
+        valid = None
+        if mx * (1 if spatial is None else spatial.size) * my * W2 != nx * ny:
+            valid = torch.from_numpy(masks_lib.chunk_valid(nx, ny, self.w)).to(x_img.device)
+            if spatial is not None:
+                valid = spatial.rows(valid)
+        x0 = global_branch(qg, k_img, v_img, kg, vg, valid=valid, spatial=spatial)
+        x0 = self.proj(x0.transpose(1, 2).to(x_img.dtype).reshape(B, Nglo, C))
         return x0, x1

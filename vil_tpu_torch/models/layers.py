@@ -203,18 +203,22 @@ class PatchEmbed(nn.Module):
         self._u8_scale = (1.0 / (255.0 * std)).tolist()
         self._u8_offset = (-mean / std).tolist()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[tuple[int, int]] = None) -> torch.Tensor:
+        """``rows`` = (first row, row count) of the patch grid that x covers,
+        for a row block of the image (spatial parallelism); the whole grid
+        by default. The position embedding adds those rows."""
         B = x.shape[0]
         dt = self.compute_dtype
+        row0, nrows = (0, self.nx) if rows is None else rows
         if x.dtype == torch.uint8:
             scale = torch.tensor(self._u8_scale, dtype=dt, device=x.device)
             offset = torch.tensor(self._u8_offset, dtype=dt, device=x.device)
             x = x.to(dt) * scale + offset
         x = self.proj(x.permute(0, 3, 1, 2))  # NHWC viewed as NCHW
-        if tuple(x.shape[2:]) != (self.nx, self.ny):
+        if tuple(x.shape[2:]) != (nrows, self.ny) or row0 + nrows > self.nx:
             raise ValueError(
                 f"Fix input size! patch grid {tuple(x.shape[2:])} != "
-                f"{(self.nx, self.ny)}"
+                f"{(nrows, self.ny)} (rows {row0}..{row0 + nrows} of {self.nx})"
             )
         x = x.flatten(2).transpose(1, 2)  # (B, nx·ny, C), row-major grid
         if self.norm_embed is not None:
@@ -223,12 +227,12 @@ class PatchEmbed(nn.Module):
             x = torch.cat([self.cls_token.to(dt).expand(B, -1, -1), x], dim=1)
         if self.ape:
             half = self.embed_dim // 2
-            grid = (1, self.nx, self.ny, half)
+            grid = (1, nrows, self.ny, half)
             pos2d = torch.cat(
-                [self.x_pos_embed[:, :, None, :].expand(grid),
+                [self.x_pos_embed[:, row0:row0 + nrows, None, :].expand(grid),
                  self.y_pos_embed[:, None, :, :].expand(grid)],
                 dim=-1,
-            ).reshape(1, self.nx * self.ny, self.embed_dim)
+            ).reshape(1, nrows * self.ny, self.embed_dim)
             x = x + torch.cat([self.cls_pos_embed, pos2d], dim=1).to(dt)
         check_eval_only(self, self.drop_rate, "patch-embedding dropout")
         return x

@@ -14,6 +14,13 @@ attention-block kernel pair). Not ported yet, and refused at construction:
 RPE (``a0``), ``only_glo``, ``sharew=False`` and the other attention
 families. Dropout raises in training mode.
 
+Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)``, through
+``parallel.spatial_forward``, runs the eval forward with the image's rows
+split over a process group. The chunked stages keep their rank's chunk rows
+(patch embedding with its rows of the position table, sliding-chunk
+attention with halo exchange); the first dense stage gathers the rows, and
+it and the stages after it run whole on every rank.
+
 Sub-modules carry the flax module names (``stage1_patch_embed``,
 ``stage3_block0_attn``, ``stage2_block1_mlp``, ``norm``, ``head``), so the
 parameters of ``vil_tpu``'s MsViT load with ``utils.jax_import``.
@@ -78,12 +85,12 @@ class AttnBlock(nn.Module):
         self.droppath = DropPath(drop_path)
 
     def forward(self, x, nx: int, ny: int, generator: Optional[torch.Generator] = None,
-                mode: int = 0):
-        if isinstance(x, tuple):
+                mode: int = 0, spatial=None):
+        if isinstance(x, tuple):  # sliding-chunk attention, maybe on a rank's rows
             x_glo, x_img = x
             y_glo, y_img = self.droppath(self.attn(
                 (None if x_glo is None else self.norm(x_glo), self.norm(x_img)),
-                nx, ny, mode,
+                nx, ny, mode, spatial,
             ), generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
         return x + self.droppath(self.attn(self.norm(x), nx, ny, mode), generator)
@@ -260,31 +267,60 @@ class MsViT(nn.Module):
                 raise ValueError(f"expected {self.depth} per-layer modes, got {len(modes)}")
         return modes if self.training else [0] * self.depth
 
+    def check_spatial_split(self, size: int) -> None:
+        """Raise unless ``size`` ranks can split the image's rows so that
+        every chunked stage gets whole chunk rows: ``size`` must divide the
+        chunk rows (mx) of each, with no padded row (the JAX package pads
+        under GSPMD; the port does not)."""
+        rows = self.img_size  # input rows of the stage
+        for sid, (c, (nx, _)) in enumerate(zip(self.layer_cfgs, self.grid_sizes())):
+            if not self.stage_chunked[sid]:
+                break
+            w = c.num_feats
+            if rows % (size * c.patch_size) or nx % (size * w):
+                raise ValueError(
+                    f"spatial parallelism over {size} ranks needs whole chunk rows on every "
+                    f"rank: stage {sid + 1} has {nx} token rows in {-(-nx // w)} chunk rows of "
+                    f"{w} ({rows} input rows, patch {c.patch_size}); the rank count must "
+                    f"divide the chunk rows of every chunked stage, with no padded row")
+            rows = nx
+
     def forward_features(self, x: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
-                         mode: Union[int, Sequence[int]] = 0) -> torch.Tensor:
+                         mode: Union[int, Sequence[int]] = 0, spatial=None) -> torch.Tensor:
         B = x.shape[0]
+        if spatial is not None and self.training:
+            raise NotImplementedError("the spatial training step is not ported: spatial "
+                                      "parallelism runs the eval forward")
         modes = iter(self._block_modes(mode))
         grids = self.grid_sizes()
         nglos = [c.nglo for c in self.layer_cfgs]
+        split = spatial is not None  # x holds this rank's rows of the image
         for sid, names in enumerate(self.stage_blocks):
             nx, ny = grids[sid]
             if sid > 0:
                 # strip the global tokens, tokens → image grid (NHWC)
                 prev_nx, prev_ny = grids[sid - 1]
-                x = x[:, nglos[sid - 1]:].reshape(B, prev_nx, prev_ny, -1)
-            x = getattr(self, f"stage{sid + 1}_patch_embed")(x)
+                prev_rows = prev_nx // spatial.size if split else prev_nx
+                x = x[:, nglos[sid - 1]:].reshape(B, prev_rows, prev_ny, -1)
             chunked = self.stage_chunked[sid]
+            if split and not chunked:  # the first dense stage runs whole
+                x = spatial.gather_rows(x, dim=1)
+                split = False
+            rows = (spatial.rank * nx // spatial.size, nx // spatial.size) if split else None
+            x = getattr(self, f"stage{sid + 1}_patch_embed")(x, rows)
+            nx_here = rows[1] if split else nx
             if chunked:
                 g, w_s = nglos[sid], self.layer_cfgs[sid].num_feats
                 x = (x[:, :g] if g > 0 else None,
-                     sc.chunkify(x[:, g:], nx, ny, w_s))
+                     sc.chunkify(x[:, g:], nx_here, ny, w_s))
             for attn_name, mlp_name in names:
-                x = getattr(self, attn_name)(x, nx, ny, generator, next(modes))
+                x = getattr(self, attn_name)(x, nx, ny, generator, next(modes),
+                                             spatial if split else None)
                 x = getattr(self, mlp_name)(x, generator)
             if chunked:
                 x_glo, x_img = x
-                loc = sc.unchunkify(x_img, nx, ny, w_s)
+                loc = sc.unchunkify(x_img, nx_here, ny, w_s)
                 x = loc if x_glo is None else torch.cat([x_glo, loc], dim=1)
         x = self.norm(x)
         if nglos[-1] > 0 and not self.avg_pool:
@@ -292,12 +328,13 @@ class MsViT(nn.Module):
         return x.mean(dim=1)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                mode: Union[int, Sequence[int]] = 0) -> torch.Tensor:
+                mode: Union[int, Sequence[int]] = 0, spatial=None) -> torch.Tensor:
         """x: (B, H, W, C) NHWC images → (B, num_classes) logits. In training
         mode stochastic depth draws from ``generator`` (on x's device), and
         ``mode`` is the neighbour mode of every attention block, or a
         sequence of ``depth`` host ints, one per block in order (the dense
         blocks included, which ignore theirs). In eval mode every block runs
-        at mode 0."""
-        feats = self.forward_features(x, generator, mode)
+        at mode 0. With a ``spatial`` context (``parallel.spatial_forward``)
+        x holds this rank's rows of the images (eval only)."""
+        feats = self.forward_features(x, generator, mode, spatial)
         return feats if self.head is None else self.head(feats)

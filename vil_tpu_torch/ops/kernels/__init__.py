@@ -28,6 +28,14 @@ from .vil_attention import (
     vil_attention_fwd,
     vil_attention_reference,
 )
+from .vil_attention_halo import (
+    VilAttentionHaloFunction,
+    vil_attention_halo,
+    vil_attention_halo_bwd,
+    vil_attention_halo_bwd_reference,
+    vil_attention_halo_fwd,
+    vil_attention_halo_reference,
+)
 from .vil_block import (
     VilBlockFunction,
     vil_block,
@@ -50,16 +58,18 @@ from .vil_mode_attention import (
 # sampled-neighbour pair takes the sliding-chunk pair's place in a
 # random-shift (MODE > 0) training step, and in the fused-kernel
 # configuration the LayerNorm pair runs in the block pre-norms and the fused
-# block pair in the sliding-chunk pair's place
+# block pair in the sliding-chunk pair's place; under spatial (chunk-row)
+# parallelism the halo-input pair takes it
 KERNELS = (vil_attention_fwd, full_attention_fwd, vil_attention_bwd, full_attention_bwd,
            vil_mode_attention_fwd, vil_mode_attention_bwd, layer_norm_fwd, layer_norm_bwd,
-           vil_block_fwd, vil_block_bwd)
+           vil_block_fwd, vil_block_bwd, vil_attention_halo_fwd, vil_attention_halo_bwd)
 
 __all__ = [
     "KERNELS",
     "FullAttentionFunction",
     "LayerNormFunction",
     "VilAttentionFunction",
+    "VilAttentionHaloFunction",
     "VilBlockFunction",
     "VilModeAttentionFunction",
     "full_attention",
@@ -77,6 +87,11 @@ __all__ = [
     "vil_attention_bwd",
     "vil_attention_bwd_reference",
     "vil_attention_fwd",
+    "vil_attention_halo",
+    "vil_attention_halo_bwd",
+    "vil_attention_halo_bwd_reference",
+    "vil_attention_halo_fwd",
+    "vil_attention_halo_reference",
     "vil_attention_reference",
     "vil_block",
     "vil_block_bwd",

@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # argtypes of every C entry point, in the order of its C signature
 SIGNATURES = {
     # x, gamma, beta, y, rows, C, eps, is_bf16, stream
@@ -56,6 +56,14 @@ SIGNATURES = {
     # dx, dy before is_bf16
     "vil_mode_attention_fwd": [_P] * 9 + [_I] * 11 + [_P],
     "vil_mode_attention_bwd": [_P] * 16 + [_I] * 11 + [_P],
+    # the same as vil_attention_fwd / _bwd, with k, v (and dk, dv) of mx + 2
+    # chunk rows
+    "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],
+    "vil_attention_halo_bwd": [_P] * 16 + [_I] * 9 + [_P],
+    # x, y, the 5 sizes of the layout, x's and y's 5 strides (elements),
+    # is_bf16, stream; one entry point per layout
+    "layout_probe_base": [_P] * 2 + [_L] * 15 + [_I, _P],
+    "layout_probe_perm": [_P] * 2 + [_L] * 15 + [_I, _P],
     # q, k, v, bias, out, lse, B, N, C, H, is_bf16, stream
     "full_attention_fwd": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, v, g, bias, lse, delta, dq, dk, dv, dbias_part,

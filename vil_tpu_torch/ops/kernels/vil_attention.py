@@ -18,7 +18,9 @@ scaled by M^-½; the gradient dq is with respect to that scaled q.
 
 The operand checks, the launchers and the plain versions here take the
 neighbourhood as a parameter: ``vil_mode_attention.py`` (the sampled
-[self ‖ one neighbour] kernels of random-shift training) shares them.
+[self ‖ one neighbour] kernels of random-shift training) and
+``vil_attention_halo.py`` (the halo-extended K/V of spatial parallelism)
+share them.
 """
 from __future__ import annotations
 
@@ -68,31 +70,26 @@ def _glo_heads(t, H):
     return t.float().reshape(B, nglo, H, C // H).transpose(1, 2).reshape(B * H, nglo, C // H)
 
 
-def _scores(q, k, k_glo, bias, mask_add, H, mode):
-    """S in f32, (B·H, mx, my, W², Nglo+K·W²), columns in front order."""
-    B = q.shape[0]
+def neighbourhood_attention(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+                            neighbours, with_lse: bool = False):
+    """Plain PyTorch sliding-chunk attention, in f32 through the
+    neighbourhood-concat matmuls; the output is rounded to q's dtype. With
+    ``with_lse`` it returns (out, lse). ``neighbours`` maps a K or V operand
+    in heads layout (B·H, rows, my, W², M) to its concatenated neighbourhood
+    (B·H, mx, my, K·W², M), in the column order of the mask."""
+    B, mx, my, w2, C = q.shape
+    H = num_heads
+    nglo = 0 if k_glo is None else k_glo.shape[1]
     qh = _heads(q, H)
-    scores = sc.sliding_chunk_qk(qh, _heads(k, H), mode)  # (B·H, mx, my, W², K·W²)
-    if k_glo is not None:
+    scores = torch.matmul(qh, neighbours(_heads(k, H)).transpose(-1, -2))
+    if k_glo is not None:  # (B·H, mx, my, W², Nglo + K·W²), front order
         s_glo = torch.einsum("bxylm,btm->bxylt", qh, _glo_heads(k_glo, H))
         scores = torch.cat([s_glo, scores], dim=-1)
     if bias is not None:  # row b·H + h takes bias[h]
         scores = scores + bias.float().repeat(B, 1, 1)[:, None, None]
-    return scores + mask_add.float()[None]
-
-
-def chunk_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
-                              mode: int, with_lse: bool = False):
-    """Plain PyTorch sliding-chunk attention over the neighbourhood of
-    ``mode`` (``ops.sliding_chunk``), in f32 through the neighbourhood-concat
-    matmuls; the output is rounded to q's dtype. With ``with_lse`` it
-    returns (out, lse)."""
-    B, mx, my, w2, C = q.shape
-    H = num_heads
-    nglo = 0 if k_glo is None else k_glo.shape[1]
-    scores = _scores(q, k, k_glo, bias, mask_add, H, mode)
+    scores = scores + mask_add.float()[None]
     probs = torch.softmax(scores, dim=-1)
-    out = sc.sliding_chunk_av(probs[..., nglo:], _heads(v, H), mode)
+    out = torch.matmul(probs[..., nglo:], neighbours(_heads(v, H)))
     if nglo > 0:
         out = out + torch.einsum("bxylt,btm->bxylm", probs[..., :nglo],
                                  _glo_heads(v_glo, H))
@@ -103,18 +100,36 @@ def chunk_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: 
     return out, torch.logsumexp(scores, dim=-1).reshape(B, H, mx, my, w2)
 
 
+def chunk_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+                              mode: int, with_lse: bool = False):
+    """Plain PyTorch sliding-chunk attention over the cyclic neighbourhood of
+    ``mode`` (``ops.sliding_chunk``), in f32 through the neighbourhood-concat
+    matmuls; the output is rounded to q's dtype. With ``with_lse`` it
+    returns (out, lse)."""
+    return neighbourhood_attention(q, k, v, k_glo, v_glo, bias, mask_add, num_heads,
+                                   lambda t: sc.neighborhood(t, mode), with_lse)
+
+
+def grads_by_autograd(forward, operands, g):
+    """Autograd through ``forward(*operands)`` in f32: the gradient of each
+    operand against the upstream ``g``, in the operand's dtype, None where
+    the operand is."""
+    leaves = [None if t is None else t.detach().float().requires_grad_() for t in operands]
+    with torch.enable_grad():
+        out = forward(*leaves)
+        present = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(out, present, g.float()))
+    return tuple(None if t is None else next(grads).to(t.dtype) for t in operands)
+
+
 def chunk_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_heads: int,
                                   mode: int):
     """Autograd through :func:`chunk_attention_reference` in f32: (dq, dk,
     dv, dk_glo, dv_glo, dbias), each in its operand's dtype, None where the
     operand is."""
-    operands = (q, k, v, k_glo, v_glo, bias)
-    leaves = [None if t is None else t.detach().float().requires_grad_() for t in operands]
-    with torch.enable_grad():
-        out = chunk_attention_reference(*leaves, mask_add, num_heads, mode)
-        present = [t for t in leaves if t is not None]
-        grads = iter(torch.autograd.grad(out, present, g.float()))
-    return tuple(None if t is None else next(grads).to(t.dtype) for t in operands)
+    return grads_by_autograd(
+        lambda *ops: chunk_attention_reference(*ops, mask_add, num_heads, mode),
+        (q, k, v, k_glo, v_glo, bias), g)
 
 
 def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
@@ -134,12 +149,17 @@ def vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_he
                                          num_heads, 0)
 
 
-def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int = 9):
+def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int = 9,
+                   halo: bool = False):
     """Raise on what the kernels do not take; ``span`` is the number of key
-    chunks per query chunk (9 here, 2 for the sampled-neighbour kernels)."""
-    if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share a 5-D shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    chunks per query chunk (9 here, 2 for the sampled-neighbour kernels);
+    with ``halo`` k and v hold two chunk rows more than q."""
+    if q.dim() != 5:
+        raise ValueError(f"q must be 5-D (B, mx, my, W², C), got {tuple(q.shape)}")
+    kv_shape = (q.shape[0], q.shape[1] + 2 * halo, *q.shape[2:])
+    if k.shape != kv_shape or v.shape != kv_shape:
+        raise ValueError(f"k, v must be {kv_shape} for q {tuple(q.shape)}, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, mx, my, w2, C = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {q.dtype} is not supported (float32, bfloat16)")

@@ -1,0 +1,68 @@
+"""Cross-process communication helpers over ``torch.distributed``.
+
+Counterpart of ``vil_tpu/parallel/collectives.py`` (itself the JAX form of
+the reference's ``utils/comm.py``): rank helpers, a barrier, a gather of
+pickled objects, a sum of dicts of scalars and a gather of equal-shape
+arrays. With no initialised process group, or a world of one process, each
+acts as at one process and communicates nothing.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch.distributed as dist
+
+
+def is_distributed() -> bool:
+    """Whether a process group is initialised."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def get_world_size(group=None) -> int:
+    """Ranks in ``group`` (the default group when None); 1 without one."""
+    return dist.get_world_size(group) if is_distributed() else 1
+
+
+def get_rank(group=None) -> int:
+    """This process's rank in ``group``; 0 without a process group."""
+    return dist.get_rank(group) if is_distributed() else 0
+
+
+def is_main_process() -> bool:
+    return get_rank() == 0
+
+
+def synchronize() -> None:
+    """Barrier across processes."""
+    if get_world_size() > 1:
+        dist.barrier()
+
+
+def all_gather(data: Any) -> list:
+    """Gather picklable objects from all processes, in rank order (pickled
+    into byte tensors, padded to the longest, gathered)."""
+    if get_world_size() == 1:
+        return [data]
+    out: list = [None] * get_world_size()
+    dist.all_gather_object(out, data)
+    return out
+
+
+def all_gather_arrays(array: np.ndarray) -> np.ndarray:
+    """Gather an equal-shape array from every process, stacked on a new
+    leading axis in rank order."""
+    return np.stack([np.asarray(a) for a in all_gather(np.asarray(array))])
+
+
+def reduce_dict(input_dict: Dict[str, float], average: bool = True) -> Dict[str, float]:
+    """Sum (or mean) a dict of scalars across processes."""
+    world = get_world_size()
+    if world == 1:
+        return dict(input_dict)
+    keys = sorted(input_dict)
+    vals = np.asarray([float(input_dict[k]) for k in keys], dtype=np.float64)
+    total = all_gather_arrays(vals).sum(axis=0)
+    if average:
+        total = total / world
+    return dict(zip(keys, total.tolist()))

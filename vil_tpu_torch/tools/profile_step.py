@@ -1,12 +1,14 @@
 """Where the time of a ViL-Small 224² step goes on one CUDA card.
 
-    python -m vil_tpu_torch.tools.profile_step [--mode train|train_shift|serve]
-                                               [--fused] [--out profile_train.json]
+    python -m vil_tpu_torch.tools.profile_step
+        [--mode train|train_shift|serve|serve_spatial] [--fused] [--out profile_train.json]
 
 Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
 compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
 the random-shift step, one sampled neighbour mode per block; ``--fused`` the
-fused-kernel configuration, ``recipe.vil_small(..., fused=True)``) under
+fused-kernel configuration, ``recipe.vil_small(..., fused=True)``;
+``serve_spatial`` the serving forward through ``parallel.spatial_forward`` on
+a one-rank ``nccl`` group, set up from a ``FileStore`` under build/) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
 kernel family and the top kernels, the wall time per step and the device's
 busy share (kernel time over wall time). The profiler's own host work
@@ -34,10 +36,13 @@ FAMILIES = [
     ("B4 dense bwd", r"full_attention_bwd_pass"),
     ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
     ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_pass"),
+    ("B7a halo fwd", r"vil_attention_halo_fwd_kernel"),
+    ("B7b halo bwd", r"vil_attention_halo_bwd_pass"),
     ("B8 LayerNorm fwd", r"vil_ln_fwd"),
     ("B8 LayerNorm bwd", r"vil_ln_bwd"),
     ("B9 fused block fwd", r"vil_block_fwd"),
     ("B9 fused block bwd", r"vil_block_bwd"),
+    ("NCCL", r"nccl|ncclDevKernel"),
     ("GEMM", r"gemm|cutlass|xmma|nvjet|cublas|matmul|sm90_"),
     ("convolution", r"conv|cudnn|implicit"),
     ("LayerNorm", r"layer_norm|LayerNorm"),
@@ -64,7 +69,7 @@ def card_line() -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("train", "train_shift", "serve"), default="train")
+    ap.add_argument("--mode", choices=("train", "train_shift", "serve", "serve_spatial"), default="train")
     ap.add_argument("--fused", action="store_true",
                     help="the fused-kernel configuration (TPU.FUSED_LN, fused block)")
     ap.add_argument("--out", default=None)
@@ -87,10 +92,19 @@ def main() -> None:
                                  fused=args.fused).eval()
         images = torch.randint(0, 256, images.shape, generator=gen, device=dev,
                                dtype=torch.uint8)  # normalised on the device
+        forward = model
+        if args.mode == "serve_spatial":
+            from .. import parallel
+
+            build_dir = os.path.join(os.path.dirname(__file__), "..", "..", "build")
+            os.makedirs(build_dir, exist_ok=True)
+            store = os.path.join(build_dir, f"spatial_store.{os.getpid()}")
+            parallel.init_process_group(store, 0, 1, backend="nccl")
+            forward = lambda x: parallel.spatial_forward(model, parallel.shard_image(x))
 
         def run():
             with torch.inference_mode():
-                return model(images)
+                return forward(images)
 
     for _ in range(WARMUP):
         run()
@@ -110,6 +124,8 @@ def main() -> None:
         if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / STEPS
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     device_ms = sum(kernels.values())
     fams = {}
     for name, ms in kernels.items():
