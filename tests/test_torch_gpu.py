@@ -135,17 +135,96 @@ def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
     for N, with_bias in ((49, False), (197, True), (1025, False)):
         q, k, v, g = (torch.randn(2, N, 96, device=cuda).to(dtype) for _ in range(4))
         bias = torch.randn(3, N, N, device=cuda) if with_bias else None
-        _, lse = full_attention_fwd(q, k, v, bias, 3, with_lse=True)
+        out, lse = full_attention_fwd(q, k, v, bias, 3, with_lse=True)
         _, lse_ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3,
                                               with_lse=True)
         assert _max_err(lse, lse_ref) <= tol
-        grads = full_attention_bwd(q, k, v, bias, g, lse, 3)
+        grads = full_attention_bwd(q, k, v, bias, g, out, lse, 3)
         refs = full_attention_bwd_reference(q.float(), k.float(), v.float(), bias, g.float(), 3)
         for name, out, ref in zip(("dq", "dk", "dv", "dbias"), grads, refs):
             assert (out is None) == (ref is None), name
             if ref is not None:
                 assert _rel_err(out, ref) <= tol, (name, N, _rel_err(out, ref))
     assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3] + [0] * 8
+
+
+DENSE_BF16_TOL, DENSE_LSE_TOL, DENSE_GRAD_TOL = 2e-2, 2e-5, 1e-2  # chip_smoke.py's
+DENSE_SCALED_TOL = 2e-2  # chip_smoke.py's: max|err| / max|ref| of out, dq, dk, dv
+
+
+def _scaled_err(out, ref):
+    top = ref.float().abs().max().item()
+    return _max_err(out, ref) / top if top else _max_err(out, ref)
+
+
+def _dense_case(cuda, seed, B, N, M, H, with_bias):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(B, N, H * M, generator=gen, device=cuda) * M ** -0.25
+               for _ in range(3))
+    g = torch.randn(B, N, H * M, generator=gen, device=cuda)
+    bias = torch.randn(H, N, N, generator=gen, device=cuda) * 0.5 if with_bias else None
+    return [t.to(torch.bfloat16) for t in (q, k, v, g)], bias
+
+
+def _dense_errors(q, k, v, g, bias, H, images=None):
+    """(out, lse, grads, scaled) errors of the bf16 kernels against the plain
+    versions in f32 on the same values, over ``images`` (all by default);
+    scaled is the largest max|err| / max|ref| of out, dq, dk and dv."""
+    out, lse = full_attention_fwd(q, k, v, bias, H, with_lse=True)
+    grads = full_attention_bwd(q, k, v, bias, g, out, lse, H)
+    sel = slice(None) if images is None else images
+    a32 = [t[sel].float() for t in (q, k, v)]
+    ref, ref_lse = full_attention_reference(*a32, bias, H, with_lse=True)
+    refs = full_attention_bwd_reference(*a32, bias, g[sel].float(), H)
+    pairs = [(x[sel], r) for x, r in zip(grads[:3], refs[:3])]
+    scaled = max(_scaled_err(x, r) for x, r in [(out[sel], ref), *pairs])
+    if bias is not None and images is None:
+        pairs.append((grads[3], refs[3]))
+    return (_max_err(out[sel], ref), _max_err(lse[sel], ref_lse),
+            max(_rel_err(x, r) for x, r in pairs), scaled)
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 128])
+def test_dense_bf16_kernels_every_head_dim(cuda, M):
+    """B3/B4 in bf16 on the tensor cores at every head dim, N ragged against
+    the 64-row tiles, B = 3, with and without a bias: out, LSE and every
+    gradient at chip_smoke.py's tolerances."""
+    for N in (1, 49, 63, 64, 65, 197, 1025):
+        for with_bias in (False, True):
+            ops, bias = _dense_case(cuda, N * M, 3, N, M, 2, with_bias)
+            e_out, e_lse, e_grad, e_scaled = _dense_errors(*ops, bias, 2)
+            case = (M, N, with_bias, e_out, e_lse, e_grad, e_scaled)
+            assert e_out <= DENSE_BF16_TOL and e_lse <= DENSE_LSE_TOL, case
+            assert e_grad <= DENSE_GRAD_TOL and e_scaled <= DENSE_SCALED_TOL, case
+    assert full_attention_fwd.launches == full_attention_bwd.launches == 14
+
+
+def test_dense_bf16_kernels_do_not_read_across_images(cuda):
+    """Image 1 of 3 filled with 1e4: a ragged tile that read past row N of
+    image 0 into image 1's rows would show in image 0's output, LSE and
+    gradients (image 2 is the last: its tiles end at the buffer)."""
+    for M, N in ((64, 1), (64, 49), (32, 65), (64, 197), (128, 100)):
+        (q, k, v, g), _ = _dense_case(cuda, N, 3, N, M, 2, False)
+        for t in (q, k, v, g):
+            t[1] = 1e4
+        for image in (0, 2):
+            e_out, e_lse, e_grad, e_scaled = _dense_errors(q, k, v, g, None, 2,
+                                                           slice(image, image + 1))
+            case = (M, N, image, e_out, e_lse, e_grad, e_scaled)
+            assert e_out <= DENSE_BF16_TOL and e_lse <= DENSE_LSE_TOL, case
+            assert e_grad <= DENSE_GRAD_TOL and e_scaled <= DENSE_SCALED_TOL, case
+
+
+def test_dense_bf16_backward_is_deterministic(cuda):
+    """Two launches of the bf16 backward on the same inputs give bitwise-equal
+    dq, dk, dv and dbias (no atomics: cross-block sums in a fixed order)."""
+    for N, with_bias in ((197, False), (197, True), (1025, False)):
+        (q, k, v, g), bias = _dense_case(cuda, 11, 4, N, 64, 6, with_bias)
+        out, lse = full_attention_fwd(q, k, v, bias, 6, with_lse=True)
+        first = full_attention_bwd(q, k, v, bias, g, out, lse, 6)
+        second = full_attention_bwd(q, k, v, bias, g, out, lse, 6)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, N)
 
 
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),

@@ -121,11 +121,21 @@ def test_vil_backward_cyclic_small_grid():
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("H,N", [(1, 9), (3, 20), (2, 70)])
-def test_full_backward_matches_pallas_and_xla(with_bias, H, N):
+@pytest.mark.parametrize("H,N,M", [
+    pytest.param(1, 9, 8, id="1-9"), pytest.param(3, 20, 8, id="3-20"),
+    pytest.param(2, 70, 8, id="2-70"),
+    # ragged against the kernels' 64-row tiles, at the head dims of ViL
+    pytest.param(2, 1, 32, id="2-1-M32"), pytest.param(1, 65, 64, id="1-65-M64"),
+    pytest.param(2, 197, 32, id="2-197-M32"), pytest.param(1, 197, 64, id="1-197-M64"),
+])
+def test_full_backward_matches_pallas_and_xla(with_bias, H, N, M):
+    """The backward wrapper, given the forward's out and lse, against the
+    Pallas backward from the Pallas LSE and the vjp of the XLA reference."""
     rng = np.random.default_rng(2)
-    C = 8 * H
+    C = M * H
     q, k, v, g = (rng.standard_normal((2, N, C)).astype(np.float32) for _ in range(4))
+    if M > 8:  # the cases at ViL's head dims take q pre-scaled, as the model passes it
+        q *= M ** -0.5
     bias = (rng.standard_normal((H, N, N)) * 0.5).astype(np.float32) if with_bias else None
     out, lse = full_attention_fwd(*map(_t, (q, k, v, bias)), H, with_lse=True)
     jargs = tuple(map(_j, (q, k, v, bias)))
@@ -133,7 +143,7 @@ def test_full_backward_matches_pallas_and_xla(with_bias, H, N):
                                                       with_lse=True)
     _close(out.numpy(), p_out, "out")
     _close(lse.numpy(), p_lse, "lse")
-    ours = full_attention_bwd(*map(_t, (q, k, v, bias, g)), lse, H)
+    ours = full_attention_bwd(*map(_t, (q, k, v, bias, g)), out, lse, H)
     pallas = jax_full_attention._pallas_backward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g), p_lse, _j(bias), H,
         interpret=True)
@@ -190,8 +200,15 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         with pytest.raises(ValueError):
             vil_attention_bwd(q, k, v, kg, vg, bias, g_bad, mask, lse_bad, 2)
     x = torch.zeros(2, 5, 16)
-    _, lse = full_attention_fwd(x, x, x, None, 2, with_lse=True)
-    with pytest.raises(ValueError):
-        full_attention_bwd(x, x, x, None, x, lse[:, :, :4], 2)
-    with pytest.raises(ValueError):
-        full_attention_bwd(x, x, x, None, x[:, :4], lse, 2)
+    out, lse = full_attention_fwd(x, x, x, None, 2, with_lse=True)
+    bad = [
+        (x, out, lse[:, :, :4]),              # lse of another shape
+        (x[:, :4], out, lse),                 # g of another shape
+        (x, out[:, :4], lse),                 # out of another shape
+        (x, out.double(), lse),               # out of another dtype
+        (x, out.transpose(0, 1).contiguous().transpose(0, 1), lse),  # out not contiguous
+    ]
+    for g_bad, out_bad, lse_bad in bad:
+        with pytest.raises(ValueError):
+            full_attention_bwd(x, x, x, None, g_bad, out_bad, lse_bad, 2)
+    full_attention_bwd(x, x, x, None, x, out, lse, 2)  # the same, well formed, passes

@@ -114,6 +114,44 @@ def test_build_model_matches_jax_build_model(interpret):
                        ).head.weight.dtype == torch.bfloat16
 
 
+def test_build_model_reads_use_pallas_and_param_dtype():
+    """TPU.USE_PALLAS and TPU.PARAM_DTYPE are read as vil_tpu's build_model
+    reads them: with USE_PALLAS False and FUSED_LN True both build the plain
+    LayerNorm and no kernel, and PARAM_DTYPE bfloat16 keeps bf16 parameters;
+    an explicit use_kernels= or param_dtype= wins over the tree."""
+    from vil_tpu.config import get_default_cfg
+    from vil_tpu.models import build_model as jax_build_model
+
+    from vil_tpu_torch.models.layers import FusedLayerNorm
+
+    cfg = get_default_cfg()
+    cfg.merge_from_list([
+        "MODEL.VIT.MSVIT.ARCH", ARCH_PAD, "INPUT.IMAGE_SIZE", "56", "DATA.NUM_CLASSES", "7",
+        "TPU.USE_PALLAS", "False", "TPU.FUSED_LN", "True", "TPU.PARAM_DTYPE", "bfloat16",
+    ])
+
+    def kinds(model):
+        fused = sum(isinstance(m, FusedLayerNorm) for m in model.modules())
+        kernels = {m.use_kernels for m in model.modules() if isinstance(m, (VilAttention,
+                                                                            FullAttention))}
+        dtypes = {p.dtype for p in model.parameters()}
+        return fused, kernels, dtypes
+
+    jax_model = jax_build_model(cfg)
+    assert not jax_model.use_pallas and not jax_model.fused_ln
+    assert jax_model.param_dtype == jnp.bfloat16
+    assert kinds(build_model(cfg, device="cpu")) == (0, {False}, {torch.bfloat16})
+    # explicit arguments win over the tree, with FUSED_LN following the kernels
+    fused, kernels, dtypes = kinds(build_model(cfg, device="cpu", use_kernels=True,
+                                               param_dtype=torch.float32))
+    assert fused > 0 and kernels == {True} and dtypes == {torch.float32}
+    assert jax_build_model(cfg, use_pallas=True).fused_ln
+    cfg.merge_from_list(["TPU.USE_PALLAS", "True", "TPU.PARAM_DTYPE", "float32"])
+    fused, kernels, dtypes = kinds(build_model(cfg, device="cpu"))
+    assert fused > 0 and kernels == {True} and dtypes == {torch.float32}
+    assert kinds(build_model(cfg, device="cpu", use_kernels=False))[:2] == (0, {False})
+
+
 @pytest.mark.parametrize("nglo,norm_embed,ape", [(1, True, True), (0, False, True),
                                                  (2, True, False)])
 @pytest.mark.parametrize("uint8", [False, True])
@@ -271,7 +309,7 @@ def test_port_imports_no_jax():
             "vil_tpu_torch.train.engine, vil_tpu_torch.train.recipe, "
             "vil_tpu_torch.data.mixup, vil_tpu_torch.tools.profile_step, "
             "vil_tpu_torch.parallel, vil_tpu_torch.ops.kernels.vil_attention_halo, "
-            "vil_tpu_torch.tools.layout_probe; "
+            "vil_tpu_torch.tools.layout_probe, vil_tpu_torch.tools.sass_census; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vil_tpu' or m.startswith('vil_tpu.')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -274,14 +274,20 @@ __device__ __forceinline__ void store_rows(T* dst, long stride, const float* src
 }
 
 // Set the kernel's dynamic shared memory limit (needed above 48 KB) and
-// launch; returns the launch's error.
+// launch `threads` threads a block; returns the launch's error.
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+cudaError_t launch_with(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                        Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  return launch_with(kernel, grid, kThreads, smem, stream, args...);
 }
 
 }  // namespace vil

@@ -9,17 +9,18 @@ from .arch import ARCH_ZOO, StageCfg, parse_arch
 from .msvit import NO_WEIGHT_DECAY_SUBSTRINGS, MsViT
 
 
-def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
-                generator=None, param_dtype: torch.dtype = torch.float32,
-                fused_block=None) -> MsViT:
+def build_model(cfg, dtype=None, device=None, use_kernels=None,
+                generator=None, param_dtype=None, fused_block=None) -> MsViT:
     """Construct the model from a config tree, read by attribute as
     ``vil_tpu.models.build_model`` reads it (MODEL.ARCH may name an
     ``ARCH_ZOO`` entry or ``msvit``; the tree is not modified).
 
     ``dtype``, the type of the computation, defaults to TPU.COMPUTE_DTYPE;
-    the parameters are kept in ``param_dtype`` (f32, as the JAX package keeps
-    them). The model is built on the CUDA card unless ``device`` names
-    another (``device="cpu"``).
+    the parameters are kept in ``param_dtype``, by default TPU.PARAM_DTYPE
+    (float32 in the JAX package's defaults). ``use_kernels`` defaults to
+    TPU.USE_PALLAS: the hand-written kernels, or their plain versions. An
+    argument that is given wins over the tree. The model is built on the
+    CUDA card unless ``device`` names another (``device="cpu"``).
 
     The fused-kernel configuration, as the JAX package selects it:
     TPU.FUSED_LN (with the kernels) puts the LayerNorm kernels in the block
@@ -37,6 +38,10 @@ def build_model(cfg, dtype=None, device=None, use_kernels: bool = True,
         raise ValueError(f"Unimplemented model architecture: {name}")
     if dtype is None:
         dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
+    if param_dtype is None:
+        param_dtype = torch.bfloat16 if cfg.TPU.PARAM_DTYPE == "bfloat16" else torch.float32
+    if use_kernels is None:
+        use_kernels = bool(cfg.TPU.USE_PALLAS)
     msvit = cfg.MODEL.VIT.MSVIT
     return MsViT(
         arch=arch,

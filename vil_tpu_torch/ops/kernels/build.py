@@ -66,9 +66,9 @@ SIGNATURES = {
     "layout_probe_perm": [_P] * 2 + [_L] * 15 + [_I, _P],
     # q, k, v, bias, out, lse, B, N, C, H, is_bf16, stream
     "full_attention_fwd": [_P] * 6 + [_I] * 5 + [_P],
-    # q, k, v, g, bias, lse, delta, dq, dk, dv, dbias_part,
+    # q, k, v, g, out, bias, lse, delta, dq, dk, dv, dbias_part,
     # B, N, C, H, is_bf16, stream
-    "full_attention_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "full_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],
 }
 
 

@@ -13,6 +13,11 @@ tier ``_pallas_backward_tiled`` (the backward kernel,
 per image and head. q, k, v, out are (B, N, C) with the heads packed in C;
 q arrives scaled by M^-½ (dq is with respect to that scaled q); bias is an
 optional (H, N, N) f32 table; lse is (B, H, N) f32.
+
+The kernels are chosen by the operand dtype: bf16 runs on the tensor cores
+(``wgmma``, tiles by ``cp.async``; P and dS rounded to bf16 before the
+products, as the TPU kernels round them), f32 on the CUDA cores in full f32
+arithmetic, which the f32 parity checks need.
 """
 from __future__ import annotations
 
@@ -75,6 +80,12 @@ def _check(q, k, v, bias, num_heads):
         raise ValueError("all operands must be contiguous")
 
 
+def _check_aligned(*tensors):
+    """The bf16 kernels copy rows 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 operands must start on a 16-byte boundary")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -93,6 +104,8 @@ def full_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"device {q.device} is not supported")
     B, N, C = q.shape
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty(B, num_heads, N, device=q.device, dtype=torch.float32)
            if with_lse else None)
@@ -110,33 +123,37 @@ def full_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 full_attention_fwd.launches = 0
 
 
-def full_attention_bwd(q, k, v, bias, g, lse, num_heads: int):
-    """Dense attention backward from the forward's ``lse``: returns
-    (dq, dk, dv, dbias), dbias None without a bias. On a CUDA device this
-    launches the hand-written kernels (or raises); on the CPU it runs the
-    plain version, which recomputes the softmax and ignores ``lse``. dbias is
-    the sum over images of the kernel's per-image partials."""
+def full_attention_bwd(q, k, v, bias, g, out, lse, num_heads: int):
+    """Dense attention backward from the forward's ``out`` and ``lse``:
+    returns (dq, dk, dv, dbias), dbias None without a bias. On a CUDA device
+    this launches the hand-written kernels (or raises); the bf16 kernels take
+    δ = rowsum(g ∘ out). On the CPU it runs the plain version, which
+    recomputes the softmax and ignores ``out`` and ``lse``. dbias is the sum
+    over images of the kernel's per-image partials."""
     _check(q, k, v, bias, num_heads)
     B, N, C = q.shape
     H = num_heads
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"g must match q: {g.dtype} {tuple(g.shape)} on {g.device}")
+    for name, t in (("g", g), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {t.dtype} {tuple(t.shape)} on {t.device}")
     if lse.shape != (B, H, N) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be float32 {(B, H, N)} on {q.device}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    if not (g.is_contiguous() and lse.is_contiguous()):
-        raise ValueError("g and lse must be contiguous")
+    if not (g.is_contiguous() and out.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("g, out and lse must be contiguous")
     if q.device.type == "cpu":
         return full_attention_bwd_reference(q, k, v, bias, g, H)
     if q.device.type != "cuda":
         raise ValueError(f"device {q.device} is not supported")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v, g, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
     dbias_part = (torch.zeros(B, H, N, N, device=q.device, dtype=torch.float32)
                   if bias is not None else None)
     with torch.cuda.device(q.device):
         err = build.load().full_attention_bwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(bias), _ptr(lse), _ptr(delta),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(out), _ptr(bias), _ptr(lse), _ptr(delta),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias_part), B, N, C, H,
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
@@ -150,19 +167,21 @@ full_attention_bwd.launches = 0
 
 class FullAttentionFunction(torch.autograd.Function):
     """Dense attention with the hand-written backward: the forward keeps its
-    per-row log-sum-exp, the backward launches :func:`full_attention_bwd`."""
+    output and per-row log-sum-exp, the backward launches
+    :func:`full_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, num_heads):
         out, lse = full_attention_fwd(q, k, v, bias, num_heads, with_lse=True)
-        ctx.save_for_backward(q, k, v, bias, lse)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.num_heads = num_heads
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, lse = ctx.saved_tensors
-        return (*full_attention_bwd(q, k, v, bias, g.contiguous(), lse, ctx.num_heads), None)
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        return (*full_attention_bwd(q, k, v, bias, g.contiguous(), out, lse, ctx.num_heads),
+                None)
 
 
 def full_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:

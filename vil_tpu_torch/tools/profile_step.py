@@ -32,8 +32,9 @@ WARMUP, STEPS = 3, 5
 FAMILIES = [
     ("B1 sliding-chunk fwd", r"vil_attention_fwd_kernel"),
     ("B2 sliding-chunk bwd", r"vil_attention_bwd_pass"),
-    ("B3 dense fwd", r"full_attention_fwd_kernel"),
-    ("B4 dense bwd", r"full_attention_bwd_pass"),
+    # bf16 on the tensor cores (_wgmma), f32 on the CUDA cores
+    ("B3 dense fwd", r"full_attention_fwd_(wgmma|kernel)"),
+    ("B4 dense bwd", r"full_attention_bwd_(wgmma_)?pass"),
     ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
     ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_pass"),
     ("B7a halo fwd", r"vil_attention_halo_fwd_kernel"),

@@ -1,0 +1,80 @@
+"""Which instructions the built kernels execute: a census of their SASS.
+
+    python -m vil_tpu_torch.tools.sass_census [--match full_attention]
+
+Builds the kernel library if needed (``ops/kernels/build.py``), disassembles
+it with ``cuobjdump -sass`` from the CUDA toolkit and prints, for every kernel
+whose name holds ``--match``, how many instructions of each class its code
+holds (static counts, not executions): tensor-core products (HGMMA is
+``wgmma``, HMMA ``mma.sync``), asynchronous copies into shared memory (LDGSTS
+is ``cp.async``, UTMALDG a TMA load), f32 fused multiply-adds on the CUDA
+cores (FFMA), and shared-memory loads (LDS). ``chip_smoke.py`` calls
+:func:`census` after its build.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+
+from ..ops.kernels import build
+
+CLASSES = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "FFMA", "LDS")
+_FUNCTION = re.compile(r"Function : (\S+)")
+_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def _tool(name: str) -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which(name), os.path.join(cuda_home, "bin", name)):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(f"{name} not found: it comes with the CUDA toolkit")
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    try:
+        tool = _tool("cu++filt")
+    except RuntimeError:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return dict(zip(names, out))
+
+
+def census(match: str = "full_attention") -> dict[str, dict[str, int]]:
+    """{kernel name: {instruction class: count}} for the kernels whose
+    demangled name holds ``match``."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        fn = _FUNCTION.search(line)
+        if fn:
+            current = counts.setdefault(fn.group(1), dict.fromkeys(CLASSES, 0))
+            continue
+        op = _OPCODE.search(line)
+        if current is not None and op:
+            base = op.group(1).split(".")[0]
+            if base in current:
+                current[base] += 1
+    # cu++filt spells an int template argument "(int)64": drop the cast
+    # before cutting the parameter list
+    names = {k: v.replace("(int)", "").split("(")[0].replace("void ", "")
+             for k, v in _demangle(list(counts)).items()}
+    return {names[k]: v for k, v in counts.items() if match in names[k]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--match", default="full_attention")
+    args = ap.parse_args()
+    for name, counts in sorted(census(args.match).items()):
+        print(f"{name:55s} " + " ".join(f"{k} {v}" for k, v in counts.items()))
+
+
+if __name__ == "__main__":
+    main()

@@ -51,7 +51,8 @@ def vil_small_cfg(mode: int = 0, fused: bool = False) -> NS:
             DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
             MSVIT=NS(ARCH=ARCH_ZOO["vil_small"], SHARE_W=True, ATTN_TYPE="longformerhand",
                      ONLY_GLOBAL=False, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
-        TPU=NS(COMPUTE_DTYPE="bfloat16", MODE_PER_LAYER=True, FUSED_LN=fused),
+        TPU=NS(COMPUTE_DTYPE="bfloat16", PARAM_DTYPE="float32", USE_PALLAS=True,
+               MODE_PER_LAYER=True, FUSED_LN=fused),
         LOSS=NS(LOSS="xentropy", LABEL_SMOOTHING=0.1),
         AUG=NS(MIXUP_PROB=1.0, MIXUP=0.8, MIXCUT=1.0, MIXUP_SWITCH_PROB=0.5),
         OPTIM=NS(OPT="adamw", LR=5e-4, WD=0.05, WD0=0.0, MOM=0.9, EPOCHS=300,
