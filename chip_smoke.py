@@ -7,16 +7,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
 
 1. device  — refuse to run without CUDA; the card's name and power limit.
 2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   nvcc per source, all at once; the SASS census of the dense kernels
-   (``tools/sass_census.py``): the bf16 ones must hold wgmma (HGMMA) and
-   cp.async (LDGSTS) instructions.
+   nvcc per source, all at once; the SASS census of the dense kernels and
+   of the sliding-chunk backward (``tools/sass_census.py``): the bf16 ones
+   (B3, B4, B2, B7b) must hold wgmma (HGMMA) and cp.async (LDGSTS)
+   instructions.
 3. kernels — each kernel against its plain PyTorch version on the same
    inputs: the forwards (with their log-sum-exp against ``torch.logsumexp``
    of the plain scores) and the backwards (with the same upstream gradient)
    at the shapes of ViL-Small 224² at batch 64, in f32 and bf16, plus biased,
    padded, cyclic 1×2 and 2×2 and long-sequence cases, and the dense kernels
    at every head dim (8-128) at N 1, 63, 64 and 65, in bf16 also to a
-   limit on max|err| / max|ref| of out, dq, dk and dv; the sampled-neighbour
+   limit on max|err| / max|ref| of out, dq, dk and dv (and of out, dq, dk,
+   dv, dk_glo, dv_glo and dbias of B1/B2 and B7a/B7b); the sampled-neighbour
    kernels of random-shift training at two modes per stage. Kernel, plain
    and library times (CUDA events, median of 20; the library call is
    ``scaled_dot_product_attention``, for the sliding-chunk kernels on the
@@ -115,6 +117,10 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # a forward that skips the rescale of o across key tiles reads 3.0e-2-1.5 at
 # N > 64, δ = 0 in the backward 0.12-4.5.
 DENSE_SCALED_TOL = 2e-2
+# bf16 sliding-chunk kernels B1/B2 and B7a/B7b: the same ratio for out, dq,
+# dk, dv, dk_glo, dv_glo and (biased cases) dbias, with no floor (dq, the
+# global keys' gradients and dbias lie far below 1 at these shapes).
+CHUNK_SCALED_TOL = 2e-2
 LOGITS_TOL = 1e-3  # whole model in f32, kernels vs plain versions
 LOSS_TOL = 1e-4  # one f32 training step, kernels vs plain versions
 PARAM_GRAD_TOL = 1e-4  # the same step: max|err| / max|ref| per parameter (measured 1.7e-6)
@@ -209,6 +215,17 @@ def check_kernels(torch, records):
         if not err <= tol:
             raise AssertionError(f"{what}: error {err} > {tol}")
 
+    def chunk_scaled(out, ref, grads, refs):
+        """Scaled errors of a bf16 sliding-chunk forward's out and its
+        backward's dq, dk, dv, dk_glo, dv_glo and (biased) dbias."""
+        names = ("out", "dq", "dk", "dv", "dk_glo", "dv_glo", "dbias")
+        return {n: scaled_err(x, r) for n, x, r in zip(names, (out, *grads), (ref, *refs))
+                if r is not None}
+
+    def scaled_text(errs, tol=CHUNK_SCALED_TOL):
+        return ("; scaled " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" (tol {tol:g})") if errs else ""
+
     def account(name, per_step, ms, plain_ms, moved, flops, library_ms=None):
         """Add one launch shape's per-step share to the kernel's record."""
         rec = records[name]
@@ -243,12 +260,15 @@ def check_kernels(torch, records):
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + (9 if mode == 0 else 2) * w2
-        if mode == 0:
-            name, fwd, bwd = "vil_attention", vil_attention_fwd, vil_attention_bwd
+        if mode == 0:  # B2 takes the forward's out (its bf16 kernels' δ)
+            name, fwd = "vil_attention", vil_attention_fwd
+            bwd = lambda *a, bias, g, out, lse: vil_attention_bwd(*a, bias, g, out, mask, lse, H)
             fwd_ref, bwd_ref = vil_attention_reference, vil_attention_bwd_reference
             tail = ()
         else:
-            name, fwd, bwd = "vil_mode_attention", vil_mode_attention_fwd, vil_mode_attention_bwd
+            name, fwd = "vil_mode_attention", vil_mode_attention_fwd
+            bwd = lambda *a, bias, g, out, lse: vil_mode_attention_bwd(*a, bias, g, mask, lse, H,
+                                                                       mode)
             fwd_ref, bwd_ref = vil_mode_attention_reference, vil_mode_attention_bwd_reference
             tail = (mode,)
         mask = torch.from_numpy(mask_to_additive(
@@ -264,19 +284,23 @@ def check_kernels(torch, records):
             a32 = cast(a, torch.float32)
             out, lse = fwd(*a, bias, mask, H, *tail, with_lse=True)
             ref, ref_lse = fwd_ref(*a32, bias, mask, H, *tail, with_lse=True)
-            grads = bwd(*a, bias, g, mask, lse, H, *tail)
+            grads = bwd(*a, bias=bias, g=g, out=out, lse=lse)
             refs = bwd_ref(*a32, bias, g.float(), mask, H, *tail)
             torch.cuda.synchronize()
             e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
             e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
             e_abs = max(max_err(x, r) for x, r in zip(grads, refs) if r is not None)
             dt = str(dtype)[6:]
+            e_scaled = (chunk_scaled(out, ref, grads, refs)
+                        if mode == 0 and dtype == torch.bfloat16 else {})
             phase("kernels", f"{name} {label} {dt}: out {e_out:.3e} (tol {tol:g}), lse "
                              f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
-                             f"(tol {GRAD_TOL[dt]:g})")
+                             f"(tol {GRAD_TOL[dt]:g}){scaled_text(e_scaled)}")
             check(f"{name} fwd {label} {dt}", e_out, tol)
             check(f"{name} lse {label} {dt}", e_lse, LSE_TOL)
             check(f"{name} bwd {label} {dt}", e_grad, GRAD_TOL[dt])
+            for n, e in e_scaled.items():
+                check(f"{name} {n} scaled {label} {dt}", e, CHUNK_SCALED_TOL)
             if per_step and dtype == torch.bfloat16:  # the training step's type
                 records[f"{name}_fwd"]["max_abs_err"] = max(
                     records[f"{name}_fwd"]["max_abs_err"], e_out)
@@ -313,7 +337,7 @@ def check_kernels(torch, records):
                                  f"forward {lib_fwd:.4f} ms")
                 msg = account(
                     f"{name}_bwd", per_step,
-                    time_ms(lambda: bwd(*a, bias, g, mask, lse, H, *tail)),
+                    time_ms(lambda: bwd(*a, bias=bias, g=g, out=out, lse=lse)),
                     time_ms(lambda: bwd_ref(*a, bias, g, mask, H, *tail)),
                     nbytes(*a, bias, mask, lse, g, *grads), 2.5 * fwd_flops, lib_bwd)
                 phase("kernels", f"  {name}_bwd, x{per_step:g} per step: {msg}, SDPA backward "
@@ -532,10 +556,10 @@ def check_kernels(torch, records):
             g = g0.to(dtype)
             dt = str(dtype)[6:]
             b1_out, b1_lse = vil_attention_fwd(*a, bias, mask, H, with_lse=True)
-            b2_grads = vil_attention_bwd(*a, bias, g, mask, b1_lse, H)
+            b2_grads = vil_attention_bwd(*a, bias, g, b1_out, mask, b1_lse, H)
             for D in splits:
                 mxs = mx // D
-                outs, e_out, e_lse, e_grad, e_abs = [], 0.0, 0.0, 0.0, 0.0
+                outs, e_out, e_lse, e_grad, e_abs, e_scaled = [], 0.0, 0.0, 0.0, 0.0, {}
                 dk, dv = (torch.zeros(B, mx, my, w2, C, device=dev) for _ in range(2))
                 shards = []
                 for sh in range(D):
@@ -548,9 +572,12 @@ def check_kernels(torch, records):
                     ops32 = cast(ops, torch.float32)
                     out, lse = vil_attention_halo_fwd(*ops, m_rows, H, with_lse=True)
                     ref, ref_lse = vil_attention_halo_reference(*ops32, m_rows, H, with_lse=True)
-                    grads = vil_attention_halo_bwd(*ops, gs, m_rows, lse, H)
+                    grads = vil_attention_halo_bwd(*ops, gs, out, m_rows, lse, H)
                     refs = vil_attention_halo_bwd_reference(*ops32, gs.float(), m_rows, H)
                     torch.cuda.synchronize()
+                    if dtype == torch.bfloat16:
+                        for n, e in chunk_scaled(out, ref, grads, refs).items():
+                            e_scaled[n] = max(e_scaled.get(n, 0.0), e)
                     e_out, e_lse = max(e_out, max_err(out, ref)), max(e_lse, max_err(lse, ref_lse))
                     e_grad = max(e_grad, *(rel_err(x, r) for x, r in zip(grads, refs)
                                            if r is not None))
@@ -565,14 +592,16 @@ def check_kernels(torch, records):
                 e_b2 = max(rel_err(dk, b2_grads[1]), rel_err(dv, b2_grads[2]))
                 phase("kernels", f"vil_attention_halo {label}, D {D} ({mxs} rows a shard) {dt}: "
                                  f"out {e_out:.3e} (tol {tol:g}), lse {e_lse:.3e} (tol "
-                                 f"{LSE_TOL:g}); grads rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g}); "
-                                 f"shards vs B1 on the whole grid {e_b1:.3e}, folded dK/dV vs "
-                                 f"B2 rel {e_b2:.3e}")
+                                 f"{LSE_TOL:g}); grads rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g})"
+                                 f"{scaled_text(e_scaled)}; shards vs B1 on the whole grid "
+                                 f"{e_b1:.3e}, folded dK/dV vs B2 rel {e_b2:.3e}")
                 check(f"halo fwd {label} D {D} {dt}", e_out, tol)
                 check(f"halo lse {label} D {D} {dt}", e_lse, LSE_TOL)
                 check(f"halo bwd {label} D {D} {dt}", e_grad, GRAD_TOL[dt])
                 check(f"halo shards vs B1 {label} D {D} {dt}", e_b1, tol)
                 check(f"halo folded dK/dV vs B2 {label} D {D} {dt}", e_b2, GRAD_TOL[dt])
+                for n, e in e_scaled.items():
+                    check(f"halo {n} scaled {label} D {D} {dt}", e, CHUNK_SCALED_TOL)
                 if not (per_fwd and dtype == torch.bfloat16):
                     continue
                 records["vil_attention_halo_fwd"]["max_abs_err"] = max(
@@ -601,7 +630,7 @@ def check_kernels(torch, records):
                 fwd_ms = time_ms(lambda: vil_attention_halo_fwd(*ops, m_rows, H))
                 fwd_lse_ms = time_ms(lambda: vil_attention_halo_fwd(*ops, m_rows, H,
                                                                     with_lse=True))
-                bwd_ms = time_ms(lambda: vil_attention_halo_bwd(*ops, gs, m_rows, lse, H))
+                bwd_ms = time_ms(lambda: vil_attention_halo_bwd(*ops, gs, out, m_rows, lse, H))
                 fwd_plain = time_ms(lambda: vil_attention_halo_reference(*ops, m_rows, H))
                 bwd_plain = time_ms(lambda: vil_attention_halo_bwd_reference(*ops, gs, m_rows, H))
                 fwd_bytes = nbytes(*ops, m_rows, out)
@@ -644,6 +673,7 @@ def check_kernels(torch, records):
     chunk_case("biased, padded 3x3 grid, nglo 2", 2, 19, 20, 7, 64, 2, 2, 0, True)
     chunk_case("SW_EXACT 1, 2x2 grid, nglo 0", 2, 13, 14, 7, 32, 1, 0, 1, True)
     chunk_case("SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False)
+    chunk_case("cyclic 1x2 grid, nglo 5", 2, 7, 14, 7, 64, 2, 5, 0, False)
     # the same blocks in random-shift training, at two sampled neighbours
     # each: a step's share is the mean over the two modes
     for mode in (1, 6):
@@ -1049,14 +1079,21 @@ def main() -> int:
                 kernel = line.split("Function properties for", 1)[1].strip()
             if "spill" in line and not line.strip().startswith("0 bytes stack"):
                 phase("build", f"{kernel}: {line.strip()}")
-    # the dense kernels' instructions: the bf16 ones on the tensor cores
-    # (HGMMA) with their tiles by cp.async (LDGSTS)
+    # the dense kernels' and the sliding-chunk backward's instructions: the
+    # bf16 ones on the tensor cores (HGMMA) with their tiles by cp.async
+    # (LDGSTS), at each of the five head dims the dense forward and both
+    # passes of each backward
     from vil_tpu_torch.tools import sass_census
 
-    for name, counts in sorted(sass_census.census("full_attention").items()):
-        phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-        if "wgmma" in name and not (counts["HGMMA"] and counts["LDGSTS"]):
-            raise AssertionError(f"{name}: no wgmma or no cp.async in its SASS: {counts}")
+    for match, want in (("full_attention", 15), ("vil_attention_bwd", 10),
+                        ("vil_attention_halo_bwd", 10)):
+        census = sass_census.census(match)
+        for name, counts in sorted(census.items()):
+            phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+            if "wgmma" in name and not (counts["HGMMA"] and counts["LDGSTS"]):
+                raise AssertionError(f"{name}: no wgmma or no cp.async in its SASS: {counts}")
+        if sum("wgmma" in name for name in census) < want:
+            raise AssertionError(f"{match}: fewer than {want} wgmma kernels: {sorted(census)}")
 
     sources = {
         "vil_attention_fwd": ("vil_tpu_torch/csrc/vil_attention_fwd.cu",

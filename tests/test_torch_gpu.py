@@ -9,7 +9,10 @@ runs on a host without them, without the repo's ``conftest.py``:
 Tolerances: 1e-4 for f32 inputs (sums in another order); 2e-2 for bf16
 inputs, against the plain version in f32 on the same bf16 values (the kernel
 rounds its output to bf16 once). Gradients are held relative to the largest
-magnitude of the reference: 1e-4 in f32, 3e-2 in bf16.
+magnitude of the reference: 1e-4 in f32, 3e-2 in bf16. The bf16 tensor-core
+kernels (dense B3/B4, sliding-chunk backward B2/B7b) are also held at
+chip_smoke.py's limits: gradients 1e-2 of max(1, max|ref|), and
+max|err| / max|ref| of their outputs 2e-2, with no floor.
 """
 import numpy as np
 import pytest
@@ -121,11 +124,11 @@ def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
         mask = torch.from_numpy(mask_to_additive(
             masks.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(cuda)
         g = rnd(2, mx, my, w2, 64).to(dtype)
-        _, lse = vil_attention_fwd(*acts, bias, mask, 2, with_lse=True)
+        out, lse = vil_attention_fwd(*acts, bias, mask, 2, with_lse=True)
         _, lse_ref = vil_attention_reference(*[None if a is None else a.float() for a in acts],
                                              bias, mask, 2, with_lse=True)
         assert _max_err(lse, lse_ref) <= tol
-        grads = vil_attention_bwd(*acts, bias, g, mask, lse, 2)
+        grads = vil_attention_bwd(*acts, bias, g, out, mask, lse, 2)
         refs = vil_attention_bwd_reference(*[None if a is None else a.float() for a in acts],
                                            bias, g.float(), mask, 2)
         for name, out, ref in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), grads, refs):
@@ -225,6 +228,136 @@ def test_dense_bf16_backward_is_deterministic(cuda):
         second = full_attention_bwd(q, k, v, bias, g, out, lse, 6)
         for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
             assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, N)
+
+
+CHUNK_GRAD_TOL = 1e-2  # chip_smoke.py's: B2 and B7b in bf16, max|err| / max(1, max|ref|)
+CHUNK_SCALED_TOL = 2e-2  # chip_smoke.py's: max|err| / max|ref| of dq, dk, dv, dk_glo, dv_glo, dbias
+
+
+def _chunk_case(cuda, seed, B, nx, ny, w, M, H, nglo, exact, with_bias):
+    """bf16 (q, k, v, k_glo, v_glo), bias, g and the additive mask of a
+    sliding-chunk grid; q, k, v at the model's scale (q pre-scaled)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+    w2, C = w * w, H * M
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    acts = [rnd(B, mx, my, w2, C) * M ** -0.25 for _ in range(3)]
+    acts += [rnd(B, nglo, C) * M ** -0.25 if nglo else None for _ in range(2)]
+    bias = rnd(H, w2, nglo + 9 * w2) * 0.5 if with_bias else None
+    mask = torch.from_numpy(mask_to_additive(
+        masks.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(cuda)
+    acts = [None if a is None else a.to(torch.bfloat16) for a in acts]
+    return acts, bias, rnd(B, mx, my, w2, C).to(torch.bfloat16), mask
+
+
+def _chunk_errors(acts, bias, g, mask, H, images=None):
+    """(rel, scaled) errors of B2 in bf16, from B1's out and LSE, against the
+    plain backward in f32 on the same values, over ``images`` (all by
+    default): rel the largest max|err| / max(1, max|ref|) over every
+    gradient, scaled the largest max|err| / max|ref| of dq, dk, dv, dk_glo,
+    dv_glo and (with a bias, over all images) dbias."""
+    out, lse = vil_attention_fwd(*acts, bias, mask, H, with_lse=True)
+    grads = vil_attention_bwd(*acts, bias, g, out, mask, lse, H)
+    sel = slice(None) if images is None else images
+    a32 = [None if a is None else a[sel].float() for a in acts]
+    refs = vil_attention_bwd_reference(*a32, bias, g[sel].float(), mask, H)
+    pairs = [(x[sel], r) for x, r in zip(grads[:5], refs[:5]) if r is not None]
+    if bias is not None and images is None:  # dbias sums over the images
+        pairs.append((grads[5], refs[5]))
+    return max(_rel_err(x, r) for x, r in pairs), max(_scaled_err(x, r) for x, r in pairs)
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 128])
+def test_sliding_chunk_bf16_backward_every_head_dim(cuda, M):
+    """B2 in bf16 on the tensor cores at every head dim: a padded grid with
+    nglo 1, a biased one with SW_EXACT 1 and nglo 2, W 4 with SW_EXACT -1 and
+    nglo 5, the cyclic 1×2 and 2×2 grids, and W 9, whose 81 rows a chunk
+    take two 64-row slices: every gradient at chip_smoke.py's tolerances."""
+    cases = [(19, 20, 7, 1, 0, False), (19, 20, 7, 2, 1, True), (14, 15, 4, 5, -1, False),
+             (7, 14, 7, 1, 0, False), (13, 14, 7, 0, 0, True), (27, 20, 9, 1, 0, True)]
+    for i, (nx, ny, w, nglo, exact, with_bias) in enumerate(cases):
+        acts, bias, g, mask = _chunk_case(cuda, 100 * M + i, 2, nx, ny, w, M, 2, nglo, exact,
+                                          with_bias)
+        rel, scaled = _chunk_errors(acts, bias, g, mask, 2)
+        case = (M, nx, ny, w, nglo, exact, with_bias, rel, scaled)
+        assert rel <= CHUNK_GRAD_TOL and scaled <= CHUNK_SCALED_TOL, case
+    assert vil_attention_bwd.launches == len(cases)
+
+
+def test_sliding_chunk_bf16_backward_does_not_read_across_images(cuda):
+    """Image 1 of 3 filled with 1e4: a staged key or query row that read
+    another image's rows (or past the list into the next chunk) would show
+    in images 0 and 2's gradients."""
+    for M, (nx, ny, w, nglo) in ((32, (56, 56, 7, 1)), (64, (13, 14, 7, 0)),
+                                 (64, (14, 15, 4, 2))):
+        acts, _, g, mask = _chunk_case(cuda, M, 3, nx, ny, w, M, 3, nglo, 0, False)
+        for t in (*acts, g):
+            if t is not None:
+                t[1] = 1e4
+        for image in (0, 2):
+            rel, scaled = _chunk_errors(acts, None, g, mask, 3, slice(image, image + 1))
+            case = (M, nx, w, image, rel, scaled)
+            assert rel <= CHUNK_GRAD_TOL and scaled <= CHUNK_SCALED_TOL, case
+
+
+def test_sliding_chunk_bf16_backward_is_deterministic(cuda):
+    """Two launches of B2 and of B7b in bf16 on the same inputs give
+    bitwise-equal gradients (no atomics)."""
+    for nx, ny, w, nglo, with_bias in ((56, 56, 7, 1, False), (19, 20, 7, 2, True),
+                                       (13, 14, 7, 0, False)):
+        acts, bias, g, mask = _chunk_case(cuda, 12, 2, nx, ny, w, 32, 3, nglo, 0, with_bias)
+        out, lse = vil_attention_fwd(*acts, bias, mask, 3, with_lse=True)
+        first = vil_attention_bwd(*acts, bias, g, out, mask, lse, 3)
+        second = vil_attention_bwd(*acts, bias, g, out, mask, lse, 3)
+        for name, a, b in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), first, second):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
+        q, k, v, kg, vg = acts
+        (k_ext, _), (v_ext, _) = _halo_shard(k, 1, 1), _halo_shard(v, 1, 1)  # chunk row 1
+        ops = [q[:, 1:2].contiguous(), k_ext, v_ext, kg, vg, bias]
+        gs = g[:, 1:2].contiguous()
+        out, lse = vil_attention_halo_fwd(*ops, mask[1:2], 3, with_lse=True)
+        first = vil_attention_halo_bwd(*ops, gs, out, mask[1:2], lse, 3)
+        second = vil_attention_halo_bwd(*ops, gs, out, mask[1:2], lse, 3)
+        for name, a, b in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), first, second):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
+
+
+def test_halo_bf16_backward_folds_onto_b2(cuda):
+    """B7b in bf16 on every shard of ViL-Small's stage-1 grid split over 1,
+    2 and 4 ranks (8, 4 and 2 chunk rows a shard) and of a biased padded
+    grid split over 3: dQ of the shards and their dK/dV folded onto the
+    rows' owners against B2's on the whole grid, and each shard against the
+    plain version, at B2's tolerances."""
+    for nx, ny, nglo, with_bias, splits in ((56, 56, 1, False, (1, 2, 4)),
+                                            (19, 20, 2, True, (3,))):
+        acts, bias, g, mask = _chunk_case(cuda, 13, 2, nx, ny, 7, 32, 3, nglo, 0, with_bias)
+        q, k, v, kg, vg = acts
+        out, lse = vil_attention_fwd(*acts, bias, mask, 3, with_lse=True)
+        whole = vil_attention_bwd(*acts, bias, g, out, mask, lse, 3)
+        mx = q.shape[1]
+        for D in splits:
+            mxs = mx // D
+            dq, dk, dv = (torch.zeros(t.shape, device=cuda) for t in (q, k, v))
+            for sh in range(D):
+                sl = slice(sh * mxs, (sh + 1) * mxs)
+                (k_ext, rows), (v_ext, _) = _halo_shard(k, sh, mxs), _halo_shard(v, sh, mxs)
+                ops = [q[:, sl].contiguous(), k_ext, v_ext, kg, vg, bias]
+                gs = g[:, sl].contiguous()
+                o, l = vil_attention_halo_fwd(*ops, mask[sl], 3, with_lse=True)
+                grads = vil_attention_halo_bwd(*ops, gs, o, mask[sl], l, 3)
+                refs = vil_attention_halo_bwd_reference(
+                    *[None if t is None else t.float() for t in ops], gs.float(), mask[sl], 3)
+                for name, x, r in zip(("dq", "dk_ext", "dv_ext", "dkg", "dvg", "dbias"),
+                                      grads, refs):
+                    if r is not None:
+                        assert _rel_err(x, r) <= CHUNK_GRAD_TOL, (name, nx, D, sh)
+                        assert _scaled_err(x, r) <= CHUNK_SCALED_TOL, (name, nx, D, sh)
+                dq[:, sl] = grads[0].float()
+                for e, row in enumerate(rows):
+                    dk[:, row] += grads[1][:, e].float()
+                    dv[:, row] += grads[2][:, e].float()
+            for name, x, r in (("dq", dq, whole[0]), ("dk", dk, whole[1]), ("dv", dv, whole[2])):
+                assert _scaled_err(x, r.float()) <= CHUNK_SCALED_TOL, (name, nx, D)
 
 
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
@@ -464,7 +597,7 @@ def test_halo_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
             assert out.dtype == dtype and _max_err(out, ref) <= tol, (nx, mxs, sh)
             assert _max_err(lse, lse_ref) <= tol, (nx, mxs, sh)
             gs = g[:, sl].contiguous()
-            grads = vil_attention_halo_bwd(*ops, gs, mask[sl], lse, 2)
+            grads = vil_attention_halo_bwd(*ops, gs, out, mask[sl], lse, 2)
             refs = vil_attention_halo_bwd_reference(*f32(ops), gs.float(), mask[sl], 2)
             for name, o, r in zip(("dq", "dk_ext", "dv_ext", "dkg", "dvg", "dbias"), grads, refs):
                 assert (o is None) == (r is None), name

@@ -33,6 +33,12 @@ from vil_tpu_torch.ops.kernels import (
     vil_attention_fwd,
     vil_attention_reference,
 )
+from vil_tpu_torch.ops.kernels.vil_attention import _glo_heads, _heads
+from vil_tpu_torch.ops.kernels.vil_attention_halo import (
+    halo_neighborhood,
+    vil_attention_halo_bwd,
+    vil_attention_halo_fwd,
+)
 
 ATOL = 1e-5
 
@@ -97,7 +103,7 @@ def test_vil_backward_matches_pallas_and_xla(nglo, with_bias, H, exact):
                                                      with_lse=True)
     _close(out.numpy(), p_out, "out")
     _close(lse.numpy(), p_lse, "lse")
-    ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g, mask)), lse, H)
+    ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g)), out, _t(mask), lse, H)
     pallas = jax_vil_backward.vil_attention_backward(*jargs, jnp.asarray(g), mask, H,
                                                      lse=p_lse, interpret=True)
     xla = _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, H)
@@ -112,12 +118,67 @@ def test_vil_backward_cyclic_small_grid():
     each occurrence adds; nglo 0 with SW_EXACT 1 leaves pad rows fully
     masked, whose gradient is that of a uniform average, not NaN."""
     q, k, v, kg, vg, bias, g, mask = _vil_inputs(1, 2, 13, 14, 7, 16, 2, 0, 1, True)
-    _, lse = vil_attention_fwd(*map(_t, (q, k, v, kg, vg, bias, mask)), 2, with_lse=True)
-    ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g, mask)), lse, 2)
+    out, lse = vil_attention_fwd(*map(_t, (q, k, v, kg, vg, bias, mask)), 2, with_lse=True)
+    ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g)), out, _t(mask), lse, 2)
     xla = _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, 2)
     for name, a, b in zip(("dq", "dk", "dv", "dk_glo", "dv_glo", "dbias"), ours, xla):
         assert a is None or torch.isfinite(a).all(), name
         _close(None if a is None else a.numpy(), b, name)
+
+
+def _delta_from_out(g, out, H):
+    """δ = rowsum(g ∘ out) per head, (B, H, mx, my, W²): the form the bf16
+    backward kernels of B2 and B7b take in their prologue."""
+    B, mx, my, w2, C = g.shape
+    return (g.float() * out.float()).reshape(B, mx, my, w2, H, C // H).sum(-1).permute(
+        0, 4, 1, 2, 3)
+
+
+def _plain_delta(q, k, v, kg, vg, bias, g, mask, H, neighbours):
+    """rowsum(P ∘ dP) of the plain version, (B, H, mx, my, W²): P the softmax
+    of its scores over the [glo ‖ neighbourhood] keys, dP = g · [V_glo ‖
+    V_nbh]ᵀ, ``neighbours`` its concatenation of a K or V operand."""
+    B, mx, my, w2, _ = q.shape
+    keys, values = neighbours(_heads(k, H)), neighbours(_heads(v, H))
+    if kg is not None:
+        glo = lambda t: _glo_heads(t, H)[:, None, None].expand(-1, mx, my, -1, -1)
+        keys, values = torch.cat([glo(kg), keys], dim=3), torch.cat([glo(vg), values], dim=3)
+    scores = _heads(q, H) @ keys.transpose(-1, -2) + mask[None]
+    if bias is not None:
+        scores = scores + bias.repeat(B, 1, 1)[:, None, None]
+    dp = _heads(g, H) @ values.transpose(-1, -2)
+    return (torch.softmax(scores, dim=-1) * dp).sum(-1).reshape(B, H, mx, my, w2)
+
+
+@pytest.mark.parametrize("nglo,with_bias", [(0, False), (1, True), (2, False)])
+@pytest.mark.parametrize("nbh", ["full", "halo"])
+def test_delta_from_out_matches_rowsum_of_p_dp(nbh, nglo, with_bias):
+    """The bf16 backward kernels of B2 and B7b take δ = rowsum(g ∘ out) for
+    rowsum(P ∘ dP): at f32 the two agree within 1e-6 for the full and the
+    halo neighbourhoods (a halo shard: the middle chunk row of three, K/V
+    with the rows above and below), and with JAX's δ, rowsum(g ∘ out) of its
+    XLA reference, within this file's ATOL (the two forwards sum in another
+    order; measured 1.8e-6 at most)."""
+    H = 2
+    q, k, v, kg, vg, bias, g, mask = _vil_inputs(5, 2, 7, 8, 3, 8 * H, H, nglo, 0, with_bias)
+    mask_t = _t(mask)
+    if nbh == "full":
+        ops = q, k, v, kg, vg, bias
+        out = vil_attention_fwd(*map(_t, ops), mask_t, H)
+        jax_out = jax_vil_kernel._xla_reference_mh(*map(_j, ops), mask, H)
+        neighbours = lambda t: sc.neighborhood(t, 0)
+    else:
+        # K/V rows 0..2 are the halo-extended rows of query row 1
+        ops = np.ascontiguousarray(q[:, 1:2]), k, v, kg, vg, bias
+        g, mask_t = np.ascontiguousarray(g[:, 1:2]), mask_t[1:2]
+        out = vil_attention_halo_fwd(*map(_t, ops), mask_t, H)
+        jax_out = jax_vil_kernel._xla_reference_ext_mh(*map(_j, ops), mask[1:2], H)
+        neighbours = halo_neighborhood
+    ours = _delta_from_out(_t(g), out, H)
+    plain = _plain_delta(*map(_t, ops), _t(g), mask_t, H, neighbours)
+    jax_delta = _delta_from_out(_t(g), _t(np.array(jax_out)), H)
+    np.testing.assert_allclose(ours.numpy(), plain.numpy(), atol=1e-6, rtol=1e-6)
+    _close(ours.numpy(), jax_delta.numpy(), "delta vs JAX's")
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
@@ -188,17 +249,26 @@ def test_autograd_functions_match_autograd_of_plain_versions():
 
 def test_backward_wrappers_reject_what_the_kernels_do_not_take():
     q, k, v, kg, vg, bias, g, mask = map(_t, _vil_inputs(4, 1, 6, 6, 3, 16, 2, 1, 0, True))
-    _, lse = vil_attention_fwd(q, k, v, kg, vg, bias, mask, 2, with_lse=True)
+    out, lse = vil_attention_fwd(q, k, v, kg, vg, bias, mask, 2, with_lse=True)
     bad = [
-        (g[..., :8], lse),                    # g of another shape
-        (g.double(), lse),                    # g of another dtype
-        (g, lse[:, :1]),                      # lse of another shape
-        (g, lse.double()),                    # lse not f32
-        (g.transpose(1, 2), lse),             # g not contiguous
+        (g[..., :8], out, lse),               # g of another shape
+        (g.double(), out, lse),               # g of another dtype
+        (g, out, lse[:, :1]),                 # lse of another shape
+        (g, out, lse.double()),               # lse not f32
+        (g.transpose(1, 2), out, lse),        # g not contiguous
+        (g, out[..., :8], lse),               # out of another shape
+        (g, out.double(), lse),               # out of another dtype
+        (g, out.transpose(1, 2).contiguous().transpose(1, 2), lse),  # out not contiguous
+        (g, None, lse),                       # no out
     ]
-    for g_bad, lse_bad in bad:
+    for g_bad, out_bad, lse_bad in bad:
         with pytest.raises(ValueError):
-            vil_attention_bwd(q, k, v, kg, vg, bias, g_bad, mask, lse_bad, 2)
+            vil_attention_bwd(q, k, v, kg, vg, bias, g_bad, out_bad, mask, lse_bad, 2)
+    vil_attention_bwd(q, k, v, kg, vg, bias, g, out, mask, lse, 2)  # well formed, passes
+    k_ext, v_ext = (torch.cat([t[:, -1:], t, t[:, :1]], 1) for t in (k, v))
+    with pytest.raises(ValueError):  # the halo backward takes out too
+        vil_attention_halo_bwd(q, k_ext, v_ext, kg, vg, bias, g, None, mask, lse, 2)
+    vil_attention_halo_bwd(q, k_ext, v_ext, kg, vg, bias, g, out, mask, lse, 2)
     x = torch.zeros(2, 5, 16)
     out, lse = full_attention_fwd(x, x, x, None, 2, with_lse=True)
     bad = [

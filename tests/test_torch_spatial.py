@@ -135,7 +135,7 @@ def test_halo_reference_matches_xla_ext_reference(mxs, nglo, with_bias):
         rows, gs = mask[sl], np.ascontiguousarray(g[:, sl])
         out = vil_attention_halo_fwd(*map(_t, ops), _t(rows), H)
         lse = torch.zeros(B, H, mxs, MY, W2)  # the plain backward recomputes it
-        grads = vil_attention_halo_bwd(*map(_t, ops), _t(gs), _t(rows), lse, H)
+        grads = vil_attention_halo_bwd(*map(_t, ops), _t(gs), out, _t(rows), lse, H)
         ref, ref_grads = _xla_ext_vjp(ops, rows, gs)
         _close(out.numpy(), ref, VAL_TOL, f"out, shard {s}")
         for name, ours, r in zip(("dq", "dk_ext", "dv_ext", "dkg", "dvg", "dbias"), grads,
@@ -190,7 +190,7 @@ def test_halo_plain_versions_match_pallas_interpret(shard):
     gs, rc = np.ascontiguousarray(g[:, sl]), jnp.asarray(row_class[sl])
     out = vil_attention_halo_fwd(*map(_t, ops), _t(mask[sl]), H)
     _close(out.numpy(), fwd(*map(jnp.asarray, ops), rc), VAL_TOL, "out")
-    grads = vil_attention_halo_bwd(*map(_t, ops), _t(gs), _t(mask[sl]),
+    grads = vil_attention_halo_bwd(*map(_t, ops), _t(gs), out, _t(mask[sl]),
                                    torch.zeros(B, H, mxs, MY, W2), H)
     refs = bwd(*map(jnp.asarray, ops), jnp.asarray(gs), rc)
     for name, ours, ref in zip(("dq", "dk_ext", "dv_ext", "dkg", "dvg", "dbias"), grads, refs):

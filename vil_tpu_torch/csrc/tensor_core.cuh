@@ -1,7 +1,8 @@
 // Tensor-core building blocks for Hopper (sm_90a): warpgroup matrix multiply
 // (wgmma) on bf16 operands with f32 accumulators, and asynchronous copies
 // (cp.async) of bf16 tiles into shared memory. Used by the bf16 dense
-// attention kernels (full_attention_fwd.cu, full_attention_bwd.cu).
+// attention kernels (full_attention_fwd.cu, full_attention_bwd.cu) and the
+// bf16 sliding-chunk backward (sliding_chunk_tc.cuh).
 //
 // Shared-memory layout. A tile is 64 rows of DP bf16 values, DP the head dim
 // M rounded up to 16 (wgmma's k-depth; the pad is zero). It is stored in 8 x 8
@@ -69,21 +70,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Stage rows [0, rows) of a 64-row tile: row r of the tile is src + r * stride
-// (M bf16 values, 16-byte aligned); rows >= rows and values >= M are zeros.
-template <int M>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long stride, int rows) {
+// Stage a 64-row tile whose row r is row_ptr(r) (M bf16 values, 16-byte
+// aligned), or zeros where row_ptr(r) is null; values >= M are zeros. `any` is
+// a valid device address, named by the zero-filling copies, which read none
+// of it.
+template <int M, typename RowPtr>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* any,
+                                           RowPtr row_ptr) {
   constexpr int DP = M < 16 ? 16 : M, CH = DP / 8;
   const uint32_t base = smem_u32(dst);
 #pragma unroll
   for (int i = threadIdx.x; i < kTcRows * CH; i += kTcThreads) {
     const int r8 = i % 8, c = (i / 8) % CH, grp = i / (8 * CH);
-    const int r = grp * 8 + r8;
-    const bool ok = r < rows && c * 8 < M;
-    cp_async16(base + (grp * CH + c) * 128 + r8 * 16, ok ? src + r * stride + c * 8 : src,
-               ok ? 16 : 0);
+    const __nv_bfloat16* src = row_ptr(grp * 8 + r8);
+    const bool ok = src != nullptr && c * 8 < M;
+    cp_async16(base + (grp * CH + c) * 128 + r8 * 16, ok ? src + c * 8 : any, ok ? 16 : 0);
   }
+}
+
+// Stage rows [0, rows) of a 64-row tile: row r of the tile is src + r * stride;
+// rows >= rows are zeros.
+template <int M>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long stride, int rows) {
+  stage_rows<M>(dst, src, [=](int r) { return r < rows ? src + r * stride : nullptr; });
 }
 
 // Stage 64 f32 values src[0 .. rows) (zeros past rows), one per thread of

@@ -2,54 +2,56 @@
 //
 // Replaces the TPU kernel vil_tpu/ops/pallas/vil_backward.py::vil_attention_backward
 // and its four VMEM tiers (_backward_whole_image, _backward_whole_image_loop,
-// _backward_tiled, _backward_two_pass). Given the forward's inputs, its
-// per-row log-sum-exp L and the upstream gradient g, with the forward's
-// column order [glo ‖ nbh 0 ‖ ... ‖ nbh 8] (see vil_attention_fwd.cu):
+// _backward_tiled, _backward_two_pass). Given the forward's inputs, its output
+// `out`, its per-row log-sum-exp L and the upstream gradient g, with the
+// forward's column order [glo ‖ nbh 0 ‖ ... ‖ nbh 8] (see vil_attention_fwd.cu):
 //
-//   P  = exp(S - L)            S recomputed exactly as the forward formed it
+//   P  = exp(S - L)            S recomputed as the forward formed it
 //   dP = g · [V_glo ‖ V_nbh]ᵀ
-//   δ  = rowsum(dP ∘ P)        (the TPU kernel's form, vil_backward.py:374)
+//   δ  = rowsum(dP ∘ P) = rowsum(g ∘ out)
 //   dS = P ∘ (dP - δ)
 //   dQ = dS · [K_glo ‖ K_nbh]
 //   dK, dV of each chunk = Σ over the 9 query chunks that see it of dSᵀ · q, Pᵀ · g
 //
 // Two kernels, in the gather form: no atomics, so the result is the same on
 // every run.
-//   pass 1, one block per (query chunk, head, image): two sweeps over the 10
-//     column tiles. The first sums δ, the second forms dS and dQ. It writes
-//     δ, dQ, the global columns P_glo and dS_glo (the wrapper turns them into
-//     dK_glo and dV_glo with one einsum each, as the TPU code does in XLA),
-//     and, when a bias is given, dbias partials per (image, head): the block
-//     then walks every chunk of its image itself, so each partial has one
-//     writer.
-//   pass 2, one block per (key chunk (r, c), head, image): for each of the 9
-//     offsets (dx, dy) it stages query chunk ((r - dx) mod mx, (c - dy) mod my)
-//     and recomputes P and dS against this key chunk from the stored L and δ,
-//     accumulating dK += dSᵀ · q and dV += Pᵀ · g (vil_backward.py _pass2_kernel).
-//     With mx or my ≤ 2 one key chunk is several neighbours of the same query
-//     chunk; each occurrence adds, as the forward visits each one.
-// Probabilities stay f32 throughout (the TPU kernel rounds P and dS to bf16
-// before its products).
+//   pass 1, per query chunk, head and image: δ, dQ, the global columns P_glo
+//     and dS_glo (the wrapper turns them into dK_glo and dV_glo with one
+//     einsum each, as the TPU code does in XLA), and, when a bias is given,
+//     dbias partials per (image, head): the block then walks every chunk of
+//     its image itself, so each partial has one writer.
+//   pass 2, per key chunk (r, c), head and image: the query chunks
+//     ((r - dx) mod mx, (c - dy) mod my) of the 9 offsets recompute P and dS
+//     against this key chunk from the stored L and δ, accumulating
+//     dK += dSᵀ · q and dV += Pᵀ · g (vil_backward.py _pass2_kernel). With mx
+//     or my ≤ 2 one key chunk is several neighbours of the same query chunk;
+//     each occurrence adds, as the forward visits each one.
 //
 // What bounds it on an H100. The five products (S, dP, dQ, dK, dV) are about
 // 2.5x the forward's FLOPs: ViL-Small stage 1 per image 1.3 GFLOP over
 // 4.8 MB of q, k, v, g, dq, dk, dv in bf16, ~280 FLOP/B, near the bf16
-// tensor-core ridge. This version recomputes S and dP in both sweeps of
-// pass 1 and again in pass 2 (nine products where five would do), all in
-// f32 on the CUDA cores, so like the forward it is bound by f32 FMAs and
-// the shared-memory reads that feed them.
+// tensor-core ridge (~295 FLOP/B) and far above the f32 CUDA-core ridge
+// (~20 FLOP/B): the products belong on the tensor cores.
 //
-// What the design does about it. Scores never reach device memory: a block
-// stages one K/V tile (pass 1) or one query chunk (pass 2) in shared memory
-// and keeps per-row sums there, so device memory sees the operands once per
-// reader, mostly from L2. The next steps are tensor cores for the
-// recomputed products, and keeping P and dP of a row block in shared memory
-// so that pass 1 needs one sweep.
+// The kernel is chosen by the operand dtype:
 //
-// The bodies are sliding_chunk_bwd_pass1/2 (sliding_chunk.cuh) over FullNbh;
-// the sampled-neighbour backward (vil_mode_attention_bwd.cu) runs them over
-// two chunks.
-#include "sliding_chunk.cuh"
+// bf16 (vil_attention_bwd_wgmma_pass1/2, the main path: the bf16 training
+// step). One warpgroup a block, seven products per tile pair, all by wgmma,
+// on the bodies of sliding_chunk_tc.cuh over FullNbh: pass 1 takes δ =
+// rowsum(g ∘ out) in its prologue and sweeps the concatenated
+// [glo ‖ 9 chunks] keys once in 64-key tiles; pass 2 sweeps the concatenated
+// query rows of the 9 chunks that see its key chunk. P and dS are rounded to
+// bf16 before their products, where the TPU kernel rounds them.
+//
+// f32 (vil_attention_bwd_pass1/2). The tensor cores take no f32 operands, and
+// the f32 inputs are the parity checks' (one training step's gradients within
+// 1e-4 of the plain version), which need f32 arithmetic. So f32 keeps the
+// CUDA-core bodies sliding_chunk_bwd_pass1/2 (sliding_chunk.cuh; the
+// sampled-neighbour backward vil_mode_attention_bwd.cu runs them over two
+// chunks): one warp per row, δ by a first sweep of pass 1 (`out` is not
+// read), S recomputed with the forward's fmaf chain so that P = exp(S - L)
+// uses the very S whose L the forward stored.
+#include "sliding_chunk_tc.cuh"
 
 namespace vil {
 
@@ -80,9 +82,37 @@ vil_attention_bwd_pass2(const T* __restrict__ q, const T* __restrict__ k,
                                 w2, C, nglo, wq);
 }
 
+template <int M>
+__global__ void __launch_bounds__(kTcThreads)
+vil_attention_bwd_wgmma_pass1(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ k_glo,
+                              const bf16* __restrict__ v_glo, const bf16* __restrict__ g,
+                              const bf16* __restrict__ out, const float* __restrict__ bias,
+                              const float* __restrict__ mask, const float* __restrict__ lse,
+                              float* __restrict__ delta, bf16* __restrict__ dq,
+                              float* __restrict__ p_glo, float* __restrict__ ds_glo,
+                              float* __restrict__ dbias_part, int mx, int my, int w2, int C,
+                              int nglo, int wq, int chunks_per_block) {
+  sliding_chunk_bwd_tc_pass1<M>(FullNbh{}, q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta,
+                                dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
+                                chunks_per_block);
+}
+
+template <int M>
+__global__ void __launch_bounds__(kTcThreads)
+vil_attention_bwd_wgmma_pass2(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ g,
+                              const float* __restrict__ bias, const float* __restrict__ mask,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv, int mx, int my,
+                              int w2, int C, int nglo, int wq) {
+  sliding_chunk_bwd_tc_pass2<M>(FullNbh{}, q, k, v, g, bias, mask, lse, delta, dk, dv, mx, my, w2,
+                                C, nglo, wq);
+}
+
 template <typename T>
 cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const void* k_glo,
-                           const void* v_glo, const void* g, const float* bias,
+                           const void* v_glo, const void* g, const void* out, const float* bias,
                            const float* mask, const float* lse, float* delta, void* dq,
                            void* dk, void* dv, float* p_glo, float* ds_glo, float* dbias_part,
                            int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
@@ -92,30 +122,46 @@ cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const vo
   const int per_block = dbias_part != nullptr ? mx * my : 1;
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
-    cudaError_t err = launch(vil_attention_bwd_pass1<T, M>, dim3(mx * my / per_block, H, B),
-                             pass1_smem_bytes(w2, M), stream, (const T*)q, (const T*)k,
-                             (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g, bias,
-                             mask, lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2,
-                             C, nglo, wq, per_block);
-    if (err != cudaSuccess) return err;
-    return launch(vil_attention_bwd_pass2<T, M>, dim3(mx * my, H, B), pass2_smem_bytes(w2, M),
-                  stream, (const T*)q, (const T*)k, (const T*)v, (const T*)g, bias, mask, lse,
-                  (const float*)delta, (T*)dk, (T*)dv, mx, my, w2, C, nglo, wq);
+    if constexpr (std::is_same_v<T, bf16>) {
+      const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
+      cudaError_t err = launch_with(
+          vil_attention_bwd_wgmma_pass1<M>, dim3(mx * my / per_block * slices, H, B), kTcThreads,
+          tc_pass1_smem_bytes(M), stream, (const T*)q, (const T*)k, (const T*)v,
+          (const T*)k_glo, (const T*)v_glo, (const T*)g, (const T*)out, bias, mask, lse, delta,
+          (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq, per_block);
+      if (err != cudaSuccess) return err;
+      return launch_with(vil_attention_bwd_wgmma_pass2<M>, dim3(mx * my * slices, H, B),
+                         kTcThreads, tc_pass2_smem_bytes(M), stream, (const T*)q, (const T*)k,
+                         (const T*)v, (const T*)g, bias, mask, lse, (const float*)delta, (T*)dk,
+                         (T*)dv, mx, my, w2, C, nglo, wq);
+    } else {
+      cudaError_t err = launch(vil_attention_bwd_pass1<T, M>, dim3(mx * my / per_block, H, B),
+                               pass1_smem_bytes(w2, M), stream, (const T*)q, (const T*)k,
+                               (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g, bias,
+                               mask, lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2,
+                               C, nglo, wq, per_block);
+      if (err != cudaSuccess) return err;
+      return launch(vil_attention_bwd_pass2<T, M>, dim3(mx * my, H, B), pass2_smem_bytes(w2, M),
+                    stream, (const T*)q, (const T*)k, (const T*)v, (const T*)g, bias, mask, lse,
+                    (const float*)delta, (T*)dk, (T*)dv, mx, my, w2, C, nglo, wq);
+    }
   });
 }
 
 }  // namespace vil
 
-// q, k, v, g, dq, dk, dv (B, mx, my, w2, C); k_glo, v_glo (B, nglo, C) or
-// null when nglo is 0; bias (H, w2, nglo + 9 w2) f32 or null; mask
+// q, k, v, g, out, dq, dk, dv (B, mx, my, w2, C), `out` the forward's
+// output (read by the bf16 kernels for δ); k_glo, v_glo (B, nglo, C) or null
+// when nglo is 0; bias (H, w2, nglo + 9 w2) f32 or null; mask
 // (mx, my, wq, nglo + 9 w2) f32; lse and delta (B, H, mx, my, w2) f32;
 // p_glo, ds_glo (B, H, mx, my, w2, nglo) f32 or null when nglo is 0;
 // dbias_part (B, H, w2, nglo + 9 w2) f32, zero on entry, or null without a
-// bias. All contiguous. Launches both passes on `stream`; returns the first
-// launch error.
+// bias. All contiguous, bf16 operands 16-byte aligned. Launches both passes
+// on `stream`; returns the first launch error.
 extern "C" int vil_attention_bwd(const void* q, const void* k, const void* v, const void* k_glo,
-                                 const void* v_glo, const void* g, const void* bias,
-                                 const void* mask, const void* lse, void* delta, void* dq,
+                                 const void* v_glo, const void* g, const void* out,
+                                 const void* bias, const void* mask, const void* lse,
+                                 void* delta, void* dq,
                                  void* dk, void* dv, void* p_glo, void* ds_glo,
                                  void* dbias_part, int B, int mx, int my, int w2, int C, int H,
                                  int nglo, int wq, int is_bf16, void* stream) {
@@ -128,9 +174,9 @@ extern "C" int vil_attention_bwd(const void* q, const void* k, const void* v, co
   auto* dsg = static_cast<float*>(ds_glo);
   auto* db = static_cast<float*>(dbias_part);
   if (is_bf16)
-    return vil::launch_vil_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, bias_f, mask_f, lse_f,
-                                              delta_f, dq, dk, dv, pg, dsg, db, B, mx, my, w2, C,
-                                              H, nglo, wq, s);
-  return vil::launch_vil_bwd<float>(q, k, v, k_glo, v_glo, g, bias_f, mask_f, lse_f, delta_f, dq,
-                                    dk, dv, pg, dsg, db, B, mx, my, w2, C, H, nglo, wq, s);
+    return vil::launch_vil_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
+                                              lse_f, delta_f, dq, dk, dv, pg, dsg, db, B, mx, my,
+                                              w2, C, H, nglo, wq, s);
+  return vil::launch_vil_bwd<float>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f, lse_f, delta_f,
+                                    dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H, nglo, wq, s);
 }

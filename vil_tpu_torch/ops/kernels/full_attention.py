@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .vil_attention import HEAD_DIMS
+from .vil_attention import HEAD_DIMS, _check_aligned
 
 
 def full_attention_reference(q, k, v, bias, num_heads: int, with_lse: bool = False):
@@ -78,12 +78,6 @@ def _check(q, k, v, bias, num_heads):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-
-
-def _check_aligned(*tensors):
-    """The bf16 kernels copy rows 16 bytes at a time."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("bf16 operands must start on a 16-byte boundary")
 
 
 def _ptr(t):

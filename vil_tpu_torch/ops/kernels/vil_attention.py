@@ -3,7 +3,8 @@
 Counterpart of ``vil_tpu/ops/pallas/vil_kernel.py::_pallas_forward_mh`` (the
 forward kernel, ``csrc/vil_attention_fwd.cu``), of
 ``vil_tpu/ops/pallas/vil_backward.py::vil_attention_backward`` (the backward
-kernel, ``csrc/vil_attention_bwd.cu``), of ``make_fused_vil_attention_mh``
+kernels, ``csrc/vil_attention_bwd.cu``: in bf16 on the tensor cores, in f32
+on the CUDA cores), of ``make_fused_vil_attention_mh``
 (:class:`VilAttentionFunction`) and of ``_xla_reference_mh`` (the plain
 version, :func:`vil_attention_reference`). Per query chunk and head:
 
@@ -14,7 +15,9 @@ Layouts are the JAX package's: q, k, v, out (B, mx, my, W², C) with the heads
 packed in C; k_glo, v_glo (B, Nglo, C); bias (H, W², Nglo+9W²) f32 or None;
 mask (mx, my, Wq, Nglo+9W²) f32 with Wq ∈ {1, W²}; lse (B, H, mx, my, W²)
 f32. Score columns are in front order [glo ‖ neighbour 0 … 8]. q arrives
-scaled by M^-½; the gradient dq is with respect to that scaled q.
+scaled by M^-½; the gradient dq is with respect to that scaled q. The
+backward takes the forward's ``out``: its bf16 kernels form
+δ = rowsum(P ∘ dP) as rowsum(g ∘ out).
 
 The operand checks, the launchers and the plain versions here take the
 neighbourhood as a parameter: ``vil_mode_attention.py`` (the sampled
@@ -196,21 +199,35 @@ def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int =
         raise ValueError(f"device {q.device} is not supported")
 
 
-def check_grad_operands(q, g, lse, num_heads):
-    """Raise unless g matches q and lse is the forward's f32 (B, H, mx, my, W²)."""
+def check_grad_operands(q, g, lse, num_heads, out=None, takes_out=False):
+    """Raise unless g matches q, lse is the forward's f32 (B, H, mx, my, W²)
+    and, for a backward that ``takes_out`` (B2, B7b), the forward's ``out``
+    is given and matches q."""
     B, mx, my, w2, C = q.shape
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"g must match q: {g.dtype} {tuple(g.shape)} on {g.device}")
+    if takes_out and out is None:
+        raise ValueError("this backward takes the forward's out")
+    for name, t in (("g", g), ("out", out)):
+        if t is not None and (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must match q and be contiguous: {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     if (lse.shape != (B, num_heads, mx, my, w2) or lse.dtype != torch.float32
             or lse.device != q.device):
         raise ValueError(f"lse must be float32 {(B, num_heads, mx, my, w2)} on {q.device}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    if not (g.is_contiguous() and lse.is_contiguous()):
-        raise ValueError("g and lse must be contiguous")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _check_aligned(*tensors):
+    """The bf16 tensor-core kernels copy rows 16 bytes at a time (None: an
+    absent operand)."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 operands must start on a 16-byte boundary")
 
 
 def launch_fwd(entry: str, q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
@@ -234,12 +251,12 @@ def launch_fwd(entry: str, q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int
 
 
 def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, lse,
-               num_heads: int, *extra: int):
-    """Launch the C backward ``entry`` (B2's signature, then ``extra`` ints)
-    over ``span`` key chunks per query chunk; returns (dq, dk, dv, dk_glo,
-    dv_glo, dbias). dK_glo and dV_glo come from the kernel's P_glo and dS_glo
-    columns by one einsum each; dbias is the sum over images of the
-    kernel's partials."""
+               num_heads: int, *extra: int, out=None):
+    """Launch the C backward ``entry`` (B2's signature, then ``extra`` ints;
+    the forward's ``out`` after g where the entry takes it) over ``span``
+    key chunks per query chunk; returns (dq, dk, dv, dk_glo, dv_glo, dbias).
+    dK_glo and dV_glo come from the kernel's P_glo and dS_glo columns by one
+    einsum each; dbias is the sum over images of the kernel's partials."""
     B, mx, my, w2, C = q.shape
     H = num_heads
     nglo = 0 if k_glo is None else k_glo.shape[1]
@@ -252,7 +269,8 @@ def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, 
     dbias_part = torch.zeros(B, H, w2, cols, **f32) if bias is not None else None
     with torch.cuda.device(q.device):
         err = getattr(build.load(), entry)(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(g), _ptr(bias),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(g),
+            *(() if out is None else (_ptr(out),)), _ptr(bias),
             _ptr(mask_add), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
             _ptr(p_glo), _ptr(ds_glo), _ptr(dbias_part), B, mx, my, w2, C, H, nglo,
             mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16),
@@ -293,18 +311,22 @@ def vil_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 vil_attention_fwd.launches = 0
 
 
-def vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g, mask_add, lse, num_heads: int):
-    """Sliding-chunk attention backward from the forward's ``lse``: returns
-    (dq, dk, dv, dk_glo, dv_glo, dbias), None where the operand is. On a CUDA
-    device this launches the hand-written kernels (or raises); on the CPU it
-    runs the plain version, which recomputes the softmax and ignores ``lse``."""
+def vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g, out, mask_add, lse, num_heads: int):
+    """Sliding-chunk attention backward from the forward's ``out`` and
+    ``lse``: returns (dq, dk, dv, dk_glo, dv_glo, dbias), None where the
+    operand is. On a CUDA device this launches the hand-written kernels (or
+    raises); the bf16 ones take δ = rowsum(g ∘ out). On the CPU it runs the
+    plain version, which recomputes the softmax and reads neither ``out`` nor
+    ``lse``."""
     check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
-    check_grad_operands(q, g, lse, num_heads)
+    check_grad_operands(q, g, lse, num_heads, out, takes_out=True)
     if q.device.type == "cpu":
         return vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add,
                                            num_heads)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels
+        _check_aligned(q, k, v, k_glo, v_glo, g, out)
     grads = launch_bwd("vil_attention_bwd", 9, q, k, v, k_glo, v_glo, bias, g, mask_add,
-                       lse, num_heads)
+                       lse, num_heads, out=out)
     vil_attention_bwd.launches += 1
     return grads
 
@@ -314,21 +336,21 @@ vil_attention_bwd.launches = 0
 
 class VilAttentionFunction(torch.autograd.Function):
     """Sliding-chunk attention with the hand-written backward: the forward
-    keeps its per-row log-sum-exp, the backward launches
-    :func:`vil_attention_bwd` from it."""
+    keeps its output and per-row log-sum-exp, the backward launches
+    :func:`vil_attention_bwd` from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, k_glo, v_glo, bias, mask_add, num_heads):
         out, lse = vil_attention_fwd(q, k, v, k_glo, v_glo, bias, mask_add, num_heads,
                                      with_lse=True)
-        ctx.save_for_backward(q, k, v, k_glo, v_glo, bias, mask_add, lse)
+        ctx.save_for_backward(q, k, v, k_glo, v_glo, bias, mask_add, out, lse)
         ctx.num_heads = num_heads
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, k_glo, v_glo, bias, mask_add, lse = ctx.saved_tensors
-        grads = vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g.contiguous(), mask_add,
+        q, k, v, k_glo, v_glo, bias, mask_add, out, lse = ctx.saved_tensors
+        grads = vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g.contiguous(), out, mask_add,
                                   lse, ctx.num_heads)
         return (*grads, None, None)
 

@@ -4,7 +4,8 @@ parallelism and their plain versions.
 Counterpart of ``vil_tpu/ops/pallas/vil_kernel.py::_pallas_forward_halo``
 (the forward kernel B7a, ``csrc/vil_attention_halo_fwd.cu``), of
 ``vil_tpu/ops/pallas/vil_backward.py::backward_whole_image_halo`` (the
-backward kernel B7b, ``csrc/vil_attention_halo_bwd.cu``), of
+backward kernels B7b, ``csrc/vil_attention_halo_bwd.cu``: in bf16 on the
+tensor cores, from the forward's ``out``), of
 ``make_fused_vil_attention_halo`` (:class:`VilAttentionHaloFunction`) and of
 ``_xla_reference_ext_mh`` (the plain version,
 :func:`vil_attention_halo_reference`).
@@ -40,6 +41,7 @@ import torch
 
 from ..masks import NEIGHBOR_OFFSETS
 from .vil_attention import (
+    _check_aligned,
     check_grad_operands,
     check_operands,
     grads_by_autograd,
@@ -101,20 +103,23 @@ def vil_attention_halo_fwd(q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Te
 vil_attention_halo_fwd.launches = 0
 
 
-def vil_attention_halo_bwd(q, k_ext, v_ext, k_glo, v_glo, bias, g, mask_rows, lse,
+def vil_attention_halo_bwd(q, k_ext, v_ext, k_glo, v_glo, bias, g, out, mask_rows, lse,
                            num_heads: int):
-    """Halo-input attention backward from the forward's ``lse``: returns
-    (dq, dk_ext, dv_ext, dk_glo, dv_glo, dbias), None where the operand is;
-    dk_ext and dv_ext have the halo rows. On a CUDA device this launches the
-    hand-written kernels (or raises); on the CPU it runs the plain version,
-    which recomputes the softmax and ignores ``lse``."""
+    """Halo-input attention backward from the forward's ``out`` and ``lse``:
+    returns (dq, dk_ext, dv_ext, dk_glo, dv_glo, dbias), None where the
+    operand is; dk_ext and dv_ext have the halo rows. On a CUDA device this
+    launches the hand-written kernels (or raises); the bf16 ones take
+    δ = rowsum(g ∘ out). On the CPU it runs the plain version, which
+    recomputes the softmax and reads neither ``out`` nor ``lse``."""
     check_operands(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, num_heads, halo=True)
-    check_grad_operands(q, g, lse, num_heads)
+    check_grad_operands(q, g, lse, num_heads, out, takes_out=True)
     if q.device.type == "cpu":
         return vil_attention_halo_bwd_reference(q, k_ext, v_ext, k_glo, v_glo, bias, g,
                                                 mask_rows, num_heads)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels
+        _check_aligned(q, k_ext, v_ext, k_glo, v_glo, g, out)
     grads = launch_bwd("vil_attention_halo_bwd", 9, q, k_ext, v_ext, k_glo, v_glo, bias, g,
-                       mask_rows, lse, num_heads)
+                       mask_rows, lse, num_heads, out=out)
     vil_attention_halo_bwd.launches += 1
     return grads
 
@@ -124,23 +129,23 @@ vil_attention_halo_bwd.launches = 0
 
 class VilAttentionHaloFunction(torch.autograd.Function):
     """Halo-input attention with the hand-written backward: the forward keeps
-    its per-row log-sum-exp, the backward launches
-    :func:`vil_attention_halo_bwd` from it and returns dk_ext, dv_ext with
+    its output and per-row log-sum-exp, the backward launches
+    :func:`vil_attention_halo_bwd` from them and returns dk_ext, dv_ext with
     the halo rows."""
 
     @staticmethod
     def forward(ctx, q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, num_heads):
         out, lse = vil_attention_halo_fwd(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows,
                                           num_heads, with_lse=True)
-        ctx.save_for_backward(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, lse)
+        ctx.save_for_backward(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, out, lse)
         ctx.num_heads = num_heads
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, lse = ctx.saved_tensors
+        q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, out, lse = ctx.saved_tensors
         grads = vil_attention_halo_bwd(q, k_ext, v_ext, k_glo, v_glo, bias, g.contiguous(),
-                                       mask_rows, lse, ctx.num_heads)
+                                       out, mask_rows, lse, ctx.num_heads)
         return (*grads, None, None)
 
 
