@@ -7,10 +7,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
 
 1. device  — refuse to run without CUDA; the card's name and power limit.
 2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   nvcc per source, all at once; the SASS census of the dense kernels and
-   of the sliding-chunk backward (``tools/sass_census.py``): the bf16 ones
-   (B3, B4, B2, B7b) must hold wgmma (HGMMA) and cp.async (LDGSTS)
-   instructions.
+   nvcc per source, all at once; the SASS census of the dense kernels, of
+   the sliding-chunk forward B1 and of the sliding-chunk backwards B2, B7b
+   and B6 (``tools/sass_census.py``): their bf16 instances must hold wgmma
+   (HGMMA) and cp.async (LDGSTS) instructions.
 3. kernels — each kernel against its plain PyTorch version on the same
    inputs: the forwards (with their log-sum-exp against ``torch.logsumexp``
    of the plain scores) and the backwards (with the same upstream gradient)
@@ -18,9 +18,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
    padded, cyclic 1×2 and 2×2 and long-sequence cases, and the dense kernels
    at every head dim (8-128) at N 1, 63, 64 and 65, in bf16 also to a
    limit on max|err| / max|ref| of out, dq, dk and dv (and of out, dq, dk,
-   dv, dk_glo, dv_glo and dbias of B1/B2 and B7a/B7b); the sampled-neighbour
-   kernels of random-shift training at two modes per stage. Kernel, plain
-   and library times (CUDA events, median of 20; the library call is
+   dv, dk_glo, dv_glo and dbias of B1/B2, B5/B6 and B7a/B7b); the
+   sampled-neighbour kernels of random-shift training (B5, B6) at two modes
+   per stage and on biased, padded and cyclic grids; B2 and B6 take the
+   forward's out. Kernel, plain and library times (CUDA events, median of
+   20; the library call is
    ``scaled_dot_product_attention``, for the sliding-chunk kernels on the
    materialised key neighbourhood, whose concatenation is timed on its own
    line), and each kernel's bound on this card. The dense kernels are also
@@ -117,9 +119,9 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # a forward that skips the rescale of o across key tiles reads 3.0e-2-1.5 at
 # N > 64, δ = 0 in the backward 0.12-4.5.
 DENSE_SCALED_TOL = 2e-2
-# bf16 sliding-chunk kernels B1/B2 and B7a/B7b: the same ratio for out, dq,
-# dk, dv, dk_glo, dv_glo and (biased cases) dbias, with no floor (dq, the
-# global keys' gradients and dbias lie far below 1 at these shapes).
+# bf16 sliding-chunk kernels B1/B2, B5/B6 and B7a/B7b: the same ratio for
+# out, dq, dk, dv, dk_glo, dv_glo and (biased cases) dbias, with no floor
+# (dq, the global keys' gradients and dbias lie far below 1 at these shapes).
 CHUNK_SCALED_TOL = 2e-2
 LOGITS_TOL = 1e-3  # whole model in f32, kernels vs plain versions
 LOSS_TOL = 1e-4  # one f32 training step, kernels vs plain versions
@@ -260,15 +262,15 @@ def check_kernels(torch, records):
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + (9 if mode == 0 else 2) * w2
-        if mode == 0:  # B2 takes the forward's out (its bf16 kernels' δ)
+        if mode == 0:  # B2 and B6 take the forward's out (their bf16 kernels' δ)
             name, fwd = "vil_attention", vil_attention_fwd
             bwd = lambda *a, bias, g, out, lse: vil_attention_bwd(*a, bias, g, out, mask, lse, H)
             fwd_ref, bwd_ref = vil_attention_reference, vil_attention_bwd_reference
             tail = ()
         else:
             name, fwd = "vil_mode_attention", vil_mode_attention_fwd
-            bwd = lambda *a, bias, g, out, lse: vil_mode_attention_bwd(*a, bias, g, mask, lse, H,
-                                                                       mode)
+            bwd = lambda *a, bias, g, out, lse: vil_mode_attention_bwd(*a, bias, g, out, mask,
+                                                                       lse, H, mode)
             fwd_ref, bwd_ref = vil_mode_attention_reference, vil_mode_attention_bwd_reference
             tail = (mode,)
         mask = torch.from_numpy(mask_to_additive(
@@ -291,8 +293,7 @@ def check_kernels(torch, records):
             e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
             e_abs = max(max_err(x, r) for x, r in zip(grads, refs) if r is not None)
             dt = str(dtype)[6:]
-            e_scaled = (chunk_scaled(out, ref, grads, refs)
-                        if mode == 0 and dtype == torch.bfloat16 else {})
+            e_scaled = chunk_scaled(out, ref, grads, refs) if dtype == torch.bfloat16 else {}
             phase("kernels", f"{name} {label} {dt}: out {e_out:.3e} (tol {tol:g}), lse "
                              f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
                              f"(tol {GRAD_TOL[dt]:g}){scaled_text(e_scaled)}")
@@ -1079,14 +1080,15 @@ def main() -> int:
                 kernel = line.split("Function properties for", 1)[1].strip()
             if "spill" in line and not line.strip().startswith("0 bytes stack"):
                 phase("build", f"{kernel}: {line.strip()}")
-    # the dense kernels' and the sliding-chunk backward's instructions: the
-    # bf16 ones on the tensor cores (HGMMA) with their tiles by cp.async
-    # (LDGSTS), at each of the five head dims the dense forward and both
-    # passes of each backward
+    # the dense kernels' and the sliding-chunk forward's and backwards'
+    # instructions: the bf16 ones on the tensor cores (HGMMA) with their
+    # tiles by cp.async (LDGSTS), at each of the five head dims the dense
+    # forward, B1, and both passes of each backward
     from vil_tpu_torch.tools import sass_census
 
-    for match, want in (("full_attention", 15), ("vil_attention_bwd", 10),
-                        ("vil_attention_halo_bwd", 10)):
+    for match, want in (("full_attention", 15), ("vil_attention_fwd", 5),
+                        ("vil_attention_bwd", 10), ("vil_attention_halo_bwd", 10),
+                        ("vil_mode_attention_bwd", 10)):
         census = sass_census.census(match)
         for name, counts in sorted(census.items()):
             phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))

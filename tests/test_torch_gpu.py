@@ -10,9 +10,10 @@ Tolerances: 1e-4 for f32 inputs (sums in another order); 2e-2 for bf16
 inputs, against the plain version in f32 on the same bf16 values (the kernel
 rounds its output to bf16 once). Gradients are held relative to the largest
 magnitude of the reference: 1e-4 in f32, 3e-2 in bf16. The bf16 tensor-core
-kernels (dense B3/B4, sliding-chunk backward B2/B7b) are also held at
-chip_smoke.py's limits: gradients 1e-2 of max(1, max|ref|), and
-max|err| / max|ref| of their outputs 2e-2, with no floor.
+kernels (dense B3/B4, sliding-chunk forward B1, sliding-chunk backwards
+B2/B7b and B6) are also held at chip_smoke.py's limits: outputs 2e-2 and LSE
+2e-5 absolute, gradients 1e-2 of max(1, max|ref|), and max|err| / max|ref|
+of their outputs 2e-2, with no floor.
 """
 import numpy as np
 import pytest
@@ -232,20 +233,28 @@ def test_dense_bf16_backward_is_deterministic(cuda):
 
 CHUNK_GRAD_TOL = 1e-2  # chip_smoke.py's: B2 and B7b in bf16, max|err| / max(1, max|ref|)
 CHUNK_SCALED_TOL = 2e-2  # chip_smoke.py's: max|err| / max|ref| of dq, dk, dv, dk_glo, dv_glo, dbias
+CHUNK_OUT_TOL, CHUNK_LSE_TOL = 2e-2, 2e-5  # chip_smoke.py's BF16_TOL and LSE_TOL
+# the grids of the bf16 sliding-chunk cases, (nx, ny, w, nglo, exact,
+# with_bias): padded with nglo 1, biased with SW_EXACT 1 and nglo 2, W 4 with
+# SW_EXACT -1 and nglo 5, the cyclic 1×2 and 2×2 grids, and W 9, whose 81
+# rows a chunk take two 64-row slices
+CHUNK_GRIDS = [(19, 20, 7, 1, 0, False), (19, 20, 7, 2, 1, True), (14, 15, 4, 5, -1, False),
+               (7, 14, 7, 1, 0, False), (13, 14, 7, 0, 0, True), (27, 20, 9, 1, 0, True)]
 
 
-def _chunk_case(cuda, seed, B, nx, ny, w, M, H, nglo, exact, with_bias):
+def _chunk_case(cuda, seed, B, nx, ny, w, M, H, nglo, exact, with_bias, mode=0):
     """bf16 (q, k, v, k_glo, v_glo), bias, g and the additive mask of a
-    sliding-chunk grid; q, k, v at the model's scale (q pre-scaled)."""
+    sliding-chunk grid at ``mode`` (0: the 3×3 neighbourhood, 1..8: self and
+    one sampled chunk); q, k, v at the model's scale (q pre-scaled)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
     w2, C = w * w, H * M
     rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
     acts = [rnd(B, mx, my, w2, C) * M ** -0.25 for _ in range(3)]
     acts += [rnd(B, nglo, C) * M ** -0.25 if nglo else None for _ in range(2)]
-    bias = rnd(H, w2, nglo + 9 * w2) * 0.5 if with_bias else None
+    bias = rnd(H, w2, nglo + (9 if mode == 0 else 2) * w2) * 0.5 if with_bias else None
     mask = torch.from_numpy(mask_to_additive(
-        masks.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(cuda)
+        masks.invalid_mask(mx, my, padx, pady, w, exact, mode), mx, my, w2, nglo)).to(cuda)
     acts = [None if a is None else a.to(torch.bfloat16) for a in acts]
     return acts, bias, rnd(B, mx, my, w2, C).to(torch.bfloat16), mask
 
@@ -273,15 +282,13 @@ def test_sliding_chunk_bf16_backward_every_head_dim(cuda, M):
     nglo 1, a biased one with SW_EXACT 1 and nglo 2, W 4 with SW_EXACT -1 and
     nglo 5, the cyclic 1×2 and 2×2 grids, and W 9, whose 81 rows a chunk
     take two 64-row slices: every gradient at chip_smoke.py's tolerances."""
-    cases = [(19, 20, 7, 1, 0, False), (19, 20, 7, 2, 1, True), (14, 15, 4, 5, -1, False),
-             (7, 14, 7, 1, 0, False), (13, 14, 7, 0, 0, True), (27, 20, 9, 1, 0, True)]
-    for i, (nx, ny, w, nglo, exact, with_bias) in enumerate(cases):
+    for i, (nx, ny, w, nglo, exact, with_bias) in enumerate(CHUNK_GRIDS):
         acts, bias, g, mask = _chunk_case(cuda, 100 * M + i, 2, nx, ny, w, M, 2, nglo, exact,
                                           with_bias)
         rel, scaled = _chunk_errors(acts, bias, g, mask, 2)
         case = (M, nx, ny, w, nglo, exact, with_bias, rel, scaled)
         assert rel <= CHUNK_GRAD_TOL and scaled <= CHUNK_SCALED_TOL, case
-    assert vil_attention_bwd.launches == len(cases)
+    assert vil_attention_bwd.launches == len(CHUNK_GRIDS)
 
 
 def test_sliding_chunk_bf16_backward_does_not_read_across_images(cuda):
@@ -318,6 +325,129 @@ def test_sliding_chunk_bf16_backward_is_deterministic(cuda):
         out, lse = vil_attention_halo_fwd(*ops, mask[1:2], 3, with_lse=True)
         first = vil_attention_halo_bwd(*ops, gs, out, mask[1:2], lse, 3)
         second = vil_attention_halo_bwd(*ops, gs, out, mask[1:2], lse, 3)
+        for name, a, b in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), first, second):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
+
+
+def _fwd_errors(acts, bias, mask, H, images=None):
+    """(out, lse, scaled) errors of B1 in bf16 against the plain forward in
+    f32 on the same values, over ``images`` (all by default); the output
+    without the LSE (serving) must equal the output with it, bit for bit."""
+    out, lse = vil_attention_fwd(*acts, bias, mask, H, with_lse=True)
+    assert torch.equal(vil_attention_fwd(*acts, bias, mask, H), out)
+    sel = slice(None) if images is None else images
+    a32 = [None if a is None else a[sel].float() for a in acts]
+    ref, ref_lse = vil_attention_reference(*a32, bias, mask, H, with_lse=True)
+    return _max_err(out[sel], ref), _max_err(lse[sel], ref_lse), _scaled_err(out[sel], ref)
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 128])
+def test_sliding_chunk_bf16_forward_every_head_dim(cuda, M):
+    """B1 in bf16 on the tensor cores at every head dim, on every grid of
+    CHUNK_GRIDS, with and without the LSE: out, LSE and the scaled error at
+    chip_smoke.py's tolerances."""
+    for i, (nx, ny, w, nglo, exact, with_bias) in enumerate(CHUNK_GRIDS):
+        acts, bias, _, mask = _chunk_case(cuda, 200 * M + i, 2, nx, ny, w, M, 2, nglo, exact,
+                                          with_bias)
+        e_out, e_lse, scaled = _fwd_errors(acts, bias, mask, 2)
+        case = (M, nx, ny, w, nglo, exact, with_bias, e_out, e_lse, scaled)
+        assert e_out <= CHUNK_OUT_TOL and e_lse <= CHUNK_LSE_TOL, case
+        assert scaled <= CHUNK_SCALED_TOL, case
+    assert vil_attention_fwd.launches == 2 * len(CHUNK_GRIDS)
+
+
+def test_sliding_chunk_bf16_forward_does_not_read_across_images(cuda):
+    """Image 1 of 3 filled with 1e4: a staged key row that read another
+    image's rows, or past the columns into the next chunk, would show in
+    images 0 and 2's output and LSE."""
+    for M, (nx, ny, w, nglo) in ((32, (56, 56, 7, 1)), (64, (13, 14, 7, 0)),
+                                 (64, (14, 15, 4, 2)), (32, (27, 20, 9, 1))):
+        acts, _, _, mask = _chunk_case(cuda, M, 3, nx, ny, w, M, 3, nglo, 0, False)
+        for t in acts:
+            if t is not None:
+                t[1] = 1e4
+        for image in (0, 2):
+            e_out, e_lse, scaled = _fwd_errors(acts, None, mask, 3, slice(image, image + 1))
+            case = (M, nx, w, image, e_out, e_lse, scaled)
+            assert e_out <= CHUNK_OUT_TOL and e_lse <= CHUNK_LSE_TOL, case
+            assert scaled <= CHUNK_SCALED_TOL, case
+
+
+def _mode_errors(acts, bias, g, mask, H, mode, images=None):
+    """(rel, scaled) errors of B6 in bf16, from B5's out and LSE, against the
+    plain backward in f32 on the same values, over ``images`` (all by
+    default), as _chunk_errors has them for B2."""
+    out, lse = vil_mode_attention_fwd(*acts, bias, mask, H, mode, with_lse=True)
+    grads = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, H, mode)
+    sel = slice(None) if images is None else images
+    a32 = [None if a is None else a[sel].float() for a in acts]
+    refs = vil_mode_attention_bwd_reference(*a32, bias, g[sel].float(), mask, H, mode)
+    pairs = [(x[sel], r) for x, r in zip(grads[:5], refs[:5]) if r is not None]
+    if bias is not None and images is None:  # dbias sums over the images
+        pairs.append((grads[5], refs[5]))
+    return max(_rel_err(x, r) for x, r in pairs), max(_scaled_err(x, r) for x, r in pairs)
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 128])
+def test_sampled_neighbour_bf16_backward_every_head_dim(cuda, M):
+    """B6 in bf16 on the tensor cores at every head dim over the grids of
+    CHUNK_GRIDS without SW_EXACT 1 (it has no mode tables), each at two
+    modes (the cyclic 1×2 grid at modes 2 and 5, where the sampled chunk is
+    the self chunk): every gradient at chip_smoke.py's tolerances."""
+    cases = [(grid, mode) for i, grid in enumerate(CHUNK_GRIDS) if grid[4] != 1
+             for mode in ((2, 5) if grid[:2] == (7, 14) else (1 + i % 8, 8 - i % 8))]
+    for i, ((nx, ny, w, nglo, exact, with_bias), mode) in enumerate(cases):
+        acts, bias, g, mask = _chunk_case(cuda, 300 * M + i, 2, nx, ny, w, M, 2, nglo, exact,
+                                          with_bias, mode)
+        rel, scaled = _mode_errors(acts, bias, g, mask, 2, mode)
+        case = (M, nx, ny, w, nglo, exact, with_bias, mode, rel, scaled)
+        assert rel <= CHUNK_GRAD_TOL and scaled <= CHUNK_SCALED_TOL, case
+    assert vil_mode_attention_bwd.launches == len(cases)
+
+
+@pytest.mark.parametrize("mode", range(1, 9))
+def test_sampled_neighbour_bf16_backward_at_the_model_shapes(cuda, mode):
+    """B6 in bf16 at each mode on ViL-Small 224²'s stage-1 (8×8 chunks,
+    C 96, 3 heads) and stage-2 (4×4, C 192) grids, nglo 1, batch 4: every
+    gradient, and B5's out, at chip_smoke.py's tolerances. The modes whose
+    offsets are not symmetric pair each with its opposite if pass 2 walked
+    the offset with the wrong sign."""
+    for i, (n, C) in enumerate(((56, 96), (28, 192))):
+        acts, _, g, mask = _chunk_case(cuda, 40 * mode + i, 4, n, n, 7, C // 3, 3, 1, 0, False,
+                                       mode)
+        out = vil_mode_attention_fwd(*acts, None, mask, 3, mode)
+        ref = vil_mode_attention_reference(*[None if a is None else a.float() for a in acts],
+                                           None, mask, 3, mode)
+        assert _scaled_err(out, ref) <= CHUNK_SCALED_TOL, (mode, n)
+        rel, scaled = _mode_errors(acts, None, g, mask, 3, mode)
+        assert rel <= CHUNK_GRAD_TOL and scaled <= CHUNK_SCALED_TOL, (mode, n, rel, scaled)
+
+
+def test_sampled_neighbour_bf16_backward_does_not_read_across_images(cuda):
+    """Image 1 of 3 filled with 1e4, as for B2: images 0 and 2's gradients
+    of B6 must not see it."""
+    for M, (nx, ny, w, nglo), mode in ((32, (56, 56, 7, 1), 3), (64, (13, 14, 7, 0), 8),
+                                       (64, (14, 15, 4, 2), 6)):
+        acts, _, g, mask = _chunk_case(cuda, M + mode, 3, nx, ny, w, M, 3, nglo, 0, False, mode)
+        for t in (*acts, g):
+            if t is not None:
+                t[1] = 1e4
+        for image in (0, 2):
+            rel, scaled = _mode_errors(acts, None, g, mask, 3, mode, slice(image, image + 1))
+            case = (M, nx, w, mode, image, rel, scaled)
+            assert rel <= CHUNK_GRAD_TOL and scaled <= CHUNK_SCALED_TOL, case
+
+
+def test_sampled_neighbour_bf16_backward_is_deterministic(cuda):
+    """Two launches of B6 in bf16 on the same inputs give bitwise-equal
+    gradients (no atomics), with and without a bias."""
+    for nx, ny, w, nglo, with_bias, mode in ((56, 56, 7, 1, False, 4), (19, 25, 7, 2, True, 7),
+                                             (13, 14, 7, 0, False, 1)):
+        acts, bias, g, mask = _chunk_case(cuda, 14, 2, nx, ny, w, 32, 3, nglo, 0, with_bias,
+                                          mode)
+        out, lse = vil_mode_attention_fwd(*acts, bias, mask, 3, mode, with_lse=True)
+        first = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, 3, mode)
+        second = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, 3, mode)
         for name, a, b in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), first, second):
             assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
 
@@ -385,7 +515,7 @@ def test_sampled_neighbour_kernels_match_plain_versions(cuda, dtype, tol, grad_t
         ref, lse_ref = vil_mode_attention_reference(*a32, bias, mask, 2, mode, with_lse=True)
         assert out.dtype == dtype and _max_err(out, ref) <= tol, (mx, my, mode)
         assert _max_err(lse, lse_ref) <= tol, (mx, my, mode)
-        grads = vil_mode_attention_bwd(*acts, bias, g, mask, lse, 2, mode)
+        grads = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, 2, mode)
         refs = vil_mode_attention_bwd_reference(*a32, bias, g.float(), mask, 2, mode)
         for name, o, r in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), grads, refs):
             assert (o is None) == (r is None), name

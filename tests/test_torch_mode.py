@@ -147,8 +147,8 @@ def test_mode_backward_matches_pallas(mode, config):
     c = _case(mode, config, seed=10)
     H, nglo = c["H"], c["nglo"]
     ops = [_t(c[n]) for n in ("q", "k", "v", "kg", "vg", "bias", "g", "mask")]
-    _, lse = vil_mode_attention_fwd(*ops[:6], ops[7], H, mode, with_lse=True)
-    ours = vil_mode_attention_bwd(*ops, lse, H, mode)
+    out, lse = vil_mode_attention_fwd(*ops[:6], ops[7], H, mode, with_lse=True)
+    ours = vil_mode_attention_bwd(*ops[:7], out, ops[7], lse, H, mode)
     rolled = _jax_rolled(c, mode)
     bias_tail = _j(_to_tail(c["bias"], nglo))
     _, p_lse = _jax_mode_forward(*rolled, _j(c["kg"]), _j(c["vg"]), bias_tail,
@@ -187,6 +187,23 @@ def test_mode_autograd_function_and_checks():
     full = _t(np.zeros((3, 4, 1, 1 + 9 * 9), np.float32))  # a mode-0 table: 9 chunks
     with pytest.raises(ValueError):
         vil_mode_attention_fwd(*ops[:5], None, full, 3, 6)
+
+
+def test_mode_backward_takes_the_forward_out():
+    """B6's wrapper, as B2's, takes the forward's out (its bf16 kernels form
+    δ = rowsum(g ∘ out)): it raises without it and on an out that does not
+    match q, and a well-formed call passes."""
+    c = _case(3, "2x2-glo2", seed=21)
+    H = c["H"]
+    q, k, v, kg, vg, bias, g, mask = (_t(c[n]) for n in ("q", "k", "v", "kg", "vg", "bias", "g",
+                                                          "mask"))
+    out, lse = vil_mode_attention_fwd(q, k, v, kg, vg, bias, mask, H, 3, with_lse=True)
+    for bad in (None, out[..., :8], out.double(),
+                out.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError):
+            vil_mode_attention_bwd(q, k, v, kg, vg, bias, g, bad, mask, lse, H, 3)
+    grads = vil_mode_attention_bwd(q, k, v, kg, vg, bias, g, out, mask, lse, H, 3)
+    assert grads[0].shape == q.shape and torch.isfinite(grads[0]).all()
 
 
 @pytest.mark.parametrize("mode,nglo,exact", [(1, 1, 0), (5, 0, -1)])

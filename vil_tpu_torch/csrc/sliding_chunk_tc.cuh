@@ -1,7 +1,17 @@
-// Sliding-chunk attention backward on Hopper's tensor cores (sm_90a), bf16:
-// the bodies of B2 (vil_attention_bwd.cu, over FullNbh) and of its halo form
-// B7b (vil_attention_halo_bwd.cu, over HaloNbh). The f32 kernels keep the
-// CUDA-core bodies of sliding_chunk.cuh, as do B6 and B9b.
+// Sliding-chunk attention on Hopper's tensor cores (sm_90a), bf16: the
+// bodies of the forward B1 (vil_attention_fwd.cu, over FullNbh), of the
+// backward B2 (vil_attention_bwd.cu, over FullNbh), of its halo form B7b
+// (vil_attention_halo_bwd.cu, over HaloNbh) and of the sampled-neighbour
+// backward B6 (vil_mode_attention_bwd.cu, over SampledNbh). The f32 kernels
+// keep the CUDA-core bodies of sliding_chunk.cuh, as do B5, B7a and B9.
+//
+// The forward (sliding_chunk_fwd_tc) is a flash forward over the same
+// concatenated key tiles as pass 1 below: one warpgroup per (64-row slice of
+// a query chunk, head, image), S = Q·Kᵀ and O += P·V by wgmma, the online
+// softmax in the accumulator's registers (the note at the top of
+// full_attention_fwd.cu), P rounded to bf16 as the A operand of P·V.
+//
+// The backward:
 //
 // The work per (image, head), in the neighbourhood and column order of
 // sliding_chunk.cuh ([glo ‖ nbh 0 ‖ ... ‖ nbh kCount-1], cols = nglo + kCount W²):
@@ -62,6 +72,189 @@ __device__ __forceinline__ float prob_bf16(float x, float lse) {
       __float2bfloat16(exp2f(__fmaf_rn(x, kLog2e, -__fmul_rn(lse, kLog2e)))));
 }
 
+// The concatenated [glo ‖ neighbour 0 ‖ ... ‖ neighbour kCount-1] key (or
+// value) rows of query chunk (i, j), head h, image b: row `col` of them, in
+// the score columns' order, read in place from k or v (K/V grid of
+// kv_rows(nbh, mx) x my chunks) and k_glo or v_glo; null past the columns.
+// The forward and pass 1 stage their 64-key tiles through it, so that a tile
+// crosses chunk boundaries.
+template <typename Nbh>
+struct ConcatKeys {
+  Nbh nbh;
+  int b, i, j, mx, my, w2, C, nglo, cols;
+  int hm;  // h * M: the head's first channel
+  __device__ __forceinline__ const bf16* operator()(const bf16* base, const bf16* glo,
+                                                    int col) const {
+    if (col >= cols) return nullptr;
+    if (col < nglo) return glo + ((long)b * nglo + col) * C + hm;
+    const int n = (col - nglo) / w2, t = col - nglo - n * w2;
+    const int ci = key_row(nbh, i, n, mx), cj = (j + nbh.dy(n) + my) % my;
+    return base + ((((long)b * kv_rows(nbh, mx) + ci) * my + cj) * w2 + t) * C + hm;
+  }
+  // key tile t (columns 64 t .. 64 t + 63) of k and of v into dst and
+  // dst + 64 DP, by cp.async (uncommitted); rows past the columns are zeros
+  template <int M>
+  __device__ __forceinline__ void stage(bf16* dst, const bf16* k, const bf16* k_glo,
+                                        const bf16* v, const bf16* v_glo, int t) const {
+    constexpr int DP = M < 16 ? 16 : M;
+    stage_rows<M>(dst, k, [&](int r) { return (*this)(k, k_glo, t * kTcRows + r); });
+    stage_rows<M>(dst + kTcRows * DP, k,
+                  [&](int r) { return (*this)(v, v_glo, t * kTcRows + r); });
+  }
+};
+
+// Depth of the forward's ring of K/V tiles (the note in vil_attention_fwd.cu)
+constexpr int kFwdStages = 3;
+
+// The forward (the note at the top). grid (slices · mx · my, H, B), slices =
+// ceil(W² / 64): block x is slice x % slices of query chunk x / slices.
+// Writes out and, when lse is not null, the per-row natural log-sum-exp
+// (B, H, mx, my, W²) in f32. Shared memory: tc_fwd_smem_bytes.
+template <int M, typename Nbh>
+__device__ __forceinline__ void sliding_chunk_fwd_tc(
+    Nbh nbh, const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ k_glo, const bf16* __restrict__ v_glo,
+    const float* __restrict__ bias, const float* __restrict__ mask, bf16* __restrict__ out,
+    float* __restrict__ lse, int mx, int my, int w2, int C, int nglo, int wq) {
+  constexpr int DP = M < 16 ? 16 : M, TILE = kTcRows * DP;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* kv_s = q_s + TILE;  // stage s: the K tile at kv_s + 2 s TILE, V after it
+  // Wq = 1: the chunk's mask row, -inf past the columns
+  float* mask_s = reinterpret_cast<float*>(kv_s + 2 * kFwdStages * TILE);
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slices = (w2 + kTcRows - 1) / kTcRows;
+  const int chunk = blockIdx.x / slices, r0 = blockIdx.x % slices * kTcRows;  // i * my + j
+  const int nr = min(kTcRows, w2 - r0);  // query rows of this slice
+  const int i = chunk / my, j = chunk % my;
+  const int cols = nglo + Nbh::kCount * w2;
+  const int tiles = (cols + kTcRows - 1) / kTcRows;
+  const long head = (((long)b * mx + i) * my + j) * w2 * C + h * M;  // row 0 of the chunk
+  const float* mask_c = mask + (long)chunk * wq * cols;
+  const float* bias_h = bias != nullptr ? bias + (long)h * w2 * cols : nullptr;
+  const ConcatKeys<Nbh> keys{nbh, b, i, j, mx, my, w2, C, nglo, cols, h * M};
+
+  // the ring: tiles 0 .. kFwdStages - 2 in flight (Q with tile 0), one
+  // commit group per tile, empty past the last
+  stage_tile<M>(q_s, q + head + (long)r0 * C, C, nr);
+#pragma unroll
+  for (int t = 0; t < kFwdStages - 1; ++t) {
+    if (t < tiles) keys.template stage<M>(kv_s + 2 * t * TILE, k, k_glo, v, v_glo, t);
+    cp_async_commit();
+  }
+  if (wq == 1)
+    for (int c = threadIdx.x; c < tiles * kTcRows; c += kTcThreads)
+      mask_s[c] = c < cols ? mask_c[c] : -INFINITY;
+
+  float o[M / 2];
+#pragma unroll
+  for (int x = 0; x < M / 2; ++x) o[x] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's columns
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kFwdStages - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();  // everyone's copies; tile t - 1's stage is no longer read
+    if (t + kFwdStages - 1 < tiles) {
+      const int t1 = t + kFwdStages - 1;
+      keys.template stage<M>(kv_s + 2 * (t1 % kFwdStages) * TILE, k, k_glo, v, v_glo, t1);
+    }
+    cp_async_commit();
+    const bf16* k_t = kv_s + 2 * (t % kFwdStages) * TILE;
+    const bf16* v_t = k_t + TILE;
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)  // a k-step is 256 bytes: 16 descriptor units
+      wgmma_ss_n64(s, k_major<DP>(q_s) + 16 * kk, k_major<DP>(k_t) + 16 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(s);
+
+    // S + bias + mask; -inf past the columns, so padded keys get P = 0.
+    // The mask's own fill is finite, so a row whose keys are all masked
+    // stays finite, and the max stays in natural units (log2 e scales only
+    // the exponents): such a row's x - m is exactly 0 and its LSE the
+    // reference's, where a max in base 2 would move it by an ulp of 1.7e38.
+    float mx_t[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * jj + 2 * x + c;
+          const int col = t * kTcRows + 8 * jj + 2 * (lane % 4) + c;
+          const int r = 16 * warp + lane / 4 + 8 * x;  // the slice's row
+          const bool inside = r < nr && col < cols;
+          float xs = s[e];
+          if (bias_h != nullptr && inside) xs += bias_h[(long)(r0 + r) * cols + col];
+          xs += wq == 1 ? mask_s[col]
+                : col >= cols ? -INFINITY
+                : inside ? mask_c[(long)(r0 + r) * cols + col]
+                         : 0.f;
+          s[e] = xs;
+          mx_t[x] = fmaxf(mx_t[x], xs);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {  // a row's max over its quad
+      mx_t[x] = fmaxf(mx_t[x], __shfl_xor_sync(kFullMask, mx_t[x], 1));
+      mx_t[x] = fmaxf(mx_t[x], __shfl_xor_sync(kFullMask, mx_t[x], 2));
+      const float m_new = fmaxf(m[x], mx_t[x]);  // finite: tile 0 holds column 0 < cols
+      alpha[x] = exp2f((m[x] - m_new) * kLog2e);  // 0 on the first tile
+      m[x] = m_new;
+      l[x] *= alpha[x];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float p = exp2f((s[e] - m[(e / 2) % 2]) * kLog2e);
+      s[e] = p;
+      l[(e / 2) % 2] += p;  // the unrounded probability
+    }
+#pragma unroll
+    for (int jj = 0; jj < M / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * jj + e] *= alpha[e / 2];
+
+    uint32_t a[4][4];  // P in bf16, the A operand of P·V
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], s, kk);
+    wgmma_fence();
+    fence_operand(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // a k-step is 16 V rows: 32 DP bytes
+      wgmma_rs<M>(o, a[kk], mn_major<DP>(v_t) + 2 * DP * kk, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(o);
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the empty groups)
+
+  float inv[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    l[x] += __shfl_xor_sync(kFullMask, l[x], 1);
+    l[x] += __shfl_xor_sync(kFullMask, l[x], 2);
+    inv[x] = 1.f / l[x];
+    const int r = 16 * warp + lane / 4 + 8 * x;
+    if (lse != nullptr && lane % 4 == 0 && r < nr)  // (B, H, mx, my, W²), natural log
+      lse[(((long)b * H + h) * mx * my + chunk) * w2 + r0 + r] = m[x] + logf(l[x]);
+  }
+#pragma unroll
+  for (int jj = 0; jj < M / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * jj + e] *= inv[e / 2];
+  store_acc_rows<M>(out + head, C, o, r0, r0 + nr);
+}
+
+// Shared memory of the forward: Q, kFwdStages stages of K and V, and the
+// mask row of `cols` columns rounded up to whole tiles.
+constexpr size_t tc_fwd_smem_bytes(int M, int cols) {
+  return sizeof(bf16) * (1 + 2 * kFwdStages) * kTcRows * (M < 16 ? 16 : M) +
+         sizeof(float) * ((cols + kTcRows - 1) / kTcRows) * kTcRows;
+}
+
 // Pass 1 (the note at the top). grid (slices · mx · my / chunks_per_block, H,
 // B), slices = ceil(W² / 64).
 template <int M, typename Nbh>
@@ -85,7 +278,6 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
   const int nr = min(kTcRows, w2 - r0);  // query rows of this slice
   const int cols = nglo + Nbh::kCount * w2;
   const int tiles = (cols + kTcRows - 1) / kTcRows;
-  const int mxk = kv_rows(nbh, mx);
   const float* bias_h = bias != nullptr ? bias + (long)h * w2 * cols : nullptr;
 
   for (int cc = 0; cc < chunks_per_block; ++cc) {
@@ -94,19 +286,9 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
     const long head = (((long)b * mx + i) * my + j) * w2 * C + h * M;  // row 0 of the chunk
     const long row0 = (((long)b * H + h) * mx * my + chunk) * w2;      // (b, h, i, j, 0)
     const float* mask_c = mask + (long)chunk * wq * cols;
-    // key row `col` of the concatenated [glo ‖ neighbours] keys in `base`
-    // (k or v), `glo` (k_glo or v_glo); null past the columns
-    auto key_src = [&](const bf16* base, const bf16* glo, int col) -> const bf16* {
-      if (col >= cols) return nullptr;
-      if (col < nglo) return glo + ((long)b * nglo + col) * C + h * M;
-      const int n = (col - nglo) / w2, t = col - nglo - n * w2;
-      const int ci = key_row(nbh, i, n, mx), cj = (j + nbh.dy(n) + my) % my;
-      return base + ((((long)b * mxk + ci) * my + cj) * w2 + t) * C + h * M;
-    };
+    const ConcatKeys<Nbh> keys{nbh, b, i, j, mx, my, w2, C, nglo, cols, h * M};
     auto stage_keys = [&](int t) {  // key tile t into stage t & 1
-      bf16* dst = kv_s + (t & 1) * 2 * TILE;
-      stage_rows<M>(dst, q, [&](int r) { return key_src(k, k_glo, t * kTcRows + r); });
-      stage_rows<M>(dst + TILE, q, [&](int r) { return key_src(v, v_glo, t * kTcRows + r); });
+      keys.template stage<M>(kv_s + (t & 1) * 2 * TILE, k, k_glo, v, v_glo, t);
     };
 
     __syncthreads();  // the previous chunk is done with shared memory
@@ -365,7 +547,7 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass2(
   store_acc_rows<M>(dv + kbase, C, acc_v, k0, k0 + nk);
 }
 
-// Shared memory of the two passes: Q, g and two stages of K, V (pass 1), or
+// Shared memory of the two backward passes: Q, g and two stages of K, V (pass 1), or
 // K, V and two stages of Q, g (pass 2), then δ (pass 1) or two stages of L, δ
 // and the two offsets and the neighbour list (pass 2).
 constexpr size_t tc_pass1_smem_bytes(int M) {

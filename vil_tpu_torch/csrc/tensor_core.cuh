@@ -2,7 +2,7 @@
 // (wgmma) on bf16 operands with f32 accumulators, and asynchronous copies
 // (cp.async) of bf16 tiles into shared memory. Used by the bf16 dense
 // attention kernels (full_attention_fwd.cu, full_attention_bwd.cu) and the
-// bf16 sliding-chunk backward (sliding_chunk_tc.cuh).
+// bf16 sliding-chunk forward and backward (sliding_chunk_tc.cuh).
 //
 // Shared-memory layout. A tile is 64 rows of DP bf16 values, DP the head dim
 // M rounded up to 16 (wgmma's k-depth; the pad is zero). It is stored in 8 x 8

@@ -52,10 +52,10 @@ SIGNATURES = {
     # q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta, dq, dk, dv,
     # p_glo, ds_glo, dbias_part, B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
     "vil_attention_bwd": [_P] * 17 + [_I] * 9 + [_P],
-    # the same as vil_attention_fwd / _bwd with the sampled chunk's offset
-    # dx, dy before is_bf16; the backward takes no out
+    # the same as vil_attention_fwd / _bwd (the backward with out after g)
+    # with the sampled chunk's offset dx, dy before is_bf16
     "vil_mode_attention_fwd": [_P] * 9 + [_I] * 11 + [_P],
-    "vil_mode_attention_bwd": [_P] * 16 + [_I] * 11 + [_P],
+    "vil_mode_attention_bwd": [_P] * 17 + [_I] * 11 + [_P],
     # the same as vil_attention_fwd / _bwd, with k, v (and dk, dv) of mx + 2
     # chunk rows
     "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],

@@ -1,7 +1,8 @@
 """Sliding-chunk attention: the Hopper kernels and their plain versions.
 
 Counterpart of ``vil_tpu/ops/pallas/vil_kernel.py::_pallas_forward_mh`` (the
-forward kernel, ``csrc/vil_attention_fwd.cu``), of
+forward kernel, ``csrc/vil_attention_fwd.cu``: in bf16 on the tensor cores,
+in f32 on the CUDA cores), of
 ``vil_tpu/ops/pallas/vil_backward.py::vil_attention_backward`` (the backward
 kernels, ``csrc/vil_attention_bwd.cu``: in bf16 on the tensor cores, in f32
 on the CUDA cores), of ``make_fused_vil_attention_mh``
@@ -201,7 +202,7 @@ def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int =
 
 def check_grad_operands(q, g, lse, num_heads, out=None, takes_out=False):
     """Raise unless g matches q, lse is the forward's f32 (B, H, mx, my, W²)
-    and, for a backward that ``takes_out`` (B2, B7b), the forward's ``out``
+    and, for a backward that ``takes_out`` (B2, B6, B7b), the forward's ``out``
     is given and matches q."""
     B, mx, my, w2, C = q.shape
     if takes_out and out is None:
@@ -302,6 +303,8 @@ def vil_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.no_grad():
             return vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add,
                                            num_heads, with_lse)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel
+        _check_aligned(q, k, v, k_glo, v_glo)
     out, lse = launch_fwd("vil_attention_fwd", q, k, v, k_glo, v_glo, bias, mask_add,
                           num_heads, with_lse)
     vil_attention_fwd.launches += 1

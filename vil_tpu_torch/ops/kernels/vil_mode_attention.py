@@ -3,8 +3,9 @@ and their plain versions.
 
 Counterpart of ``vil_tpu/ops/pallas/vil_mode_kernel.py``: of ``mode_forward``
 (the forward kernel B5, ``csrc/vil_mode_attention_fwd.cu``), of
-``mode_backward`` (the backward kernel B6, ``csrc/vil_mode_attention_bwd.cu``)
-and of ``make_fused_mode_attention`` (:class:`VilModeAttentionFunction`).
+``mode_backward`` (the backward kernels B6, ``csrc/vil_mode_attention_bwd.cu``:
+in bf16 on the tensor cores, in f32 on the CUDA cores) and of
+``make_fused_mode_attention`` (:class:`VilModeAttentionFunction`).
 Random-shift training attends each query chunk to itself and to ONE
 neighbour chunk sampled per layer and step. Per query chunk (i, j) and head:
 
@@ -20,7 +21,9 @@ rolls copies of K and V in XLA first. Layouts are those of
 Score columns are in front order [glo ‖ self ‖ sampled] (the JAX kernel's
 tail order [self ‖ sampled ‖ glo] is a TPU layout choice). ``mode`` is a
 host int in 1..8. The gradients dk and dv are with respect to the unrolled
-k and v: the JAX kernel's dks + roll⁻¹(dknb).
+k and v: the JAX kernel's dks + roll⁻¹(dknb). The backward takes the
+forward's ``out``: its bf16 kernels form δ = rowsum(P ∘ dP) as
+rowsum(g ∘ out).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 
 from .. import sliding_chunk as sc
 from .vil_attention import (
+    _check_aligned,
     check_grad_operands,
     check_operands,
     chunk_attention_bwd_reference,
@@ -94,20 +98,23 @@ def vil_mode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 vil_mode_attention_fwd.launches = 0
 
 
-def vil_mode_attention_bwd(q, k, v, k_glo, v_glo, bias, g, mask_add, lse, num_heads: int,
-                           mode: int):
-    """Sampled-neighbour attention backward from the forward's ``lse``:
-    returns (dq, dk, dv, dk_glo, dv_glo, dbias), None where the operand is.
-    On a CUDA device this launches the hand-written kernels (or raises); on
-    the CPU it runs the plain version, which recomputes the softmax and
-    ignores ``lse``."""
+def vil_mode_attention_bwd(q, k, v, k_glo, v_glo, bias, g, out, mask_add, lse,
+                           num_heads: int, mode: int):
+    """Sampled-neighbour attention backward from the forward's ``out`` and
+    ``lse``: returns (dq, dk, dv, dk_glo, dv_glo, dbias), None where the
+    operand is. On a CUDA device this launches the hand-written kernels (or
+    raises); the bf16 ones take δ = rowsum(g ∘ out). On the CPU it runs the
+    plain version, which recomputes the softmax and reads neither ``out``
+    nor ``lse``."""
     _check(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, mode)
-    check_grad_operands(q, g, lse, num_heads)
+    check_grad_operands(q, g, lse, num_heads, out, takes_out=True)
     if q.device.type == "cpu":
         return vil_mode_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add,
                                                 num_heads, mode)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels
+        _check_aligned(q, k, v, k_glo, v_glo, g, out)
     grads = launch_bwd("vil_mode_attention_bwd", 2, q, k, v, k_glo, v_glo, bias, g, mask_add,
-                       lse, num_heads, *_offset(mode))
+                       lse, num_heads, *_offset(mode), out=out)
     vil_mode_attention_bwd.launches += 1
     return grads
 
@@ -117,22 +124,22 @@ vil_mode_attention_bwd.launches = 0
 
 class VilModeAttentionFunction(torch.autograd.Function):
     """Sampled-neighbour attention with the hand-written backward: the
-    forward keeps its per-row log-sum-exp, the backward launches
-    :func:`vil_mode_attention_bwd` from it."""
+    forward keeps its output and per-row log-sum-exp, the backward launches
+    :func:`vil_mode_attention_bwd` from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, k_glo, v_glo, bias, mask_add, num_heads, mode):
         out, lse = vil_mode_attention_fwd(q, k, v, k_glo, v_glo, bias, mask_add, num_heads,
                                           mode, with_lse=True)
-        ctx.save_for_backward(q, k, v, k_glo, v_glo, bias, mask_add, lse)
+        ctx.save_for_backward(q, k, v, k_glo, v_glo, bias, mask_add, out, lse)
         ctx.num_heads, ctx.mode = num_heads, mode
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, k_glo, v_glo, bias, mask_add, lse = ctx.saved_tensors
-        grads = vil_mode_attention_bwd(q, k, v, k_glo, v_glo, bias, g.contiguous(), mask_add,
-                                       lse, ctx.num_heads, ctx.mode)
+        q, k, v, k_glo, v_glo, bias, mask_add, out, lse = ctx.saved_tensors
+        grads = vil_mode_attention_bwd(q, k, v, k_glo, v_glo, bias, g.contiguous(), out,
+                                       mask_add, lse, ctx.num_heads, ctx.mode)
         return (*grads, None, None, None)
 
 

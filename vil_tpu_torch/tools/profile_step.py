@@ -30,13 +30,13 @@ WARMUP, STEPS = 3, 5
 
 # kernel-name patterns → family, first match wins
 FAMILIES = [
-    ("B1 sliding-chunk fwd", r"vil_attention_fwd_kernel"),
+    ("B1 sliding-chunk fwd", r"vil_attention_fwd_(wgmma|kernel)"),
     # bf16 on the tensor cores (_wgmma), f32 on the CUDA cores
     ("B2 sliding-chunk bwd", r"vil_attention_bwd_(wgmma_)?pass"),
     ("B3 dense fwd", r"full_attention_fwd_(wgmma|kernel)"),
     ("B4 dense bwd", r"full_attention_bwd_(wgmma_)?pass"),
     ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
-    ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_pass"),
+    ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_(wgmma_)?pass"),
     ("B7a halo fwd", r"vil_attention_halo_fwd_kernel"),
     ("B7b halo bwd", r"vil_attention_halo_bwd_(wgmma_)?pass"),
     ("B8 LayerNorm fwd", r"vil_ln_fwd"),
