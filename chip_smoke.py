@@ -8,9 +8,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
 1. device  — refuse to run without CUDA; the card's name and power limit.
 2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all at once; the SASS census of the dense kernels, of
-   the sliding-chunk forward B1 and of the sliding-chunk backwards B2, B7b
-   and B6 (``tools/sass_census.py``): their bf16 instances must hold wgmma
-   (HGMMA) and cp.async (LDGSTS) instructions.
+   the sliding-chunk forwards B1 and B7a and of the sliding-chunk backwards
+   B2, B7b and B6 (``tools/sass_census.py``): their bf16 instances must hold
+   wgmma (HGMMA) and cp.async (LDGSTS) instructions.
 3. kernels — each kernel against its plain PyTorch version on the same
    inputs: the forwards (with their log-sum-exp against ``torch.logsumexp``
    of the plain scores) and the backwards (with the same upstream gradient)
@@ -75,11 +75,16 @@ ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, the
 fused-block kernels (B9a, B9b) at stage 1 and 2 and on a biased, padded,
 cyclic 2×2 grid (no single PyTorch call computes the fused block), the
 halo-input kernels (B7a, B7b) on every shard of stage 1 and 2 split over 1, 2
-and 4 ranks, of a biased padded grid split over 3 and of a cyclic 1×2 grid,
-in f32 and bf16 (the shards' outputs together must equal B1's on the whole
-grid, their dK/dV folded onto the rows' owners B2's; SDPA on the
-materialised halo neighbourhood as the library call), and P's two entry
-points against ``x * 2``, exactly.
+and 4 ranks, of a biased padded grid split over 3, of a cyclic 1×2 grid, and
+of an SW_EXACT 1 (a mask row per query pixel) and a W 4 grid split over 1
+and 2, in f32 and bf16 (the shards' outputs together must equal B1's on the
+whole grid, their dK/dV folded onto the rows' owners B2's; SDPA on the
+materialised halo neighbourhood as the library call; a bf16 operand off a
+16-byte boundary must raise ValueError), and P's two entry points against
+``x * 2``, exactly, at the probe's shape (event time, the time of 100 calls
+between one pair of events, and the card's time by ``torch.profiler``, each
+beside ``torch.mul``'s), on a ragged shape, on a view one element into its
+storage and on a slice.
 
 Each path of phases 4-10 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -167,6 +172,67 @@ def time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The card's time of one call in ms: the time of the kernels that
+    ``torch.profiler`` records over ``reps`` calls (after two warm-ups),
+    over ``reps``. The host's share of a call is its event time less this."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / reps
+
+
+def burst_ms(fn, reps: int = 100) -> float:
+    """Time of one call in ms from ``reps`` calls between one pair of CUDA
+    events, after two warm-ups: the host's work of a call hides behind the
+    card's where it is the shorter."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def probe_split(torch) -> dict:
+    """P's time per call at the probe's shape in bf16, for ``consume_base``
+    (the base layout), ``consume_perm`` (its permuted view) and, on the same
+    views, the library call ``torch.mul(x, 2)``: {name: {"event": median of
+    20 calls each between a pair of events (the record's ms), "burst": 100
+    calls between one pair, "device": the card's time, ``device_ms``}}. It
+    times whichever ``vil_tpu_torch`` is importable, so another tree's P
+    can be timed by this same function."""
+    from vil_tpu_torch.tools import layout_probe as lp
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(lp.B, lp.MX, lp.MY, lp.W2, lp.C, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    xt = x.permute(1, 2, 3, 0, 4)
+    calls = {"consume_base": lambda: lp.consume_base(x),
+             "consume_perm": lambda: lp.consume_perm(xt),
+             "torch.mul base": lambda: torch.mul(x, 2),
+             "torch.mul perm": lambda: torch.mul(xt, 2)}
+    return {name: {"event": time_ms(fn), "burst": burst_ms(fn), "device": device_ms(fn)}
+            for name, fn in calls.items()}
 
 
 def nbytes(*tensors) -> int:
@@ -648,25 +714,50 @@ def check_kernels(torch, records):
                                  f"SDPA backward {lib_bwd:.4f} ms")
 
     def probe_case():
-        """P's two entry points at the probe's shape, bf16: exactly 2x, in
-        the base layout and on its permuted view."""
+        """P's two entry points: exactly 2x at the probe's shape in bf16, in
+        the base layout and on its permuted view (both the flat path, timed
+        with the card's share of a call), then on a ragged shape, on views
+        that start off a 16-byte boundary (the flat path's scalar tail and
+        head) and on a slice (the strided path)."""
         x = randn(layout_probe.B, layout_probe.MX, layout_probe.MY, layout_probe.W2,
                   layout_probe.C).to(torch.bfloat16)
         xt = x.permute(1, 2, 3, 0, 4)
+        split = probe_split(torch)
         for name, fn, arg in (("consume_base", layout_probe.consume_base, x),
                               ("consume_perm", layout_probe.consume_perm, xt)):
             y = fn(arg)
             torch.cuda.synchronize()
             err = max_err(y, arg * 2)
-            phase("kernels", f"{name} (P) {tuple(arg.shape)} bf16, strides {arg.stride()}: "
-                             f"max|err| vs x*2 {err:.3e} (tol 0)")
+            path = layout_probe.probe_path(arg.shape, arg.stride())
+            phase("kernels", f"{name} (P) {tuple(arg.shape)} bf16, strides {arg.stride()}, "
+                             f"path {path}: max|err| vs x*2 {err:.3e} (tol 0)")
             check(f"{name} vs x*2", err, 0.0)
             records[name]["max_abs_err"] = err
-            msg = account(name, 1, time_ms(lambda: fn(arg)),
+            lib = split["torch.mul " + name[len("consume_"):]]
+            msg = account(name, 1, split[name]["event"],
                           time_ms(lambda: layout_probe.scale2_reference(arg)),
-                          nbytes(arg, y), float(arg.numel()), time_ms(lambda: torch.mul(arg, 2)))
+                          nbytes(arg, y), float(arg.numel()), lib["event"])
             phase("kernels", f"  {name} per call: {msg}, library torch.mul "
-                             f"{records[name]['library_ms']:.4f} ms")
+                             f"{lib['event']:.4f} ms; the card's time {split[name]['device']:.4f} "
+                             f"ms (torch.mul {lib['device']:.4f}), 100 calls between one pair "
+                             f"of events {split[name]['burst']:.4f} ms a call (torch.mul "
+                             f"{lib['burst']:.4f})")
+        # the flat path's scalar head and tail, and the strided path
+        flat = randn(3 * 2 * 2 * 7 * 5 + 8).to(torch.bfloat16)
+        cases = [(f"ragged (3,2,2,7,5), {lead} element(s) into its storage",
+                  flat[lead:lead + 420].view(3, 2, 2, 7, 5)) for lead in (0, 1)]
+        cases.append(("a slice of the base layout, [:, 1:7]", x[:, 1:7]))
+        for label, arg in cases:
+            for name, fn, view in (("consume_base", layout_probe.consume_base, arg),
+                                   ("consume_perm", layout_probe.consume_perm,
+                                    arg.permute(1, 2, 3, 0, 4))):
+                y = fn(view)
+                torch.cuda.synchronize()
+                err = max_err(y, view * 2)
+                path = layout_probe.probe_path(view.shape, view.stride())
+                phase("kernels", f"{name} (P) {label} bf16, path {path}: max|err| vs x*2 "
+                                 f"{err:.3e} (tol 0)")
+                check(f"{name} {label} vs x*2", err, 0.0)
 
     # ViL-Small 224²: stage 1 (1 block) and stage 2 (2 blocks) sliding-chunk
     chunk_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, per_step=1)
@@ -716,6 +807,25 @@ def check_kernels(torch, records):
               per_fwd=2)
     halo_case("biased, padded 3x3 grid, nglo 2", 2, 19, 20, 7, 64, 2, 2, 0, True, (1, 3))
     halo_case("cyclic 1x2 grid", 2, 7, 14, 7, 32, 1, 1, 0, False, (1,))
+    # a mask row per query pixel (Wq = W², read per element), and W² = 16,
+    # whose 145 columns leave the last 64-key tile ragged
+    halo_case("SW_EXACT 1, nglo 0, biased", 2, 26, 20, 7, 64, 2, 0, 1, True, (1, 2))
+    halo_case("SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False, (1, 2))
+    # the tensor-core B7a copies rows 16 bytes at a time: a bf16 operand
+    # off a 16-byte boundary must raise, not be read wrongly
+    q = randn(2, 2, 2, 49, 64).to(torch.bfloat16)
+    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+    q_off.copy_(q)
+    kv_ext = [randn(2, 4, 2, 49, 64).to(torch.bfloat16) for _ in range(2)]
+    glo = [randn(2, 1, 64).to(torch.bfloat16) for _ in range(2)]
+    try:
+        vil_attention_halo_fwd(q_off, *kv_ext, *glo, None,
+                               torch.zeros(2, 2, 1, 1 + 9 * 49, device=dev), 2)
+    except ValueError as e:
+        phase("kernels", f"vil_attention_halo bf16 q 2 bytes off a 16-byte boundary: raises "
+                         f"ValueError ({e})")
+    else:
+        raise AssertionError("a misaligned bf16 halo forward did not raise")
     probe_case()
 
 
@@ -1080,15 +1190,15 @@ def main() -> int:
                 kernel = line.split("Function properties for", 1)[1].strip()
             if "spill" in line and not line.strip().startswith("0 bytes stack"):
                 phase("build", f"{kernel}: {line.strip()}")
-    # the dense kernels' and the sliding-chunk forward's and backwards'
+    # the dense kernels' and the sliding-chunk forwards' and backwards'
     # instructions: the bf16 ones on the tensor cores (HGMMA) with their
     # tiles by cp.async (LDGSTS), at each of the five head dims the dense
-    # forward, B1, and both passes of each backward
+    # forward, B1, B7a, and both passes of each backward
     from vil_tpu_torch.tools import sass_census
 
     for match, want in (("full_attention", 15), ("vil_attention_fwd", 5),
-                        ("vil_attention_bwd", 10), ("vil_attention_halo_bwd", 10),
-                        ("vil_mode_attention_bwd", 10)):
+                        ("vil_attention_bwd", 10), ("vil_attention_halo_fwd", 5),
+                        ("vil_attention_halo_bwd", 10), ("vil_mode_attention_bwd", 10)):
         census = sass_census.census(match)
         for name, counts in sorted(census.items()):
             phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))

@@ -746,6 +746,47 @@ def test_halo_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
     assert [fn.launches for fn in KERNELS] == [0] * 10 + [launches] * 2
 
 
+@pytest.mark.parametrize("nx,ny,w,nglo,exact,with_bias",
+                         [(26, 20, 7, 0, 1, True), (14, 15, 4, 1, -1, False)],
+                         ids=["SW_EXACT 1, nglo 0, biased", "SW_EXACT -1, W 4"])
+def test_halo_bf16_forward_per_pixel_masks_and_ragged_tiles(cuda, nx, ny, w, nglo, exact,
+                                                            with_bias):
+    """B7a in bf16 (the tensor-core kernel) where the mask is read per
+    element (SW_EXACT 1: one mask row per query pixel) and, at W 4 with
+    SW_EXACT -1, where W² = 16 leaves the last 64-key tile ragged (145
+    columns), on every shard of the grid
+    split over 1 and 2 ranks: out, LSE and max|err| / max|ref| of out
+    against the plain version in f32 at chip_smoke.py's limits, and the
+    shards' outputs together against B1 on the whole grid. A bf16 operand
+    that starts off a 16-byte boundary raises."""
+    acts, bias, _, mask = _chunk_case(cuda, 17, 2, nx, ny, w, 32, 2, nglo, exact, with_bias)
+    assert mask.shape[2] == (w * w if exact == 1 else 1)  # Wq
+    q, k, v, kg, vg = acts
+    whole = vil_attention_fwd(*acts, bias, mask, 2)
+    mx = q.shape[1]
+    f32 = lambda ts: [None if t is None else t.float() for t in ts]
+    for D in (1, 2):
+        mxs, outs = mx // D, []
+        for sh in range(D):
+            sl = slice(sh * mxs, (sh + 1) * mxs)
+            (k_ext, _), (v_ext, _) = _halo_shard(k, sh, mxs), _halo_shard(v, sh, mxs)
+            ops = [q[:, sl].contiguous(), k_ext, v_ext, kg, vg, bias]
+            out, lse = vil_attention_halo_fwd(*ops, mask[sl], 2, with_lse=True)
+            ref, lse_ref = vil_attention_halo_reference(*f32(ops), mask[sl], 2, with_lse=True)
+            assert out.dtype == torch.bfloat16
+            assert _max_err(out, ref) <= CHUNK_OUT_TOL, (D, sh)
+            assert _scaled_err(out, ref) <= CHUNK_SCALED_TOL, (D, sh)
+            assert _max_err(lse, lse_ref) <= CHUNK_LSE_TOL, (D, sh)
+            outs.append(out)
+        assert _max_err(torch.cat(outs, 1), whole.float()) <= CHUNK_OUT_TOL, D
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_off = buf[1:].view(q.shape)  # contiguous, 2 bytes past a 16-byte boundary
+    q_off.copy_(q)
+    k_ext, v_ext = _halo_shard(k, 0, mx)[0], _halo_shard(v, 0, mx)[0]
+    with pytest.raises(ValueError, match="16-byte"):
+        vil_attention_halo_fwd(q_off, k_ext, v_ext, kg, vg, bias, mask, 2)
+
+
 def test_spatial_forward_runs_through_the_halo_kernels(cuda):
     """The spatial forward of a narrow 4-stage 224² model on one rank (no
     process group): per forward 3 halo launches, 3 dense ones and no B1;
@@ -787,3 +828,24 @@ def test_layout_probe_kernel_doubles_in_place_of_any_layout(cuda, dtype):
     assert yt.stride() == xt.stride() and torch.equal(yt, xt * 2)
     assert torch.equal(layout_probe.scheme_b(x), layout_probe.scheme_a(x))
     assert [fn.launches for fn in layout_probe.KERNELS] == [2, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_probe_kernel_head_tail_and_strided_paths(cuda, dtype):
+    """P's flat path on a ragged shape (no whole number of vectors: the
+    scalar tail) and on views that start 1 to 7 elements into their storage
+    (the scalar head, output at the same offset mod 16), and its strided
+    path on a slice and a stride-0 expand: exactly 2x on each."""
+    from vil_tpu_torch.tools import layout_probe
+
+    flat = torch.randn(3 * 2 * 2 * 7 * 5 + 8, device=cuda).to(dtype)
+    for lead in range(8):
+        x = flat[lead:lead + 420].view(3, 2, 2, 7, 5)
+        assert layout_probe.probe_path(x.shape, x.stride()) == layout_probe.DENSE
+        assert torch.equal(layout_probe.consume_base(x), x * 2), lead
+        xt = x.permute(1, 2, 3, 0, 4)
+        assert torch.equal(layout_probe.consume_perm(xt), xt * 2), lead
+    x = torch.randn(4, 3, 5, 7, 9, device=cuda).to(dtype)
+    for view in (x[:, 1:], x[..., 2:7], x[:, :1].expand(-1, 3, -1, -1, -1)):
+        assert layout_probe.probe_path(view.shape, view.stride()) == layout_probe.STRIDED
+        assert torch.equal(layout_probe.consume_base(view), view * 2)

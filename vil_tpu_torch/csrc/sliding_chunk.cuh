@@ -1,7 +1,7 @@
 // Sliding-chunk attention over a neighbourhood of key chunks: the CUDA-core
-// bodies of the forward (B5, B7a, and B1 in f32) and backward (B2, B6 and
-// B7b in f32) kernels of this directory; the bf16 B1, B2, B6 and B7b run
-// sliding_chunk_tc.cuh.
+// bodies of the forward (B5, and B1 and B7a in f32) and backward (B2, B6 and
+// B7b in f32) kernels of this directory; the bf16 B1, B2, B6, B7a and B7b
+// run sliding_chunk_tc.cuh.
 //
 // Each query chunk (i, j) of an mx x my grid of W x W chunks attends to the
 // global keys and to Nbh::kCount key chunks, neighbour n being K/V chunk

@@ -1,9 +1,10 @@
 // Sliding-chunk attention on Hopper's tensor cores (sm_90a), bf16: the
-// bodies of the forward B1 (vil_attention_fwd.cu, over FullNbh), of the
-// backward B2 (vil_attention_bwd.cu, over FullNbh), of its halo form B7b
+// bodies of the forward B1 (vil_attention_fwd.cu, over FullNbh), of its halo
+// form B7a (vil_attention_halo_fwd.cu, over HaloNbh), of the backward B2
+// (vil_attention_bwd.cu, over FullNbh), of its halo form B7b
 // (vil_attention_halo_bwd.cu, over HaloNbh) and of the sampled-neighbour
 // backward B6 (vil_mode_attention_bwd.cu, over SampledNbh). The f32 kernels
-// keep the CUDA-core bodies of sliding_chunk.cuh, as do B5, B7a and B9.
+// keep the CUDA-core bodies of sliding_chunk.cuh, as do B5 and B9.
 //
 // The forward (sliding_chunk_fwd_tc) is a flash forward over the same
 // concatenated key tiles as pass 1 below: one warpgroup per (64-row slice of

@@ -66,8 +66,9 @@
 // (query chunk, head, image), one warp per query row, an online softmax over
 // the column tiles (the global keys, then each neighbour chunk), W²(4M+3)
 // floats of shared memory. The sampled-neighbour forward B5
-// (vil_mode_attention_fwd.cu) and the halo forward B7a run that body in both
-// dtypes.
+// (vil_mode_attention_fwd.cu) runs that body in both dtypes; the halo
+// forward B7a (vil_attention_halo_fwd.cu) runs both of B1's bodies, by dtype
+// as B1 does.
 #include "sliding_chunk_tc.cuh"
 
 namespace vil {

@@ -19,15 +19,33 @@
 // class per row instead, to save VMEM and SMEM; a Hopper block reads its own
 // chunk's mask row from device memory, so the rows are passed as they are.
 //
-// What bounds it on an H100: what bounds B1 (vil_attention_fwd.cu), on a
-// shard of 1/D of the image's rows, plus two rows of K and V: the f32 FMAs on
-// the CUDA cores and the shared-memory reads that feed them.
+// What bounds it on an H100: device memory, as for B1 (vil_attention_fwd.cu),
+// on a shard of 1/D of the image's rows plus two halo rows of K and V. For
+// ViL-Small 224² at batch 64 on one rank (D = 1), one serving forward's three
+// launches read q, the extended K/V, the global rows and the mask and write
+// out: 0.1094 ms at 3.35 TB/s (PERF.md), above their time at the bf16
+// tensor-core peak.
 //
-// What the design does about it. It is B1's kernel over another
-// neighbourhood: the body is sliding_chunk_fwd (sliding_chunk.cuh) over
-// HaloNbh, which reads K/V row i + dx + 1 of the extended buffer where B1
-// reads row (i + dx) mod mx. No neighbourhood is materialised.
-#include "sliding_chunk.cuh"
+// The kernel is chosen by the operand dtype:
+//
+// bf16 (vil_attention_halo_fwd_wgmma, the main path: the spatial serving
+// forward and the spatial backward's forward). It is B1's tensor-core kernel
+// over another neighbourhood: the body is sliding_chunk_fwd_tc
+// (sliding_chunk_tc.cuh) over HaloNbh, launched as B1 launches it, one
+// warpgroup per (64-row slice of a query chunk, head, image). Its 64-key
+// tiles of the concatenated [glo ‖ 9 chunks] keys are staged by cp.async
+// through ConcatKeys, whose row address for HaloNbh is K/V row i + dx + 1 of
+// the mx + 2 rows (kv_rows, key_row in sliding_chunk.cuh), in a three-stage
+// ring; S = Q·Kᵀ and O += P·V by wgmma, the online softmax in registers.
+// What differs from the whole grid is the row addressing alone: q, out, the
+// mask rows (mask + chunk · Wq · cols) and the LSE are indexed over the
+// shard's own mx x my chunks, and a halo row is read, never written. No
+// neighbourhood is materialised.
+//
+// f32 (vil_attention_halo_fwd_kernel): the CUDA-core body sliding_chunk_fwd
+// (sliding_chunk.cuh) over HaloNbh, in full f32 for the whole-model parity
+// checks (the tensor cores take no f32 operands).
+#include "sliding_chunk_tc.cuh"
 
 namespace vil {
 
@@ -43,6 +61,18 @@ vil_attention_halo_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_e
                           w2, C, nglo, wq);
 }
 
+template <int M>
+__global__ void __launch_bounds__(kTcThreads)
+vil_attention_halo_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k_ext,
+                             const bf16* __restrict__ v_ext, const bf16* __restrict__ k_glo,
+                             const bf16* __restrict__ v_glo, const float* __restrict__ bias,
+                             const float* __restrict__ mask, bf16* __restrict__ out,
+                             float* __restrict__ lse, int mx, int my, int w2, int C, int nglo,
+                             int wq) {
+  sliding_chunk_fwd_tc<M>(HaloNbh{}, q, k_ext, v_ext, k_glo, v_glo, bias, mask, out, lse, mx, my,
+                          w2, C, nglo, wq);
+}
+
 template <typename T>
 cudaError_t launch_vil_halo(const void* q, const void* k_ext, const void* v_ext,
                             const void* k_glo, const void* v_glo, const float* bias,
@@ -50,10 +80,18 @@ cudaError_t launch_vil_halo(const void* q, const void* k_ext, const void* v_ext,
                             int w2, int C, int H, int nglo, int wq, cudaStream_t stream) {
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
-    return launch(vil_attention_halo_fwd_kernel<T, M>, dim3(mx * my, H, B),
-                  fwd_smem_bytes(w2, M), stream, (const T*)q, (const T*)k_ext, (const T*)v_ext,
-                  (const T*)k_glo, (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C,
-                  nglo, wq);
+    if constexpr (std::is_same_v<T, bf16>) {
+      const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
+      return launch_with(vil_attention_halo_fwd_wgmma<M>, dim3(slices * mx * my, H, B),
+                         kTcThreads, tc_fwd_smem_bytes(M, nglo + HaloNbh::kCount * w2), stream,
+                         (const T*)q, (const T*)k_ext, (const T*)v_ext, (const T*)k_glo,
+                         (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
+    } else {
+      return launch(vil_attention_halo_fwd_kernel<T, M>, dim3(mx * my, H, B),
+                    fwd_smem_bytes(w2, M), stream, (const T*)q, (const T*)k_ext,
+                    (const T*)v_ext, (const T*)k_glo, (const T*)v_glo, bias, mask, (T*)out, lse,
+                    mx, my, w2, C, nglo, wq);
+    }
   });
 }
 
@@ -62,7 +100,8 @@ cudaError_t launch_vil_halo(const void* q, const void* k_ext, const void* v_ext,
 // q, out (B, mx, my, w2, C); k_ext, v_ext (B, mx + 2, my, w2, C); k_glo,
 // v_glo (B, nglo, C) or null when nglo is 0; bias (H, w2, nglo + 9 w2) f32 or
 // null; mask (mx, my, wq, nglo + 9 w2) f32, this shard's rows; lse
-// (B, H, mx, my, w2) f32 or null. All contiguous. Returns the launch's error.
+// (B, H, mx, my, w2) f32 or null. All contiguous, bf16 operands 16-byte
+// aligned. Returns the launch's error.
 extern "C" int vil_attention_halo_fwd(const void* q, const void* k_ext, const void* v_ext,
                                       const void* k_glo, const void* v_glo, const void* bias,
                                       const void* mask, void* out, void* lse, int B, int mx,

@@ -60,10 +60,12 @@ SIGNATURES = {
     # chunk rows
     "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],
     "vil_attention_halo_bwd": [_P] * 17 + [_I] * 9 + [_P],
-    # x, y, the 5 sizes of the layout, x's and y's 5 strides (elements),
-    # is_bf16, stream; one entry point per layout
+    # P's strided path: x, y, the 5 sizes of the layout, x's and y's 5
+    # strides (elements), is_bf16, stream; one entry point per layout
     "layout_probe_base": [_P] * 2 + [_L] * 15 + [_I, _P],
     "layout_probe_perm": [_P] * 2 + [_L] * 15 + [_I, _P],
+    # P's dense path: x, y, n, is_bf16, stream
+    "layout_probe_flat": [_P] * 2 + [_L, _I, _P],
     # q, k, v, bias, out, lse, B, N, C, H, is_bf16, stream
     "full_attention_fwd": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, v, g, out, bias, lse, delta, dq, dk, dv, dbias_part,

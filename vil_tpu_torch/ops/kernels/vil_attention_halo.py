@@ -2,7 +2,8 @@
 parallelism and their plain versions.
 
 Counterpart of ``vil_tpu/ops/pallas/vil_kernel.py::_pallas_forward_halo``
-(the forward kernel B7a, ``csrc/vil_attention_halo_fwd.cu``), of
+(the forward kernel B7a, ``csrc/vil_attention_halo_fwd.cu``: in bf16 on the
+tensor cores, B1's body over the halo rows), of
 ``vil_tpu/ops/pallas/vil_backward.py::backward_whole_image_halo`` (the
 backward kernels B7b, ``csrc/vil_attention_halo_bwd.cu``: in bf16 on the
 tensor cores, from the forward's ``out``), of
@@ -94,6 +95,8 @@ def vil_attention_halo_fwd(q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Te
         with torch.no_grad():
             return vil_attention_halo_reference(q, k_ext, v_ext, k_glo, v_glo, bias,
                                                 mask_rows, num_heads, with_lse)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel
+        _check_aligned(q, k_ext, v_ext, k_glo, v_glo)
     out, lse = launch_fwd("vil_attention_halo_fwd", q, k_ext, v_ext, k_glo, v_glo, bias,
                           mask_rows, num_heads, with_lse)
     vil_attention_halo_fwd.launches += 1

@@ -4,12 +4,15 @@
 
 Counterpart of ``tools/layout_probe.py``, which asks whether XLA turns a
 transpose in front of a Pallas call into a relabelling of the layout. Its
-kernel (P: y = 2x) has two entry points here, both in
-``csrc/layout_probe.cu``, each reading and writing its operand in place
-through the strides: :func:`consume_base` over the stage layout
-(B, mx, my, W², C) and :func:`consume_perm` over the permuted
-(mx, my, W², B, C). The output keeps the input's strides (``empty_like``), as
-the plain version ``x * 2`` does.
+kernel (P: y = 2x) has two wrappers here, over ``csrc/layout_probe.cu``,
+each reading and writing its operand in place:
+:func:`consume_base` over the stage layout (B, mx, my, W², C) and
+:func:`consume_perm` over the permuted (mx, my, W², B, C). The output keeps
+the input's strides where the input is dense, as the plain version ``x * 2``
+does. The wrapper picks the kernel's path from the strides
+(:func:`probe_path`): flat over one span for a dense view, such as both of
+the probe's layouts (one entry point, ``layout_probe_flat``), else through
+the strides (an entry point per layout).
 
 The tool runs the probe's chain, a producer GEMM → P → a consumer GEMM, in
 two schemes, at the probe's shape (64, 8, 8, 49, 96) in bf16:
@@ -26,6 +29,7 @@ iterations, best of three), as the TPU probe times it.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
@@ -42,19 +46,67 @@ def scale2_reference(x: torch.Tensor) -> torch.Tensor:
     return x * 2
 
 
+DENSE, STRIDED = "dense", "strided"  # the kernel's two paths
+
+
+def probe_path(shape, strides) -> str:
+    """P's path for a view of ``shape`` and ``strides`` (in elements):
+    ``DENSE`` where the view covers one span of its numel elements with no
+    gap and no overlap, in any order of its axes (the output then takes the
+    same strides, and y = 2x runs flat over the span in memory order), else
+    ``STRIDED`` (a slice, a stride-0 expand). Axes of size 1 take no part."""
+    span = 1
+    for stride, size in sorted((st, sz) for sz, st in zip(shape, strides) if sz != 1):
+        if stride != span:
+            return STRIDED
+        span *= size
+    return DENSE
+
+
+def output_for(x: torch.Tensor, path: str) -> torch.Tensor:
+    """P's output for ``x``: for the dense path x's strides, starting at the
+    same offset as x from a 16-byte boundary, so that both spans share
+    their vectors; else ``empty_like`` (contiguous)."""
+    lead = x.data_ptr() % 16 // x.element_size()
+    if path == STRIDED or not lead:  # the allocator's blocks are 16-byte aligned
+        return torch.empty_like(x)
+    buf = torch.empty(lead + x.numel(), dtype=x.dtype, device=x.device)
+    return buf.as_strided(x.shape, x.stride(), lead)
+
+
+# the path of each layout met, decided once (a few microseconds each time)
+_path_of = functools.lru_cache(maxsize=256)(probe_path)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _launch(entry: str, x: torch.Tensor) -> torch.Tensor:
-    if x.dim() != 5 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"P takes a 5-D float32 or bfloat16 tensor, got {x.dtype} "
+    """P on x's card: the dense path by ``layout_probe_flat``, the strided
+    one by ``entry``, the layout's own entry point."""
+    dtype, device, n = x.dtype, x.device, x.numel()
+    if x.dim() != 5 or dtype not in _DTYPES:
+        raise ValueError(f"P takes a 5-D float32 or bfloat16 tensor, got {dtype} "
                          f"{tuple(x.shape)}")
-    if x.device.type != "cuda":
-        raise ValueError(f"device {x.device} is not supported")
-    if x.numel() >= 2 ** 31:
-        raise ValueError(f"P takes fewer than 2^31 elements, got {x.numel()}")
-    y = torch.empty_like(x)  # x's strides when x is dense, else contiguous
-    with torch.cuda.device(x.device):
-        err = getattr(build.load(), entry)(
-            x.data_ptr(), y.data_ptr(), *x.shape, *x.stride(), *y.stride(),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if device.type != "cuda":
+        raise ValueError(f"device {device} is not supported")
+    if n >= 2 ** 31:
+        raise ValueError(f"P takes fewer than 2^31 elements, got {n}")
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(entry, x)
+    path = _path_of(x.shape, x.stride())
+    y = output_for(x, path)
+    # the current stream's handle by the accessor torch's own generated
+    # kernels launch with: torch.cuda.current_stream() builds a Stream
+    # object under a device context on every call, the largest host cost
+    # of a call here
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    is_bf16 = int(dtype == torch.bfloat16)
+    if path == DENSE:
+        entry = "layout_probe_flat"
+        err = getattr(build.load(), entry)(x.data_ptr(), y.data_ptr(), n, is_bf16, stream)
+    else:
+        err = getattr(build.load(), entry)(x.data_ptr(), y.data_ptr(), *x.shape, *x.stride(),
+                                           *y.stride(), is_bf16, stream)
     build.check(err, entry)
     return y
 

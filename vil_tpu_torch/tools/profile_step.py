@@ -37,7 +37,7 @@ FAMILIES = [
     ("B4 dense bwd", r"full_attention_bwd_(wgmma_)?pass"),
     ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
     ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_(wgmma_)?pass"),
-    ("B7a halo fwd", r"vil_attention_halo_fwd_kernel"),
+    ("B7a halo fwd", r"vil_attention_halo_fwd_(wgmma|kernel)"),
     ("B7b halo bwd", r"vil_attention_halo_bwd_(wgmma_)?pass"),
     ("B8 LayerNorm fwd", r"vil_ln_fwd"),
     ("B8 LayerNorm bwd", r"vil_ln_bwd"),
