@@ -8,9 +8,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
 1. device  — refuse to run without CUDA; the card's name and power limit.
 2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all at once; the SASS census of the dense kernels, of
-   the sliding-chunk forwards B1 and B7a and of the sliding-chunk backwards
-   B2, B7b and B6 (``tools/sass_census.py``): their bf16 instances must hold
-   wgmma (HGMMA) and cp.async (LDGSTS) instructions.
+   the sliding-chunk forwards B1, B7a and B5, of the sliding-chunk backwards
+   B2, B7b and B6 and of the fused-block backward B9b
+   (``tools/sass_census.py``, with each kernel's registers): their bf16
+   instances must hold wgmma (HGMMA) and cp.async (LDGSTS) instructions.
 3. kernels — each kernel against its plain PyTorch version on the same
    inputs: the forwards (with their log-sum-exp against ``torch.logsumexp``
    of the plain scores) and the backwards (with the same upstream gradient)
@@ -20,9 +21,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
    limit on max|err| / max|ref| of out, dq, dk and dv (and of out, dq, dk,
    dv, dk_glo, dv_glo and dbias of B1/B2, B5/B6 and B7a/B7b); the
    sampled-neighbour kernels of random-shift training (B5, B6) at two modes
-   per stage and on biased, padded and cyclic grids; B2 and B6 take the
-   forward's out. Kernel, plain and library times (CUDA events, median of
-   20; the library call is
+   per stage and on biased, padded and cyclic grids, W 9 and head dim 128;
+   B2 and B6 take the forward's out. Kernel, plain and library times (CUDA
+   events, median of 20; the library call is
    ``scaled_dot_product_attention``, for the sliding-chunk kernels on the
    materialised key neighbourhood, whose concatenation is timed on its own
    line), and each kernel's bound on this card. The dense kernels are also
@@ -72,8 +73,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
 
 Phase 3 also holds the LayerNorm kernels (B8a, B8b) at the six row shapes of
 ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, the
-fused-block kernels (B9a, B9b) at stage 1 and 2 and on a biased, padded,
-cyclic 2×2 grid (no single PyTorch call computes the fused block), the
+fused-block kernels (B9a, B9b) at stage 1 and 2, on a biased, padded, cyclic
+2×2 grid and on a biased, padded grid without global rows (no single PyTorch
+call computes the fused block; in bf16 every B9b gradient also to
+max|err| / max|ref| with no floor, and a second launch bit for bit), then
+B5's and B9b's time per step on the card (``torch.profiler``, B9b's by part:
+attention, products, the rest) beside their event time (``card_times``), the
 halo-input kernels (B7a, B7b) on every shard of stage 1 and 2 split over 1, 2
 and 4 ranks, of a biased padded grid split over 3, of a cyclic 1×2 grid, and
 of an SW_EXACT 1 (a mask row per query pixel) and a W 4 grid split over 1
@@ -126,8 +131,11 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 DENSE_SCALED_TOL = 2e-2
 # bf16 sliding-chunk kernels B1/B2, B5/B6 and B7a/B7b: the same ratio for
 # out, dq, dk, dv, dk_glo, dv_glo and (biased cases) dbias, with no floor
-# (dq, the global keys' gradients and dbias lie far below 1 at these shapes).
+# (dq, the global keys' gradients and dbias lie far below 1 at these shapes);
+# and for every gradient of the fused block's backward B9b (BLOCK_GRADS).
 CHUNK_SCALED_TOL = 2e-2
+BLOCK_GRADS = ("dx", "dWq", "dbq", "dWk", "dbk", "dWv", "dbv", "dWo", "dbo", "dk_glo",
+               "dv_glo", "dbias")
 LOGITS_TOL = 1e-3  # whole model in f32, kernels vs plain versions
 LOSS_TOL = 1e-4  # one f32 training step, kernels vs plain versions
 PARAM_GRAD_TOL = 1e-4  # the same step: max|err| / max|ref| per parameter (measured 1.7e-6)
@@ -174,10 +182,11 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, by=None):
     """The card's time of one call in ms: the time of the kernels that
     ``torch.profiler`` records over ``reps`` calls (after two warm-ups),
-    over ``reps``. The host's share of a call is its event time less this."""
+    over ``reps``. The host's share of a call is its event time less this.
+    With ``by`` (a function of a kernel's name) {by(name): ms} instead."""
     import torch
 
     for _ in range(2):
@@ -188,11 +197,14 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    return us / 1e3 / reps
+    groups = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            key = by(e.key) if by else None
+            groups[key] = groups.get(key, 0.0) + us / 1e3 / reps
+    return groups if by else sum(groups.values())
 
 
 def burst_ms(fn, reps: int = 100) -> float:
@@ -233,6 +245,46 @@ def probe_split(torch) -> dict:
              "torch.mul perm": lambda: torch.mul(xt, 2)}
     return {name: {"event": time_ms(fn), "burst": burst_ms(fn), "device": device_ms(fn)}
             for name, fn in calls.items()}
+
+
+def card_times(torch, family) -> dict:
+    """B5 per random-shift step (mode 1: stage 1 once, stage 2 twice) and
+    B9b per fused training step (stage 1 once, stage 2 twice), bf16 at
+    ViL-Small 224² batch 64: {"B5" | "B9b": {"event": median of 20 steps each
+    between a pair of events, "device": the card's time by ``device_ms``,
+    "parts": that time by ``family`` (a kernel name's group)}}. It times
+    whichever ``vil_tpu_torch`` is importable, so another tree's kernels can
+    be timed by this same function."""
+    from vil_tpu_torch.ops import masks as masks_lib
+    from vil_tpu_torch.ops.kernels import mask_to_additive, vil_block_bwd, vil_block_fwd
+    from vil_tpu_torch.ops.kernels import vil_mode_attention_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(
+        torch.bfloat16)
+    H, w2 = 3, 49
+    mode_calls, block_calls = [], []
+    for mx, C in ((8, 96), (4, 192)):  # stage 1, stage 2
+        M, shape = C // H, (BATCH, mx, mx, w2, C)
+        masks = [torch.from_numpy(mask_to_additive(masks_lib.invalid_mask(
+            mx, mx, 0, 0, 7, 0, mode), mx, mx, w2, 1)).to(dev) for mode in (0, 1)]
+        ops = [randn(*shape, scale=M ** -0.5) for _ in range(3)] + [randn(BATCH, 1, C)] * 2
+        mode_calls.append(lambda ops=ops, mask=masks[1]: vil_mode_attention_fwd(
+            *ops, None, mask, H, 1, with_lse=True))
+        ws = [randn(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
+        bs = [torch.randn(C, generator=gen, device=dev) * 0.02 for _ in range(4)]
+        args = [randn(*shape), ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3],
+                randn(BATCH, 1, C), randn(BATCH, 1, C), None]
+        _, k, v, lse, q, attn = vil_block_fwd(*args, masks[0], H, with_lse=True, saved=True)
+        block_calls.append(lambda args=args, mask=masks[0], g=randn(*shape), lse=lse,
+                           saved=(q, k, v, attn): vil_block_bwd(*args, g, mask, lse, H, saved))
+    out = {}
+    for name, calls in (("B5", mode_calls), ("B9b", block_calls)):
+        step = lambda calls=calls: (calls[0](), calls[1](), calls[1]())
+        parts = device_ms(step, by=family)
+        out[name] = {"event": time_ms(step), "device": sum(parts.values()), "parts": parts}
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -566,12 +618,27 @@ def check_kernels(torch, records):
                          for i, (a, r) in enumerate(zip(grads, refs)) if r is not None)
             e_abs = max(max_err(a, r) for a, r in zip(grads, refs) if r is not None)
             dt = str(dtype)[6:]
+            e_scaled, same = {}, ""
+            if dtype == torch.bfloat16:
+                # every gradient to max|err| / max|ref| with no floor (dbk at
+                # dWk's scale, as above), and a second launch bit for bit
+                for i, (n, a, r) in enumerate(zip(BLOCK_GRADS, grads, refs)):
+                    if r is not None:
+                        e_scaled[n] = max_err(a, r) / refs[3 if i == 4 else i].abs().max().item()
+                again = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+                differ = [n for n, a, b in zip(BLOCK_GRADS, grads, again)
+                          if a is not None and not torch.equal(a, b)]
+                same = f"; a second launch bitwise equal: {not differ}"
             phase("kernels", f"vil_block {label} {dt}: y, k, v {e_out:.3e} (tol {tol:g}), lse "
                              f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
-                             f"(tol {GRAD_TOL[dt]:g})")
+                             f"(tol {GRAD_TOL[dt]:g}){scaled_text(e_scaled)}{same}")
             check(f"vil_block fwd {label} {dt}", e_out, tol)
             check(f"vil_block lse {label} {dt}", e_lse, LSE_TOL)
             check(f"vil_block bwd {label} {dt}", e_grad, GRAD_TOL[dt])
+            for n, e in e_scaled.items():
+                check(f"vil_block {n} scaled {label} {dt}", e, CHUNK_SCALED_TOL)
+            if dtype == torch.bfloat16 and differ:
+                raise AssertionError(f"vil_block bwd {label}: two launches differ in {differ}")
             if not (per_step and dtype == torch.bfloat16):
                 continue
             records["vil_block_fwd"]["max_abs_err"] = max(
@@ -777,6 +844,10 @@ def check_kernels(torch, records):
     chunk_case("mode 2 cyclic 1x2 grid (sampled = self)", 2, 7, 14, 7, 32, 1, 1, 0, False, 2)
     chunk_case("mode 7 cyclic 2x2 grid, biased, nglo 0", 2, 13, 14, 7, 32, 1, 0, 0, True, 7)
     chunk_case("mode 5 SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False, 5)
+    # W 9: two 64-row slices a chunk and 163 columns in 3 key tiles; and a
+    # head dim of 128 on a 3x3 grid without global rows
+    chunk_case("mode 8 W 9, 3x3 grid, biased, nglo 1", 2, 27, 27, 9, 64, 2, 1, 0, True, 8)
+    chunk_case("mode 6 3x3 grid, nglo 0, head dim 128", 2, 21, 21, 7, 256, 2, 0, 0, False, 6)
     # stage 3 (8 blocks) and stage 4 (1 block) dense
     full_case("stage3 (64,197,384) H6", 64, 197, 384, 6, False, 8)
     full_case("stage4 (64,49,768) H12", 64, 49, 768, 12, False, 1)
@@ -799,6 +870,14 @@ def check_kernels(torch, records):
     block_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, False, per_step=1)
     block_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, False, per_step=2)
     block_case("biased, padded, cyclic 2x2 grid", 2, 13, 14, 7, 64, 2, 1, True)
+    block_case("biased, padded 3x3 grid, nglo 0, C 48", 2, 19, 20, 7, 48, 3, 0, True)
+    # the card's time of B5 and B9b per step beside their event time, B9b's by part
+    from vil_tpu_torch.tools.profile_step import family
+
+    for name, t in card_times(torch, family).items():
+        parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(t["parts"].items()))
+        phase("kernels", f"{name} per step, bf16: event {t['event']:.4f} ms, the card's time "
+                         f"{t['device']:.4f} ms ({parts})")
     # spatial parallelism: the halo-input kernels on every shard of stage 1
     # (1 block) and stage 2 (2 blocks) over 1, 2 and 4 ranks
     halo_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, (1, 2, 4),
@@ -1193,12 +1272,15 @@ def main() -> int:
     # the dense kernels' and the sliding-chunk forwards' and backwards'
     # instructions: the bf16 ones on the tensor cores (HGMMA) with their
     # tiles by cp.async (LDGSTS), at each of the five head dims the dense
-    # forward, B1, B7a, and both passes of each backward
+    # forward, B1, B7a, B5, and both passes of each backward (B9b's
+    # attention too), and B9b's three products at each of their four widths
+    # (1-4 64-column sub-tiles); each with its registers
     from vil_tpu_torch.tools import sass_census
 
     for match, want in (("full_attention", 15), ("vil_attention_fwd", 5),
                         ("vil_attention_bwd", 10), ("vil_attention_halo_fwd", 5),
-                        ("vil_attention_halo_bwd", 10), ("vil_mode_attention_bwd", 10)):
+                        ("vil_attention_halo_bwd", 10), ("vil_mode_attention_fwd", 5),
+                        ("vil_mode_attention_bwd", 10), ("vil_block_bwd", 22)):
         census = sass_census.census(match)
         for name, counts in sorted(census.items()):
             phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))

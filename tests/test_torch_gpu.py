@@ -10,10 +10,11 @@ Tolerances: 1e-4 for f32 inputs (sums in another order); 2e-2 for bf16
 inputs, against the plain version in f32 on the same bf16 values (the kernel
 rounds its output to bf16 once). Gradients are held relative to the largest
 magnitude of the reference: 1e-4 in f32, 3e-2 in bf16. The bf16 tensor-core
-kernels (dense B3/B4, sliding-chunk forward B1, sliding-chunk backwards
-B2/B7b and B6) are also held at chip_smoke.py's limits: outputs 2e-2 and LSE
-2e-5 absolute, gradients 1e-2 of max(1, max|ref|), and max|err| / max|ref|
-of their outputs 2e-2, with no floor.
+kernels (dense B3/B4, sliding-chunk forwards B1 and B5, sliding-chunk
+backwards B2/B7b and B6, the fused block's backward B9b) are also held at
+chip_smoke.py's limits: outputs 2e-2 and LSE 2e-5 absolute, gradients 1e-2
+of max(1, max|ref|), and max|err| / max|ref| of their outputs 2e-2, with no
+floor.
 """
 import numpy as np
 import pytest
@@ -449,6 +450,156 @@ def test_sampled_neighbour_bf16_backward_is_deterministic(cuda):
         first = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, 3, mode)
         second = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, 3, mode)
         for name, a, b in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), first, second):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
+
+
+def _mode_fwd_errors(acts, bias, mask, H, mode, images=None):
+    """(out, lse, scaled) errors of B5 in bf16 against the plain forward in
+    f32 on the same values, over ``images`` (all by default), as
+    _fwd_errors has them for B1; the output without the LSE must equal the
+    output with it, bit for bit."""
+    out, lse = vil_mode_attention_fwd(*acts, bias, mask, H, mode, with_lse=True)
+    assert torch.equal(vil_mode_attention_fwd(*acts, bias, mask, H, mode), out)
+    sel = slice(None) if images is None else images
+    a32 = [None if a is None else a[sel].float() for a in acts]
+    ref, ref_lse = vil_mode_attention_reference(*a32, bias, mask, H, mode, with_lse=True)
+    return _max_err(out[sel], ref), _max_err(lse[sel], ref_lse), _scaled_err(out[sel], ref)
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 128])
+def test_sampled_neighbour_bf16_forward_every_head_dim(cuda, M):
+    """B5 in bf16 on the tensor cores at every head dim over the grids of
+    CHUNK_GRIDS without SW_EXACT 1, each at two modes (the cyclic 1×2 grid
+    at modes 2 and 5, where the sampled chunk is the self chunk), with and
+    without the LSE: out, LSE and the scaled error at chip_smoke.py's
+    tolerances."""
+    cases = [(grid, mode) for i, grid in enumerate(CHUNK_GRIDS) if grid[4] != 1
+             for mode in ((2, 5) if grid[:2] == (7, 14) else (1 + i % 8, 8 - i % 8))]
+    for i, ((nx, ny, w, nglo, exact, with_bias), mode) in enumerate(cases):
+        acts, bias, _, mask = _chunk_case(cuda, 500 * M + i, 2, nx, ny, w, M, 2, nglo, exact,
+                                          with_bias, mode)
+        e_out, e_lse, scaled = _mode_fwd_errors(acts, bias, mask, 2, mode)
+        case = (M, nx, ny, w, nglo, exact, with_bias, mode, e_out, e_lse, scaled)
+        assert e_out <= CHUNK_OUT_TOL and e_lse <= CHUNK_LSE_TOL, case
+        assert scaled <= CHUNK_SCALED_TOL, case
+    assert vil_mode_attention_fwd.launches == 2 * len(cases)
+
+
+@pytest.mark.parametrize("mode", [1, 6])
+def test_sampled_neighbour_bf16_forward_at_the_model_shapes(cuda, mode):
+    """B5 in bf16 on ViL-Small 224²'s stage-1 (8×8 chunks, C 96, 3 heads)
+    and stage-2 (4×4, C 192) grids, nglo 1, batch 4, at two modes whose
+    offsets are both non-zero; then on a 3×3 grid at every mode, whose
+    offsets a flipped sign would carry to another chunk, and on the cyclic
+    1×2 grid at every mode: out, LSE and the scaled error."""
+    cases = [(56, 56, 96, mode), (28, 28, 192, mode)]
+    cases += [(21, 21, 96, m) for m in range(1, 9)] + [(7, 14, 96, m) for m in range(1, 9)]
+    for i, (nx, ny, C, m) in enumerate(cases):
+        acts, _, _, mask = _chunk_case(cuda, 60 * mode + i, 4, nx, ny, 7, C // 3, 3, 1, 0,
+                                       False, m)
+        e_out, e_lse, scaled = _mode_fwd_errors(acts, None, mask, 3, m)
+        case = (nx, ny, C, m, e_out, e_lse, scaled)
+        assert e_out <= CHUNK_OUT_TOL and e_lse <= CHUNK_LSE_TOL, case
+        assert scaled <= CHUNK_SCALED_TOL, case
+
+
+def test_sampled_neighbour_bf16_forward_does_not_read_across_images(cuda):
+    """Image 1 of 3 filled with 1e4, as for B1: images 0 and 2's output and
+    LSE of B5 must not see it."""
+    for M, (nx, ny, w, nglo), mode in ((32, (56, 56, 7, 1), 3), (64, (13, 14, 7, 0), 8),
+                                       (64, (14, 15, 4, 2), 6), (32, (27, 20, 9, 1), 1)):
+        acts, _, _, mask = _chunk_case(cuda, M + mode, 3, nx, ny, w, M, 3, nglo, 0, False, mode)
+        for t in acts:
+            if t is not None:
+                t[1] = 1e4
+        for image in (0, 2):
+            e_out, e_lse, scaled = _mode_fwd_errors(acts, None, mask, 3, mode,
+                                                    slice(image, image + 1))
+            case = (M, nx, w, mode, image, e_out, e_lse, scaled)
+            assert e_out <= CHUNK_OUT_TOL and e_lse <= CHUNK_LSE_TOL, case
+            assert scaled <= CHUNK_SCALED_TOL, case
+
+
+def test_sampled_neighbour_bf16_forward_is_deterministic(cuda):
+    """Two launches of B5 in bf16 on the same inputs give bitwise-equal
+    outputs and LSEs, with and without a bias."""
+    for nx, ny, w, nglo, with_bias, mode in ((56, 56, 7, 1, False, 4), (19, 25, 7, 2, True, 7),
+                                             (13, 14, 7, 0, False, 1)):
+        acts, bias, _, mask = _chunk_case(cuda, 16, 2, nx, ny, w, 32, 3, nglo, 0, with_bias,
+                                          mode)
+        first = vil_mode_attention_fwd(*acts, bias, mask, 3, mode, with_lse=True)
+        second = vil_mode_attention_fwd(*acts, bias, mask, 3, mode, with_lse=True)
+        for name, a, b in zip(("out", "lse"), first, second):
+            assert torch.equal(a, b), (name, nx, mode)
+
+
+BLOCK_GRADS = ("dx", "dWq", "dbq", "dWk", "dbk", "dWv", "dbv", "dWo", "dbo", "dk_glo",
+               "dv_glo", "dbias")
+
+
+def _block_bf16_case(cuda, seed, B, nx, ny, C, H, nglo, with_bias):
+    """bf16 operands of the fused block (weights scale-folded as the model
+    passes them, f32 biases), g and the additive mask, on a grid of 7×7
+    chunks."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=cuda) * scale
+    padx, pady, mx, my = sc.chunk_grid(nx, ny, 7)
+    M = C // H
+    x = rnd(B, mx, my, 49, C).to(torch.bfloat16)
+    ws = [rnd(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)).to(torch.bfloat16)
+          for i in range(4)]
+    bs = [rnd(C, scale=0.02) for _ in range(4)]
+    glo = [rnd(B, nglo, C).to(torch.bfloat16) if nglo else None for _ in range(2)]
+    bias = rnd(H, 49, nglo + 9 * 49, scale=0.5) if with_bias else None
+    mask = torch.from_numpy(mask_to_additive(
+        masks.invalid_mask(mx, my, padx, pady, 7, 0, 0), mx, my, 49, nglo)).to(cuda)
+    ops = [x, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3], *glo, bias]
+    return ops, rnd(B, mx, my, 49, C).to(torch.bfloat16), mask
+
+
+def _block_bf16_errors(ops, g, mask, H):
+    """B9b in bf16 from B9a's saved tensors against the plain backward in f32
+    on the same values: {gradient: max|err| / max|ref|}, with no floor (dbk,
+    whose exact value is 0, at dWk's scale), and the gradients."""
+    _, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
+    grads = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+    refs = vil_block_bwd_reference(*[None if t is None else t.float() for t in ops], g.float(),
+                                   mask, H)
+    errs = {n: _max_err(a, r) / refs[3 if i == 4 else i].abs().max().item()
+            for i, (n, a, r) in enumerate(zip(BLOCK_GRADS, grads, refs)) if r is not None}
+    return errs, grads
+
+
+@pytest.mark.parametrize("nx,C", [(56, 96), (28, 192)])
+def test_fused_block_bf16_backward_at_the_model_shapes(cuda, nx, C):
+    """B9b in bf16 (its products and attention on the tensor cores) on
+    ViL-Small 224²'s stage-1 (8×8 chunks, C 96, 3 heads) and stage-2 (4×4,
+    C 192) grids, nglo 1, batch 4: every gradient to chip_smoke.py's
+    CHUNK_SCALED_TOL with no floor."""
+    ops, g, mask = _block_bf16_case(cuda, nx, 4, nx, nx, C, 3, 1, False)
+    errs, _ = _block_bf16_errors(ops, g, mask, 3)
+    assert max(errs.values()) <= CHUNK_SCALED_TOL, errs
+
+
+def test_fused_block_bf16_backward_biased_padded_without_globals(cuda):
+    """B9b in bf16 on a biased, padded 3×3 grid with no global rows, at C 48
+    (one 64-column sub-tile, 16 of it zero fill) and C 320 (two blocks along
+    the output columns): every gradient, dbias too, to CHUNK_SCALED_TOL."""
+    for C, H in ((48, 3), (320, 5)):
+        ops, g, mask = _block_bf16_case(cuda, C, 2, 19, 20, C, H, 0, True)
+        errs, _ = _block_bf16_errors(ops, g, mask, H)
+        assert "dbias" in errs and max(errs.values()) <= CHUNK_SCALED_TOL, (C, errs)
+
+
+def test_fused_block_bf16_backward_is_deterministic(cuda):
+    """Two launches of B9b in bf16 on the same inputs give bitwise-equal
+    gradients (the weight gradients' slices summed in order, no atomics)."""
+    for nx, C, H, nglo, with_bias in ((56, 96, 3, 1, False), (19, 64, 2, 2, True)):
+        ops, g, mask = _block_bf16_case(cuda, 3, 2, nx, nx, C, H, nglo, with_bias)
+        _, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
+        first = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+        second = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+        for name, a, b in zip(BLOCK_GRADS, first, second):
             assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
 
 

@@ -1,0 +1,77 @@
+"""The port's measurement tools, on the CPU: how ``tools/profile_step.py``
+groups the kernels it times, and how ``tools/sass_census.py`` reads the
+compiler's register report. Neither needs a card for this: the kernel names
+come from the sources, the report is written out here.
+"""
+import re
+
+import pytest
+
+from vil_tpu_torch.ops.kernels import build
+from vil_tpu_torch.tools import profile_step, sass_census
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def _kernel_names() -> list[str]:
+    """Every __global__ kernel of csrc/*.cu."""
+    return sorted({n for src in build._sources() for n in _GLOBAL.findall(src.read_text())})
+
+
+def _profiled(name: str) -> str:
+    """The name as torch.profiler reports a launch of it (demangled)."""
+    return f"void vil::{name}<32>(vil::SampledNbh, __nv_bfloat16 const*, int)"
+
+
+def test_the_sources_hold_the_kernels():
+    names = _kernel_names()
+    assert "vil_mode_attention_fwd_wgmma" in names and "vil_block_bwd_wgrad_wgmma" in names
+    assert len(names) >= 40
+
+
+@pytest.mark.parametrize("name", [n for n in _kernel_names() if not n.startswith("layout_probe")])
+def test_every_model_kernel_has_a_family_of_its_own(name):
+    """Each kernel of the model's paths is counted under its kernel's family
+    (B1-B9), never under a library family such as GEMM or reduction."""
+    assert profile_step.family(_profiled(name)).startswith("B"), name
+
+
+@pytest.mark.parametrize("name,fam", [
+    ("vil_mode_attention_fwd_wgmma", "B5 sampled-neighbour fwd"),
+    ("vil_mode_attention_fwd_kernel", "B5 sampled-neighbour fwd"),
+    ("vil_mode_attention_bwd_wgmma_pass1", "B6 sampled-neighbour bwd"),
+    ("vil_block_bwd_attn_wgmma_pass1", "B9b fused block bwd: attention"),
+    ("vil_block_bwd_attn_wgmma_pass2", "B9b fused block bwd: attention"),
+    ("vil_block_bwd_attn_pass1", "B9b fused block bwd: attention"),
+    ("vil_block_bwd_proj_out_wgmma", "B9b fused block bwd: products"),
+    ("vil_block_bwd_wgrad_wgmma", "B9b fused block bwd: products"),
+    ("vil_block_bwd_proj_in_wgmma", "B9b fused block bwd: products"),
+    ("vil_block_bwd_wgrad", "B9b fused block bwd: products"),
+    ("vil_block_bwd_glo", "B9b fused block bwd: rest"),
+    ("vil_block_bwd_bgrad", "B9b fused block bwd: rest"),
+    ("vil_block_bwd_reduce", "B9b fused block bwd: rest"),
+    ("vil_block_fwd_proj_qkv", "B9a fused block fwd"),
+    ("vil_ln_bwd_reduce", "B8 LayerNorm bwd"),
+])
+def test_b5_and_b9b_kernels_map_to_their_families(name, fam):
+    """B5's two kernels (bf16 on the tensor cores, f32 on the CUDA cores)
+    and B9b's, split into its attention passes, its products and the rest."""
+    assert profile_step.family(_profiled(name)) == fam
+
+
+def test_census_reads_registers_from_the_compiler_report():
+    report = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3vil28vil_mode_attention_fwd_wgmmaILi32EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3vil28vil_mode_attention_fwd_wgmmaILi32EEEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3vil20vil_block_bwd_reduceEPKfPfil' for 'sm_90a'
+ptxas info    : Function properties for _ZN3vil20vil_block_bwd_reduceEPKfPfil
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers, 384 bytes cmem[0]
+"""
+    assert sass_census.registers(report) == {
+        "_ZN3vil28vil_mode_attention_fwd_wgmmaILi32EEEvv": 96,
+        "_ZN3vil20vil_block_bwd_reduceEPKfPfil": 12,
+    }

@@ -1,8 +1,9 @@
 // Tensor-core building blocks for Hopper (sm_90a): warpgroup matrix multiply
 // (wgmma) on bf16 operands with f32 accumulators, and asynchronous copies
 // (cp.async) of bf16 tiles into shared memory. Used by the bf16 dense
-// attention kernels (full_attention_fwd.cu, full_attention_bwd.cu) and the
-// bf16 sliding-chunk forward and backward (sliding_chunk_tc.cuh).
+// attention kernels (full_attention_fwd.cu, full_attention_bwd.cu), the
+// bf16 sliding-chunk forward and backward (sliding_chunk_tc.cuh) and the
+// bf16 matrix products of the fused block's backward (gemm_tc.cuh).
 //
 // Shared-memory layout. A tile is 64 rows of DP bf16 values, DP the head dim
 // M rounded up to 16 (wgmma's k-depth; the pad is zero). It is stored in 8 x 8
@@ -10,7 +11,7 @@
 // at byte ((r / 8) * (DP / 8) + c) * 128 + (r % 8) * 16. One layout serves both
 // ways wgmma reads a tile:
 //   K-major (the rows are wgmma's M or N, the values its k):  LBO 128, SBO 16 DP
-//   MN-major (the rows are wgmma's k, the values its N):      LBO 16 DP, SBO 128
+//   MN-major (the rows are wgmma's k, the values its M or N): LBO 16 DP, SBO 128
 // (LBO: the byte step between core matrices along k; SBO: along M or N. This
 // is CUTLASS's canonical INTERLEAVE layout in both majors.) A k-step of 16
 // advances a K-major descriptor by 256 bytes and an MN-major one by 32 DP.
@@ -186,6 +187,25 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (+)= A·B, m64n64k16, both operands from shared memory, each K-major
+// (Trans 0) or MN-major (Trans 1: the tile's rows are wgmma's k, its values
+// M or N; imm-trans-a / imm-trans-b). The products of gemm_tc.cuh.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_n64_t(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
 // D (+)= A·B, m64nNk16: A (64 x 16 bf16) from registers in the accumulator's

@@ -8,27 +8,60 @@
 //   dattn = g · Woᵀ                  (rounded to T)
 //   dWo = attnᵀ · g,  dbo = Σ_rows g
 //   dq, dk, dv, P_glo, dS_glo, dbias partials: B2's two gather passes with
-//       dattn in the place of B2's upstream gradient (sliding_chunk.cuh)
+//       dattn in the place of B2's upstream gradient and attn in the place
+//       of its forward output (δ = rowsum(dattn ∘ attn) in bf16)
 //   dk_glo = Σ_rows dS_glo · q,  dv_glo = Σ_rows P_glo · dattn   (per head)
 //   dx = dq · Wqᵀ + dk · Wkᵀ + dv · Wvᵀ
 //   dWq = xᵀ · dq, dWk = xᵀ · dk, dWv = xᵀ · dv,  dbq, dbk, dbv = Σ_rows dq, dk, dv
 //
-// dx is written in T; every weight, bias and global-row gradient in f32.
-// Kernels, each with a name of its own: vil_block_bwd_proj_out (dattn),
-// vil_block_bwd_attn_pass1 and _pass2 (B2's bodies), vil_block_bwd_glo
-// (dk_glo, dv_glo), vil_block_bwd_wgrad (the four dW products, gridDim.z =
-// 4 x slices), vil_block_bwd_bgrad (the four bias gradients, the same
-// slices), vil_block_bwd_reduce (sums the per-slice partials in slice
-// order) and vil_block_bwd_proj_in (dx). No atomics: the result is the same
-// on every run. The TPU kernel recomputes q, k, v and attn from x; here the
-// forward keeps them (four activations of x's size, in T).
+// dx is written in T; every weight, bias and global-row gradient in f32. The
+// TPU kernel recomputes q, k, v and attn from x; here the forward keeps them
+// (four activations of x's size, in T). No atomics: the result is the same
+// on every run.
 //
-// What bounds it on an H100. The projection products are 16 R C² FLOPs
-// (twice the forward's) and the attention backward 2.5 times B1's work; as in
-// the forward, all of it runs on the CUDA cores in f32 and is bound by FMA
-// issue (B2's recomputed products and the GEMMs of gemm.cuh).
+// What bounds it on an H100. The three products (proj_out, wgrad, proj_in)
+// are 16 R C² FLOPs over about 12 R C bf16 values moved (x, q, k, v, attn,
+// g, dattn, dq, dk, dv, dx; R = B mx my W² rows): 0.67 C FLOP/B, 64 at
+// ViL-Small's stage-1 width C = 96 and 128 at C = 192; the attention
+// backward is 2.5 times B1's work at about 220 FLOP/B. All of it is under
+// the bf16 tensor-core ridge (~295 FLOP/B), so on the tensor cores device
+// memory and the products' own rate come close; PERF.md counts the least
+// time, 0.2621 ms per fused step, by operations.
+//
+// The kernels are chosen by the operand dtype, each with a name of its own:
+//
+// bf16 (the main path: the fused bf16 training step), every product on the
+// tensor cores (wgmma, tiles by cp.async):
+//   vil_block_bwd_proj_out_wgmma  dattn = g·Woᵀ (gemm_tc.cuh, gemm_tc_nt):
+//       one warpgroup per 64 rows, every output column in the block (NB
+//       64-column sub-tiles), Wo read K-major through the ring
+//   vil_block_bwd_attn_wgmma_pass1, _pass2  B2's tensor-core bodies
+//       (sliding_chunk_tc.cuh over FullNbh): pass 1 per 64-row slice of a
+//       query chunk over the 7 64-key tiles of [glo ‖ 9 chunks] (with a
+//       bias, one block walks every chunk of its image, so each dbias
+//       partial has one writer), pass 2 per 64-key slice gathering the query
+//       rows that see it. P and dS are rounded to bf16 before their
+//       products, where the TPU kernel rounds them (vil_block.py:304, :321).
+//   vil_block_bwd_glo  dk_glo, dv_glo on the CUDA cores (M values a block)
+//   vil_block_bwd_wgrad_wgmma  the four dW = aᵀ·b (gemm_tc_tn): one block per
+//       (64 input channels, problem, row slice), a and b both read MN-major
+//       (the rows are wgmma's k), one f32 partial per slice; the blocks of
+//       the first 64 channels also sum b's columns of their slice from the
+//       staged tiles (the four bias gradients' partials)
+//   vil_block_bwd_reduce  the partials summed in slice order (CUDA cores)
+//   vil_block_bwd_proj_in_wgmma  dx = Σ_s d_s·W_sᵀ over the three segments
+//       (gemm_tc_nt, a K of 3C streamed 64 at a time)
+//
+// f32 (the parity checks' operands, which need f32 arithmetic; the tensor
+// cores take no f32 operands): the CUDA-core kernels vil_block_bwd_proj_out,
+// vil_block_bwd_attn_pass1 and _pass2 (B2's CUDA-core bodies,
+// sliding_chunk.cuh; δ = rowsum(P ∘ dP) from a first sweep, P and dS in
+// f32), vil_block_bwd_glo, vil_block_bwd_wgrad (gemm.cuh, gridDim.z = 4 x
+// slices), vil_block_bwd_bgrad (the bias gradients over the same slices),
+// vil_block_bwd_reduce and vil_block_bwd_proj_in.
 #include "gemm.cuh"
-#include "sliding_chunk.cuh"
+#include "gemm_tc.cuh"
+#include "sliding_chunk_tc.cuh"
 
 namespace vil {
 
@@ -157,8 +190,126 @@ vil_block_bwd_proj_in(NtSegments<T> seg, T* __restrict__ dx, int R, int C) {
   gemm_nt<T>(seg, dx, R, C, C);
 }
 
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads)
+vil_block_bwd_proj_out_wgmma(TcSegments seg, bf16* __restrict__ dattn, int R, int C) {
+  gemm_tc_nt<NB>(seg, dattn, R, C, C);
+}
+
+template <int M>
+__global__ void __launch_bounds__(kTcThreads)
+vil_block_bwd_attn_wgmma_pass1(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ k_glo,
+                               const bf16* __restrict__ v_glo, const bf16* __restrict__ g,
+                               const bf16* __restrict__ out, const float* __restrict__ bias,
+                               const float* __restrict__ mask, const float* __restrict__ lse,
+                               float* __restrict__ delta, bf16* __restrict__ dq,
+                               float* __restrict__ p_glo, float* __restrict__ ds_glo,
+                               float* __restrict__ dbias_part, int mx, int my, int w2, int C,
+                               int nglo, int wq, int chunks_per_block) {
+  sliding_chunk_bwd_tc_pass1<M>(FullNbh{}, q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta,
+                                dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
+                                chunks_per_block);
+}
+
+template <int M>
+__global__ void __launch_bounds__(kTcThreads)
+vil_block_bwd_attn_wgmma_pass2(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ g,
+                               const float* __restrict__ bias, const float* __restrict__ mask,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv, int mx, int my,
+                               int w2, int C, int nglo, int wq) {
+  sliding_chunk_bwd_tc_pass2<M>(FullNbh{}, q, k, v, g, bias, mask, lse, delta, dk, dv, mx, my,
+                                w2, C, nglo, wq);
+}
+
+// The partial of slice s = blockIdx.z / kProblems for problem blockIdx.z %
+// kProblems, input channels from 64 blockIdx.x: rows [s * rows_per_slice,
+// ...) of aᵀ · b at part[s * stride + problem * C * C], and (blocks of
+// blockIdx.x 0) the column sums of b at part[s * stride + kProblems * C * C
+// + problem * C].
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads)
+vil_block_bwd_wgrad_wgmma(WeightGrads<bf16> w, float* __restrict__ part, int R, int C,
+                          int rows_per_slice, long stride) {
+  const int problem = blockIdx.z % kProblems, s = blockIdx.z / kProblems;
+  const int r0 = s * rows_per_slice, r1 = min(R, r0 + rows_per_slice);
+  float* p = part + s * stride;
+  gemm_tc_tn<NB>(w.a[problem], w.b[problem], p + (long)problem * C * C,
+                 p + (long)kProblems * C * C + problem * C, C, C, r0, r1);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads)
+vil_block_bwd_proj_in_wgmma(TcSegments seg, bf16* __restrict__ dx, int R, int C) {
+  gemm_tc_nt<NB>(seg, dx, R, C, C);
+}
+
 inline dim3 tile_grid(int R, int C, int z) {
   return dim3((R + kTileM - 1) / kTileM, (C + kTileN - 1) / kTileN, z);
+}
+
+// The bf16 kernels (the note at the top), in the order of the f32 ones of
+// launch_block_bwd below.
+inline cudaError_t launch_block_bwd_tc(
+    const bf16* x, const bf16* wq, const bf16* wk, const bf16* wv, const bf16* wo,
+    const bf16* k_glo, const bf16* v_glo, const float* bias, const float* mask, const bf16* q,
+    const bf16* k, const bf16* v, const bf16* attn, const bf16* g, const float* lse, bf16* dattn,
+    float* delta, bf16* dq, bf16* dk, bf16* dv, float* p_glo, float* ds_glo, float* dbias_part,
+    float* dkg, float* dvg, float* part, float* grads, bf16* dx, int B, int mx, int my, int w2,
+    int C, int H, int nglo, int wq_rows, int slices, int rows_per_slice, cudaStream_t stream) {
+  const int R = B * mx * my * w2;
+  const int row_tiles = (R + kGemmTile - 1) / kGemmTile;
+  cudaError_t err = dispatch_col_tiles(C, [&](auto nb) {
+    constexpr int NB = decltype(nb)::value;
+    const dim3 grid(row_tiles, (C + NB * kGemmTile - 1) / (NB * kGemmTile));
+    return launch_with(vil_block_bwd_proj_out_wgmma<NB>, grid, kTcThreads, gemm_tc_smem_bytes(NB),
+                       stream, TcSegments{{g}, {wo}, 1}, dattn, R, C);
+  });
+  if (err != cudaSuccess) return err;
+  // with a bias, one pass-1 block walks all chunks of its image (one writer
+  // per dbias partial), as in B2
+  const int per_block = dbias_part != nullptr ? mx * my : 1;
+  const int slices_q = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
+  err = dispatch_head_dim(C / H, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    cudaError_t e = launch_with(
+        vil_block_bwd_attn_wgmma_pass1<M>, dim3(mx * my / per_block * slices_q, H, B),
+        kTcThreads, tc_pass1_smem_bytes(M), stream, q, k, v, k_glo, v_glo, (const bf16*)dattn,
+        attn, bias, mask, lse, delta, dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo,
+        wq_rows, per_block);
+    if (e != cudaSuccess) return e;
+    return launch_with(vil_block_bwd_attn_wgmma_pass2<M>, dim3(mx * my * slices_q, H, B),
+                       kTcThreads, tc_pass2_smem_bytes(M), stream, q, k, v, (const bf16*)dattn,
+                       bias, mask, lse, (const float*)delta, dk, dv, mx, my, w2, C, nglo,
+                       wq_rows);
+  });
+  if (err != cudaSuccess) return err;
+  if (nglo > 0) {
+    err = launch(vil_block_bwd_glo<bf16>, dim3(nglo, H, B), 0, stream, q, (const bf16*)dattn,
+                 (const float*)p_glo, (const float*)ds_glo, dkg, dvg, mx * my * w2, C, nglo);
+    if (err != cudaSuccess) return err;
+  }
+  const WeightGrads<bf16> wg{{x, x, x, attn}, {dq, dk, dv, g}};
+  const long stride = (long)kProblems * C * C + kProblems * C;
+  err = dispatch_col_tiles(C, [&](auto nb) {
+    constexpr int NB = decltype(nb)::value;
+    const dim3 grid((C + kGemmTile - 1) / kGemmTile, (C + NB * kGemmTile - 1) / (NB * kGemmTile),
+                    kProblems * slices);
+    return launch_with(vil_block_bwd_wgrad_wgmma<NB>, grid, kTcThreads, gemm_tc_smem_bytes(NB),
+                       stream, wg, part, R, C, rows_per_slice, stride);
+  });
+  if (err != cudaSuccess) return err;
+  err = launch(vil_block_bwd_reduce, dim3((unsigned)((stride + kThreads - 1) / kThreads)), 0,
+               stream, (const float*)part, grads, slices, stride);
+  if (err != cudaSuccess) return err;
+  return dispatch_col_tiles(C, [&](auto nb) {
+    constexpr int NB = decltype(nb)::value;
+    const dim3 grid(row_tiles, (C + NB * kGemmTile - 1) / (NB * kGemmTile));
+    return launch_with(vil_block_bwd_proj_in_wgmma<NB>, grid, kTcThreads, gemm_tc_smem_bytes(NB),
+                       stream, TcSegments{{dq, dk, dv}, {wq, wk, wv}, 3}, dx, R, C);
+  });
 }
 
 template <typename T>
@@ -235,12 +386,15 @@ extern "C" int vil_block_bwd(const void* x, const void* wq, const void* wk, cons
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
   auto run = [&](auto tag) {
     using T = decltype(tag);
-    return vil::launch_block_bwd<T>(
-        (const T*)x, (const T*)wq, (const T*)wk, (const T*)wv, (const T*)wo, (const T*)k_glo,
-        (const T*)v_glo, cf(bias), cf(mask), (const T*)q, (const T*)k, (const T*)v,
-        (const T*)attn, (const T*)g, cf(lse), (T*)dattn, f(delta), (T*)dq, (T*)dk, (T*)dv,
-        f(p_glo), f(ds_glo), f(dbias_part), f(dkg), f(dvg), f(part), f(grads), (T*)dx, B, mx, my,
-        w2, C, H, nglo, wq_rows, slices, rows_per_slice, s);
+    auto call = [&](auto fn) {
+      return fn((const T*)x, (const T*)wq, (const T*)wk, (const T*)wv, (const T*)wo,
+                (const T*)k_glo, (const T*)v_glo, cf(bias), cf(mask), (const T*)q, (const T*)k,
+                (const T*)v, (const T*)attn, (const T*)g, cf(lse), (T*)dattn, f(delta), (T*)dq,
+                (T*)dk, (T*)dv, f(p_glo), f(ds_glo), f(dbias_part), f(dkg), f(dvg), f(part),
+                f(grads), (T*)dx, B, mx, my, w2, C, H, nglo, wq_rows, slices, rows_per_slice, s);
+    };
+    if constexpr (std::is_same_v<T, float>) return call(vil::launch_block_bwd<float>);
+    else return call(vil::launch_block_bwd_tc);
   };
   return is_bf16 ? run(__nv_bfloat16{}) : run(float{});
 }

@@ -3,7 +3,9 @@
 Counterpart of ``vil_tpu/ops/pallas/vil_block.py``: of
 ``_pallas_block_forward`` (the forward kernel B9a, ``csrc/vil_block_fwd.cu``),
 of ``_pallas_block_backward`` (the backward kernel B9b,
-``csrc/vil_block_bwd.cu``), of ``make_fused_vil_block``
+``csrc/vil_block_bwd.cu``: in bf16 on the tensor cores, its products in
+``csrc/gemm_tc.cuh`` and its attention on B2's body, in f32 on the CUDA
+cores), of ``make_fused_vil_block``
 (:class:`VilBlockFunction`, :func:`vil_block`) and of ``_xla_block_reference``
 (the plain version, :func:`vil_block_reference`). One ViL attention block's
 local branch at neighbour mode 0, from the LayerNorm output x to the
@@ -35,7 +37,13 @@ from typing import Optional
 import torch
 
 from . import build
-from .vil_attention import _ptr, check_grad_operands, check_operands, vil_attention_reference
+from .vil_attention import (
+    _check_aligned,
+    _ptr,
+    check_grad_operands,
+    check_operands,
+    vil_attention_reference,
+)
 
 WEIGHT_GRAD_SLICES = 128  # most row slices of the f32 weight-gradient partials
 
@@ -157,6 +165,8 @@ def vil_block_bwd(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, g, mask
     q, k, v, attn = saved
     if any(t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous() for t in saved):
         raise ValueError("saved must be the forward's contiguous q, k, v, attn")
+    if x.dtype == torch.bfloat16:  # the tensor-core kernels
+        _check_aligned(x, wq, wk, wv, wo, k_glo, v_glo, g, *saved)
     B, mx, my, w2, C = x.shape
     H = num_heads
     nglo = 0 if k_glo is None else k_glo.shape[1]

@@ -3,8 +3,8 @@ and their plain versions.
 
 Counterpart of ``vil_tpu/ops/pallas/vil_mode_kernel.py``: of ``mode_forward``
 (the forward kernel B5, ``csrc/vil_mode_attention_fwd.cu``), of
-``mode_backward`` (the backward kernels B6, ``csrc/vil_mode_attention_bwd.cu``:
-in bf16 on the tensor cores, in f32 on the CUDA cores) and of
+``mode_backward`` (the backward kernels B6, ``csrc/vil_mode_attention_bwd.cu``),
+both in bf16 on the tensor cores and in f32 on the CUDA cores, and of
 ``make_fused_mode_attention`` (:class:`VilModeAttentionFunction`).
 Random-shift training attends each query chunk to itself and to ONE
 neighbour chunk sampled per layer and step. Per query chunk (i, j) and head:
@@ -89,6 +89,8 @@ def vil_mode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.no_grad():
             return vil_mode_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add,
                                                 num_heads, mode, with_lse)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel
+        _check_aligned(q, k, v, k_glo, v_glo)
     out, lse = launch_fwd("vil_mode_attention_fwd", q, k, v, k_glo, v_glo, bias, mask_add,
                           num_heads, with_lse, *_offset(mode))
     vil_mode_attention_fwd.launches += 1

@@ -35,14 +35,18 @@ FAMILIES = [
     ("B2 sliding-chunk bwd", r"vil_attention_bwd_(wgmma_)?pass"),
     ("B3 dense fwd", r"full_attention_fwd_(wgmma|kernel)"),
     ("B4 dense bwd", r"full_attention_bwd_(wgmma_)?pass"),
-    ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_kernel"),
+    ("B5 sampled-neighbour fwd", r"vil_mode_attention_fwd_(wgmma|kernel)"),
     ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_(wgmma_)?pass"),
     ("B7a halo fwd", r"vil_attention_halo_fwd_(wgmma|kernel)"),
     ("B7b halo bwd", r"vil_attention_halo_bwd_(wgmma_)?pass"),
     ("B8 LayerNorm fwd", r"vil_ln_fwd"),
     ("B8 LayerNorm bwd", r"vil_ln_bwd"),
-    ("B9 fused block fwd", r"vil_block_fwd"),
-    ("B9 fused block bwd", r"vil_block_bwd"),
+    ("B9a fused block fwd", r"vil_block_fwd"),
+    # B9b in three parts: the attention passes, the products (dattn, the
+    # weight gradients, dx; bf16 on the tensor cores: _wgmma) and the rest
+    ("B9b fused block bwd: attention", r"vil_block_bwd_attn_(wgmma_)?pass"),
+    ("B9b fused block bwd: products", r"vil_block_bwd_(proj_out|wgrad|proj_in)"),
+    ("B9b fused block bwd: rest", r"vil_block_bwd_(glo|bgrad|reduce)"),
     ("NCCL", r"nccl|ncclDevKernel"),
     ("GEMM", r"gemm|cutlass|xmma|nvjet|cublas|matmul|sm90_"),
     ("convolution", r"conv|cudnn|implicit"),
@@ -144,7 +148,7 @@ def main() -> None:
     print(f"{card}; ViL-Small 224^2 {label} bf16 batch {recipe.BATCH}: wall "
           f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
     for fam, ms in result["families_ms"].items():
-        print(f"  {fam:24s} {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%")
+        print(f"  {fam:32s} {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%")
     for name, ms in result["top_kernels_ms"].items():
         print(f"  {ms:9.3f} ms  {name[:110]}")
     if args.out:

@@ -8,8 +8,9 @@ whose name holds ``--match``, how many instructions of each class its code
 holds (static counts, not executions): tensor-core products (HGMMA is
 ``wgmma``, HMMA ``mma.sync``), asynchronous copies into shared memory (LDGSTS
 is ``cp.async``, UTMALDG a TMA load), f32 fused multiply-adds on the CUDA
-cores (FFMA), and shared-memory loads (LDS). ``chip_smoke.py`` calls
-:func:`census` after its build.
+cores (FFMA), and shared-memory loads (LDS), and the registers a thread of
+it uses, from the compiler's report beside the library (``-Xptxas -v``).
+``chip_smoke.py`` calls :func:`census` after its build.
 """
 from __future__ import annotations
 
@@ -24,6 +25,23 @@ from ..ops.kernels import build
 CLASSES = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "FFMA", "LDS")
 _FUNCTION = re.compile(r"Function : (\S+)")
 _OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_REGISTERS = re.compile(r"Used (\d+) registers")
+
+
+def registers(report: str) -> dict[str, int]:
+    """{mangled kernel name: registers a thread} from ptxas's ``-v`` report."""
+    found, current = {}, None
+    for line in report.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            current = entry.group(1)
+            continue
+        used = _REGISTERS.search(line)
+        if current is not None and used:
+            found[current] = int(used.group(1))
+            current = None
+    return found
 
 
 def _tool(name: str) -> str:
@@ -44,11 +62,15 @@ def _demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out))
 
 
-def census(match: str = "full_attention") -> dict[str, dict[str, int]]:
-    """{kernel name: {instruction class: count}} for the kernels whose
+def census(match: str = "full_attention") -> dict[str, dict[str, int | None]]:
+    """{kernel name: {instruction class: count, "registers": registers a
+    thread (None without the compiler's report)}} for the kernels whose
     demangled name holds ``match``."""
-    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(build.build())],
+    lib = build.build()
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
+    report = lib.with_suffix(".log")
+    regs = registers(report.read_text()) if report.exists() else {}
     counts: dict[str, dict[str, int]] = {}
     current = None
     for line in sass.splitlines():
@@ -65,7 +87,8 @@ def census(match: str = "full_attention") -> dict[str, dict[str, int]]:
     # before cutting the parameter list
     names = {k: v.replace("(int)", "").split("(")[0].replace("void ", "")
              for k, v in _demangle(list(counts)).items()}
-    return {names[k]: v for k, v in counts.items() if match in names[k]}
+    return {names[k]: {**v, "registers": regs.get(k)} for k, v in counts.items()
+            if match in names[k]}
 
 
 def main() -> None:
