@@ -9,7 +9,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
 2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all at once; the SASS census of the dense kernels, of
    the sliding-chunk forwards B1, B7a and B5, of the sliding-chunk backwards
-   B2, B7b and B6 and of the fused-block backward B9b
+   B2, B7b and B6 and of the fused block's forward B9a and backward B9b
    (``tools/sass_census.py``, with each kernel's registers): their bf16
    instances must hold wgmma (HGMMA) and cp.async (LDGSTS) instructions.
 3. kernels — each kernel against its plain PyTorch version on the same
@@ -72,13 +72,17 @@ Phases, one line each; any failure raises and the exit code is not 0:
    and its time per pass.
 
 Phase 3 also holds the LayerNorm kernels (B8a, B8b) at the six row shapes of
-ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, the
-fused-block kernels (B9a, B9b) at stage 1 and 2, on a biased, padded, cyclic
-2×2 grid and on a biased, padded grid without global rows (no single PyTorch
-call computes the fused block; in bf16 every B9b gradient also to
-max|err| / max|ref| with no floor, and a second launch bit for bit), then
-B5's and B9b's time per step on the card (``torch.profiler``, B9b's by part:
-attention, products, the rest) beside their event time (``card_times``), the
+ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, and
+at C 100 and 1000 (no 16-byte vectors) at 1 and 3000 rows, a second B8b
+launch bit for bit; the fused-block kernels (B9a, B9b) at stage 1 and 2, on
+biased, padded, cyclic 2×2 and 3×3 grids, with and without global rows, at
+C 48-320, and at stage 1's width with q, k and v biases as large as the
+products (no single PyTorch call computes the fused block; in bf16 B9a's y,
+q, k, v, attn and lse and every B9b gradient also to max|err| / max|ref|
+with no floor, and a second B9b launch bit for bit), then the card's time
+per step (``torch.profiler``) beside the event time of B5, of B9a (by part:
+projections, attention, output projection), of B9b (attention, products, the
+rest), of B8a and of B8b (rows, reduction) (``card_times``), the
 halo-input kernels (B7a, B7b) on every shard of stage 1 and 2 split over 1, 2
 and 4 ranks, of a biased padded grid split over 3, of a cyclic 1×2 grid, and
 of an SW_EXACT 1 (a mask row per query pixel) and a W 4 grid split over 1
@@ -136,6 +140,8 @@ DENSE_SCALED_TOL = 2e-2
 CHUNK_SCALED_TOL = 2e-2
 BLOCK_GRADS = ("dx", "dWq", "dbq", "dWk", "dbk", "dWv", "dbv", "dWo", "dbo", "dk_glo",
                "dv_glo", "dbias")
+# and the same ratio for what the fused block's forward B9a writes
+BLOCK_FWD_OUTS = ("y", "q", "k", "v", "attn", "lse")
 LOGITS_TOL = 1e-3  # whole model in f32, kernels vs plain versions
 LOSS_TOL = 1e-4  # one f32 training step, kernels vs plain versions
 PARAM_GRAD_TOL = 1e-4  # the same step: max|err| / max|ref| per parameter (measured 1.7e-6)
@@ -247,24 +253,35 @@ def probe_split(torch) -> dict:
             for name, fn in calls.items()}
 
 
+# the rows and widths of the fused training step's LayerNorm launches, with
+# their counts: the image and global rows of the chunked stages' attention
+# and MLP pre-norms, then the dense stages' tokens
+LN_STEP = ((200704, 96, 2), (64, 96, 2), (50176, 192, 4), (64, 192, 4), (12608, 384, 16),
+           (3136, 768, 2))
+
+
 def card_times(torch, family) -> dict:
-    """B5 per random-shift step (mode 1: stage 1 once, stage 2 twice) and
-    B9b per fused training step (stage 1 once, stage 2 twice), bf16 at
-    ViL-Small 224² batch 64: {"B5" | "B9b": {"event": median of 20 steps each
+    """Per step, bf16 at ViL-Small 224² batch 64: B5 per random-shift step
+    (mode 1: stage 1 once, stage 2 twice); B9a (with the LSE and the saved q
+    and attn, as training calls it), B9b, B8a and B8b per fused training
+    step (stage 1 once, stage 2 twice; the LayerNorms at ``LN_STEP``):
+    {"B5" | "B9a" | "B9b" | "B8a" | "B8b": {"event": median of 20 steps each
     between a pair of events, "device": the card's time by ``device_ms``,
     "parts": that time by ``family`` (a kernel name's group)}}. It times
     whichever ``vil_tpu_torch`` is importable, so another tree's kernels can
     be timed by this same function."""
     from vil_tpu_torch.ops import masks as masks_lib
-    from vil_tpu_torch.ops.kernels import mask_to_additive, vil_block_bwd, vil_block_fwd
-    from vil_tpu_torch.ops.kernels import vil_mode_attention_fwd
+    from vil_tpu_torch.ops.kernels import (
+        layer_norm_bwd, layer_norm_fwd, mask_to_additive, vil_block_bwd, vil_block_fwd,
+        vil_mode_attention_fwd,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     randn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(
         torch.bfloat16)
     H, w2 = 3, 49
-    mode_calls, block_calls = [], []
+    mode_calls, fwd_calls, block_calls = [], [], []
     for mx, C in ((8, 96), (4, 192)):  # stage 1, stage 2
         M, shape = C // H, (BATCH, mx, mx, w2, C)
         masks = [torch.from_numpy(mask_to_additive(masks_lib.invalid_mask(
@@ -276,12 +293,26 @@ def card_times(torch, family) -> dict:
         bs = [torch.randn(C, generator=gen, device=dev) * 0.02 for _ in range(4)]
         args = [randn(*shape), ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3],
                 randn(BATCH, 1, C), randn(BATCH, 1, C), None]
-        _, k, v, lse, q, attn = vil_block_fwd(*args, masks[0], H, with_lse=True, saved=True)
+        fwd_calls.append(lambda args=args, mask=masks[0]: vil_block_fwd(
+            *args, mask, H, with_lse=True, saved=True))
+        _, k, v, lse, q, attn = fwd_calls[-1]()
         block_calls.append(lambda args=args, mask=masks[0], g=randn(*shape), lse=lse,
                            saved=(q, k, v, attn): vil_block_bwd(*args, g, mask, lse, H, saved))
+    ln_fwd, ln_bwd = [], []
+    for rows, C, count in LN_STEP:
+        x, dy = randn(rows, C), randn(rows, C)
+        gamma, beta = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        ln_fwd += [lambda x=x, gamma=gamma, beta=beta: layer_norm_fwd(x, gamma, beta)] * count
+        ln_bwd += [lambda x=x, gamma=gamma, dy=dy: layer_norm_bwd(x, gamma, dy)] * count
+    steps = {
+        "B5": lambda: (mode_calls[0](), mode_calls[1](), mode_calls[1]()),
+        "B9a": lambda: (fwd_calls[0](), fwd_calls[1](), fwd_calls[1]()),
+        "B9b": lambda: (block_calls[0](), block_calls[1](), block_calls[1]()),
+        "B8a": lambda: [call() for call in ln_fwd],
+        "B8b": lambda: [call() for call in ln_bwd],
+    }
     out = {}
-    for name, calls in (("B5", mode_calls), ("B9b", block_calls)):
-        step = lambda calls=calls: (calls[0](), calls[1](), calls[1]())
+    for name, step in steps.items():
         parts = device_ms(step, by=family)
         out[name] = {"event": time_ms(step), "device": sum(parts.values()), "parts": parts}
     return out
@@ -309,7 +340,8 @@ def check_kernels(torch, records):
         vil_attention_bwd_reference, vil_attention_fwd, vil_attention_halo_bwd,
         vil_attention_halo_bwd_reference, vil_attention_halo_fwd,
         vil_attention_halo_reference, vil_attention_reference, vil_block_bwd,
-        vil_block_bwd_reference, vil_block_fwd, vil_block_reference, vil_mode_attention_bwd,
+        vil_block_bwd_reference, vil_block_fwd, vil_block_fwd_reference, vil_block_reference,
+        vil_mode_attention_bwd,
         vil_mode_attention_bwd_reference, vil_mode_attention_fwd, vil_mode_attention_reference,
     )
     from vil_tpu_torch.ops.kernels.vil_attention_halo import halo_neighborhood
@@ -531,26 +563,33 @@ def check_kernels(torch, records):
                 serve_ms = time_ms(lambda: full_attention_fwd(*a, bias, H))
                 phase("kernels", f"  full_attention_fwd without lse (serving): {serve_ms:.4f} ms")
 
-    def ln_case(rows, C, per_step):
+    def ln_case(rows, C, per_step=0):
         """A LayerNorm case: B8a and B8b at (rows, C), ``per_step`` of the
-        fused training step's launches."""
+        fused training step's launches; B8b launched twice, bit for bit."""
         x0, dy0 = randn(rows, C, scale=2.0) + 0.5, randn(rows, C)
         gamma, beta = randn(C, scale=0.2) + 1.0, randn(C, scale=0.1)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             x, dy = x0.to(dtype), dy0.to(dtype)
             y = layer_norm_fwd(x, gamma, beta)
             grads = layer_norm_bwd(x, gamma, dy)
+            again = layer_norm_bwd(x, gamma, dy)
             ref = layer_norm_reference(x.float(), gamma, beta)
             refs = layer_norm_bwd_reference(x.float(), gamma, dy.float())
             torch.cuda.synchronize()
             e_out = max_err(y, ref)
             e_grad = max(rel_err(a, r) for a, r in zip(grads, refs))
+            differ = [n for n, a, b in zip(("dx", "dgamma", "dbeta"), grads, again)
+                      if not torch.equal(a, b)]
             dt = str(dtype)[6:]
             phase("kernels", f"layer_norm ({rows},{C}) {dt}: y {e_out:.3e} (tol {tol:g}); "
-                             f"dx, dgamma, dbeta rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g})")
+                             f"dx, dgamma, dbeta rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g}); a "
+                             f"second backward bitwise equal: {not differ}")
             check(f"layer_norm fwd ({rows},{C}) {dt}", e_out, tol)
             check(f"layer_norm bwd ({rows},{C}) {dt}", e_grad, GRAD_TOL[dt])
-            if dtype != torch.bfloat16:
+            if differ:
+                raise AssertionError(f"layer_norm bwd ({rows},{C}) {dt}: two launches differ "
+                                     f"in {differ}")
+            if not (per_step and dtype == torch.bfloat16):
                 continue
             records["layer_norm_fwd"]["max_abs_err"] = max(
                 records["layer_norm_fwd"]["max_abs_err"], e_out)
@@ -580,18 +619,20 @@ def check_kernels(torch, records):
             phase("kernels", f"  layer_norm_bwd ({rows},{C}), x{per_step} per step: {msg}, "
                              f"F.layer_norm backward {lib_bwd:.4f} ms")
 
-    def block_case(label, B, nx, ny, w, C, H, nglo, with_bias, per_step=0):
-        """A fused-block case: B9a and B9b, ``per_step`` of the fused
-        training step's launches."""
+    def block_case(label, B, nx, ny, w, C, H, nglo, with_bias, per_step=0, bias_scale=0.02,
+                   backward=True):
+        """A fused-block case: B9a and (``backward``) B9b, ``per_step`` of the
+        fused training step's launches; q, k, v and output biases of
+        ``bias_scale`` (bq scale-folded)."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + 9 * w2
         mask = torch.from_numpy(mask_to_additive(
             masks_lib.invalid_mask(mx, my, padx, pady, w, 0, 0), mx, my, w2, nglo)).to(dev)
         x0, g0 = randn(B, mx, my, w2, C), randn(B, mx, my, w2, C)
-        # wq scale-folded as the model passes it
+        # wq and bq scale-folded as the model passes them
         w0 = [randn(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
-        b0 = [randn(C, scale=0.02) for _ in range(4)]
+        b0 = [randn(C, scale=bias_scale * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
         glo0 = [randn(B, nglo, C) if nglo else None for _ in range(2)]
         bias = randn(H, w2, cols, scale=0.5) if with_bias else None
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -601,8 +642,8 @@ def check_kernels(torch, records):
                    *cast(glo0, dtype), bias]
             ops32 = [None if t is None else t.float() for t in ops]
             y, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
-            grads = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
-            refs = vil_block_bwd_reference(*ops32, g.float(), mask, H)
+            grads = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn)) if backward else ()
+            refs = vil_block_bwd_reference(*ops32, g.float(), mask, H) if backward else ()
             ry, rk, rv = vil_block_reference(*ops32, mask, H)
             # the LSE of the plain attention over the kernel's own q and k
             r_lse = vil_attention_reference(*(t.float() for t in (q, k, v)), *ops32[9:11],
@@ -614,21 +655,28 @@ def check_kernels(torch, records):
             # shift common to a query's scores leaves its softmax alone), so
             # what comes out is the rounding of a sum over the rows of terms
             # of dWk's size
-            e_grad = max(max_err(a, r) / max(1.0, refs[3 if i == 4 else i].abs().max().item())
-                         for i, (a, r) in enumerate(zip(grads, refs)) if r is not None)
-            e_abs = max(max_err(a, r) for a, r in zip(grads, refs) if r is not None)
+            e_grad = max((max_err(a, r) / max(1.0, refs[3 if i == 4 else i].abs().max().item())
+                          for i, (a, r) in enumerate(zip(grads, refs)) if r is not None),
+                         default=0.0)
+            e_abs = max((max_err(a, r) for a, r in zip(grads, refs) if r is not None),
+                        default=0.0)
             dt = str(dtype)[6:]
-            e_scaled, same = {}, ""
+            e_scaled, same, differ = {}, "" if backward else "; forward only", []
             if dtype == torch.bfloat16:
-                # every gradient to max|err| / max|ref| with no floor (dbk at
-                # dWk's scale, as above), and a second launch bit for bit
+                # B9a's outputs, and every gradient, to max|err| / max|ref|
+                # with no floor (dbk at dWk's scale, as above), and a second
+                # B9b launch bit for bit
+                fwd_refs = vil_block_fwd_reference(*ops32, mask, H, with_lse=True)
+                for n, a, r in zip(BLOCK_FWD_OUTS, (y, q, k, v, attn, lse), fwd_refs):
+                    e_scaled[n] = scaled_err(a, r)
                 for i, (n, a, r) in enumerate(zip(BLOCK_GRADS, grads, refs)):
                     if r is not None:
                         e_scaled[n] = max_err(a, r) / refs[3 if i == 4 else i].abs().max().item()
-                again = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
-                differ = [n for n, a, b in zip(BLOCK_GRADS, grads, again)
-                          if a is not None and not torch.equal(a, b)]
-                same = f"; a second launch bitwise equal: {not differ}"
+                if backward:
+                    again = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+                    differ = [n for n, a, b in zip(BLOCK_GRADS, grads, again)
+                              if a is not None and not torch.equal(a, b)]
+                    same = f"; a second launch bitwise equal: {not differ}"
             phase("kernels", f"vil_block {label} {dt}: y, k, v {e_out:.3e} (tol {tol:g}), lse "
                              f"{e_lse:.3e} (tol {LSE_TOL:g}); grads rel {e_grad:.3e} "
                              f"(tol {GRAD_TOL[dt]:g}){scaled_text(e_scaled)}{same}")
@@ -637,7 +685,7 @@ def check_kernels(torch, records):
             check(f"vil_block bwd {label} {dt}", e_grad, GRAD_TOL[dt])
             for n, e in e_scaled.items():
                 check(f"vil_block {n} scaled {label} {dt}", e, CHUNK_SCALED_TOL)
-            if dtype == torch.bfloat16 and differ:
+            if differ:
                 raise AssertionError(f"vil_block bwd {label}: two launches differ in {differ}")
             if not (per_step and dtype == torch.bfloat16):
                 continue
@@ -863,15 +911,32 @@ def check_kernels(torch, records):
     # the fused configuration's block pre-norms, per training step: the image
     # rows and global rows of the chunked stages' 3 blocks (attention and
     # MLP norms), then the 9 dense blocks' tokens
-    for rows, C, per_step in ((200704, 96, 2), (64, 96, 2), (50176, 192, 4), (64, 192, 4),
-                              (12608, 384, 16), (3136, 768, 2)):
+    for rows, C, per_step in LN_STEP:
         ln_case(rows, C, per_step)
+    # and at C 100 and 1000 (C % 8 != 0: no 16-byte vectors) at 1 and 3000 rows
+    for rows, C in ((1, 100), (3000, 100), (1, 1000), (3000, 1000)):
+        ln_case(rows, C)
     # and its fused blocks: stage 1 (1 block), stage 2 (2 blocks)
     block_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, False, per_step=1)
     block_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, False, per_step=2)
     block_case("biased, padded, cyclic 2x2 grid", 2, 13, 14, 7, 64, 2, 1, True)
     block_case("biased, padded 3x3 grid, nglo 0, C 48", 2, 19, 20, 7, 48, 3, 0, True)
-    # the card's time of B5 and B9b per step beside their event time, B9b's by part
+    # a ragged last row tile (3 x 4 x 49 rows), two global rows, head dim 128;
+    # C 320 (two blocks along the products' columns) on a cyclic 3x3 grid
+    block_case("cyclic 2x2 grid, nglo 2, C 128 H1", 3, 14, 14, 7, 128, 1, 2, False)
+    block_case("biased cyclic 3x3 grid, C 320 H5", 2, 21, 21, 7, 320, 5, 1, True)
+    # q, k and v biases as large as the products, for B9a's bias epilogue: a
+    # dropped bias reads about 1.5e-2 scaled at the model's 0.02, under the
+    # limit, and far above it here. B9b is not held here: rounding dS to bf16
+    # (as the TPU kernel does) leaves each query's dS row a small sum, which
+    # the keys' common bias multiplies into dq, so dWq and dbq read about
+    # twice their usual error, the TPU kernel's own too
+    # (tests/test_torch_fused.py::test_vil_block_bf16_with_large_qkv_biases_
+    # matches_pallas; PERF.md §6)
+    block_case("stage1 width, biases as large as the products", 4, 56, 56, 7, 96, 3, 1, False,
+               bias_scale=1.0, backward=False)
+    # the card's time of B5, B9a, B9b, B8a and B8b per step beside their
+    # event time, B9a's, B9b's and B8b's by part
     from vil_tpu_torch.tools.profile_step import family
 
     for name, t in card_times(torch, family).items():
@@ -1272,15 +1337,17 @@ def main() -> int:
     # the dense kernels' and the sliding-chunk forwards' and backwards'
     # instructions: the bf16 ones on the tensor cores (HGMMA) with their
     # tiles by cp.async (LDGSTS), at each of the five head dims the dense
-    # forward, B1, B7a, B5, and both passes of each backward (B9b's
-    # attention too), and B9b's three products at each of their four widths
-    # (1-4 64-column sub-tiles); each with its registers
+    # forward, B1, B7a, B5, B9a's attention, and both passes of each
+    # backward (B9b's attention too), and B9a's two and B9b's three products
+    # at each of their four widths (1-4 64-column sub-tiles); each with its
+    # registers
     from vil_tpu_torch.tools import sass_census
 
     for match, want in (("full_attention", 15), ("vil_attention_fwd", 5),
                         ("vil_attention_bwd", 10), ("vil_attention_halo_fwd", 5),
                         ("vil_attention_halo_bwd", 10), ("vil_mode_attention_fwd", 5),
-                        ("vil_mode_attention_bwd", 10), ("vil_block_bwd", 22)):
+                        ("vil_mode_attention_bwd", 10), ("vil_block_fwd", 13),
+                        ("vil_block_bwd", 22)):
         census = sass_census.census(match)
         for name, counts in sorted(census.items()):
             phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))

@@ -11,10 +11,10 @@ inputs, against the plain version in f32 on the same bf16 values (the kernel
 rounds its output to bf16 once). Gradients are held relative to the largest
 magnitude of the reference: 1e-4 in f32, 3e-2 in bf16. The bf16 tensor-core
 kernels (dense B3/B4, sliding-chunk forwards B1 and B5, sliding-chunk
-backwards B2/B7b and B6, the fused block's backward B9b) are also held at
-chip_smoke.py's limits: outputs 2e-2 and LSE 2e-5 absolute, gradients 1e-2
-of max(1, max|ref|), and max|err| / max|ref| of their outputs 2e-2, with no
-floor.
+backwards B2/B7b and B6, the fused block's forward B9a and backward B9b) are
+also held at chip_smoke.py's limits: outputs 2e-2 and LSE 2e-5 absolute,
+gradients 1e-2 of max(1, max|ref|), and max|err| / max|ref| of their outputs
+2e-2, with no floor.
 """
 import numpy as np
 import pytest
@@ -46,6 +46,7 @@ from vil_tpu_torch.ops.kernels import (
     vil_block_bwd,
     vil_block_bwd_reference,
     vil_block_fwd,
+    vil_block_fwd_reference,
     vil_block_reference,
     vil_mode_attention_bwd,
     vil_mode_attention_bwd_reference,
@@ -537,10 +538,10 @@ BLOCK_GRADS = ("dx", "dWq", "dbq", "dWk", "dbk", "dWv", "dbv", "dWo", "dbo", "dk
                "dv_glo", "dbias")
 
 
-def _block_bf16_case(cuda, seed, B, nx, ny, C, H, nglo, with_bias):
+def _block_bf16_case(cuda, seed, B, nx, ny, C, H, nglo, with_bias, bias_scale=0.02):
     """bf16 operands of the fused block (weights scale-folded as the model
-    passes them, f32 biases), g and the additive mask, on a grid of 7×7
-    chunks."""
+    passes them, f32 biases of ``bias_scale``, bq folded too), g and the
+    additive mask, on a grid of 7×7 chunks."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     rnd = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=cuda) * scale
     padx, pady, mx, my = sc.chunk_grid(nx, ny, 7)
@@ -548,7 +549,7 @@ def _block_bf16_case(cuda, seed, B, nx, ny, C, H, nglo, with_bias):
     x = rnd(B, mx, my, 49, C).to(torch.bfloat16)
     ws = [rnd(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)).to(torch.bfloat16)
           for i in range(4)]
-    bs = [rnd(C, scale=0.02) for _ in range(4)]
+    bs = [rnd(C, scale=bias_scale * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
     glo = [rnd(B, nglo, C).to(torch.bfloat16) if nglo else None for _ in range(2)]
     bias = rnd(H, 49, nglo + 9 * 49, scale=0.5) if with_bias else None
     mask = torch.from_numpy(mask_to_additive(
@@ -601,6 +602,115 @@ def test_fused_block_bf16_backward_is_deterministic(cuda):
         second = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
         for name, a, b in zip(BLOCK_GRADS, first, second):
             assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (name, nx)
+
+
+BLOCK_FWD_OUTS = ("y", "q", "k", "v", "attn", "lse")
+
+
+def _block_fwd_errors(ops, mask, H, images=None):
+    """B9a in bf16 (products and attention on the tensor cores) against the
+    plain forward in f32 on the same values, over ``images`` (all by
+    default): ({output: max|err| / max|ref|, with no floor} of y, q, k, v,
+    attn and lse, the LSE of the plain attention over the kernel's own q and
+    k, absolute). The forward without the LSE (serving) must give the same
+    y, k and v bit for bit."""
+    y, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
+    served = vil_block_fwd(*ops, mask, H)
+    assert all(torch.equal(a, b) for a, b in zip(served, (y, k, v)))
+    sel = slice(None) if images is None else images
+    # x, k_glo and v_glo (operands 0, 9, 10) hold one row block per image
+    ops32 = [None if t is None else (t[sel] if i in (0, 9, 10) else t).float()
+             for i, t in enumerate(ops)]
+    refs = vil_block_fwd_reference(*ops32, mask, H, with_lse=True)
+    outs = (y, q, k, v, attn, lse)
+    errs = {n: _scaled_err(a[sel], r) for n, a, r in zip(BLOCK_FWD_OUTS, outs, refs)}
+    own_lse = vil_attention_reference(q[sel].float(), k[sel].float(), v[sel].float(),
+                                      *ops32[9:12], mask, H, with_lse=True)[1]
+    return errs, _max_err(lse[sel], own_lse)
+
+
+# the grids of the bf16 fused-block cases, (B, nx, ny, nglo, with_bias): a
+# cyclic 2×2 grid whose 588 rows end in a ragged 64-row tile, a biased,
+# padded 3×3 grid without global rows, a cyclic 3×3 grid with nglo 2 and a
+# biased, padded cyclic 2×2 grid with nglo 1
+BLOCK_GRIDS = [(3, 14, 14, 1, False), (2, 19, 20, 0, True), (2, 21, 21, 2, False),
+               (1, 13, 14, 1, True)]
+
+
+@pytest.mark.parametrize("C,H", [(48, 3), (64, 2), (96, 3), (128, 1), (192, 3), (320, 5)])
+def test_fused_block_bf16_forward_every_width(cuda, C, H):
+    """B9a in bf16 at C 48-320 (1-5 64-column sub-tiles of its products,
+    C 320 in two blocks along the columns) and head dims 16-128, on every
+    grid of BLOCK_GRIDS: y, q, k, v, attn and lse to chip_smoke.py's
+    CHUNK_SCALED_TOL with no floor, the LSE over its own q and k to
+    CHUNK_LSE_TOL, serving bit for bit."""
+    for i, (B, nx, ny, nglo, with_bias) in enumerate(BLOCK_GRIDS):
+        ops, _, mask = _block_bf16_case(cuda, 10 * C + i, B, nx, ny, C, H, nglo, with_bias)
+        errs, e_lse = _block_fwd_errors(ops, mask, H)
+        case = (C, H, B, nx, ny, nglo, with_bias, errs, e_lse)
+        assert max(errs.values()) <= CHUNK_SCALED_TOL and e_lse <= CHUNK_LSE_TOL, case
+    assert vil_block_fwd.launches == 2 * len(BLOCK_GRIDS)
+
+
+@pytest.mark.parametrize("nx,C", [(56, 96), (28, 192)])
+def test_fused_block_bf16_forward_at_the_model_shapes(cuda, nx, C):
+    """B9a in bf16 on ViL-Small 224²'s stage-1 and stage-2 grids, nglo 1,
+    batch 4, with the q, k and v biases as large as the products (a bias
+    dropped or added twice moves q, k and v by their own size; at the
+    model's small biases it would hide under the limit)."""
+    ops, _, mask = _block_bf16_case(cuda, nx + 1, 4, nx, nx, C, 3, 1, False, bias_scale=1.0)
+    errs, e_lse = _block_fwd_errors(ops, mask, 3)
+    assert max(errs.values()) <= CHUNK_SCALED_TOL and e_lse <= CHUNK_LSE_TOL, (errs, e_lse)
+
+
+def test_fused_block_bf16_forward_does_not_read_across_images(cuda):
+    """Image 1 of 3 filled with 1e2: a staged row of x, q, k, v or attn that
+    read another image's rows would show in images 0 and 2's outputs."""
+    for nx, C, H, nglo in ((14, 96, 3, 1), (21, 64, 2, 0)):
+        ops, _, mask = _block_bf16_case(cuda, C, 3, nx, nx, C, H, nglo, False)
+        ops[0][1] = 1e2
+        for image in (0, 2):
+            errs, e_lse = _block_fwd_errors(ops, mask, H, slice(image, image + 1))
+            case = (nx, C, image, errs, e_lse)
+            assert max(errs.values()) <= CHUNK_SCALED_TOL and e_lse <= CHUNK_LSE_TOL, case
+
+
+def test_fused_block_bf16_operands_off_16_bytes_raise(cuda):
+    """The bf16 kernels copy rows 16 bytes at a time: x or a weight that
+    starts off a 16-byte boundary raises ValueError, forward and backward."""
+    ops, g, mask = _block_bf16_case(cuda, 1, 1, 14, 14, 64, 2, 1, False)
+    for i in (0, 1, 7):
+        off = torch.empty(ops[i].numel() + 1, dtype=ops[i].dtype, device=cuda)[1:]
+        moved = list(ops)
+        moved[i] = off.view(ops[i].shape).copy_(ops[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            vil_block_fwd(*moved, mask, 2)
+    assert vil_block_fwd.launches == 0
+
+
+LN_STEP_SHAPES = [(200704, 96), (64, 96), (50176, 192), (64, 192), (12608, 384), (3136, 768)]
+
+
+@pytest.mark.parametrize("dtype,grad_tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_layer_norm_backward_at_the_step_shapes_is_deterministic(cuda, dtype, grad_tol):
+    """B8b at the six row shapes of ViL-Small's fused training step and at C
+    100 and 1000 (no 16-byte vectors: C % 8 != 0 in bf16) at 1 and 3000
+    rows: dx, dγ and dβ against the plain version in f32 on the same values,
+    relative to max(1, max|ref|), and a second launch bit for bit (the
+    partials summed in a fixed order, no atomics)."""
+    rng = np.random.default_rng(11)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    cases = LN_STEP_SHAPES + [(1, 100), (3000, 100), (1, 1000), (3000, 1000)]
+    for rows, C in cases:
+        x, dy = (rnd(rows, C) * 2 + 0.5).to(dtype), rnd(rows, C).to(dtype)
+        gamma = rnd(C) * 0.2 + 1
+        grads = layer_norm_bwd(x, gamma, dy)
+        again = layer_norm_bwd(x, gamma, dy)
+        refs = layer_norm_bwd_reference(x.float(), gamma, dy.float())
+        for name, out, r, o2 in zip(("dx", "dgamma", "dbeta"), grads, refs, again):
+            assert _rel_err(out, r) <= grad_tol, (name, rows, C, _rel_err(out, r))
+            assert torch.equal(out, o2), (name, rows, C)
+    assert layer_norm_bwd.launches == 2 * len(cases)
 
 
 def test_halo_bf16_backward_folds_onto_b2(cuda):

@@ -50,12 +50,24 @@ def test_every_model_kernel_has_a_family_of_its_own(name):
     ("vil_block_bwd_glo", "B9b fused block bwd: rest"),
     ("vil_block_bwd_bgrad", "B9b fused block bwd: rest"),
     ("vil_block_bwd_reduce", "B9b fused block bwd: rest"),
-    ("vil_block_fwd_proj_qkv", "B9a fused block fwd"),
-    ("vil_ln_bwd_reduce", "B8 LayerNorm bwd"),
+    # (ids from before B9a and B8b were split by part)
+    pytest.param("vil_block_fwd_proj_qkv", "B9a fused block fwd: projections",
+                 id="vil_block_fwd_proj_qkv-B9a fused block fwd"),
+    pytest.param("vil_ln_bwd_reduce", "B8 LayerNorm bwd: reduce",
+                 id="vil_ln_bwd_reduce-B8 LayerNorm bwd"),
+    ("vil_block_fwd_proj_qkv_wgmma", "B9a fused block fwd: projections"),
+    ("vil_block_fwd_attn_wgmma", "B9a fused block fwd: attention"),
+    ("vil_block_fwd_attention", "B9a fused block fwd: attention"),
+    ("vil_block_fwd_proj_out_wgmma", "B9a fused block fwd: output projection"),
+    ("vil_block_fwd_proj_out", "B9a fused block fwd: output projection"),
+    ("vil_ln_bwd_rows", "B8 LayerNorm bwd: rows"),
+    ("vil_ln_fwd", "B8 LayerNorm fwd"),
 ])
 def test_b5_and_b9b_kernels_map_to_their_families(name, fam):
-    """B5's two kernels (bf16 on the tensor cores, f32 on the CUDA cores)
-    and B9b's, split into its attention passes, its products and the rest."""
+    """B5's two kernels (bf16 on the tensor cores, f32 on the CUDA cores),
+    B9b's, split into its attention passes, its products and the rest, B9a's
+    into its projections, its attention and its output projection, and
+    B8b's into its rows and its reduction."""
     assert profile_step.family(_profiled(name)) == fam
 
 

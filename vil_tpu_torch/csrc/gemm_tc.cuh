@@ -1,8 +1,9 @@
 // Matrix products on Hopper's tensor cores (sm_90a): bf16 operands, f32
-// accumulators. The projection products and weight gradients of the bf16
-// fused attention-block backward (vil_block_bwd.cu), which the TPU kernel
-// computes in its own body (vil_tpu/ops/pallas/vil_block.py: _mm_rows and
-// the dW dot_generals, bf16 operands with preferred_element_type f32).
+// accumulators. The projections of the bf16 fused attention-block forward
+// (vil_block_fwd.cu) and the projection products and weight gradients of its
+// backward (vil_block_bwd.cu), which the TPU kernels compute in their own
+// bodies (vil_tpu/ops/pallas/vil_block.py: _project_rows, _mm_rows and the
+// dW dot_generals, bf16 operands with preferred_element_type f32).
 //
 // One warpgroup (kTcThreads = 128 threads) per block computes a 64-row
 // output tile against NB sub-tiles of 64 columns (NB ≤ 4: up to 256
@@ -31,13 +32,16 @@
 // half tile, a slice's last k-tile), so no bound is checked inside the
 // products; the stores skip rows and columns past the output.
 //
-// Two forms (kernels in vil_block_bwd.cu):
+// Three forms:
+//   gemm_tc_nn   Y (R, N) = A (R, K) · W (K, N) + b, W in (in, out) layout
+//                and so read MN-major, the f32 bias added before one rounding
+//                to bf16 (the forward's q, k, v and y, vil_block_fwd.cu)
 //   gemm_tc_nt   Y (R, N) = Σ_s A_s (R, K) · B_s (N, K)ᵀ, rounded to bf16 once
 //                (proj_out: dattn = g·Woᵀ; proj_in: dx = Σ dq·Wqᵀ + ...)
 //   gemm_tc_tn   P (Ka, N) = A[r0:r1]ᵀ · B[r0:r1] in f32, one partial per row
 //                slice, summed by the caller in slice order: no atomics, the
 //                same result on every run (wgrad)
-// The forward's Y = X·W + b (B9a) is gemm_tc_nt's main loop with B MN-major.
+// (the last two in vil_block_bwd.cu).
 #pragma once
 
 #include "tensor_core.cuh"
@@ -172,10 +176,12 @@ __device__ __forceinline__ void put2(float* p, float a, float b) {
 
 // Store a 64 x 64 accumulator at rows m0 .. m0 + 63 and columns n0 .. n0 + 63
 // of a (rows, cols) row-major matrix whose row i starts at y + i * ld, in
-// y's type; rows >= rows and columns >= cols (a multiple of 8) are skipped.
+// y's type, with bias[col] (f32) added first where bias is not null; rows
+// >= rows and columns >= cols (a multiple of 8) are skipped.
 template <typename T>
 __device__ __forceinline__ void store_gemm_tile(T* y, long ld, const float (&d)[32], int m0,
-                                                int n0, int rows, int cols) {
+                                                int n0, int rows, int cols,
+                                                const float* __restrict__ bias = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -184,9 +190,33 @@ __device__ __forceinline__ void store_gemm_tile(T* y, long ld, const float (&d)[
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int col = n0 + 8 * jj + 2 * (lane % 4);
-      if (col < cols) put2(y + row * ld + col, d[4 * jj + 2 * i], d[4 * jj + 2 * i + 1]);
+      if (col >= cols) continue;
+      float v0 = d[4 * jj + 2 * i], v1 = d[4 * jj + 2 * i + 1];
+      if (bias) v0 += bias[col], v1 += bias[col + 1];
+      put2(y + row * ld + col, v0, v1);
     }
   }
+}
+
+// Y = A · W + bias, rounded to bf16 once, for A (R, K) and W (K, N) in (in,
+// out) layout (element (n, k) of the product's B at W[k * N + n]: MN-major,
+// read through the ring without a transposed copy) and bias (N) f32 or
+// null: the 64 rows from m0 and NB 64-column sub-tiles from n0. K and N are
+// multiples of 8.
+template <int NB>
+__device__ __forceinline__ void gemm_tc_nn(const bf16* __restrict__ a,
+                                           const bf16* __restrict__ w,
+                                           const float* __restrict__ bias,
+                                           bf16* __restrict__ y, int R, int K, int N, int m0,
+                                           int n0) {
+  float acc[NB][32];
+  auto seg = [&](int) {
+    return OperandPair<TcOperand<true>, TcOperand<false>>{{a, K, R, K}, {w, N, N, K}};
+  };
+  gemm_tc_mainloop<NB, true, false>(acc, seg, 1, m0, n0, 0, K, [](const bf16*) {});
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    store_gemm_tile(y, N, acc[j], m0, n0 + j * kGemmTile, R, N, bias);
 }
 
 // Up to three (A_s, B_s) pairs of Y = Σ_s A_s · B_sᵀ, all (R, K) and (N, K).

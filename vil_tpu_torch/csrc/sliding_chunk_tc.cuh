@@ -1,10 +1,13 @@
 // Sliding-chunk attention on Hopper's tensor cores (sm_90a), bf16: the
-// bodies of the forward B1 (vil_attention_fwd.cu, over FullNbh), of its halo
-// form B7a (vil_attention_halo_fwd.cu, over HaloNbh), of the backward B2
-// (vil_attention_bwd.cu, over FullNbh), of its halo form B7b
+// bodies of the forward B1 (vil_attention_fwd.cu, over FullNbh), of the
+// fused block forward B9a's attention (vil_block_fwd.cu, over FullNbh, by
+// B1's launch), of the halo form B7a (vil_attention_halo_fwd.cu, over
+// HaloNbh), of the sampled-neighbour forward B5 (vil_mode_attention_fwd.cu,
+// over SampledNbh), of the backward B2 (vil_attention_bwd.cu, over FullNbh)
+// and B9b's attention (vil_block_bwd.cu), of its halo form B7b
 // (vil_attention_halo_bwd.cu, over HaloNbh) and of the sampled-neighbour
 // backward B6 (vil_mode_attention_bwd.cu, over SampledNbh). The f32 kernels
-// keep the CUDA-core bodies of sliding_chunk.cuh, as do B5 and B9.
+// keep the CUDA-core bodies of sliding_chunk.cuh.
 //
 // The forward (sliding_chunk_fwd_tc) is a flash forward over the same
 // concatenated key tiles as pass 1 below: one warpgroup per (64-row slice of
@@ -254,6 +257,26 @@ __device__ __forceinline__ void sliding_chunk_fwd_tc(
 constexpr size_t tc_fwd_smem_bytes(int M, int cols) {
   return sizeof(bf16) * (1 + 2 * kFwdStages) * kTcRows * (M < 16 ? 16 : M) +
          sizeof(float) * ((cols + kTcRows - 1) / kTcRows) * kTcRows;
+}
+
+// Launch a kernel whose body is sliding_chunk_fwd_tc over FullNbh (B1's
+// vil_attention_fwd_wgmma and B9a's vil_block_fwd_attn_wgmma), where
+// kernel_for(std::integral_constant<int, M>{}) is its instance for head dim
+// M = C / H: grid (slices · mx · my, H, B), one warpgroup a block. Returns
+// the launch's error.
+template <typename KernelFor>
+cudaError_t launch_full_fwd_tc(KernelFor kernel_for, const bf16* q, const bf16* k,
+                               const bf16* v, const bf16* k_glo, const bf16* v_glo,
+                               const float* bias, const float* mask, bf16* out, float* lse,
+                               int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
+                               cudaStream_t stream) {
+  return dispatch_head_dim(C / H, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
+    return launch_with(kernel_for(m), dim3(slices * mx * my, H, B), kTcThreads,
+                       tc_fwd_smem_bytes(M, nglo + FullNbh::kCount * w2), stream, q, k, v,
+                       k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C, nglo, wq);
+  });
 }
 
 // Pass 1 (the note at the top). grid (slices · mx · my / chunks_per_block, H,

@@ -3,7 +3,8 @@
 // (cp.async) of bf16 tiles into shared memory. Used by the bf16 dense
 // attention kernels (full_attention_fwd.cu, full_attention_bwd.cu), the
 // bf16 sliding-chunk forward and backward (sliding_chunk_tc.cuh) and the
-// bf16 matrix products of the fused block's backward (gemm_tc.cuh).
+// bf16 matrix products of the fused block (gemm_tc.cuh), and the 16-byte
+// copies of the LayerNorm backward's rows (layer_norm.cu).
 //
 // Shared-memory layout. A tile is 64 rows of DP bf16 values, DP the head dim
 // M rounded up to 16 (wgmma's k-depth; the pad is zero). It is stored in 8 x 8

@@ -102,20 +102,19 @@ cudaError_t launch_vil(const void* q, const void* k, const void* v, const void* 
                        const void* v_glo, const float* bias, const float* mask, void* out,
                        float* lse, int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
                        cudaStream_t stream) {
-  return dispatch_head_dim(C / H, [&](auto m) {
-    constexpr int M = decltype(m)::value;
-    if constexpr (std::is_same_v<T, bf16>) {
-      const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
-      return launch_with(vil_attention_fwd_wgmma<M>, dim3(slices * mx * my, H, B), kTcThreads,
-                         tc_fwd_smem_bytes(M, nglo + FullNbh::kCount * w2), stream,
-                         (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo,
-                         (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
-    } else {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_full_fwd_tc(
+        [](auto m) { return vil_attention_fwd_wgmma<decltype(m)::value>; }, (const T*)q,
+        (const T*)k, (const T*)v, (const T*)k_glo, (const T*)v_glo, bias, mask, (T*)out, lse, B,
+        mx, my, w2, C, H, nglo, wq, stream);
+  } else {
+    return dispatch_head_dim(C / H, [&](auto m) {
+      constexpr int M = decltype(m)::value;
       return launch(vil_attention_fwd_kernel<T, M>, dim3(mx * my, H, B), fwd_smem_bytes(w2, M),
                     stream, (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo,
                     (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
-    }
-  });
+    });
+  }
 }
 
 }  // namespace vil

@@ -42,6 +42,7 @@ from .vil_block import (
     vil_block_bwd,
     vil_block_bwd_reference,
     vil_block_fwd,
+    vil_block_fwd_reference,
     vil_block_reference,
 )
 from .vil_mode_attention import (
@@ -97,6 +98,7 @@ __all__ = [
     "vil_block_bwd",
     "vil_block_bwd_reference",
     "vil_block_fwd",
+    "vil_block_fwd_reference",
     "vil_block_reference",
     "vil_mode_attention",
     "vil_mode_attention_bwd",

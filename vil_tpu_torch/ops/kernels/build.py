@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "vil_tpu_torch"
 NVCC_FLAGS = [
@@ -145,6 +147,14 @@ def load() -> ctypes.CDLL:
     lib.vil_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vil_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def stream(device) -> int:
+    """The raw handle of the current CUDA stream of ``device``: the accessor
+    PyTorch's own generated kernels launch with. ``torch.cuda.current_stream()``
+    builds a Stream object under a device context on every call, the largest
+    host cost of a short launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

@@ -76,6 +76,11 @@ def _check(x, gamma, beta=None, dy=None):
         raise ValueError(f"device {x.device} is not supported")
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t as contiguous f32, itself when it already is (no copy, no launch)."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
 def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm forward. On a CUDA device this launches the hand-written
@@ -85,13 +90,15 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         with torch.no_grad():
             return layer_norm_reference(x, gamma, beta, eps)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return layer_norm_fwd(x, gamma, beta, eps)
     C = x.shape[-1]
     y = torch.empty_like(x)
-    g32, b32 = gamma.float().contiguous(), beta.float().contiguous()
-    with torch.cuda.device(x.device):
-        err = build.load().layer_norm_fwd(
-            x.data_ptr(), g32.data_ptr(), b32.data_ptr(), y.data_ptr(), x.numel() // C, C, eps,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    g32, b32 = _f32(gamma), _f32(beta)
+    err = build.load().layer_norm_fwd(
+        x.data_ptr(), g32.data_ptr(), b32.data_ptr(), y.data_ptr(), x.numel() // C, C, eps,
+        int(x.dtype == torch.bfloat16), build.stream(x.device))
     build.check(err, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
     return y
@@ -99,7 +106,21 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 layer_norm_fwd.launches = 0
 
-BWD_BLOCKS = 1024  # most f32 partials of dγ and dβ: 8 KB each at C = 1024
+# The backward's grid: 2 blocks of 256 threads an SM of the H100's 132 (the
+# kernel keeps to 128 registers a thread for it), so that every block is
+# resident at once and dγ, dβ come from few partials (8 KB each at
+# C = 1024), each block over at least BWD_MIN_ROWS rows.
+BWD_PARTIALS = 2 * 132
+BWD_MIN_ROWS = 16
+
+
+def bwd_geometry(rows: int) -> tuple[int, int]:
+    """(blocks, rows_per_block) of the backward's grid for ``rows`` rows:
+    block b takes rows [b · rows_per_block, (b + 1) · rows_per_block) ∩
+    [0, rows), and writes partial b of the (blocks, 2, C) scratch."""
+    blocks = min(BWD_PARTIALS, -(-rows // BWD_MIN_ROWS))
+    per_block = -(-rows // blocks)
+    return -(-rows // per_block), per_block
 
 
 def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
@@ -110,23 +131,26 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     _check(x, gamma, dy=dy)
     if x.device.type == "cpu":
         return layer_norm_bwd_reference(x, gamma, dy, eps)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return layer_norm_bwd(x, gamma, dy, eps)
     C = x.shape[-1]
     rows = x.numel() // C
-    per_block = -(-rows // min(BWD_BLOCKS, -(-rows // 8)))  # ≥ one row per warp
-    blocks = -(-rows // per_block)
-    f32 = dict(device=x.device, dtype=torch.float32)
+    blocks, per_block = bwd_geometry(rows)
     dx = torch.empty_like(x)
-    part = torch.empty(blocks, 2, C, **f32)
-    out = torch.empty(2, C, **f32)
-    g32 = gamma.float().contiguous()
-    with torch.cuda.device(x.device):
-        err = build.load().layer_norm_bwd(
-            x.data_ptr(), g32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), out.data_ptr(), rows, C, eps, blocks, per_block,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    # one allocation: the (blocks, 2, C) partials, then dγ and dβ
+    scratch = torch.empty((blocks + 1) * 2 * C, device=x.device, dtype=torch.float32)
+    end = blocks * 2 * C
+    dgamma, dbeta = scratch[end:end + C], scratch[end + C:]
+    err = build.load().layer_norm_bwd(
+        x.data_ptr(), _f32(gamma).data_ptr(), dy.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        dgamma.data_ptr(), rows, C, eps, blocks, per_block, int(x.dtype == torch.bfloat16),
+        build.stream(x.device))
     build.check(err, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
-    return dx, out[0].to(gamma.dtype), out[1].to(gamma.dtype)
+    if gamma.dtype != torch.float32:
+        dgamma, dbeta = dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+    return dx, dgamma, dbeta
 
 
 layer_norm_bwd.launches = 0

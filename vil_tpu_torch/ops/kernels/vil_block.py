@@ -1,10 +1,11 @@
 """The fused attention block: the Hopper kernels and their plain versions.
 
 Counterpart of ``vil_tpu/ops/pallas/vil_block.py``: of
-``_pallas_block_forward`` (the forward kernel B9a, ``csrc/vil_block_fwd.cu``),
-of ``_pallas_block_backward`` (the backward kernel B9b,
-``csrc/vil_block_bwd.cu``: in bf16 on the tensor cores, its products in
-``csrc/gemm_tc.cuh`` and its attention on B2's body, in f32 on the CUDA
+``_pallas_block_forward`` (the forward kernel B9a, ``csrc/vil_block_fwd.cu``:
+in bf16 on the tensor cores, its products in ``csrc/gemm_tc.cuh`` and its
+attention on B1's body), of ``_pallas_block_backward`` (the backward kernel
+B9b, ``csrc/vil_block_bwd.cu``: in bf16 on the tensor cores, its products in
+``csrc/gemm_tc.cuh`` and its attention on B2's body; both in f32 on the CUDA
 cores), of ``make_fused_vil_block``
 (:class:`VilBlockFunction`, :func:`vil_block`) and of ``_xla_block_reference``
 (the plain version, :func:`vil_block_reference`). One ViL attention block's
@@ -28,7 +29,9 @@ The JAX package routes a shape here only when ``block_fits`` finds that a
 whole image fits the TPU's VMEM. The kernels here stage one chunk, or one
 matrix tile, at a time, so they take any (mx, my), cyclic 1×2 and 2×2 grids
 and padded grids included, and nothing gates them. The forward keeps q and
-attn for the backward (the TPU kernel recomputes them from x).
+attn for the backward (the TPU kernel recomputes them from x). The bf16
+kernels copy rows 16 bytes at a time: their bf16 operands must start on a
+16-byte boundary, and C must be a multiple of 8.
 """
 from __future__ import annotations
 
@@ -56,8 +59,11 @@ def _project(t, w, b):
     return y.to(t.dtype)
 
 
-def _reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, mask_add, num_heads,
-               with_lse):
+def vil_block_fwd_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, mask_add,
+                            num_heads: int, with_lse: bool = False):
+    """Plain PyTorch version of everything the forward kernels write: (y, q,
+    k, v, attn, lse), lse None without ``with_lse``; q, k, v and attn are
+    rounded to x's type as the kernels store them."""
     q, k, v = _project(x, wq, bq), _project(x, wk, bk), _project(x, wv, bv)
     out = vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, with_lse)
     attn, lse = out if with_lse else (out, None)
@@ -69,8 +75,8 @@ def vil_block_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, m
     """Plain PyTorch version, ``_xla_block_reference``: the three
     projections, :func:`vil_attention_reference`, the output projection.
     Returns (y, k, v); differentiable."""
-    y, _, k, v, _, _ = _reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias,
-                                  mask_add, num_heads, False)
+    y, _, k, v, _, _ = vil_block_fwd_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo,
+                                               bias, mask_add, num_heads)
     return y, k, v
 
 
@@ -96,6 +102,8 @@ def _check(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, mask_add, num_
     """Raise on what the kernels do not take."""
     check_operands(x, x, x, k_glo, v_glo, bias, mask_add, num_heads)
     C = x.shape[-1]
+    if C % 8:  # the kernels' products stage rows of 8 values (16 bf16 bytes)
+        raise ValueError(f"the width C must be a multiple of 8, got {C}")
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
         if w.shape != (C, C) or w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{name} must be {x.dtype} ({C}, {C}) on {x.device}, got "
@@ -125,20 +133,26 @@ def vil_block_fwd(x: torch.Tensor, wq: torch.Tensor, bq: Optional[torch.Tensor],
     _check(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, mask_add, num_heads)
     if x.device.type == "cpu":
         with torch.no_grad():
-            y, q, k, v, attn, lse = _reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo,
-                                               bias, mask_add, num_heads, with_lse)
+            y, q, k, v, attn, lse = vil_block_fwd_reference(
+                x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, mask_add, num_heads,
+                with_lse)
     else:
+        if x.device.index != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                return vil_block_fwd(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias,
+                                     mask_add, num_heads, with_lse, saved)
+        if x.dtype == torch.bfloat16:  # the tensor-core kernels
+            _check_aligned(x, wq, wk, wv, wo, k_glo, v_glo)
         B, mx, my, w2, C = x.shape
         nglo = 0 if k_glo is None else k_glo.shape[1]
         q, k, v, attn, y = (torch.empty_like(x) for _ in range(5))
         lse = (torch.empty(B, num_heads, mx, my, w2, device=x.device, dtype=torch.float32)
                if with_lse else None)
-        with torch.cuda.device(x.device):
-            err = build.load().vil_block_fwd(
-                *(_ptr(t) for t in (x, wq, wk, wv, bq, bk, bv, wo, bo, k_glo, v_glo, bias,
-                                    mask_add, q, k, v, attn, y, lse)),
-                B, mx, my, w2, C, num_heads, nglo, mask_add.shape[2],
-                int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        err = build.load().vil_block_fwd(
+            *(_ptr(t) for t in (x, wq, wk, wv, bq, bk, bv, wo, bo, k_glo, v_glo, bias,
+                                mask_add, q, k, v, attn, y, lse)),
+            B, mx, my, w2, C, num_heads, nglo, mask_add.shape[2],
+            int(x.dtype == torch.bfloat16), build.stream(x.device))
         build.check(err, "vil_block_fwd")
         vil_block_fwd.launches += 1
     out = (y, k, v) + ((lse,) if with_lse else ())
@@ -162,6 +176,10 @@ def vil_block_bwd(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, g, mask
     if x.device.type == "cpu":
         return vil_block_bwd_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, g,
                                        mask_add, num_heads)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return vil_block_bwd(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, g,
+                                 mask_add, lse, num_heads, saved)
     q, k, v, attn = saved
     if any(t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous() for t in saved):
         raise ValueError("saved must be the forward's contiguous q, k, v, attn")
@@ -184,13 +202,12 @@ def vil_block_bwd(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, g, mask
     dbias_part = torch.zeros(B, H, w2, cols, **f32) if bias is not None else None
     part = torch.empty(slices, 4 * C * C + 4 * C, **f32)
     grads = torch.empty(4 * C * C + 4 * C, **f32)
-    with torch.cuda.device(x.device):
-        err = build.load().vil_block_bwd(
-            *(_ptr(t) for t in (x, wq, wk, wv, wo, k_glo, v_glo, bias, mask_add, q, k, v, attn,
-                                g, lse, dattn, delta, dq, dk, dv, p_glo, ds_glo, dbias_part,
-                                dkg, dvg, part, grads, dx)),
-            B, mx, my, w2, C, H, nglo, mask_add.shape[2], slices, per_slice,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    err = build.load().vil_block_bwd(
+        *(_ptr(t) for t in (x, wq, wk, wv, wo, k_glo, v_glo, bias, mask_add, q, k, v, attn,
+                            g, lse, dattn, delta, dq, dk, dv, p_glo, ds_glo, dbias_part,
+                            dkg, dvg, part, grads, dx)),
+        B, mx, my, w2, C, H, nglo, mask_add.shape[2], slices, per_slice,
+        int(x.dtype == torch.bfloat16), build.stream(x.device))
     build.check(err, "vil_block_bwd")
     vil_block_bwd.launches += 1
     dw = grads[:4 * C * C].view(4, C, C)

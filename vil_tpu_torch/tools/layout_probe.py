@@ -95,11 +95,7 @@ def _launch(entry: str, x: torch.Tensor) -> torch.Tensor:
             return _launch(entry, x)
     path = _path_of(x.shape, x.stride())
     y = output_for(x, path)
-    # the current stream's handle by the accessor torch's own generated
-    # kernels launch with: torch.cuda.current_stream() builds a Stream
-    # object under a device context on every call, the largest host cost
-    # of a call here
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    stream = build.stream(device)
     is_bf16 = int(dtype == torch.bfloat16)
     if path == DENSE:
         entry = "layout_probe_flat"

@@ -40,8 +40,14 @@ FAMILIES = [
     ("B7a halo fwd", r"vil_attention_halo_fwd_(wgmma|kernel)"),
     ("B7b halo bwd", r"vil_attention_halo_bwd_(wgmma_)?pass"),
     ("B8 LayerNorm fwd", r"vil_ln_fwd"),
-    ("B8 LayerNorm bwd", r"vil_ln_bwd"),
-    ("B9a fused block fwd", r"vil_block_fwd"),
+    # B8b in two parts: dx with the per-block partials, and their sum
+    ("B8 LayerNorm bwd: rows", r"vil_ln_bwd_rows"),
+    ("B8 LayerNorm bwd: reduce", r"vil_ln_bwd_reduce"),
+    # B9a in three parts (bf16 on the tensor cores: _wgmma): the q/k/v
+    # projections, the attention and the output projection
+    ("B9a fused block fwd: projections", r"vil_block_fwd_proj_qkv"),
+    ("B9a fused block fwd: attention", r"vil_block_fwd_att"),
+    ("B9a fused block fwd: output projection", r"vil_block_fwd_proj_out"),
     # B9b in three parts: the attention passes, the products (dattn, the
     # weight gradients, dx; bf16 on the tensor cores: _wgmma) and the rest
     ("B9b fused block bwd: attention", r"vil_block_bwd_attn_(wgmma_)?pass"),
