@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``vil_tpu_torch``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --only kernels,serve_rpe   # the build and those parts alone
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -70,6 +71,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
 10. probe — the layout probe tool (``vil_tpu_torch.tools.layout_probe``):
    producer GEMM → P → consumer GEMM in both schemes, its census of copy ops
    and its time per pass.
+11. serve_rpe — phase 4 on ViL-Small RPE (``recipe.vil_small(..., rpe=True)``:
+   relative position bias in every stage), its biases assembled once by
+   ``models.precompute_rpe_cache``: B1 3 and B3 9 per forward, each with its
+   bias; the cached logits equal, bit for bit, those of a model that
+   assembles the biases in the forward; f32 and bf16 logits kernels vs
+   plain as in phase 4, and the f32 pair again with every table drawn at
+   σ 1, beside the logits' change from zero tables (what a dropped bias
+   moves them by).
+12. train_rpe — phase 5 on ViL-Small RPE: launches rise by 3, 3, 9 and 9 per
+   step; the f32 step pair holds the tables' gradients with every other
+   (and again with the tables at σ 1), then the bf16 pair.
+13. shift_rpe — the f32 kernels-vs-plain random-shift step pair of ViL-Small
+   RPE, at the recipe's first draw of modes (printed) and again with the
+   tables at σ 1: B5, B6 with the [g2l | self | sampled] bias, 3 each a
+   kernel step, B3, B4 9.
+14. train_fused_rpe — the same pair in the fused configuration: B9a, B9b 3,
+   B8a, B8b 30, B3, B4 9 a kernel step.
+Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
+and holds its f32 logits to the classic forward's and to the plain versions'.
 
 Phase 3 also holds the LayerNorm kernels (B8a, B8b) at the six row shapes of
 ViL-Small's block pre-norms, with ``F.layer_norm`` as their library call, and
@@ -95,12 +115,20 @@ between one pair of events, and the card's time by ``torch.profiler``, each
 beside ``torch.mul``'s), on a ragged shape, on a view one element into its
 storage and on a slice.
 
-Each path of phases 4-10 sets the launch counts to 0 before it and reads
+Phase 3 ends with ViL-Small RPE's biased kernels at its step's shapes, each
+bias assembled from tables drawn at σ 1 by the model's own assembly: B3 with
+(6, 197, 197) and (12, 49, 49), B1/B2 and B9a/B9b with (3, 49, 442), B5/B6 at
+modes 1..8 with (3, 49, 99) in front order, B7a/B7b split over 2 ranks; each
+timed per call with its bias (SDPA with the bias in its mask beside it).
+
+Each path of phases 4-14 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_serve_fused``, ``launches_train_fused``, ``launches_serve_spatial``,
-``launches_spatial_bwd`` and ``launches_probe`` each path's; ``ms``,
+``launches_spatial_bwd``, ``launches_probe``, ``launches_serve_rpe``,
+``launches_train_rpe``, ``launches_shift_rpe`` and ``launches_train_fused_rpe``
+each path's; ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
 path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
 for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
@@ -152,6 +180,11 @@ PARAM_GRAD_TOL = 1e-4  # the same step: max|err| / max|ref| per parameter (measu
 # vs plain f32 reads 1.7e-2 and 1.9e-2: a sound bf16 kernel of another
 # rounding order may come near that.
 BF16_LOGITS_TOL = 2.5e-2
+# the RPE paths' f32 logits with every table at σ 1, kernels vs plain: at
+# most this share of the logits' change from zero tables (and LOGITS_TOL),
+# so that a dropped or misplaced bias, which moves them by about that change,
+# fails however small the change is at random weights
+RPE_SHARE_TOL = 1e-2
 BF16_PARAM_GRAD_TOL = 2.5e-2
 # H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -405,10 +438,12 @@ def check_kernels(torch, records):
         both = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g))
         return fwd, bwd, both
 
-    def chunk_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, mode=0, per_step=0.0):
+    def chunk_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, mode=0, per_step=0.0,
+                   bias=None, timed=False):
         """A sliding-chunk case: B1/B2 at mode 0, B5/B6 (the sampled
         neighbour of ``mode``) at modes 1..8. ``per_step`` is the case's
-        share of one training step's launches."""
+        share of one training step's launches; ``timed`` times it without a
+        share. ``bias`` (f32, front order) replaces the random one."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + (9 if mode == 0 else 2) * w2
@@ -429,7 +464,8 @@ def check_kernels(torch, records):
         acts = [randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
         acts += [randn(B, nglo, C) if nglo else None for _ in range(2)]
         g0 = randn(B, mx, my, w2, C)
-        bias = randn(H, w2, cols, scale=0.5) if with_bias else None
+        if bias is None and with_bias:
+            bias = randn(H, w2, cols, scale=0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             a = cast(acts, dtype)
             g = g0.to(dtype)
@@ -452,13 +488,15 @@ def check_kernels(torch, records):
             check(f"{name} bwd {label} {dt}", e_grad, GRAD_TOL[dt])
             for n, e in e_scaled.items():
                 check(f"{name} {n} scaled {label} {dt}", e, CHUNK_SCALED_TOL)
-            if per_step and dtype == torch.bfloat16:  # the training step's type
-                records[f"{name}_fwd"]["max_abs_err"] = max(
-                    records[f"{name}_fwd"]["max_abs_err"], e_out)
-                records[f"{name}_bwd"]["max_abs_err"] = max(
-                    records[f"{name}_bwd"]["max_abs_err"], e_abs)
+            if (per_step or timed) and dtype == torch.bfloat16:  # the training step's type
+                if per_step:
+                    records[f"{name}_fwd"]["max_abs_err"] = max(
+                        records[f"{name}_fwd"]["max_abs_err"], e_out)
+                    records[f"{name}_bwd"]["max_abs_err"] = max(
+                        records[f"{name}_bwd"]["max_abs_err"], e_abs)
                 # the library comparator: SDPA over the materialised
-                # [glo ‖ neighbourhood] keys, one batch row per (image, chunk)
+                # [glo ‖ neighbourhood] keys, one batch row per (image, chunk),
+                # the bias added to the mask
                 heads = lambda t: t.view(B * mx * my, -1, H, M).transpose(1, 2)
 
                 def materialise():
@@ -473,8 +511,10 @@ def check_kernels(torch, records):
 
                 cat_ms = time_ms(materialise)
                 k_cat, v_cat = materialise()
-                attn_mask = (mask.to(dtype)[None].expand(B, -1, -1, -1, -1)
-                             .reshape(B * mx * my, 1, mask.shape[2], cols))
+                full_mask = (mask[:, :, None] if bias is None else
+                             mask[:, :, None] + bias[None, None]).to(dtype)
+                attn_mask = (full_mask[None].expand(B, -1, -1, -1, -1, -1)
+                             .reshape(B * mx * my, full_mask.shape[2], -1, cols))
                 lib_fwd, lib_bwd, lib_both = sdpa_times(heads(a[0]), k_cat, v_cat, heads(g),
                                                         attn_mask)
                 act = B * mx * my * w2 * C
@@ -484,14 +524,15 @@ def check_kernels(torch, records):
                     time_ms(lambda: fwd(*a, bias, mask, H, *tail, with_lse=True)),
                     time_ms(lambda: fwd_ref(*a, bias, mask, H, *tail, with_lse=True)),
                     nbytes(*a, bias, mask, out, lse), fwd_flops, lib_fwd)
-                phase("kernels", f"  {name}_fwd with lse, x{per_step:g} per step: {msg}, SDPA "
+                share = f"x{per_step:g} per step" if per_step else "per call"
+                phase("kernels", f"  {name}_fwd with lse, {share}: {msg}, SDPA "
                                  f"forward {lib_fwd:.4f} ms")
                 msg = account(
                     f"{name}_bwd", per_step,
                     time_ms(lambda: bwd(*a, bias=bias, g=g, out=out, lse=lse)),
                     time_ms(lambda: bwd_ref(*a, bias, g, mask, H, *tail)),
                     nbytes(*a, bias, mask, lse, g, *grads), 2.5 * fwd_flops, lib_bwd)
-                phase("kernels", f"  {name}_bwd, x{per_step:g} per step: {msg}, SDPA backward "
+                phase("kernels", f"  {name}_bwd, {share}: {msg}, SDPA backward "
                                  f"{lib_bwd:.4f} ms, SDPA forward+backward {lib_both:.4f} ms")
                 phase("kernels", f"  concatenating the [glo | {cols // w2}-chunk] keys and "
                                  f"values for SDPA (not in its times): {cat_ms:.4f} ms")
@@ -499,12 +540,14 @@ def check_kernels(torch, records):
                     serve_ms = time_ms(lambda: fwd(*a, bias, mask, H))
                     phase("kernels", f"  {name}_fwd without lse (serving): {serve_ms:.4f} ms")
 
-    def full_case(label, B, N, C, H, with_bias, per_step=0, timed=False):
-        """A dense case; ``timed`` times it without a share of the step."""
+    def full_case(label, B, N, C, H, with_bias, per_step=0, timed=False, bias=None):
+        """A dense case; ``timed`` times it without a share of the step.
+        ``bias`` (f32) replaces the random one."""
         M = C // H
         acts = [randn(B, N, C, scale=C ** -0.25) for _ in range(3)]
         g0 = randn(B, N, C)
-        bias = randn(H, N, N, scale=0.5) if with_bias else None
+        if bias is None and with_bias:
+            bias = randn(H, N, N, scale=0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             a = cast(acts, dtype)
             g = g0.to(dtype)
@@ -542,7 +585,8 @@ def check_kernels(torch, records):
                 # the library comparator: SDPA on the same values, heads as a
                 # batch dimension
                 lib_fwd, lib_bwd, lib_both = sdpa_times(
-                    *(t.view(B, N, H, M).transpose(1, 2) for t in (*a, g)))
+                    *(t.view(B, N, H, M).transpose(1, 2) for t in (*a, g)),
+                    attn_mask=None if bias is None else bias.to(dtype)[None])
                 fwd_flops = 4.0 * B * N * N * C
                 share = f"x{per_step} per step" if per_step else "per call, not on the path"
                 msg = account(
@@ -620,10 +664,11 @@ def check_kernels(torch, records):
                              f"F.layer_norm backward {lib_bwd:.4f} ms")
 
     def block_case(label, B, nx, ny, w, C, H, nglo, with_bias, per_step=0, bias_scale=0.02,
-                   backward=True):
+                   backward=True, bias=None, timed=False):
         """A fused-block case: B9a and (``backward``) B9b, ``per_step`` of the
-        fused training step's launches; q, k, v and output biases of
-        ``bias_scale`` (bq scale-folded)."""
+        fused training step's launches (``timed``: timed without a share);
+        q, k, v and output biases of ``bias_scale`` (bq scale-folded).
+        ``bias`` (the f32 score bias, front order) replaces the random one."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + 9 * w2
@@ -634,7 +679,8 @@ def check_kernels(torch, records):
         w0 = [randn(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
         b0 = [randn(C, scale=bias_scale * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
         glo0 = [randn(B, nglo, C) if nglo else None for _ in range(2)]
-        bias = randn(H, w2, cols, scale=0.5) if with_bias else None
+        if bias is None and with_bias:
+            bias = randn(H, w2, cols, scale=0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             x, g = x0.to(dtype), g0.to(dtype)
             ws = [t.to(dtype) for t in w0]
@@ -687,12 +733,14 @@ def check_kernels(torch, records):
                 check(f"vil_block {n} scaled {label} {dt}", e, CHUNK_SCALED_TOL)
             if differ:
                 raise AssertionError(f"vil_block bwd {label}: two launches differ in {differ}")
-            if not (per_step and dtype == torch.bfloat16):
+            if not ((per_step or timed) and dtype == torch.bfloat16):
                 continue
-            records["vil_block_fwd"]["max_abs_err"] = max(
-                records["vil_block_fwd"]["max_abs_err"], e_out)
-            records["vil_block_bwd"]["max_abs_err"] = max(
-                records["vil_block_bwd"]["max_abs_err"], e_abs)
+            if per_step:
+                records["vil_block_fwd"]["max_abs_err"] = max(
+                    records["vil_block_fwd"]["max_abs_err"], e_out)
+                records["vil_block_bwd"]["max_abs_err"] = max(
+                    records["vil_block_bwd"]["max_abs_err"], e_abs)
+            share = f"x{per_step} per step" if per_step else "per call"
             R = B * mx * my * w2
             attn_flops = 4.0 * R * C * cols
             fwd_in = (x, *ws, *b0, *cast(glo0, dtype), bias, mask)
@@ -701,7 +749,7 @@ def check_kernels(torch, records):
                                                         saved=True)),
                           time_ms(lambda: vil_block_reference(*ops, mask, H)),
                           nbytes(*fwd_in, y, k, v, lse), 8.0 * R * C * C + attn_flops)
-            phase("kernels", f"  vil_block_fwd with lse, q and attn, x{per_step} per step: "
+            phase("kernels", f"  vil_block_fwd with lse, q and attn, {share}: "
                              f"{msg}; no single PyTorch call computes the block (library: "
                              f"null)")
             msg = account("vil_block_bwd", per_step,
@@ -710,13 +758,13 @@ def check_kernels(torch, records):
                           time_ms(lambda: vil_block_bwd_reference(*ops, g, mask, H)),
                           nbytes(*fwd_in, q, k, v, attn, g, lse, *grads),
                           16.0 * R * C * C + 2.5 * attn_flops + 4.0 * R * C * nglo)
-            phase("kernels", f"  vil_block_bwd from the saved q, k, v, attn, x{per_step} per "
-                             f"step: {msg}; library: null")
+            phase("kernels", f"  vil_block_bwd from the saved q, k, v, attn, {share}: {msg}; "
+                             f"library: null")
             serve_ms = time_ms(lambda: vil_block_fwd(*ops, mask, H))
             phase("kernels", f"  vil_block_fwd without lse (serving): {serve_ms:.4f} ms")
 
     def halo_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, splits, per_fwd=0,
-                  per_bwd=0):
+                  per_bwd=0, bias=None):
         """Halo-input cases: B7a and B7b on every shard of the grid split
         over each D of ``splits``, against their plain versions; the shards
         together against B1 and B2 on the whole grid. ``per_fwd`` is the
@@ -732,7 +780,8 @@ def check_kernels(torch, records):
         acts = [randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
         acts += [randn(B, nglo, C) if nglo else None for _ in range(2)]
         g0 = randn(B, mx, my, w2, C)
-        bias = randn(H, w2, cols, scale=0.5) if with_bias else None
+        if bias is None and with_bias:
+            bias = randn(H, w2, cols, scale=0.5)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             a = cast(acts, dtype)
             g = g0.to(dtype)
@@ -935,6 +984,36 @@ def check_kernels(torch, records):
     # matches_pallas; PERF.md §6)
     block_case("stage1 width, biases as large as the products", 4, 56, 56, 7, 96, 3, 1, False,
                bias_scale=1.0, backward=False)
+    # relative position bias (ViL-Small RPE): every biased kernel at the RPE
+    # step's shapes, its bias assembled from tables drawn at σ 1 by the
+    # model's own assembly (front order [g2l | local]; the dense one with g2g
+    # and g2l), checked as above (dbias too) and timed per call with the bias
+    from vil_tpu_torch.models.attention import full_rpe_bias, sliding_chunk_rpe_bias
+
+    def tables(rows, H, nglo):
+        """(local table, g2l, g2g) at σ 1."""
+        return (randn(rows, H), randn(2, H, nglo) if nglo else None,
+                randn(H, nglo, nglo) if nglo else None)
+
+    full_case("RPE stage3 (64,197,384) H6, bias (6,197,197) from tables", 64, 197, 384, 6,
+              True, timed=True, bias=full_rpe_bias(*tables(27 * 27, 6, 1), 14, 14))
+    full_case("RPE stage4 (64,49,768) H12, bias (12,49,49) from tables", 64, 49, 768, 12,
+              True, timed=True, bias=full_rpe_bias(*tables(13 * 13, 12, 0), 7, 7))
+    for stage, mx, C in ((1, 8, 96), (2, 4, 192)):
+        table, g2l, _ = tables(27 * 27, 3, 1)
+        shape = f"stage{stage} (64,{mx},{mx},49,{C}) H3"
+        chunk_case(f"RPE {shape}, bias (3,49,442) from tables", 64, 7 * mx, 7 * mx, 7, C, 3,
+                   1, 0, True, timed=True, bias=sliding_chunk_rpe_bias(table, g2l, 7))
+        block_case(f"RPE {shape}, bias (3,49,442) from tables", 64, 7 * mx, 7 * mx, 7, C, 3,
+                   1, True, timed=True, bias=sliding_chunk_rpe_bias(table, g2l, 7))
+        # every sampled neighbour at stage 2, modes 1 and 6 at stage 1
+        for mode in range(1, 9) if stage == 2 else (1, 6):
+            chunk_case(f"RPE mode {mode} {shape}, bias (3,49,99) from tables, front order",
+                       64, 7 * mx, 7 * mx, 7, C, 3, 1, 0, True, mode, timed=mode in (1, 6),
+                       bias=sliding_chunk_rpe_bias(table, g2l, 7, mode))
+    table, g2l, _ = tables(27 * 27, 3, 1)
+    halo_case("RPE stage1 (64,8,8,49,96) H3, bias (3,49,442) from tables", 64, 56, 56, 7, 96,
+              3, 1, 0, True, (2,), bias=sliding_chunk_rpe_bias(table, g2l, 7))
     # the card's time of B5, B9a, B9b, B8a and B8b per step beside their
     # event time, B9a's, B9b's and B8b's by part
     from vil_tpu_torch.tools.profile_step import family
@@ -977,17 +1056,33 @@ def launch_counts(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels}
 
 
-def run_serve(torch, kernels, fused=False):
-    """Phase 4 (or, with ``fused``, phase 7): the inference path of ViL-Small
-    224²."""
+def draw_tables(torch, model, std: float, seed: int = 7) -> None:
+    """Every relative-position table of ``model`` drawn at σ ``std`` (0: all
+    zero) from a CPU generator, so one seed gives the same tables on any
+    device and in any dtype."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "relative_position" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+
+def run_serve(torch, kernels, fused=False, rpe=False):
+    """Phase 4 (with ``fused`` phase 7, with ``rpe`` phase 11): the inference
+    path of ViL-Small 224² (with ``rpe`` ViL-Small RPE, served from
+    ``precompute_rpe_cache``)."""
+    from vil_tpu_torch.models import precompute_rpe_cache
     from vil_tpu_torch.train import recipe
 
-    name = "serve_fused" if fused else "serve"
+    name = "serve_fused" if fused else "serve_rpe" if rpe else "serve"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     images = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
                             dtype=torch.uint8) for _ in range(REQUESTS)]
-    model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev, fused=fused).eval()
+    model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev, fused=fused,
+                             rpe=rpe).eval()
+    if rpe:
+        precompute_rpe_cache(model)
     for fn in kernels:
         fn.launches = 0
     secs = []
@@ -1006,7 +1101,9 @@ def run_serve(torch, kernels, fused=False):
     want = {fn.__name__: 0 for fn in kernels}
     want.update({k: n * REQUESTS for k, n in per_forward.items()},
                 full_attention_fwd=9 * REQUESTS)
-    phase(name, f"ViL-Small 224^2 bf16 batch {BATCH}: {REQUESTS} requests, "
+    what = "ViL-Small RPE 224^2 bf16, biases from precompute_rpe_cache," if rpe else \
+        "ViL-Small 224^2 bf16"
+    phase(name, f"{what} batch {BATCH}: {REQUESTS} requests, "
                 f"launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -1014,6 +1111,18 @@ def run_serve(torch, kernels, fused=False):
     phase(name, f"bf16 forward: median {statistics.median(secs[1:]) * 1e3:.3f} ms "
                 f"per batch, {img_s:.1f} img/s (requests 2..{REQUESTS}); first "
                 f"request {secs[0] * 1e3:.1f} ms")
+    if rpe:
+        # the cache serves what the tables give: the same bits as a model
+        # that assembles its biases in every forward, same weights
+        with torch.inference_mode():
+            cached = model(images[0])
+            uncached = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev,
+                                        rpe=True).eval()(images[0])
+        same = torch.equal(cached, uncached)
+        phase(name, f"bf16 logits with precompute_rpe_cache vs assembled in the forward: "
+                    f"bitwise equal {same}")
+        if not same:
+            raise AssertionError("the cached biases give other logits than the assembled")
     del model
 
     # f32 logits: kernels vs plain versions; in the fused configuration also
@@ -1025,7 +1134,8 @@ def run_serve(torch, kernels, fused=False):
                                     ("classic", True, False)):
             if key == "classic" and not fused:
                 continue
-            m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev, fused=f).eval()
+            m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev, fused=f,
+                                 rpe=rpe).eval()
             outs[key] = m(x)
             del m
     for other in [k for k in ("plain", "classic") if k in outs]:
@@ -1036,13 +1146,17 @@ def run_serve(torch, kernels, fused=False):
                     f"|logits| max {outs[other].abs().max().item():.3f}")
         if not (torch.isfinite(outs["kernels"]).all() and err <= LOGITS_TOL):
             raise AssertionError(f"f32 logits disagree ({what}): {err}")
+    if rpe:
+        check_big_tables(torch, name, lambda use_kernels: recipe.vil_small(
+            torch.float32, torch.float32, use_kernels, dev, rpe=True).eval(), x)
     if not fused:
         # the path's own types: bf16 logits, kernels (the dense ones on the
         # tensor cores) vs plain versions, same weights; bf16's own error,
         # plain bf16 vs plain f32, printed beside it as its scale
         with torch.inference_mode():
             for key, use_kernels in (("bf16 kernels", True), ("bf16 plain", False)):
-                m = recipe.vil_small(torch.bfloat16, torch.bfloat16, use_kernels, dev).eval()
+                m = recipe.vil_small(torch.bfloat16, torch.bfloat16, use_kernels, dev,
+                                     rpe=rpe).eval()
                 outs[key] = m(x).float()
                 del m
         scaled = lambda a, b: ((outs[a] - outs[b]).abs().max() / outs[b].abs().max()).item()
@@ -1054,18 +1168,48 @@ def run_serve(torch, kernels, fused=False):
     return launches
 
 
-def run_train(torch, kernels, random_shift=False, fused=False):
-    """Phase 5 (with ``random_shift`` phase 6, with ``fused`` phase 8): the
-    training step of ViL-Small 224² at batch 64."""
-    from vil_tpu_torch.train import recipe
+def check_big_tables(torch, name, build, x, forward=None):
+    """The RPE paths' f32 logits check with every table drawn at σ 1, where
+    the bias moves the scores as much as q·k does: ``build(use_kernels)``
+    makes the model, ``forward(model, x)`` (default: ``model(x)``) serves
+    it. Kernels vs plain versions to LOGITS_TOL and to RPE_SHARE_TOL of the
+    logits' max|Δ| between these tables and zero tables: what a dropped bias
+    would move them by."""
+    forward = forward or (lambda m, x: m(x))
+    outs = {}
+    with torch.inference_mode():
+        for key, use_kernels, std in (("kernels", True, 1.0), ("plain", False, 1.0),
+                                      ("zero tables", True, 0.0)):
+            m = build(use_kernels)
+            draw_tables(torch, m, std)
+            outs[key] = forward(m, x)
+            del m
+    err = (outs["kernels"] - outs["plain"]).abs().max().item()
+    moved = (outs["plain"] - outs["zero tables"]).abs().max().item()
+    tol = min(LOGITS_TOL, RPE_SHARE_TOL * moved)
+    phase(name, f"f32 logits, tables at σ 1, kernels vs plain versions: max|err| {err:.3e} "
+                f"(tol {tol:.3e}: {RPE_SHARE_TOL:g} of the {moved:.3e} that zero tables move "
+                f"them by; |logits| max {outs['plain'].abs().max().item():.3f})")
+    if not (torch.isfinite(outs["kernels"]).all() and err <= tol):
+        raise AssertionError(f"f32 logits with σ-1 tables disagree: {err} > {tol}")
 
-    name = "train_shift" if random_shift else "train_fused" if fused else "train"
+
+def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
+    """Phase 5 (with ``random_shift`` phase 6, with ``fused`` phase 8, with
+    ``rpe`` phase 12): the training step of ViL-Small 224² at batch 64 (with
+    ``rpe`` ViL-Small RPE). With ``rpe`` and ``random_shift`` or ``fused``
+    (phases 13, 14) the path is the f32 kernels-vs-plain step pair alone,
+    its launches counted over the kernels' steps."""
+    from vil_tpu_torch.train import engine, recipe
+
+    if rpe:
+        name = "shift_rpe" if random_shift else "train_fused_rpe" if fused else "train_rpe"
+    else:
+        name = "train_shift" if random_shift else "train_fused" if fused else "train"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
-    model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=fused)
-    step = recipe.train_step(model, dev, random_shift)
     per_step = {fn.__name__: 0 for fn in kernels}
     per_step.update(full_attention_fwd=9, full_attention_bwd=9)
     if fused:
@@ -1073,63 +1217,96 @@ def run_train(torch, kernels, random_shift=False, fused=False):
     else:
         chunk = "vil_mode_attention" if random_shift else "vil_attention"
         per_step.update({f"{chunk}_fwd": 3, f"{chunk}_bwd": 3})
-    step_gen = torch.Generator(device=dev).manual_seed(3)
-    for fn in kernels:
-        fn.launches = 0
-    secs, losses, modes = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(STEPS):
-        before = launch_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = step(images, labels, step_gen)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"].item())
-        modes.append(metrics.get("modes"))
-        rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
-        if rose != per_step:
-            raise AssertionError(f"step {i}: launches rose by {rose}, want {per_step}")
-    launches = launch_counts(kernels)
-    phase(name, f"ViL-Small 224^2 bf16 compute, f32 parameters, batch {BATCH}: {STEPS} "
-                f"steps, launches {launches} ({per_step} per step)")
-    if random_shift:
-        phase(name, "per-block modes drawn by the step (12 blocks; the 9 dense blocks "
-                    f"ignore theirs): {modes}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"losses not finite: {losses}")
-    med = statistics.median(secs[1:])
-    phase(name, f"step: median {med * 1e3:.3f} ms, {BATCH / med:.1f} img/s "
-                f"(steps 2..{STEPS}); first step {secs[0] * 1e3:.1f} ms; losses "
-                f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del model, step
+    steps_run = not (rpe and (random_shift or fused))
+    if steps_run:
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=fused, rpe=rpe)
+        step = recipe.train_step(model, dev, random_shift)
+        step_gen = torch.Generator(device=dev).manual_seed(3)
+        for fn in kernels:
+            fn.launches = 0
+        secs, losses, modes = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(STEPS):
+            before = launch_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(images, labels, step_gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+            modes.append(metrics.get("modes"))
+            rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+            if rose != per_step:
+                raise AssertionError(f"step {i}: launches rose by {rose}, want {per_step}")
+        launches = launch_counts(kernels)
+        what = "ViL-Small RPE 224^2" if rpe else "ViL-Small 224^2"
+        phase(name, f"{what} bf16 compute, f32 parameters, batch {BATCH}: {STEPS} "
+                    f"steps, launches {launches} ({per_step} per step)")
+        if random_shift:
+            phase(name, "per-block modes drawn by the step (12 blocks; the 9 dense blocks "
+                        f"ignore theirs): {modes}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses not finite: {losses}")
+        med = statistics.median(secs[1:])
+        phase(name, f"step: median {med * 1e3:.3f} ms, {BATCH / med:.1f} img/s "
+                    f"(steps 2..{STEPS}); first step {secs[0] * 1e3:.1f} ms; losses "
+                    f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, step
+    else:
+        # the recipe's first draw of per-block modes (its mode generator,
+        # seed 0): the step the six-step run would take first
+        modes = [engine.sample_vil_modes(torch.Generator().manual_seed(0), 12)
+                 if random_shift else None]
+        if random_shift:
+            phase(name, f"per-block modes (12 blocks; the 9 dense blocks ignore theirs): "
+                        f"{modes[0]}")
+        for fn in kernels:
+            fn.launches = 0
 
-    def one_step(dtype, use_kernels):
-        """One step from the recipe's weights, the same images, draws and
-        (random shift) the first step's modes: (loss, parameter gradients)."""
-        m = recipe.vil_small(dtype, torch.float32, use_kernels, dev, fused=fused)
+    def one_step(dtype, use_kernels, std=None):
+        """One step from the recipe's weights (with ``std`` every table
+        drawn at σ ``std``), the same images, draws and (random shift) the
+        first step's modes: (loss, parameter gradients)."""
+        m = recipe.vil_small(dtype, torch.float32, use_kernels, dev, fused=fused, rpe=rpe)
+        if std is not None:
+            draw_tables(torch, m, std)
         s = recipe.train_step(m, dev, random_shift)
         loss = s(images, labels, torch.Generator(device=dev).manual_seed(3),
                  modes=modes[0])["loss"].item()
         return loss, {n: p.grad.clone() for n, p in m.named_parameters()}
 
-    # one f32 step, kernels vs plain versions
-    (loss_k, grads_k), (loss_p, grads_p) = one_step(torch.float32, True), one_step(
-        torch.float32, False)
-    loss_err = abs(loss_k - loss_p)
-    grad_err, worst = 0.0, ""
-    for param, ref in grads_p.items():
-        if ref.numel() == 0:  # the (1, 0, C) position table of a stage without globals
-            continue
-        err = ((grads_k[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
-        if not math.isfinite(err) or err > grad_err:
-            grad_err, worst = err, param
-    phase(name, f"f32 step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
-                f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max "
-                f"rel err {grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g})")
-    if not (loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
-        raise AssertionError(f"f32 step disagrees: loss {loss_err}, gradients {grad_err}")
+    # one f32 step, kernels vs plain versions; with RPE also with every
+    # table at σ 1, where the bias moves the scores as much as q·k does
+    for std in (None, 1.0) if rpe else (None,):
+        (loss_k, grads_k), (loss_p, grads_p) = one_step(torch.float32, True, std), one_step(
+            torch.float32, False, std)
+        loss_err = abs(loss_k - loss_p)
+        grad_err, worst, table_err = 0.0, "", 0.0
+        for param, ref in grads_p.items():
+            if ref.numel() == 0:  # the (1, 0, C) position table of a stage without globals
+                continue
+            err = ((grads_k[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+            if "relative_position" in param:
+                table_err = max(table_err, err)
+            if not math.isfinite(err) or err > grad_err:
+                grad_err, worst = err, param
+        tables = (f"; the {sum('relative_position' in n for n in grads_p)} tables' max rel "
+                  f"err {table_err:.3e}" if rpe else "")
+        what = "f32 step" + (", tables at σ 1" if std else "")
+        phase(name, f"{what}, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+                    f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max "
+                    f"rel err {grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g}){tables}")
+        if not (loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+            raise AssertionError(f"{what} disagrees: loss {loss_err}, gradients {grad_err}")
+        if std is None:
+            grads_f32 = grads_p  # the recipe's tables: bf16's scale below
+    if not steps_run:
+        launches = launch_counts(kernels)
+        want = {k: 2 * n for k, n in per_step.items()}  # two kernel steps
+        phase(name, f"launches over the two f32 kernel steps {launches} (want {want})")
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
     if not (random_shift or fused):
         # the path's own types: one bf16-compute step, kernels (the dense
         # backward on the tensor cores) vs plain versions; bf16's own error,
@@ -1140,12 +1317,23 @@ def run_train(torch, kernels, random_shift=False, fused=False):
         def blocks(grads):
             """Each parameter's gradient; the q, k and v rows of a fused
             projection's weight each on its own, where dq and dk, which
-            near-uniform attention keeps small, would be lost in dv's norm."""
+            near-uniform attention keeps small, would be lost in dv's norm.
+            A block's relative-position tables go as one vector: the g2g and
+            g2l gradients are a few sums per head over the batch of dS terms
+            that cancel (a softmax row's dS sums to 0), whose bf16 rounding
+            alone moves them by 3.4e-2 of their norm (plain bf16 vs plain
+            f32, PR 12); the f32 step holds each table alone."""
+            tables = {}
             for n, t in grads.items():
+                if "relative_position" in n:
+                    tables.setdefault(n.rsplit(".", 1)[0], []).append(t.flatten())
+                    continue
                 parts = 3 if n.endswith("qkv.weight") else 2 if n.endswith("kv.weight") else 1
                 names = ("q", "k", "v")[3 - parts:] if parts > 1 else ("",)
                 for part, rows in zip(names, t.chunk(parts)):
                     yield n + (f"[{part}]" if part else ""), rows
+            for block, parts in tables.items():
+                yield block + ".[relative-position tables]", torch.cat(parts)
 
         def worst(grads, refs):
             grads = dict(blocks(grads))
@@ -1154,11 +1342,20 @@ def run_train(torch, kernels, random_shift=False, fused=False):
             name_ = max(errs, key=lambda n: (not math.isfinite(errs[n]), errs[n]))
             return errs[name_], name_
 
-        (err, at), (own, own_at) = worst(bf_k, bf_p), worst(bf_p, grads_p)
+        (err, at), (own, own_at) = worst(bf_k, bf_p), worst(bf_p, grads_f32)
+        alone = ""
+        if rpe:  # each table alone, printed: what joining them leaves out
+
+            def table_worst(grads, refs):
+                return max(((grads[n] - r).norm() / r.norm()).item()
+                           for n, r in refs.items() if "relative_position" in n and r.norm() > 0)
+
+            alone = (f"; each table alone (printed, not held) {table_worst(bf_k, bf_p):.3e}, "
+                     f"plain bf16 vs plain f32 {table_worst(bf_p, grads_f32):.3e}")
         phase(name, f"bf16 step, kernels vs plain versions: loss {bf_loss_k:.6f} vs "
                     f"{bf_loss_p:.6f}; parameter gradients max ‖err‖ / ‖ref‖ {err:.3e} at {at} "
                     f"(tol {BF16_PARAM_GRAD_TOL:g}); plain bf16 vs plain f32 {own:.3e} at "
-                    f"{own_at}")
+                    f"{own_at}{alone}")
         if not (math.isfinite(bf_loss_k) and err <= BF16_PARAM_GRAD_TOL):
             raise AssertionError(f"bf16 step disagrees: gradients {err} at {at}")
     return launches
@@ -1273,6 +1470,21 @@ def run_serve_spatial(torch, kernels):
                         f"|logits| max {outs[other].abs().max().item():.3f}")
             if not (torch.isfinite(outs[True]).all() and err <= LOGITS_TOL):
                 raise AssertionError(f"f32 logits disagree ({what}): {err}")
+        # the same on ViL-Small RPE with its tables at σ 1: the bias through
+        # the halo kernels, g2g and g2l[0] through the spread global branch
+        with torch.inference_mode():
+            m = recipe.vil_small(torch.float32, torch.float32, True, dev, rpe=True).eval()
+            draw_tables(torch, m, 1.0)
+            spatial_rpe, classic_rpe = forward(m, x), m(x)
+            del m
+        err = (spatial_rpe - classic_rpe).abs().max().item()
+        phase(name, f"f32 logits, ViL-Small RPE (tables at σ 1), spatial vs classic forward "
+                    f"(both with the kernels): max|err| {err:.3e} (tol {LOGITS_TOL:g}); "
+                    f"|logits| max {classic_rpe.abs().max().item():.3f}")
+        if not (torch.isfinite(spatial_rpe).all() and err <= LOGITS_TOL):
+            raise AssertionError(f"f32 RPE logits disagree (spatial vs classic): {err}")
+        check_big_tables(torch, name, lambda use_kernels: recipe.vil_small(
+            torch.float32, torch.float32, use_kernels, dev, rpe=True).eval(), x, forward)
     finally:
         dist.destroy_process_group()
         if os.path.exists(store):
@@ -1301,12 +1513,29 @@ def run_probe(torch, kernels):
     return launches
 
 
+# the parts ``--only`` picks from: phase 3, then the main paths in run order
+PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
+         "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe")
+
+
+def only_arg(argv) -> "set | None":
+    """``--only a,b``: run the build and those parts alone, to read their
+    checks; they pass or fail as in the whole run, which alone prints the
+    records and the result line. None (no argument): every part."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--only" or not set(argv[1].split(",")) <= set(PARTS):
+        raise SystemExit(f"usage: chip_smoke.py [--only part,...], parts {', '.join(PARTS)}")
+    return set(argv[1].split(","))
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
+    only = only_arg(sys.argv[1:])
     sys.path.insert(0, REPO)
     from vil_tpu_torch.ops.kernels import KERNELS, build
     from vil_tpu_torch.tools import layout_probe
@@ -1389,17 +1618,36 @@ def main() -> int:
                       "bound_ms": 0.0, "bound_by": "", "library_ms": None,
                       "_bytes_ms": 0.0, "_ops_ms": 0.0}
                for name, (src, rep) in sources.items()}
-    check_kernels(torch, records)
-    # the eight main paths, each with its launch counts
-    paths = {
-        "serve": run_serve(torch, kernels),
-        "train": run_train(torch, kernels),
-        "shift": run_train(torch, kernels, random_shift=True),
-        "serve_fused": run_serve(torch, kernels, fused=True),
-        "train_fused": run_train(torch, kernels, fused=True),
+    # the main paths, each with its launch counts (serve_spatial's run also
+    # gives the spatial_bwd path's)
+    runs = {
+        "serve": lambda: run_serve(torch, kernels),
+        "train": lambda: run_train(torch, kernels),
+        "shift": lambda: run_train(torch, kernels, random_shift=True),
+        "serve_fused": lambda: run_serve(torch, kernels, fused=True),
+        "train_fused": lambda: run_train(torch, kernels, fused=True),
+        "serve_spatial": lambda: run_serve_spatial(torch, kernels),
+        "probe": lambda: run_probe(torch, kernels),
+        # ViL-Small RPE: the biased paths
+        "serve_rpe": lambda: run_serve(torch, kernels, rpe=True),
+        "train_rpe": lambda: run_train(torch, kernels, rpe=True),
+        "shift_rpe": lambda: run_train(torch, kernels, random_shift=True, rpe=True),
+        "train_fused_rpe": lambda: run_train(torch, kernels, fused=True, rpe=True),
     }
-    paths["serve_spatial"], paths["spatial_bwd"] = run_serve_spatial(torch, kernels)
-    paths["probe"] = run_probe(torch, kernels)
+    if only is None or "kernels" in only:
+        check_kernels(torch, records)
+    paths = {}
+    for name, run in runs.items():
+        if only is not None and name not in only:
+            continue
+        if name == "serve_spatial":
+            paths["serve_spatial"], paths["spatial_bwd"] = run()
+        else:
+            paths[name] = run()
+    if only is not None:
+        phase("done", f"part of the run ({', '.join(sorted(only))}): every check passed; "
+                      f"no record and no result line")
+        return 0
     for name, rec in records.items():
         rec["launches"] = sum(counts[name] for counts in paths.values())
         for path, counts in paths.items():

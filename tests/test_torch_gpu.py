@@ -1110,3 +1110,199 @@ def test_layout_probe_kernel_head_tail_and_strided_paths(cuda, dtype):
     for view in (x[:, 1:], x[..., 2:7], x[:, :1].expand(-1, 3, -1, -1, -1)):
         assert layout_probe.probe_path(view.shape, view.stride()) == layout_probe.STRIDED
         assert torch.equal(layout_probe.consume_base(view), view * 2)
+
+
+# ------------------------------------------------- relative position bias (a0)
+
+def _rpe_tables(cuda, seed, rows, H, nglo):
+    """(local table, g2l, g2g) at σ 1: the bias as large as the scores."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    return rnd(rows, H), rnd(2, H, nglo) if nglo else None, rnd(H, nglo, nglo) if nglo else None
+
+
+def _grads_close(grads, refs, dtype, names):
+    """Every gradient (dbias included) at chip_smoke.py's limits: 1e-4 of
+    max(1, max|ref|) in f32; in bf16 1e-2 of it and 2e-2 of max|ref|."""
+    for name, x, r in zip(names, grads, refs):
+        if r is None:
+            assert x is None, name
+            continue
+        if dtype == torch.float32:
+            assert _rel_err(x, r) <= 1e-4, name
+        else:
+            assert _rel_err(x, r) <= CHUNK_GRAD_TOL and _scaled_err(x, r) <= CHUNK_SCALED_TOL, (
+                name, _rel_err(x, r), _scaled_err(x, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,C,H,grid,nglo", [(197, 384, 6, 14, 1), (49, 768, 12, 7, 0)])
+def test_rpe_dense_kernels_with_table_biases(cuda, dtype, N, C, H, grid, nglo):
+    """B3 and B4 at ViL-Small RPE's dense stages (batch 4) with the
+    (H, N, N) bias the model assembles from its tables (g2g and g2l on the
+    global token's row and column): out, LSE and every gradient, dbias too."""
+    from vil_tpu_torch.models.attention import full_rpe_bias
+
+    bias = full_rpe_bias(*_rpe_tables(cuda, 1, (2 * grid - 1) ** 2, H, nglo), grid, grid)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(4, N, C, generator=gen, device=cuda).mul(C ** -0.25).to(dtype)
+               for _ in range(3))
+    g = torch.randn(4, N, C, generator=gen, device=cuda).to(dtype)
+    out, lse = full_attention_fwd(q, k, v, bias, H, with_lse=True)
+    ref, ref_lse = full_attention_reference(q.float(), k.float(), v.float(), bias, H,
+                                            with_lse=True)
+    assert _max_err(out, ref) <= (1e-4 if dtype == torch.float32 else CHUNK_OUT_TOL)
+    assert _max_err(lse, ref_lse) <= CHUNK_LSE_TOL
+    grads = full_attention_bwd(q, k, v, bias, g, out, lse, H)
+    refs = full_attention_bwd_reference(q.float(), k.float(), v.float(), bias, g.float(), H)
+    _grads_close(grads, refs, dtype, ("dq", "dk", "dv", "dbias"))
+    assert grads[3].abs().max() > 0
+
+
+def _rpe_chunk(cuda, dtype, nx, C, H, mode, seed):
+    """Operands of ViL-Small RPE's sliding-chunk blocks at ``mode`` (batch
+    4, nglo 1): (q, k, v, k_glo, v_glo), the front-order bias the model
+    assembles from its tables, g and the additive mask."""
+    from vil_tpu_torch.models.attention import sliding_chunk_rpe_bias
+
+    table, g2l, _ = _rpe_tables(cuda, seed, 27 * 27, H, 1)
+    bias = sliding_chunk_rpe_bias(table, g2l, 7, mode)
+    acts, _, g, mask = _chunk_case(cuda, seed + 1, 4, nx, nx, 7, C // H, H, 1, 0, False, mode)
+    return [None if a is None else a.to(dtype) for a in acts], bias, g.to(dtype), mask
+
+
+CHUNK_NAMES = ("dq", "dk", "dv", "dk_glo", "dv_glo", "dbias")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nx,C", [(56, 96), (28, 192)])
+def test_rpe_sliding_chunk_kernels_with_table_biases(cuda, dtype, nx, C):
+    """B1 and B2 at ViL-Small RPE's stages 1 and 2 with the (3, 49, 442)
+    bias [g2l[1] | local] the model assembles: out, LSE, every gradient."""
+    acts, bias, g, mask = _rpe_chunk(cuda, dtype, nx, C, 3, 0, 3)
+    assert bias.shape == (3, 49, 442)
+    out, lse = vil_attention_fwd(*acts, bias, mask, 3, with_lse=True)
+    a32 = [None if a is None else a.float() for a in acts]
+    ref, ref_lse = vil_attention_reference(*a32, bias, mask, 3, with_lse=True)
+    assert _max_err(out, ref) <= (1e-4 if dtype == torch.float32 else CHUNK_OUT_TOL)
+    assert _max_err(lse, ref_lse) <= CHUNK_LSE_TOL
+    grads = vil_attention_bwd(*acts, bias, g, out, mask, lse, 3)
+    _grads_close(grads, vil_attention_bwd_reference(*a32, bias, g.float(), mask, 3), dtype,
+                 CHUNK_NAMES)
+
+
+@pytest.mark.parametrize("mode", range(1, 9))
+def test_rpe_sampled_neighbour_kernels_with_table_biases(cuda, mode):
+    """B5 and B6 in bf16 and f32 at stage 2's grid with the (3, 49, 99)
+    bias of ``mode`` in the kernels' front order [g2l[1] | self |
+    sampled]: out, LSE and every gradient."""
+    for dtype in (torch.float32, torch.bfloat16):
+        acts, bias, g, mask = _rpe_chunk(cuda, dtype, 28, 192, 3, mode, 4)
+        assert bias.shape == (3, 49, 99)
+        out, lse = vil_mode_attention_fwd(*acts, bias, mask, 3, mode, with_lse=True)
+        a32 = [None if a is None else a.float() for a in acts]
+        ref, ref_lse = vil_mode_attention_reference(*a32, bias, mask, 3, mode, with_lse=True)
+        assert _max_err(out, ref) <= (1e-4 if dtype == torch.float32 else CHUNK_OUT_TOL)
+        assert _max_err(lse, ref_lse) <= CHUNK_LSE_TOL
+        grads = vil_mode_attention_bwd(*acts, bias, g, out, mask, lse, 3, mode)
+        refs = vil_mode_attention_bwd_reference(*a32, bias, g.float(), mask, 3, mode)
+        _grads_close(grads, refs, dtype, CHUNK_NAMES)
+
+
+@pytest.mark.parametrize("nx,C", [(56, 96), (28, 192)])
+def test_rpe_fused_block_with_table_biases(cuda, nx, C):
+    """B9a and B9b in bf16 at ViL-Small RPE's stages 1 and 2 (batch 4) with
+    the model's (3, 49, 442) bias: y, k, v, and every gradient, dbias too,
+    to CHUNK_SCALED_TOL with no floor."""
+    _, bias, _, _ = _rpe_chunk(cuda, torch.float32, nx, C, 3, 0, 5)
+    ops, g, mask = _block_bf16_case(cuda, 6, 4, nx, nx, C, 3, 1, False)
+    ops[-1] = bias
+    ops32 = [None if t is None else t.float() for t in ops]
+    y, k, v = vil_block_fwd(*ops, mask, 3)
+    for name, a, r in zip(("y", "k", "v"), (y, k, v), vil_block_reference(*ops32, mask, 3)):
+        assert _scaled_err(a, r) <= CHUNK_SCALED_TOL, name
+    errs, grads = _block_bf16_errors(ops, g, mask, 3)
+    assert "dbias" in errs and max(errs.values()) <= CHUNK_SCALED_TOL, errs
+    assert grads[11].abs().max() > 0
+
+
+def test_rpe_halo_kernels_split_over_two_ranks(cuda):
+    """B7a and B7b in bf16 on the two shards of ViL-Small RPE's stage-1
+    grid with the model's bias: the shards' outputs together against B1's
+    on the whole grid, their dK/dV folded onto the rows' owners and their
+    dbias summed against B2's."""
+    acts, bias, g, mask = _rpe_chunk(cuda, torch.bfloat16, 56, 96, 3, 0, 7)
+    q, k, v, kg, vg = acts
+    out, lse = vil_attention_fwd(*acts, bias, mask, 3, with_lse=True)
+    whole = vil_attention_bwd(*acts, bias, g, out, mask, lse, 3)
+    mxs = q.shape[1] // 2
+    dq, dk, dv = (torch.zeros(t.shape, device=cuda) for t in (q, k, v))
+    dbias, outs = torch.zeros_like(bias), []
+    for sh in range(2):
+        sl = slice(sh * mxs, (sh + 1) * mxs)
+        (k_ext, rows), (v_ext, _) = _halo_shard(k, sh, mxs), _halo_shard(v, sh, mxs)
+        ops = [q[:, sl].contiguous(), k_ext, v_ext, kg, vg, bias]
+        o, l = vil_attention_halo_fwd(*ops, mask[sl], 3, with_lse=True)
+        grads = vil_attention_halo_bwd(*ops, g[:, sl].contiguous(), o, mask[sl], l, 3)
+        outs.append(o)
+        dq[:, sl] = grads[0].float()
+        for e, row in enumerate(rows):
+            dk[:, row] += grads[1][:, e].float()
+            dv[:, row] += grads[2][:, e].float()
+        dbias += grads[5]
+    assert _max_err(torch.cat(outs, dim=1), out.float()) <= CHUNK_OUT_TOL
+    for name, x, r in (("dq", dq, whole[0]), ("dk", dk, whole[1]), ("dv", dv, whole[2]),
+                       ("dbias", dbias, whole[5])):
+        assert _scaled_err(x, r.float()) <= CHUNK_SCALED_TOL, name
+
+
+RPE_ARCH = ("l1,h2,d64,n1,s1,g1,p4,f7,a0_l2,h2,d64,n2,s1,g1,p2,f7,a0_"
+            "l3,h2,d128,n2,s0,g1,p2,f7,a0_l4,h2,d128,n1,s0,g0,p2,f7,a0")
+
+
+def _rpe_model(cuda, use_kernels=True, **kw):
+    model = MsViT(RPE_ARCH, img_size=224, num_classes=10, sharew=True, norm_embed=True,
+                  device=cuda, use_kernels=use_kernels,
+                  generator=torch.Generator().manual_seed(0), **kw)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "relative_position" in name:
+                p.copy_(torch.randn(p.shape, generator=gen))
+    return model
+
+
+def test_rpe_model_serves_and_trains_through_the_kernels(cuda):
+    """A narrow 224² RPE model with its tables at σ 1: the served logits
+    (from precompute_rpe_cache and without it) and one f32 step's loss and
+    gradients (the tables' included) equal to the plain path's; 3 and 3
+    launches of each kernel per forward and step, every bias reaching its
+    kernel; the tables' gradients the same bits in a second backward (the
+    patch embedding's convolution need not be)."""
+    from vil_tpu_torch.models import precompute_rpe_cache
+    from vil_tpu_torch.train import loss
+
+    x = torch.randn(4, 224, 224, 3, device=cuda)
+    y = torch.randint(0, 10, (4,), device=cuda)
+    logits, grads = {}, {}
+    for use_kernels in (True, False):
+        model = _rpe_model(cuda, use_kernels).eval()
+        with torch.inference_mode():
+            logits[use_kernels] = model(x)
+            precompute_rpe_cache(model)
+            assert torch.equal(model(x), logits[use_kernels])
+        for _ in range(2 if use_kernels else 1):
+            model.zero_grad()
+            loss.cross_entropy(model.train()(x), y).backward()
+            step = {n: p.grad.clone() for n, p in model.named_parameters()}
+            if use_kernels in grads:  # the second backward: the tables' same bits
+                for n, gr in step.items():
+                    assert "relative_position" not in n or torch.equal(gr, grads[True][n]), n
+            grads[use_kernels] = step
+    # per forward B1 3 and B3 3: two served, two trained (B2 and B4 3 each)
+    assert [fn.launches for fn in KERNELS] == [12, 12, 6, 6] + [0] * 8
+    assert _max_err(logits[True], logits[False]) <= 1e-3
+    for name, ref in grads[False].items():
+        if ref.numel():
+            assert _max_err(grads[True][name], ref) <= 1e-4 * max(1e-30, ref.abs().max().item()), name
+    assert grads[True]["stage1_block0_attn.attn.local_relative_position_bias_table"].abs().max() > 0

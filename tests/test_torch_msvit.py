@@ -267,8 +267,6 @@ def test_bf16_forward_is_finite():
 
 def test_unported_features_raise():
     cpu = dict(img_size=56, device="cpu")
-    with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD.replace("f4", "f4,a0"), sharew=True, **cpu)
     # SW_EXACT 1 has no sampled-neighbour (MODE 1..8) tables, as in vil_tpu
     exact1 = MsViT(ARCH_PAD, sharew=True, sw_exact=1, mode=1, **cpu).train()
     with pytest.raises(ValueError, match="SW_EXACT 1"):

@@ -6,6 +6,7 @@ import os
 import torch
 
 from .arch import ARCH_ZOO, StageCfg, parse_arch
+from .attention import RelativePositionBias
 from .msvit import NO_WEIGHT_DECAY_SUBSTRINGS, MsViT
 
 
@@ -69,5 +70,23 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
     )
 
 
+def precompute_rpe_cache(model: torch.nn.Module) -> torch.nn.Module:
+    """Serving helper (counterpart of ``vil_tpu.models.precompute_rpe_cache``):
+    assemble every relative-position block's mode-0 bias once, so that eval
+    forwards read it instead of assembling it per call; the dense blocks'
+    and the sliding-chunk blocks' alike. Returns ``model``.
+
+    Training never reads the cache (it would cut the tables' gradients), nor
+    does an eval forward that takes a gradient to the tables. A cache built
+    before a table changes is never served: a block whose tables have a new
+    version or storage since (``load_jax_params``, an optimizer step,
+    ``.to()``) drops its cache and assembles the bias afresh; call this again
+    to cache the new one."""
+    for mod in model.modules():
+        if isinstance(mod, RelativePositionBias):
+            mod.cache_rpe_bias()
+    return model
+
+
 __all__ = ["ARCH_ZOO", "MsViT", "NO_WEIGHT_DECAY_SUBSTRINGS", "StageCfg", "build_model",
-           "parse_arch"]
+           "parse_arch", "precompute_rpe_cache"]

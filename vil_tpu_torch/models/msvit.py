@@ -6,13 +6,14 @@ selected per stage by the ARCH string. Images are NHWC.
 
 Ported: ``longformerhand`` (and its aliases) with shared weights, at
 neighbour mode 0 with any SW_EXACT and at the sampled-neighbour modes 1..8
-of random-shift training (SW_EXACT 0 or -1), ``full`` attention, APE,
-stochastic depth, and the fused-kernel switches of the JAX package
-(``fused_ln``: the block pre-norms through the LayerNorm kernels;
-``fused_block``: each sliding-chunk attention at mode 0 as one fused
-attention-block kernel pair). Not ported yet, and refused at construction:
-RPE (``a0``), ``only_glo``, ``sharew=False`` and the other attention
-families. Dropout raises in training mode.
+of random-shift training (SW_EXACT 0 or -1), ``full`` attention, APE and
+relative position bias (``a0``: the tables of each block, their bias passed
+to the kernels; ``models.precompute_rpe_cache`` for serving), stochastic
+depth, and the fused-kernel switches of the JAX package (``fused_ln``: the
+block pre-norms through the LayerNorm kernels; ``fused_block``: each
+sliding-chunk attention at mode 0 as one fused attention-block kernel pair).
+Not ported yet, and refused at construction: ``only_glo``, ``sharew=False``
+and the other attention families. Dropout raises in training mode.
 
 Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)``, through
 ``parallel.spatial_forward``, runs the eval forward with the image's rows
@@ -62,7 +63,7 @@ class AttnBlock(nn.Module):
     attention block for a sliding-chunk attention at mode 0."""
 
     def __init__(self, dim: int, num_heads: int, attn_type: str, nglo: int = 1,
-                 w: int = 7, drop: float = 0.0,
+                 w: int = 7, rpe: bool = False, wx: int = 14, wy: int = 14, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  sw_exact: int = 0, ln_eps: float = 1e-6,
                  use_kernels: bool = True, fused_ln: bool = False,
@@ -73,10 +74,10 @@ class AttnBlock(nn.Module):
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.norm = make_layer_norm(fused_ln, dim, eps=ln_eps, **kw)
         common = dict(dim=dim, num_heads=num_heads,
-                      attn_drop=attn_drop, proj_drop=drop,
+                      attn_drop=attn_drop, proj_drop=drop, rpe=rpe,
                       use_kernels=use_kernels, **kw)
         if attn_type == "full":
-            self.attn = FullAttention(**common)
+            self.attn = FullAttention(wx=wx, wy=wy, nglo=nglo, **common)
         elif attn_type in LONGFORMER_TYPES:
             self.attn = VilAttention(w=w, nglo=nglo, exact=sw_exact, fused_block=fused_block,
                                      **common)
@@ -160,8 +161,6 @@ class MsViT(nn.Module):
         self.mode = mode
         if only_glo:
             raise NotImplementedError("only_glo is not ported")
-        if any(c.rpe for c in cfgs):
-            raise NotImplementedError("relative position bias (a0) is not ported")
 
         dprs = np.linspace(0, drop_path_rate, self.depth)
         self.stage_blocks: list[list[tuple[str, str]]] = []
@@ -194,7 +193,7 @@ class MsViT(nn.Module):
                 mlp_name = f"stage{sid + 1}_block{bid}_mlp"
                 setattr(self, attn_name, AttnBlock(
                     dim=c.dim, num_heads=c.num_heads, attn_type=stage_type,
-                    nglo=c.nglo, w=c.num_feats, drop=drop_rate,
+                    nglo=c.nglo, w=c.num_feats, rpe=c.rpe, wx=nx, wy=ny, drop=drop_rate,
                     attn_drop=attn_drop_rate, drop_path=dpr, sw_exact=sw_exact,
                     ln_eps=ln_eps, use_kernels=use_kernels, fused_ln=fused_ln,
                     fused_block=fused_block, **kw,
@@ -228,9 +227,9 @@ class MsViT(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw every parameter as the flax modules initialise theirs: dense
-        weights, global tokens and position embeddings truncated-normal with
-        σ = 0.02 (cut at ±2σ), conv weights LeCun-normal, biases 0, LayerNorm
-        scales 1. Values are drawn in f32 on the CPU from ``generator`` and
+        weights, global tokens, position embeddings and relative-position
+        tables truncated-normal with σ = 0.02 (cut at ±2σ), conv weights
+        LeCun-normal, biases 0, LayerNorm scales 1. Values are drawn in f32 on the CPU from ``generator`` and
         then copied, so one seed gives the same weights on any device."""
 
         def trunc_normal_(p, std):
@@ -247,6 +246,9 @@ class MsViT(nn.Module):
                 trunc_normal_(mod.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
+            elif isinstance(mod, (FullAttention, VilAttention)):
+                for table in mod.rpe_tables():
+                    trunc_normal_(table, 0.02)
             elif isinstance(mod, PatchEmbed):
                 for name in ("cls_token", "cls_pos_embed", "x_pos_embed", "y_pos_embed"):
                     if hasattr(mod, name):

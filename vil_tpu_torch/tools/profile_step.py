@@ -1,12 +1,15 @@
 """Where the time of a ViL-Small 224² step goes on one CUDA card.
 
     python -m vil_tpu_torch.tools.profile_step
-        [--mode train|train_shift|serve|serve_spatial] [--fused] [--out profile_train.json]
+        [--mode train|train_shift|serve|serve_spatial] [--fused] [--rpe]
+        [--out profile_train.json]
 
 Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
 compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
 the random-shift step, one sampled neighbour mode per block; ``--fused`` the
-fused-kernel configuration, ``recipe.vil_small(..., fused=True)``;
+fused-kernel configuration, ``recipe.vil_small(..., fused=True)``; ``--rpe``
+ViL-Small RPE, ``recipe.vil_small(..., rpe=True)``, served from
+``models.precompute_rpe_cache``;
 ``serve_spatial`` the serving forward through ``parallel.spatial_forward`` on
 a one-rank ``nccl`` group, set up from a ``FileStore`` under build/) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
@@ -83,6 +86,8 @@ def main() -> None:
     ap.add_argument("--mode", choices=("train", "train_shift", "serve", "serve_spatial"), default="train")
     ap.add_argument("--fused", action="store_true",
                     help="the fused-kernel configuration (TPU.FUSED_LN, fused block)")
+    ap.add_argument("--rpe", action="store_true",
+                    help="ViL-Small RPE: relative position bias in every stage")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -94,13 +99,18 @@ def main() -> None:
     images = torch.randn(recipe.BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (recipe.BATCH,), generator=gen, device=dev)
     if args.mode in ("train", "train_shift"):
-        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=args.fused)
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=args.fused,
+                                 rpe=args.rpe)
         step_fn = recipe.train_step(model, dev, random_shift=args.mode == "train_shift")
         step_gen = torch.Generator(device=dev).manual_seed(3)
         run = lambda: step_fn(images, labels, step_gen)
     else:
         model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev,
-                                 fused=args.fused).eval()
+                                 fused=args.fused, rpe=args.rpe).eval()
+        if args.rpe:
+            from ..models import precompute_rpe_cache
+
+            precompute_rpe_cache(model)
         images = torch.randint(0, 256, images.shape, generator=gen, device=dev,
                                dtype=torch.uint8)  # normalised on the device
         forward = model
@@ -143,14 +153,15 @@ def main() -> None:
         fams[family(name)] = fams.get(family(name), 0.0) + ms
     card = card_line()
     result = {
-        "mode": args.mode, "fused": args.fused, "batch": recipe.BATCH, "steps": STEPS,
+        "mode": args.mode, "fused": args.fused, "rpe": args.rpe, "batch": recipe.BATCH,
+        "steps": STEPS,
         "card": card,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
         "busy_share": device_ms / wall_ms if wall_ms else None,
         "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:30]),
     }
-    label = args.mode + (" fused" if args.fused else "")
+    label = args.mode + (" fused" if args.fused else "") + (" RPE" if args.rpe else "")
     print(f"{card}; ViL-Small 224^2 {label} bf16 batch {recipe.BATCH}: wall "
           f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
     for fam, ms in result["families_ms"].items():

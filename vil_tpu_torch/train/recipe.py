@@ -17,6 +17,11 @@ keys differ from the yaml:
 the reference's switch for random shifting, with one sampled neighbour mode
 per attention block (TPU.MODE_PER_LAYER).
 
+``vil_small_cfg(rpe=True)`` and ``vil_small(..., rpe=True)`` are ViL-Small
+RPE: the same model with relative position bias in every stage (``a0``
+appended to each stage of the ARCH string, as ``benchmarks/model_bench.py``
+builds it), the configuration of the released RPE checkpoints.
+
 ``vil_small_cfg(fused=True)`` and ``vil_small(..., fused=True)`` are the
 fused-kernel configuration of the same model: TPU.FUSED_LN True (the block
 pre-norms through the LayerNorm kernels) and the fused attention block at
@@ -28,6 +33,7 @@ builders, the ones the tests hold to the JAX package's. ``chip_smoke.py`` and
 """
 from __future__ import annotations
 
+import re
 from types import SimpleNamespace as NS
 from typing import Callable
 
@@ -41,15 +47,23 @@ IMAGENET_TRAIN_IMAGES = 1281167
 BATCH = 64
 
 
-def vil_small_cfg(mode: int = 0, fused: bool = False) -> NS:
+def rpe_arch(arch: str) -> str:
+    """``arch`` with relative position bias in every stage: each stage's
+    ``a`` attribute set to 0, or ``a0`` appended."""
+    return "_".join(re.sub(r"a\d+", "a0", s) if ",a" in s else s + ",a0"
+                    for s in arch.split("_"))
+
+
+def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False) -> NS:
     steps_per_epoch = IMAGENET_TRAIN_IMAGES // BATCH
+    arch = rpe_arch(ARCH_ZOO["vil_small"]) if rpe else ARCH_ZOO["vil_small"]
     return NS(
         DATA=NS(NUM_CLASSES=1000),
         DATALOADER=NS(BSZ=BATCH),
         INPUT=NS(IMAGE_SIZE=224, MEAN=[0.485, 0.456, 0.406], STD=[0.229, 0.224, 0.225]),
         MODEL=NS(ARCH="msvit", VIT=NS(
             DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
-            MSVIT=NS(ARCH=ARCH_ZOO["vil_small"], SHARE_W=True, ATTN_TYPE="longformerhand",
+            MSVIT=NS(ARCH=arch, SHARE_W=True, ATTN_TYPE="longformerhand",
                      ONLY_GLOBAL=False, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
         TPU=NS(COMPUTE_DTYPE="bfloat16", PARAM_DTYPE="float32", USE_PALLAS=True,
                MODE_PER_LAYER=True, FUSED_LN=fused),
@@ -65,10 +79,12 @@ def vil_small_cfg(mode: int = 0, fused: bool = False) -> NS:
 
 
 def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
-              use_kernels: bool = True, device=None, fused: bool = False) -> MsViT:
+              use_kernels: bool = True, device=None, fused: bool = False,
+              rpe: bool = False) -> MsViT:
     """The recipe's model, computed in ``dtype`` with parameters in
-    ``param_dtype``; random weights from seed 0 (the same with ``fused``)."""
-    return build_model(vil_small_cfg(fused=fused), dtype=dtype, param_dtype=param_dtype,
+    ``param_dtype``; random weights from seed 0 (the same with ``fused``;
+    with ``rpe`` the ViL-Small RPE model, whose tables are drawn too)."""
+    return build_model(vil_small_cfg(fused=fused, rpe=rpe), dtype=dtype, param_dtype=param_dtype,
                        device=device, use_kernels=use_kernels, fused_block=fused,
                        generator=torch.Generator().manual_seed(0))
 
