@@ -88,6 +88,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
    kernel step, B3, B4 9.
 14. train_fused_rpe — the same pair in the fused configuration: B9a, B9b 3,
    B8a, B8b 30, B3, B4 9 a kernel step.
+15. experiment — the entry point users run, ``python -m
+   vil_tpu_torch.run_experiment`` (config, data pipeline, trainer,
+   checkpoints), driven in-process through its ``main(argv)`` on
+   configs/msvit.yaml's recipe at ViL-Small's full width and depth, batch 64
+   (the yaml's 256, cut), the synthetic set (512 images: 8 steps an epoch, 8
+   eval batches): two epochs, random shift in the first (VIL_MODE_SWITCH
+   0.5), MODE 0 in the second; a resume of the same directory to three
+   epochs (from the ``last_checkpoint`` tag at epoch 2, step 16, at the
+   schedule's LR there; its epoch under ``torch.profiler`` for the card's
+   busy share); the last checkpoint reloaded under EVALUATE, its eval bit
+   for bit the run's; the same eval in f32 with the kernels and with the
+   plain versions (TPU.USE_PALLAS), loss to LOSS_TOL and top1 equal. Each
+   run's launches must equal the formula from the trainer's own counts
+   (random-shift and MODE-0 steps, eval batches, the best checkpoint's
+   eval); per epoch the median batch_time, data_time and img/s, and the peak
+   memory, are printed.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -121,14 +137,14 @@ bias assembled from tables drawn at σ 1 by the model's own assembly: B3 with
 modes 1..8 with (3, 49, 99) in front order, B7a/B7b split over 2 ranks; each
 timed per call with its bias (SDPA with the bias in its mask beside it).
 
-Each path of phases 4-14 sets the launch counts to 0 before it and reads
+Each path of phases 4-15 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_serve_fused``, ``launches_train_fused``, ``launches_serve_spatial``,
 ``launches_spatial_bwd``, ``launches_probe``, ``launches_serve_rpe``,
-``launches_train_rpe``, ``launches_shift_rpe`` and ``launches_train_fused_rpe``
-each path's; ``ms``,
+``launches_train_rpe``, ``launches_shift_rpe``, ``launches_train_fused_rpe`` and
+``launches_experiment`` each path's; ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
 path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
 for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
@@ -764,14 +780,14 @@ def check_kernels(torch, records):
             phase("kernels", f"  vil_block_fwd without lse (serving): {serve_ms:.4f} ms")
 
     def halo_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, splits, per_fwd=0,
-                  per_bwd=0, bias=None):
+                  per_bwd=0, bias=None, timed=False):
         """Halo-input cases: B7a and B7b on every shard of the grid split
         over each D of ``splits``, against their plain versions; the shards
         together against B1 and B2 on the whole grid. ``per_fwd`` is the
         case's share of one spatial forward's B7a launches on one rank
         (D = 1), ``per_bwd`` its share of the spatial backward path's B7b
-        launches; with ``per_fwd`` every D's shard 0 is timed (all shards do
-        the same work)."""
+        launches; with ``per_fwd`` or ``timed`` every D's shard 0 is timed
+        (all shards do the same work; SDPA with the bias in its mask)."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + 9 * w2
@@ -833,12 +849,13 @@ def check_kernels(torch, records):
                 check(f"halo folded dK/dV vs B2 {label} D {D} {dt}", e_b2, GRAD_TOL[dt])
                 for n, e in e_scaled.items():
                     check(f"halo {n} scaled {label} D {D} {dt}", e, CHUNK_SCALED_TOL)
-                if not (per_fwd and dtype == torch.bfloat16):
+                if not ((per_fwd or timed) and dtype == torch.bfloat16):
                     continue
-                records["vil_attention_halo_fwd"]["max_abs_err"] = max(
-                    records["vil_attention_halo_fwd"]["max_abs_err"], e_out)
-                records["vil_attention_halo_bwd"]["max_abs_err"] = max(
-                    records["vil_attention_halo_bwd"]["max_abs_err"], e_abs)
+                if per_fwd:
+                    records["vil_attention_halo_fwd"]["max_abs_err"] = max(
+                        records["vil_attention_halo_fwd"]["max_abs_err"], e_out)
+                    records["vil_attention_halo_bwd"]["max_abs_err"] = max(
+                        records["vil_attention_halo_bwd"]["max_abs_err"], e_abs)
                 ops, m_rows, gs, out, lse, grads = shards[0]
                 heads = lambda t: t.view(B * mxs * my, -1, H, M).transpose(1, 2)
 
@@ -853,8 +870,10 @@ def check_kernels(torch, records):
                     return kv
 
                 k_cat, v_cat = materialise()
-                attn_mask = (m_rows.to(dtype)[None].expand(B, -1, -1, -1, -1)
-                             .reshape(B * mxs * my, 1, m_rows.shape[2], cols))
+                rows_mask = (m_rows[:, :, None] if bias is None else
+                             m_rows[:, :, None] + bias[None, None]).to(dtype)
+                attn_mask = (rows_mask[None].expand(B, -1, -1, -1, -1, -1)
+                             .reshape(B * mxs * my, rows_mask.shape[2], -1, cols))
                 lib_fwd, lib_bwd, _ = sdpa_times(heads(ops[0]), k_cat, v_cat, heads(gs), attn_mask)
                 act = B * mxs * my * w2 * C
                 fwd_flops = 4.0 * act * cols
@@ -1013,7 +1032,7 @@ def check_kernels(torch, records):
                        bias=sliding_chunk_rpe_bias(table, g2l, 7, mode))
     table, g2l, _ = tables(27 * 27, 3, 1)
     halo_case("RPE stage1 (64,8,8,49,96) H3, bias (3,49,442) from tables", 64, 56, 56, 7, 96,
-              3, 1, 0, True, (2,), bias=sliding_chunk_rpe_bias(table, g2l, 7))
+              3, 1, 0, True, (2,), bias=sliding_chunk_rpe_bias(table, g2l, 7), timed=True)
     # the card's time of B5, B9a, B9b, B8a and B8b per step beside their
     # event time, B9a's, B9b's and B8b's by part
     from vil_tpu_torch.tools.profile_step import family
@@ -1513,9 +1532,174 @@ def run_probe(torch, kernels):
     return launches
 
 
+EXPERIMENT_DIR = os.path.join(REPO, "build", "chip_experiment")
+# the CLI's arguments: configs/msvit.yaml's recipe on the synthetic set, the
+# batch cut to 64, two epochs, random shift for the first
+EXPERIMENT_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit.yaml"),
+                   "--output_dir", EXPERIMENT_DIR, "--seed", "0",
+                   "DATA.TRAIN", "('synthetic',)", "DATA.TEST", "('synthetic',)",
+                   "DATALOADER.BSZ", str(BATCH), "OPTIM.EPOCHS", "2", "MODEL.VIT.MSVIT.MODE", "1",
+                   "MODEL.VIT.MSVIT.VIL_MODE_SWITCH", "0.5", "LOG_FREQ", "1"]
+
+
+def experiment_want(trainer, kernels) -> tuple[dict, str]:
+    """The launches a run of the CLI must have made, from the trainer's own
+    counts: per random-shift step B5 3, B6 3, B3 9, B4 9; per MODE-0 step B1
+    3, B2 3, B3 9, B4 9; per eval batch (the best checkpoint's eval
+    included) B1 3, B3 9; none with the plain versions."""
+    want = {fn.__name__: 0 for fn in kernels}
+    shift, mode0, ev = trainer.steps_run[True], trainer.steps_run[False], trainer.eval_batches
+    formula = (f"{shift} random-shift steps, {mode0} MODE-0 steps, {ev} eval batches "
+               f"(best-checkpoint eval {'ran' if trainer.best_evaluated else 'did not run'})")
+    if not trainer.cfg.TPU.USE_PALLAS:
+        return want, formula + ", plain versions"
+    want.update(vil_mode_attention_fwd=3 * shift, vil_mode_attention_bwd=3 * shift,
+                vil_attention_fwd=3 * (mode0 + ev), vil_attention_bwd=3 * mode0,
+                full_attention_fwd=9 * (shift + mode0 + ev), full_attention_bwd=9 * (shift + mode0))
+    return want, formula
+
+
+def run_experiment_path(torch, kernels):
+    """Phase 15: the port's entry point, ``python -m vil_tpu_torch.run_experiment``,
+    driven in-process through its ``main(argv)`` at ViL-Small's full width
+    and depth: two epochs (random shift, then MODE 0), a resume to a third
+    epoch, a reload of the last checkpoint under EVALUATE (bit for bit), and
+    the same eval in f32 with the kernels and with the plain versions."""
+    import shutil
+
+    from vil_tpu_torch import run_experiment as cli
+    from vil_tpu_torch.tools.profile_step import kernel_ms
+    from vil_tpu_torch.train import schedulers
+    from vil_tpu_torch.train.trainer import Trainer
+
+    name = "experiment"
+    shutil.rmtree(EXPERIMENT_DIR, ignore_errors=True)
+    for fn in kernels:
+        fn.launches = 0
+
+    def run(label, argv):
+        """One CLI run; its launches held to the trainer's counts."""
+        before = launch_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        want, formula = experiment_want(trainer, kernels)
+        shown = {k: v for k, v in rose.items() if v or want[k]}
+        phase(name, f"{label}: {wall:.1f} s; launches {shown} (the rest 0); want "
+                    f"{ {k: want[k] for k in shown} } from {formula}")
+        if rose != want:
+            raise AssertionError(f"{label}: launches {rose} != {want}")
+        losses = [r["loss"] for r in trainer.steps_log] + [e["loss"] for e in trainer.evals]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label}: losses not finite: {losses}")
+        return trainer
+
+    def epochs(trainer, label):
+        for epoch in sorted({r["epoch"] for r in trainer.steps_log}):
+            rows = [r for r in trainer.steps_log if r["epoch"] == epoch]
+            batch = statistics.median(r["batch_time"] for r in rows[1:])
+            data = statistics.median(r["data_time"] for r in rows[1:])
+            mode = "random shift" if rows[0]["random_shift"] else "MODE 0"
+            losses = ", ".join(f"{r['loss']:.4f}" for r in rows)
+            phase(name, f"{label} epoch {epoch} ({mode}, {len(rows)} steps): median batch_time "
+                        f"{batch * 1e3:.3f} ms, data_time {data * 1e3:.3f} ms (steps "
+                        f"2..{len(rows)}), {BATCH / batch:.1f} img/s; losses {losses}")
+
+    # 1. two epochs: random shift in epoch 0 (< 0.5 * 2), MODE 0 in epoch 1
+    torch.cuda.reset_peak_memory_stats()
+    first = run("two-epoch run", EXPERIMENT_ARGS)
+    flags = [(r["epoch"], r["random_shift"]) for r in first.steps_log]
+    if flags != [(0, True)] * 8 + [(1, False)] * 8 or first.eval_batches != 8 * 2 + 8:
+        raise AssertionError(f"two-epoch run: (epoch, random shift) per step {flags}, "
+                             f"{first.eval_batches} eval batches (want 8 x 3)")
+    epochs(first, "two-epoch run")
+    mode0_wall = statistics.median(r["batch_time"] for r in first.steps_log[9:])
+    phase(name, f"two-epoch run evals: " + "; ".join(
+        f"top1 {e['top1']:.4f} loss {e['loss']:.6f}" for e in first.evals)
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del first
+
+    # 2. a resume to three epochs, its MODE-0 epoch under torch.profiler for
+    # the card's busy share (the profiler's host work lengthens the wall, so
+    # the share is a lower bound)
+    profiled = {}
+    train_epoch = Trainer.train_epoch
+
+    def profiled_epoch(self, epoch, meters=None):
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            train_epoch(self, epoch, meters)
+            torch.cuda.synchronize()
+            profiled["wall"] = time.perf_counter() - t0
+        profiled["device"] = sum(kernel_ms(prof).values()) / 1e3
+
+    argv = EXPERIMENT_ARGS[:EXPERIMENT_ARGS.index("OPTIM.EPOCHS") + 1] + ["3"] + \
+        EXPERIMENT_ARGS[EXPERIMENT_ARGS.index("OPTIM.EPOCHS") + 2:]
+    Trainer.train_epoch = profiled_epoch
+    try:
+        resumed = run("resume to 3 epochs", argv)
+    finally:
+        Trainer.train_epoch = train_epoch
+    log = resumed.steps_log
+    want_lr = schedulers.get_lr_schedule(resumed.cfg)(16)
+    phase(name, f"resume: start epoch {resumed.start_epoch}, first step {log[0]['step']}, its "
+                f"LR {log[0]['lr']!r} (get_lr_schedule at step 16: {want_lr!r}); "
+                f"{len(log)} steps, random shift {sorted({r['random_shift'] for r in log})}")
+    if not (resumed.start_epoch == 2 and log[0]["step"] == 16 and log[0]["lr"] == want_lr
+            and len(log) == 8 and not any(r["random_shift"] for r in log)):
+        raise AssertionError("the resume did not start at epoch 2, step 16, at its LR, MODE 0")
+    epochs(resumed, "resume (profiled)")
+    steps = len(log)
+    device = profiled["device"] / steps
+    phase(name, f"resume epoch 2 under torch.profiler: wall {profiled['wall'] * 1e3 / steps:.3f} "
+                f"ms per step, device {device * 1e3:.3f} ms per step, busy "
+                f"{100 * device * steps / profiled['wall']:.1f}%; against the two-epoch run's "
+                f"unprofiled MODE-0 median wall {mode0_wall * 1e3:.3f} ms: idle "
+                f"{100 * (1 - device / mode0_wall):.1f}%")
+    last = resumed.evals[0]  # after epoch 2, from checkpoint_3's weights
+    for f in ("checkpoint_1.ckpt", "checkpoint_2.ckpt", "checkpoint_3.ckpt",
+              "checkpoint_1.ckpt.json", "checkpoint_2.ckpt.json", "checkpoint_3.ckpt.json",
+              "last_checkpoint", "config.yaml"):
+        if not os.path.isfile(os.path.join(EXPERIMENT_DIR, f)):
+            raise AssertionError(f"{f} missing from {EXPERIMENT_DIR}")
+    del resumed
+
+    # 3. the last checkpoint reloaded under EVALUATE: its eval bit for bit
+    ckpt = os.path.join(EXPERIMENT_DIR, "checkpoint_3.ckpt")
+
+    def evaluate(label, *opts):
+        out = os.path.join(EXPERIMENT_DIR, label)
+        argv = EXPERIMENT_ARGS + ["EVALUATE", "True", "MODEL.MODEL_PATH", ckpt, *opts]
+        argv[argv.index("--output_dir") + 1] = out
+        return run(f"EVALUATE {label}", argv).evals[-1]
+
+    reload = evaluate("reload")
+    phase(name, f"reload of checkpoint_3: top1 {reload['top1']!r} loss {reload['loss']!r}; the "
+                f"run's eval after epoch 2 top1 {last['top1']!r} loss {last['loss']!r}")
+    if (reload["top1"], reload["loss"]) != (last["top1"], last["loss"]):
+        raise AssertionError("the reloaded checkpoint's eval differs from the run's")
+
+    # 4. the same eval in f32, kernels vs plain versions
+    f32_k = evaluate("f32_kernels", "TPU.COMPUTE_DTYPE", "float32", "TPU.USE_PALLAS", "True")
+    f32_p = evaluate("f32_plain", "TPU.COMPUTE_DTYPE", "float32", "TPU.USE_PALLAS", "False")
+    err = abs(f32_k["loss"] - f32_p["loss"])
+    phase(name, f"f32 eval of checkpoint_3, kernels vs plain versions: loss {f32_k['loss']:.6f} "
+                f"vs {f32_p['loss']:.6f} (|err| {err:.3e}, tol {LOSS_TOL:g}); top1 "
+                f"{f32_k['top1']} vs {f32_p['top1']}")
+    if not (err <= LOSS_TOL and f32_k["top1"] == f32_p["top1"]):
+        raise AssertionError(f"f32 eval disagrees: loss {err}, top1 {f32_k['top1']} vs "
+                             f"{f32_p['top1']}")
+    return launch_counts(kernels)
+
+
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
-         "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe")
+         "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment")
 
 
 def only_arg(argv) -> "set | None":
@@ -1633,6 +1817,8 @@ def main() -> int:
         "train_rpe": lambda: run_train(torch, kernels, rpe=True),
         "shift_rpe": lambda: run_train(torch, kernels, random_shift=True, rpe=True),
         "train_fused_rpe": lambda: run_train(torch, kernels, fused=True, rpe=True),
+        # the entry point users run: config, data pipeline, trainer, checkpoints
+        "experiment": lambda: run_experiment_path(torch, kernels),
     }
     if only is None or "kernels" in only:
         check_kernels(torch, records)

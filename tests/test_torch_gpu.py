@@ -1306,3 +1306,31 @@ def test_rpe_model_serves_and_trains_through_the_kernels(cuda):
         if ref.numel():
             assert _max_err(grads[True][name], ref) <= 1e-4 * max(1e-30, ref.abs().max().item()), name
     assert grads[True]["stage1_block0_attn.attn.local_relative_position_bias_table"].abs().max() > 0
+
+
+def test_run_experiment_cli_one_epoch(cuda, tmp_path):
+    """The port's CLI (``python -m vil_tpu_torch.run_experiment``) for one
+    epoch of configs/msvit.yaml's recipe on a 2-class synthetic set at batch
+    8 (8 steps, 8 eval batches, then the best checkpoint's eval): every
+    launch per step and per eval batch, the checkpoint files, finite
+    losses."""
+    import math
+    import os
+
+    from vil_tpu_torch.run_experiment import main
+
+    yaml = os.path.join(os.path.dirname(__file__), "..", "configs", "msvit.yaml")
+    trainer = main(["--config-file", yaml, "--output_dir", str(tmp_path), "--seed", "0",
+                    "DATA.TRAIN", "('synthetic',)", "DATA.TEST", "('synthetic',)",
+                    "DATA.NUM_CLASSES", "2", "DATALOADER.BSZ", "8", "OPTIM.EPOCHS", "1",
+                    "LOG_FREQ", "1"])
+    steps, ev = trainer.steps_run[False], trainer.eval_batches
+    assert trainer.steps_run[True] == 0 and steps == 8
+    assert ev == 8 * (2 if trainer.best_evaluated else 1)
+    # B1 3 a forward, B3 9; B2 3 and B4 9 a step; the rest 0
+    assert [fn.launches for fn in KERNELS] == [3 * (steps + ev), 9 * (steps + ev), 3 * steps,
+                                               9 * steps] + [0] * 8
+    assert all(math.isfinite(r["loss"]) for r in trainer.steps_log)
+    assert all(math.isfinite(e["loss"]) for e in trainer.evals)
+    for f in ("checkpoint_1.ckpt", "checkpoint_1.ckpt.json", "last_checkpoint", "config.yaml"):
+        assert (tmp_path / f).is_file(), f

@@ -307,7 +307,11 @@ def test_port_imports_no_jax():
             "vil_tpu_torch.train.engine, vil_tpu_torch.train.recipe, "
             "vil_tpu_torch.data.mixup, vil_tpu_torch.tools.profile_step, "
             "vil_tpu_torch.parallel, vil_tpu_torch.ops.kernels.vil_attention_halo, "
-            "vil_tpu_torch.tools.layout_probe, vil_tpu_torch.tools.sass_census; "
+            "vil_tpu_torch.tools.layout_probe, vil_tpu_torch.tools.sass_census, "
+            "vil_tpu_torch.config, vil_tpu_torch.data.loader, vil_tpu_torch.data.rand_augment, "
+            "vil_tpu_torch.data.tsv, vil_tpu_torch.utils.checkpoint, "
+            "vil_tpu_torch.utils.torch_import, vil_tpu_torch.utils.profiling, "
+            "vil_tpu_torch.train.trainer, vil_tpu_torch.run_experiment; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vil_tpu' or m.startswith('vil_tpu.')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -228,11 +228,11 @@ def test_optimizer_groups(wd0):
     assert decay["weight_decay"] == 0.05 and no_decay["weight_decay"] == wd0
     assert not no_decay["decoupled_weight_decay"] and decay["decoupled_weight_decay"]
     assert len(decay["params"]) + len(no_decay["params"]) == len(list(model.parameters()))
-    for name in ("sgd", "adam"):
+    for name in ("sgd", "adam", "qhm", "lamb"):
         cfg.merge_from_list(["OPTIM.OPT", name])
         assert len(optim.get_opt(cfg, model).param_groups) == 2
-    cfg.merge_from_list(["OPTIM.OPT", "lamb"])
-    with pytest.raises(NotImplementedError):
+    cfg.merge_from_list(["OPTIM.OPT", "nadam"])
+    with pytest.raises(ValueError, match="not supported"):
         optim.get_opt(cfg, model)
 
 

@@ -81,6 +81,20 @@ def card_line() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def kernel_ms(prof) -> dict:
+    """{kernel name: device ms} summed over a finished ``torch.profiler``
+    run, kernels only."""
+    kernels = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
+        # GPU-side user annotations (e.g. Optimizer.step#AdamW.step) span
+        # kernels already counted: kernels only
+        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+    return kernels
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("train", "train_shift", "serve", "serve_spatial"), default="train")
@@ -137,14 +151,7 @@ def main() -> None:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    kernels = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
-        # GPU-side user annotations (e.g. Optimizer.step#AdamW.step) span
-        # kernels already counted: kernels only
-        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / STEPS
+    kernels = {name: ms / STEPS for name, ms in kernel_ms(prof).items()}
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     device_ms = sum(kernels.values())

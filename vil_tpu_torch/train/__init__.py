@@ -1,1 +1,2 @@
-"""Training: losses, optimizers, LR schedules and the train/eval steps."""
+"""Training: losses, optimizers, LR schedules, the train/eval steps and the
+experiment Trainer."""

@@ -51,54 +51,90 @@ def sample_vil_modes(generator: torch.Generator, depth: int = 0) -> Union[int, l
     return draws if depth > 0 else draws[0]
 
 
-def make_train_step(model: nn.Module, criterion: Callable, optimizer: torch.optim.Optimizer,
-                    schedule: Optional[Callable[[int], float]] = None,
-                    mixup_fn: Optional[Callable] = None, device=None,
-                    random_shift: bool = False, per_layer_modes: bool = True,
-                    mode_generator: Optional[torch.Generator] = None) -> Callable:
-    """Returns ``step(images, targets, generator, modes=None) -> metrics``.
+def keyed_seed(seed: int, step: int, stream: int) -> int:
+    """A 64-bit seed for the generator of ``stream`` at global ``step``: the
+    counterpart of ``jax.random.fold_in(rng, step)`` then ``split``. A step
+    draws the same whether the run was resumed or not, and no generator
+    state needs saving."""
+    return int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
+
+
+class TrainStep:
+    """``step(images, targets, generator=None, modes=None) -> metrics``.
 
     The model is moved to ``device``, the CUDA card unless the caller names
     another (``device="cpu"``). Each call takes NHWC float images and integer
     targets, draws mixup and stochastic depth from ``generator`` (on the
     model's device), sets every parameter group's LR to ``schedule(step)``
-    (step counts from 0) and updates the parameters. Metrics: ``loss``, and
-    ``top1`` / ``top5`` in percent when the targets are hard labels.
+    (or to its LR at build time without a schedule) times ``lr_scale``, and
+    updates the parameters. Metrics: ``loss``, and ``top1`` / ``top5`` in
+    percent when the targets are hard labels.
+
+    ``step`` is the global step of the next update, from ``start_step``: a
+    resumed run reads the schedule where it stopped. With a ``seed``, a call
+    given no ``generator`` draws from one seeded by (seed, step), and the
+    modes of random shift come from another, so that a resumed run draws
+    what an uninterrupted one draws (:func:`keyed_seed`).
 
     ``random_shift`` trains at the sampled-neighbour modes (MODE > 0): each
-    step draws, with :func:`sample_vil_modes` from the CPU ``mode_generator``,
-    one mode per attention block (``per_layer_modes``, the default, as
-    TPU.MODE_PER_LAYER) or one for all; ``modes`` given to the step replaces
-    the draw. The modes used are returned as the metric ``modes``."""
-    device = resolve_device(device)
-    model.to(device)
-    if random_shift and mode_generator is None:
-        raise ValueError("random_shift draws its modes from a CPU mode_generator; give one")
-    mode_depth = getattr(model, "depth", 0) if per_layer_modes else 0
-    count = 0
+    step draws, with :func:`sample_vil_modes` from the CPU ``mode_generator``
+    (else from the seed), one mode per attention block (``per_layer_modes``,
+    the default, as TPU.MODE_PER_LAYER) or one for all; ``modes`` given to
+    the step replaces the draw. The modes used are returned as the metric
+    ``modes``. A caller may set ``step``, ``lr_scale`` and ``random_shift``
+    between updates."""
 
-    def step(images: torch.Tensor, targets: torch.Tensor, generator: torch.Generator,
-             modes: Optional[Union[int, list[int]]] = None) -> dict:
-        nonlocal count
+    def __init__(self, model: nn.Module, criterion: Callable, optimizer: torch.optim.Optimizer,
+                 schedule: Optional[Callable[[int], float]] = None,
+                 mixup_fn: Optional[Callable] = None, device=None,
+                 random_shift: bool = False, per_layer_modes: bool = True,
+                 mode_generator: Optional[torch.Generator] = None,
+                 start_step: int = 0, seed: Optional[int] = None, lr_scale: float = 1.0):
+        if random_shift and mode_generator is None and seed is None:
+            raise ValueError("random_shift draws its modes from a CPU mode_generator; give one")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.criterion, self.optimizer = criterion, optimizer
+        self.schedule, self.mixup_fn = schedule, mixup_fn
+        self.random_shift = random_shift
+        self.mode_depth = getattr(model, "depth", 0) if per_layer_modes else 0
+        self.mode_generator = mode_generator
+        self.step = start_step
+        self.seed = seed
+        self.lr_scale = lr_scale
+        self.base_lrs = [group["lr"] for group in optimizer.param_groups]
+        if seed is not None:
+            self.keyed = torch.Generator(device=self.device)
+            self.keyed_modes = torch.Generator()
+
+    def __call__(self, images: torch.Tensor, targets: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 modes: Optional[Union[int, list[int]]] = None) -> dict:
+        model, device = self.model, self.device
+        if generator is None:
+            if self.seed is None:
+                raise ValueError("no generator given and no seed to key one by the step")
+            generator = self.keyed.manual_seed(keyed_seed(self.seed, self.step, 0))
         images = images.to(device, non_blocking=True)
         targets = targets.to(device, non_blocking=True)
-        if mixup_fn is not None:
-            images, targets = mixup_fn(generator, images, targets)
+        if self.mixup_fn is not None:
+            images, targets = self.mixup_fn(generator, images, targets)
         if modes is None:
-            modes = sample_vil_modes(mode_generator, mode_depth) if random_shift else 0
+            modes = sample_vil_modes(self._mode_generator(), self.mode_depth) \
+                if self.random_shift else 0
         model.train()
         logits = model(images, generator=generator, mode=modes).float()
-        loss = criterion(logits, targets)
-        optimizer.zero_grad(set_to_none=True)
+        loss = self.criterion(logits, targets)
+        self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if schedule is not None:
-            lr = schedule(count)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-        optimizer.step()
-        count += 1
+        lrs = ([self.schedule(self.step)] * len(self.base_lrs) if self.schedule is not None
+               else self.base_lrs)
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            group["lr"] = lr * self.lr_scale
+        self.optimizer.step()
+        self.step += 1
         metrics = {"loss": loss.detach()}
-        if random_shift:
+        if self.random_shift:
             metrics["modes"] = modes
         if targets.dim() == 1:  # hard labels: accuracy is meaningful
             correct = topk_correct(logits.detach(), targets)
@@ -106,17 +142,34 @@ def make_train_step(model: nn.Module, criterion: Callable, optimizer: torch.opti
             metrics["top5"] = correct[:, 1].mean() * 100
         return metrics
 
-    return step
+    def _mode_generator(self) -> torch.Generator:
+        if self.mode_generator is not None:
+            return self.mode_generator
+        if self.seed is None:
+            raise ValueError("random_shift draws its modes from a CPU mode_generator or "
+                             "from a seed; give one")
+        return self.keyed_modes.manual_seed(keyed_seed(self.seed, self.step, 1))
+
+
+# the factory's name in the JAX package (``make_train_step``)
+make_train_step = TrainStep
 
 
 def make_eval_step(model: nn.Module, criterion: Callable,
                    target_valid: Optional[np.ndarray] = None,
                    overlap_boost: Optional[np.ndarray] = None,
-                   per_sample_criterion: Optional[Callable] = None) -> Callable:
+                   return_scores: bool = False,
+                   per_sample_criterion: Optional[Callable] = None,
+                   pred_topk: int = 0) -> Callable:
     """Returns ``step(images, targets, valid) -> metrics`` over a padded
     batch: ``valid`` (B,) float marks the real samples. The loss uses the
     per-sample criterion under the mask when there is one, else the batch
-    criterion (exact on full batches)."""
+    criterion (exact on full batches).
+
+    ``return_scores`` adds each image's top-1/top-5 correctness (B, 2) as
+    ``scores``; ``pred_topk`` > 0 adds each image's top-k class ids and their
+    logits (``pred_ids``, ``pred_scores``), the per-image results of
+    ``results_*.npz``."""
 
     @torch.no_grad()
     def step(images: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor) -> dict:
@@ -129,8 +182,15 @@ def make_eval_step(model: nn.Module, criterion: Callable,
             loss = criterion(logits, targets)
         correct = topk_correct(logits, targets, (1, 5), target_valid,
                                overlap_boost) * valid[:, None]
-        return {"loss": loss, "top1_sum": correct[:, 0].sum(),
-                "top5_sum": correct[:, 1].sum(), "count": n_valid}
+        metrics = {"loss": loss, "top1_sum": correct[:, 0].sum(),
+                   "top5_sum": correct[:, 1].sum(), "count": n_valid}
+        if return_scores:
+            metrics["scores"] = correct
+        if pred_topk > 0:
+            top = logits.topk(min(pred_topk, logits.shape[-1]), dim=-1)
+            metrics["pred_ids"] = top.indices.to(torch.int32)
+            metrics["pred_scores"] = top.values
+        return metrics
 
     return step
 

@@ -5,8 +5,10 @@ the JAX package's is: every key that ``build_model``, ``optim.get_opt``,
 ``schedulers.get_lr_schedule``, ``mixup_from_cfg`` and
 ``loss.get_criterion`` read, at the value of the JAX package's defaults
 merged with ``configs/msvit.yaml`` (``tests/test_torch_train.py`` checks them
-key by key). The port reads no YAML, so the tree is spelled out here. Two
-keys differ from the yaml:
+key by key). The tree is spelled out here so that the recipe reads no file
+outside the package; the experiment entry point (``vil_tpu_torch.config``,
+``python -m vil_tpu_torch.run_experiment``) merges the yaml itself. Two keys
+differ from the yaml:
 
 * DATALOADER.BSZ is 64, the batch ``bench.py`` trains at (256 in the yaml);
 * SOLVER.STEPS_PER_EPOCH and MAX_ITER, which the JAX trainer sets from its

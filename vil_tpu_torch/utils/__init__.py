@@ -1,1 +1,3 @@
-"""Utilities: the weight bridge from the JAX package's parameter trees."""
+"""Utilities: the weight bridges from the JAX package's parameter trees and
+from reference ``.pth`` files, checkpoints, metric logging, seeds and
+profiling."""
