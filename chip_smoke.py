@@ -104,6 +104,21 @@ Phases, one line each; any failure raises and the exit code is not 0:
    (random-shift and MODE-0 steps, eval batches, the best checkpoint's
    eval); per epoch the median batch_time, data_time and img/s, and the peak
    memory, are printed.
+16. efficient — the paper's other attention families on ViL-Small 224² at
+   batch 64 (``recipe.VARIANTS``: linformer f256 with SHARE_KV, srformer f8/f4,
+   performer f256, global-only and unshared-global ViL), each a path of its
+   own: three bf16 serving forwards on uint8 images and three bf16 training
+   steps of the recipe (walls, peak memory, parameters and ops/flops.py's
+   GMACs printed), then one f32 forward and one f32 step with the kernels and
+   with the plain versions from the same weights (logits to LOGITS_TOL, loss
+   to LOSS_TOL, every parameter gradient to PARAM_GRAD_TOL of its max|ref|);
+   the launches held exactly: per forward B3 9 (and B1 3 with unshared
+   weights), per step also B4 9 (and B2 3), nothing else. Then the performer
+   through ``run_experiment.main(argv)`` (path ``experiment_performer``):
+   two epochs of 8 steps and a resume to three; its projection buffers must
+   change before exactly the steps a fresh ``RedrawSchedule`` names, the
+   resumed run's count must start afresh, the checkpoint's buffers be the
+   last step's and the last redraw the draw keyed by (seed, step).
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -137,14 +152,16 @@ bias assembled from tables drawn at σ 1 by the model's own assembly: B3 with
 modes 1..8 with (3, 49, 99) in front order, B7a/B7b split over 2 ranks; each
 timed per call with its bias (SDPA with the bias in its mask beside it).
 
-Each path of phases 4-15 sets the launch counts to 0 before it and reads
+Each path of phases 4-16 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_serve_fused``, ``launches_train_fused``, ``launches_serve_spatial``,
 ``launches_spatial_bwd``, ``launches_probe``, ``launches_serve_rpe``,
-``launches_train_rpe``, ``launches_shift_rpe``, ``launches_train_fused_rpe`` and
-``launches_experiment`` each path's; ``ms``,
+``launches_train_rpe``, ``launches_shift_rpe``, ``launches_train_fused_rpe``,
+``launches_experiment``, ``launches_linformer``, ``launches_srformer``,
+``launches_performer``, ``launches_global``, ``launches_unshared`` and
+``launches_experiment_performer`` each path's; ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
 path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
 for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
@@ -1697,9 +1714,266 @@ def run_experiment_path(torch, kernels):
     return launch_counts(kernels)
 
 
+EFFICIENT_REQUESTS = EFFICIENT_STEPS = 3  # the first is the warm-up
+
+
+def efficient_per_pass(variant: dict) -> tuple[dict, dict]:
+    """The kernels of one forward and of one training step of a recipe
+    variant: the dense stages 3-4 (9 blocks) through B3 (and B4), and with
+    unshared global weights the sliding-chunk stages 1-2 (3 blocks) through
+    B1 (and B2); the efficient families reach no kernel."""
+    forward, step = {"full_attention_fwd": 9}, {"full_attention_fwd": 9, "full_attention_bwd": 9}
+    if not variant.get("sharew", True):
+        forward["vil_attention_fwd"] = 3
+        step.update(vil_attention_fwd=3, vil_attention_bwd=3)
+    return forward, step
+
+
+def run_efficient(torch, kernels) -> dict:
+    """The paper's other attention families on ViL-Small 224², 1000 classes,
+    batch 64 (``recipe.VARIANTS``: linformer, srformer, performer, global,
+    unshared), each a path with its own launch counts: a bf16 serving
+    forward on uint8 images (3 requests), three bf16 training steps of the
+    recipe (AdamW, mixup, drop path 0.1), then the f32 forward and step with
+    the kernels and with the plain versions from the same weights; the
+    launches of each part held exactly. Then the performer through the
+    entry point (``run_efficient_experiment``). Returns {path: launches}."""
+    from vil_tpu_torch.ops import flops
+    from vil_tpu_torch.train import recipe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    served = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    paths = {}
+    for name, variant in recipe.VARIANTS.items():
+        t_path = time.perf_counter()
+        per_fwd, per_step = efficient_per_pass(variant)
+        cfg = recipe.vil_small_cfg(**variant).MODEL.VIT.MSVIT
+
+        def want(**times):
+            """Launches of ``times[part]`` passes of each part."""
+            out = {fn.__name__: 0 for fn in kernels}
+            for part, n in times.items():
+                for k, v in (per_fwd if part == "fwd" else per_step).items():
+                    out[k] += v * n
+            return out
+
+        def held(what, rose, expect):
+            if rose != expect:
+                raise AssertionError(f"{name} {what}: launches {rose} != {expect}")
+
+        for fn in kernels:
+            fn.launches = 0
+        # serving: bf16 parameters and compute
+        model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev, **variant).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        n_buffers = sum(b.numel() for b in model.buffers())
+        macs = flops.model_macs(cfg.ARCH, 224, cfg.ATTN_TYPE, sharew=cfg.SHARE_W,
+                                share_kv=cfg.SHARE_KV)
+        secs = []
+        with torch.inference_mode():
+            for _ in range(EFFICIENT_REQUESTS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = model(served)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: bad serving logits {tuple(logits.shape)}")
+        held("serving", launch_counts(kernels), want(fwd=EFFICIENT_REQUESTS))
+        serve_ms = statistics.median(secs[1:]) * 1e3
+        del model
+
+        # training: f32 parameters under bf16 compute, the recipe's step
+        before = launch_counts(kernels)
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, **variant)
+        step = recipe.train_step(model, dev)
+        step_gen = torch.Generator(device=dev).manual_seed(3)
+        torch.cuda.reset_peak_memory_stats()
+        secs, losses = [], []
+        for _ in range(EFFICIENT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(images, labels, step_gen)["loss"].item())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: losses not finite: {losses}")
+        rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        held("training", rose, want(step=EFFICIENT_STEPS))
+        train_ms = statistics.median(secs[1:]) * 1e3
+        del model, step
+        phase("efficient", f"{name} (ATTN_TYPE {cfg.ATTN_TYPE}, ONLY_GLOBAL {cfg.ONLY_GLOBAL}, "
+                           f"SHARE_W {cfg.SHARE_W}, SHARE_KV {cfg.SHARE_KV}; stage 1-2 f "
+                           f"{cfg.ARCH.split('_')[0].rsplit(',f', 1)[1]}, "
+                           f"{cfg.ARCH.split('_')[1].rsplit(',f', 1)[1]}): {n_params / 1e6:.2f} M "
+                           f"parameters, {n_buffers} buffer values, {macs['gmacs']:.3f} GMACs an "
+                           f"image (ops/flops.py); serve bf16 batch {BATCH}: median "
+                           f"{serve_ms:.3f} ms ({BATCH / serve_ms * 1e3:.1f} img/s, requests "
+                           f"2..{EFFICIENT_REQUESTS}); train step: median {train_ms:.3f} ms "
+                           f"({BATCH / train_ms * 1e3:.1f} img/s, steps 2..{EFFICIENT_STEPS}), "
+                           f"losses {', '.join(f'{v:.4f}' for v in losses)}, peak memory "
+                           f"{peak:.2f} GiB; launches per forward {per_fwd}, per step {per_step}")
+
+        # f32, kernels vs plain versions: the forward, then one step
+        before = launch_counts(kernels)
+        outs = {}
+        for key, use_kernels in (("kernels", True), ("plain", False)):
+            m = recipe.vil_small(torch.float32, torch.float32, use_kernels, dev, **variant)
+            with torch.inference_mode():
+                logits = m.eval()(served)
+            s = recipe.train_step(m, dev)
+            loss = s(images, labels, torch.Generator(device=dev).manual_seed(3))["loss"].item()
+            outs[key] = logits, loss, {n: p.grad.clone() for n, p in m.named_parameters()}
+            del m, s
+        rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        held("f32 pair", rose, want(fwd=1, step=1))
+        (lk, loss_k, gk), (lp, loss_p, gp) = outs["kernels"], outs["plain"]
+        logit_err = (lk - lp).abs().max().item()
+        grad_err, worst = 0.0, ""
+        for param, ref in gp.items():
+            if ref.numel() == 0:
+                continue
+            err = ((gk[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+            if not math.isfinite(err) or err > grad_err:
+                grad_err, worst = err, param
+        phase("efficient", f"{name} f32, kernels vs plain versions: logits max|err| "
+                           f"{logit_err:.3e} (tol {LOGITS_TOL:g}); step loss {loss_k:.6f} vs "
+                           f"{loss_p:.6f} (|err| {abs(loss_k - loss_p):.3e}, tol {LOSS_TOL:g}); "
+                           f"parameter gradients max rel err {grad_err:.3e} at {worst} (tol "
+                           f"{PARAM_GRAD_TOL:g}); the path {time.perf_counter() - t_path:.1f} s")
+        if not (torch.isfinite(lk).all() and logit_err <= LOGITS_TOL
+                and abs(loss_k - loss_p) <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: f32 kernels vs plain disagree: logits {logit_err}, "
+                                 f"loss {abs(loss_k - loss_p)}, gradients {grad_err} at {worst}")
+        paths[name] = launch_counts(kernels)
+    paths["experiment_performer"] = run_efficient_experiment(torch, kernels)
+    return paths
+
+
+EFFICIENT_EXPERIMENT_DIR = os.path.join(REPO, "build", "chip_experiment_performer")
+
+
+def run_efficient_experiment(torch, kernels) -> dict:
+    """The performer through ``python -m vil_tpu_torch.run_experiment``'s
+    ``main(argv)``: configs/msvit.yaml's recipe with ATTN_TYPE performer at
+    ViL-Small's width and depth, batch 64, the synthetic set (8 steps an
+    epoch), two epochs and then a resume to three. The projection buffers
+    must change before exactly the steps that a ``RedrawSchedule`` names
+    (counted afresh by each run, as in ``vil_tpu``) and before no other, the
+    last redraw must be the draw keyed by (seed, step), the resumed run must
+    load the checkpoint's buffers bit for bit and its schedule count afresh;
+    launches B3 9 a step and an eval batch, B4 9 a step, no other."""
+    import shutil
+
+    from vil_tpu_torch import run_experiment as cli
+    from vil_tpu_torch.models.attention_efficient import gaussian_orthogonal_random_matrix
+    from vil_tpu_torch.train import engine, recipe
+    from vil_tpu_torch.train.redraw import RedrawSchedule
+    from vil_tpu_torch.train.trainer import Trainer
+
+    name = "experiment_performer"
+    shutil.rmtree(EFFICIENT_EXPERIMENT_DIR, ignore_errors=True)
+    argv = list(EXPERIMENT_ARGS)
+    argv[argv.index("--output_dir") + 1] = EFFICIENT_EXPERIMENT_DIR
+    i = argv.index("MODEL.VIT.MSVIT.MODE")
+    argv[i:i + 4] = ["MODEL.VIT.MSVIT.ATTN_TYPE", "performer", "MODEL.VIT.MSVIT.ARCH",
+                     recipe.VARIANTS["performer"]["arch"]]
+    watch = {"last": None, "changed": []}
+
+    def projections(model):
+        return {n: b.clone() for n, b in model.named_buffers() if n.endswith("projection_matrix")}
+
+    init, call = Trainer.__init__, engine.TrainStep.__call__
+
+    def watched_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        watch["last"] = watch["loaded"] = projections(self.model)
+
+    def watched_call(self, *args, **kwargs):
+        now = projections(self.model)
+        if any(not torch.equal(b, watch["last"][n]) for n, b in now.items()):
+            watch["changed"].append(self.step)
+        watch["last"] = now
+        return call(self, *args, **kwargs)
+
+    def schedule(epochs, steps=8, start=0):
+        sched, out, step = RedrawSchedule(), [], start
+        for epoch in epochs:
+            sched.set_epoch(epoch)
+            for _ in range(steps):
+                if sched.should_redraw():
+                    out.append(step)
+                step += 1
+        return out, sched.calls_since_last
+
+    for fn in kernels:
+        fn.launches = 0
+    Trainer.__init__, engine.TrainStep.__call__ = watched_init, watched_call
+    try:
+        for label, epochs, start in (("two-epoch run", 2, 0), ("resume to 3 epochs", 3, 16)):
+            watch["changed"] = []
+            before = launch_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer = cli.main(argv[:argv.index("OPTIM.EPOCHS") + 1] + [str(epochs)]
+                               + argv[argv.index("OPTIM.EPOCHS") + 2:])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+            steps, ev = sum(trainer.steps_run.values()), trainer.eval_batches
+            expect = {fn.__name__: 0 for fn in kernels}
+            expect.update(full_attention_fwd=9 * (steps + ev), full_attention_bwd=9 * steps)
+            want_steps, want_count = schedule(range(trainer.start_epoch, epochs), start=start)
+            rows = trainer.steps_log
+            batch = statistics.median(r["batch_time"] for r in rows[1:]) * 1e3
+            phase(name, f"{label}: {wall:.1f} s, start epoch {trainer.start_epoch}, {steps} "
+                        f"steps, {ev} eval batches; median batch_time {batch:.3f} ms "
+                        f"({BATCH / batch * 1e3:.1f} img/s); the projections changed before steps {watch['changed']}, the "
+                        f"trainer redrew before {trainer.redraw_steps}, a fresh RedrawSchedule "
+                        f"names {want_steps}; its count after the run "
+                        f"{trainer.redraw_schedule.calls_since_last} (a fresh schedule's "
+                        f"{want_count}); launches {({k: v for k, v in rose.items() if v})}")
+            if not (watch["changed"] == trainer.redraw_steps == want_steps
+                    and trainer.redraw_schedule.calls_since_last == want_count
+                    and trainer.start_epoch == start // 8
+                    and trainer.train_step.step == 8 * epochs):
+                raise AssertionError(f"{label}: redraws {watch['changed']} / "
+                                     f"{trainer.redraw_steps} != {want_steps}, or the count or "
+                                     f"the start is wrong")
+            if rose != expect:
+                raise AssertionError(f"{label}: launches {rose} != {expect}")
+            losses = [r["loss"] for r in rows] + [e["loss"] for e in trainer.evals]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{label}: losses not finite: {losses}")
+            if start == 0:
+                # the buffers the last step saw are the checkpoint's, and the
+                # last redraw is the draw keyed by (seed, step, 2)
+                ckpt = torch.load(os.path.join(EFFICIENT_EXPERIMENT_DIR, "checkpoint_2.ckpt"),
+                                  map_location="cpu", weights_only=True)["model"]
+                gen = torch.Generator().manual_seed(
+                    engine.keyed_seed(trainer.cfg.TPU.SEED, want_steps[-1], 2))
+                for n, b in watch["last"].items():
+                    draw = gaussian_orthogonal_random_matrix(*b.shape, generator=gen)
+                    if not (torch.equal(ckpt[n], b.cpu()) and torch.equal(draw, b.cpu())):
+                        raise AssertionError(f"{n}: the checkpoint's or the keyed draw differs "
+                                             f"from the buffer the last step saw")
+            elif not all(torch.equal(b.cpu(), ckpt[n]) for n, b in watch["loaded"].items()):
+                raise AssertionError("the resumed run did not load the checkpoint's buffers")
+            del trainer
+    finally:
+        Trainer.__init__, engine.TrainStep.__call__ = init, call
+    return launch_counts(kernels)
+
+
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
-         "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment")
+         "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
+         "efficient")
 
 
 def only_arg(argv) -> "set | None":
@@ -1819,6 +2093,9 @@ def main() -> int:
         "train_fused_rpe": lambda: run_train(torch, kernels, fused=True, rpe=True),
         # the entry point users run: config, data pipeline, trainer, checkpoints
         "experiment": lambda: run_experiment_path(torch, kernels),
+        # the paper's other attention families, a path each, and the
+        # performer through the entry point
+        "efficient": lambda: run_efficient(torch, kernels),
     }
     if only is None or "kernels" in only:
         check_kernels(torch, records)
@@ -1828,6 +2105,8 @@ def main() -> int:
             continue
         if name == "serve_spatial":
             paths["serve_spatial"], paths["spatial_bwd"] = run()
+        elif name == "efficient":
+            paths.update(run())
         else:
             paths[name] = run()
     if only is not None:

@@ -2,7 +2,7 @@
 repository's yaml files, dotted overrides, unknown keys and ``dump`` give
 the same trees in both packages (compared exactly, types included); and
 ``train.trainer.check_ported`` refuses every key that selects what the port
-lacks, naming its ROADMAP item."""
+lacks, naming its ROADMAP item, and accepts the attention families."""
 import os
 
 import pytest
@@ -112,11 +112,7 @@ def test_freeze_and_clone():
     ("TPU.MESH_SHAPE", "[4]", "A12"),
     ("CKPT_BACKEND", "orbax", "A6"),
     ("DATALOADER.BACKEND", "grain", "A6"),
-    ("MODEL.VIT.MSVIT.ATTN_TYPE", "performer", "A10"),
-    ("MODEL.VIT.MSVIT.ATTN_TYPE", "linformer", "A10"),
     ("MODEL.ARCH", "resnet50", "A10"),
-    ("MODEL.VIT.MSVIT.ONLY_GLOBAL", "True", "A9"),
-    ("MODEL.VIT.MSVIT.SHARE_W", "False", "A9"),
     ("TPU.REMAT", "full", "A13"),
     ("TPU.FLAT_OPT", "True", "A13"),
 ])
@@ -128,3 +124,27 @@ def test_unported_keys_raise_naming_their_item(key, value, item):
     cfg.merge_from_list([key, value])
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         check_ported(cfg)
+
+
+@pytest.mark.parametrize("key,value,attn", [
+    ("MODEL.VIT.MSVIT.ATTN_TYPE", "performer", "PerformerAttention"),
+    ("MODEL.VIT.MSVIT.ATTN_TYPE", "linformer", "LinformerAttention"),
+    ("MODEL.VIT.MSVIT.ONLY_GLOBAL", "True", "VilAttention"),
+    ("MODEL.VIT.MSVIT.SHARE_W", "False", "VilAttention"),
+])
+def test_attention_family_keys_are_accepted_and_build(key, value, attn):
+    """The paper's other attention families: ``check_ported`` accepts the
+    key over configs/msvit.yaml, and ``build_model`` builds it (at a narrow
+    width) with the family's module in the sparse stages."""
+    from vil_tpu_torch.models import build_model
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))
+    arch = "l1,h1,d16,n1,s1,g1,p4,f4_l2,h2,d32,n1,s1,g1,p2,f4_l3,h2,d32,n1,s0,g0,p2,f4"
+    cfg.merge_from_list([key, value, "MODEL.VIT.MSVIT.ARCH", arch, "INPUT.IMAGE_SIZE", "32",
+                         "DATA.NUM_CLASSES", "10"])
+    check_ported(cfg)
+    attn_mod = build_model(cfg, device="cpu").stage1_block0_attn.attn
+    assert type(attn_mod).__name__ == attn
+    assert getattr(attn_mod, "only_glo", False) == (key.endswith("ONLY_GLOBAL"))
+    assert hasattr(attn_mod, "kv_global") == (key.endswith("SHARE_W"))

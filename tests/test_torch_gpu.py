@@ -1334,3 +1334,102 @@ def test_run_experiment_cli_one_epoch(cuda, tmp_path):
     assert all(math.isfinite(e["loss"]) for e in trainer.evals)
     for f in ("checkpoint_1.ckpt", "checkpoint_1.ckpt.json", "last_checkpoint", "config.yaml"):
         assert (tmp_path / f).is_file(), f
+
+
+# -- the paper's other attention families ------------------------------------------
+FAMILY_ARCH = "l1,h2,d32,n1,s1,g1,p4,f{}_l2,h2,d64,n1,s1,g1,p2,f{}_l3,h2,d64,n2,s0,g1,p2,f4"
+FAMILIES = {
+    # name: (MsViT keywords, stage 1-2 f, sliding-chunk blocks a forward)
+    "linformer": (dict(attn_type="linformer", share_kv=True), (8, 8), 0),
+    "linformer-unshared": (dict(attn_type="linformer", share_kv=False), (8, 8), 0),
+    "srformer": (dict(attn_type="srformer"), (4, 2), 0),
+    "performer": (dict(attn_type="performer"), (8, 12), 0),
+    "global": (dict(only_glo=True), (4, 4), 0),
+    "unshared": (dict(sharew=False), (4, 4), 2),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_attention_family_serves_and_trains_through_the_kernels(cuda, family):
+    """A narrow 64² model of each family in f32: its dense stage through B3
+    (2 launches a forward) and B4, the sliding-chunk stages of the unshared
+    ViL through B1/B2; logits and one step's loss and parameter gradients
+    equal to the plain path's (the performer's projections alike); then a
+    bf16 forward, kernels vs plain, to 2.5e-2 of max|ref|."""
+    from vil_tpu_torch.train import engine, loss
+
+    kw, feats, chunked = FAMILIES[family]
+    arch = FAMILY_ARCH.format(*feats)
+    x = torch.randn(4, 64, 64, 3, device=cuda)
+    y = torch.randint(0, 10, (4,), device=cuda)
+    results = {}
+    for use_kernels in (True, False):
+        model = MsViT(arch, img_size=64, num_classes=10, norm_embed=True,
+                      drop_path_rate=0.1, device=cuda, use_kernels=use_kernels,
+                      generator=torch.Generator().manual_seed(0), **{"sharew": True, **kw})
+        with torch.inference_mode():
+            logits = model.eval()(x)
+        opt = torch.optim.AdamW(model.parameters())
+        step = engine.make_train_step(model, loss.cross_entropy, opt, device=cuda)
+        metrics = step(x, y, torch.Generator(device=cuda).manual_seed(1))
+        results[use_kernels] = (logits, metrics["loss"].item(),
+                                {n: p.grad for n, p in model.named_parameters()})
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    assert launches["full_attention_fwd"] == 4 and launches["full_attention_bwd"] == 2
+    assert launches["vil_attention_fwd"] == 2 * chunked
+    assert launches["vil_attention_bwd"] == chunked
+    (lk, loss_k, gk), (lp, loss_p, gp) = results[True], results[False]
+    assert torch.isfinite(lk).all() and _max_err(lk, lp.float()) <= 1e-3
+    assert abs(loss_k - loss_p) <= 1e-4
+    for name, ref in gp.items():
+        if ref.numel():
+            assert _max_err(gk[name], ref) <= 1e-4 * ref.abs().max().item(), name
+    bf16 = {}
+    with torch.inference_mode():
+        for use_kernels in (True, False):
+            model = MsViT(arch, img_size=64, num_classes=10, norm_embed=True, device=cuda,
+                          use_kernels=use_kernels, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0),
+                          **{"sharew": True, **kw}).eval()
+            bf16[use_kernels] = model(x).float()
+    assert _max_err(bf16[True], bf16[False]) <= 2.5e-2 * bf16[False].abs().max().item()
+
+
+@pytest.mark.parametrize("family", ["linformer", "srformer", "performer"])
+def test_efficient_attention_on_the_card_matches_the_cpu(cuda, family):
+    """Each efficient module in f32 on the card against itself on the CPU,
+    same weights and buffer: output, input and parameter gradients to 1e-4
+    of max|ref| (f32 sums in another order)."""
+    from vil_tpu_torch.models import attention_efficient as eff
+
+    make = {"linformer": lambda d: eff.LinformerAttention(64, 257, 32, 2, device=d),
+            "srformer": lambda d: eff.SRAttention(64, 4, 2, device=d),
+            "performer": lambda d: eff.PerformerAttention(64, 2, 40, device=d)}[family]
+    torch.manual_seed(0)
+    ref_mod = make("cpu")
+    mod = make(cuda)
+    mod.load_state_dict(ref_mod.state_dict())
+    x = torch.randn(2, 257, 64)
+    g = torch.randn(2, 257, 64)
+    outs = {}
+    for m, dev in ((mod, cuda), (ref_mod, "cpu")):
+        xd = x.to(dev).requires_grad_()
+        out = m(xd, 16, 16)
+        out.backward(g.to(dev))
+        outs[dev] = [out.detach().cpu(), xd.grad.cpu()] + [p.grad.cpu() for p in m.parameters()]
+    for a, b in zip(outs[cuda], outs["cpu"]):
+        assert _max_err(a, b) <= 1e-4 * b.abs().max().item()
+
+
+def test_redraw_on_the_card_is_the_host_draw(cuda):
+    """The performer's redraw writes the same matrix into a model on the card
+    as into one on the CPU, from the same seed."""
+    from vil_tpu_torch.train.redraw import redraw_projections
+
+    arch = FAMILY_ARCH.format(8, 12)
+    models = [MsViT(arch, img_size=64, num_classes=10, attn_type="performer", device=d,
+                    generator=torch.Generator().manual_seed(0)) for d in (cuda, "cpu")]
+    for m in models:
+        assert redraw_projections(m, torch.Generator().manual_seed(5)) == 2
+    for (n, a), b in zip(models[0].named_buffers(), models[1].buffers()):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b), n

@@ -271,12 +271,9 @@ def test_unported_features_raise():
     exact1 = MsViT(ARCH_PAD, sharew=True, sw_exact=1, mode=1, **cpu).train()
     with pytest.raises(ValueError, match="SW_EXACT 1"):
         exact1(torch.zeros(1, 56, 56, 3), mode=3)
-    with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, sharew=True, only_glo=True, **cpu)
-    with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, sharew=False, **cpu)
-    with pytest.raises(NotImplementedError):
-        MsViT(ARCH_PAD, sharew=True, attn_type="performer", **cpu)
+    # mode -1 (the self chunk alone) raises where it is run
+    with pytest.raises(NotImplementedError, match="mode -1"):
+        MsViT(ARCH_PAD, sharew=True, **cpu).train()(torch.zeros(1, 56, 56, 3), mode=-1)
     # training mode with a nonzero dropout rate raises instead of running as
     # eval (stochastic depth is ported: test_torch_train.py)
     model = MsViT(ARCH_PAD, num_classes=5, sharew=True, drop_rate=0.1, **cpu)
@@ -311,7 +308,9 @@ def test_port_imports_no_jax():
             "vil_tpu_torch.config, vil_tpu_torch.data.loader, vil_tpu_torch.data.rand_augment, "
             "vil_tpu_torch.data.tsv, vil_tpu_torch.utils.checkpoint, "
             "vil_tpu_torch.utils.torch_import, vil_tpu_torch.utils.profiling, "
-            "vil_tpu_torch.train.trainer, vil_tpu_torch.run_experiment; "
+            "vil_tpu_torch.train.trainer, vil_tpu_torch.run_experiment, "
+            "vil_tpu_torch.models.attention_efficient, vil_tpu_torch.train.redraw, "
+            "vil_tpu_torch.ops.flops; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vil_tpu' or m.startswith('vil_tpu.')); print(bad); "
             "sys.exit(1 if bad else 0)")

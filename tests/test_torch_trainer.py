@@ -43,7 +43,7 @@ from vil_tpu.utils import torch_import as jax_torch_import
 from vil_tpu_torch.config import get_default_cfg
 from vil_tpu_torch.models import build_model
 from vil_tpu_torch.run_experiment import config_from_args, main, parse_args
-from vil_tpu_torch.train import engine, loss, optim
+from vil_tpu_torch.train import engine, loss, optim, redraw
 from vil_tpu_torch.train.trainer import Trainer
 from vil_tpu_torch.utils import jax_import, torch_import
 from vil_tpu_torch.utils.checkpoint import Checkpointer
@@ -267,6 +267,41 @@ def test_pth_import_matches_vil_tpu(src_size, src_classes, tmp_path):
     assert changed == len(state)  # every tensor was imported
 
 
+def test_pth_import_maps_the_performer_projection(tmp_path):
+    """A reference .pth of a performer model holds each projection under
+    ``attn.fast_attention.projection_matrix``: the port's importer fills its
+    buffers as ``vil_tpu``'s ``load_into_variables`` fills its ``buffers``
+    collection, and the parameters as before."""
+    opts = ["MODEL.VIT.MSVIT.ATTN_TYPE", "performer", "MODEL.VIT.MSVIT.ARCH",
+            ARCH.replace("f2", "f4")]
+    jax_model = jax_build_model(_cfg(tmp_path, *opts, jax_side=True), use_pallas=False)
+    variables = jax.eval_shape(lambda: jax_model.init({"params": jax.random.PRNGKey(0)},
+                                                      jnp.zeros((1, 32, 32, 3))))
+    rng = np.random.default_rng(4)
+    state = {}
+    for path, sds in jax.tree_util.tree_flatten_with_path(
+            {"params": variables["params"], "buffers": variables["buffers"]})[0]:
+        key = jax_torch_import._flax_path_to_torch_key(path[1:])
+        name = ".".join(str(k.key) for k in path[1:])
+        arr = rng.standard_normal(sds.shape).astype(np.float32)
+        state[key] = torch.from_numpy(np.ascontiguousarray(jax_import._to_torch_leaf(name, arr)[1]))
+    assert sum(k.endswith("attn.fast_attention.projection_matrix") for k in state) == 2
+    torch.save({"net": state}, tmp_path / "ref.pth")
+
+    cfg = _cfg(tmp_path, *opts)
+    ours = torch_import.load_into_model(str(tmp_path / "ref.pth"), _tiny(cfg))
+    start = {"params": _flax_params(_tiny(cfg), variables["params"]),
+             "buffers": jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                               variables["buffers"])}
+    ref = jax_torch_import.load_into_variables(str(tmp_path / "ref.pth"), start)
+    theirs = jax_import.load_jax_params(_tiny(cfg, seed=5), ref["params"], ref["buffers"])
+    for (name, a), b in zip(ours.state_dict().items(), theirs.state_dict().values()):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    for name, buf in ours.named_buffers():
+        assert name.endswith("attn.projection_matrix") and not torch.equal(
+            buf, dict(_tiny(cfg).named_buffers())[name])
+
+
 # -- the Trainer ------------------------------------------------------------------
 def _jax_losses(trainer):
     """Record each step's loss of a vil_tpu Trainer."""
@@ -342,6 +377,66 @@ def test_evaluate_results_match_vil_tpu(tmp_path):
         else:
             np.testing.assert_array_equal(ours[key], theirs[key], err_msg=key)
     assert ours["pred_ids"].shape == (64, 5) and not (tmp_path / "port/model_init.ckpt").exists()
+
+
+def test_performer_redraws_on_the_schedule_and_resumes(tmp_path, monkeypatch):
+    """A performer run, 2 epochs of 8 steps and a resume to 3: the
+    projections change before exactly the steps ``RedrawSchedule`` names
+    (1, 3, 5, 7 at interval 1; 14 at interval 6) and at no other, each draw
+    keyed by the step; the checkpoint reloads bit for bit, buffers
+    included; the resumed Trainer's schedule counts afresh (8 calls at
+    interval 11, no redraw), as ``vil_tpu``'s does."""
+    opts = ["MODEL.VIT.MSVIT.ATTN_TYPE", "performer", "MODEL.VIT.MSVIT.ARCH",
+            ARCH.replace("f2", "f4"), "DATALOADER.BSZ", "2"]
+    changed, seen = [], {}
+
+    def buffers(model):
+        return {n: b.clone() for n, b in model.named_buffers()}
+
+    call = engine.TrainStep.__call__
+
+    def watched(self, *args, **kwargs):
+        now = buffers(self.model)
+        if any(not torch.equal(b, seen["last"][n]) for n, b in now.items()):
+            changed.append(self.step)
+        out = call(self, *args, **kwargs)
+        assert all(torch.equal(b, now[n]) for n, b in self.model.named_buffers())
+        seen["last"] = now
+        return out
+
+    monkeypatch.setattr(engine.TrainStep, "__call__", watched)
+    first = Trainer(_cfg(tmp_path, *opts), device="cpu")
+    assert len(buffers(first.model)) == 2
+    seen["last"] = buffers(first.model)
+    first.fit()
+    assert changed == first.redraw_steps == [1, 3, 5, 7, 14]
+    saved = torch.load(tmp_path / "checkpoint_2.ckpt", weights_only=True)["model"]
+    for n, b in seen["last"].items():
+        assert torch.equal(saved[n], b)  # the buffers the last step saw
+    # each redraw is the draw keyed by (TPU.SEED, step, 2)
+    probe = _tiny(_cfg(tmp_path, *opts))
+    redraw.redraw_projections(probe, torch.Generator().manual_seed(
+        engine.keyed_seed(first.cfg.TPU.SEED, 14, 2)))
+    for n, b in probe.named_buffers():
+        assert torch.equal(b, saved[n])
+
+    changed.clear()
+    second = Trainer(_cfg(tmp_path, *opts, "OPTIM.EPOCHS", "3"), device="cpu")
+    assert second.start_epoch == 2 and second.train_step.step == 16
+    for n, t in second.model.state_dict().items():
+        assert torch.equal(t, saved[n]), n
+    seen["last"] = buffers(second.model)
+    second.fit()
+    assert changed == second.redraw_steps == []
+    assert second.redraw_schedule.interval == 11
+    assert second.redraw_schedule.calls_since_last == 8
+    # build_model reads SHARE_KV: a linformer without it has a proj_v
+    lin = ["MODEL.VIT.MSVIT.ATTN_TYPE", "linformer"]
+    for share_kv, has_v in (("True", False), ("False", True)):
+        model = _tiny(_cfg(tmp_path, *lin, "MODEL.VIT.MSVIT.SHARE_KV", share_kv))
+        names = [n for n, _ in model.named_parameters()]
+        assert ("stage1_block0_attn.attn.proj_v" in names) == has_v
+        assert "stage1_block0_attn.attn.proj_k" in names
 
 
 def test_random_shift_active_at_the_switch(tmp_path):

@@ -56,6 +56,7 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
         input_std=tuple(cfg.INPUT.STD),
         sharew=msvit.SHARE_W,
         attn_type=msvit.ATTN_TYPE,
+        share_kv=msvit.SHARE_KV,
         only_glo=msvit.ONLY_GLOBAL,
         sw_exact=msvit.SW_EXACT,
         ln_eps=msvit.LN_EPS,

@@ -69,6 +69,7 @@ from ..parallel.spatial import (
     spatial_local_attention,
     spatial_local_attention_kernel,
 )
+from .attention_efficient import merge_heads, scores_f32, softmax_max_sub, split_heads
 from .layers import Linear, check_eval_only
 
 
@@ -228,19 +229,27 @@ class VilAttention(RelativePositionBias, nn.Module):
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, nglo: int = 1,
-                 exact: int = 0, rpe: bool = False, use_kernels: bool = True,
+                 exact: int = 0, rpe: bool = False, sharew: bool = True,
+                 only_glo: bool = False, use_kernels: bool = True,
                  fused_block: bool = False, device=None, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        if only_glo and nglo < 1:
+            raise ValueError("Nglo == 0 in the only global mode!")
         self.dim, self.num_heads, self.w, self.nglo = dim, num_heads, w, nglo
         self.exact = exact
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.sharew, self.only_glo = sharew, only_glo
         self.use_kernels = use_kernels
         self.fused_block = fused_block
         self.query = Linear(dim, dim, **kw)
         self.kv = Linear(dim, 2 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
+        if not sharew:  # the global branch's own weights
+            self.query_global = Linear(dim, dim, **kw)
+            self.kv_global = Linear(dim, 2 * dim, **kw)
+            self.proj_global = Linear(dim, dim, **kw)
         self._masks: dict = {}  # (nx, ny, mode 0 or 1, device) → additive tables
         self._init_rpe(rpe, (4 * w - 1) ** 2, num_heads, nglo, device, param_dtype)
 
@@ -274,6 +283,11 @@ class VilAttention(RelativePositionBias, nn.Module):
         mode = sc.check_mode(mode)
         if mode == -1:
             raise NotImplementedError("sliding-chunk mode -1 (self chunk only) is not ported")
+        if self.only_glo:
+            return self._forward_only_global(x, nx, ny)
+        if spatial is not None and not self.sharew:
+            raise NotImplementedError("the unshared global weights (SHARE_W False) under "
+                                      "spatial parallelism are not ported (ROADMAP.md §A, A12)")
         if spatial is not None and mode != 0:
             raise NotImplementedError("spatial parallelism runs the sliding-chunk attention "
                                       "at mode 0 only")
@@ -337,15 +351,54 @@ class VilAttention(RelativePositionBias, nn.Module):
 
         # global branch: the global queries attend densely over all tokens,
         # their softmax spread over the ranks under the split; pad positions
-        # of a padded chunk grid are masked
-        qg = (self.query(x_glo) * scale).reshape(B, Nglo, H, M).transpose(1, 2)
+        # of a padded chunk grid are masked. Unshared weights project the
+        # tokens again (the fused block's k and v are the local branch's)
+        if not self.sharew:
+            kg, vg = self.kv_global.part(x_glo, 0, 2), self.kv_global.part(x_glo, 1, 2)
+            k_img, v_img = self.kv_global.part(x_img, 0, 2), self.kv_global.part(x_img, 1, 2)
         valid = None
         if mx * (1 if spatial is None else spatial.size) * my * W2 != nx * ny:
             valid = torch.from_numpy(masks_lib.chunk_valid(nx, ny, self.w)).to(x_img.device)
             if spatial is not None:
                 valid = spatial.rows(valid)
+        x0 = self._global(x_glo, k_img, v_img, kg, vg, valid, spatial)
+        return x0, x1
+
+    def _global(self, x_glo, k_img, v_img, kg, vg, valid=None, spatial=None) -> torch.Tensor:
+        """The global branch's output (B, Nglo, C): the queries of
+        ``x_glo`` over the keys and values of the global tokens (kg, vg) and
+        of the local ones in chunks (k_img, v_img), through the shared
+        weights or the ``*_global`` ones."""
+        B, Nglo, C = x_glo.shape
+        H = self.num_heads
+        query, proj = ((self.query, self.proj) if self.sharew else
+                       (self.query_global, self.proj_global))
+        qg = (query(x_glo) * (C // H) ** -0.5).reshape(B, Nglo, H, C // H).transpose(1, 2)
         g2g, g2l = self.g2g_relative_position_bias, self.g2l_relative_position_bias
         x0 = global_branch(qg, k_img, v_img, kg, vg, g2g, None if g2l is None else g2l[0],
                            valid, spatial)
-        x0 = self.proj(x0.transpose(1, 2).to(x_img.dtype).reshape(B, Nglo, C))
-        return x0, x1
+        return proj(x0.transpose(1, 2).to(k_img.dtype).reshape(B, Nglo, C))
+
+    def _forward_only_global(self, x: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+        """The only-global mode (ONLY_GLOBAL), in token layout (B, Nglo +
+        nx·ny, C): the local queries attend to the global keys alone, with
+        no relative-position bias (the reference bypasses it there), and the
+        global queries densely to every token, through :meth:`_global` with
+        the local tokens as one chunk of nx·ny and no pad."""
+        check_eval_only(self, self.attn_drop, "attention dropout")
+        check_eval_only(self, self.proj_drop, "projection dropout")
+        if isinstance(x, tuple):
+            raise ValueError("the only-global mode runs in token layout, not on chunks")
+        B, N, C = x.shape
+        H, Nglo = self.num_heads, self.nglo
+        if N != Nglo + nx * ny:
+            raise ValueError("Global dimension does not match!")
+        q = split_heads(self.query(x[:, Nglo:]) * (C // H) ** -0.5, H)
+        k, v = self.kv.part(x, 0, 2), self.kv.part(x, 1, 2)  # (B, N, C)
+        probs = softmax_max_sub(scores_f32(q, split_heads(k[:, :Nglo], H)))  # (B, H, Nloc, Nglo)
+        x1 = self.proj(merge_heads(torch.matmul(probs.to(k.dtype), split_heads(v[:, :Nglo], H))))
+        if not self.sharew:
+            k, v = self.kv_global.part(x, 0, 2), self.kv_global.part(x, 1, 2)
+        loc = lambda t: t[:, Nglo:].reshape(B, 1, 1, N - Nglo, C)
+        x0 = self._global(x[:, :Nglo], loc(k), loc(v), k[:, :Nglo], v[:, :Nglo])
+        return torch.cat([x0, x1], dim=1)

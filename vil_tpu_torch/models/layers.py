@@ -65,9 +65,10 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with parameters in ``param_dtype``, computed in ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, device=None, dtype: torch.dtype = torch.float32,
+                 stride: int = 1, bias: bool = True, device=None,
+                 dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, bias=bias,
                          device=device, dtype=param_dtype)
         self.compute_dtype = dtype
 

@@ -4,16 +4,19 @@ Counterpart of ``vil_tpu/models/msvit.py``. Stages of conv patch embedding
 (factorised APE, global tokens) followed by pre-LN attention and MLP blocks,
 selected per stage by the ARCH string. Images are NHWC.
 
-Ported: ``longformerhand`` (and its aliases) with shared weights, at
-neighbour mode 0 with any SW_EXACT and at the sampled-neighbour modes 1..8
-of random-shift training (SW_EXACT 0 or -1), ``full`` attention, APE and
-relative position bias (``a0``: the tables of each block, their bias passed
-to the kernels; ``models.precompute_rpe_cache`` for serving), stochastic
-depth, and the fused-kernel switches of the JAX package (``fused_ln``: the
-block pre-norms through the LayerNorm kernels; ``fused_block``: each
-sliding-chunk attention at mode 0 as one fused attention-block kernel pair).
-Not ported yet, and refused at construction: ``only_glo``, ``sharew=False``
-and the other attention families. Dropout raises in training mode.
+Ported: ``longformerhand`` (and its aliases) with shared or unshared
+(``sharew=False``) global weights, at neighbour mode 0 with any SW_EXACT and
+at the sampled-neighbour modes 1..8 of random-shift training (SW_EXACT 0 or
+-1), its only-global mode (``only_glo``, in token layout), ``full``
+attention, the efficient families of the paper's ablation (``linformer``
+with ``share_kv``, ``srformer``, ``performer``: ``models/attention_efficient``),
+APE and relative position bias (``a0``: the tables of each block, their bias
+passed to the kernels; ``models.precompute_rpe_cache`` for serving),
+stochastic depth, and the fused-kernel switches of the JAX package
+(``fused_ln``: the block pre-norms through the LayerNorm kernels;
+``fused_block``: each sliding-chunk attention at mode 0 as one fused
+attention-block kernel pair). Not ported yet: mode -1, which raises when it
+is run, and dropout, which raises in training mode.
 
 Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)``, through
 ``parallel.spatial_forward``, runs the eval forward with the image's rows
@@ -39,6 +42,12 @@ from ..ops import sliding_chunk as sc
 from ..utils.device import resolve_device
 from .arch import StageCfg, parse_arch
 from .attention import FullAttention, VilAttention
+from .attention_efficient import (
+    LinformerAttention,
+    PerformerAttention,
+    SRAttention,
+    gaussian_orthogonal_random_matrix,
+)
 from .layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed, make_layer_norm
 
 LONGFORMER_TYPES = ("longformerhand", "longformerauto", "longformer_cuda")
@@ -60,12 +69,16 @@ class AttnBlock(nn.Module):
     """Pre-LN attention block with a DropPath residual. Takes a (B, N, C)
     token tensor, or the chunked pair (x_glo | None, x_img). ``fused_ln`` takes
     the kernels' LayerNorm for the pre-norm, ``fused_block`` the fused
-    attention block for a sliding-chunk attention at mode 0."""
+    attention block for a sliding-chunk attention at mode 0. ``num_feats``,
+    the stage's ``f``, is the window of the sliding-chunk attention, the
+    feature count of the linformer and the performer and the reduction
+    ratio of the srformer, as in the JAX package."""
 
     def __init__(self, dim: int, num_heads: int, attn_type: str, nglo: int = 1,
-                 w: int = 7, rpe: bool = False, wx: int = 14, wy: int = 14, drop: float = 0.0,
-                 attn_drop: float = 0.0, drop_path: float = 0.0,
-                 sw_exact: int = 0, ln_eps: float = 1e-6,
+                 num_feats: int = 7, rpe: bool = False, wx: int = 14, wy: int = 14,
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0,
+                 sw_exact: int = 0, sharew: bool = True, only_glo: bool = False,
+                 share_kv: bool = True, ln_eps: float = 1e-6,
                  use_kernels: bool = True, fused_ln: bool = False,
                  fused_block: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
@@ -73,16 +86,23 @@ class AttnBlock(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.norm = make_layer_norm(fused_ln, dim, eps=ln_eps, **kw)
-        common = dict(dim=dim, num_heads=num_heads,
-                      attn_drop=attn_drop, proj_drop=drop, rpe=rpe,
-                      use_kernels=use_kernels, **kw)
+        common = dict(dim=dim, num_heads=num_heads, attn_drop=attn_drop, proj_drop=drop, **kw)
+        kernels = dict(rpe=rpe, use_kernels=use_kernels)
         if attn_type == "full":
-            self.attn = FullAttention(wx=wx, wy=wy, nglo=nglo, **common)
+            self.attn = FullAttention(wx=wx, wy=wy, nglo=nglo, **kernels, **common)
         elif attn_type in LONGFORMER_TYPES:
-            self.attn = VilAttention(w=w, nglo=nglo, exact=sw_exact, fused_block=fused_block,
+            self.attn = VilAttention(w=num_feats, nglo=nglo, exact=sw_exact, sharew=sharew,
+                                     only_glo=only_glo, fused_block=fused_block, **kernels,
                                      **common)
+        elif attn_type == "linformer":
+            self.attn = LinformerAttention(seq_len=wx * wy + nglo, num_feats=num_feats,
+                                           share_kv=share_kv, **common)
+        elif attn_type == "srformer":
+            self.attn = SRAttention(rratio=num_feats, **common)
+        elif attn_type == "performer":
+            self.attn = PerformerAttention(nb_features=num_feats, **common)
         else:
-            raise NotImplementedError(f"attention type {attn_type!r} is not ported")
+            raise ValueError(f"Not supported attention type {attn_type}")
         self.droppath = DropPath(drop_path)
 
     def forward(self, x, nx: int, ny: int, generator: Optional[torch.Generator] = None,
@@ -143,7 +163,7 @@ class MsViT(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, norm_embed: bool = False,
                  sharew: bool = False, only_glo: bool = False,
-                 attn_type: str = "longformerhand", sw_exact: int = 0,
+                 attn_type: str = "longformerhand", share_kv: bool = False, sw_exact: int = 0,
                  mode: int = 0, ln_eps: float = 1e-6, avg_pool: bool = False,
                  input_mean: tuple = (0.485, 0.456, 0.406),
                  input_std: tuple = (0.229, 0.224, 0.225),
@@ -159,8 +179,6 @@ class MsViT(nn.Module):
         self.layer_cfgs: list[StageCfg] = cfgs
         self.img_size, self.avg_pool = img_size, avg_pool
         self.mode = mode
-        if only_glo:
-            raise NotImplementedError("only_glo is not ported")
 
         dprs = np.linspace(0, drop_path_rate, self.depth)
         self.stage_blocks: list[list[tuple[str, str]]] = []
@@ -180,11 +198,11 @@ class MsViT(nn.Module):
             ))
             sticky_full = sticky_full or not c.is_sparse_attn
             stage_type = "full" if sticky_full else attn_type
-            if stage_type in LONGFORMER_TYPES and not sharew:
-                raise NotImplementedError("sharew=False is not ported")
             # VIL stages chunkify once at stage entry and keep the
-            # (x_glo, x_img chunks) pair through all their blocks
-            self.stage_chunked.append(stage_type in LONGFORMER_TYPES and c.num_blocks > 0)
+            # (x_glo, x_img chunks) pair through all their blocks; the
+            # only-global mode runs in token layout
+            self.stage_chunked.append(stage_type in LONGFORMER_TYPES and not only_glo
+                                      and c.num_blocks > 0)
             names = []
             for bid in range(c.num_blocks):
                 dpr = float(dprs[i_block])
@@ -193,8 +211,9 @@ class MsViT(nn.Module):
                 mlp_name = f"stage{sid + 1}_block{bid}_mlp"
                 setattr(self, attn_name, AttnBlock(
                     dim=c.dim, num_heads=c.num_heads, attn_type=stage_type,
-                    nglo=c.nglo, w=c.num_feats, rpe=c.rpe, wx=nx, wy=ny, drop=drop_rate,
-                    attn_drop=attn_drop_rate, drop_path=dpr, sw_exact=sw_exact,
+                    nglo=c.nglo, num_feats=c.num_feats, rpe=c.rpe, wx=nx, wy=ny,
+                    drop=drop_rate, attn_drop=attn_drop_rate, drop_path=dpr,
+                    sw_exact=sw_exact, sharew=sharew, only_glo=only_glo, share_kv=share_kv,
                     ln_eps=ln_eps, use_kernels=use_kernels, fused_ln=fused_ln,
                     fused_block=fused_block, **kw,
                 ))
@@ -230,7 +249,9 @@ class MsViT(nn.Module):
         weights, global tokens, position embeddings and relative-position
         tables truncated-normal with σ = 0.02 (cut at ±2σ), conv weights
         LeCun-normal, biases 0, LayerNorm scales 1. Values are drawn in f32 on the CPU from ``generator`` and
-        then copied, so one seed gives the same weights on any device."""
+        then copied, so one seed gives the same weights on any device. The
+        linformer's sequence projections are drawn uniform in ±1/√f, the
+        performer's projection buffers anew."""
 
         def trunc_normal_(p, std):
             t = torch.empty(p.shape, dtype=torch.float32)
@@ -249,6 +270,14 @@ class MsViT(nn.Module):
             elif isinstance(mod, (FullAttention, VilAttention)):
                 for table in mod.rpe_tables():
                     trunc_normal_(table, 0.02)
+            elif isinstance(mod, LinformerAttention):
+                bound = mod.num_feats ** -0.5
+                for p in (mod.proj_k, mod.proj_v):
+                    if p is not None:
+                        p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+            elif isinstance(mod, PerformerAttention):
+                mod.projection_matrix.copy_(gaussian_orthogonal_random_matrix(
+                    *mod.projection_matrix.shape, generator=generator))
             elif isinstance(mod, PatchEmbed):
                 for name in ("cls_token", "cls_pos_embed", "x_pos_embed", "y_pos_embed"):
                     if hasattr(mod, name):

@@ -2,6 +2,7 @@
 
     python -m vil_tpu_torch.tools.profile_step
         [--mode train|train_shift|serve|serve_spatial] [--fused] [--rpe]
+        [--attn linformer|srformer|performer|global|unshared]
         [--out profile_train.json]
 
 Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
@@ -9,7 +10,8 @@ compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
 the random-shift step, one sampled neighbour mode per block; ``--fused`` the
 fused-kernel configuration, ``recipe.vil_small(..., fused=True)``; ``--rpe``
 ViL-Small RPE, ``recipe.vil_small(..., rpe=True)``, served from
-``models.precompute_rpe_cache``;
+``models.precompute_rpe_cache``; ``--attn`` one of the paper's other
+attention families on ViL-Small, ``recipe.vil_small(..., **recipe.VARIANTS[attn])``;
 ``serve_spatial`` the serving forward through ``parallel.spatial_forward`` on
 a one-rank ``nccl`` group, set up from a ``FileStore`` under build/) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
@@ -102,25 +104,29 @@ def main() -> None:
                     help="the fused-kernel configuration (TPU.FUSED_LN, fused block)")
     ap.add_argument("--rpe", action="store_true",
                     help="ViL-Small RPE: relative position bias in every stage")
+    ap.add_argument("--attn", choices=("linformer", "srformer", "performer", "global",
+                                       "unshared"), default=None,
+                    help="one of the paper's other attention families (recipe.VARIANTS)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     from ..train import recipe
 
+    variant = recipe.VARIANTS[args.attn] if args.attn else {}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     images = torch.randn(recipe.BATCH, 224, 224, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (recipe.BATCH,), generator=gen, device=dev)
     if args.mode in ("train", "train_shift"):
         model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=args.fused,
-                                 rpe=args.rpe)
+                                 rpe=args.rpe, **variant)
         step_fn = recipe.train_step(model, dev, random_shift=args.mode == "train_shift")
         step_gen = torch.Generator(device=dev).manual_seed(3)
         run = lambda: step_fn(images, labels, step_gen)
     else:
         model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev,
-                                 fused=args.fused, rpe=args.rpe).eval()
+                                 fused=args.fused, rpe=args.rpe, **variant).eval()
         if args.rpe:
             from ..models import precompute_rpe_cache
 
@@ -160,7 +166,8 @@ def main() -> None:
         fams[family(name)] = fams.get(family(name), 0.0) + ms
     card = card_line()
     result = {
-        "mode": args.mode, "fused": args.fused, "rpe": args.rpe, "batch": recipe.BATCH,
+        "mode": args.mode, "fused": args.fused, "rpe": args.rpe, "attn": args.attn,
+        "batch": recipe.BATCH,
         "steps": STEPS,
         "card": card,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
@@ -168,7 +175,8 @@ def main() -> None:
         "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:30]),
     }
-    label = args.mode + (" fused" if args.fused else "") + (" RPE" if args.rpe else "")
+    label = (args.mode + (" fused" if args.fused else "") + (" RPE" if args.rpe else "")
+             + (f" {args.attn}" if args.attn else ""))
     print(f"{card}; ViL-Small 224^2 {label} bf16 batch {recipe.BATCH}: wall "
           f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
     for fam, ms in result["families_ms"].items():

@@ -29,6 +29,21 @@ fused-kernel configuration of the same model: TPU.FUSED_LN True (the block
 pre-norms through the LayerNorm kernels) and the fused attention block at
 mode 0, the switch the JAX package reads from ``VIL_TPU_FUSED_BLOCK=1``.
 
+``vil_small_cfg(**VARIANTS[name])`` and ``vil_small(..., **VARIANTS[name])``
+are the attention families of the paper's ablation on ViL-Small 224² (its
+``BASELINE.md`` rows), each changing only MODEL.VIT.MSVIT's ATTN_TYPE,
+ONLY_GLOBAL or SHARE_W and the ``f`` of stages 1-2; stages 3-4 stay dense:
+
+* ``linformer``: ATTN_TYPE linformer, SHARE_KV True (the yaml's), f256 (the
+  feature count of ``benchmarks/benchmark_vil.py``);
+* ``srformer``: ATTN_TYPE srformer, f8 and f4: a 7×7 key grid in both
+  stages (Pyramid Vision Transformer's reduction ratios);
+* ``performer``: ATTN_TYPE performer, f256 random features;
+* ``global``: ``longformerhand`` with ONLY_GLOBAL True (the ablation's
+  "global" row);
+* ``unshared``: ``longformerhand`` with SHARE_W False, the global branch's
+  own query/kv/proj weights.
+
 The model and the training step are built from that tree through those
 builders, the ones the tests hold to the JAX package's. ``chip_smoke.py`` and
 ``vil_tpu_torch.tools.profile_step`` drive them.
@@ -56,17 +71,37 @@ def rpe_arch(arch: str) -> str:
                     for s in arch.split("_"))
 
 
-def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False) -> NS:
+def stage_feats(arch: str, *feats: int) -> str:
+    """``arch`` with the ``f`` of its first stages set to ``feats``, in order."""
+    stages = arch.split("_")
+    for i, f in enumerate(feats):
+        stages[i] = re.sub(r"f\d+", f"f{f}", stages[i])
+    return "_".join(stages)
+
+
+VARIANTS = {
+    "linformer": dict(attn_type="linformer", arch=stage_feats(ARCH_ZOO["vil_small"], 256, 256)),
+    "srformer": dict(attn_type="srformer", arch=stage_feats(ARCH_ZOO["vil_small"], 8, 4)),
+    "performer": dict(attn_type="performer", arch=stage_feats(ARCH_ZOO["vil_small"], 256, 256)),
+    "global": dict(only_glo=True),
+    "unshared": dict(sharew=False),
+}
+
+
+def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False,
+                  attn_type: str = "longformerhand", arch: str = "", only_glo: bool = False,
+                  sharew: bool = True) -> NS:
     steps_per_epoch = IMAGENET_TRAIN_IMAGES // BATCH
-    arch = rpe_arch(ARCH_ZOO["vil_small"]) if rpe else ARCH_ZOO["vil_small"]
+    arch = arch or ARCH_ZOO["vil_small"]
+    arch = rpe_arch(arch) if rpe else arch
     return NS(
         DATA=NS(NUM_CLASSES=1000),
         DATALOADER=NS(BSZ=BATCH),
         INPUT=NS(IMAGE_SIZE=224, MEAN=[0.485, 0.456, 0.406], STD=[0.229, 0.224, 0.225]),
         MODEL=NS(ARCH="msvit", VIT=NS(
             DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
-            MSVIT=NS(ARCH=arch, SHARE_W=True, ATTN_TYPE="longformerhand",
-                     ONLY_GLOBAL=False, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
+            MSVIT=NS(ARCH=arch, SHARE_W=sharew, ATTN_TYPE=attn_type, SHARE_KV=True,
+                     ONLY_GLOBAL=only_glo, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
         TPU=NS(COMPUTE_DTYPE="bfloat16", PARAM_DTYPE="float32", USE_PALLAS=True,
                MODE_PER_LAYER=True, FUSED_LN=fused),
         LOSS=NS(LOSS="xentropy", LABEL_SMOOTHING=0.1),
@@ -82,13 +117,16 @@ def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False) -> NS:
 
 def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
               use_kernels: bool = True, device=None, fused: bool = False,
-              rpe: bool = False) -> MsViT:
+              rpe: bool = False, **variant) -> MsViT:
     """The recipe's model, computed in ``dtype`` with parameters in
     ``param_dtype``; random weights from seed 0 (the same with ``fused``;
-    with ``rpe`` the ViL-Small RPE model, whose tables are drawn too)."""
-    return build_model(vil_small_cfg(fused=fused, rpe=rpe), dtype=dtype, param_dtype=param_dtype,
-                       device=device, use_kernels=use_kernels, fused_block=fused,
-                       generator=torch.Generator().manual_seed(0))
+    with ``rpe`` the ViL-Small RPE model, whose tables are drawn too).
+    ``variant`` is one of :data:`VARIANTS`' keyword sets, or keywords of
+    :func:`vil_small_cfg` (``attn_type``, ``arch``, ``only_glo``,
+    ``sharew``)."""
+    return build_model(vil_small_cfg(fused=fused, rpe=rpe, **variant), dtype=dtype,
+                       param_dtype=param_dtype, device=device, use_kernels=use_kernels,
+                       fused_block=fused, generator=torch.Generator().manual_seed(0))
 
 
 def train_step(model: MsViT, device=None, random_shift: bool = False) -> Callable:

@@ -14,11 +14,17 @@ details, as ``vil_tpu`` does:
   step and ``lr_scale`` included; the step's draws are keyed by (TPU.SEED,
   step), so a resumed run draws what an uninterrupted one draws);
 * best-checkpoint tracking + final best-checkpoint eval
-  (run_experiment.py:264-279); under EVALUATE, ``results_{i}.npz``.
+  (run_experiment.py:264-279); under EVALUATE, ``results_{i}.npz``;
+* under ``performer``, the projection redraw before a step when the
+  ``1 + 5·epoch`` schedule says so (``train.redraw``; vil_tpu's trainer.py
+  :235-246), each redraw drawn from a generator keyed by (TPU.SEED, step),
+  so the draw itself is the same in a resumed run; the schedule's count
+  starts afresh in a new Trainer, as ``vil_tpu``'s does. The projections
+  ride in the checkpoint's ``state_dict``.
 
 One card, one process. Keys that select what the port lacks raise
 (:func:`check_ported`), each naming its ROADMAP item: the mesh, sharding and
-multi-host branches (A12), the performer and its redraw (A10), and the rest.
+multi-host branches (A12), the ResNet zoo (A10), and the rest.
 The Trainer builds on the CUDA card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -34,7 +40,6 @@ import torch
 
 from ..data import make_epoch_data_loader, mixup_from_cfg
 from ..models import ARCH_ZOO, build_model
-from ..models.msvit import LONGFORMER_TYPES
 from ..utils.checkpoint import Checkpointer
 from ..utils.device import resolve_device
 from ..utils.metric_logger import TensorboardLogger
@@ -43,6 +48,7 @@ from ..utils.profiling import peak_memory_mb
 from . import engine
 from .loss import get_criterion, get_per_sample_criterion
 from .optim import drop_lr, get_opt
+from .redraw import RedrawSchedule, redraw_projections
 from .schedulers import get_lr_schedule
 
 logger = logging.getLogger(__name__)
@@ -51,7 +57,7 @@ logger = logging.getLogger(__name__)
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a key that selects something the
     port lacks, naming its ROADMAP §A item; such a key is never ignored."""
-    tpu, msvit = cfg.TPU, cfg.MODEL.VIT.MSVIT
+    tpu = cfg.TPU
     refused = [
         (cfg.TPU.PARAM_SHARDING != "replicated",
          f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r} (FSDP and tensor parallelism: A12)"),
@@ -64,11 +70,6 @@ def check_ported(cfg) -> None:
          f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} (the grain loader: A6)"),
         (not (cfg.MODEL.ARCH in ARCH_ZOO or cfg.MODEL.ARCH.startswith("msvit")),
          f"MODEL.ARCH {cfg.MODEL.ARCH!r} (the ResNet zoo: A10)"),
-        (msvit.ATTN_TYPE not in ("full", *LONGFORMER_TYPES),
-         f"MODEL.VIT.MSVIT.ATTN_TYPE {msvit.ATTN_TYPE!r} (the efficient attentions and "
-         f"the performer redraw: A10)"),
-        (bool(msvit.ONLY_GLOBAL), "MODEL.VIT.MSVIT.ONLY_GLOBAL True (A9)"),
-        (not msvit.SHARE_W, "MODEL.VIT.MSVIT.SHARE_W False (A9)"),
         (bool(tpu.REMAT), f"TPU.REMAT {tpu.REMAT!r} (A13)"),
         (bool(tpu.FLAT_OPT) or bool(tpu.STACKED_OPT), "TPU.FLAT_OPT / STACKED_OPT (A13)"),
     ]
@@ -134,6 +135,10 @@ class Trainer:
         self.steps_run = {False: 0, True: 0}  # train steps, by random shift
         self.eval_batches = 0
         self.best_evaluated = False
+        # the performer's redraws: the schedule, and the global steps before
+        # which a redraw ran
+        self.redraw_schedule = RedrawSchedule()
+        self.redraw_steps: list[int] = []
 
     # ------------------------------------------------------------------
     def _get_eval_step(self):
@@ -175,10 +180,18 @@ class Trainer:
         self.trainloader.sampler.set_epoch(epoch)
         step = self.train_step
         step.random_shift = self._random_shift_active(epoch)
+        is_performer = cfg.MODEL.VIT.MSVIT.ATTN_TYPE == "performer"
+        if is_performer:
+            self.redraw_schedule.set_epoch(epoch)
         log_freq = max(1, cfg.LOG_FREQ)
         t_end = time.time()
         for i, (images, targets) in enumerate(self.trainloader):
             data_time = time.time() - t_end
+            if is_performer and self.redraw_schedule.should_redraw():
+                generator = torch.Generator().manual_seed(
+                    engine.keyed_seed(cfg.TPU.SEED, step.step, 2))
+                redraw_projections(self.model, generator)
+                self.redraw_steps.append(step.step)
             lr = self.lr_schedule(step.step) * step.lr_scale
             metrics = step(self._to_device(images), self._to_device(targets))
             self.steps_run[step.random_shift] += 1

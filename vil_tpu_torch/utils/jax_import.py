@@ -9,12 +9,15 @@ port's modules carry the flax names, so the mapping is per leaf:
 * everything else keeps its name and layout.
 
 Strict both ways: a port parameter left unfilled or a JAX leaf left unused
-raises. JAX itself is not imported: leaves are anything ``np.asarray``
-accepts.
+raises. The flax ``buffers`` collection (the performer's
+``projection_matrix``), given as ``buffers=``, fills the port's buffers of
+the same names, as strictly. JAX itself is not imported: leaves
+are anything ``np.asarray`` accepts.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,14 +47,12 @@ def _to_torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     return name, arr
 
 
-@torch.no_grad()
-def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Copy the flax parameter tree ``params`` (nested mappings of arrays)
-    into ``model`` in place, casting to each parameter's dtype and device."""
-    targets = dict(model.named_parameters())
+def _copy_tree(tree: Mapping, targets: dict, what: str) -> None:
+    """Copy every leaf of ``tree`` into the tensor of ``targets`` that its
+    mapped name names; raise unless each leaf and each target is used."""
     filled = set()
     unused = []
-    for name, arr in _flatten(params):
+    for name, arr in _flatten(tree):
         tname, tarr = _to_torch_leaf(name, arr)
         if tname not in targets:
             unused.append(name)
@@ -64,6 +65,18 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
         filled.add(tname)
     missing = sorted(set(targets) - filled)
     if unused or missing:
-        raise KeyError(f"parameter trees differ: unused JAX leaves {unused}, "
-                       f"unfilled port parameters {missing}")
+        raise KeyError(f"{what} trees differ: unused JAX leaves {unused}, "
+                       f"unfilled port {what}s {missing}")
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, params: Mapping,
+                    buffers: Optional[Mapping] = None) -> nn.Module:
+    """Copy the flax parameter tree ``params`` (nested mappings of arrays)
+    into ``model`` in place, casting to each parameter's dtype and device;
+    with ``buffers``, the flax ``buffers`` collection into the model's
+    buffers too. Without it the buffers are left as they are."""
+    _copy_tree(params, dict(model.named_parameters()), "parameter")
+    if buffers is not None:
+        _copy_tree(buffers, dict(model.named_buffers()), "buffer")
     return model

@@ -14,6 +14,11 @@ prefixes alone:
   layer{k}.{2+2i}                   stage{k}_block{i}_mlp
   norm / head                       norm / head
 
+and one leaf: the performer's projection buffer, ``attn.projection_matrix``
+on the port's module, lives under the reference's FastAttention submodule
+(``attn.fast_attention.projection_matrix``, its performer.py:133), as
+``vil_tpu`` maps it into its ``buffers`` collection.
+
 with the reference's fuzzy-loading behaviours (its checkpoint.py:10-131), as
 ``vil_tpu`` keeps them: ``module.`` prefix stripping, a unique-suffix match
 for a missing key, linear resize of the 1-D x/y position embeddings and of
@@ -125,17 +130,20 @@ def reference_key(name: str) -> Optional[str]:
             prefix = top
         else:
             return None
+    if rest.rpartition(".")[2] == "projection_matrix":
+        rest = rest[:-len("projection_matrix")] + "fast_attention.projection_matrix"
     return f"{prefix}.{rest}" if rest else prefix
 
 
 @torch.no_grad()
 def import_torch_checkpoint(state: Dict[str, np.ndarray], model: nn.Module) -> nn.Module:
-    """Fill ``model``'s parameters in place from a reference state dict,
-    casting to each parameter's dtype and device. Parameters with no match
-    keep their values (with a warning), as the reference loads leniently."""
+    """Fill ``model``'s parameters and buffers (the performer's projections)
+    in place from a reference state dict, casting to each
+    one's dtype and device. Those with no match keep their values (with a
+    warning), as the reference loads leniently."""
     used = set()
     missing = []
-    for name, param in model.named_parameters():
+    for name, param in [*model.named_parameters(), *model.named_buffers()]:
         key = reference_key(name)
         if key is None:
             continue
