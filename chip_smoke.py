@@ -107,9 +107,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
 16. efficient — the paper's other attention families on ViL-Small 224² at
    batch 64 (``recipe.VARIANTS``: linformer f256 with SHARE_KV, srformer f8/f4,
    performer f256, global-only and unshared-global ViL), each a path of its
-   own: three bf16 serving forwards on uint8 images and three bf16 training
-   steps of the recipe (walls, peak memory, parameters and ops/flops.py's
-   GMACs printed), then one f32 forward and one f32 step with the kernels and
+   own: REQUESTS bf16 serving forwards on uint8 images and STEPS bf16
+   training steps of the recipe (walls the median of all but the first, as
+   on the other paths; peak memory, parameters and ops/flops.py's GMACs
+   printed), then one f32 forward and one f32 step with the kernels and
    with the plain versions from the same weights (logits to LOGITS_TOL, loss
    to LOSS_TOL, every parameter gradient to PARAM_GRAD_TOL of its max|ref|);
    the launches held exactly: per forward B3 9 (and B1 3 with unshared
@@ -1714,9 +1715,6 @@ def run_experiment_path(torch, kernels):
     return launch_counts(kernels)
 
 
-EFFICIENT_REQUESTS = EFFICIENT_STEPS = 3  # the first is the warm-up
-
-
 def efficient_per_pass(variant: dict) -> tuple[dict, dict]:
     """The kernels of one forward and of one training step of a recipe
     variant: the dense stages 3-4 (9 blocks) through B3 (and B4), and with
@@ -1733,8 +1731,9 @@ def run_efficient(torch, kernels) -> dict:
     """The paper's other attention families on ViL-Small 224², 1000 classes,
     batch 64 (``recipe.VARIANTS``: linformer, srformer, performer, global,
     unshared), each a path with its own launch counts: a bf16 serving
-    forward on uint8 images (3 requests), three bf16 training steps of the
-    recipe (AdamW, mixup, drop path 0.1), then the f32 forward and step with
+    forward on uint8 images (``REQUESTS``), ``STEPS`` bf16 training steps of
+    the recipe (AdamW, mixup, drop path 0.1), timed as the other paths are
+    (the median of all but the first), then the f32 forward and step with
     the kernels and with the plain versions from the same weights; the
     launches of each part held exactly. Then the performer through the
     entry point (``run_efficient_experiment``). Returns {path: launches}."""
@@ -1775,7 +1774,7 @@ def run_efficient(torch, kernels) -> dict:
                                 share_kv=cfg.SHARE_KV)
         secs = []
         with torch.inference_mode():
-            for _ in range(EFFICIENT_REQUESTS):
+            for _ in range(REQUESTS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 logits = model(served)
@@ -1783,7 +1782,7 @@ def run_efficient(torch, kernels) -> dict:
                 secs.append(time.perf_counter() - t0)
         if logits.shape != (BATCH, 1000) or not torch.isfinite(logits).all():
             raise AssertionError(f"{name}: bad serving logits {tuple(logits.shape)}")
-        held("serving", launch_counts(kernels), want(fwd=EFFICIENT_REQUESTS))
+        held("serving", launch_counts(kernels), want(fwd=REQUESTS))
         serve_ms = statistics.median(secs[1:]) * 1e3
         del model
 
@@ -1794,7 +1793,7 @@ def run_efficient(torch, kernels) -> dict:
         step_gen = torch.Generator(device=dev).manual_seed(3)
         torch.cuda.reset_peak_memory_stats()
         secs, losses = [], []
-        for _ in range(EFFICIENT_STEPS):
+        for _ in range(STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses.append(step(images, labels, step_gen)["loss"].item())
@@ -1804,7 +1803,7 @@ def run_efficient(torch, kernels) -> dict:
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"{name}: losses not finite: {losses}")
         rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
-        held("training", rose, want(step=EFFICIENT_STEPS))
+        held("training", rose, want(step=STEPS))
         train_ms = statistics.median(secs[1:]) * 1e3
         del model, step
         phase("efficient", f"{name} (ATTN_TYPE {cfg.ATTN_TYPE}, ONLY_GLOBAL {cfg.ONLY_GLOBAL}, "
@@ -1814,8 +1813,8 @@ def run_efficient(torch, kernels) -> dict:
                            f"parameters, {n_buffers} buffer values, {macs['gmacs']:.3f} GMACs an "
                            f"image (ops/flops.py); serve bf16 batch {BATCH}: median "
                            f"{serve_ms:.3f} ms ({BATCH / serve_ms * 1e3:.1f} img/s, requests "
-                           f"2..{EFFICIENT_REQUESTS}); train step: median {train_ms:.3f} ms "
-                           f"({BATCH / train_ms * 1e3:.1f} img/s, steps 2..{EFFICIENT_STEPS}), "
+                           f"2..{REQUESTS}); train step: median {train_ms:.3f} ms "
+                           f"({BATCH / train_ms * 1e3:.1f} img/s, steps 2..{STEPS}), "
                            f"losses {', '.join(f'{v:.4f}' for v in losses)}, peak memory "
                            f"{peak:.2f} GiB; launches per forward {per_fwd}, per step {per_step}")
 

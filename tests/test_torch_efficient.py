@@ -216,6 +216,8 @@ def test_load_jax_params_buffers_are_strict():
         load_jax_params(ours, params, {**buffers, "extra": np.zeros(3)})
     with pytest.raises(KeyError, match="projection_matrix"):
         load_jax_params(ours, params, {})
+    with pytest.raises(KeyError, match="projection_matrix"):
+        load_jax_params(ours, params)
 
 
 # -- whole models --------------------------------------------------------------------

@@ -69,8 +69,32 @@ from ..parallel.spatial import (
     spatial_local_attention,
     spatial_local_attention_kernel,
 )
-from .attention_efficient import merge_heads, scores_f32, softmax_max_sub, split_heads
 from .layers import Linear, check_eval_only
+
+
+def split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, C) → (B, H, N, M)."""
+    b, n, c = t.shape
+    return t.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, M) → (B, N, C)."""
+    b, h, n, m = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * m)
+
+
+def softmax_max_sub(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax in f32 with the maximum subtracted as a constant to autograd
+    (``vil_tpu.models.attention._softmax_max_sub``)."""
+    scores = scores.float()
+    return torch.softmax(scores - scores.amax(dim=dim, keepdim=True).detach(), dim=dim)
+
+
+def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q·kᵀ over the last axis, (..., n, m) × (..., t, m) → (..., n, t) f32:
+    the JAX einsum with ``preferred_element_type=float32``."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2))
 
 
 _INDEX: dict = {}  # (key, device) → int64 index tensor

@@ -13,9 +13,9 @@ compute type at once is taken in the compute type.
 
 The performer's projection is a persistent buffer, drawn on the host from an
 explicit ``torch.Generator`` (one seed gives the same matrix on any device)
-and redrawn in place by ``train.redraw.redraw_projections``; it rides in the
-model's ``state_dict`` as the JAX package's ``buffers`` collection rides in
-its checkpoints.
+by ``MsViT.init_weights`` and redrawn in place by
+``train.redraw.redraw_projections``; it rides in the model's ``state_dict``
+as the JAX package's ``buffers`` collection rides in its checkpoints.
 """
 from __future__ import annotations
 
@@ -25,32 +25,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .attention import merge_heads, scores_f32, softmax_max_sub, split_heads
 from .layers import Conv2d, Linear, check_eval_only
-
-
-def split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, N, C) → (B, H, N, M)."""
-    b, n, c = t.shape
-    return t.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
-
-
-def merge_heads(t: torch.Tensor) -> torch.Tensor:
-    """(B, H, N, M) → (B, N, C)."""
-    b, h, n, m = t.shape
-    return t.transpose(1, 2).reshape(b, n, h * m)
-
-
-def softmax_max_sub(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Softmax in f32 with the maximum subtracted as a constant to autograd
-    (``vil_tpu.models.attention._softmax_max_sub``)."""
-    scores = scores.float()
-    return torch.softmax(scores - scores.amax(dim=dim, keepdim=True).detach(), dim=dim)
-
-
-def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q·kᵀ over the last axis, (..., n, m) × (..., t, m) → (..., n, t) f32:
-    the JAX einsum with ``preferred_element_type=float32``."""
-    return torch.matmul(q.float(), k.float().transpose(-1, -2))
 
 
 def gaussian_orthogonal_random_matrix(nb_rows: int, nb_columns: int, scaling: int = 0,
@@ -116,8 +92,7 @@ class PerformerAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, nb_features: int = 256,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, device=None,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.dim, self.num_heads = dim, num_heads
@@ -127,9 +102,10 @@ class PerformerAttention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
         # f32 whatever param_dtype is: the JAX package keeps it out of the
-        # parameters, in f32
+        # parameters, in f32. A fixed draw: MsViT.init_weights,
+        # redraw_projections and load_jax_params set it.
         self.register_buffer("projection_matrix", gaussian_orthogonal_random_matrix(
-            self.nb_features, m, generator=generator).to(device=device))
+            self.nb_features, m, generator=torch.Generator().manual_seed(0)).to(device=device))
 
     def forward(self, x: torch.Tensor, nx: int = 0, ny: int = 0, mode: int = 0) -> torch.Tensor:
         check_eval_only(self, self.proj_drop, "projection dropout")

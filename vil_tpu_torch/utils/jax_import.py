@@ -11,8 +11,9 @@ port's modules carry the flax names, so the mapping is per leaf:
 Strict both ways: a port parameter left unfilled or a JAX leaf left unused
 raises. The flax ``buffers`` collection (the performer's
 ``projection_matrix``), given as ``buffers=``, fills the port's buffers of
-the same names, as strictly. JAX itself is not imported: leaves
-are anything ``np.asarray`` accepts.
+the same names, as strictly: a model with buffers and no ``buffers=``
+raises too. JAX itself is not imported: leaves are anything
+``np.asarray`` accepts.
 """
 from __future__ import annotations
 
@@ -73,10 +74,13 @@ def _copy_tree(tree: Mapping, targets: dict, what: str) -> None:
 def load_jax_params(model: nn.Module, params: Mapping,
                     buffers: Optional[Mapping] = None) -> nn.Module:
     """Copy the flax parameter tree ``params`` (nested mappings of arrays)
-    into ``model`` in place, casting to each parameter's dtype and device;
-    with ``buffers``, the flax ``buffers`` collection into the model's
-    buffers too. Without it the buffers are left as they are."""
+    into ``model`` in place, casting to each parameter's dtype and device,
+    and the flax ``buffers`` collection into the model's buffers. A model
+    that has buffers needs ``buffers``."""
+    targets = dict(model.named_buffers())
+    if buffers is None and targets:
+        raise KeyError(f"the model has buffers {sorted(targets)}: give the flax "
+                       f"'buffers' collection as buffers=")
     _copy_tree(params, dict(model.named_parameters()), "parameter")
-    if buffers is not None:
-        _copy_tree(buffers, dict(model.named_buffers()), "buffer")
+    _copy_tree(buffers or {}, targets, "buffer")
     return model
