@@ -18,7 +18,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
    of the plain scores) and the backwards (with the same upstream gradient)
    at the shapes of ViL-Small 224² at batch 64, in f32 and bf16, plus biased,
    padded, cyclic 1×2 and 2×2 and long-sequence cases, and the dense kernels
-   at every head dim (8-128) at N 1, 63, 64 and 65, in bf16 also to a
+   at every head dim (8-128) at N 1, 63, 64 and 65, and each kernel of part
+   highres at its shapes (timed per call: 14x14, 37x37, 19x19 grids, W 6, 8
+   and 12; B5/B6 at two modes on 37x37 and W 12; dense N 577, 4097, 1024 and
+   144; the fused block at W 12 and W 8), in bf16 also to a
    limit on max|err| / max|ref| of out, dq, dk and dv (and of out, dq, dk,
    dv, dk_glo, dv_glo and dbias of B1/B2, B5/B6 and B7a/B7b); the
    sampled-neighbour kernels of random-shift training (B5, B6) at two modes
@@ -120,6 +123,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
    change before exactly the steps a fresh ``RedrawSchedule`` names, the
    resumed run's count must start afresh, the checkpoint's buffers be the
    last step's and the last redraw the draw keyed by (seed, step).
+17. highres — high resolution at full width and depth (``HIGHRES``,
+   ``recipe.vil``): ViL-Medium-Deep 384² served at batch 64 (``serve_384``:
+   14x14 chunks of W 7 pad 2, 7x7 pad 1, dense N 577 and 144; B1 5, B3 17 a
+   forward) and trained at 64 (``train_384``: B1, B2 5, B3, B4 17 a step);
+   ViL-Small 1024² served at batch 8 (``serve_1024``: 37x37 pad 3, 19x19 pad
+   5, dense N 4097 and 1024; B1 3, B3 9), trained at 8 at MODE 0
+   (``train_1024``) and at random shift (``shift_1024``: B5, B6 3, B3, B4 9,
+   B1, B2 0); ViL-Base-Deep-384 served and trained at batch 32
+   (``base_deep_384``: 16x16 W 6, 6x6 W 8; B1 9, B3 25 a forward, B2 9, B4 25
+   more a step). Each: REQUESTS forwards and/or STEPS steps (walls the
+   median of all but the first, img/s, GMACs an image from ops/flops.py,
+   peak memory), PROFILED more under torch.profiler (the card's time, idle
+   share, top families); launches exact per forward and step; then the f32
+   and the bf16 pair, kernels vs plain versions from the same weights, at
+   the batch the plain versions' memory allows (64, 8, 8, 2, 2, 4): logits
+   to LOGITS_TOL and BF16_LOGITS_TOL, a step's loss and every gradient to
+   LOSS_TOL, PARAM_GRAD_TOL and BF16_PARAM_GRAD_TOL. Then ``finetune_384``:
+   configs/msvit_384finetune.yaml through ``run_experiment.main(argv)`` on
+   ViL-Medium-Wide 384² (W 8 with 64 rows a chunk, W 12 with 144 in three
+   slices) from a .pth of a seeded ViL-Medium-Wide 224² under the
+   reference's names, batch 32, one epoch of 8 QHM steps and its eval: every
+   parameter after the load bit for bit the CPU importer's, each logged LR
+   the schedule's, launches the trainer's counts, the f32 eval kernels vs
+   plain (loss to LOSS_TOL, top1 equal).
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -153,7 +180,7 @@ bias assembled from tables drawn at σ 1 by the model's own assembly: B3 with
 modes 1..8 with (3, 49, 99) in front order, B7a/B7b split over 2 ranks; each
 timed per call with its bias (SDPA with the bias in its mask beside it).
 
-Each path of phases 4-16 sets the launch counts to 0 before it and reads
+Each path of phases 4-17 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
@@ -161,8 +188,11 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_spatial_bwd``, ``launches_probe``, ``launches_serve_rpe``,
 ``launches_train_rpe``, ``launches_shift_rpe``, ``launches_train_fused_rpe``,
 ``launches_experiment``, ``launches_linformer``, ``launches_srformer``,
-``launches_performer``, ``launches_global``, ``launches_unshared`` and
-``launches_experiment_performer`` each path's; ``ms``,
+``launches_performer``, ``launches_global``, ``launches_unshared``,
+``launches_experiment_performer``, ``launches_serve_384``,
+``launches_train_384``, ``launches_serve_1024``, ``launches_train_1024``,
+``launches_shift_1024``, ``launches_base_deep_384`` and
+``launches_finetune_384`` each path's; ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
 path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
 for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
@@ -622,7 +652,7 @@ def check_kernels(torch, records):
                     *(t.view(B, N, H, M).transpose(1, 2) for t in (*a, g)),
                     attn_mask=None if bias is None else bias.to(dtype)[None])
                 fwd_flops = 4.0 * B * N * N * C
-                share = f"x{per_step} per step" if per_step else "per call, not on the path"
+                share = f"x{per_step} per step" if per_step else "per call"
                 msg = account(
                     "full_attention_fwd", per_step,
                     time_ms(lambda: full_attention_fwd(*a, bias, H, with_lse=True)),
@@ -1087,6 +1117,36 @@ def check_kernels(torch, records):
     else:
         raise AssertionError("a misaligned bf16 halo forward did not raise")
     probe_case()
+    # high resolution (part highres), each timed per call, last so that the
+    # cases above draw what they drew before these were added: ViL-Medium-Deep
+    # 384² (14x14 chunks pad 2, 7x7 pad 1; N 577, 144), ViL-Small 1024²
+    # (37x37 pad 3, 19x19 pad 5; N 4097, 1024), the _384 windows: W 6 (36
+    # rows), W 8 (64) and W 12 (144 rows in three 64-row slices, the last
+    # holding 16; 1297 columns)
+    chunk_case("384^2 stage1 (64,14,14,49,96) H3, pad 2", 64, 96, 96, 7, 96, 3, 1, 0, False,
+               timed=True)
+    chunk_case("1024^2 stage1 (1,37,37,49,96) H3, pad 3", 1, 256, 256, 7, 96, 3, 1, 0, False,
+               timed=True)
+    chunk_case("1024^2 stage2 (8,19,19,49,192) H3, pad 5", 8, 128, 128, 7, 192, 3, 1, 0, False,
+               timed=True)
+    chunk_case("W 6 (32,16,16,36,96) H3", 32, 96, 96, 6, 96, 3, 1, 0, False, timed=True)
+    chunk_case("W 8 (32,12,12,64,192) H3", 32, 96, 96, 8, 192, 3, 1, 0, False, timed=True)
+    chunk_case("W 12 (32,4,4,144,384) H6", 32, 48, 48, 12, 384, 6, 1, 0, False, timed=True)
+    # W 12 biased on a padded 3x3 grid: the last slice's 16 rows in dbias
+    chunk_case("W 12 biased, padded 3x3 grid, nglo 2", 2, 26, 30, 12, 64, 2, 2, 0, True)
+    chunk_case("mode 4 W 12 biased, padded 3x3 grid", 2, 26, 30, 12, 64, 2, 1, 0, True, 4)
+    for mode in (1, 6):
+        chunk_case(f"mode {mode} 1024^2 stage1 (1,37,37,49,96) H3, pad 3", 1, 256, 256, 7, 96,
+                   3, 1, 0, False, mode, timed=True)
+        chunk_case(f"mode {mode} W 12 (32,4,4,144,384) H6", 32, 48, 48, 12, 384, 6, 1, 0,
+                   False, mode, timed=True)
+    full_case("384^2 stage3 (64,577,384) H6", 64, 577, 384, 6, False, timed=True)
+    full_case("384^2 stage3 (32,577,512) H8", 32, 577, 512, 8, False, timed=True)
+    full_case("1024^2 stage3 (8,4097,384) H6", 8, 4097, 384, 6, False, timed=True)
+    full_case("1024^2 stage4 (8,1024,768) H12", 8, 1024, 768, 12, False, timed=True)
+    full_case("384^2 stage4 (64,144,768) H12", 64, 144, 768, 12, False, timed=True)
+    block_case("W 12 (32,4,4,144,384) H6", 32, 48, 48, 12, 384, 6, 1, False, timed=True)
+    block_case("W 8 (32,12,12,64,192) H3", 32, 96, 96, 8, 192, 3, 1, False, timed=True)
 
 
 def launch_counts(kernels) -> dict:
@@ -1231,6 +1291,55 @@ def check_big_tables(torch, name, build, x, forward=None):
         raise AssertionError(f"f32 logits with σ-1 tables disagree: {err} > {tol}")
 
 
+def f32_grad_errors(grads_k: dict, grads_p: dict) -> tuple[float, str, float]:
+    """max|err| / max|ref| of each parameter's gradient, kernels (``grads_k``)
+    against plain versions (``grads_p``): (the largest, its parameter, the
+    largest over the relative-position tables)."""
+    grad_err, worst, table_err = 0.0, "", 0.0
+    for param, ref in grads_p.items():
+        if ref.numel() == 0:  # the (1, 0, C) position table of a stage without globals
+            continue
+        err = ((grads_k[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if "relative_position" in param:
+            table_err = max(table_err, err)
+        if not math.isfinite(err) or err > grad_err:
+            grad_err, worst = err, param
+    return grad_err, worst, table_err
+
+
+def bf16_grad_blocks(grads: dict):
+    """Each parameter's gradient; the q, k and v rows of a fused
+    projection's weight each on its own, where dq and dk, which
+    near-uniform attention keeps small, would be lost in dv's norm. A
+    block's relative-position tables go as one vector: the g2g and g2l
+    gradients are a few sums per head over the batch of dS terms that cancel
+    (a softmax row's dS sums to 0), whose bf16 rounding alone moves them by
+    3.4e-2 of their norm (plain bf16 vs plain f32, PR 12); the f32 step
+    holds each table alone."""
+    import torch
+
+    tables = {}
+    for n, t in grads.items():
+        if "relative_position" in n:
+            tables.setdefault(n.rsplit(".", 1)[0], []).append(t.flatten())
+            continue
+        parts = 3 if n.endswith("qkv.weight") else 2 if n.endswith("kv.weight") else 1
+        names = ("q", "k", "v")[3 - parts:] if parts > 1 else ("",)
+        for part, rows in zip(names, t.chunk(parts)):
+            yield n + (f"[{part}]" if part else ""), rows
+    for block, parts in tables.items():
+        yield block + ".[relative-position tables]", torch.cat(parts)
+
+
+def bf16_grad_worst(grads: dict, refs: dict) -> tuple[float, str]:
+    """The largest ‖err‖ / ‖ref‖ over ``bf16_grad_blocks``, and its block."""
+    grads = dict(bf16_grad_blocks(grads))
+    errs = {n: ((grads[n] - r).norm() / r.norm()).item()
+            for n, r in bf16_grad_blocks(refs) if r.norm() > 0}
+    name = max(errs, key=lambda n: (not math.isfinite(errs[n]), errs[n]))
+    return errs[name], name
+
+
 def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
     """Phase 5 (with ``random_shift`` phase 6, with ``fused`` phase 8, with
     ``rpe`` phase 12): the training step of ViL-Small 224² at batch 64 (with
@@ -1319,15 +1428,7 @@ def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
         (loss_k, grads_k), (loss_p, grads_p) = one_step(torch.float32, True, std), one_step(
             torch.float32, False, std)
         loss_err = abs(loss_k - loss_p)
-        grad_err, worst, table_err = 0.0, "", 0.0
-        for param, ref in grads_p.items():
-            if ref.numel() == 0:  # the (1, 0, C) position table of a stage without globals
-                continue
-            err = ((grads_k[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
-            if "relative_position" in param:
-                table_err = max(table_err, err)
-            if not math.isfinite(err) or err > grad_err:
-                grad_err, worst = err, param
+        grad_err, worst, table_err = f32_grad_errors(grads_k, grads_p)
         tables = (f"; the {sum('relative_position' in n for n in grads_p)} tables' max rel "
                   f"err {table_err:.3e}" if rpe else "")
         what = "f32 step" + (", tables at σ 1" if std else "")
@@ -1350,36 +1451,7 @@ def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
         # plain bf16 vs plain f32, printed beside it as its scale
         (bf_loss_k, bf_k), (bf_loss_p, bf_p) = one_step(torch.bfloat16, True), one_step(
             torch.bfloat16, False)
-
-        def blocks(grads):
-            """Each parameter's gradient; the q, k and v rows of a fused
-            projection's weight each on its own, where dq and dk, which
-            near-uniform attention keeps small, would be lost in dv's norm.
-            A block's relative-position tables go as one vector: the g2g and
-            g2l gradients are a few sums per head over the batch of dS terms
-            that cancel (a softmax row's dS sums to 0), whose bf16 rounding
-            alone moves them by 3.4e-2 of their norm (plain bf16 vs plain
-            f32, PR 12); the f32 step holds each table alone."""
-            tables = {}
-            for n, t in grads.items():
-                if "relative_position" in n:
-                    tables.setdefault(n.rsplit(".", 1)[0], []).append(t.flatten())
-                    continue
-                parts = 3 if n.endswith("qkv.weight") else 2 if n.endswith("kv.weight") else 1
-                names = ("q", "k", "v")[3 - parts:] if parts > 1 else ("",)
-                for part, rows in zip(names, t.chunk(parts)):
-                    yield n + (f"[{part}]" if part else ""), rows
-            for block, parts in tables.items():
-                yield block + ".[relative-position tables]", torch.cat(parts)
-
-        def worst(grads, refs):
-            grads = dict(blocks(grads))
-            errs = {n: ((grads[n] - r).norm() / r.norm()).item()
-                    for n, r in blocks(refs) if r.norm() > 0}
-            name_ = max(errs, key=lambda n: (not math.isfinite(errs[n]), errs[n]))
-            return errs[name_], name_
-
-        (err, at), (own, own_at) = worst(bf_k, bf_p), worst(bf_p, grads_f32)
+        (err, at), (own, own_at) = bf16_grad_worst(bf_k, bf_p), bf16_grad_worst(bf_p, grads_f32)
         alone = ""
         if rpe:  # each table alone, printed: what joining them leaves out
 
@@ -1560,21 +1632,59 @@ EXPERIMENT_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit.yaml"),
                    "MODEL.VIT.MSVIT.VIL_MODE_SWITCH", "0.5", "LOG_FREQ", "1"]
 
 
+def block_counts(model) -> tuple[int, int]:
+    """(sliding-chunk blocks, dense blocks) of an MsViT: the launches of B1
+    (B2; B5, B6) and of B3 (B4) per forward (per step)."""
+    from vil_tpu_torch.models.attention import FullAttention, VilAttention
+
+    return (sum(isinstance(m, VilAttention) for m in model.modules()),
+            sum(isinstance(m, FullAttention) for m in model.modules()))
+
+
 def experiment_want(trainer, kernels) -> tuple[dict, str]:
     """The launches a run of the CLI must have made, from the trainer's own
-    counts: per random-shift step B5 3, B6 3, B3 9, B4 9; per MODE-0 step B1
-    3, B2 3, B3 9, B4 9; per eval batch (the best checkpoint's eval
-    included) B1 3, B3 9; none with the plain versions."""
+    counts and its model's blocks (ViL-Small: 3 sliding-chunk, 9 dense): per
+    random-shift step B5, B6 one per sliding-chunk block and B3, B4 one per
+    dense block; per MODE-0 step B1, B2 and B3, B4 the same; per eval batch
+    (the best checkpoint's eval included) B1 and B3; none with the plain
+    versions."""
     want = {fn.__name__: 0 for fn in kernels}
     shift, mode0, ev = trainer.steps_run[True], trainer.steps_run[False], trainer.eval_batches
     formula = (f"{shift} random-shift steps, {mode0} MODE-0 steps, {ev} eval batches "
                f"(best-checkpoint eval {'ran' if trainer.best_evaluated else 'did not run'})")
     if not trainer.cfg.TPU.USE_PALLAS:
         return want, formula + ", plain versions"
-    want.update(vil_mode_attention_fwd=3 * shift, vil_mode_attention_bwd=3 * shift,
-                vil_attention_fwd=3 * (mode0 + ev), vil_attention_bwd=3 * mode0,
-                full_attention_fwd=9 * (shift + mode0 + ev), full_attention_bwd=9 * (shift + mode0))
-    return want, formula
+    chunk, dense = block_counts(trainer.model)
+    want.update(vil_mode_attention_fwd=chunk * shift, vil_mode_attention_bwd=chunk * shift,
+                vil_attention_fwd=chunk * (mode0 + ev), vil_attention_bwd=chunk * mode0,
+                full_attention_fwd=dense * (shift + mode0 + ev),
+                full_attention_bwd=dense * (shift + mode0))
+    return want, formula + f", {chunk} sliding-chunk and {dense} dense blocks"
+
+
+def run_cli(torch, kernels, name: str, label: str, argv: list):
+    """One in-process run of ``python -m vil_tpu_torch.run_experiment`` for
+    the path ``name``: its wall, its launches held to the trainer's counts
+    (``experiment_want``) and its losses finite. Returns the Trainer."""
+    from vil_tpu_torch import run_experiment as cli
+
+    before = launch_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+    want, formula = experiment_want(trainer, kernels)
+    shown = {k: v for k, v in rose.items() if v or want[k]}
+    phase(name, f"{label}: {wall:.1f} s; launches {shown} (the rest 0); want "
+                f"{ {k: want[k] for k in shown} } from {formula}")
+    if rose != want:
+        raise AssertionError(f"{label}: launches {rose} != {want}")
+    losses = [r["loss"] for r in trainer.steps_log] + [e["loss"] for e in trainer.evals]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    return trainer
 
 
 def run_experiment_path(torch, kernels):
@@ -1585,7 +1695,6 @@ def run_experiment_path(torch, kernels):
     the same eval in f32 with the kernels and with the plain versions."""
     import shutil
 
-    from vil_tpu_torch import run_experiment as cli
     from vil_tpu_torch.tools.profile_step import kernel_ms
     from vil_tpu_torch.train import schedulers
     from vil_tpu_torch.train.trainer import Trainer
@@ -1595,25 +1704,7 @@ def run_experiment_path(torch, kernels):
     for fn in kernels:
         fn.launches = 0
 
-    def run(label, argv):
-        """One CLI run; its launches held to the trainer's counts."""
-        before = launch_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
-        want, formula = experiment_want(trainer, kernels)
-        shown = {k: v for k, v in rose.items() if v or want[k]}
-        phase(name, f"{label}: {wall:.1f} s; launches {shown} (the rest 0); want "
-                    f"{ {k: want[k] for k in shown} } from {formula}")
-        if rose != want:
-            raise AssertionError(f"{label}: launches {rose} != {want}")
-        losses = [r["loss"] for r in trainer.steps_log] + [e["loss"] for e in trainer.evals]
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"{label}: losses not finite: {losses}")
-        return trainer
+    run = lambda label, argv: run_cli(torch, kernels, name, label, argv)
 
     def epochs(trainer, label):
         for epoch in sorted({r["epoch"] for r in trainer.steps_log}):
@@ -1833,13 +1924,7 @@ def run_efficient(torch, kernels) -> dict:
         held("f32 pair", rose, want(fwd=1, step=1))
         (lk, loss_k, gk), (lp, loss_p, gp) = outs["kernels"], outs["plain"]
         logit_err = (lk - lp).abs().max().item()
-        grad_err, worst = 0.0, ""
-        for param, ref in gp.items():
-            if ref.numel() == 0:
-                continue
-            err = ((gk[param] - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
-            if not math.isfinite(err) or err > grad_err:
-                grad_err, worst = err, param
+        grad_err, worst, _ = f32_grad_errors(gk, gp)
         phase("efficient", f"{name} f32, kernels vs plain versions: logits max|err| "
                            f"{logit_err:.3e} (tol {LOGITS_TOL:g}); step loss {loss_k:.6f} vs "
                            f"{loss_p:.6f} (|err| {abs(loss_k - loss_p):.3e}, tol {LOSS_TOL:g}); "
@@ -1969,10 +2054,338 @@ def run_efficient_experiment(torch, kernels) -> dict:
     return launch_counts(kernels)
 
 
+# the high-resolution paths (part ``highres``): path → (zoo model, image px,
+# batch, the batch of the f32 and bf16 kernels-vs-plain pairs, serves,
+# trains, random shift). The pairs' batches are cut where the plain versions'
+# memory would not fit: the plain dense attention keeps (B, H, N, N) f32
+# scores and probabilities, about 0.8 GB an image and a block at N 4097
+HIGHRES = {
+    "serve_384": ("vil_medium_deep", 384, 64, 64, True, False, False),
+    "train_384": ("vil_medium_deep", 384, 64, 8, False, True, False),
+    "serve_1024": ("vil_small", 1024, 8, 8, True, False, False),
+    "train_1024": ("vil_small", 1024, 8, 2, False, True, False),
+    "shift_1024": ("vil_small", 1024, 8, 2, False, True, True),
+    "base_deep_384": ("vil_base_deep_384", 384, 32, 4, True, True, False),
+}
+PROFILED = 2  # requests or steps of a path under torch.profiler, after the timed ones
+
+
+def run_highres_path(torch, kernels, name: str) -> dict:
+    """One high-resolution path of ``HIGHRES`` at full width and depth,
+    seeded random weights (``recipe.vil``), bf16 compute: ``REQUESTS``
+    serving forwards of uint8 images (bf16 parameters) and/or ``STEPS``
+    training steps of the recipe (f32 parameters; ``recipe.train_step``,
+    random shift where asked), each then ``PROFILED`` more under
+    ``torch.profiler``; the launches of every forward and step held exactly
+    (B1 and B3 per sliding-chunk and dense block a forward, B2 and B4 more a
+    step; B5, B6 in place of B1, B2 at random shift). Then the f32 pair and
+    the bf16 pair, kernels vs plain versions from the same weights, at the
+    path's pair batch: logits (serving) to LOGITS_TOL and BF16_LOGITS_TOL,
+    one step's loss and every parameter gradient (training) to LOSS_TOL,
+    PARAM_GRAD_TOL and BF16_PARAM_GRAD_TOL. Returns the path's launches."""
+    from vil_tpu_torch.ops import flops
+    from vil_tpu_torch.tools.profile_step import family, kernel_ms
+    from vil_tpu_torch.train import engine, recipe
+
+    arch_name, img, batch, pair, serves, trains, shift = HIGHRES[name]
+    dev = torch.device("cuda")
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    served = torch.randint(0, 256, (batch, img, img, 3), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    images = torch.randn(batch, img, img, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+    macs = flops.model_macs(recipe.vil_cfg(arch_name, img).MODEL.VIT.MSVIT.ARCH, img)
+    what = f"{arch_name} {img}^2 bf16 batch {batch}"
+    phase(name, f"{what}: {macs['gmacs']:.3f} GMACs an image (ops/flops.py), "
+                f"{macs['params'] / 1e6:.2f} M parameters")
+    want = {fn.__name__: 0 for fn in kernels}
+
+    def measure(label, call, per_call, count):
+        """``count`` timed calls, each one's launches held to ``per_call``,
+        then PROFILED more under torch.profiler: the walls, the card's time
+        and idle share, the top families and the peak memory."""
+
+        def timed():
+            before = launch_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+            expect = {k: per_call.get(k, 0) for k in rose}
+            if rose != expect:
+                raise AssertionError(f"{name} {label} {len(secs)}: launches rose by {rose}, "
+                                     f"want {expect}")
+
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(count):
+            timed()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILED):
+                timed()
+        for k, v in per_call.items():
+            want[k] += v * (count + PROFILED)
+        by_name = kernel_ms(prof)
+        device = sum(by_name.values()) / PROFILED
+        fams = {}
+        for kernel, ms in by_name.items():
+            fams[family(kernel)] = fams.get(family(kernel), 0.0) + ms / PROFILED
+        top = ", ".join(f"{f} {ms:.3f}" for f, ms in sorted(fams.items(), key=lambda kv: -kv[1])[:8])
+        med = statistics.median(secs[1:count])  # the first is the warm-up
+        phase(name, f"{label}: median {med * 1e3:.3f} ms, {batch / med:.1f} img/s ({label}s "
+                    f"2..{count}), first {secs[0] * 1e3:.1f} ms; device {device:.3f} ms a {label} "
+                    f"(torch.profiler over {PROFILED} more), idle {100 * (1 - device / med / 1e3):.1f}%;"
+                    f" top families (ms) {top}; peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    for fn in kernels:
+        fn.launches = 0
+    modes0 = None
+    if serves:
+        model = recipe.vil(arch_name, img, torch.bfloat16, torch.bfloat16, device=dev).eval()
+        chunk, dense = block_counts(model)
+
+        def serve():
+            with torch.inference_mode():
+                logits = model(served)
+            if logits.shape != (batch, 1000) or not torch.isfinite(logits).all():
+                raise AssertionError(f"{name}: bad logits {tuple(logits.shape)}")
+
+        measure("request", serve, {"vil_attention_fwd": chunk, "full_attention_fwd": dense},
+                REQUESTS)
+        del model
+    if trains:
+        model = recipe.vil(arch_name, img, torch.bfloat16, torch.float32, device=dev)
+        chunk, dense = block_counts(model)
+        step = recipe.train_step(model, dev, shift, batch=batch)
+        step_gen = torch.Generator(device=dev).manual_seed(3)
+        losses, modes = [], []
+
+        def train():
+            metrics = step(images, labels, step_gen)
+            losses.append(metrics["loss"].item())
+            modes.append(metrics.get("modes"))
+
+        pre = "vil_mode_attention" if shift else "vil_attention"
+        measure("step", train, {f"{pre}_fwd": chunk, f"{pre}_bwd": chunk,
+                                "full_attention_fwd": dense, "full_attention_bwd": dense}, STEPS)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: losses not finite: {losses}")
+        phase(name, f"losses {', '.join(f'{v:.4f}' for v in losses)}"
+                    + (f"; per-block modes drawn by the step {modes}" if shift else ""))
+        # the recipe's first draw of per-block modes, for the step pairs
+        modes0 = engine.sample_vil_modes(torch.Generator().manual_seed(0), model.depth) \
+            if shift else None
+        del model, step
+    launches = launch_counts(kernels)
+    phase(name, f"{what}: launches {({k: v for k, v in launches.items() if v})} (want "
+                f"{({k: v for k, v in want.items() if v})}, the rest 0)")
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
+    torch.cuda.empty_cache()
+
+    def build(dtype, param_dtype, use_kernels):
+        return recipe.vil(arch_name, img, dtype, param_dtype, use_kernels, dev)
+
+    if serves:  # logits, kernels vs plain versions, in f32 then bf16
+        x, outs = served[:pair], {}
+        with torch.inference_mode():
+            for key, dtype, use_kernels in (("kernels", torch.float32, True),
+                                            ("plain", torch.float32, False),
+                                            ("bf16 kernels", torch.bfloat16, True),
+                                            ("bf16 plain", torch.bfloat16, False)):
+                m = build(dtype, dtype, use_kernels).eval()
+                outs[key] = m(x).float()
+                del m
+                torch.cuda.empty_cache()
+        err = (outs["kernels"] - outs["plain"]).abs().max().item()
+        scaled = lambda a, b: ((outs[a] - outs[b]).abs().max() / outs[b].abs().max()).item()
+        bf_err, own = scaled("bf16 kernels", "bf16 plain"), scaled("bf16 plain", "plain")
+        phase(name, f"batch {pair}: f32 logits, kernels vs plain versions: max|err| {err:.3e} "
+                    f"(tol {LOGITS_TOL:g}), |logits| max {outs['plain'].abs().max().item():.3f}; "
+                    f"bf16 logits max|err| / max|ref| {bf_err:.3e} (tol {BF16_LOGITS_TOL:g}), "
+                    f"plain bf16 vs plain f32 {own:.3e}")
+        if not (torch.isfinite(outs["kernels"]).all() and err <= LOGITS_TOL):
+            raise AssertionError(f"{name}: f32 logits disagree: {err}")
+        if not (torch.isfinite(outs["bf16 kernels"]).all() and bf_err <= BF16_LOGITS_TOL):
+            raise AssertionError(f"{name}: bf16 logits disagree: {bf_err}")
+        del outs
+    if trains:
+
+        def one_step(dtype, use_kernels):
+            """One step of the recipe from its weights, the same images,
+            draws and (random shift) modes: (loss, parameter gradients)."""
+            m = build(dtype, torch.float32, use_kernels)
+            s = recipe.train_step(m, dev, shift, batch=batch)
+            loss = s(images[:pair], labels[:pair], torch.Generator(device=dev).manual_seed(3),
+                     modes=modes0)["loss"].item()
+            grads = {n: p.grad.clone() for n, p in m.named_parameters()}
+            del m, s
+            torch.cuda.empty_cache()
+            return loss, grads
+
+        (loss_k, grads_k), (loss_p, grads_p) = (one_step(torch.float32, True),
+                                                one_step(torch.float32, False))
+        grad_err, worst, _ = f32_grad_errors(grads_k, grads_p)
+        del grads_k
+        (bf_loss_k, bf_k), (bf_loss_p, bf_p) = (one_step(torch.bfloat16, True),
+                                                one_step(torch.bfloat16, False))
+        (bf_err, at), (own, own_at) = bf16_grad_worst(bf_k, bf_p), bf16_grad_worst(bf_p, grads_p)
+        phase(name, f"batch {pair}{f', modes {modes0}' if shift else ''}: f32 step, kernels vs "
+                    f"plain versions: loss {loss_k:.6f} vs {loss_p:.6f} (|err| "
+                    f"{abs(loss_k - loss_p):.3e}, tol {LOSS_TOL:g}); parameter gradients max rel "
+                    f"err {grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g}); bf16 step: loss "
+                    f"{bf_loss_k:.6f} vs {bf_loss_p:.6f}, gradients max ‖err‖ / ‖ref‖ {bf_err:.3e} "
+                    f"at {at} (tol {BF16_PARAM_GRAD_TOL:g}), plain bf16 vs plain f32 {own:.3e} at "
+                    f"{own_at}")
+        if not (abs(loss_k - loss_p) <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: f32 step disagrees: loss {abs(loss_k - loss_p)}, "
+                                 f"gradients {grad_err} at {worst}")
+        if not (math.isfinite(bf_loss_k) and bf_err <= BF16_PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: bf16 step disagrees: gradients {bf_err} at {at}")
+        del grads_p, bf_k, bf_p
+    torch.cuda.empty_cache()
+    phase(name, f"the path {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+FINETUNE_DIR = os.path.join(REPO, "build", "chip_finetune")
+# configs/msvit_384finetune.yaml on ViL-Medium-Wide 384² (its f8/f12
+# windows), from a 224² ViL-Medium-Wide .pth: the synthetic set at 384²,
+# batch 32 (the yaml's 256, cut): one epoch of 8 steps and its eval; the
+# recipe's own QHM, cosine schedule and FINETUNE.USE_TRAIN_AUG False
+FINETUNE_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit_384finetune.yaml"),
+                 "--output_dir", FINETUNE_DIR, "--seed", "0",
+                 "DATA.TRAIN", "('synthetic',)", "DATA.TEST", "('synthetic',)",
+                 "DATALOADER.BSZ", "32", "OPTIM.EPOCHS", "1",
+                 "MODEL.ARCH", "vil_medium_wide_384", "LOG_FREQ", "1"]
+
+
+def run_finetune(torch, kernels) -> dict:
+    """The 384² fine-tune recipe through ``run_experiment.main(argv)``: a
+    seeded ViL-Medium-Wide 224² model saved under the reference's names
+    (``torch_import.reference_key``; ``module.`` prefixes under ``net``) as
+    a .pth (each tensor moved by seeded noise off its init), loaded by the
+    Trainer into ViL-Medium-Wide 384² (MODEL.MODEL_PATH)
+    and trained one epoch of 8 steps, then its eval. Every parameter right
+    after the load must equal, bit for bit, what ``import_torch_checkpoint``
+    gives for the file on the CPU (the x/y position embeddings resized);
+    each logged LR must be ``get_lr_schedule``'s at its step; launches equal
+    the trainer's counts (``experiment_want``); the f32 eval of the
+    checkpoint, kernels vs plain versions, to LOSS_TOL, top1 equal."""
+    import shutil
+
+    from vil_tpu_torch.models import build_model
+    from vil_tpu_torch.train import recipe, schedulers
+    from vil_tpu_torch.train.trainer import Trainer
+    from vil_tpu_torch.utils import torch_import
+
+    name = "finetune_384"
+    t_path = time.perf_counter()
+    shutil.rmtree(FINETUNE_DIR, ignore_errors=True)
+    os.makedirs(FINETUNE_DIR)
+    pth = os.path.join(FINETUNE_DIR, "vil_medium_wide_224.pth")
+    # seeded weights, every tensor moved off its init (zero biases, unit
+    # norms) as training would, so that a tensor the load missed shows
+    source = recipe.vil("vil_medium_wide", 224, torch.float32, device="cpu")
+    noise = torch.Generator().manual_seed(1)
+    state = {"module." + torch_import.reference_key(n):
+             p.detach() + 0.02 * torch.randn(p.shape, generator=noise)
+             for n, p in source.named_parameters()}
+    torch.save({"net": state, "epoch": 300}, pth)
+    del source
+    phase(name, f"{os.path.relpath(pth, REPO)}: {len(state)} tensors of a seeded ViL-Medium-Wide "
+                f"224^2 under the reference's names ({time.perf_counter() - t_path:.1f} s)")
+    loaded = {}
+    init = Trainer.__init__
+
+    def watched_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        loaded["params"] = {n: p.detach().cpu().clone() for n, p in self.model.named_parameters()}
+
+    for fn in kernels:
+        fn.launches = 0
+
+    run = lambda label, argv: run_cli(torch, kernels, name, label, argv)
+
+    Trainer.__init__ = watched_init
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = run("fine-tune epoch", FINETUNE_ARGS + ["MODEL.MODEL_PATH", pth])
+    finally:
+        Trainer.__init__ = init
+    cfg, log = trainer.cfg, trainer.steps_log
+    # the load, against the CPU importer on a model built from the same tree
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(cfg.TPU.SEED))
+    fresh = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    torch_import.load_into_model(pth, cpu)
+    differ = [n for n, p in cpu.named_parameters() if not torch.equal(p, loaded["params"][n])]
+    kept = [n for n, p in cpu.named_parameters() if p.numel() and torch.equal(p, fresh[n])]
+    resized = {n: f"{tuple(state['module.' + torch_import.reference_key(n)].shape)} -> "
+                  f"{tuple(p.shape)}" for n, p in cpu.named_parameters()
+               if p.shape != state["module." + torch_import.reference_key(n)].shape}
+    phase(name, f"{cfg.MODEL.ARCH} {cfg.INPUT.IMAGE_SIZE}^2 from {os.path.basename(pth)} "
+                f"({len(state)} tensors): {len(loaded['params'])} parameters after the load, "
+                f"{len(differ)} differ from the CPU importer's bit for bit, {len(kept)} kept "
+                f"their init; resized {resized}")
+    if differ or kept or not resized:
+        raise AssertionError(f"the fine-tune load: differ {differ}, kept {kept}, resized {resized}")
+    del cpu, fresh, loaded["params"]
+    # the schedule and the run
+    schedule = schedulers.get_lr_schedule(cfg)
+    wrong = [(r["step"], r["lr"]) for r in log if r["lr"] != schedule(r["step"])]
+    batch = statistics.median(r["batch_time"] for r in log[1:])
+    data = statistics.median(r["data_time"] for r in log[1:])
+    ev = trainer.evals[0]
+    lrs = ", ".join(f"{r['lr']:.6g}" for r in log)
+    losses = ", ".join(f"{r['loss']:.4f}" for r in log)
+    phase(name, f"{len(log)} steps of OPTIM.OPT {cfg.OPTIM.OPT} at LR {lrs} (get_lr_schedule's: "
+                f"{'all' if not wrong else wrong}; warm-up {cfg.SOLVER.WARMUP_EPOCHS} epochs of "
+                f"{cfg.SOLVER.STEPS_PER_EPOCH} steps); median batch_time {batch * 1e3:.3f} ms, "
+                f"data_time {data * 1e3:.3f} ms (steps 2..{len(log)}), "
+                f"{cfg.DATALOADER.BSZ / batch:.1f} img/s; losses {losses}; eval top1 "
+                f"{ev['top1']:.4f} loss "
+                f"{ev['loss']:.6f} over {ev['images']} images; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if wrong or len(log) != 8 or cfg.OPTIM.OPT != "qhm" or cfg.FINETUNE.USE_TRAIN_AUG:
+        raise AssertionError(f"the fine-tune run: {len(log)} steps, LR off the schedule at {wrong}")
+    del trainer
+    # the f32 eval of the checkpoint, kernels vs plain versions
+    ckpt = os.path.join(FINETUNE_DIR, "checkpoint_1.ckpt")
+    evals = {}
+    for key, use_kernels in (("kernels", "True"), ("plain", "False")):
+        argv = FINETUNE_ARGS + ["EVALUATE", "True", "MODEL.MODEL_PATH", ckpt,
+                                "TPU.COMPUTE_DTYPE", "float32", "TPU.USE_PALLAS", use_kernels]
+        argv[argv.index("--output_dir") + 1] = os.path.join(FINETUNE_DIR, f"f32_{key}")
+        evals[key] = run(f"EVALUATE f32 {key}", argv).evals[-1]
+    f32_k, f32_p = evals["kernels"], evals["plain"]
+    err = abs(f32_k["loss"] - f32_p["loss"])
+    phase(name, f"f32 eval of checkpoint_1, kernels vs plain versions: loss {f32_k['loss']:.6f} "
+                f"vs {f32_p['loss']:.6f} (|err| {err:.3e}, tol {LOSS_TOL:g}); top1 "
+                f"{f32_k['top1']} vs {f32_p['top1']}")
+    if not (err <= LOSS_TOL and f32_k["top1"] == f32_p["top1"]):
+        raise AssertionError(f"f32 eval disagrees: loss {err}, top1 {f32_k['top1']} vs "
+                             f"{f32_p['top1']}")
+    phase(name, f"the path {time.perf_counter() - t_path:.1f} s")
+    return launch_counts(kernels)
+
+
+def run_highres(torch, kernels) -> dict:
+    """Part ``highres``: the paths of ``HIGHRES``, then ``finetune_384``.
+    Returns {path: launches}."""
+    paths = {name: run_highres_path(torch, kernels, name) for name in HIGHRES}
+    paths["finetune_384"] = run_finetune(torch, kernels)
+    return paths
+
+
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
-         "efficient")
+         "efficient", "highres")
 
 
 def only_arg(argv) -> "set | None":
@@ -2029,18 +2442,21 @@ def main() -> int:
     # registers
     from vil_tpu_torch.tools import sass_census
 
+    t_census = time.perf_counter()
+    every = sass_census.census("")  # one disassembly of the library (~30 s), every kernel
     for match, want in (("full_attention", 15), ("vil_attention_fwd", 5),
                         ("vil_attention_bwd", 10), ("vil_attention_halo_fwd", 5),
                         ("vil_attention_halo_bwd", 10), ("vil_mode_attention_fwd", 5),
                         ("vil_mode_attention_bwd", 10), ("vil_block_fwd", 13),
                         ("vil_block_bwd", 22)):
-        census = sass_census.census(match)
+        census = {name: counts for name, counts in every.items() if match in name}
         for name, counts in sorted(census.items()):
             phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
             if "wgmma" in name and not (counts["HGMMA"] and counts["LDGSTS"]):
                 raise AssertionError(f"{name}: no wgmma or no cp.async in its SASS: {counts}")
         if sum("wgmma" in name for name in census) < want:
             raise AssertionError(f"{match}: fewer than {want} wgmma kernels: {sorted(census)}")
+    phase("build", f"SASS census in {time.perf_counter() - t_census:.1f} s")
 
     sources = {
         "vil_attention_fwd": ("vil_tpu_torch/csrc/vil_attention_fwd.cu",
@@ -2095,19 +2511,26 @@ def main() -> int:
         # the paper's other attention families, a path each, and the
         # performer through the entry point
         "efficient": lambda: run_efficient(torch, kernels),
+        # high resolution: ViL-Medium-Deep 384², ViL-Small 1024², the _384
+        # windows and the 384² fine-tune recipe
+        "highres": lambda: run_highres(torch, kernels),
     }
     if only is None or "kernels" in only:
+        t_part = time.perf_counter()
         check_kernels(torch, records)
+        phase("kernels", f"phase 3 in {time.perf_counter() - t_part:.1f} s")
     paths = {}
     for name, run in runs.items():
         if only is not None and name not in only:
             continue
+        t_part = time.perf_counter()
         if name == "serve_spatial":
             paths["serve_spatial"], paths["spatial_bwd"] = run()
-        elif name == "efficient":
+        elif name in ("efficient", "highres"):
             paths.update(run())
         else:
             paths[name] = run()
+        phase(name, f"part {name} in {time.perf_counter() - t_part:.1f} s")
     if only is not None:
         phase("done", f"part of the run ({', '.join(sorted(only))}): every check passed; "
                       f"no record and no result line")

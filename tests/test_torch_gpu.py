@@ -238,10 +238,15 @@ CHUNK_SCALED_TOL = 2e-2  # chip_smoke.py's: max|err| / max|ref| of dq, dk, dv, d
 CHUNK_OUT_TOL, CHUNK_LSE_TOL = 2e-2, 2e-5  # chip_smoke.py's BF16_TOL and LSE_TOL
 # the grids of the bf16 sliding-chunk cases, (nx, ny, w, nglo, exact,
 # with_bias): padded with nglo 1, biased with SW_EXACT 1 and nglo 2, W 4 with
-# SW_EXACT -1 and nglo 5, the cyclic 1×2 and 2×2 grids, and W 9, whose 81
-# rows a chunk take two 64-row slices
+# SW_EXACT -1 and nglo 5, the cyclic 1×2 and 2×2 grids, W 9, whose 81 rows a
+# chunk take two 64-row slices; and the high-resolution windows: W 6 (36
+# rows) and W 8 (64) on padded 3×3 grids, W 12 (144 rows in three slices,
+# the last holding 16) biased, and ViL-Medium-Deep 384²'s 96×96 tokens in
+# 14×14 chunks of W 7, pad 2
 CHUNK_GRIDS = [(19, 20, 7, 1, 0, False), (19, 20, 7, 2, 1, True), (14, 15, 4, 5, -1, False),
-               (7, 14, 7, 1, 0, False), (13, 14, 7, 0, 0, True), (27, 20, 9, 1, 0, True)]
+               (7, 14, 7, 1, 0, False), (13, 14, 7, 0, 0, True), (27, 20, 9, 1, 0, True),
+               (14, 13, 6, 1, 0, False), (17, 20, 8, 0, 0, True), (26, 30, 12, 1, 0, True),
+               (96, 96, 7, 1, 0, False)]
 
 
 def _chunk_case(cuda, seed, B, nx, ny, w, M, H, nglo, exact, with_bias, mode=0):
@@ -1433,3 +1438,119 @@ def test_redraw_on_the_card_is_the_host_draw(cuda):
         assert redraw_projections(m, torch.Generator().manual_seed(5)) == 2
     for (n, a), b in zip(models[0].named_buffers(), models[1].buffers()):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b), n
+
+
+# chip_smoke.py's high-resolution cases (part highres) at one image and one
+# head, each kernel against its plain version at chip_smoke.py's limits:
+# (nx, ny, w, head dim) of the sliding-chunk grids (nglo 1): ViL-Medium-Deep
+# 384²'s 14×14 chunks pad 2, ViL-Small 1024²'s 37×37 pad 3 and 19×19 pad 5,
+# the windows W 6, W 8 and W 12 of the _384 zoo entries
+HIGHRES_GRIDS = [(96, 96, 7, 32), (256, 256, 7, 32), (128, 128, 7, 64), (96, 96, 6, 32),
+                 (96, 96, 8, 64), (48, 48, 12, 64)]
+HIGHRES_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2)}  # out, grads
+
+
+def _highres_chunk_errors(cuda, dtype, nx, ny, w, M, mode):
+    """B1/B2 (mode 0) or B5/B6 (modes 1..8) on one image, one head, nglo 1,
+    against the plain versions in f32 on the same values: (out, lse, grads
+    rel to max(1, max|ref|), the largest max|err| / max|ref|)."""
+    gen = torch.Generator(device=cuda).manual_seed(nx + w + mode)
+    padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+    w2 = w * w
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    acts = [(rnd(1, mx, my, w2, M) * M ** -0.25).to(dtype) for _ in range(3)]
+    acts += [(rnd(1, 1, M) * M ** -0.25).to(dtype) for _ in range(2)]
+    g = rnd(1, mx, my, w2, M).to(dtype)
+    mask = torch.from_numpy(mask_to_additive(
+        masks.invalid_mask(mx, my, padx, pady, w, 0, mode), mx, my, w2, 1)).to(cuda)
+    a32 = [a.float() for a in acts]
+    if mode == 0:
+        out, lse = vil_attention_fwd(*acts, None, mask, 1, with_lse=True)
+        ref, ref_lse = vil_attention_reference(*a32, None, mask, 1, with_lse=True)
+        grads = vil_attention_bwd(*acts, None, g, out, mask, lse, 1)
+        refs = vil_attention_bwd_reference(*a32, None, g.float(), mask, 1)
+    else:
+        out, lse = vil_mode_attention_fwd(*acts, None, mask, 1, mode, with_lse=True)
+        ref, ref_lse = vil_mode_attention_reference(*a32, None, mask, 1, mode, with_lse=True)
+        grads = vil_mode_attention_bwd(*acts, None, g, out, mask, lse, 1, mode)
+        refs = vil_mode_attention_bwd_reference(*a32, None, g.float(), mask, 1, mode)
+    pairs = [(x, r) for x, r in zip(grads, refs) if r is not None]
+    return (_max_err(out, ref), _max_err(lse, ref_lse), max(_rel_err(x, r) for x, r in pairs),
+            max(_scaled_err(x, r) for x, r in [(out, ref), *pairs]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nx,ny,w,M", HIGHRES_GRIDS)
+def test_highres_sliding_chunk_kernels(cuda, dtype, nx, ny, w, M):
+    """B1 and B2 at each high-resolution grid and window: out, LSE, every
+    gradient (and in bf16 the scaled errors)."""
+    tol, grad_tol = HIGHRES_TOL[dtype]
+    e_out, e_lse, e_grad, scaled = _highres_chunk_errors(cuda, dtype, nx, ny, w, M, 0)
+    case = (nx, w, M, e_out, e_lse, e_grad, scaled)
+    assert e_out <= tol and e_lse <= CHUNK_LSE_TOL and e_grad <= grad_tol, case
+    assert dtype == torch.float32 or scaled <= CHUNK_SCALED_TOL, case
+    assert vil_attention_fwd.launches == vil_attention_bwd.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [1, 6])
+@pytest.mark.parametrize("nx,ny,w,M", [HIGHRES_GRIDS[1], HIGHRES_GRIDS[5]])
+def test_highres_sampled_neighbour_kernels(cuda, dtype, nx, ny, w, M, mode):
+    """B5 and B6 on ViL-Small 1024²'s 37×37 grid and at W 12, two modes."""
+    tol, grad_tol = HIGHRES_TOL[dtype]
+    e_out, e_lse, e_grad, scaled = _highres_chunk_errors(cuda, dtype, nx, ny, w, M, mode)
+    case = (nx, w, mode, e_out, e_lse, e_grad, scaled)
+    assert e_out <= tol and e_lse <= CHUNK_LSE_TOL and e_grad <= grad_tol, case
+    assert dtype == torch.float32 or scaled <= CHUNK_SCALED_TOL, case
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [577, 4097, 1024, 144])
+def test_highres_dense_kernels(cuda, dtype, N):
+    """B3 and B4 at the high-resolution dense lengths (stage 3 of 384² and
+    1024², stage 4 of 1024² and 384²) on one image, one head of 64."""
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    q, k, v = ((torch.randn(1, N, 64, generator=gen, device=cuda) * 64 ** -0.25).to(dtype)
+               for _ in range(3))
+    g = torch.randn(1, N, 64, generator=gen, device=cuda).to(dtype)
+    out, lse = full_attention_fwd(q, k, v, None, 1, with_lse=True)
+    grads = full_attention_bwd(q, k, v, None, g, out, lse, 1)
+    a32 = [t.float() for t in (q, k, v)]
+    ref, ref_lse = full_attention_reference(*a32, None, 1, with_lse=True)
+    refs = full_attention_bwd_reference(*a32, None, g.float(), 1)
+    tol, grad_tol = HIGHRES_TOL[dtype]
+    e_grad = max(_rel_err(x, r) for x, r in zip(grads[:3], refs[:3]))
+    scaled = max(_scaled_err(x, r) for x, r in [(out, ref), *zip(grads[:3], refs[:3])])
+    case = (N, _max_err(out, ref), _max_err(lse, ref_lse), e_grad, scaled)
+    assert case[1] <= tol and case[2] <= DENSE_LSE_TOL and e_grad <= grad_tol, case
+    assert dtype == torch.float32 or scaled <= DENSE_SCALED_TOL, case
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [12, 8])
+def test_highres_fused_block_kernels(cuda, dtype, w):
+    """B9a and B9b at W 12 (4×4 chunks, ViL-Medium-Wide 384²'s stage 2) and
+    W 8 (12×12), one image, one head of 64, nglo 1: y, k, v and every
+    gradient against the plain versions (dbk at dWk's scale)."""
+    gen = torch.Generator(device=cuda).manual_seed(w)
+    C, nx = 64, 48 if w == 12 else 96
+    padx, pady, mx, my = sc.chunk_grid(nx, nx, w)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=cuda) * scale
+    ops = [rnd(1, mx, my, w * w, C).to(dtype)]
+    for i in range(4):
+        ops += [rnd(C, C, scale=C ** -0.5 * (C ** -0.5 if i == 0 else 1.0)).to(dtype),
+                rnd(C, scale=0.02)]
+    ops += [rnd(1, 1, C).to(dtype), rnd(1, 1, C).to(dtype), None]
+    mask = torch.from_numpy(mask_to_additive(
+        masks.invalid_mask(mx, my, padx, pady, w, 0, 0), mx, my, w * w, 1)).to(cuda)
+    g = rnd(1, mx, my, w * w, C).to(dtype)
+    y, k, v, lse, q, attn = vil_block_fwd(*ops, mask, 1, with_lse=True, saved=True)
+    grads = vil_block_bwd(*ops, g, mask, lse, 1, (q, k, v, attn))
+    ops32 = [None if t is None else t.float() for t in ops]
+    refs = vil_block_bwd_reference(*ops32, g.float(), mask, 1)
+    tol, grad_tol = HIGHRES_TOL[dtype]
+    e_out = max(_max_err(a, r) for a, r in zip((y, k, v), vil_block_reference(*ops32, mask, 1)))
+    e_grad = max(_max_err(a, r) / max(1.0, refs[3 if i == 4 else i].abs().max().item())
+                 for i, (a, r) in enumerate(zip(grads, refs)) if r is not None)
+    assert e_out <= tol and e_grad <= grad_tol, (w, e_out, e_grad)
+    assert vil_block_fwd.launches == vil_block_bwd.launches == 1

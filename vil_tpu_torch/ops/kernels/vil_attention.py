@@ -41,6 +41,12 @@ from . import build
 NEG_INF = float(np.finfo(np.float32).min) / 2
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernel is compiled for
+# the shared memory one block may use on an H100 (227 KB); the f32 CUDA-core
+# bodies ask for W²(4M + 3) floats in the forward and W²(6M + 4) in the
+# backward's pass 2, its larger pass (csrc/sliding_chunk.cuh: fwd_smem_bytes,
+# pass2_smem_bytes); the bf16 tensor-core bodies size theirs by the 64-row
+# tile and take every W
+SMEM_PER_BLOCK = 232448
 
 
 def mask_to_additive(mask_bool: np.ndarray, mx: int, my: int, w2: int,
@@ -153,6 +159,23 @@ def vil_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_he
                                          num_heads, 0)
 
 
+def check_f32_shared_memory(w2: int, head_dim: int, backward: bool) -> None:
+    """Raise ValueError, naming the shape, where an f32 CUDA-core body (the
+    forward, or the backward's larger pass) would ask a block for more shared
+    memory than the card has: W² rows of ``head_dim`` (W 12 at head dim
+    128, W 9 at 128 in the backward). Held on every device, as the head dims
+    are, so that a CPU run refuses what the card would."""
+    body, floats = (("backward pass 2", 6 * head_dim + 4) if backward else
+                    ("forward", 4 * head_dim + 3))
+    need = 4 * w2 * floats
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the f32 sliding-chunk {body} at W² {w2} rows and head dim {head_dim} needs "
+            f"{need} bytes of shared memory a block, more than the {SMEM_PER_BLOCK} an H100 "
+            f"block may use: run it in bf16 (the tensor-core kernels take it), or with a "
+            f"smaller window or head dim")
+
+
 def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int = 9,
                    halo: bool = False):
     """Raise on what the kernels do not take; ``span`` is the number of key
@@ -169,6 +192,8 @@ def check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads, span: int =
         raise TypeError(f"dtype {q.dtype} is not supported (float32, bfloat16)")
     if C % num_heads or C // num_heads not in HEAD_DIMS:
         raise ValueError(f"head dim {C}/{num_heads} is not one of {HEAD_DIMS}")
+    if q.dtype == torch.float32:
+        check_f32_shared_memory(w2, C // num_heads, backward=False)
     if (k_glo is None) != (v_glo is None):
         raise ValueError("k_glo and v_glo must both be given or both be None")
     nglo = 0 if k_glo is None else k_glo.shape[1]
@@ -205,6 +230,8 @@ def check_grad_operands(q, g, lse, num_heads, out=None, takes_out=False):
     and, for a backward that ``takes_out`` (B2, B6, B7b), the forward's ``out``
     is given and matches q."""
     B, mx, my, w2, C = q.shape
+    if q.dtype == torch.float32:
+        check_f32_shared_memory(w2, C // num_heads, backward=True)
     if takes_out and out is None:
         raise ValueError("this backward takes the forward's out")
     for name, t in (("g", g), ("out", out)):

@@ -1,17 +1,20 @@
-"""Where the time of a ViL-Small 224² step goes on one CUDA card.
+"""Where the time of a step of a ViL model goes on one CUDA card.
 
     python -m vil_tpu_torch.tools.profile_step
         [--mode train|train_shift|serve|serve_spatial] [--fused] [--rpe]
         [--attn linformer|srformer|performer|global|unshared]
-        [--out profile_train.json]
+        [--arch vil_small] [--img 224] [--batch 64] [--out profile_train.json]
 
-Runs the recipe of ``vil_tpu_torch.train.recipe`` at its batch of 64 (bf16
+Runs the recipe of ``vil_tpu_torch.train.recipe`` on the zoo model ``--arch``
+at ``--img`` px, ``--batch`` images a step (``recipe.vil``: ViL-Small 224² at
+64 by default, ``--arch vil_small --img 1024 --batch 8`` ViL-Small 1024²; bf16
 compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
 the random-shift step, one sampled neighbour mode per block; ``--fused`` the
 fused-kernel configuration, ``recipe.vil_small(..., fused=True)``; ``--rpe``
 ViL-Small RPE, ``recipe.vil_small(..., rpe=True)``, served from
 ``models.precompute_rpe_cache``; ``--attn`` one of the paper's other
-attention families on ViL-Small, ``recipe.vil_small(..., **recipe.VARIANTS[attn])``;
+attention families, ``recipe.vil(..., **recipe.VARIANTS[attn])``, whose
+ARCH string (linformer, srformer, performer) is ViL-Small's;
 ``serve_spatial`` the serving forward through ``parallel.spatial_forward`` on
 a one-rank ``nccl`` group, set up from a ``FileStore`` under build/) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
@@ -107,6 +110,9 @@ def main() -> None:
     ap.add_argument("--attn", choices=("linformer", "srformer", "performer", "global",
                                        "unshared"), default=None,
                     help="one of the paper's other attention families (recipe.VARIANTS)")
+    ap.add_argument("--arch", default="vil_small", help="a model of the zoo (models.ARCH_ZOO)")
+    ap.add_argument("--img", type=int, default=224, help="image size, px")
+    ap.add_argument("--batch", type=int, default=64, help="images a step")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -116,17 +122,18 @@ def main() -> None:
     variant = recipe.VARIANTS[args.attn] if args.attn else {}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    images = torch.randn(recipe.BATCH, 224, 224, 3, generator=gen, device=dev)
-    labels = torch.randint(0, 1000, (recipe.BATCH,), generator=gen, device=dev)
+    images = torch.randn(args.batch, args.img, args.img, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (args.batch,), generator=gen, device=dev)
     if args.mode in ("train", "train_shift"):
-        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=args.fused,
-                                 rpe=args.rpe, **variant)
-        step_fn = recipe.train_step(model, dev, random_shift=args.mode == "train_shift")
+        model = recipe.vil(args.arch, args.img, torch.bfloat16, torch.float32, device=dev,
+                           fused=args.fused, rpe=args.rpe, **variant)
+        step_fn = recipe.train_step(model, dev, random_shift=args.mode == "train_shift",
+                                    batch=args.batch)
         step_gen = torch.Generator(device=dev).manual_seed(3)
         run = lambda: step_fn(images, labels, step_gen)
     else:
-        model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev,
-                                 fused=args.fused, rpe=args.rpe, **variant).eval()
+        model = recipe.vil(args.arch, args.img, torch.bfloat16, torch.bfloat16, device=dev,
+                           fused=args.fused, rpe=args.rpe, **variant).eval()
         if args.rpe:
             from ..models import precompute_rpe_cache
 
@@ -167,7 +174,7 @@ def main() -> None:
     card = card_line()
     result = {
         "mode": args.mode, "fused": args.fused, "rpe": args.rpe, "attn": args.attn,
-        "batch": recipe.BATCH,
+        "arch": args.arch, "img": args.img, "batch": args.batch,
         "steps": STEPS,
         "card": card,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
@@ -177,7 +184,7 @@ def main() -> None:
     }
     label = (args.mode + (" fused" if args.fused else "") + (" RPE" if args.rpe else "")
              + (f" {args.attn}" if args.attn else ""))
-    print(f"{card}; ViL-Small 224^2 {label} bf16 batch {recipe.BATCH}: wall "
+    print(f"{card}; {args.arch} {args.img}^2 {label} bf16 batch {args.batch}: wall "
           f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
     for fam, ms in result["families_ms"].items():
         print(f"  {fam:32s} {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%")

@@ -15,6 +15,12 @@ differ from the yaml:
   loader (ImageNet-1k's training set, last partial batch dropped), are set
   from that batch here.
 
+:func:`vil_cfg` and :func:`vil` are the same recipe for any model of the zoo
+at any image size and batch (``vil_cfg("vil_medium_deep", 384, batch=16)``:
+ViL-Medium-Deep 384²; ``vil_cfg("vil_small", 1024, batch=8)``: ViL-Small
+1024²); ViL-Small 224² at batch 64 is their default, ``vil_small_cfg`` and
+``vil_small``.
+
 ``vil_small_cfg(mode=1)`` is the random-shift recipe: MODEL.VIT.MSVIT.MODE 1,
 the reference's switch for random shifting, with one sampled neighbour mode
 per attention block (TPU.MODE_PER_LAYER).
@@ -88,16 +94,22 @@ VARIANTS = {
 }
 
 
-def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False,
-                  attn_type: str = "longformerhand", arch: str = "", only_glo: bool = False,
-                  sharew: bool = True) -> NS:
-    steps_per_epoch = IMAGENET_TRAIN_IMAGES // BATCH
-    arch = arch or ARCH_ZOO["vil_small"]
+def vil_cfg(name: str = "vil_small", img_size: int = 224, batch: int = BATCH, mode: int = 0,
+            fused: bool = False, rpe: bool = False, attn_type: str = "longformerhand",
+            arch: str = "", only_glo: bool = False, sharew: bool = True) -> NS:
+    """The recipe's tree for the zoo model ``name`` (``ARCH_ZOO``) at
+    ``img_size`` px, trained at ``batch`` images a step (the counterpart of
+    ``benchmarks/model_bench.py``'s ``MsViT(arch=ARCH_ZOO[...],
+    img_size=...)``): INPUT.IMAGE_SIZE, DATALOADER.BSZ and the steps an epoch
+    follow them, every other key is ViL-Small's. ``arch`` replaces the zoo's
+    ARCH string (the attention families' ``f``)."""
+    steps_per_epoch = IMAGENET_TRAIN_IMAGES // batch
+    arch = arch or ARCH_ZOO[name]
     arch = rpe_arch(arch) if rpe else arch
     return NS(
         DATA=NS(NUM_CLASSES=1000),
-        DATALOADER=NS(BSZ=BATCH),
-        INPUT=NS(IMAGE_SIZE=224, MEAN=[0.485, 0.456, 0.406], STD=[0.229, 0.224, 0.225]),
+        DATALOADER=NS(BSZ=batch),
+        INPUT=NS(IMAGE_SIZE=img_size, MEAN=[0.485, 0.456, 0.406], STD=[0.229, 0.224, 0.225]),
         MODEL=NS(ARCH="msvit", VIT=NS(
             DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
             MSVIT=NS(ARCH=arch, SHARE_W=sharew, ATTN_TYPE=attn_type, SHARE_KV=True,
@@ -115,26 +127,43 @@ def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False,
     )
 
 
-def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
-              use_kernels: bool = True, device=None, fused: bool = False,
-              rpe: bool = False, **variant) -> MsViT:
-    """The recipe's model, computed in ``dtype`` with parameters in
-    ``param_dtype``; random weights from seed 0 (the same with ``fused``;
-    with ``rpe`` the ViL-Small RPE model, whose tables are drawn too).
-    ``variant`` is one of :data:`VARIANTS`' keyword sets, or keywords of
-    :func:`vil_small_cfg` (``attn_type``, ``arch``, ``only_glo``,
-    ``sharew``)."""
-    return build_model(vil_small_cfg(fused=fused, rpe=rpe, **variant), dtype=dtype,
+def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False,
+                  attn_type: str = "longformerhand", arch: str = "", only_glo: bool = False,
+                  sharew: bool = True) -> NS:
+    """ViL-Small 224² at batch 64: :func:`vil_cfg`'s default."""
+    return vil_cfg(mode=mode, fused=fused, rpe=rpe, attn_type=attn_type, arch=arch,
+                   only_glo=only_glo, sharew=sharew)
+
+
+def vil(name: str, img_size: int, dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
+        use_kernels: bool = True, device=None, fused: bool = False, rpe: bool = False,
+        **variant) -> MsViT:
+    """The zoo model ``name`` at ``img_size`` px (:func:`vil_cfg`), computed
+    in ``dtype`` with parameters in ``param_dtype``; random weights from seed
+    0 (the same with ``fused``; with ``rpe`` the model with relative position
+    bias in every stage, whose tables are drawn too). ``variant`` is one of
+    :data:`VARIANTS`' keyword sets, or keywords of :func:`vil_cfg`
+    (``attn_type``, ``arch``, ``only_glo``, ``sharew``)."""
+    return build_model(vil_cfg(name, img_size, fused=fused, rpe=rpe, **variant), dtype=dtype,
                        param_dtype=param_dtype, device=device, use_kernels=use_kernels,
                        fused_block=fused, generator=torch.Generator().manual_seed(0))
 
 
-def train_step(model: MsViT, device=None, random_shift: bool = False) -> Callable:
+def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
+              use_kernels: bool = True, device=None, fused: bool = False,
+              rpe: bool = False, **variant) -> MsViT:
+    """ViL-Small 224², :func:`vil` of ``vil_small``."""
+    return vil("vil_small", 224, dtype, param_dtype, use_kernels, device, fused, rpe,
+               **variant)
+
+
+def train_step(model: MsViT, device=None, random_shift: bool = False,
+               batch: int = BATCH) -> Callable:
     """``engine.make_train_step`` over ``model`` with the recipe's criterion,
-    optimizer, schedule and mixup. ``random_shift`` takes the MODE 1 recipe:
-    per-layer neighbour modes drawn each step from a CPU generator seeded
-    with 0."""
-    cfg = vil_small_cfg(1 if random_shift else 0)
+    optimizer, schedule and mixup, its schedule's epochs of ``batch``
+    images a step. ``random_shift`` takes the MODE 1 recipe: per-layer
+    neighbour modes drawn each step from a CPU generator seeded with 0."""
+    cfg = vil_cfg(batch=batch, mode=1 if random_shift else 0)
     mode_generator = torch.Generator().manual_seed(0) if random_shift else None
     return engine.make_train_step(model, loss.get_criterion(cfg), optim.get_opt(cfg, model),
                                   schedulers.get_lr_schedule(cfg), mixup_from_cfg(cfg),
