@@ -139,7 +139,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
    and the bf16 pair, kernels vs plain versions from the same weights, at
    the batch the plain versions' memory allows (64, 8, 8, 2, 2, 4): logits
    to LOGITS_TOL and BF16_LOGITS_TOL, a step's loss and every gradient to
-   LOSS_TOL, PARAM_GRAD_TOL and BF16_PARAM_GRAD_TOL. Then ``finetune_384``:
+   LOSS_TOL, PARAM_GRAD_TOL and BF16_PARAM_GRAD_TOL. The same with relative
+   position bias in every stage (``recipe.vil(..., rpe=True)``, served from
+   ``precompute_rpe_cache``): ViL-Medium-Deep RPE 384² served and trained at
+   batch 64 (``serve_384_rpe``, ``train_384_rpe``; pairs at 8) and ViL-Small
+   RPE 1024² at batch 8 (``serve_1024_rpe``, ``train_1024_rpe``; pairs at 2),
+   launches as their APE twins', each table's f32 gradient error printed
+   apart. Then ``finetune_384``:
    configs/msvit_384finetune.yaml through ``run_experiment.main(argv)`` on
    ViL-Medium-Wide 384² (W 8 with 64 rows a chunk, W 12 with 144 in three
    slices) from a .pth of a seeded ViL-Medium-Wide 224² under the
@@ -178,7 +184,12 @@ Phase 3 ends with ViL-Small RPE's biased kernels at its step's shapes, each
 bias assembled from tables drawn at σ 1 by the model's own assembly: B3 with
 (6, 197, 197) and (12, 49, 49), B1/B2 and B9a/B9b with (3, 49, 442), B5/B6 at
 modes 1..8 with (3, 49, 99) in front order, B7a/B7b split over 2 ranks; each
-timed per call with its bias (SDPA with the bias in its mask beside it).
+timed per call with its bias (SDPA with the bias in its mask beside it); the
+biased B2 and B4 launched twice, bit for bit (their dbias partials by chunk
+and image groups). Last, the high-resolution cases, with the biased B4 at
+N 4097, batch 8 (one group of 8 images) and B2 on the 37x37 grid at batch 2
+(bit for bit again), and the dense bias's assembly (the gather against the
+skew, forward and backward, equal bit for bit) at the paths' grids.
 
 Each path of phases 4-17 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -191,8 +202,9 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_performer``, ``launches_global``, ``launches_unshared``,
 ``launches_experiment_performer``, ``launches_serve_384``,
 ``launches_train_384``, ``launches_serve_1024``, ``launches_train_1024``,
-``launches_shift_1024``, ``launches_base_deep_384`` and
-``launches_finetune_384`` each path's; ``ms``,
+``launches_shift_1024``, ``launches_base_deep_384``, ``launches_serve_384_rpe``,
+``launches_train_384_rpe``, ``launches_serve_1024_rpe``,
+``launches_train_1024_rpe`` and ``launches_finetune_384`` each path's; ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
 path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
 for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
@@ -464,6 +476,13 @@ def check_kernels(torch, records):
         if not err <= tol:
             raise AssertionError(f"{what}: error {err} > {tol}")
 
+    def same_bits(what, grads, again):
+        """A second launch's gradients equal the first's bit for bit."""
+        same = all(torch.equal(x, y) for x, y in zip(grads, again) if x is not None)
+        phase("kernels", f"{what}: a second launch bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{what}: a second launch gave other bits")
+
     def chunk_scaled(out, ref, grads, refs):
         """Scaled errors of a bf16 sliding-chunk forward's out and its
         backward's dq, dk, dv, dk_glo, dv_glo and (biased) dbias."""
@@ -503,11 +522,13 @@ def check_kernels(torch, records):
         return fwd, bwd, both
 
     def chunk_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, mode=0, per_step=0.0,
-                   bias=None, timed=False):
+                   bias=None, timed=False, repeat=False):
         """A sliding-chunk case: B1/B2 at mode 0, B5/B6 (the sampled
         neighbour of ``mode``) at modes 1..8. ``per_step`` is the case's
         share of one training step's launches; ``timed`` times it without a
-        share. ``bias`` (f32, front order) replaces the random one."""
+        share. ``bias`` (f32, front order) replaces the random one. With
+        ``repeat`` the backward is launched again and must give the same
+        bits."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + (9 if mode == 0 else 2) * w2
@@ -538,6 +559,9 @@ def check_kernels(torch, records):
             ref, ref_lse = fwd_ref(*a32, bias, mask, H, *tail, with_lse=True)
             grads = bwd(*a, bias=bias, g=g, out=out, lse=lse)
             refs = bwd_ref(*a32, bias, g.float(), mask, H, *tail)
+            if repeat:
+                same_bits(f"{name}_bwd {label} {str(dtype)[6:]}", grads,
+                          bwd(*a, bias=bias, g=g, out=out, lse=lse))
             torch.cuda.synchronize()
             e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
             e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
@@ -604,9 +628,11 @@ def check_kernels(torch, records):
                     serve_ms = time_ms(lambda: fwd(*a, bias, mask, H))
                     phase("kernels", f"  {name}_fwd without lse (serving): {serve_ms:.4f} ms")
 
-    def full_case(label, B, N, C, H, with_bias, per_step=0, timed=False, bias=None):
+    def full_case(label, B, N, C, H, with_bias, per_step=0, timed=False, bias=None,
+                  repeat=False):
         """A dense case; ``timed`` times it without a share of the step.
-        ``bias`` (f32) replaces the random one."""
+        ``bias`` (f32) replaces the random one. With ``repeat`` the backward
+        is launched again and must give the same bits."""
         M = C // H
         acts = [randn(B, N, C, scale=C ** -0.25) for _ in range(3)]
         g0 = randn(B, N, C)
@@ -620,6 +646,9 @@ def check_kernels(torch, records):
             ref, ref_lse = full_attention_reference(*a32, bias, H, with_lse=True)
             grads = full_attention_bwd(*a, bias, g, out, lse, H)
             refs = full_attention_bwd_reference(*a32, bias, g.float(), H)
+            if repeat:
+                same_bits(f"full_attention_bwd {label} {str(dtype)[6:]}", grads,
+                          full_attention_bwd(*a, bias, g, out, lse, H))
             torch.cuda.synchronize()
             e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
             e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
@@ -1063,14 +1092,15 @@ def check_kernels(torch, records):
                 randn(H, nglo, nglo) if nglo else None)
 
     full_case("RPE stage3 (64,197,384) H6, bias (6,197,197) from tables", 64, 197, 384, 6,
-              True, timed=True, bias=full_rpe_bias(*tables(27 * 27, 6, 1), 14, 14))
+              True, timed=True, bias=full_rpe_bias(*tables(27 * 27, 6, 1), 14, 14), repeat=True)
     full_case("RPE stage4 (64,49,768) H12, bias (12,49,49) from tables", 64, 49, 768, 12,
-              True, timed=True, bias=full_rpe_bias(*tables(13 * 13, 12, 0), 7, 7))
+              True, timed=True, bias=full_rpe_bias(*tables(13 * 13, 12, 0), 7, 7), repeat=True)
     for stage, mx, C in ((1, 8, 96), (2, 4, 192)):
         table, g2l, _ = tables(27 * 27, 3, 1)
         shape = f"stage{stage} (64,{mx},{mx},49,{C}) H3"
         chunk_case(f"RPE {shape}, bias (3,49,442) from tables", 64, 7 * mx, 7 * mx, 7, C, 3,
-                   1, 0, True, timed=True, bias=sliding_chunk_rpe_bias(table, g2l, 7))
+                   1, 0, True, timed=True, bias=sliding_chunk_rpe_bias(table, g2l, 7),
+                   repeat=True)
         block_case(f"RPE {shape}, bias (3,49,442) from tables", 64, 7 * mx, 7 * mx, 7, C, 3,
                    1, True, timed=True, bias=sliding_chunk_rpe_bias(table, g2l, 7))
         # every sampled neighbour at stage 2, modes 1 and 6 at stage 1
@@ -1147,6 +1177,37 @@ def check_kernels(torch, records):
     full_case("384^2 stage4 (64,144,768) H12", 64, 144, 768, 12, False, timed=True)
     block_case("W 12 (32,4,4,144,384) H6", 32, 48, 48, 12, 384, 6, 1, False, timed=True)
     block_case("W 8 (32,12,12,64,192) H3", 32, 96, 96, 8, 192, 3, 1, False, timed=True)
+    # relative position bias at high resolution (the RPE paths of part
+    # highres): B4 with ViL-Small RPE 1024²'s stage-3 bias (one group of all
+    # 8 images a block, one (6, 4097, 4097) partial) and B2 on its 37x37
+    # grid (chunk groups of 15 at batch 2), each launched twice
+    from vil_tpu_torch.models.attention import full_rpe_bias_skew
+
+    full_case("RPE 1024^2 stage3 (8,4097,384) H6, bias (6,4097,4097) from tables", 8, 4097,
+              384, 6, True, timed=True, repeat=True,
+              bias=full_rpe_bias_skew(*tables(127 * 127, 6, 1), 64, 64))
+    table, g2l, _ = tables(27 * 27, 3, 1)
+    chunk_case("RPE 1024^2 stage1 (2,37,37,49,96) H3, pad 3, bias (3,49,442) from tables", 2,
+               256, 256, 7, 96, 3, 1, 0, True, timed=True, repeat=True,
+               bias=sliding_chunk_rpe_bias(table, g2l, 7))
+    # the dense bias's assembly at the RPE paths' dense grids: the gather
+    # (index_put_ backward) and the skew (slices and sums), equal bit for bit
+    for wx, H, nglo in ((64, 6, 1), (32, 12, 0), (24, 6, 1), (12, 12, 0)):
+        leaves = [t.requires_grad_() for t in tables((2 * wx - 1) ** 2, H, nglo) if t is not None]
+        msg, built = [], {}
+        for kind, assemble in (("gather", full_rpe_bias), ("skew", full_rpe_bias_skew)):
+            make = lambda: assemble(*leaves, *[None] * (3 - len(leaves)), wx, wx)
+            built[kind] = make()
+            ct = torch.ones_like(built[kind])
+            fwd_ms = time_ms(lambda: make().detach())
+            bwd_ms = time_ms(lambda: torch.autograd.grad(built[kind], leaves, ct,
+                                                         retain_graph=True))
+            msg.append(f"{kind} forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms")
+        same = torch.equal(built["gather"], built["skew"])
+        phase("kernels", f"dense RPE bias ({H},{nglo + wx * wx},{nglo + wx * wx}) from tables "
+                         f"on a {wx}x{wx} grid: {'; '.join(msg)}; equal bit for bit {same}")
+        if not same:
+            raise AssertionError(f"the skew assembly differs from the gather at {wx}x{wx}")
 
 
 def launch_counts(kernels) -> dict:
@@ -2056,16 +2117,21 @@ def run_efficient_experiment(torch, kernels) -> dict:
 
 # the high-resolution paths (part ``highres``): path → (zoo model, image px,
 # batch, the batch of the f32 and bf16 kernels-vs-plain pairs, serves,
-# trains, random shift). The pairs' batches are cut where the plain versions'
-# memory would not fit: the plain dense attention keeps (B, H, N, N) f32
-# scores and probabilities, about 0.8 GB an image and a block at N 4097
+# trains, random shift, relative position bias). The pairs' batches are cut
+# where the plain versions' memory would not fit: the plain dense attention
+# keeps (B, H, N, N) f32 scores and probabilities, about 0.8 GB an image and
+# a block at N 4097; the RPE pairs' to keep the part near its time
 HIGHRES = {
-    "serve_384": ("vil_medium_deep", 384, 64, 64, True, False, False),
-    "train_384": ("vil_medium_deep", 384, 64, 8, False, True, False),
-    "serve_1024": ("vil_small", 1024, 8, 8, True, False, False),
-    "train_1024": ("vil_small", 1024, 8, 2, False, True, False),
-    "shift_1024": ("vil_small", 1024, 8, 2, False, True, True),
-    "base_deep_384": ("vil_base_deep_384", 384, 32, 4, True, True, False),
+    "serve_384": ("vil_medium_deep", 384, 64, 64, True, False, False, False),
+    "train_384": ("vil_medium_deep", 384, 64, 8, False, True, False, False),
+    "serve_1024": ("vil_small", 1024, 8, 8, True, False, False, False),
+    "train_1024": ("vil_small", 1024, 8, 2, False, True, False, False),
+    "shift_1024": ("vil_small", 1024, 8, 2, False, True, True, False),
+    "base_deep_384": ("vil_base_deep_384", 384, 32, 4, True, True, False, False),
+    "serve_384_rpe": ("vil_medium_deep", 384, 64, 8, True, False, False, True),
+    "train_384_rpe": ("vil_medium_deep", 384, 64, 8, False, True, False, True),
+    "serve_1024_rpe": ("vil_small", 1024, 8, 2, True, False, False, True),
+    "train_1024_rpe": ("vil_small", 1024, 8, 2, False, True, False, True),
 }
 PROFILED = 2  # requests or steps of a path under torch.profiler, after the timed ones
 
@@ -2082,12 +2148,16 @@ def run_highres_path(torch, kernels, name: str) -> dict:
     the bf16 pair, kernels vs plain versions from the same weights, at the
     path's pair batch: logits (serving) to LOGITS_TOL and BF16_LOGITS_TOL,
     one step's loss and every parameter gradient (training) to LOSS_TOL,
-    PARAM_GRAD_TOL and BF16_PARAM_GRAD_TOL. Returns the path's launches."""
+    PARAM_GRAD_TOL and BF16_PARAM_GRAD_TOL. With RPE the model has relative
+    position bias in every stage (its tables drawn by ``recipe.vil``),
+    serves from ``precompute_rpe_cache`` and prints its tables' gradient
+    errors apart. Returns the path's launches."""
+    from vil_tpu_torch.models import precompute_rpe_cache
     from vil_tpu_torch.ops import flops
     from vil_tpu_torch.tools.profile_step import family, kernel_ms
     from vil_tpu_torch.train import engine, recipe
 
-    arch_name, img, batch, pair, serves, trains, shift = HIGHRES[name]
+    arch_name, img, batch, pair, serves, trains, shift, rpe = HIGHRES[name]
     dev = torch.device("cuda")
     t_path = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2095,8 +2165,8 @@ def run_highres_path(torch, kernels, name: str) -> dict:
                            dtype=torch.uint8)
     images = torch.randn(batch, img, img, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
-    macs = flops.model_macs(recipe.vil_cfg(arch_name, img).MODEL.VIT.MSVIT.ARCH, img)
-    what = f"{arch_name} {img}^2 bf16 batch {batch}"
+    macs = flops.model_macs(recipe.vil_cfg(arch_name, img, rpe=rpe).MODEL.VIT.MSVIT.ARCH, img)
+    what = f"{arch_name}{' RPE' if rpe else ''} {img}^2 bf16 batch {batch}"
     phase(name, f"{what}: {macs['gmacs']:.3f} GMACs an image (ops/flops.py), "
                 f"{macs['params'] / 1e6:.2f} M parameters")
     want = {fn.__name__: 0 for fn in kernels}
@@ -2146,7 +2216,10 @@ def run_highres_path(torch, kernels, name: str) -> dict:
         fn.launches = 0
     modes0 = None
     if serves:
-        model = recipe.vil(arch_name, img, torch.bfloat16, torch.bfloat16, device=dev).eval()
+        model = recipe.vil(arch_name, img, torch.bfloat16, torch.bfloat16, device=dev,
+                           rpe=rpe).eval()
+        if rpe:
+            precompute_rpe_cache(model)
         chunk, dense = block_counts(model)
 
         def serve():
@@ -2159,7 +2232,7 @@ def run_highres_path(torch, kernels, name: str) -> dict:
                 REQUESTS)
         del model
     if trains:
-        model = recipe.vil(arch_name, img, torch.bfloat16, torch.float32, device=dev)
+        model = recipe.vil(arch_name, img, torch.bfloat16, torch.float32, device=dev, rpe=rpe)
         chunk, dense = block_counts(model)
         step = recipe.train_step(model, dev, shift, batch=batch)
         step_gen = torch.Generator(device=dev).manual_seed(3)
@@ -2189,7 +2262,7 @@ def run_highres_path(torch, kernels, name: str) -> dict:
     torch.cuda.empty_cache()
 
     def build(dtype, param_dtype, use_kernels):
-        return recipe.vil(arch_name, img, dtype, param_dtype, use_kernels, dev)
+        return recipe.vil(arch_name, img, dtype, param_dtype, use_kernels, dev, rpe=rpe)
 
     if serves:  # logits, kernels vs plain versions, in f32 then bf16
         x, outs = served[:pair], {}
@@ -2231,6 +2304,13 @@ def run_highres_path(torch, kernels, name: str) -> dict:
         (loss_k, grads_k), (loss_p, grads_p) = (one_step(torch.float32, True),
                                                 one_step(torch.float32, False))
         grad_err, worst, _ = f32_grad_errors(grads_k, grads_p)
+        if rpe:  # each table's f32 gradient error apart, as phase 12 holds them
+            errs = {n: ((grads_k[n] - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+                    for n, r in grads_p.items() if "relative_position" in n}
+            top = sorted(errs.items(), key=lambda kv: -kv[1])
+            phase(name, f"batch {pair}: f32 step, the {len(errs)} tables' gradients, kernels vs "
+                        f"plain versions, max|err| / max|ref| (tol {PARAM_GRAD_TOL:g}), the five "
+                        f"largest: " + ", ".join(f"{n} {e:.3e}" for n, e in top[:5]))
         del grads_k
         (bf_loss_k, bf_k), (bf_loss_p, bf_p) = (one_step(torch.bfloat16, True),
                                                 one_step(torch.bfloat16, False))

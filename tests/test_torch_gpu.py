@@ -1554,3 +1554,56 @@ def test_highres_fused_block_kernels(cuda, dtype, w):
                  for i, (a, r) in enumerate(zip(grads, refs)) if r is not None)
     assert e_out <= tol and e_grad <= grad_tol, (w, e_out, e_grad)
     assert vil_block_fwd.launches == vil_block_bwd.launches == 1
+
+
+# ------------------------------ relative position bias at high resolution
+
+def _same_bits(grads, again):
+    return all(torch.equal(x, y) for x, y in zip(grads, again) if x is not None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpe_highres_dense_backward(cuda, dtype):
+    """B4 biased at ViL-Small RPE 1024²'s stage 3 (N 4097, batch 8, H 6,
+    the skew-assembled (6, 4097, 4097) bias): one group of all 8 images a
+    block (one partial, byte offsets past 2³¹), every gradient against the
+    plain backward at chip_smoke.py's limits, and a second launch bit for
+    bit."""
+    from vil_tpu_torch.models.attention import full_rpe_bias_skew
+    from vil_tpu_torch.ops.kernels.full_attention import image_group
+
+    N, C, H, B = 4097, 384, 6, 8
+    assert image_group(B, N, H) == B
+    bias = full_rpe_bias_skew(*_rpe_tables(cuda, 11, 127 * 127, H, 1), 64, 64)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(B, N, C, generator=gen, device=cuda).mul(C ** -0.25).to(dtype)
+               for _ in range(3))
+    g = torch.randn(B, N, C, generator=gen, device=cuda).to(dtype)
+    out, lse = full_attention_fwd(q, k, v, bias, H, with_lse=True)
+    grads = full_attention_bwd(q, k, v, bias, g, out, lse, H)
+    assert _same_bits(grads, full_attention_bwd(q, k, v, bias, g, out, lse, H))
+    refs = full_attention_bwd_reference(q.float(), k.float(), v.float(), bias, g.float(), H)
+    _grads_close(grads, refs, dtype, ("dq", "dk", "dv", "dbias"))
+    assert full_attention_bwd.launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpe_highres_sliding_chunk_backward(cuda, dtype):
+    """B2 biased on ViL-Small RPE 1024²'s 37×37 stage-1 grid (pad 3, batch
+    2, H 3, the (3, 49, 442) bias from tables): its pass 1 in chunk groups,
+    every gradient against the plain backward at chip_smoke.py's limits,
+    and a second launch bit for bit."""
+    from vil_tpu_torch.models.attention import sliding_chunk_rpe_bias
+    from vil_tpu_torch.ops.kernels.vil_attention import chunk_group
+
+    table, g2l, _ = _rpe_tables(cuda, 13, 27 * 27, 3, 1)
+    bias = sliding_chunk_rpe_bias(table, g2l, 7)
+    acts, _, g, mask = _chunk_case(cuda, 14, 2, 256, 256, 7, 32, 3, 1, 0, False)
+    assert chunk_group(2, 37, 37, 49, 3) == 15
+    acts, g = [None if a is None else a.to(dtype) for a in acts], g.to(dtype)
+    out, lse = vil_attention_fwd(*acts, bias, mask, 3, with_lse=True)
+    grads = vil_attention_bwd(*acts, bias, g, out, mask, lse, 3)
+    assert _same_bits(grads, vil_attention_bwd(*acts, bias, g, out, mask, lse, 3))
+    a32 = [None if a is None else a.float() for a in acts]
+    _grads_close(grads, vil_attention_bwd_reference(*a32, bias, g.float(), mask, 3), dtype,
+                 CHUNK_NAMES)

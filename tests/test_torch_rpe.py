@@ -12,7 +12,15 @@ is f32. Tolerance: 1e-5 absolute and relative for module outputs, 1e-4 of
 max(1, max|ref|) for module gradients, the repo's atol 2e-4 / rtol 1e-3 for
 whole models. Then the serving cache (equal to the uncached path, ignored in
 training, never served stale), the no-decay group and the builders.
+
+The flax modules, their initial parameters and their jitted gradients are
+built once per configuration and shared by its cases (``_flax_vil``,
+``_jax_msvit``); the sampled-neighbour modes reach the JAX package's mode
+kernels as one traced scalar, as its random-shift training passes them, so
+that one compilation serves modes 1..8.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,22 +167,37 @@ def _vil_case(seed, nglo, C=24, nx=7, ny=8, B=2):
     return x_glo, x_img, g_glo, g_img
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_vil(shapes, nx, ny, fused, kw):
+    """flax VilAttention(rpe=True) of ``kw`` on inputs of ``shapes`` ((x_glo
+    or None, x_img) shapes), built once per configuration: the module, its
+    initial parameters (they depend on the shapes alone) and its jitted
+    gradient of Σ out·g, at mode 0 (static) and at a traced mode 1..8."""
+    kw = dict(kw)
+    flax_mod = jax_attention.VilAttention(dim=shapes[1][-1], sharew=True, rpe=True,
+                                          use_pallas=True, **kw)
+    x_jax = tuple(None if s is None else jnp.zeros(s, jnp.float32) for s in shapes)
+    params = jax.tree_util.tree_map(np.asarray, flax_mod.init(
+        {"params": jax.random.PRNGKey(0)}, x_jax, nx, ny, True)["params"])
+
+    def f(p, x_glo, x_img, g_glo, g_img, mode):
+        out_glo, out_img = flax_mod.apply({"params": p}, (x_glo, x_img), nx, ny, True, mode)
+        s = jnp.sum(out_img * g_img)
+        return (s if out_glo is None else s + jnp.sum(out_glo * g_glo)), (out_glo, out_img)
+
+    grad = jax.value_and_grad(f, has_aux=True)
+    return params, jax.jit(functools.partial(grad, mode=0)), jax.jit(grad)
+
+
 def _vil_pair(x_glo, x_img, g_glo, g_img, nx, ny, mode, seed, fused=False, **kw):
     """flax VilAttention(rpe=True) and the port's, the same σ = 1 tables:
     (ref outputs, ref gradients, our module, our outputs)."""
     C = x_img.shape[-1]
-    flax_mod = jax_attention.VilAttention(dim=C, sharew=True, rpe=True, use_pallas=True, **kw)
-    x_jax = (_j(x_glo), jnp.asarray(x_img))
-    params = jax.tree_util.tree_map(np.asarray, flax_mod.init(
-        {"params": jax.random.PRNGKey(0)}, x_jax, nx, ny, True)["params"])
+    shapes = (None if x_glo is None else x_glo.shape, x_img.shape)
+    params, grad0, grad_mode = _flax_vil(shapes, nx, ny, fused, tuple(sorted(kw.items())))
     params = _big_tables(params, seed)
-
-    def f(p):
-        out_glo, out_img = flax_mod.apply({"params": p}, x_jax, nx, ny, True, mode)
-        s = jnp.sum(out_img * g_img)
-        return (s if out_glo is None else s + jnp.sum(out_glo * g_glo)), (out_glo, out_img)
-
-    (_, ref), ref_grads = jax.jit(jax.value_and_grad(f, has_aux=True))(params)
+    args = (params, _j(x_glo), jnp.asarray(x_img), _j(g_glo), jnp.asarray(g_img))
+    (_, ref), ref_grads = grad0(*args) if mode == 0 else grad_mode(*args, jnp.int32(mode))
     ours = load_jax_params(VilAttention(dim=C, rpe=True, fused_block=fused, **kw), params)
     out_glo, out_img = ours((_t(x_glo), _t(x_img)), nx, ny, mode)
     s = (out_img * _t(g_img)).sum()
@@ -232,10 +255,26 @@ def test_fused_block_rpe_matches_flax(interpret, monkeypatch, nglo, exact):
 
 # --------------------------------------------------------------- whole model
 
-def _flax_params(ours, jax_model, x):
-    """The port model's parameters as the flax tree of ``jax_model``."""
+@functools.lru_cache(maxsize=None)
+def _jax_msvit(arch, img):
+    """vil_tpu's MsViT of ``arch`` at ``img`` px, built once per (arch, img):
+    its parameter shapes, its jitted logits, and its jitted loss gradient
+    (at mode 0 without ``modes``, else at the traced per-layer vector)."""
+    jax_model = JaxMsViT(arch=arch, img_size=img, num_classes=10, use_pallas=True, **COMMON)
     shapes = jax.eval_shape(lambda: jax_model.init({"params": jax.random.PRNGKey(0)},
-                                                   jnp.asarray(x)))["params"]
+                                                   jnp.zeros((1, img, img, 3))))["params"]
+    logits = jax.jit(lambda p, x: jax_model.apply({"params": p}, x))
+
+    def loss_fn(p, x, labels, modes=None):
+        kw = {} if modes is None else dict(mode=modes)
+        out = jax_model.apply({"params": p}, x, deterministic=False, **kw)
+        return jax_loss.cross_entropy(out, labels)
+
+    return shapes, logits, jax.jit(jax.value_and_grad(loss_fn))
+
+
+def _flax_params(ours, shapes):
+    """The port model's parameters as the flax tree of ``shapes``."""
     params = {n: p.detach().float().numpy() for n, p in ours.named_parameters()}
 
     def leaf(path, sds):
@@ -276,23 +315,19 @@ def test_msvit_rpe_matches_jax(interpret, arch, img, modes):
     labels = np.array([3, 7])
     ours = _rpe_model(arch, img)
     _draw_tables(ours, 81)
-    jax_model = JaxMsViT(arch=arch, img_size=img, num_classes=10, use_pallas=True, **COMMON)
-    params = _flax_params(ours, jax_model, x)
+    shapes, jax_logits, jax_grad = _jax_msvit(arch, img)
+    params = _flax_params(ours, shapes)
     twin = load_jax_params(_rpe_model(arch, img, seed=1), jax.tree_util.tree_map(np.asarray,
                                                                                   params))
     for (name, a), (_, b) in zip(ours.named_parameters(), twin.named_parameters()):
         torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)
-    ref_logits = jax.jit(lambda p: jax_model.apply({"params": p}, jnp.asarray(x)))(params)
+    ref_logits = jax_logits(params, jnp.asarray(x))
     with torch.inference_mode():
         logits = twin.eval()(_t(x))
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=2e-4, rtol=1e-3)
 
-    def jax_loss_fn(p):
-        kw = {} if modes is None else dict(mode=jnp.array(modes))
-        out = jax_model.apply({"params": p}, jnp.asarray(x), deterministic=False, **kw)
-        return jax_loss.cross_entropy(out, jnp.asarray(labels))
-
-    ref_loss, ref_grads = jax.jit(jax.value_and_grad(jax_loss_fn))(params)
+    ref_loss, ref_grads = jax_grad(params, jnp.asarray(x), jnp.asarray(labels),
+                                   None if modes is None else jnp.array(modes))
     out = loss.cross_entropy(twin.train()(_t(x), mode=0 if modes is None else modes),
                              _t(labels))
     out.backward()
@@ -343,7 +378,8 @@ def test_rpe_tables_reach_every_kernel_and_counters_stay_zero():
 
 def test_table_gradients_are_deterministic():
     """Two backwards of one step give the tables the same bits (the
-    gather's backward sums each row's terms in one fixed order)."""
+    gather's and the skew assembly's backwards sum each row's terms in one
+    fixed order)."""
     x = torch.from_numpy(np.random.default_rng(94).standard_normal((2, 64, 64, 3))
                          .astype(np.float32))
     grads = []
@@ -419,12 +455,14 @@ def test_rpe_cache_is_ignored_in_training():
     block = model.stage3_block0_attn.attn
     assert block._rpe_cache is not None
     calls = []
-    assemble = block._assemble_rpe
-    block._assemble_rpe = lambda mode: calls.append(mode) or assemble(mode)
-    model.eval()(x).sum().backward()  # eval with a gradient to take: assembled
-    assert calls == [0]
+    assemble = block._assemble_from  # the dense bias from the tables, either route
+    block._assemble_from = lambda *tables: calls.append(len(tables)) or assemble(*tables)
+    # eval with a gradient to take: assembled in the forward, and rebuilt in
+    # the backward by the kernels' autograd Function
+    model.eval()(x).sum().backward()
+    assert calls == [3, 3]
     _serve(model, x)  # serving: the cache
-    assert calls == [0]
+    assert calls == [3, 3]
     for name, g in grads[0].items():
         assert "local" not in name or g.abs().max() > 0, name
         torch.testing.assert_close(grads[1][name], g, atol=0, rtol=0, msg=name)

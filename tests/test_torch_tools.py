@@ -87,3 +87,13 @@ ptxas info    : Used 12 registers, 384 bytes cmem[0]
         "_ZN3vil28vil_mode_attention_fwd_wgmmaILi32EEEvv": 96,
         "_ZN3vil20vil_block_bwd_reduceEPKfPfil": 12,
     }
+
+
+def test_census_names_keep_every_template_argument():
+    """Two instances that differ in a bool template argument keep apart
+    names (B2's biased and unbiased pass 1)."""
+    line = "void vil::vil_attention_bwd_wgmma_pass1<(int)32, (bool)1>(const __nv_bfloat16 *, int)"
+    assert sass_census.kernel_name(line) == "vil::vil_attention_bwd_wgmma_pass1<32, 1>"
+    assert sass_census.kernel_name(line.replace("(bool)1", "(bool)0")).endswith("<32, 0>")
+    assert sass_census.kernel_name("void vil::vil_ln_fwd<float>(const float *)") == (
+        "vil::vil_ln_fwd<float>")

@@ -205,13 +205,14 @@ __device__ __forceinline__ float row_delta(const float* q, const float* g, const
 
 // The same pass, second sweep: dS = P ∘ (dP - delta) per key, folded into
 // dq += dS · K (lane holds dims lane + 32 i). Optional outputs, indexed by
-// key: p_out and ds_out receive P and dS, db accumulates dS.
+// key: p_out and ds_out receive P and dS, db accumulates dS (or, with
+// db_add false, receives it).
 template <int M>
 __device__ __forceinline__ void row_dq(LaneVec<M>& dq, const float* q, const float* g,
                                        const float* ks, const float* vs, int nkeys,
                                        const float* add0, const float* add1, float lse,
                                        float delta, float* p_out, float* ds_out, float* db,
-                                       int lane) {
+                                       int lane, bool db_add = true) {
   for (int t0 = 0; t0 < nkeys; t0 += 32) {
     const int key = t0 + lane;
     float ds = 0.f;
@@ -225,7 +226,7 @@ __device__ __forceinline__ void row_dq(LaneVec<M>& dq, const float* q, const flo
         p_out[key] = p;
         ds_out[key] = ds;
       }
-      if (db != nullptr) db[key] += ds;
+      if (db != nullptr) db[key] = db_add ? db[key] + ds : ds;
     }
     const int n = min(32, nkeys - t0);
     for (int j = 0; j < n; ++j)

@@ -24,8 +24,13 @@
 // inputs give bitwise-equal gradients):
 //   pass 1, one block per (64-row q tile, head, image): δ of the tile's rows
 //     (written for pass 2), then one sweep over the 64-row key tiles forming
-//     S, P, dP, dS and dQ; with a bias, it writes dS into its own rows of a
-//     per-image dbias partial (the wrapper sums the partials over images).
+//     S, P, dP, dS and dQ. With a bias, one block per (q tile, head, image
+//     group): it walks the group's images in order, and its rows of the
+//     group's (H, N, N) dbias partial take the first image's dS and then add
+//     each later one's, so dbias is summed over images in the kernel, with
+//     no zero fill and no atomics (the wrapper sums the few groups, or takes
+//     the one). The group is as many images as keep two blocks an SM busy
+//     (ops/kernels/full_attention.py::image_group).
 //   pass 2, one block per (64-row key tile, head, image): one sweep over the
 //     q tiles in the transposed form, recomputing P and dS from L and δ and
 //     accumulating dK and dV.
@@ -40,7 +45,12 @@
 // δ indexing columns), dV += Pᵀ·g and dK += dSᵀ·Q (Pᵀ, dSᵀ in registers, g
 // and Q read MN-major). P is rounded to bf16 before dS and the products, dS
 // after the dbias partial and before the products, where the TPU kernel
-// rounds them (full_attention.py:631, :649). Tiles come by cp.async into a
+// rounds them (full_attention.py:631, :649). With a bias (the kBiased
+// instances; the unbiased ones keep their registers), each thread loads
+// its 32 bias values of a tile pair (and in pass 1 its dbias partial's, from
+// the group's second image on) into registers before the tile's products,
+// so that those loads (the bias is 403 MB at N 4097, past the 50 MB L2) run under the products
+// instead of after them. Tiles come by cp.async into a
 // two-stage ring, rows >= N zero-filled per row (no read across images);
 // keys (pass 1) and q rows (pass 2) >= N get P = 0; rows >= N are never
 // stored. Layouts and instructions: tensor_core.cuh.
@@ -64,9 +74,9 @@ full_attention_bwd_pass1(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ bias, const float* __restrict__ lse,
                          float* __restrict__ delta, T* __restrict__ dq,
-                         float* __restrict__ dbias_part, int N, int C) {
+                         float* __restrict__ dbias_part, int N, int C, int per_group) {
   extern __shared__ float smem[];
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int h = blockIdx.y, H = gridDim.y;
   const int q0 = blockIdx.x * kBwdTile;
   const int nq = min(kBwdTile, N - q0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
@@ -78,45 +88,51 @@ full_attention_bwd_pass1(const T* __restrict__ q, const T* __restrict__ k,
   float* dq_s = v_s + kBwdTile * (M + 1);   // kBwdTile x M
   float* lse_s = dq_s + kBwdTile * M;       // kBwdTile
   float* delta_s = lse_s + kBwdTile;        // kBwdTile
+  // (group, h, q0) of the dbias partial: 64-bit, past 2^31 at N 4097
+  const long db_row0 = ((long)blockIdx.z * H + h) * N + q0;
 
-  auto row_ptr = [&](auto* base, int n) { return base + ((long)b * N + n) * C + h * M; };
-  const long row0 = ((long)b * H + h) * N + q0;  // (b, h, q0)
-  load_rows<M>(q_s, M, row_ptr(q, q0), C, nq);
-  load_rows<M>(g_s, M, row_ptr(g, q0), C, nq);
-  for (int idx = threadIdx.x; idx < nq * M; idx += blockDim.x) dq_s[idx] = 0.f;
-  for (int idx = threadIdx.x; idx < nq; idx += blockDim.x) {
-    lse_s[idx] = lse[row0 + idx];
-    delta_s[idx] = 0.f;
-  }
+  for (int img = 0; img < per_group; ++img) {  // the group's images, in order
+    const int b = blockIdx.z * per_group + img;
+    auto row_ptr = [&](auto* base, int n) { return base + ((long)b * N + n) * C + h * M; };
+    const long row0 = ((long)b * H + h) * N + q0;  // (b, h, q0)
+    __syncthreads();  // the previous image is done with shared memory
+    load_rows<M>(q_s, M, row_ptr(q, q0), C, nq);
+    load_rows<M>(g_s, M, row_ptr(g, q0), C, nq);
+    for (int idx = threadIdx.x; idx < nq * M; idx += blockDim.x) dq_s[idx] = 0.f;
+    for (int idx = threadIdx.x; idx < nq; idx += blockDim.x) {
+      lse_s[idx] = lse[row0 + idx];
+      delta_s[idx] = 0.f;
+    }
 
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int k0 = 0; k0 < N; k0 += kBwdTile) {
-      const int nk = min(kBwdTile, N - k0);
-      __syncthreads();  // the previous tile is consumed; rows and sums are set
-      load_rows<M>(k_s, M + 1, row_ptr(k, k0), C, nk);
-      load_rows<M>(v_s, M + 1, row_ptr(v, k0), C, nk);
-      __syncthreads();
-      for (int r = warp; r < nq; r += nwarps) {
-        const float* bias_r =
-            bias != nullptr ? bias + ((long)h * N + q0 + r) * N + k0 : nullptr;
-        if (sweep == 0) {
-          const float d = row_delta<M>(q_s + r * M, g_s + r * M, k_s, v_s, nk, bias_r, nullptr,
-                                       lse_s[r], lane);
-          if (lane == 0) delta_s[r] += d;
-        } else {
-          float* db = dbias_part != nullptr ? dbias_part + (row0 + r) * N + k0 : nullptr;
-          LaneVec<M> acc;
-          acc.load(dq_s + r * M, lane);
-          row_dq<M>(acc, q_s + r * M, g_s + r * M, k_s, v_s, nk, bias_r, nullptr, lse_s[r],
-                    delta_s[r], nullptr, nullptr, db, lane);
-          acc.store(dq_s + r * M, lane);
+    for (int sweep = 0; sweep < 2; ++sweep) {
+      for (int k0 = 0; k0 < N; k0 += kBwdTile) {
+        const int nk = min(kBwdTile, N - k0);
+        __syncthreads();  // the previous tile is consumed; rows and sums are set
+        load_rows<M>(k_s, M + 1, row_ptr(k, k0), C, nk);
+        load_rows<M>(v_s, M + 1, row_ptr(v, k0), C, nk);
+        __syncthreads();
+        for (int r = warp; r < nq; r += nwarps) {
+          const float* bias_r =
+              bias != nullptr ? bias + ((long)h * N + q0 + r) * N + k0 : nullptr;
+          if (sweep == 0) {
+            const float d = row_delta<M>(q_s + r * M, g_s + r * M, k_s, v_s, nk, bias_r, nullptr,
+                                         lse_s[r], lane);
+            if (lane == 0) delta_s[r] += d;
+          } else {
+            float* db = dbias_part != nullptr ? dbias_part + (db_row0 + r) * N + k0 : nullptr;
+            LaneVec<M> acc;
+            acc.load(dq_s + r * M, lane);
+            row_dq<M>(acc, q_s + r * M, g_s + r * M, k_s, v_s, nk, bias_r, nullptr, lse_s[r],
+                      delta_s[r], nullptr, nullptr, db, lane, img > 0);
+            acc.store(dq_s + r * M, lane);
+          }
         }
       }
     }
+    __syncthreads();
+    store_rows<M>(row_ptr(dq, q0), C, dq_s, nq);
+    for (int idx = threadIdx.x; idx < nq; idx += blockDim.x) delta[row0 + idx] = delta_s[idx];
   }
-  __syncthreads();
-  store_rows<M>(row_ptr(dq, q0), C, dq_s, nq);
-  for (int idx = threadIdx.x; idx < nq; idx += blockDim.x) delta[row0 + idx] = delta_s[idx];
 }
 
 template <typename T, int M>
@@ -178,8 +194,9 @@ full_attention_bwd_pass2(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // The bf16 pass 1 on the tensor cores (the note at the top): δ, dQ and the
-// dbias partial of one 64-row q tile. Scores in base 2 (s · log2 e).
-template <int M>
+// dbias partial of one 64-row q tile, for each image of its group in turn.
+// Scores in base 2 (s · log2 e).
+template <int M, bool kBiased>
 __global__ void __launch_bounds__(kTcThreads)
 full_attention_bwd_wgmma_pass1(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
@@ -188,124 +205,149 @@ full_attention_bwd_wgmma_pass1(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ out,
                                const float* __restrict__ bias, const float* __restrict__ lse,
                                float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                               float* __restrict__ dbias_part, int N, int C) {
+                               float* __restrict__ dbias_part, int N, int C, int per_group) {
   constexpr int DP = M < 16 ? 16 : M, TILE = kTcRows * DP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* g_s = q_s + TILE;
   __nv_bfloat16* kv_s = g_s + TILE;  // stage s: the K tile at kv_s + 2 s TILE, V after it
   float* delta_s = reinterpret_cast<float*>(kv_s + 4 * TILE);  // kTcRows
-  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int h = blockIdx.y, H = gridDim.y;
   const int q0 = blockIdx.x * kTcRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long head = (long)b * N * C + h * M;     // row 0, head h, image b
-  const long row0 = ((long)b * H + h) * N + q0;  // (b, h, q0) of lse and delta
+  // (group, h, q0) of the dbias partial: 64-bit, past 2^31 at N 4097
+  const long db_row0 = ((long)blockIdx.z * H + h) * N + q0;
 
-  stage_tile<M>(q_s, q + head + (long)q0 * C, C, N - q0);
-  stage_tile<M>(g_s, g + head + (long)q0 * C, C, N - q0);
-  stage_tile<M>(kv_s, k + head, C, N);
-  stage_tile<M>(kv_s + TILE, v + head, C, N);
-  cp_async_commit();
+  for (int img = 0; img < per_group; ++img) {  // the group's images, in order
+    const int b = blockIdx.z * per_group + img;
+    const long head = (long)b * N * C + h * M;     // row 0, head h, image b
+    const long row0 = ((long)b * H + h) * N + q0;  // (b, h, q0) of lse and delta
+    __syncthreads();  // the previous image is done with shared memory
 
-  {  // δ = rowsum(g ∘ out) in f32, two threads a row, while the copies fly
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-    float d = 0.f;
-    if (q0 + r < N) {
-      const long at = head + (long)(q0 + r) * C + half * (M / 2);
+    stage_tile<M>(q_s, q + head + (long)q0 * C, C, N - q0);
+    stage_tile<M>(g_s, g + head + (long)q0 * C, C, N - q0);
+    stage_tile<M>(kv_s, k + head, C, N);
+    stage_tile<M>(kv_s + TILE, v + head, C, N);
+    cp_async_commit();
+
+    {  // δ = rowsum(g ∘ out) in f32, two threads a row, while the copies fly
+      const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+      float d = 0.f;
+      if (q0 + r < N) {
+        const long at = head + (long)(q0 + r) * C + half * (M / 2);
 #pragma unroll
-      for (int e = 0; e < M / 2; e += 2) {
-        const float2 gg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + at + e));
-        const float2 oo =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + at + e));
-        d = fmaf(gg.x, oo.x, fmaf(gg.y, oo.y, d));
+        for (int e = 0; e < M / 2; e += 2) {
+          const float2 gg =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + at + e));
+          const float2 oo =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + at + e));
+          d = fmaf(gg.x, oo.x, fmaf(gg.y, oo.y, d));
+        }
+      }
+      d += __shfl_xor_sync(kFullMask, d, 1);
+      if (half == 0) {
+        delta_s[r] = d;  // 0 past N
+        if (q0 + r < N) delta[row0 + r] = d;
       }
     }
-    d += __shfl_xor_sync(kFullMask, d, 1);
-    if (half == 0) {
-      delta_s[r] = d;  // 0 past N
-      if (q0 + r < N) delta[row0 + r] = d;
-    }
-  }
-  __syncthreads();
-  float lse2[2], dl[2];  // L (base 2) and δ of this thread's two rows; 0 past N
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * warp + lane / 4 + 8 * i;
-    lse2[i] = q0 + r < N ? lse[row0 + r] * kLog2e : 0.f;
-    dl[i] = delta_s[r];
-  }
-
-  float acc[M / 2];  // dQ
-#pragma unroll
-  for (int i = 0; i < M / 2; ++i) acc[i] = 0.f;
-  const int tiles = (N + kTcRows - 1) / kTcRows;
-  for (int t = 0; t < tiles; ++t) {
-    const __nv_bfloat16* k_t = kv_s + (t & 1) * 2 * TILE;
-    const __nv_bfloat16* v_t = k_t + TILE;
-    if (t + 1 < tiles) {  // tile t + 1 into the other stage, in flight during tile t
-      __nv_bfloat16* next = kv_s + ((t + 1) & 1) * 2 * TILE;
-      const int k1 = (t + 1) * kTcRows;
-      stage_tile<M>(next, k + head + (long)k1 * C, C, N - k1);
-      stage_tile<M>(next + TILE, v + head + (long)k1 * C, C, N - k1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
     __syncthreads();
+    float lse2[2], dl[2];  // L (base 2) and δ of this thread's two rows; 0 past N
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + lane / 4 + 8 * i;
+      lse2[i] = q0 + r < N ? lse[row0 + r] * kLog2e : 0.f;
+      dl[i] = delta_s[r];
+    }
 
-    float s[32], dp[32];
-    wgmma_fence();
+    float acc[M / 2];  // dQ
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n64(s, k_major<DP>(q_s) + 16 * kk, k_major<DP>(k_t) + 16 * kk, kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n64(dp, k_major<DP>(g_s) + 16 * kk, k_major<DP>(v_t) + 16 * kk, kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operand(s);
-    fence_operand(dp);
+    for (int i = 0; i < M / 2; ++i) acc[i] = 0.f;
+    const int tiles = (N + kTcRows - 1) / kTcRows;
+    for (int t = 0; t < tiles; ++t) {
+      const __nv_bfloat16* k_t = kv_s + (t & 1) * 2 * TILE;
+      const __nv_bfloat16* v_t = k_t + TILE;
+      if (t + 1 < tiles) {  // tile t + 1 into the other stage, in flight during tile t
+        __nv_bfloat16* next = kv_s + ((t + 1) & 1) * 2 * TILE;
+        const int k1 = (t + 1) * kTcRows;
+        stage_tile<M>(next, k + head + (long)k1 * C, C, N - k1);
+        stage_tile<M>(next + TILE, v + head + (long)k1 * C, C, N - k1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
 
-    const int k0 = t * kTcRows;
+      // this thread's 32 bias values of the tile and, from the group's
+      // second image on, its dbias partial's: loads in flight while the
+      // products run (the element of accumulator slot e is (row r, key))
+      const int k0 = t * kTcRows;
+      float bv[32], ov[32];
+      if constexpr (kBiased) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 4 * j + 2 * i + c;
-          const int key = k0 + 8 * j + 2 * (lane % 4) + c;
-          const int r = 16 * warp + lane / 4 + 8 * i;
+        for (int e = 0; e < 32; ++e) {
+          const int key = k0 + 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+          const int r = 16 * warp + lane / 4 + 8 * (e / 2 % 2);
           const bool inside = q0 + r < N && key < N;
-          float x = s[e];
-          if (bias != nullptr && inside) x += bias[((long)h * N + q0 + r) * N + key];
-          // P rounded to bf16, as the TPU kernel rounds it; 0 for keys >= N
-          const float p =
-              key < N ? __bfloat162float(__float2bfloat16(exp2f(x * kLog2e - lse2[i]))) : 0.f;
-          const float ds = p * (dp[e] - dl[i]);
-          if (dbias_part != nullptr && inside) dbias_part[(row0 + r) * N + key] = ds;
-          s[e] = ds;
+          bv[e] = inside ? bias[((long)h * N + q0 + r) * N + key] : 0.f;
+          ov[e] = inside && img > 0 ? dbias_part[(db_row0 + r) * N + key] : 0.f;
         }
-    uint32_t a[4][4];  // dS in bf16, the A operand of dS·K
+      }
+
+      float s[32], dp[32];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], s, kk);
-    wgmma_fence();
-    fence_operand(acc);
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(s, k_major<DP>(q_s) + 16 * kk, k_major<DP>(k_t) + 16 * kk, kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // a k-step is 16 K rows: 32 DP bytes
-      wgmma_rs<M>(acc, a[kk], mn_major<DP>(k_t) + 2 * DP * kk, 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_operand(acc);
-    __syncthreads();  // this stage is read before the next iteration refills it
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(dp, k_major<DP>(g_s) + 16 * kk, k_major<DP>(v_t) + 16 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operand(s);
+      fence_operand(dp);
+
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
+            const int r = 16 * warp + lane / 4 + 8 * i;
+            const bool inside = q0 + r < N && key < N;
+            float x = s[e];
+            if (kBiased && inside) x += bv[e];
+            // P rounded to bf16, as the TPU kernel rounds it; 0 for keys >= N
+            const float p =
+                key < N ? __bfloat162float(__float2bfloat16(exp2f(x * kLog2e - lse2[i]))) : 0.f;
+            const float ds = p * (dp[e] - dl[i]);
+            // this thread's alone: the group's first image sets, later ones add
+            if (kBiased && inside)
+              dbias_part[(db_row0 + r) * N + key] = img == 0 ? ds : ov[e] + ds;
+            s[e] = ds;
+          }
+      uint32_t a[4][4];  // dS in bf16, the A operand of dS·K
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], s, kk);
+      wgmma_fence();
+      fence_operand(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // a k-step is 16 K rows: 32 DP bytes
+        wgmma_rs<M>(acc, a[kk], mn_major<DP>(k_t) + 2 * DP * kk, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operand(acc);
+      __syncthreads();  // this stage is read before the next iteration refills it
+    }
+    store_acc_rows<M>(dq + head, C, acc, q0, N);
   }
-  store_acc_rows<M>(dq + head, C, acc, q0, N);
 }
 
 // The bf16 pass 2 on the tensor cores: dK and dV of one 64-row key tile, in
 // the transposed form (keys are wgmma's rows, q rows its columns).
-template <int M>
+template <int M, bool kBiased>
 __global__ void __launch_bounds__(kTcThreads)
 full_attention_bwd_wgmma_pass2(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
@@ -358,6 +400,17 @@ full_attention_bwd_wgmma_pass2(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
+    const int r0 = u * kTcRows;
+    float bv[32];  // this thread's bias values of the tile, loaded while the products run
+    if constexpr (kBiased) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+        const int key = k0 + 16 * warp + lane / 4 + 8 * (e / 2 % 2);
+        bv[e] = r0 + col < N && key < N ? bias[((long)h * N + r0 + col) * N + key] : 0.f;
+      }
+    }
+
     float s[32], dp[32];  // Sᵀ and dPᵀ: row = key, column = q row
     wgmma_fence();
 #pragma unroll
@@ -371,7 +424,6 @@ full_attention_bwd_wgmma_pass2(const __nv_bfloat16* __restrict__ q,
     fence_operand(s);
     fence_operand(dp);
 
-    const int r0 = u * kTcRows;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -383,8 +435,7 @@ full_attention_bwd_wgmma_pass2(const __nv_bfloat16* __restrict__ q,
           const int key = k0 + 16 * warp + lane / 4 + 8 * i;
           const bool valid = r0 + col < N;
           float x = s[e];
-          if (bias != nullptr && valid && key < N)
-            x += bias[((long)h * N + r0 + col) * N + key];
+          if (kBiased && valid && key < N) x += bv[e];
           const float p = valid ? __bfloat162float(__float2bfloat16(
                                       exp2f((x - lse_u[col]) * kLog2e)))
                                 : 0.f;
@@ -420,27 +471,35 @@ template <typename T, int M>
 cudaError_t launch_full_bwd(const void* q, const void* k, const void* v, const void* g,
                             const void* out, const float* bias, const float* lse, float* delta,
                             void* dq, void* dk, void* dv, float* dbias_part, int B, int N, int C,
-                            int H, cudaStream_t stream) {
+                            int H, int per_group, cudaStream_t stream) {
   const dim3 grid((N + kBwdTile - 1) / kBwdTile, H, B);
+  const dim3 grid1(grid.x, H, B / per_group);  // pass 1: a block per image group
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     constexpr int DP = M < 16 ? 16 : M;
     // Q, g and two stages of K, V (pass 1); K, V and two stages of Q, g (pass
     // 2); then δ (pass 1) or two stages of L and δ (pass 2)
     const size_t tiles = sizeof(T) * 6 * kTcRows * DP;
-    cudaError_t err = launch_with(
-        full_attention_bwd_wgmma_pass1<M>, grid, kTcThreads, tiles + sizeof(float) * kTcRows,
-        stream, (const T*)q, (const T*)k, (const T*)v, (const T*)g, (const T*)out, bias, lse,
-        delta, (T*)dq, dbias_part, N, C);
-    if (err != cudaSuccess) return err;
-    return launch_with(full_attention_bwd_wgmma_pass2<M>, grid, kTcThreads,
-                       tiles + sizeof(float) * 4 * kTcRows, stream, (const T*)q, (const T*)k,
-                       (const T*)v, (const T*)g, bias, lse, (const float*)delta, (T*)dk, (T*)dv,
-                       N, C);
+    auto passes = [&](auto pass1, auto pass2) {
+      cudaError_t err = launch_with(
+          pass1, grid1, kTcThreads, tiles + sizeof(float) * kTcRows, stream, (const T*)q,
+          (const T*)k, (const T*)v, (const T*)g, (const T*)out, bias, lse, delta, (T*)dq,
+          dbias_part, N, C, per_group);
+      if (err != cudaSuccess) return err;
+      return launch_with(pass2, grid, kTcThreads, tiles + sizeof(float) * 4 * kTcRows, stream,
+                         (const T*)q, (const T*)k, (const T*)v, (const T*)g, bias, lse,
+                         (const float*)delta, (T*)dk, (T*)dv, N, C);
+    };
+    // the biased instances load their bias (and dbias) values before the
+    // products; the unbiased ones keep their registers
+    return bias != nullptr ? passes(full_attention_bwd_wgmma_pass1<M, true>,
+                                    full_attention_bwd_wgmma_pass2<M, true>)
+                           : passes(full_attention_bwd_wgmma_pass1<M, false>,
+                                    full_attention_bwd_wgmma_pass2<M, false>);
   } else {
     const size_t smem1 = sizeof(float) * (size_t)kBwdTile * (5 * M + 4);
-    cudaError_t err = launch(full_attention_bwd_pass1<T, M>, grid, smem1, stream, (const T*)q,
+    cudaError_t err = launch(full_attention_bwd_pass1<T, M>, grid1, smem1, stream, (const T*)q,
                              (const T*)k, (const T*)v, (const T*)g, bias, lse, delta, (T*)dq,
-                             dbias_part, N, C);
+                             dbias_part, N, C, per_group);
     if (err != cudaSuccess) return err;
     const size_t smem2 = sizeof(float) * (size_t)kBwdTile * (6 * M + 4);
     return launch(full_attention_bwd_pass2<T, M>, grid, smem2, stream, (const T*)q, (const T*)k,
@@ -453,12 +512,12 @@ template <typename T>
 cudaError_t dispatch_full_bwd(const void* q, const void* k, const void* v, const void* g,
                               const void* out, const float* bias, const float* lse, float* delta,
                               void* dq, void* dk, void* dv, float* dbias_part, int B, int N,
-                              int C, int H, cudaStream_t stream) {
+                              int C, int H, int per_group, cudaStream_t stream) {
   switch (C / H) {
 #define FULL_BWD_CASE(M)                                                                  \
   case M:                                                                                 \
     return launch_full_bwd<T, M>(q, k, v, g, out, bias, lse, delta, dq, dk, dv, dbias_part, \
-                                 B, N, C, H, stream);
+                                 B, N, C, H, per_group, stream);
     FULL_BWD_CASE(8)
     FULL_BWD_CASE(16)
     FULL_BWD_CASE(32)
@@ -473,14 +532,17 @@ cudaError_t dispatch_full_bwd(const void* q, const void* k, const void* v, const
 }  // namespace vil
 
 // q, k, v, g, out, dq, dk, dv (B, N, C); bias (H, N, N) f32 or null; lse and
-// delta (B, H, N) f32; dbias_part (B, H, N, N) f32 (zeros) or null without a
-// bias. All contiguous. `out` is the forward's output (read by the bf16
-// kernels for δ). Launches both passes on `stream`; returns the first launch
-// error.
+// delta (B, H, N) f32; dbias_part (B / per_group, H, N, N) f32, any contents
+// (each group's sum of its images' dS is written over them), or null without
+// a bias; per_group divides B (1 without a bias). All contiguous. `out` is
+// the forward's output (read by the bf16 kernels for δ). Launches both passes
+// on `stream`; returns the first launch error.
 extern "C" int full_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                   const void* out, const void* bias, const void* lse,
                                   void* delta, void* dq, void* dk, void* dv, void* dbias_part,
-                                  int B, int N, int C, int H, int is_bf16, void* stream) {
+                                  int B, int N, int C, int H, int per_group, int is_bf16,
+                                  void* stream) {
+  if (per_group < 1 || B % per_group != 0) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* lse_f = static_cast<const float*>(lse);
@@ -488,7 +550,7 @@ extern "C" int full_attention_bwd(const void* q, const void* k, const void* v, c
   auto* db = static_cast<float*>(dbias_part);
   if (is_bf16)
     return vil::dispatch_full_bwd<__nv_bfloat16>(q, k, v, g, out, bias_f, lse_f, delta_f, dq, dk,
-                                                 dv, db, B, N, C, H, s);
+                                                 dv, db, B, N, C, H, per_group, s);
   return vil::dispatch_full_bwd<float>(q, k, v, g, out, bias_f, lse_f, delta_f, dq, dk, dv, db,
-                                       B, N, C, H, s);
+                                       B, N, C, H, per_group, s);
 }

@@ -158,12 +158,13 @@ __device__ __forceinline__ void sliding_chunk_fwd(
 
 constexpr size_t fwd_smem_bytes(int w2, int M) { return sizeof(float) * (size_t)w2 * (4 * M + 3); }
 
-// Backward pass 1, one block per (query chunk, head, image), or per (head,
-// image) walking every chunk when a bias is given (then each dbias partial
-// has one writer). Two sweeps over the column tiles: the first sums
-// δ = rowsum(P ∘ dP), the second forms dS = P ∘ (dP - δ) and dQ = dS · K.
-// Writes δ, dQ, the global columns P_glo and dS_glo, and the dbias partials
-// (B, H, w2, cols).
+// Backward pass 1, one block per (query chunk, head, image), or per (chunk
+// group, head, image) walking chunks_per_block chunks when a bias is given
+// (then each dbias partial has one writer). grid (groups, H, B), groups =
+// ceil(mx · my / chunks_per_block). Two sweeps over the column tiles: the
+// first sums δ = rowsum(P ∘ dP), the second forms dS = P ∘ (dP - δ) and
+// dQ = dS · K. Writes δ, dQ, the global columns P_glo and dS_glo, and adds
+// into the dbias partials (B, groups, H, w2, cols), zero on entry.
 template <typename T, int M, typename Nbh>
 __device__ __forceinline__ void sliding_chunk_bwd_pass1(
     Nbh nbh, const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -194,9 +195,14 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass1(
   };
   const float* bias_h = bias != nullptr ? bias + (long)h * w2 * cols : nullptr;
   const int n_glo_tiles = (nglo + w2 - 1) / w2;
+  // (b, group, h, row 0) of this block's dbias partial
+  float* db_h = dbias_part != nullptr
+                    ? dbias_part + (((long)b * gridDim.x + blockIdx.x) * H + h) * w2 * cols
+                    : nullptr;
 
   for (int c = 0; c < chunks_per_block; ++c) {
     const int chunk = blockIdx.x * chunks_per_block + c;  // i * my + j
+    if (chunk >= mx * my) break;                          // the last group's ragged end
     const int i = chunk / my, j = chunk % my;
     const long row0 = (((long)b * H + h) * mx * my + chunk) * w2;  // (b, h, i, j, 0)
     __syncthreads();  // the previous chunk is done with shared memory
@@ -243,8 +249,8 @@ __device__ __forceinline__ void sliding_chunk_bwd_pass1(
               p_out = p_glo + (row0 + r) * nglo + col0;
               ds_out = ds_glo + (row0 + r) * nglo + col0;
             }
-            if (dbias_part != nullptr)  // (b, h, r, column)
-              db = dbias_part + (((long)b * H + h) * w2 + r) * cols + col0;
+            if (db_h != nullptr)  // (r, column) of the block's partial
+              db = db_h + (long)r * cols + col0;
             LaneVec<M> acc;
             acc.load(dq_s + r * M, lane);
             row_dq<M>(acc, q_s + r * M, g_s + r * M, k_s, v_s, nkeys, bias_r, mask_r,

@@ -40,8 +40,10 @@
 //     tile S = Q·Kᵀ and dP = g·Vᵀ (operands from shared memory), P and dS in
 //     the accumulators, dQ += dS·K (dS as the register operand). Writes δ
 //     for pass 2, dQ, P_glo and dS_glo of the global columns, and the dbias
-//     partials (with a bias the block walks every chunk of its image, so each
-//     partial has one writer).
+//     partials: with a bias the block walks a group of chunks_per_block
+//     chunks of its image, and adds into its own slice of the (B, groups, H,
+//     W², cols) partial, which no other block writes (B2 takes a few chunks
+//     a group; B6, B7b and B9b's attention the whole image as one group).
 //   pass 2, one warpgroup per (64-key slice of a chunk of the K/V grid, head,
 //     image): its W² keys (zero-filled to 64) against the query rows of every
 //     (neighbour n, query chunk) that sees it, concatenated into 64-row tiles
@@ -279,9 +281,14 @@ cudaError_t launch_full_fwd_tc(KernelFor kernel_for, const bf16* q, const bf16* 
   });
 }
 
-// Pass 1 (the note at the top). grid (slices · mx · my / chunks_per_block, H,
-// B), slices = ceil(W² / 64).
-template <int M, typename Nbh>
+// Pass 1 (the note at the top). grid (slices · groups, H, B), slices =
+// ceil(W² / 64), groups = ceil(mx · my / chunks_per_block): block x is slice
+// x % slices of chunk group x / slices, and dbias_part (zero on entry) is
+// (B, groups, H, W², cols). kPrefetch (B2's biased instance; bias and
+// dbias_part given) loads each tile's bias and dbias values into registers
+// before its products, so that the loads run under them; the others read
+// them after the products, keeping their registers.
+template <int M, typename Nbh, bool kPrefetch = false>
 __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
     Nbh nbh, const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ k_glo, const bf16* __restrict__ v_glo, const bf16* __restrict__ g,
@@ -299,13 +306,19 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int slices = (w2 + kTcRows - 1) / kTcRows;
   const int slice = blockIdx.x % slices, r0 = slice * kTcRows;
+  const int group = blockIdx.x / slices, groups = gridDim.x / slices;
   const int nr = min(kTcRows, w2 - r0);  // query rows of this slice
   const int cols = nglo + Nbh::kCount * w2;
   const int tiles = (cols + kTcRows - 1) / kTcRows;
   const float* bias_h = bias != nullptr ? bias + (long)h * w2 * cols : nullptr;
+  // (b, group, h, row 0) of this block's dbias partial
+  float* db = dbias_part != nullptr
+                  ? dbias_part + (((long)b * groups + group) * H + h) * w2 * cols
+                  : nullptr;
 
   for (int cc = 0; cc < chunks_per_block; ++cc) {
-    const int chunk = blockIdx.x / slices * chunks_per_block + cc;  // i * my + j
+    const int chunk = group * chunks_per_block + cc;  // i * my + j
+    if (chunk >= mx * my) break;                      // the last group's ragged end
     const int i = chunk / my, j = chunk % my;
     const long head = (((long)b * mx + i) * my + j) * w2 * C + h * M;  // row 0 of the chunk
     const long row0 = (((long)b * H + h) * mx * my + chunk) * w2;      // (b, h, i, j, 0)
@@ -364,6 +377,18 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
       }
       __syncthreads();
 
+      float bv[32], ov[32];  // kPrefetch: the bias and dbias values of slot e
+      if constexpr (kPrefetch) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = t * kTcRows + 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+          const int r = 16 * warp + lane / 4 + 8 * (e / 2 % 2);
+          const bool inside = r < nr && col < cols;
+          bv[e] = inside ? bias_h[(long)(r0 + r) * cols + col] : 0.f;
+          ov[e] = inside ? db[(long)(r0 + r) * cols + col] : 0.f;
+        }
+      }
+
       float s[32], dp[32];
       wgmma_fence();
 #pragma unroll
@@ -390,7 +415,10 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
             float xs = s[e];
             if (inside) {
               xs += mask_c[(long)(wq == 1 ? 0 : qr) * cols + col];
-              if (bias_h != nullptr) xs += bias_h[(long)qr * cols + col];
+              if constexpr (kPrefetch)
+                xs += bv[e];
+              else if (bias_h != nullptr)
+                xs += bias_h[(long)qr * cols + col];
             }
             const float p = inside ? prob_bf16(xs, lr[x]) : 0.f;  // 0 past the columns
             const float ds = p * (dp[e] - dl[x]);
@@ -398,8 +426,11 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
               p_glo[(row0 + qr) * nglo + col] = p;
               ds_glo[(row0 + qr) * nglo + col] = ds;
             }
-            if (dbias_part != nullptr && inside)  // (b, h, row, column): this thread's alone
-              dbias_part[(((long)b * H + h) * w2 + qr) * cols + col] += ds;
+            if constexpr (kPrefetch) {  // (row, column) of the slice: this thread's alone
+              if (inside) db[(long)qr * cols + col] = ov[e] + ds;
+            } else if (db != nullptr && inside) {
+              db[(long)qr * cols + col] += ds;
+            }
             s[e] = ds;
           }
       uint32_t a[4][4];  // dS in bf16, the A operand of dS·K

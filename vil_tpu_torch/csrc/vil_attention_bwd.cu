@@ -18,8 +18,10 @@
 //   pass 1, per query chunk, head and image: δ, dQ, the global columns P_glo
 //     and dS_glo (the wrapper turns them into dK_glo and dV_glo with one
 //     einsum each, as the TPU code does in XLA), and, when a bias is given,
-//     dbias partials per (image, head): the block then walks every chunk of
-//     its image itself, so each partial has one writer.
+//     dbias partials per (image, chunk group, head): the block then walks the
+//     chunks_per_block chunks of its group, so each partial has one writer,
+//     and the wrapper sums the partials (ops/kernels/vil_attention.py::
+//     chunk_group picks the group so that the grid still fills the card).
 //   pass 2, per key chunk (r, c), head and image: the query chunks
 //     ((r - dx) mod mx, (c - dy) mod my) of the 9 offsets recompute P and dS
 //     against this key chunk from the stored L and δ, accumulating
@@ -82,7 +84,9 @@ vil_attention_bwd_pass2(const T* __restrict__ q, const T* __restrict__ k,
                                 w2, C, nglo, wq);
 }
 
-template <int M>
+// kBiased: the instance with a bias (its tiles' bias and dbias values
+// loaded before the products; sliding_chunk_tc.cuh)
+template <int M, bool kBiased>
 __global__ void __launch_bounds__(kTcThreads)
 vil_attention_bwd_wgmma_pass1(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ k_glo,
@@ -93,9 +97,9 @@ vil_attention_bwd_wgmma_pass1(const bf16* __restrict__ q, const bf16* __restrict
                               float* __restrict__ p_glo, float* __restrict__ ds_glo,
                               float* __restrict__ dbias_part, int mx, int my, int w2, int C,
                               int nglo, int wq, int chunks_per_block) {
-  sliding_chunk_bwd_tc_pass1<M>(FullNbh{}, q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta,
-                                dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-                                chunks_per_block);
+  sliding_chunk_bwd_tc_pass1<M, FullNbh, kBiased>(FullNbh{}, q, k, v, k_glo, v_glo, g, out, bias,
+                                                 mask, lse, delta, dq, p_glo, ds_glo, dbias_part,
+                                                 mx, my, w2, C, nglo, wq, chunks_per_block);
 }
 
 template <int M>
@@ -116,26 +120,31 @@ cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const vo
                            const float* mask, const float* lse, float* delta, void* dq,
                            void* dk, void* dv, float* p_glo, float* ds_glo, float* dbias_part,
                            int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
-                           cudaStream_t stream) {
-  // with a bias, one block walks all chunks of its image (one writer per
-  // dbias partial); without, one block per chunk
-  const int per_block = dbias_part != nullptr ? mx * my : 1;
+                           int chunks_per_block, cudaStream_t stream) {
+  // with a bias, one block walks a group of chunks (one writer per dbias
+  // partial); without, one block per chunk
+  const int per_block = dbias_part != nullptr ? chunks_per_block : 1;
+  const int groups = (mx * my + per_block - 1) / per_block;
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
     if constexpr (std::is_same_v<T, bf16>) {
       const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
-      cudaError_t err = launch_with(
-          vil_attention_bwd_wgmma_pass1<M>, dim3(mx * my / per_block * slices, H, B), kTcThreads,
-          tc_pass1_smem_bytes(M), stream, (const T*)q, (const T*)k, (const T*)v,
-          (const T*)k_glo, (const T*)v_glo, (const T*)g, (const T*)out, bias, mask, lse, delta,
-          (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq, per_block);
+      auto pass1 = [&](auto kernel) {
+        return launch_with(kernel, dim3(groups * slices, H, B), kTcThreads,
+                           tc_pass1_smem_bytes(M), stream, (const T*)q, (const T*)k,
+                           (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g,
+                           (const T*)out, bias, mask, lse, delta, (T*)dq, p_glo, ds_glo,
+                           dbias_part, mx, my, w2, C, nglo, wq, per_block);
+      };
+      cudaError_t err = dbias_part != nullptr ? pass1(vil_attention_bwd_wgmma_pass1<M, true>)
+                                              : pass1(vil_attention_bwd_wgmma_pass1<M, false>);
       if (err != cudaSuccess) return err;
       return launch_with(vil_attention_bwd_wgmma_pass2<M>, dim3(mx * my * slices, H, B),
                          kTcThreads, tc_pass2_smem_bytes(M), stream, (const T*)q, (const T*)k,
                          (const T*)v, (const T*)g, bias, mask, lse, (const float*)delta, (T*)dk,
                          (T*)dv, mx, my, w2, C, nglo, wq);
     } else {
-      cudaError_t err = launch(vil_attention_bwd_pass1<T, M>, dim3(mx * my / per_block, H, B),
+      cudaError_t err = launch(vil_attention_bwd_pass1<T, M>, dim3(groups, H, B),
                                pass1_smem_bytes(w2, M), stream, (const T*)q, (const T*)k,
                                (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g, bias,
                                mask, lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2,
@@ -155,16 +164,19 @@ cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const vo
 // when nglo is 0; bias (H, w2, nglo + 9 w2) f32 or null; mask
 // (mx, my, wq, nglo + 9 w2) f32; lse and delta (B, H, mx, my, w2) f32;
 // p_glo, ds_glo (B, H, mx, my, w2, nglo) f32 or null when nglo is 0;
-// dbias_part (B, H, w2, nglo + 9 w2) f32, zero on entry, or null without a
-// bias. All contiguous, bf16 operands 16-byte aligned. Launches both passes
-// on `stream`; returns the first launch error.
+// dbias_part (B, groups, H, w2, nglo + 9 w2) f32, zero on entry, groups =
+// ceil(mx my / chunks_per_block), or null without a bias (chunks_per_block
+// is then not read). All contiguous, bf16 operands 16-byte aligned. Launches
+// both passes on `stream`; returns the first launch error.
 extern "C" int vil_attention_bwd(const void* q, const void* k, const void* v, const void* k_glo,
                                  const void* v_glo, const void* g, const void* out,
                                  const void* bias, const void* mask, const void* lse,
                                  void* delta, void* dq,
                                  void* dk, void* dv, void* p_glo, void* ds_glo,
                                  void* dbias_part, int B, int mx, int my, int w2, int C, int H,
-                                 int nglo, int wq, int is_bf16, void* stream) {
+                                 int nglo, int wq, int chunks_per_block, int is_bf16,
+                                 void* stream) {
+  if (dbias_part != nullptr && chunks_per_block < 1) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
@@ -176,7 +188,8 @@ extern "C" int vil_attention_bwd(const void* q, const void* k, const void* v, co
   if (is_bf16)
     return vil::launch_vil_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
                                               lse_f, delta_f, dq, dk, dv, pg, dsg, db, B, mx, my,
-                                              w2, C, H, nglo, wq, s);
+                                              w2, C, H, nglo, wq, chunks_per_block, s);
   return vil::launch_vil_bwd<float>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f, lse_f, delta_f,
-                                    dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H, nglo, wq, s);
+                                    dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H, nglo, wq,
+                                    chunks_per_block, s);
 }

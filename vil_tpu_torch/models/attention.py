@@ -32,10 +32,18 @@ its kernels, and passed to every kernel as its f32 bias operand: (H, N, N)
 for the dense kernels, (H, W², Nglo+9W²) for the sliding-chunk ones and the
 fused block, (H, W², Nglo+2W²) for the sampled-neighbour ones, all in front
 column order [g2l ‖ local]; g2g and g2l[0] go to the global branch. The
-kernels return the bias gradient and autograd carries it back to the tables
-through the gather (``table[index]``), whose backward is
-``index_put_(accumulate=True)``: each table row sums its terms in one fixed
-order, so two runs give the same bits. :meth:`cache_rpe_bias`
+kernels return the bias gradient and autograd carries it back to the tables.
+The small sliding-chunk biases are gathered (``table[index]``, whose backward
+is ``index_put_(accumulate=True)``: each table row sums its terms in one
+fixed order, so two runs give the same bits). The dense bias is built by the
+skew assembly (:func:`full_rpe_bias_skew`, the JAX package's default
+``_assemble_full_rpe_bias``): the same values as the gather
+(:func:`full_rpe_bias`, its plain version) from flips, broadcasts, pads,
+reshapes and slices, whose backward is slices and sums, no scatter. In
+training it is built inside the dense kernels' autograd Function
+(``FullAttentionRPEFunction``), which saves the tables and rebuilds the bias
+in the backward instead of saving it: 403 MB a block at ViL-Small 1024²'s
+stage 3. :meth:`cache_rpe_bias`
 (``models.precompute_rpe_cache``) keeps the mode-0 bias for serving; it is
 read only in eval mode where no gradient reaches the tables, and dropped as
 soon as a table has changed (a new version or storage: an in-place write,
@@ -56,7 +64,11 @@ from torch import nn
 from ..ops import masks as masks_lib
 from ..ops import rpe as rpe_lib
 from ..ops import sliding_chunk as sc
-from ..ops.kernels.full_attention import full_attention, full_attention_reference
+from ..ops.kernels.full_attention import (
+    full_attention,
+    full_attention_reference,
+    full_attention_rpe,
+)
 from ..ops.kernels.vil_attention import (
     mask_to_additive,
     vil_attention,
@@ -115,18 +127,59 @@ def gather_table(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return table.float()[index].permute(2, 0, 1)
 
 
-def full_rpe_bias(table, g2l, g2g, wx: int, wy: int) -> torch.Tensor:
-    """(H, N, N) f32 dense bias, N = Nglo + wx·wy: rows of the global
-    queries [g2g ‖ g2l[0]·1], rows of the local ones [g2l[1]·1 ‖ local]."""
-    local = gather_table(table, _index(table.device, ("full", wx, wy),
-                                       lambda: rpe_lib.full_rpe_index(wx, wy)))
+def _with_global(local, g2l, g2g) -> torch.Tensor:
+    """The (H, N, N) dense bias from its (H, wx·wy, wx·wy) local part: rows
+    of the global queries [g2g ‖ g2l[0]·1], rows of the local ones
+    [g2l[1]·1 ‖ local]."""
     if g2l is None:
         return local.contiguous()
-    H, nglo, n = g2g.shape[0], g2g.shape[1], wx * wy
+    H, nglo, n = g2g.shape[0], g2g.shape[1], local.shape[1]
     g2l = g2l.float()
     glo_rows = torch.cat([g2g.float(), g2l[0][:, :, None].expand(H, nglo, n)], dim=-1)
     loc_rows = torch.cat([g2l[1][:, None, :].expand(H, n, nglo), local], dim=-1)
     return torch.cat([glo_rows, loc_rows], dim=1)
+
+
+def full_rpe_bias(table, g2l, g2g, wx: int, wy: int) -> torch.Tensor:
+    """(H, N, N) f32 dense bias, N = Nglo + wx·wy, by the gather: the plain
+    version of :func:`full_rpe_bias_skew` (the JAX package's
+    ``RPE_ASSEMBLY=gather``)."""
+    local = gather_table(table, _index(table.device, ("full", wx, wy),
+                                       lambda: rpe_lib.full_rpe_index(wx, wy)))
+    return _with_global(local, g2l, g2g)
+
+
+def _skew(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., 2n−1) → (..., n, n) with out[..., i, j] = t[..., i−j+n−1]
+    (``vil_tpu.models.attention._skew``): reverse, broadcast to n rows, pad
+    one column, reflow the rows with a stride of 2n−1, slice. Its backward
+    is slices, pads and a sum over the broadcast rows: no gather, no
+    scatter."""
+    lead = t.shape[:-1]
+    tiled = t.flip(-1).unsqueeze(-2).expand(*lead, n, 2 * n - 1)
+    padded = torch.nn.functional.pad(tiled, (0, 1))  # (..., n, 2n)
+    flat = padded.reshape(*lead, n * 2 * n)[..., :n * (2 * n - 1)]
+    return flat.reshape(*lead, n, 2 * n - 1)[..., n - 1:]
+
+
+def skew_local_bias(table: torch.Tensor, wx: int, wy: int) -> torch.Tensor:
+    """(H, wx·wy, wx·wy) f32 local dense bias from the ((2wx−1)(2wy−1), H)
+    table by two nested skews, x then y
+    (``vil_tpu.models.attention._skew_local_bias``):
+    bias[h, (xi, yi), (xj, yj)] = table[(xi−xj+wx−1)(2wy−1) + yi−yj+wy−1, h],
+    the values of the gather."""
+    H = table.shape[1]
+    t2d = table.float().reshape(2 * wx - 1, 2 * wy - 1, H)
+    ax = _skew(t2d.permute(2, 1, 0), wx)  # (H, Y, wx, wx): [h, y, xi, xj]
+    ay = _skew(ax.permute(0, 2, 3, 1), wy)  # (H, wx, wx, wy, wy): [h, xi, xj, yi, yj]
+    return ay.permute(0, 1, 3, 2, 4).reshape(H, wx * wy, wx * wy)
+
+
+def full_rpe_bias_skew(table, g2l, g2g, wx: int, wy: int) -> torch.Tensor:
+    """(H, N, N) f32 dense bias, N = Nglo + wx·wy, by the skew assembly
+    (``vil_tpu.models.attention._assemble_full_rpe_bias``, its default):
+    equal to :func:`full_rpe_bias` bit for bit."""
+    return _with_global(skew_local_bias(table, wx, wy), g2l, g2g)
 
 
 def sliding_chunk_rpe_bias(table, g2l, w: int, mode: int = 0) -> torch.Tensor:
@@ -183,26 +236,35 @@ class RelativePositionBias:
             with torch.inference_mode(False):
                 self._rpe_cache = (self._rpe_fingerprint(), self._assemble_rpe(0))
 
+    def _rpe_served(self, mode: int = 0):
+        """The cached bias where it may be served, else None. A cache whose
+        tables have changed since it was built is dropped, never served."""
+        if self._rpe_cache is None:
+            return None
+        fingerprint, bias = self._rpe_cache
+        if not self._rpe_unchanged(fingerprint):
+            self._rpe_cache = None
+        elif (mode == 0 and not self.training and not (
+                torch.is_grad_enabled() and any(t.requires_grad for t in self.rpe_tables()))):
+            return bias
+        return None
+
     def _rpe_bias(self, mode: int = 0):
         """The bias at ``mode``, or None without RPE: the cache where it may
-        be served, else assembled from the tables. A cache whose tables have
-        changed since it was built is dropped, never served."""
+        be served, else assembled from the tables."""
         if not self.rpe:
             return None
-        if self._rpe_cache is not None:
-            fingerprint, bias = self._rpe_cache
-            if not self._rpe_unchanged(fingerprint):
-                self._rpe_cache = None
-            elif (mode == 0 and not self.training and not (
-                    torch.is_grad_enabled() and any(t.requires_grad for t in self.rpe_tables()))):
-                return bias
-        return self._assemble_rpe(mode)
+        bias = self._rpe_served(mode)
+        return self._assemble_rpe(mode) if bias is None else bias
 
 
 class FullAttention(RelativePositionBias, nn.Module):
     """Dense multi-head self-attention, with ``rpe`` over a wx×wy grid after
     ``nglo`` global tokens. It attends to every token, so it takes the
-    neighbour mode of the sliding-chunk blocks and ignores it."""
+    neighbour mode of the sliding-chunk blocks and ignores it. With ``rpe``
+    and the kernels, the bias is assembled inside
+    :func:`full_attention_rpe` (rebuilt in the backward, not saved) unless
+    the serving cache applies, as in ``vil_tpu``'s FullAttention."""
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, rpe: bool = False, wx: int = 14, wy: int = 14,
@@ -220,9 +282,11 @@ class FullAttention(RelativePositionBias, nn.Module):
         self._init_rpe(rpe, (2 * wx - 1) * (2 * wy - 1), num_heads, nglo, device, param_dtype)
 
     def _assemble_rpe(self, mode: int) -> torch.Tensor:
-        return full_rpe_bias(self.local_relative_position_bias_table,
-                             self.g2l_relative_position_bias, self.g2g_relative_position_bias,
-                             self.wx, self.wy)
+        return self._assemble_from(*self.rpe_tables())
+
+    def _assemble_from(self, table, g2l=None, g2g=None) -> torch.Tensor:
+        """The dense bias from the tables ``rpe_tables()`` lists."""
+        return full_rpe_bias_skew(table, g2l, g2g, self.wx, self.wy)
 
     def forward(self, x: torch.Tensor, nx: int, ny: int, mode: int = 0) -> torch.Tensor:
         check_eval_only(self, self.attn_drop, "attention dropout")
@@ -234,8 +298,14 @@ class FullAttention(RelativePositionBias, nn.Module):
         q = self.qkv.part(x, 0, 3) * scale
         k = self.qkv.part(x, 1, 3)
         v = self.qkv.part(x, 2, 3)
+        bias = self._rpe_served() if self.rpe else None
+        if self.rpe and bias is None:
+            if self.use_kernels:  # assembled inside the kernels' autograd Function
+                return self.proj(full_attention_rpe(q, k, v, self._assemble_from,
+                                                    self.rpe_tables(), H))
+            bias = self._assemble_rpe(0)
         attend = full_attention if self.use_kernels else full_attention_reference
-        return self.proj(attend(q, k, v, self._rpe_bias(), H))
+        return self.proj(attend(q, k, v, bias, H))
 
 
 class VilAttention(RelativePositionBias, nn.Module):

@@ -52,14 +52,16 @@ SIGNATURES = {
     # B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
     "vil_attention_fwd": [_P] * 9 + [_I] * 9 + [_P],
     # q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta, dq, dk, dv,
-    # p_glo, ds_glo, dbias_part, B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
-    "vil_attention_bwd": [_P] * 17 + [_I] * 9 + [_P],
-    # the same as vil_attention_fwd / _bwd (the backward with out after g)
-    # with the sampled chunk's offset dx, dy before is_bf16
+    # p_glo, ds_glo, dbias_part, B, mx, my, w2, C, H, nglo, wq,
+    # chunks_per_block, is_bf16, stream
+    "vil_attention_bwd": [_P] * 17 + [_I] * 10 + [_P],
+    # the same as vil_attention_fwd / _bwd (the backward with out after g,
+    # without chunks_per_block) with the sampled chunk's offset dx, dy before
+    # is_bf16
     "vil_mode_attention_fwd": [_P] * 9 + [_I] * 11 + [_P],
     "vil_mode_attention_bwd": [_P] * 17 + [_I] * 11 + [_P],
-    # the same as vil_attention_fwd / _bwd, with k, v (and dk, dv) of mx + 2
-    # chunk rows
+    # the same as vil_attention_fwd / _bwd (without chunks_per_block), with
+    # k, v (and dk, dv) of mx + 2 chunk rows
     "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],
     "vil_attention_halo_bwd": [_P] * 17 + [_I] * 9 + [_P],
     # P's strided path: x, y, the 5 sizes of the layout, x's and y's 5
@@ -71,8 +73,8 @@ SIGNATURES = {
     # q, k, v, bias, out, lse, B, N, C, H, is_bf16, stream
     "full_attention_fwd": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, v, g, out, bias, lse, delta, dq, dk, dv, dbias_part,
-    # B, N, C, H, is_bf16, stream
-    "full_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    # B, N, C, H, per_group, is_bf16, stream
+    "full_attention_bwd": [_P] * 12 + [_I] * 6 + [_P],
 }
 
 

@@ -5,8 +5,10 @@ Counterpart of ``vil_tpu/ops/pallas/full_attention.py``: ``_pallas_forward``
 q-tiled tier ``_pallas_forward_tiled``), ``_pallas_backward`` and its q-tiled
 tier ``_pallas_backward_tiled`` (the backward kernel,
 ``csrc/full_attention_bwd.cu``), ``make_fused_full_attention``
-(:class:`FullAttentionFunction`) and ``_xla_reference`` (the plain version,
-:func:`full_attention_reference`):
+(:class:`FullAttentionFunction`), ``make_fused_full_attention_rpe``
+(:class:`FullAttentionRPEFunction`: the relative-position bias assembled
+inside the Function and rebuilt in the backward) and ``_xla_reference`` (the
+plain version, :func:`full_attention_reference`):
 
     out = softmax(q · kᵀ + bias) · v,    lse = log Σ exp(q · kᵀ + bias)
 
@@ -26,7 +28,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .vil_attention import HEAD_DIMS, _check_aligned
+from .vil_attention import HEAD_DIMS, SMS, _check_aligned
 
 
 def full_attention_reference(q, k, v, bias, num_heads: int, with_lse: bool = False):
@@ -84,6 +86,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def image_group(B: int, N: int, num_heads: int) -> int:
+    """Images a block of the biased backward's pass 1 walks (the kernel's
+    ``per_group``): the largest divisor of B whose grid (64-row q tiles × H ×
+    B / per_group) still holds two blocks an SM, or 1 where one image a
+    block holds fewer. 8 at N 4097, H 6, batch 8 (one (H, N, N) partial,
+    390 blocks); 4 at N 197, H 6, batch 64 (16 partials)."""
+    blocks = -(-N // 64) * num_heads  # of one image
+    return max((d for d in range(1, B + 1) if B % d == 0 and blocks * (B // d) >= 2 * SMS),
+               default=1)
+
+
 def full_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: Optional[torch.Tensor], num_heads: int,
                        with_lse: bool = False):
@@ -122,8 +135,9 @@ def full_attention_bwd(q, k, v, bias, g, out, lse, num_heads: int):
     returns (dq, dk, dv, dbias), dbias None without a bias. On a CUDA device
     this launches the hand-written kernels (or raises); the bf16 kernels take
     δ = rowsum(g ∘ out). On the CPU it runs the plain version, which
-    recomputes the softmax and ignores ``out`` and ``lse``. dbias is the sum
-    over images of the kernel's per-image partials."""
+    recomputes the softmax and ignores ``out`` and ``lse``. The kernel sums
+    dbias over each group of :func:`image_group` images, with no zero fill;
+    the wrapper sums the groups' partials (one group: taken as it is)."""
     _check(q, k, v, bias, num_heads)
     B, N, C = q.shape
     H = num_heads
@@ -143,17 +157,20 @@ def full_attention_bwd(q, k, v, bias, g, out, lse, num_heads: int):
         _check_aligned(q, k, v, g, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
-    dbias_part = (torch.zeros(B, H, N, N, device=q.device, dtype=torch.float32)
+    per = image_group(B, N, H) if bias is not None else 1
+    dbias_part = (torch.empty(B // per, H, N, N, device=q.device, dtype=torch.float32)
                   if bias is not None else None)
     with torch.cuda.device(q.device):
         err = build.load().full_attention_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(out), _ptr(bias), _ptr(lse), _ptr(delta),
-            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias_part), B, N, C, H,
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias_part), B, N, C, H, per,
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "full_attention_bwd")
     full_attention_bwd.launches += 1
-    return dq, dk, dv, None if bias is None else dbias_part.sum(dim=0)
+    if bias is None:
+        return dq, dk, dv, None
+    return dq, dk, dv, dbias_part[0] if per == B else dbias_part.sum(dim=0)
 
 
 full_attention_bwd.launches = 0
@@ -185,3 +202,39 @@ def full_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
                                        for t in (q, k, v, bias)):
         return FullAttentionFunction.apply(q, k, v, bias, num_heads)
     return full_attention_fwd(q, k, v, bias, num_heads)
+
+
+class FullAttentionRPEFunction(torch.autograd.Function):
+    """Dense attention with a relative-position bias assembled inside the
+    Function (``vil_tpu``'s ``make_fused_full_attention_rpe``): the forward
+    builds the (H, N, N) f32 bias from the tables with ``assemble`` and runs
+    the kernel with the LSE, then saves q, k, v, out, the LSE and the tables,
+    not the bias (403 MB a block at N 4097, H 6). The backward rebuilds the
+    bias, launches :func:`full_attention_bwd` and takes dbias back to the
+    tables through ``assemble`` by autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, assemble, num_heads, *tables):
+        out, lse = full_attention_fwd(q, k, v, assemble(*tables), num_heads, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, *tables)
+        ctx.assemble, ctx.num_heads = assemble, num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, *tables = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in tables]
+        with torch.enable_grad():
+            bias = ctx.assemble(*leaves)
+        dq, dk, dv, dbias = full_attention_bwd(q, k, v, bias.detach(), g.contiguous(), out, lse,
+                                               ctx.num_heads)
+        return (dq, dk, dv, None, None, *torch.autograd.grad(bias, leaves, dbias))
+
+
+def full_attention_rpe(q, k, v, assemble, tables, num_heads: int) -> torch.Tensor:
+    """Dense attention through the kernels with the bias ``assemble(*tables)``
+    (f32 (H, N, N)): the forward alone where no gradient is needed, else
+    :class:`FullAttentionRPEFunction`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, *tables)):
+        return FullAttentionRPEFunction.apply(q, k, v, assemble, num_heads, *tables)
+    return full_attention_fwd(q, k, v, assemble(*tables), num_heads)

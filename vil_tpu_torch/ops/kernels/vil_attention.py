@@ -251,6 +251,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+SMS = 132  # an H100's SMs: the biased backward passes size their grids by it
+
+
+def chunk_group(B: int, mx: int, my: int, w2: int, num_heads: int) -> int:
+    """Chunks a block of B2's biased pass 1 walks (the kernel's
+    ``chunks_per_block``): the longest walk that leaves an image's mx·my
+    chunks in enough groups for a grid (groups × 64-row slices × H × B) of
+    four blocks an SM, or one chunk a block where the chunks are fewer. 63
+    on ViL-Small 1024²'s 37×37 grid at batch 8, H 3 (22 groups, 528 blocks,
+    where one block an image left 24); 22 on 224²'s 8×8 grid at batch 64."""
+    chunks, blocks = mx * my, B * num_heads * -(-w2 // 64)  # blocks of one group
+    need = min(chunks, -(-4 * SMS // blocks))
+    per = -(-chunks // need)
+    while -(-chunks // per) < need:
+        per -= 1
+    return per
+
+
+def group_partials(terms: torch.Tensor, per: int, dim: int) -> torch.Tensor:
+    """Plain version of a biased pass 1's dbias partials: ``terms`` holds
+    one dbias term per image (B4, ``dim`` 0) or per chunk (B2, ``dim`` 1),
+    summed in consecutive groups of ``per`` along ``dim`` in the order a
+    block walks them, the first term taken and each later one added."""
+    parts = []
+    for part in terms.split(per, dim=dim):
+        acc = part.select(dim, 0)
+        for i in range(1, part.shape[dim]):
+            acc = acc + part.select(dim, i)
+        parts.append(acc)
+    return torch.stack(parts, dim=dim)
+
+
 def _check_aligned(*tensors):
     """The bf16 tensor-core kernels copy rows 16 bytes at a time (None: an
     absent operand)."""
@@ -279,12 +311,13 @@ def launch_fwd(entry: str, q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int
 
 
 def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, lse,
-               num_heads: int, *extra: int, out=None):
-    """Launch the C backward ``entry`` (B2's signature, then ``extra`` ints;
-    the forward's ``out`` after g where the entry takes it) over ``span``
-    key chunks per query chunk; returns (dq, dk, dv, dk_glo, dv_glo, dbias).
-    dK_glo and dV_glo come from the kernel's P_glo and dS_glo columns by one
-    einsum each; dbias is the sum over images of the kernel's partials."""
+               num_heads: int, *extra: int, out=None, groups: int = 1):
+    """Launch the C backward ``entry`` (B7b's signature, then ``extra``
+    ints; the forward's ``out`` after g where the entry takes it) over
+    ``span`` key chunks per query chunk; returns (dq, dk, dv, dk_glo,
+    dv_glo, dbias). dK_glo and dV_glo come from the kernel's P_glo and
+    dS_glo columns by one einsum each; dbias is the sum over images and
+    ``groups`` chunk groups of the kernel's partials, in that order."""
     B, mx, my, w2, C = q.shape
     H = num_heads
     nglo = 0 if k_glo is None else k_glo.shape[1]
@@ -294,7 +327,7 @@ def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, 
     delta = torch.empty(B, H, mx, my, w2, **f32)
     p_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
     ds_glo = torch.empty(B, H, mx, my, w2, nglo, **f32) if nglo else None
-    dbias_part = torch.zeros(B, H, w2, cols, **f32) if bias is not None else None
+    dbias_part = torch.zeros(B, groups, H, w2, cols, **f32) if bias is not None else None
     with torch.cuda.device(q.device):
         err = getattr(build.load(), entry)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(g),
@@ -313,7 +346,7 @@ def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, 
         dkg = torch.einsum("bhxylt,bxylhm->bthm", ds_glo, q6).reshape(B, nglo, C)
         dvg = torch.einsum("bhxylt,bxylhm->bthm", p_glo, g6).reshape(B, nglo, C)
         dkg, dvg = dkg.to(k_glo.dtype), dvg.to(v_glo.dtype)
-    dbias = None if bias is None else dbias_part.sum(dim=0)
+    dbias = None if bias is None else dbias_part.view(B * groups, H, w2, cols).sum(dim=0)
     return dq, dk, dv, dkg, dvg, dbias
 
 
@@ -347,7 +380,8 @@ def vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g, out, mask_add, lse, num_he
     operand is. On a CUDA device this launches the hand-written kernels (or
     raises); the bf16 ones take δ = rowsum(g ∘ out). On the CPU it runs the
     plain version, which recomputes the softmax and reads neither ``out`` nor
-    ``lse``."""
+    ``lse``. With a bias, pass 1 runs a block per group of
+    :func:`chunk_group` chunks, each with its own dbias partial."""
     check_operands(q, k, v, k_glo, v_glo, bias, mask_add, num_heads)
     check_grad_operands(q, g, lse, num_heads, out, takes_out=True)
     if q.device.type == "cpu":
@@ -355,8 +389,10 @@ def vil_attention_bwd(q, k, v, k_glo, v_glo, bias, g, out, mask_add, lse, num_he
                                            num_heads)
     if q.dtype == torch.bfloat16:  # the tensor-core kernels
         _check_aligned(q, k, v, k_glo, v_glo, g, out)
+    B, mx, my, w2, _ = q.shape
+    per = chunk_group(B, mx, my, w2, num_heads) if bias is not None else 1
     grads = launch_bwd("vil_attention_bwd", 9, q, k, v, k_glo, v_glo, bias, g, mask_add,
-                       lse, num_heads, out=out)
+                       lse, num_heads, per, out=out, groups=-(-mx * my // per))
     vil_attention_bwd.launches += 1
     return grads
 

@@ -11,15 +11,17 @@ at ``--img`` px, ``--batch`` images a step (``recipe.vil``: ViL-Small 224² at
 compute; f32 parameters for training, bf16 for serving; ``train_shift`` is
 the random-shift step, one sampled neighbour mode per block; ``--fused`` the
 fused-kernel configuration, ``recipe.vil_small(..., fused=True)``; ``--rpe``
-ViL-Small RPE, ``recipe.vil_small(..., rpe=True)``, served from
+the model with relative position bias in every stage, ``recipe.vil(...,
+rpe=True)`` (ViL-Small RPE by default), served from
 ``models.precompute_rpe_cache``; ``--attn`` one of the paper's other
 attention families, ``recipe.vil(..., **recipe.VARIANTS[attn])``, whose
 ARCH string (linformer, srformer, performer) is ViL-Small's;
 ``serve_spatial`` the serving forward through ``parallel.spatial_forward`` on
 a one-rank ``nccl`` group, set up from a ``FileStore`` under build/) under
 ``torch.profiler`` for 5 steps after 3 warm-up steps, and prints the device time per step by
-kernel family and the top kernels, the wall time per step and the device's
-busy share (kernel time over wall time). The profiler's own host work
+kernel family and the top kernels, the wall time per step, the device's
+busy share (kernel time over wall time) and the peak device memory
+(``torch.cuda.max_memory_allocated`` over the warm-up and the profiled steps). The profiler's own host work
 lengthens the wall time, so that share is a lower bound. The same numbers go
 to ``--out`` as JSON, with the card's name and power limit.
 """
@@ -106,7 +108,7 @@ def main() -> None:
     ap.add_argument("--fused", action="store_true",
                     help="the fused-kernel configuration (TPU.FUSED_LN, fused block)")
     ap.add_argument("--rpe", action="store_true",
-                    help="ViL-Small RPE: relative position bias in every stage")
+                    help="relative position bias in every stage (recipe.vil(..., rpe=True))")
     ap.add_argument("--attn", choices=("linformer", "srformer", "performer", "global",
                                        "unshared"), default=None,
                     help="one of the paper's other attention families (recipe.VARIANTS)")
@@ -154,6 +156,7 @@ def main() -> None:
             with torch.inference_mode():
                 return forward(images)
 
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
@@ -179,13 +182,15 @@ def main() -> None:
         "card": card,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
         "busy_share": device_ms / wall_ms if wall_ms else None,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:30]),
     }
     label = (args.mode + (" fused" if args.fused else "") + (" RPE" if args.rpe else "")
              + (f" {args.attn}" if args.attn else ""))
     print(f"{card}; {args.arch} {args.img}^2 {label} bf16 batch {args.batch}: wall "
-          f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
+          f"{wall_ms:.3f} ms per step, device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%, "
+          f"peak memory {result['peak_memory_gib']:.2f} GiB")
     for fam, ms in result["families_ms"].items():
         print(f"  {fam:32s} {ms:9.3f} ms  {100 * ms / device_ms:5.1f}%")
     for name, ms in result["top_kernels_ms"].items():

@@ -62,6 +62,13 @@ def _demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out))
 
 
+def kernel_name(demangled: str) -> str:
+    """A kernel's name and template arguments from cu++filt's line, which
+    spells an int or bool template argument with its cast ("(int)64",
+    "(bool)1"): the casts dropped before the parameter list is cut."""
+    return re.sub(r"\((?:int|bool)\)", "", demangled).split("(")[0].replace("void ", "")
+
+
 def census(match: str = "full_attention") -> dict[str, dict[str, int | None]]:
     """{kernel name: {instruction class: count, "registers": registers a
     thread (None without the compiler's report)}} for the kernels whose
@@ -83,10 +90,7 @@ def census(match: str = "full_attention") -> dict[str, dict[str, int | None]]:
             base = op.group(1).split(".")[0]
             if base in current:
                 current[base] += 1
-    # cu++filt spells an int template argument "(int)64": drop the cast
-    # before cutting the parameter list
-    names = {k: v.replace("(int)", "").split("(")[0].replace("void ", "")
-             for k, v in _demangle(list(counts)).items()}
+    names = {k: kernel_name(v) for k, v in _demangle(list(counts)).items()}
     return {names[k]: {**v, "registers": regs.get(k)} for k, v in counts.items()
             if match in names[k]}
 
