@@ -153,6 +153,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
    parameter after the load bit for bit the CPU importer's, each logged LR
    the schedule's, launches the trainer's counts, the f32 eval kernels vs
    plain (loss to LOSS_TOL, top1 equal).
+18. train_spatial — training over a ('data', 'spatial') mesh: ViL-Small
+   1024²'s recipe step at batch 8, bf16, on an ``nccl`` group of one card,
+   the image's rows split over it (``engine.TrainStep`` with a
+   ``parallel.Mesh``): STEPS steps and PROFILED more, launches exact per step
+   (B7a 3, B7b 3, B3 9, B4 9, no B1/B2), beside the classic train_1024 step
+   from the same weights in the same phase (outside the path's counts; wall,
+   device time, idle, peak memory); one bf16 step spatial vs classic from
+   the same weights and batch (every gradient to BF16_PARAM_GRAD_TOL) and
+   one f32 step of ViL-Small with stage 3 cut to one block at batch 2 (loss
+   to LOSS_TOL, gradients to PARAM_GRAD_TOL of their max|ref|). With two
+   cards or more, the multi-card phase: the step at D 2 in two spawned
+   ``nccl`` ranks, and with four cards or more at D 4 in four, against the
+   one-rank step; on one card a line says it was not run.
+19. experiment_spatial — ``run_experiment.main`` with TPU.MESH_AXES
+   ['data','spatial'] and MESH_SHAPE [1,1] on an ``nccl`` group of one:
+   phase 15's recipe cut to one MODE-0 epoch of 8 steps (the loader's
+   threads cut to 0), its eval, one checkpoint and the best checkpoint's
+   eval; launches from the trainer's counts (B7a, B7b for B1, B2), every
+   logged loss against the same run without the mesh.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -171,7 +190,11 @@ rest), of B8a and of B8b (rows, reduction) (``card_times``), the
 halo-input kernels (B7a, B7b) on every shard of stage 1 and 2 split over 1, 2
 and 4 ranks, of a biased padded grid split over 3, of a cyclic 1×2 grid, and
 of an SW_EXACT 1 (a mask row per query pixel) and a W 4 grid split over 1
-and 2, in f32 and bf16 (the shards' outputs together must equal B1's on the
+and 2 (at the end of the phase also on ViL-Small 1024²'s 37×37 and 19×19
+grids whole, timed as train_spatial's B7b, and on the ragged shards of the
+splits of 2 and 4 ranks, 20/17 and 10/10/10/7 rows, 10/9 and 5/5/5/4, with
+and without a bias from tables, each shard timed), in f32 and bf16 (the
+shards' outputs together must equal B1's on the
 whole grid, their dK/dV folded onto the rows' owners B2's; SDPA on the
 materialised halo neighbourhood as the library call; a bf16 operand off a
 16-byte boundary must raise ValueError), and P's two entry points against
@@ -191,7 +214,7 @@ N 4097, batch 8 (one group of 8 images) and B2 on the 37x37 grid at batch 2
 (bit for bit again), and the dense bias's assembly (the gather against the
 skew, forward and backward, equal bit for bit) at the paths' grids.
 
-Each path of phases 4-17 sets the launch counts to 0 before it and reads
+Each path of phases 4-19 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
@@ -204,12 +227,12 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_train_384``, ``launches_serve_1024``, ``launches_train_1024``,
 ``launches_shift_1024``, ``launches_base_deep_384``, ``launches_serve_384_rpe``,
 ``launches_train_384_rpe``, ``launches_serve_1024_rpe``,
-``launches_train_1024_rpe`` and ``launches_finetune_384`` each path's; ``ms``,
-``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the training
-path that runs the kernel: MODE 0, random shift for B5/B6, fused for B8/B9;
-for B7a per spatial serving forward on one rank (no LSE), for B7b per run of
-the ``spatial_bwd`` path, one stage-1 backward on one rank; for P per call at
-the probe's shape), and the line before that the card as
+``launches_train_1024_rpe``, ``launches_finetune_384``,
+``launches_train_spatial`` and ``launches_experiment_spatial`` each path's;
+``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
+training path that runs the kernel: MODE 0, random shift for B5/B6, fused
+for B8/B9, train_spatial for B7b (one rank); for B7a per spatial serving
+forward on one rank (no LSE); for P per call at the probe's shape), and the line before that the card as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
 """
 from __future__ import annotations
@@ -262,6 +285,11 @@ BF16_LOGITS_TOL = 2.5e-2
 # fails however small the change is at random weights
 RPE_SHARE_TOL = 1e-2
 BF16_PARAM_GRAD_TOL = 2.5e-2
+# experiment_spatial: each logged loss of the bf16 recipe on the mesh of one
+# card against the same run without the mesh (B7a/B7b for B1/B2, the halo
+# rows' gradients added after the kernel): the steps' small differences in
+# the gradients' rounding reach the loss through AdamW's updates
+EXPERIMENT_LOSS_TOL = 1e-3
 # H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -859,12 +887,15 @@ def check_kernels(torch, records):
     def halo_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, splits, per_fwd=0,
                   per_bwd=0, bias=None, timed=False):
         """Halo-input cases: B7a and B7b on every shard of the grid split
-        over each D of ``splits``, against their plain versions; the shards
+        over each D of ``splits`` (equal shards), or into the chunk-row
+        counts of each tuple of ``splits`` (a ragged split: every shard's
+        B7a and B7b timed in bf16), against their plain versions; the shards
         together against B1 and B2 on the whole grid. ``per_fwd`` is the
-        case's share of one spatial forward's B7a launches on one rank
-        (D = 1), ``per_bwd`` its share of the spatial backward path's B7b
-        launches; with ``per_fwd`` or ``timed`` every D's shard 0 is timed
-        (all shards do the same work; SDPA with the bias in its mask)."""
+        case's share of one spatial serving forward's B7a launches on one
+        rank (D = 1), ``per_bwd`` its share of one train_spatial step's B7b
+        launches; with ``per_fwd``, ``per_bwd`` or ``timed`` every equal
+        split's shard 0 is timed (all its shards do the same work; SDPA
+        with the bias in its mask)."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
         cols = nglo + 9 * w2
@@ -881,18 +912,20 @@ def check_kernels(torch, records):
             dt = str(dtype)[6:]
             b1_out, b1_lse = vil_attention_fwd(*a, bias, mask, H, with_lse=True)
             b2_grads = vil_attention_bwd(*a, bias, g, b1_out, mask, b1_lse, H)
-            for D in splits:
-                mxs = mx // D
+            for split in splits:
+                ragged = not isinstance(split, int)
+                counts = list(split) if ragged else [mx // split] * split
+                D = len(counts)
                 outs, e_out, e_lse, e_grad, e_abs, e_scaled = [], 0.0, 0.0, 0.0, 0.0, {}
                 dk, dv = (torch.zeros(B, mx, my, w2, C, device=dev) for _ in range(2))
                 shards = []
-                for sh in range(D):
-                    rows = [(sh * mxs - 1) % mx, *range(sh * mxs, (sh + 1) * mxs),
-                            ((sh + 1) * mxs) % mx]
-                    ops = [a[0][:, sh * mxs:(sh + 1) * mxs].contiguous(), a[1][:, rows].contiguous(),
+                for sh, n in enumerate(counts):
+                    lo = sum(counts[:sh])
+                    rows = [(lo - 1) % mx, *range(lo, lo + n), (lo + n) % mx]
+                    ops = [a[0][:, lo:lo + n].contiguous(), a[1][:, rows].contiguous(),
                            a[2][:, rows].contiguous(), a[3], a[4], bias]
-                    m_rows = mask[sh * mxs:(sh + 1) * mxs]
-                    gs = g[:, sh * mxs:(sh + 1) * mxs].contiguous()
+                    m_rows = mask[lo:lo + n]
+                    gs = g[:, lo:lo + n].contiguous()
                     ops32 = cast(ops, torch.float32)
                     out, lse = vil_attention_halo_fwd(*ops, m_rows, H, with_lse=True)
                     ref, ref_lse = vil_attention_halo_reference(*ops32, m_rows, H, with_lse=True)
@@ -914,7 +947,7 @@ def check_kernels(torch, records):
                     shards.append((ops, m_rows, gs, out, lse, grads))
                 e_b1 = max_err(torch.cat(outs, dim=1), b1_out)
                 e_b2 = max(rel_err(dk, b2_grads[1]), rel_err(dv, b2_grads[2]))
-                phase("kernels", f"vil_attention_halo {label}, D {D} ({mxs} rows a shard) {dt}: "
+                phase("kernels", f"vil_attention_halo {label}, D {D} (rows {counts}) {dt}: "
                                  f"out {e_out:.3e} (tol {tol:g}), lse {e_lse:.3e} (tol "
                                  f"{LSE_TOL:g}); grads rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g})"
                                  f"{scaled_text(e_scaled)}; shards vs B1 on the whole grid "
@@ -926,8 +959,19 @@ def check_kernels(torch, records):
                 check(f"halo folded dK/dV vs B2 {label} D {D} {dt}", e_b2, GRAD_TOL[dt])
                 for n, e in e_scaled.items():
                     check(f"halo {n} scaled {label} D {D} {dt}", e, CHUNK_SCALED_TOL)
-                if not ((per_fwd or timed) and dtype == torch.bfloat16):
+                if dtype != torch.bfloat16:
                     continue
+                if ragged:  # each shard's kernels, as a training step launches them
+                    times = [(time_ms(lambda: vil_attention_halo_fwd(*o, m, H, with_lse=True)),
+                              time_ms(lambda: vil_attention_halo_bwd(*o, gg, out, m, lse, H)))
+                             for o, m, gg, out, lse, _ in shards]
+                    phase("kernels", f"  vil_attention_halo {label}, rows {counts}, per shard: "
+                                     f"B7a with lse {[round(f, 4) for f, _ in times]} ms, B7b "
+                                     f"{[round(b, 4) for _, b in times]} ms")
+                    continue
+                if not (per_fwd or per_bwd or timed):
+                    continue
+                mxs = counts[0]
                 if per_fwd:
                     records["vil_attention_halo_fwd"]["max_abs_err"] = max(
                         records["vil_attention_halo_fwd"]["max_abs_err"], e_out)
@@ -1122,7 +1166,7 @@ def check_kernels(torch, records):
     # spatial parallelism: the halo-input kernels on every shard of stage 1
     # (1 block) and stage 2 (2 blocks) over 1, 2 and 4 ranks
     halo_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, (1, 2, 4),
-              per_fwd=1, per_bwd=1)
+              per_fwd=1)
     halo_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, (1, 2, 4),
               per_fwd=2)
     halo_case("biased, padded 3x3 grid, nglo 2", 2, 19, 20, 7, 64, 2, 2, 0, True, (1, 3))
@@ -1208,6 +1252,22 @@ def check_kernels(torch, records):
                          f"on a {wx}x{wx} grid: {'; '.join(msg)}; equal bit for bit {same}")
         if not same:
             raise AssertionError(f"the skew assembly differs from the gather at {wx}x{wx}")
+    # ViL-Small 1024² under the split (the path train_spatial, and the splits
+    # of 2 and 4 ranks, parallel.row_split): B7a/B7b on one rank's whole
+    # grid, timed as one train_spatial step's B7b launches (stage 1 once,
+    # stage 2 twice), then on the ragged shards of 2 and 4 ranks (the last
+    # holding the pad rows), with and without a bias from tables
+    halo_case("1024^2 stage1 (8,37,37,49,96) H3, pad 3", 8, 256, 256, 7, 96, 3, 1, 0, False,
+              (1,), per_bwd=1)
+    halo_case("1024^2 stage2 (8,19,19,49,192) H3, pad 5", 8, 128, 128, 7, 192, 3, 1, 0, False,
+              (1,), per_bwd=2)
+    table, g2l, _ = tables(27 * 27, 3, 1)
+    for what, bias in (("", None), (", bias (3,49,442) from tables",
+                                    sliding_chunk_rpe_bias(table, g2l, 7))):
+        halo_case(f"1024^2 stage1 (2,37,37,49,96) H3, pad 3{what}", 2, 256, 256, 7, 96, 3, 1, 0,
+                  False, ((20, 17), (10, 10, 10, 7)), bias=bias)
+        halo_case(f"1024^2 stage2 (8,19,19,49,192) H3, pad 5{what}", 8, 128, 128, 7, 192, 3, 1,
+                  0, False, ((10, 9), (5, 5, 5, 4)), bias=bias)
 
 
 def launch_counts(kernels) -> dict:
@@ -1531,6 +1591,28 @@ def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
     return launches
 
 
+class OneRankGroup:
+    """A process group of this one card (``nccl``, from a ``FileStore``
+    under build/), left and its store removed on exit."""
+
+    def __init__(self, tag: str):
+        self.store = os.path.join(REPO, "build", f"{tag}_store.{os.getpid()}")
+
+    def __enter__(self):
+        from vil_tpu_torch import parallel
+
+        os.makedirs(os.path.dirname(self.store), exist_ok=True)
+        parallel.init_process_group(self.store, 0, 1, backend="nccl")
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if os.path.exists(self.store):
+            os.remove(self.store)
+
+
 def run_serve_spatial(torch, kernels):
     """Phase 9: spatial (chunk-row) parallelism of ViL-Small 224² on a
     process group of one card, through ``parallel.spatial_forward``, and
@@ -1545,15 +1627,12 @@ def run_serve_spatial(torch, kernels):
 
     name = "serve_spatial"
     dev = torch.device("cuda")
-    store = os.path.join(REPO, "build", f"spatial_store.{os.getpid()}")
-    os.makedirs(os.path.dirname(store), exist_ok=True)
-    parallel.init_process_group(store, 0, 1, backend="nccl")
-    try:
+    with OneRankGroup("spatial"):
         gen = torch.Generator(device=dev).manual_seed(1)
         images = [torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
                                 dtype=torch.uint8) for _ in range(REQUESTS)]
         model = recipe.vil_small(torch.bfloat16, torch.bfloat16, device=dev).eval()
-        forward = lambda m, x: parallel.spatial_forward(m, parallel.shard_image(x))
+        forward = lambda m, x: parallel.spatial_forward(m, parallel.shard_image(x, m))
 
         def timed(fn):
             secs = []
@@ -1655,11 +1734,267 @@ def run_serve_spatial(torch, kernels):
             raise AssertionError(f"f32 RPE logits disagree (spatial vs classic): {err}")
         check_big_tables(torch, name, lambda use_kernels: recipe.vil_small(
             torch.float32, torch.float32, use_kernels, dev, rpe=True).eval(), x, forward)
-    finally:
-        dist.destroy_process_group()
-        if os.path.exists(store):
-            os.remove(store)
     return launches, launches_bwd
+
+
+# ViL-Small 1024² at batch 8 under the split: the path train_spatial; its
+# f32 step pair on ViL-Small with stage 3 cut to one block, at batch 2
+SPATIAL_IMG, SPATIAL_BATCH, SPATIAL_PAIR = 1024, 8, 2
+SHALLOW_VIL_SMALL = ("l1,h3,d96,n1,s1,g1,p4,f7_l2,h3,d192,n2,s1,g1,p2,f7_"
+                     "l3,h6,d384,n1,s0,g1,p2,f7_l4,h12,d768,n1,s0,g0,p2,f7")
+
+
+def spatial_step_pair(torch, dtype, batch, arch, images, labels, mesh):
+    """One recipe step of ViL-Small 1024² (``arch``, computed in ``dtype``,
+    f32 parameters) from its seeded weights, classic and on ``mesh``, from
+    the same images, labels and draws: {"classic": (loss, gradients),
+    "spatial": (loss, gradients)}."""
+    from vil_tpu_torch.train import recipe
+
+    dev = torch.device("cuda")
+    out = {}
+    for label, on in (("classic", None), ("spatial", mesh)):
+        m = recipe.vil("vil_small", SPATIAL_IMG, dtype, torch.float32, device=dev, arch=arch)
+        s = recipe.train_step(m, dev, batch=SPATIAL_BATCH, mesh=on)
+        loss = s(images[:batch], labels[:batch],
+                 torch.Generator(device=dev).manual_seed(3))["loss"].item()
+        out[label] = (loss, {n: p.grad.clone() for n, p in m.named_parameters()})
+        del m, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_train_spatial(torch, kernels):
+    """Phase 18 (``train_spatial``): the training step of ViL-Small 1024² at
+    batch 8 (the recipe of ``train_1024``) on a ('data', 'spatial') mesh of
+    one card: an ``nccl`` group of one, the image's rows split over it
+    (``engine.TrainStep`` with a ``parallel.Mesh``), the chunked stages
+    through B7a and B7b, the halos and their gradients through the exchange.
+    The classic ``train_1024`` step from the same weights runs first, outside
+    the path's counts; each takes STEPS steps and PROFILED more under
+    torch.profiler. Launches exact: B7a 3, B7b 3, B3 9, B4 9 a step, no
+    B1/B2. Then one bf16 step, spatial vs classic, from the same weights and
+    batch (gradients to BF16_PARAM_GRAD_TOL), and one f32 step of the
+    shallow model at batch 2 (loss to LOSS_TOL, gradients to PARAM_GRAD_TOL
+    of their max|ref|). With more than one card, the multi-card phase."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.tools.profile_step import kernel_ms
+    from vil_tpu_torch.train import recipe
+
+    name = "train_spatial"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (SPATIAL_BATCH,), generator=gen, device=dev)
+    with OneRankGroup(name):
+        mesh = parallel.Mesh(spatial=parallel.SpatialContext.of(None))
+        walls, launches = {}, None
+        for label, on, chunk in (("classic", None, "vil_attention"),
+                                 ("spatial", mesh, "vil_attention_halo")):
+            per_step = {fn.__name__: 0 for fn in kernels}
+            per_step.update({f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
+                             "full_attention_bwd": 9})
+            model = recipe.vil("vil_small", SPATIAL_IMG, torch.bfloat16, torch.float32,
+                               device=dev)
+            step = recipe.train_step(model, dev, batch=SPATIAL_BATCH, mesh=on)
+            step_gen = torch.Generator(device=dev).manual_seed(3)
+            secs, losses = [], []
+
+            def timed():
+                before = launch_counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(images, labels, step_gen)["loss"].item())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+                if rose != per_step:
+                    raise AssertionError(f"{name} {label} step {len(secs)}: launches rose by "
+                                         f"{rose}, want {per_step}")
+
+            if on is not None:  # the path: its counts from 0
+                for fn in kernels:
+                    fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(STEPS):
+                timed()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(PROFILED):
+                    timed()
+            if on is not None:
+                launches = launch_counts(kernels)
+            device = sum(kernel_ms(prof).values()) / PROFILED
+            med = statistics.median(secs[1:STEPS])
+            walls[label] = (med, device)
+            phase(name, f"{label} ViL-Small {SPATIAL_IMG}^2 bf16 batch {SPATIAL_BATCH}"
+                        f"{' on a group of 1 (nccl)' if on else ''}: median {med * 1e3:.3f} ms, "
+                        f"{SPATIAL_BATCH / med:.1f} img/s (steps 2..{STEPS}), first "
+                        f"{secs[0] * 1e3:.1f} ms; device {device:.3f} ms a step "
+                        f"(torch.profiler over {PROFILED} more), idle "
+                        f"{100 * (1 - device / med / 1e3):.1f}%; peak memory "
+                        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+                        f"{', '.join(f'{v:.4f}' for v in losses)}")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name} {label}: losses not finite: {losses}")
+            del model, step
+            torch.cuda.empty_cache()
+        want = {fn.__name__: 0 for fn in kernels}
+        want.update(vil_attention_halo_fwd=3 * (STEPS + PROFILED),
+                    vil_attention_halo_bwd=3 * (STEPS + PROFILED),
+                    full_attention_fwd=9 * (STEPS + PROFILED),
+                    full_attention_bwd=9 * (STEPS + PROFILED))
+        phase(name, f"launches {({k: v for k, v in launches.items() if v})} (want "
+                    f"{({k: v for k, v in want.items() if v})}, the rest 0); spatial / classic "
+                    f"wall {walls['spatial'][0] / walls['classic'][0]:.3f}, device "
+                    f"{walls['spatial'][1] / walls['classic'][1]:.3f}")
+        if launches != want:
+            raise AssertionError(f"{name}: launch counts {launches} != {want}")
+
+        # the path's own types: one bf16 step, spatial vs classic
+        bf = spatial_step_pair(torch, torch.bfloat16, SPATIAL_BATCH, "", images, labels, mesh)
+        err, at = bf16_grad_worst(bf["spatial"][1], bf["classic"][1])
+        phase(name, f"bf16 step, batch {SPATIAL_BATCH}, spatial vs classic: loss "
+                    f"{bf['spatial'][0]:.6f} vs {bf['classic'][0]:.6f}; parameter gradients max "
+                    f"‖err‖ / ‖ref‖ {err:.3e} at {at} (tol {BF16_PARAM_GRAD_TOL:g})")
+        if not (math.isfinite(bf["spatial"][0]) and err <= BF16_PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: bf16 step disagrees: gradients {err} at {at}")
+        one_rank = bf["spatial"]
+        del bf
+        # f32, the shallow model: the halo kernels' f32 bodies against B1/B2's
+        f32 = spatial_step_pair(torch, torch.float32, SPATIAL_PAIR, SHALLOW_VIL_SMALL, images,
+                                labels, mesh)
+        loss_err = abs(f32["spatial"][0] - f32["classic"][0])
+        grad_err, worst, _ = f32_grad_errors(f32["spatial"][1], f32["classic"][1])
+        phase(name, f"f32 step, ViL-Small with stage 3 cut to one block, batch {SPATIAL_PAIR}, "
+                    f"spatial vs classic: loss {f32['spatial'][0]:.6f} vs {f32['classic'][0]:.6f} "
+                    f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max rel err "
+                    f"{grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g})")
+        if not (loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: f32 step disagrees: loss {loss_err}, gradients "
+                                 f"{grad_err} at {worst}")
+        del f32
+        torch.cuda.empty_cache()
+    run_multicard(torch, images, labels, one_rank)
+    return launches
+
+
+def multicard_rank(rank, world, store, inputs, result):
+    """One rank of the multi-card phase: ViL-Small 1024²'s bf16 recipe step
+    from the seeded weights, its rows split over ``world`` cards (``nccl``,
+    a ('data', 'spatial') mesh of 1 × world), on the batch of ``inputs``;
+    rank 0 writes its loss and gradients to ``result``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import recipe
+
+    parallel.init_process_group(store, rank, world, backend="nccl")
+    try:
+        dev = torch.device("cuda", rank)
+        data = torch.load(inputs, map_location=dev)
+        mesh = parallel.create_mesh((1, world), ("data", "spatial"))
+        on = parallel.Mesh(spatial=parallel.SpatialContext.of(mesh.get_group("spatial")))
+        model = recipe.vil("vil_small", SPATIAL_IMG, torch.bfloat16, torch.float32, device=dev)
+        step = recipe.train_step(model, dev, batch=SPATIAL_BATCH, mesh=on)
+        gen = torch.Generator(device=dev)
+        loss = step(data["images"], data["labels"], gen.manual_seed(3))["loss"].item()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        secs = []
+        for _ in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(data["images"], data["labels"], gen.manual_seed(3))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        if rank == 0:
+            torch.save({"loss": loss, "secs": secs, "grads": grads}, result)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def run_multicard(torch, images, labels, one_rank):
+    """The multi-card phase, with more than one card: the train_spatial
+    step at D 2, and at D 4 where four cards exist (the ragged split 280,
+    280, 280, 184 rows), each in D spawned ``nccl`` ranks, one card each,
+    its first step's gradients against the one-rank step's (``one_rank``:
+    loss, gradients) at BF16_PARAM_GRAD_TOL; then STEPS more steps timed on
+    rank 0 (the weights move, so only the first is compared). On one card
+    it only says so."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        phase("multicard", f"multi-card phase not run: {cards} card")
+        return
+    import torch.multiprocessing as mp
+
+    for world in (w for w in (2, 4) if w <= cards):
+        tmp = os.path.join(REPO, "build", f"multicard.{os.getpid()}.{world}")
+        os.makedirs(tmp, exist_ok=True)
+        inputs, result = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "result.pt")
+        torch.save({"images": images.cpu(), "labels": labels.cpu()}, inputs)
+        t0 = time.perf_counter()
+        mp.spawn(multicard_rank, args=(world, os.path.join(tmp, "store"), inputs, result),
+                 nprocs=world)
+        got = torch.load(result)
+        grads = {n: g.to(images.device) for n, g in got["grads"].items()}
+        err, at = bf16_grad_worst(grads, one_rank[1])
+        med = statistics.median(got["secs"])
+        phase("multicard", f"train_spatial at D {world} on {world} cards (nccl, {cards} "
+                           f"present), {time.perf_counter() - t0:.1f} s with start-up: loss "
+                           f"{got['loss']:.6f} vs one rank {one_rank[0]:.6f}; gradients max "
+                           f"‖err‖ / ‖ref‖ {err:.3e} at {at} (tol {BF16_PARAM_GRAD_TOL:g}); step "
+                           f"median {med * 1e3:.3f} ms (steps 2..{STEPS + 1} on rank 0)")
+        if not (math.isfinite(got["loss"]) and err <= BF16_PARAM_GRAD_TOL):
+            raise AssertionError(f"multicard: the D {world} step disagrees: gradients {err} at "
+                                 f"{at}")
+
+
+def run_experiment_spatial(torch, kernels):
+    """Phase 19 (``experiment_spatial``): ``run_experiment.main`` on a
+    ('data', 'spatial') mesh of one card (TPU.MESH_AXES ['data','spatial'],
+    MESH_SHAPE [1,1], an ``nccl`` group of one), phase 15's recipe cut to one
+    MODE-0 epoch of 8 steps, its eval, one checkpoint and the best
+    checkpoint's eval; launches from the trainer's counts (B7a, B7b in place
+    of B1, B2). The same run without the mesh first, outside the path's
+    counts; the loader's threads cut to 0, so that both read the same
+    batches: every logged loss to EXPERIMENT_LOSS_TOL."""
+    import shutil
+
+    name = "experiment_spatial"
+    args = EXPERIMENT_ARGS[:EXPERIMENT_ARGS.index("OPTIM.EPOCHS")] + [
+        "OPTIM.EPOCHS", "1", "MODEL.VIT.MSVIT.MODE", "0", "LOG_FREQ", "1",
+        "DATALOADER.WORKERS", "0"]
+    runs = {}
+    with OneRankGroup(name):
+        for label, mesh in (("without the mesh", []),
+                            ("mesh", ["TPU.MESH_AXES", "['data','spatial']",
+                                      "TPU.MESH_SHAPE", "[1,1]"])):
+            out = os.path.join(REPO, "build", f"chip_{name}_{len(runs)}")
+            shutil.rmtree(out, ignore_errors=True)
+            argv = args + mesh
+            argv[argv.index("--output_dir") + 1] = out
+            if mesh:
+                for fn in kernels:
+                    fn.launches = 0
+            runs[label] = run_cli(torch, kernels, name, label, argv)
+            files = sorted(os.listdir(out))
+            if mesh and not {"checkpoint_1.ckpt", "model_best.ckpt", "config.yaml"} <= set(files):
+                raise AssertionError(f"{name}: {out} holds {files}")
+        launches = launch_counts(kernels)
+    losses = {k: [r["loss"] for r in t.steps_log] for k, t in runs.items()}
+    err = max(abs(a - b) for a, b in zip(losses["mesh"], losses["without the mesh"]))
+    evals = {k: [(e["top1"], e["loss"]) for e in t.evals] for k, t in runs.items()}
+    phase(name, f"{len(losses['mesh'])} steps on the mesh: losses "
+                f"{', '.join(f'{v:.4f}' for v in losses['mesh'])}; max |err| against the run "
+                f"without the mesh {err:.3e} (tol {EXPERIMENT_LOSS_TOL:g}); evals (top1, loss) "
+                f"{evals['mesh']} vs {evals['without the mesh']}")
+    if not (len(losses["mesh"]) == len(losses["without the mesh"]) == 8
+            and err <= EXPERIMENT_LOSS_TOL):
+        raise AssertionError(f"{name}: the mesh's losses differ: {losses}")
+    return launches
 
 
 def run_probe(torch, kernels):
@@ -1706,8 +2041,9 @@ def experiment_want(trainer, kernels) -> tuple[dict, str]:
     """The launches a run of the CLI must have made, from the trainer's own
     counts and its model's blocks (ViL-Small: 3 sliding-chunk, 9 dense): per
     random-shift step B5, B6 one per sliding-chunk block and B3, B4 one per
-    dense block; per MODE-0 step B1, B2 and B3, B4 the same; per eval batch
-    (the best checkpoint's eval included) B1 and B3; none with the plain
+    dense block; per MODE-0 step B1, B2 and B3, B4 the same (B7a, B7b for
+    B1, B2 on a mesh with a spatial axis); per eval batch (the best
+    checkpoint's eval included) B1 (B7a) and B3; none with the plain
     versions."""
     want = {fn.__name__: 0 for fn in kernels}
     shift, mode0, ev = trainer.steps_run[True], trainer.steps_run[False], trainer.eval_batches
@@ -1716,11 +2052,13 @@ def experiment_want(trainer, kernels) -> tuple[dict, str]:
     if not trainer.cfg.TPU.USE_PALLAS:
         return want, formula + ", plain versions"
     chunk, dense = block_counts(trainer.model)
+    local = "vil_attention_halo" if trainer.mesh.spatial is not None else "vil_attention"
     want.update(vil_mode_attention_fwd=chunk * shift, vil_mode_attention_bwd=chunk * shift,
-                vil_attention_fwd=chunk * (mode0 + ev), vil_attention_bwd=chunk * mode0,
                 full_attention_fwd=dense * (shift + mode0 + ev),
                 full_attention_bwd=dense * (shift + mode0))
-    return want, formula + f", {chunk} sliding-chunk and {dense} dense blocks"
+    want.update({f"{local}_fwd": chunk * (mode0 + ev), f"{local}_bwd": chunk * mode0})
+    return want, formula + f", {chunk} sliding-chunk and {dense} dense blocks" + (
+        ", on a spatial mesh" if local != "vil_attention" else "")
 
 
 def run_cli(torch, kernels, name: str, label: str, argv: list):
@@ -2465,7 +2803,7 @@ def run_highres(torch, kernels) -> dict:
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
-         "efficient", "highres")
+         "efficient", "highres", "train_spatial", "experiment_spatial")
 
 
 def only_arg(argv) -> "set | None":
@@ -2594,6 +2932,11 @@ def main() -> int:
         # high resolution: ViL-Medium-Deep 384², ViL-Small 1024², the _384
         # windows and the 384² fine-tune recipe
         "highres": lambda: run_highres(torch, kernels),
+        # training over a ('data', 'spatial') mesh: ViL-Small 1024²'s step on
+        # a group of one card (and on two, where there are), then the entry
+        # point on the mesh
+        "train_spatial": lambda: run_train_spatial(torch, kernels),
+        "experiment_spatial": lambda: run_experiment_spatial(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()

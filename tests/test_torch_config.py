@@ -2,7 +2,8 @@
 repository's yaml files, dotted overrides, unknown keys and ``dump`` give
 the same trees in both packages (compared exactly, types included); and
 ``train.trainer.check_ported`` refuses every key that selects what the port
-lacks, naming its ROADMAP item, and accepts the attention families."""
+lacks, naming its ROADMAP item, and accepts the attention families and
+the (data, spatial) mesh."""
 import os
 
 import pytest
@@ -10,6 +11,7 @@ import yaml
 
 from vil_tpu.config import get_default_cfg as jax_default_cfg
 from vil_tpu_torch.config import CfgNode, get_default_cfg
+from vil_tpu_torch.parallel import mesh_from_cfg
 from vil_tpu_torch.train.trainer import check_ported
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -107,9 +109,7 @@ def test_freeze_and_clone():
 @pytest.mark.parametrize("key,value,item", [
     ("TPU.PARAM_SHARDING", "fsdp", "A12"),
     ("TPU.PARAM_SHARDING", "tp", "A12"),
-    ("TPU.MESH_AXES", "['data', 'spatial']", "A12"),
     ("TPU.MESH_AXES", "['data', 'model']", "A12"),
-    ("TPU.MESH_SHAPE", "[4]", "A12"),
     ("CKPT_BACKEND", "orbax", "A6"),
     ("DATALOADER.BACKEND", "grain", "A6"),
     ("MODEL.ARCH", "resnet50", "A10"),
@@ -124,6 +124,20 @@ def test_unported_keys_raise_naming_their_item(key, value, item):
     cfg.merge_from_list([key, value])
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         check_ported(cfg)
+
+
+@pytest.mark.parametrize("key,value", [("TPU.MESH_AXES", "['data', 'spatial']"),
+                                       ("TPU.MESH_SHAPE", "[4]")])
+def test_mesh_keys_are_accepted(key, value):
+    """The ('data', 'spatial') mesh and a mesh of several ranks are ported;
+    a mesh of more ranks than the run's processes raises."""
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))
+    cfg.merge_from_list([key, value])
+    check_ported(cfg)
+    if key == "TPU.MESH_SHAPE":
+        with pytest.raises(ValueError, match="does not cover the 1 ranks"):
+            mesh_from_cfg(cfg)
 
 
 @pytest.mark.parametrize("key,value,attn", [

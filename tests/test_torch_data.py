@@ -270,11 +270,29 @@ def test_loader_keeps_uint8_under_device_normalize():
     np.testing.assert_array_equal(y, jy)
 
 
-@pytest.mark.parametrize("what", ["distributed", "grain"])
+@pytest.mark.parametrize("what", ["grain"])
 def test_loader_refuses_what_is_not_ported(what):
     cfg, _ = _cfgs("DATA.TEST", "('synthetic',)")
-    if what == "grain":
-        cfg.DATALOADER.BACKEND = "grain"
-    with pytest.raises(NotImplementedError, match="A12" if what == "distributed" else "A6"):
-        loader.make_epoch_data_loader(cfg, is_train=False,
-                                      is_distributed=what == "distributed")
+    cfg.DATALOADER.BACKEND = what
+    with pytest.raises(NotImplementedError, match="A6"):
+        loader.make_epoch_data_loader(cfg, is_train=False)
+
+
+@pytest.mark.parametrize("is_train,rank", [(True, 0), (True, 1), (False, 1)])
+def test_distributed_loader_shards_as_vil_tpu(is_train, rank):
+    """A data replica's loader (``is_distributed``: replica ``rank`` of 2, half
+    the batch, eval shuffled) reads the indices and batches vil_tpu's does."""
+    ours_cfg, theirs_cfg = _cfgs("DATA.TRAIN", "('synthetic',)", "DATA.TEST", "('synthetic',)",
+                                 "DATA.NUM_CLASSES", "10")
+    shard = dict(is_train=is_train, drop_last=is_train, is_distributed=True, num_replicas=2,
+                 rank=rank)
+    ours, theirs = (make(cfg, **shard) for make, cfg in (
+        (loader.make_epoch_data_loader, ours_cfg), (jax_loader.make_epoch_data_loader,
+                                                    theirs_cfg)))
+    ours, theirs = (ld if is_train else ld[0] for ld in (ours, theirs))
+    for ld in (ours, theirs):
+        ld.sampler.set_epoch(1)
+    assert list(ours.sampler) == list(theirs.sampler) and ours.batch_size == 2
+    for (x, y), (jx, jy) in zip(_seeded(lambda: list(ours), 5), _seeded(lambda: list(theirs), 5)):
+        np.testing.assert_array_equal(x, jx)
+        np.testing.assert_array_equal(y, jy)

@@ -1077,6 +1077,40 @@ def test_spatial_forward_runs_through_the_halo_kernels(cuda):
     assert [fn.launches for fn in KERNELS][10:] == [4, 1]
 
 
+def test_spatial_train_step_runs_through_the_halo_kernels(cuda):
+    """The training step of a narrow 4-stage 224² model on a 1 × 1
+    ('data', 'spatial') mesh without a process group: B7a and B7b once per
+    sliding-chunk block a step, no B1/B2; f32 loss and every gradient equal
+    to the classic step's within 1e-4 of their max|ref|."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import engine, loss
+
+    arch = ("l1,h2,d64,n1,s1,g1,p4,f7_l2,h2,d64,n2,s1,g1,p2,f7_"
+            "l3,h2,d128,n2,s0,g1,p2,f7_l4,h2,d128,n1,s0,g0,p2,f7")
+    x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    y = torch.tensor([1, 2, 3, 4], device=cuda)
+    out = {}
+    for name, mesh in (("classic", None), ("spatial", parallel.Mesh(
+            spatial=parallel.SpatialContext.of(None)))):
+        model = MsViT(arch, img_size=224, num_classes=10, sharew=True, norm_embed=True,
+                      device=cuda, generator=torch.Generator().manual_seed(0))
+        step = engine.make_train_step(model, loss.cross_entropy,
+                                      torch.optim.AdamW(model.parameters()), device=cuda,
+                                      seed=0, mesh=mesh)
+        for fn in KERNELS:
+            fn.launches = 0
+        metrics = step(x, y)
+        out[name] = (metrics["loss"].item(), {n: p.grad for n, p in model.named_parameters()},
+                     {fn.__name__: fn.launches for fn in KERNELS})
+    (loss_c, grads_c, _), (loss_s, grads_s, launches) = out["classic"], out["spatial"]
+    assert launches["vil_attention_halo_fwd"] == launches["vil_attention_halo_bwd"] == 3
+    assert launches["vil_attention_fwd"] == launches["vil_attention_bwd"] == 0
+    assert abs(loss_s - loss_c) <= 1e-4
+    for n, ref in grads_c.items():
+        if ref.numel():  # not the (1, 0, C) table of a stage without global tokens
+            assert _max_err(grads_s[n], ref) <= 1e-4 * ref.abs().max().item(), n
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layout_probe_kernel_doubles_in_place_of_any_layout(cuda, dtype):
     """P through both entry points, on the base layout and on its permuted

@@ -350,7 +350,7 @@ def test_rpe_spatial_forward_matches_classic():
                          .astype(np.float32))
     with torch.inference_mode():
         ref = model.eval()(x)
-        out = parallel.spatial_forward(model, parallel.shard_image(x))
+        out = parallel.spatial_forward(model, parallel.shard_image(x, model))
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
 
 

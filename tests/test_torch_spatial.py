@@ -15,7 +15,8 @@ M 8, Nglo 1, f32, inputs from ``np.random.default_rng``.
   (data 2, spatial 2) mesh. At world 1 the halos and their gradients still
   go through the exchange's autograd Function. Each rank's shards, put
   together, must match ``jax.shard_map`` of ``vil_tpu.parallel.spatial`` on
-  the 8 CPU devices and the unsharded oracles: the cyclic halos, the plain
+  the 8 CPU devices and the unsharded oracles (the gradients of what every
+  rank of a replica holds alike, summed over its ranks: each holds a part): the cyclic halos, the plain
   local attention at modes 0, −1 and 3 and its gradients, the global
   branch's values and gradients (and, with no context, its unsplit values
   whatever group exists), the halo-kernel path's values and gradients (halo rows'
@@ -321,6 +322,16 @@ def _assemble(results, key, world, spatial):
     return np.concatenate(data_blocks, axis=0)
 
 
+def _partial(results, key, world, spatial, over_data=False):
+    """A gradient of a value every rank of a data replica holds alike, of
+    which each rank holds a part (``parallel/spatial.py``): the parts summed
+    over the replica's ranks, the replicas' along the batch, or summed over
+    them too (``over_data``: parameters shared by the batch)."""
+    blocks = [sum(r[key] for r in results if int(r["data"]) == d)
+              for d in range(world // spatial)]
+    return sum(blocks) if over_data else np.concatenate(blocks, axis=0)
+
+
 def _batch(results, key, world, spatial, summed=False):
     """A value each rank holds whole for its data replica: the replicas'
     values along the batch, or summed over them (``summed``: parameters
@@ -344,6 +355,7 @@ def test_spatial_group_matches_jax(spatial_case, tmp_path, world, spatial):
     np.testing.assert_array_equal(results[0]["gathered_ranks"], np.arange(world))
     get = functools.partial(_assemble, results, world=world, spatial=spatial)
     whole = functools.partial(_batch, results, world=world, spatial=spatial)
+    part = functools.partial(_partial, results, world=world, spatial=spatial)
 
     # halo_rows is cyclic: shard s's top is global row s·mxs − 1, its bottom
     # row (s+1)·mxs, both mod MX
@@ -365,20 +377,20 @@ def test_spatial_group_matches_jax(spatial_case, tmp_path, world, spatial):
         ref_q, ref_k, ref_v, ref_kg, ref_vg, ref_bias = refs["local_grads"]
         for g_name, ref in (("dq", ref_q), ("dk", ref_k), ("dv", ref_v)):
             _close(get(f"{name}_{g_name}"), ref, GRAD_TOL, f"{name} {g_name}")
-        _close(whole(f"{name}_dkg"), ref_kg, GRAD_TOL, f"{name} dk_glo")
-        _close(whole(f"{name}_dvg"), ref_vg, GRAD_TOL, f"{name} dv_glo")
-        _close(whole(f"{name}_dbias", summed=True), ref_bias, GRAD_TOL, f"{name} dbias")
+        _close(part(f"{name}_dkg"), ref_kg, GRAD_TOL, f"{name} dk_glo")
+        _close(part(f"{name}_dvg"), ref_vg, GRAD_TOL, f"{name} dv_glo")
+        _close(part(f"{name}_dbias", over_data=True), ref_bias, GRAD_TOL, f"{name} dbias")
 
     _close(whole("glo_out"), refs["glo_out"], VAL_TOL, "global branch")
     _close(whole("glo_unsplit"), refs["glo_out"], VAL_TOL, "global branch, no context")
     dqg, dki, dvi, dkg, dvg, dg2g, dg2l0 = refs["glo_grads"]
-    _close(whole("glo_dqg"), dqg, GRAD_TOL, "global dqg")
+    _close(part("glo_dqg"), dqg, GRAD_TOL, "global dqg")
     _close(get("glo_dk_img"), dki, GRAD_TOL, "global dk_img")
     _close(get("glo_dv_img"), dvi, GRAD_TOL, "global dv_img")
-    _close(whole("glo_dkg"), dkg, GRAD_TOL, "global dk_glo")
-    _close(whole("glo_dvg"), dvg, GRAD_TOL, "global dv_glo")
-    _close(whole("glo_dg2g", summed=True), dg2g, GRAD_TOL, "global dg2g")
-    _close(whole("glo_dg2l0", summed=True), dg2l0, GRAD_TOL, "global dg2l0")
+    _close(part("glo_dkg"), dkg, GRAD_TOL, "global dk_glo")
+    _close(part("glo_dvg"), dvg, GRAD_TOL, "global dv_glo")
+    _close(part("glo_dg2g", over_data=True), dg2g, GRAD_TOL, "global dg2g")
+    _close(part("glo_dg2l0", over_data=True), dg2l0, GRAD_TOL, "global dg2l0")
 
     logits = whole("logits")
     _close(logits, refs["logits"], LOGITS_TOL, "logits vs JAX")
@@ -388,26 +400,27 @@ def test_spatial_group_matches_jax(spatial_case, tmp_path, world, spatial):
 def test_spatial_forward_alone_and_bad_splits():
     """Without a process group the spatial forward is one rank's: the
     unsharded logits through the halo route (no sliding-chunk kernel of the
-    classic path). A rank count that does not divide every chunked stage's
-    chunk rows raises, and so does a model built with the fused block, which
-    has no halo form."""
+    classic path), in eval and in training. The split is chunk-aligned: 3
+    ranks take the 4 blocks of 16 rows 2/1/1; 8 ranks would leave a rank no
+    row and raise naming the stage. A model built with the fused block,
+    which has no halo form, raises under the split."""
     model = MsViT(ARCH, img_size=IMG, num_classes=10, sharew=True, norm_embed=True,
                   device="cpu", generator=torch.Generator().manual_seed(0)).eval()
     x = _t(_rng(31, 2, IMG, IMG, 3))
     with torch.inference_mode():
-        torch.testing.assert_close(parallel.spatial_forward(model, parallel.shard_image(x), None),
-                                   model(x), atol=LOGITS_TOL, rtol=LOGITS_TOL)
-    for size in (2, 4):
-        model.check_spatial_split(size)
-    for size in (3, 8):  # 8 splits stage 1's 8 chunk rows, not stage 2's 4
-        with pytest.raises(ValueError, match="divide the chunk rows"):
-            model.check_spatial_split(size)
-    with pytest.raises(NotImplementedError, match="spatial training"):
-        model.train()(x, spatial=parallel.SpatialContext.of(None))
+        torch.testing.assert_close(
+            parallel.spatial_forward(model, parallel.shard_image(x, model), None),
+            model(x), atol=LOGITS_TOL, rtol=LOGITS_TOL)
+    torch.testing.assert_close(model.train()(x, spatial=parallel.SpatialContext.of(None)),
+                               model(x), atol=LOGITS_TOL, rtol=LOGITS_TOL)
+    for size, rows in ((2, [32, 32]), (3, [32, 16, 16]), (4, [16] * 4)):
+        assert [hi - lo for lo, hi in model.spatial_split(size).image] == rows
+    with pytest.raises(ValueError, match="no row of stage 1"):
+        model.spatial_split(8)
     fused = MsViT(ARCH, img_size=IMG, num_classes=10, sharew=True, norm_embed=True,
                   fused_block=True, device="cpu").eval()
     with torch.inference_mode(), pytest.raises(NotImplementedError, match="no halo form"):
-        parallel.spatial_forward(fused, parallel.shard_image(x), None)
+        parallel.spatial_forward(fused, parallel.shard_image(x, fused), None)
 
 
 # ------------------------------------------------------ layout probe (P)

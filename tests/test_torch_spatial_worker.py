@@ -24,12 +24,12 @@ from vil_tpu_torch.parallel import SpatialContext  # noqa: E402
 from vil_tpu_torch.parallel.spatial import global_branch  # noqa: E402
 
 
-def _grads(fn, operands):
-    """fn(*operands) → out; the gradients of sum(out²) (computed alike on
-    every rank), None where an operand is."""
+def _grads(fn, operands, scale=1.0):
+    """fn(*operands) → out; the gradients of scale·sum(out²), None where an
+    operand is: each rank's part of them (``parallel/spatial.py``)."""
     leaves = [None if t is None else t.clone().requires_grad_() for t in operands]
     out = fn(*leaves)
-    (out ** 2).sum().backward()
+    ((out ** 2).sum() * scale).backward()
     return out.detach(), [None if t is None else t.grad for t in leaves]
 
 
@@ -42,9 +42,11 @@ def main():
     else:
         mesh = parallel.create_mesh((-1, spatial), ("data", "spatial"))
         group, data, n_data = mesh.get_group("spatial"), mesh.get_coordinate()[0], world // spatial
+    inp = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(out_dir, "inputs.npz")).items()}
     ctx = SpatialContext.of(group)
     assert ctx.size == spatial
-    inp = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(out_dir, "inputs.npz")).items()}
+    mxs = inp["q"].shape[1] // spatial  # this rank's block of the chunk rows
+    ctx = ctx.at((ctx.rank * mxs, (ctx.rank + 1) * mxs))
     H = int(inp["H"])
     batch = inp["q"].shape[0] // n_data
     b = lambda t: t[data * batch:(data + 1) * batch]  # this data replica's images
@@ -72,11 +74,13 @@ def main():
         for g_name, g in zip(("dq", "dk", "dv", "dkg", "dvg", "dbias"), grads):
             res[f"{name}_{g_name}"] = g.numpy()
 
+    # the global branch's output is the same on every rank: its loss, taken
+    # alike on each, is seeded with 1/D
     out, grads = _grads(
         lambda qg, ki, vi, kg_, vg_, g2g, g2l0: parallel.spatial_global_branch(
             qg, ki, vi, kg_, vg_, g2g, g2l0, None, group),
         (b(inp["qg"]), rows(inp["k_img"]), rows(inp["v_img"]), b(inp["kg_g"]), b(inp["vg_g"]),
-         inp["g2g"], inp["g2l0"]))
+         inp["g2g"], inp["g2l0"]), 1.0 / ctx.size)
     res["glo_out"] = out.numpy()
     with torch.no_grad():  # without a context nothing is reduced, whatever group exists
         res["glo_unsplit"] = global_branch(
@@ -92,7 +96,7 @@ def main():
     model.eval()
     with torch.inference_mode():
         res["logits"] = parallel.spatial_forward(
-            model, parallel.shard_image(b(inp["images"]), group), group).numpy()
+            model, parallel.shard_image(b(inp["images"]), model, group), group).numpy()
     res["world"] = np.asarray(parallel.get_world_size())
     res["gathered_ranks"] = np.asarray(parallel.all_gather(parallel.get_rank()))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)

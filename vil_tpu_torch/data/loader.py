@@ -7,9 +7,12 @@ zip layout, '*.yaml' TSV datasets, 'imagenet_folder', 'synthetic', 'mnist',
 (images NHWC float32, or uint8 under INPUT.DEVICE_NORMALIZE, targets int32)
 numpy batches with thread-pool prefetching — the reference's worker
 processes become threads here since the decode path releases the GIL in PIL
-and the consumer is a CUDA step, which copies each batch to the card itself. One process reads all the data: a
-multi-process run (``is_distributed``) and the grain backend are not ported
-(ROADMAP §A items A12 and A6).
+and the consumer is a CUDA step, which copies each batch to the card itself.
+In a multi-process run (``is_distributed``) each data replica reads its
+shard of the dataset (``num_replicas`` the size of the mesh's data axis,
+``rank`` the replica's index, so the spatial ranks of one replica read the
+same images) and the batch is the global one divided by the replicas. The
+grain backend is not ported (ROADMAP §A, A6).
 """
 from __future__ import annotations
 
@@ -208,13 +211,10 @@ class DataLoader:
 def make_epoch_data_loader(cfg, is_train: bool = True, drop_last: bool = True,
                            is_distributed: bool = False, start_iter: int = 0,
                            num_replicas: int = 1, rank: int = 0):
-    """Reference make_epoch_data_loader (loader.py:131-168), for one process:
-    ``is_distributed`` raises (multi-process data loading is ROADMAP A12),
-    and DATALOADER.BACKEND 'grain' raises (ROADMAP A6)."""
-    if is_distributed:
-        raise NotImplementedError(
-            "multi-process data loading is not ported (ROADMAP §A, A12): the port "
-            "trains on one card in one process")
+    """Reference make_epoch_data_loader (loader.py:131-168). With
+    ``is_distributed`` the samplers shard the dataset over ``num_replicas``
+    data replicas (``rank``: this replica's index, not the global rank);
+    DATALOADER.BACKEND 'grain' raises (ROADMAP A6)."""
     if getattr(cfg.DATALOADER, "BACKEND", "threads") != "threads":
         raise NotImplementedError(
             f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} is not ported (ROADMAP §A, "
@@ -223,7 +223,7 @@ def make_epoch_data_loader(cfg, is_train: bool = True, drop_last: bool = True,
     images_per_batch = cfg.DATALOADER.BSZ
     assert images_per_batch % num_replicas == 0, (
         f"DATALOADER.BSZ ({images_per_batch}) must be divisible by the "
-        f"number of hosts ({num_replicas})"
+        f"number of data replicas ({num_replicas})"
     )
     images_per_host = images_per_batch // num_replicas
     logging.getLogger(__name__).info(

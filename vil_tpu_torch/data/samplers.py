@@ -1,10 +1,11 @@
 """Per-host index samplers (reference dat/samplers + DistributedSampler use).
 
 A copy of ``vil_tpu/data/samplers.py``, numpy only. The shard of a process
-is its rank in a multi-process run (the reference used torch
-DistributedSampler / RASampler keyed on the DDP rank — SURVEY §2.12/2.17);
-the port's loader runs one process and uses the distributed samplers only
-when asked. Samplers yield dataset indices; the loader batches them.
+is its data replica's in a multi-process run (the reference used torch
+DistributedSampler / RASampler keyed on the DDP rank — SURVEY §2.12/2.17):
+``rank`` is the index on the mesh's data axis, so the spatial ranks of one
+replica read the same indices. Samplers yield dataset indices; the loader
+batches them.
 """
 from __future__ import annotations
 

@@ -318,7 +318,8 @@ class VilAttention(RelativePositionBias, nn.Module):
     neighbour ``mode`` is 0 (the 3×3 chunk neighbourhood) or 1..8 (self and
     the sampled neighbour of random-shift training; SW_EXACT 1 has no tables
     for it and raises, as in the JAX package). With a ``spatial`` context
-    x_img holds this rank's chunk rows of the (nx, ny) grid, at mode 0.
+    x_img holds this rank's chunk rows of the (nx, ny) grid (the context's
+    ``span``), at mode 0.
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -384,10 +385,12 @@ class VilAttention(RelativePositionBias, nn.Module):
                                       "spatial parallelism are not ported (ROADMAP.md §A, A12)")
         if spatial is not None and mode != 0:
             raise NotImplementedError("spatial parallelism runs the sliding-chunk attention "
-                                      "at mode 0 only")
+                                      "at mode 0 only: random shift under the split needs "
+                                      "halo forms of B5/B6 (ROADMAP.md §A, A12)")
         if spatial is not None and self.fused_block and self.use_kernels:
             raise NotImplementedError("the fused attention block has no halo form: build "
-                                      "the model without fused_block for spatial parallelism")
+                                      "the model without fused_block for spatial parallelism "
+                                      "(ROADMAP.md §A, A12)")
         if mode > 0 and self.exact == 1:
             raise ValueError("SW_EXACT 1 has no mask tables for the sampled-neighbour "
                              "modes 1..8 (only mode 0)")
@@ -451,7 +454,7 @@ class VilAttention(RelativePositionBias, nn.Module):
             kg, vg = self.kv_global.part(x_glo, 0, 2), self.kv_global.part(x_glo, 1, 2)
             k_img, v_img = self.kv_global.part(x_img, 0, 2), self.kv_global.part(x_img, 1, 2)
         valid = None
-        if mx * (1 if spatial is None else spatial.size) * my * W2 != nx * ny:
+        if any(sc.chunk_grid(nx, ny, self.w)[:2]):  # the whole grid has pad positions
             valid = torch.from_numpy(masks_lib.chunk_valid(nx, ny, self.w)).to(x_img.device)
             if spatial is not None:
                 valid = spatial.rows(valid)

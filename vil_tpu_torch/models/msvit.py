@@ -18,9 +18,12 @@ stochastic depth, and the fused-kernel switches of the JAX package
 attention-block kernel pair). Not ported yet: mode -1, which raises when it
 is run, and dropout, which raises in training mode.
 
-Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)``, through
-``parallel.spatial_forward``, runs the eval forward with the image's rows
-split over a process group. The chunked stages keep their rank's chunk rows
+Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)`` runs the
+forward, in eval (``parallel.spatial_forward``) or in training (the step of
+``train.engine`` on a mesh with a spatial axis), with the image's rows split
+over a process group at chunk-row boundaries (:meth:`MsViT.spatial_split`;
+a rank count that does not divide the chunk rows gives the last ranks fewer
+rows, the last one the pad). The chunked stages keep their rank's chunk rows
 (patch embedding with its rows of the position table, sliding-chunk
 attention with halo exchange); the first dense stage gathers the rows, and
 it and the stages after it run whole on every rank.
@@ -39,6 +42,7 @@ import torch
 from torch import nn
 
 from ..ops import sliding_chunk as sc
+from ..parallel.spatial import row_split
 from ..utils.device import resolve_device
 from .arch import StageCfg, parse_arch
 from .attention import FullAttention, VilAttention
@@ -179,6 +183,7 @@ class MsViT(nn.Module):
         self.layer_cfgs: list[StageCfg] = cfgs
         self.img_size, self.avg_pool = img_size, avg_pool
         self.mode = mode
+        self._splits: dict = {}  # rank count → its spatial split
 
         dprs = np.linspace(0, drop_path_rate, self.depth)
         self.stage_blocks: list[list[tuple[str, str]]] = []
@@ -298,56 +303,56 @@ class MsViT(nn.Module):
                 raise ValueError(f"expected {self.depth} per-layer modes, got {len(modes)}")
         return modes if self.training else [0] * self.depth
 
-    def check_spatial_split(self, size: int) -> None:
-        """Raise unless ``size`` ranks can split the image's rows so that
-        every chunked stage gets whole chunk rows: ``size`` must divide the
-        chunk rows (mx) of each, with no padded row (the JAX package pads
-        under GSPMD; the port does not)."""
-        rows = self.img_size  # input rows of the stage
-        for sid, (c, (nx, _)) in enumerate(zip(self.layer_cfgs, self.grid_sizes())):
-            if not self.stage_chunked[sid]:
-                break
-            w = c.num_feats
-            if rows % (size * c.patch_size) or nx % (size * w):
-                raise ValueError(
-                    f"spatial parallelism over {size} ranks needs whole chunk rows on every "
-                    f"rank: stage {sid + 1} has {nx} token rows in {-(-nx // w)} chunk rows of "
-                    f"{w} ({rows} input rows, patch {c.patch_size}); the rank count must "
-                    f"divide the chunk rows of every chunked stage, with no padded row")
-            rows = nx
+    def spatial_split(self, size: int):
+        """The chunk-aligned split of the image's rows over ``size`` ranks
+        (``parallel.spatial.row_split``) for the chunked stages before the
+        first dense one: every rank holds whole chunk rows at each, the last
+        the chunk grid's pad rows. Raises ``ValueError``, naming the stage,
+        when a rank would hold no row of one."""
+        if size not in self._splits:
+            n = next((i for i, c in enumerate(self.stage_chunked) if not c),
+                     len(self.stage_chunked))
+            cfgs = self.layer_cfgs[:n]
+            self._splits[size] = row_split(self.img_size, [c.patch_size for c in cfgs],
+                                           [c.num_feats for c in cfgs], size)
+        return self._splits[size]
 
     def forward_features(self, x: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          mode: Union[int, Sequence[int]] = 0, spatial=None) -> torch.Tensor:
         B = x.shape[0]
-        if spatial is not None and self.training:
-            raise NotImplementedError("the spatial training step is not ported: spatial "
-                                      "parallelism runs the eval forward")
         modes = iter(self._block_modes(mode))
         grids = self.grid_sizes()
         nglos = [c.nglo for c in self.layer_cfgs]
-        split = spatial is not None  # x holds this rank's rows of the image
+        # under a spatial context x holds this rank's rows of the image, and
+        # each chunked stage its rows of the split (None once gathered)
+        split = None if spatial is None else self.spatial_split(spatial.size)
         for sid, names in enumerate(self.stage_blocks):
             nx, ny = grids[sid]
+            if split is not None:
+                held = split.tokens[sid - 1] if sid > 0 else split.image  # every rank's rows
+                counts = [hi - lo for lo, hi in held]
             if sid > 0:
                 # strip the global tokens, tokens → image grid (NHWC)
-                prev_nx, prev_ny = grids[sid - 1]
-                prev_rows = prev_nx // spatial.size if split else prev_nx
-                x = x[:, nglos[sid - 1]:].reshape(B, prev_rows, prev_ny, -1)
+                prev_rows = grids[sid - 1][0] if split is None else counts[spatial.rank]
+                x = x[:, nglos[sid - 1]:].reshape(B, prev_rows, grids[sid - 1][1], -1)
             chunked = self.stage_chunked[sid]
-            if split and not chunked:  # the first dense stage runs whole
-                x = spatial.gather_rows(x, dim=1)
-                split = False
-            rows = (spatial.rank * nx // spatial.size, nx // spatial.size) if split else None
+            if split is not None and not chunked:  # the first dense stage runs whole
+                x = spatial.gather_rows(x, counts, dim=1)
+                split = None
+            rows = None
+            if split is not None:
+                lo, hi = split.tokens[sid][spatial.rank]
+                rows = (lo, hi - lo)
             x = getattr(self, f"stage{sid + 1}_patch_embed")(x, rows)
-            nx_here = rows[1] if split else nx
+            nx_here = nx if rows is None else rows[1]
+            ctx = None if split is None else spatial.at(split.chunks[sid][spatial.rank])
             if chunked:
                 g, w_s = nglos[sid], self.layer_cfgs[sid].num_feats
                 x = (x[:, :g] if g > 0 else None,
                      sc.chunkify(x[:, g:], nx_here, ny, w_s))
             for attn_name, mlp_name in names:
-                x = getattr(self, attn_name)(x, nx, ny, generator, next(modes),
-                                             spatial if split else None)
+                x = getattr(self, attn_name)(x, nx, ny, generator, next(modes), ctx)
                 x = getattr(self, mlp_name)(x, generator)
             if chunked:
                 x_glo, x_img = x
@@ -365,7 +370,9 @@ class MsViT(nn.Module):
         ``mode`` is the neighbour mode of every attention block, or a
         sequence of ``depth`` host ints, one per block in order (the dense
         blocks included, which ignore theirs). In eval mode every block runs
-        at mode 0. With a ``spatial`` context (``parallel.spatial_forward``)
-        x holds this rank's rows of the images (eval only)."""
+        at mode 0. With a ``spatial`` context (``parallel.spatial_forward``,
+        and the training step on a mesh with a spatial axis) x holds this
+        rank's rows of the images (``parallel.shard_image``) and the logits
+        are the same on every rank of the group."""
         feats = self.forward_features(x, generator, mode, spatial)
         return feats if self.head is None else self.head(feats)

@@ -2,9 +2,10 @@
 
 Counterpart of ``vil_tpu/parallel/collectives.py`` (itself the JAX form of
 the reference's ``utils/comm.py``): rank helpers, a barrier, a gather of
-pickled objects, a sum of dicts of scalars and a gather of equal-shape
-arrays. With no initialised process group, or a world of one process, each
-acts as at one process and communicates nothing.
+pickled objects, a sum of dicts of scalars, a gather of equal-shape arrays
+and the merge of per-image predictions on every rank. With no initialised
+process group, or a world of one process, each acts as at one process and
+communicates nothing.
 """
 from __future__ import annotations
 
@@ -66,3 +67,17 @@ def reduce_dict(input_dict: Dict[str, float], average: bool = True) -> Dict[str,
     if average:
         total = total / world
     return dict(zip(keys, total.tolist()))
+
+
+def accumulate_predictions(predictions_per_rank: dict) -> dict:
+    """Merge the per-image prediction dicts of all ranks, keyed by dataset
+    index (reference comm.py:172-184, ``vil_tpu``'s
+    ``accumulate_predictions``): an index that several ranks hold (the
+    evaluation sampler's padded repeats, or the spatial ranks of one data
+    replica) is counted once. Every rank gets the merge, where ``vil_tpu``'s
+    non-master hosts get {}, so that all ranks take the same decisions from
+    it."""
+    merged: dict = {}
+    for d in all_gather(predictions_per_rank):
+        merged.update(d)
+    return merged

@@ -1,46 +1,65 @@
-"""Process-group and mesh set-up, and the whole-model spatial forward.
+"""Process-group and mesh set-up, the whole-model spatial forward, and the
+gradient reduction of a training step over a ('data', 'spatial') mesh.
 
-Counterpart of the parts of ``vil_tpu/parallel/mesh.py`` that spatial
-parallelism needs. JAX's ``jit_spatial_forward`` shards the image's height
-over a mesh axis and lets GSPMD lower the halo exchange; PyTorch has no
-GSPMD, so :func:`spatial_forward` runs the model's own modules on this
-rank's rows with a :class:`~.spatial.SpatialContext`, and the attention
-modules exchange the halos by hand (``parallel/spatial.py``).
+Counterpart of ``vil_tpu/parallel/mesh.py``. JAX's ``jit_spatial_forward``
+and ``jit_train_step`` shard the image's height over a mesh axis and let
+GSPMD lower the halo exchange and the gradient sums; PyTorch has no GSPMD,
+so the model runs its own modules on this rank's rows with a
+:class:`~.spatial.SpatialContext` (:func:`spatial_forward`, and the
+training step of ``train.engine``), the attention modules exchange the
+halos by hand (``parallel/spatial.py``), and the step sums the parameters'
+gradients over every rank once (:func:`average_gradients`).
 
-Launch, one process per card, e.g. with ``torchrun --standalone
+One process per card, e.g. under ``torchrun --standalone
 --nproc_per_node=4``, which gives every job a fresh ``TORCHELASTIC_RUN_ID``;
 the store file must be new to the job, or ``init_process_group`` may join a
-stale group or hang::
+stale group or hang (``python -m vil_tpu_torch.run_experiment`` does this
+under torchrun)::
 
     import os, tempfile, torch
     from vil_tpu_torch import parallel
     store = os.path.join(tempfile.gettempdir(),
                          f"vil_store.{os.environ['TORCHELASTIC_RUN_ID']}")
     parallel.init_process_group(store, int(os.environ["RANK"]),
-                                int(os.environ["WORLD_SIZE"]))
+                                int(os.environ["WORLD_SIZE"]),
+                                local_rank=int(os.environ["LOCAL_RANK"]))
     mesh = parallel.create_mesh((-1, 4), ("data", "spatial"))
     group = mesh.get_group("spatial")
-    logits = parallel.spatial_forward(model.eval(), parallel.shard_image(images, group),
-                                      group)
+    logits = parallel.spatial_forward(
+        model.eval(), parallel.shard_image(images, model, group), group)
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from .collectives import get_world_size, is_distributed
 from .spatial import SpatialContext
 
 
-def init_process_group(store_path, rank: int, world_size: int, backend: str = "nccl") -> None:
+def check_cards(world_size: int, cards: int) -> None:
+    """Refuse more ``nccl`` ranks than the host's ``cards``: two ranks on one
+    card make NCCL fail with a duplicate-GPU error, after the group is up."""
+    if world_size > cards:
+        raise ValueError(f"{world_size} nccl ranks need {world_size} cards, one each; this "
+                         f"host has {cards}")
+
+
+def init_process_group(store_path, rank: int, world_size: int, backend: str = "nccl",
+                       local_rank: Optional[int] = None) -> None:
     """Join the default process group through a ``FileStore`` at
     ``store_path`` (a file every rank can reach, new to this job; no
-    network). ``nccl`` by default, this rank on card ``rank % device_count``;
-    ``gloo`` for the CPU, when the caller asks for it."""
+    network). ``nccl`` by default, this rank on card ``local_rank`` (its rank
+    when not given); ``gloo`` for the CPU, when the caller asks for it.
+    Refuses more ``nccl`` ranks than cards before the group is
+    initialised."""
     if backend == "nccl":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        check_cards(world_size, torch.cuda.device_count())
+        torch.cuda.set_device(rank if local_rank is None else local_rank)
     store = dist.FileStore(str(store_path), world_size)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
 
@@ -52,21 +71,103 @@ def create_mesh(mesh_shape: Sequence[int] = (-1,), axis_names: Sequence[str] = (
     the group of a ``('data', 'spatial')`` mesh's spatial axis."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    world = dist.get_world_size()
-    shape = list(mesh_shape)
+    shape = resolve_shape(mesh_shape, dist.get_world_size())
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axis_names))
+
+
+def resolve_shape(mesh_shape: Sequence[int], world: int) -> list[int]:
+    """``mesh_shape`` with its -1 entry filled so that it covers ``world``
+    ranks; raises if it cannot."""
+    shape = [int(n) for n in mesh_shape]
     known = math.prod(s for s in shape if s != -1)
     if -1 in shape:
         shape[shape.index(-1)] = world // known
     if math.prod(shape) != world:
         raise ValueError(f"mesh {tuple(mesh_shape)} does not cover the {world} ranks")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axis_names))
+    return shape
 
 
-def shard_image(x: torch.Tensor, group=None) -> torch.Tensor:
-    """This rank's rows of an NHWC image batch (B, H, W, C): the rank-th of
-    the spatial group's equal blocks of H."""
-    return SpatialContext.of(group).rows(x, dim=1).contiguous()
+@dataclass(frozen=True)
+class Mesh:
+    """This process's place on a ('data', 'spatial') mesh: its data replica
+    ``data_rank`` of ``data_size`` (the images it reads) and, where the mesh
+    has a spatial axis, the context of its spatial group (the rows of each
+    image it holds). Without a process group: one replica, and a spatial
+    context of one rank that communicates nothing."""
+
+    data_size: int = 1
+    data_rank: int = 0
+    spatial: Optional[SpatialContext] = None
+
+
+def mesh_from_cfg(cfg) -> Mesh:
+    """The :class:`Mesh` of ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` over the
+    default group's ranks (axes ``data`` and ``spatial``; another raises)."""
+    axes = tuple(cfg.TPU.MESH_AXES)
+    if not set(axes) <= {"data", "spatial"} or len(set(axes)) != len(axes):
+        raise ValueError(f"TPU.MESH_AXES {list(axes)}: the port's mesh has the axes 'data' "
+                         f"and 'spatial'")
+    shape = resolve_shape(cfg.TPU.MESH_SHAPE, get_world_size())
+    if len(shape) != len(axes):
+        raise ValueError(f"TPU.MESH_SHAPE {list(cfg.TPU.MESH_SHAPE)} and TPU.MESH_AXES "
+                         f"{list(axes)} differ in length")
+    if not is_distributed():
+        return Mesh(spatial=SpatialContext.of(None) if "spatial" in axes else None)
+    mesh = create_mesh(shape, axes)
+    data_size, data_rank = 1, 0
+    if "data" in axes:
+        data_size, data_rank = mesh.size(axes.index("data")), mesh.get_local_rank("data")
+    spatial = SpatialContext.of(mesh.get_group("spatial")) if "spatial" in axes else None
+    return Mesh(data_size, data_rank, spatial)
+
+
+def average_gradients(params, data_size: int) -> None:
+    """Sum every parameter's gradient over all ranks in one all-reduce and
+    divide by the data replicas: the spatial ranks' partial gradients add up
+    to their replica's (``parallel/spatial.py``), and the replicas' are
+    averaged. Parameters without a gradient are left out, alike on every
+    rank. Nothing happens without a process group or at one rank."""
+    if get_world_size() == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat)
+    flat /= data_size
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def average_metrics(metrics: dict) -> dict:
+    """A dict of 0-d metric tensors averaged over all ranks in one
+    all-reduce: each data replica counted once, as its spatial ranks hold
+    the same values. Returned as it is at one rank."""
+    if get_world_size() == 1:
+        return metrics
+    stacked = torch.stack([v.float() for v in metrics.values()])
+    dist.all_reduce(stacked)
+    return dict(zip(metrics, stacked / get_world_size()))
+
+
+def broadcast_replica(t: torch.Tensor, spatial: Optional[SpatialContext]) -> torch.Tensor:
+    """``t`` as the first rank of the spatial group holds it, on every rank
+    of the group: a batch the ranks of one data replica must share. As it is
+    without a process group or on a group of one rank."""
+    if spatial is None or spatial.size == 1 or not is_distributed():
+        return t
+    t = t.contiguous()
+    src = dist.get_global_rank(spatial.group or dist.group.WORLD, 0)
+    dist.broadcast(t, src=src, group=spatial.group)
+    return t
+
+
+def shard_image(x: torch.Tensor, model, group=None) -> torch.Tensor:
+    """This rank's rows of an NHWC image batch (B, H, W, C) over the spatial
+    ``group`` (the default group when None): the rows that ``model``'s
+    chunk-aligned split gives it (``model.spatial_split``)."""
+    ctx = SpatialContext.of(group)
+    lo, hi = model.spatial_split(ctx.size).image[ctx.rank]
+    return x[:, lo:hi].contiguous()
 
 
 def spatial_forward(model, x_rows: torch.Tensor, group=None) -> torch.Tensor:
@@ -75,8 +176,6 @@ def spatial_forward(model, x_rows: torch.Tensor, group=None) -> torch.Tensor:
     :func:`shard_image`. The chunked stages run on their rows, their
     sliding-chunk attention through the halo kernels; the dense stages run
     whole on every rank. Returns the logits, the same on every rank of the
-    group. Raises unless the group's size divides the chunk rows of every
-    chunked stage."""
-    ctx = SpatialContext.of(group)
-    model.check_spatial_split(ctx.size)
-    return model(x_rows, spatial=ctx)
+    group. Raises ``ValueError`` when the split would leave a rank no row
+    of a chunked stage."""
+    return model(x_rows, spatial=SpatialContext.of(group))

@@ -1,20 +1,28 @@
-"""The port's experiment entry point, on one CUDA card.
+"""The port's experiment entry point, one process per CUDA card.
 
     python -m vil_tpu_torch.run_experiment --config-file configs/msvit.yaml \
         [--data DIR] [--output_dir DIR] [--seed N] [KEY VALUE]...
+    torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
+        TPU.MESH_AXES "['data','spatial']" TPU.MESH_SHAPE "[a,b]"
 
 The counterpart of the repository's ``run_experiment.py`` for ``vil_tpu``:
 the same arguments and the same config handling (the yaml, then the dotted
 KEY VALUE overrides, then ``--data``, ``--output_dir`` and ``--seed``), then
-``train.trainer.run_experiment``. It runs on the card; to run on the CPU,
-build ``train.trainer.Trainer(cfg, device="cpu")`` instead. ``--multi-host``
-raises: one process drives one card (ROADMAP §A, A12).
+``train.trainer.run_experiment``. Under torchrun (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and ``TORCHELASTIC_RUN_ID`` in the environment) each process
+joins an ``nccl`` group through a ``FileStore`` in the temporary directory,
+named by the run id, takes card ``LOCAL_RANK`` and trains over the
+config's mesh (a·b = N); rank 0 alone logs. Without torchrun it runs on one
+card in one process. To run on the CPU, build
+``train.trainer.Trainer(cfg, device="cpu")`` instead. ``--multi-host``
+raises: one host's cards (ROADMAP §A, A12).
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import tempfile
 
 
 def parse_args(argv=None):
@@ -27,7 +35,7 @@ def parse_args(argv=None):
                         help="output directory")
     parser.add_argument("--seed", default=42, type=int, help="random seed")
     parser.add_argument("--multi-host", action="store_true",
-                        help="not ported: one process drives one card")
+                        help="not ported: the processes of one host, one card each")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="dotted config overrides: KEY VALUE ...")
     return parser.parse_args(argv)
@@ -52,16 +60,31 @@ def config_from_args(args):
 
 def main(argv=None):
     """Parse ``argv`` (default: the command line), run the experiment and
-    return its ``Trainer``."""
+    return its ``Trainer``. Under torchrun, join the process group first,
+    unless the caller already has, and leave it at the end."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     if args.multi_host:
-        raise NotImplementedError("--multi-host is not ported (ROADMAP §A, A12): one "
-                                  "process drives one card")
+        raise NotImplementedError("--multi-host is not ported (ROADMAP §A, A12): the "
+                                  "processes of one host, one card each")
+    from vil_tpu_torch import parallel
     from vil_tpu_torch.train.trainer import run_experiment
 
-    return run_experiment(config_from_args(args))
+    joined = "WORLD_SIZE" in os.environ and not parallel.collectives.is_distributed()
+    if joined:
+        store = os.path.join(tempfile.gettempdir(),
+                             f"vil_store.{os.environ['TORCHELASTIC_RUN_ID']}")
+        parallel.init_process_group(store, int(os.environ["RANK"]),
+                                    int(os.environ["WORLD_SIZE"]),
+                                    local_rank=int(os.environ["LOCAL_RANK"]))
+    logging.basicConfig(level=logging.INFO if parallel.is_main_process() else logging.WARNING,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    try:
+        return run_experiment(config_from_args(args))
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -150,7 +150,7 @@ def main() -> None:
             os.makedirs(build_dir, exist_ok=True)
             store = os.path.join(build_dir, f"spatial_store.{os.getpid()}")
             parallel.init_process_group(store, 0, 1, backend="nccl")
-            forward = lambda x: parallel.spatial_forward(model, parallel.shard_image(x))
+            forward = lambda x: parallel.spatial_forward(model, parallel.shard_image(x, model))
 
         def run():
             with torch.inference_mode():

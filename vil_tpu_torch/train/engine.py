@@ -7,6 +7,13 @@ attention kernels, the LR from the schedule and the optimizer update. It
 returns its metrics as 0-d tensors, so nothing waits for the device. The
 neighbour modes are drawn on the host from a CPU generator: they choose the
 kernels' arguments, so a draw on the card would make every step wait for it.
+
+On a ('data', 'spatial') mesh (``parallel.Mesh``) every rank of a data
+replica takes the replica's whole images, draws mixup and stochastic depth
+alike (keyed by the seed, the step and the replica, not the rank), and runs
+the model on its rows; the loss, the same on every rank of the replica, is
+seeded with 1/D, and one all-reduce of the gradients over every rank makes
+them the global batch's (``parallel.average_gradients``).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import Mesh, average_gradients, average_metrics, shard_image
 from ..utils.device import resolve_device
 
 
@@ -51,12 +59,14 @@ def sample_vil_modes(generator: torch.Generator, depth: int = 0) -> Union[int, l
     return draws if depth > 0 else draws[0]
 
 
-def keyed_seed(seed: int, step: int, stream: int) -> int:
-    """A 64-bit seed for the generator of ``stream`` at global ``step``: the
-    counterpart of ``jax.random.fold_in(rng, step)`` then ``split``. A step
-    draws the same whether the run was resumed or not, and no generator
-    state needs saving."""
-    return int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
+def keyed_seed(seed: int, step: int, stream: int, replica: int = 0) -> int:
+    """A 64-bit seed for the generator of ``stream`` at global ``step`` on
+    data ``replica``: the counterpart of ``jax.random.fold_in(rng, step)``
+    then ``split``. A step draws the same whether the run was resumed or
+    not, and no generator state needs saving; the spatial ranks of one
+    replica draw alike."""
+    return int(np.random.SeedSequence([seed, step, stream, replica])
+               .generate_state(1, np.uint64)[0])
 
 
 class TrainStep:
@@ -82,14 +92,23 @@ class TrainStep:
     the default, as TPU.MODE_PER_LAYER) or one for all; ``modes`` given to
     the step replaces the draw. The modes used are returned as the metric
     ``modes``. A caller may set ``step``, ``lr_scale`` and ``random_shift``
-    between updates."""
+    between updates.
+
+    On a ``mesh`` (``parallel.Mesh``) the step takes its data replica's
+    images whole: with a spatial axis it runs the model on this rank's rows
+    (``parallel.shard_image``), and with a process group it averages the
+    gradients and the metrics over the replicas; the draws of a seeded step
+    are keyed by the replica too. Every rank then takes the same update.
+    Without a mesh the step is this process's alone, whatever process group
+    exists."""
 
     def __init__(self, model: nn.Module, criterion: Callable, optimizer: torch.optim.Optimizer,
                  schedule: Optional[Callable[[int], float]] = None,
                  mixup_fn: Optional[Callable] = None, device=None,
                  random_shift: bool = False, per_layer_modes: bool = True,
                  mode_generator: Optional[torch.Generator] = None,
-                 start_step: int = 0, seed: Optional[int] = None, lr_scale: float = 1.0):
+                 start_step: int = 0, seed: Optional[int] = None, lr_scale: float = 1.0,
+                 mesh: Optional[Mesh] = None):
         if random_shift and mode_generator is None and seed is None:
             raise ValueError("random_shift draws its modes from a CPU mode_generator; give one")
         self.device = resolve_device(device)
@@ -102,6 +121,7 @@ class TrainStep:
         self.step = start_step
         self.seed = seed
         self.lr_scale = lr_scale
+        self.mesh = mesh
         self.base_lrs = [group["lr"] for group in optimizer.param_groups]
         if seed is not None:
             self.keyed = torch.Generator(device=self.device)
@@ -110,11 +130,12 @@ class TrainStep:
     def __call__(self, images: torch.Tensor, targets: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  modes: Optional[Union[int, list[int]]] = None) -> dict:
-        model, device = self.model, self.device
+        model, device, mesh = self.model, self.device, self.mesh
         if generator is None:
             if self.seed is None:
                 raise ValueError("no generator given and no seed to key one by the step")
-            generator = self.keyed.manual_seed(keyed_seed(self.seed, self.step, 0))
+            generator = self.keyed.manual_seed(
+                keyed_seed(self.seed, self.step, 0, mesh.data_rank if mesh else 0))
         images = images.to(device, non_blocking=True)
         targets = targets.to(device, non_blocking=True)
         if self.mixup_fn is not None:
@@ -123,10 +144,19 @@ class TrainStep:
             modes = sample_vil_modes(self._mode_generator(), self.mode_depth) \
                 if self.random_shift else 0
         model.train()
-        logits = model(images, generator=generator, mode=modes).float()
+        spatial = mesh.spatial if mesh else None
+        split = {}
+        if spatial is not None:  # this rank's rows; the logits alike on the group's ranks
+            images = shard_image(images, model, spatial.group)
+            split = {"spatial": spatial}
+        logits = model(images, generator=generator, mode=modes, **split).float()
         loss = self.criterion(logits, targets)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        # a loss computed alike on D ranks: each seeds its share of the
+        # partial gradients, which average_gradients sums
+        (loss if spatial is None else loss / spatial.size).backward()
+        if mesh is not None:
+            average_gradients(model.parameters(), mesh.data_size)
         lrs = ([self.schedule(self.step)] * len(self.base_lrs) if self.schedule is not None
                else self.base_lrs)
         for group, lr in zip(self.optimizer.param_groups, lrs):
@@ -134,12 +164,14 @@ class TrainStep:
         self.optimizer.step()
         self.step += 1
         metrics = {"loss": loss.detach()}
-        if self.random_shift:
-            metrics["modes"] = modes
         if targets.dim() == 1:  # hard labels: accuracy is meaningful
             correct = topk_correct(logits.detach(), targets)
             metrics["top1"] = correct[:, 0].mean() * 100
             metrics["top5"] = correct[:, 1].mean() * 100
+        if mesh is not None:
+            metrics = average_metrics(metrics)  # the global batch's: the replicas' mean
+        if self.random_shift:
+            metrics["modes"] = modes
         return metrics
 
     def _mode_generator(self) -> torch.Generator:
@@ -160,7 +192,7 @@ def make_eval_step(model: nn.Module, criterion: Callable,
                    overlap_boost: Optional[np.ndarray] = None,
                    return_scores: bool = False,
                    per_sample_criterion: Optional[Callable] = None,
-                   pred_topk: int = 0) -> Callable:
+                   pred_topk: int = 0, spatial=None) -> Callable:
     """Returns ``step(images, targets, valid) -> metrics`` over a padded
     batch: ``valid`` (B,) float marks the real samples. The loss uses the
     per-sample criterion under the mask when there is one, else the batch
@@ -169,12 +201,17 @@ def make_eval_step(model: nn.Module, criterion: Callable,
     ``return_scores`` adds each image's top-1/top-5 correctness (B, 2) as
     ``scores``; ``pred_topk`` > 0 adds each image's top-k class ids and their
     logits (``pred_ids``, ``pred_scores``), the per-image results of
-    ``results_*.npz``."""
+    ``results_*.npz``. With a ``spatial`` context the forward runs on this
+    rank's rows of the images (``parallel.spatial_forward``)."""
 
     @torch.no_grad()
     def step(images: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor) -> dict:
         model.eval()
-        logits = model(images).float()
+        split = {}
+        if spatial is not None:
+            images = shard_image(images, model, spatial.group)
+            split = {"spatial": spatial}
+        logits = model(images, **split).float()
         n_valid = valid.sum().clamp(min=1.0)
         if per_sample_criterion is not None:
             loss = (per_sample_criterion(logits, targets) * valid).sum() / n_valid

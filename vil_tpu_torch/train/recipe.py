@@ -158,15 +158,16 @@ def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
 
 
 def train_step(model: MsViT, device=None, random_shift: bool = False,
-               batch: int = BATCH) -> Callable:
+               batch: int = BATCH, mesh=None) -> Callable:
     """``engine.make_train_step`` over ``model`` with the recipe's criterion,
     optimizer, schedule and mixup, its schedule's epochs of ``batch``
     images a step. ``random_shift`` takes the MODE 1 recipe: per-layer
-    neighbour modes drawn each step from a CPU generator seeded with 0."""
+    neighbour modes drawn each step from a CPU generator seeded with 0.
+    ``mesh`` (``parallel.Mesh``) trains on a ('data', 'spatial') mesh."""
     cfg = vil_cfg(batch=batch, mode=1 if random_shift else 0)
     mode_generator = torch.Generator().manual_seed(0) if random_shift else None
     return engine.make_train_step(model, loss.get_criterion(cfg), optim.get_opt(cfg, model),
                                   schedulers.get_lr_schedule(cfg), mixup_from_cfg(cfg),
                                   device=device, random_shift=random_shift,
                                   per_layer_modes=cfg.TPU.MODE_PER_LAYER,
-                                  mode_generator=mode_generator)
+                                  mode_generator=mode_generator, mesh=mesh)

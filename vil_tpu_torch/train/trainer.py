@@ -1,5 +1,4 @@
-"""Experiment orchestration on one card: counterpart of
-``vil_tpu/train/trainer.py``.
+"""Experiment orchestration: counterpart of ``vil_tpu/train/trainer.py``.
 
 One ``Trainer`` builds the data, model, criterion, optimizer and checkpointer
 from a config and runs the epoch loop with the reference's training-strategy
@@ -22,9 +21,16 @@ details, as ``vil_tpu`` does:
   starts afresh in a new Trainer, as ``vil_tpu``'s does. The projections
   ride in the checkpoint's ``state_dict``.
 
-One card, one process. Keys that select what the port lacks raise
-(:func:`check_ported`), each naming its ROADMAP item: the mesh, sharding and
-multi-host branches (A12), the ResNet zoo (A10), and the rest.
+One process per card. On a ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` mesh of
+``data`` and ``spatial`` axes over the default process group
+(``parallel.mesh_from_cfg``; ``run_experiment`` joins one under torchrun)
+each data replica reads its shard of the data, its spatial ranks split each
+image's rows (the training step and the eval step of ``train.engine``), the
+gradients are averaged over the replicas, and the evaluation counts each
+image once. Rank 0 alone writes checkpoints, ``config.yaml`` and the
+TensorBoard logs; every rank loads on resume. Keys that select what the port
+lacks raise (:func:`check_ported`), each naming its ROADMAP item: parameter
+sharding and the ``model`` axis (A12), the ResNet zoo (A10), and the rest.
 The Trainer builds on the CUDA card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data import make_epoch_data_loader, mixup_from_cfg
 from ..models import ARCH_ZOO, build_model
 from ..utils.checkpoint import Checkpointer
@@ -61,10 +68,8 @@ def check_ported(cfg) -> None:
     refused = [
         (cfg.TPU.PARAM_SHARDING != "replicated",
          f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r} (FSDP and tensor parallelism: A12)"),
-        (bool({"spatial", "model"} & set(tpu.MESH_AXES)),
-         f"TPU.MESH_AXES {list(tpu.MESH_AXES)} (the spatial and model axes: A12)"),
-        (any(int(n) > 1 for n in tpu.MESH_SHAPE),
-         f"TPU.MESH_SHAPE {list(tpu.MESH_SHAPE)} (more than one card: A12)"),
+        ("model" in tpu.MESH_AXES,
+         f"TPU.MESH_AXES {list(tpu.MESH_AXES)} (the model axis, tensor parallelism: A12)"),
         (cfg.CKPT_BACKEND == "orbax", "CKPT_BACKEND 'orbax' (vil_tpu's checkpoints: A6)"),
         (cfg.DATALOADER.BACKEND != "threads",
          f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} (the grain loader: A6)"),
@@ -78,26 +83,44 @@ def check_ported(cfg) -> None:
             raise NotImplementedError(f"{what} is not ported (ROADMAP.md §A)")
 
 
+def merge_replica_results(results: dict) -> dict:
+    """Every rank's per-image eval results (arrays by name, ``indices``
+    among them, one row an image), merged on every rank by dataset index:
+    each image once, in index order (``parallel.accumulate_predictions``)."""
+    names = sorted(results)
+    mine = {int(i): tuple(results[k][n] for k in names)
+            for n, i in enumerate(results["indices"])}
+    merged = parallel.accumulate_predictions(mine)
+    rows = [merged[i] for i in sorted(merged)]
+    return {k: np.stack([row[c] for row in rows]) for c, k in enumerate(names)}
+
+
 class Trainer:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
+        self.device = resolve_device(device)
         check_ported(cfg)
-        set_seed(cfg.TPU.SEED)
+        self.mesh = parallel.mesh_from_cfg(cfg)
+        # the data pipeline's draws differ between replicas; the model's
+        # weights are drawn below from the seed alone, the same everywhere
+        set_seed(cfg.TPU.SEED, self.mesh.data_rank)
         if cfg.SOLVER.DETECT_ANOMALY:
             # the reference's torch.autograd.set_detect_anomaly
             # (run_experiment.py:233)
             torch.autograd.set_detect_anomaly(True)
-        self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device,
                                  generator=torch.Generator().manual_seed(cfg.TPU.SEED))
         self.mixup_fn = mixup_from_cfg(cfg)
         self.criterion = get_criterion(cfg, train=True)
         self.criterion_eval = get_criterion(cfg, train=False)
 
-        self.testloaders = make_epoch_data_loader(cfg, is_train=False, drop_last=False)
+        # each data replica reads its shard (the spatial ranks of one the same)
+        shard = dict(is_distributed=self.mesh.data_size > 1,
+                     num_replicas=self.mesh.data_size, rank=self.mesh.data_rank)
+        self.testloaders = make_epoch_data_loader(cfg, is_train=False, drop_last=False, **shard)
         self.trainloader = None
         if not cfg.EVALUATE:
-            self.trainloader = make_epoch_data_loader(cfg, is_train=True)
+            self.trainloader = make_epoch_data_loader(cfg, is_train=True, **shard)
             if cfg.SOLVER.STEPS_PER_EPOCH == 0:
                 was_frozen = cfg.is_frozen()
                 if was_frozen:
@@ -118,15 +141,21 @@ class Trainer:
             is_test=cfg.EVALUATE,
             data_dir=cfg.DATA.DATA_DIR,
         )
-        header = self.checkpointer.load(self.model, self.optimizer, cfg.MODEL.MODEL_PATH,
-                                        resume=not cfg.EVALUATE)
+        # rank 0 loads first (and, starting from nothing, writes the initial
+        # checkpoint); the others then load what it found or wrote
+        load = lambda: self.checkpointer.load(self.model, self.optimizer, cfg.MODEL.MODEL_PATH,
+                                              resume=not cfg.EVALUATE)
+        header = load() if parallel.is_main_process() else None
+        parallel.synchronize()
+        if header is None:
+            header = load()
         self.start_epoch = int(header.get("epoch", 0))
         self.best_acc = float(header.get("best_acc", 0.0))
         self.train_step = engine.make_train_step(
             self.model, self.criterion, self.optimizer, self.lr_schedule, self.mixup_fn,
             device=self.device, per_layer_modes=bool(cfg.TPU.MODE_PER_LAYER),
             start_step=int(header.get("step", 0)), seed=cfg.TPU.SEED,
-            lr_scale=float(header.get("lr_scale", 1.0)))
+            lr_scale=float(header.get("lr_scale", 1.0)), mesh=self.mesh)
         self._eval_step = None
         # what the run did: one record per logged train step and per
         # validate call, and the counts a caller checks launches against
@@ -152,11 +181,11 @@ class Trainer:
                     tmap, max(tmap) + 1, self.cfg.DATA.NUM_CLASSES)
             self._eval_step = engine.make_eval_step(
                 self.model, self.criterion_eval, target_valid, overlap,
-                return_scores=bool(self.cfg.EVALUATE) or bool(self.cfg.OUTPUT_PERCLASS_ACC),
+                return_scores=self._collect_scores(),
                 per_sample_criterion=get_per_sample_criterion(self.cfg),
                 # per-image predictions for results_*.npz (reference
                 # results.pth, engine.py:264-268)
-                pred_topk=5 if self.cfg.EVALUATE else 0,
+                pred_topk=5 if self.cfg.EVALUATE else 0, spatial=self.mesh.spatial,
             )
         return self._eval_step
 
@@ -168,11 +197,16 @@ class Trainer:
         return False
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        """A host batch on the trainer's device, through pinned memory."""
+        """A host batch on the trainer's device, through pinned memory, the
+        same on every rank of a data replica: the spatial group's first rank
+        sends its own (the loaders' augmentations draw from Python's
+        ``random`` in their threads, so two ranks that read the same indices
+        need not draw alike)."""
         t = torch.from_numpy(array)
         if self.device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return parallel.mesh.broadcast_replica(t.to(self.device, non_blocking=True),
+                                               self.mesh.spatial)
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int, meters: Optional[TensorboardLogger] = None):
@@ -218,9 +252,11 @@ class Trainer:
         eval_step = self._get_eval_step()
         totals = {"loss": 0.0, "top1_sum": 0.0, "top5_sum": 0.0, "count": 0.0}
         nbatch = 0
-        collect = bool(self.cfg.EVALUATE) or bool(self.cfg.OUTPUT_PERCLASS_ACC)
-        all_scores, all_targets = [], []
-        all_idxs, all_pred_ids, all_pred_scores = [], [], []
+        # several data replicas: each image's result is gathered by its index
+        # and counted once (the sampler pads the replicas' shards with repeats)
+        merge = self.mesh.data_size > 1
+        collect = self._collect_scores()
+        parts = {k: [] for k in ("scores", "targets", "indices", "pred_ids", "pred_scores")}
         if collect:
             loader.return_indices = True
         for batch in loader:
@@ -232,12 +268,23 @@ class Trainer:
             nbatch += 1
             self.eval_batches += 1
             if collect:
-                all_scores.append(m["scores"].cpu().numpy())
-                all_targets.append(np.asarray(targets_np))
-                all_idxs.append(np.asarray(batch[2]))
+                parts["scores"].append(m["scores"].cpu().numpy())
+                parts["targets"].append(np.asarray(targets_np))
+                parts["indices"].append(np.asarray(batch[2]))
                 if "pred_ids" in m:
-                    all_pred_ids.append(m["pred_ids"].cpu().numpy())
-                    all_pred_scores.append(m["pred_scores"].cpu().numpy())
+                    parts["pred_ids"].append(m["pred_ids"].cpu().numpy())
+                    parts["pred_scores"].append(m["pred_scores"].cpu().numpy())
+        results = {k: np.concatenate(v) for k, v in parts.items() if v}
+        if merge:
+            # every rank merges every replica's images, so that all take the
+            # same decisions (best checkpoint, plateau drop) from them; the
+            # loss is the mean of every replica's batch losses
+            results = merge_replica_results(results)
+            totals.update(top1_sum=results["scores"][:, 0].sum(),
+                          top5_sum=results["scores"][:, 1].sum(),
+                          count=len(results["indices"]))
+            summed = parallel.reduce_dict({"loss": totals["loss"], "n": nbatch}, average=False)
+            totals["loss"], nbatch = summed["loss"], summed["n"]
         top1 = 100.0 * totals["top1_sum"] / max(totals["count"], 1)
         top5 = 100.0 * totals["top5_sum"] / max(totals["count"], 1)
         loss = totals["loss"] / max(nbatch, 1)
@@ -245,10 +292,9 @@ class Trainer:
                     top1, top5, loss, int(totals["count"]), peak_memory_mb())
         self.evals.append(dict(step=global_step, top1=top1, top5=top5, loss=loss,
                                images=int(totals["count"])))
-        if collect and all_scores:
-            scores = np.concatenate(all_scores)
-            targets_cat = np.concatenate(all_targets)
-            indices = np.concatenate(all_idxs)
+        if collect and results and parallel.is_main_process():
+            scores, targets_cat = results["scores"], results["targets"]
+            indices = results["indices"]
             if self.cfg.OUTPUT_PERCLASS_ACC:
                 # reference output_metrics per-class path (engine.py:47-56)
                 for label in range(int(targets_cat.max()) + 1):
@@ -264,15 +310,21 @@ class Trainer:
                 get_key = getattr(loader.dataset, "get_img_key", None)
                 if get_key is not None:
                     extra["img_keys"] = np.asarray([str(get_key(int(i))) for i in indices])
-                if all_pred_ids:
-                    extra["pred_ids"] = np.concatenate(all_pred_ids)
-                    extra["pred_scores"] = np.concatenate(all_pred_scores)
+                if "pred_ids" in results:
+                    extra["pred_ids"] = results["pred_ids"]
+                    extra["pred_scores"] = results["pred_scores"]
                 np.savez(save_results, scores=scores, targets=targets_cat, top1=top1,
                          top5=top5, **extra)
                 logger.info("Saved per-image eval results to %s", save_results)
         if meters is not None:
             meters.update(global_step, top1=top1, top5=top5, loss=loss)
         return top1
+
+    def _collect_scores(self) -> bool:
+        """Whether the eval keeps each image's result: to save or break them
+        down, or to merge the data replicas'."""
+        cfg = self.cfg
+        return bool(cfg.EVALUATE) or bool(cfg.OUTPUT_PERCLASS_ACC) or self.mesh.data_size > 1
 
     # ------------------------------------------------------------------
     def fit(self, train_meters=None, test_meters=None) -> list:
@@ -300,10 +352,12 @@ class Trainer:
                 drop_lr(step, cfg.OPTIM.DROP_FACTOR)
             self.checkpointer.save(epoch + 1, self.model, self.optimizer, step.step,
                                    step.lr_scale, best_acc=self.best_acc, is_best=is_best)
+            parallel.synchronize()  # rank 0's files are written before anyone reads them
 
-        # final: evaluate the best checkpoint (run_experiment.py:264-279)
+        # final: evaluate the best checkpoint (run_experiment.py:264-279), on
+        # every rank if rank 0 wrote one
         best = op.join(cfg.OUTPUT_DIR, "model_best.ckpt")
-        if op.isfile(best):
+        if parallel.all_gather(op.isfile(best))[0]:
             logger.info("Evaluating the best checkpoint: %s", best)
             self.checkpointer.is_test = True
             self.checkpointer.load(self.model, self.optimizer, best, resume=False)
@@ -314,18 +368,24 @@ class Trainer:
 
 def run_experiment(cfg, device=None) -> Trainer:
     """Full experiment (the CLI's body): the config snapshot, the Trainer,
-    its metric loggers and ``fit``. Returns the Trainer, whose ``evals``
-    end with the final accuracies."""
-    mkdir(cfg.OUTPUT_DIR)
-    save_config(cfg, f"{cfg.OUTPUT_DIR}/config.yaml")
+    its metric loggers and ``fit``; on a mesh, rank 0 alone writes the
+    snapshot and the logs. Returns the Trainer, whose ``evals`` end with
+    the final accuracies."""
+    main = parallel.is_main_process()
+    if main:
+        mkdir(cfg.OUTPUT_DIR)
+        save_config(cfg, f"{cfg.OUTPUT_DIR}/config.yaml")
+    parallel.synchronize()
     trainer = Trainer(cfg, device=device)
-    train_meters = TensorboardLogger(f"{cfg.OUTPUT_DIR}/tb_logs/train")
-    test_meters = [TensorboardLogger(f"{cfg.OUTPUT_DIR}/tb_logs/{name}_{i}")
-                   for i, name in enumerate(cfg.DATA.TEST)]
+    train_meters, test_meters = None, None
+    if main:
+        train_meters = TensorboardLogger(f"{cfg.OUTPUT_DIR}/tb_logs/train")
+        test_meters = [TensorboardLogger(f"{cfg.OUTPUT_DIR}/tb_logs/{name}_{i}")
+                       for i, name in enumerate(cfg.DATA.TEST)]
     try:
         trainer.fit(train_meters, test_meters)
     finally:
-        train_meters.close()
-        for m in test_meters:
-            m.close()
+        for m in [train_meters, *(test_meters or [])]:
+            if m is not None:
+                m.close()
     return trainer

@@ -9,13 +9,14 @@ save directory, for auto-resume. A run that starts from nothing saves its
 random init as ``model_init.ckpt``.
 
 The payload is written with ``torch.save`` through a ``.tmp`` file and
-``os.replace``: ``{"model": model.state_dict(), "optimizer":
-optimizer.state_dict(), "step": global step, "lr_scale": the plateau
-multiplier}``. The model's lazily built mask tables and its relative-position
-serving cache are not parameters and are not saved. Loading also accepts a
-reference ``.pth`` (through ``utils.torch_import``). A checkpoint written by
-``vil_tpu`` (flax msgpack or an orbax directory) raises: reading one needs
-flax (ROADMAP §A, A6); so does CKPT_BACKEND 'orbax' (``trainer.check_ported``).
+``os.replace``, by rank 0 alone in a multi-process run: ``{"model":
+model.state_dict(), "optimizer": optimizer.state_dict(), "step": global
+step, "lr_scale": the plateau multiplier}``. The model's lazily built mask
+tables and its relative-position serving cache are not parameters and are
+not saved. Loading also accepts a reference ``.pth`` (through
+``utils.torch_import``). A checkpoint written by ``vil_tpu`` (flax msgpack
+or an orbax directory) raises: reading one needs flax (ROADMAP §A, A6); so
+does CKPT_BACKEND 'orbax' (``trainer.check_ported``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ import zipfile
 from typing import Optional
 
 import torch
+
+from ..parallel.collectives import is_main_process
 
 logger = logging.getLogger(__name__)
 
@@ -67,7 +70,7 @@ class Checkpointer:
     # -- save -----------------------------------------------------------------
     def save(self, name_or_epoch, model, optimizer, step: int, lr_scale: float = 1.0,
              best_acc: float = 0.0, is_best: bool = False, **extra) -> Optional[str]:
-        if not self.save_dir:
+        if not (self.save_dir and is_main_process()):
             return None
         os.makedirs(self.save_dir, exist_ok=True)
         if isinstance(name_or_epoch, int):
