@@ -1997,6 +1997,513 @@ def run_experiment_spatial(torch, kernels):
     return launches
 
 
+# parameter sharding (part ``sharding``): train_tp (ViL-Small 224² over a
+# ('data', 'model') mesh of 1 × 3 ranks), train_tp_shift (the same with
+# random shift) and train_fsdp (FSDP over a data axis of 2), each rank a
+# process. On one card the ranks share it over a gloo group (NCCL refuses
+# two ranks on one card); where the host has a card a rank, over nccl.
+# Their f32 pairs run the shallow ViL-Small at SHARD_PAIR images a replica
+TP_RANKS, FSDP_RANKS, SHARD_PAIR = 3, 2, 2
+SHARD_STEPS = 2  # steps of a sharded path: the first compared, the second timed
+SHARD_DIR = os.path.join(REPO, "build", "chip_sharding")
+
+
+def shard_mesh(torch, data: int, model: int):
+    """This rank's ``parallel.Mesh`` on a (data, model) mesh over the
+    default group (a model axis of 1: the data axis alone)."""
+    from vil_tpu_torch import parallel
+
+    if model == 1:
+        return parallel.Mesh(data, torch.distributed.get_rank())
+    dm = parallel.create_mesh((data, model), ("data", "model"))
+    return parallel.Mesh(data, dm.get_local_rank("data"),
+                         model=parallel.TensorParallel.of(dm.get_group("model")),
+                         data_group=dm.get_group("data"))
+
+
+def shard_rank(rank, world, spec_path):
+    """One rank of a sharded path (``spec_path``: the spec ``run_sharded``
+    saved). For each case the model (this rank's shard of the heads under
+    'tp', sliced by ``parallel.fully_shard`` under 'fsdp') takes ``steps``
+    recipe steps on its replica's images: the first one's loss and
+    gradients (and updated parameters) are gathered whole, the launches of
+    all of them counted; then one step under torch.profiler (device time)
+    and one with every collective inside a synchronised clock (their wall
+    share); the bytes of parameters and moments held and the peak memory of
+    every rank. Rank 0 writes the results."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.ops.kernels import KERNELS
+    from vil_tpu_torch.train import recipe
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent: f32 is f32
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    nccl = torch.cuda.device_count() >= world
+    dev = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(dev)
+    parallel.init_process_group(spec["store"], rank, world, backend="nccl" if nccl else "gloo",
+                                local_rank=rank if nccl else None)
+    out = {"backend": "nccl" if nccl else "gloo", "cases": {}}
+    try:
+        data = torch.load(spec["inputs"], map_location=dev)
+        mesh = shard_mesh(torch, spec["data"], spec["model"])
+        sharding = "tp" if spec["model"] > 1 else "fsdp"
+        keyed = spec["data"] > 1  # the replicas' draws keyed by (seed, step, replica)
+        share = BATCH // spec["data"]
+        out["walls"] = {"start": time.perf_counter() - t_start}
+        for case in spec["cases"]:
+            t_case = time.perf_counter()
+            model = recipe.vil("vil_small", 224, case["dtype"], torch.float32, device=dev,
+                               mesh=mesh, sharding=sharding, arch=case["arch"])
+            if sharding == "fsdp":
+                parallel.fully_shard(model, mesh)
+            step = recipe.train_step(model, dev, case["shift"], batch=BATCH, mesh=mesh,
+                                     seed=0 if keyed else None)
+            lo = mesh.data_rank * share
+            images = data["images"][lo:lo + case["batch"]]
+            labels = data["labels"][lo:lo + case["batch"]]
+            gen = torch.Generator(device=dev)
+
+            def run():  # the draws of the one-rank reference
+                return step(images, labels, None if keyed else gen.manual_seed(3),
+                            modes=case["modes"])
+
+            for fn in KERNELS:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            t_built = time.perf_counter()
+            loss = run()["loss"].item()
+            t_first = time.perf_counter()
+
+            def whole(n, t):
+                return (model.param_shards[n].gather(t) if n in model.param_shards
+                        else t).cpu()
+
+            got = {"loss": loss,
+                   "grads": {n: whole(n, p.grad) for n, p in model.named_parameters()}}
+            if case["dtype"] == torch.float32:  # the f32 pair checks the update too
+                got["params"] = {n: whole(n, p.detach()) for n, p in model.named_parameters()}
+            secs = []
+            for _ in range(case["steps"] - 1):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize(dev)
+                secs.append(time.perf_counter() - t0)
+            got["launches"] = {fn.__name__: fn.launches for fn in KERNELS}
+            got["secs"] = secs
+            if case["profile"]:
+                got["device_ms"], got["copy_ms"] = step_device_ms(torch, run)
+                names = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                         "reduce_scatter_tensor")
+                originals, spent = {n: getattr(dist, n) for n in names}, [0.0]
+
+                def clocked(fn):
+                    def call(*a, **k):
+                        torch.cuda.synchronize(dev)
+                        t = time.perf_counter()
+                        r = fn(*a, **k)
+                        torch.cuda.synchronize(dev)
+                        spent[0] += time.perf_counter() - t
+                        return r
+                    return call
+
+                for n, fn in originals.items():
+                    setattr(dist, n, clocked(fn))
+                try:
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize(dev)
+                    got["instrumented_s"] = time.perf_counter() - t0
+                finally:
+                    for n, fn in originals.items():
+                        setattr(dist, n, fn)
+                got["collective_s"] = spent[0]
+            held = parallel.param_bytes(model, step.optimizer)
+            got["per_rank"] = parallel.all_gather((*held, torch.cuda.max_memory_allocated(dev)))
+            out["cases"][case["name"]] = got
+            out["walls"][case["name"]] = (t_built - t_case, t_first - t_built,
+                                          time.perf_counter() - t_first)
+            del model, step
+            torch.cuda.empty_cache()
+        if rank == 0:
+            torch.save(out, spec["result"])
+    finally:
+        dist.destroy_process_group()
+
+
+def step_device_ms(torch, run) -> tuple[float, float]:
+    """The card's time of one ``run()`` under torch.profiler: (everything,
+    the copies and fills among it)."""
+    from vil_tpu_torch.tools.profile_step import kernel_ms
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    ms = kernel_ms(prof)
+    return sum(ms.values()), sum(v for k, v in ms.items() if "Memcpy" in k or "Memset" in k)
+
+
+def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed):
+    """The one-rank recipe step from the seeded weights, without a process
+    group, on each data replica's ``parts`` (images, labels): one part with
+    the tp ranks' generator, or (``keyed``) each replica's step with its
+    draws keyed by (0, 0, replica) (``parallel.Mesh(D, d)``), the gradients
+    averaged and, in f32, one AdamW update taken from the average. Returns
+    (loss, gradients, updated parameters or None, the update's LR), on the
+    host."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import recipe
+
+    dev = parts[0][0].device
+    losses, grads = [], []
+    for d, (images, labels) in enumerate(parts):
+        m = recipe.vil("vil_small", 224, dtype, torch.float32, device=dev, arch=arch)
+        s = recipe.train_step(m, dev, shift, batch=BATCH, seed=0 if keyed else None,
+                              mesh=parallel.Mesh(len(parts), d) if keyed else None)
+        gen = None if keyed else torch.Generator(device=dev).manual_seed(3)
+        losses.append(s(images, labels, gen, modes=modes)["loss"].item())
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+        del m
+    if dtype != torch.float32:
+        return (sum(losses) / len(parts),
+                {n: (sum(g[n] for g in grads) / len(parts)).cpu() for n in grads[0]}, None, None)
+    m = recipe.vil("vil_small", 224, dtype, torch.float32, device=dev, arch=arch)
+    s = recipe.train_step(m, dev, shift, batch=BATCH)
+    lr = s.schedule(0)
+    for n, p in m.named_parameters():
+        p.grad = sum(g[n] for g in grads) / len(parts)
+    for group in s.optimizer.param_groups:
+        group["lr"] = lr
+    s.optimizer.step()
+    return (sum(losses) / len(parts), {n: p.grad.cpu() for n, p in m.named_parameters()},
+            {n: p.detach().cpu() for n, p in m.named_parameters()}, lr)
+
+
+def run_sharded(torch, name, world, data, model, cases, images, labels):
+    """Spawn ``world`` ranks of ``shard_rank`` on a (data, model) mesh;
+    returns rank 0's results."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    tmp = os.path.join(SHARD_DIR, f"{name}.{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    spec = {"store": os.path.join(tmp, "store"), "inputs": os.path.join(tmp, "inputs.pt"),
+            "result": os.path.join(tmp, "result.pt"), "data": data, "model": model,
+            "cases": cases}
+    torch.save({"images": images.cpu(), "labels": labels.cpu()}, spec["inputs"])
+    torch.save(spec, os.path.join(tmp, "spec.pt"))
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(shard_rank, args=(world, os.path.join(tmp, "spec.pt")), nprocs=world)
+        got = torch.load(spec["result"], weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls = got["walls"]
+    cases_s = "; ".join(f"{k} {b:.1f} build, {f:.1f} first step, {r:.1f} the rest"
+                        for k, (b, f, r) in ((k, v) for k, v in walls.items() if k != "start"))
+    phase(name, f"{world} ranks ({data} data x {model} model) over {got['backend']}, "
+                f"{torch.cuda.device_count()} card(s) present: {time.perf_counter() - t0:.1f} s; "
+                f"rank 0 up in {walls['start']:.1f} s, then (s) {cases_s}")
+    return got
+
+
+def check_sharded(torch, name, what, got, ref, dtype, one_rank):
+    """Hold a sharded case to its one-rank reference: bf16 gradients to
+    BF16_PARAM_GRAD_TOL (‖err‖ / ‖ref‖ per parameter); f32 loss to
+    LOSS_TOL, gradients to PARAM_GRAD_TOL of max|ref| and the updated
+    parameters, where the gradient is resolved (≥ 1e-4 of its max|ref|), to
+    a quarter of the update's LR (AdamW's first update moves each by about
+    ±LR: a slice updated from another's gradient moves by 2·LR). Prints
+    the walls, the collectives' share and what each rank holds."""
+    loss, grads, params, lr = ref
+    dev = torch.device("cuda")
+    mine = {n: g.to(dev) for n, g in got["grads"].items()}
+    refs = {n: g.to(dev) for n, g in grads.items()}
+    if dtype == torch.bfloat16:
+        err, at = bf16_grad_worst(mine, refs)
+        ok = math.isfinite(got["loss"]) and err <= BF16_PARAM_GRAD_TOL
+        msg = (f"parameter gradients max ‖err‖ / ‖ref‖ {err:.3e} at {at} "
+               f"(tol {BF16_PARAM_GRAD_TOL:g})")
+    else:
+        err, at, _ = f32_grad_errors(mine, refs)
+        loss_err = abs(got["loss"] - loss)
+        upd = 0.0
+        for n, g in grads.items():
+            keep = g.abs() >= 1e-4 * g.abs().max() if g.numel() else g.bool()
+            if keep.any():
+                upd = max(upd, (got["params"][n] - params[n])[keep].abs().max().item())
+        ok = loss_err <= LOSS_TOL and err <= PARAM_GRAD_TOL and upd <= 0.25 * lr
+        msg = (f"|loss err| {loss_err:.3e} (tol {LOSS_TOL:g}); parameter gradients max rel err "
+               f"{err:.3e} at {at} (tol {PARAM_GRAD_TOL:g}); updated parameters max |err| "
+               f"{upd:.3e} (tol {0.25 * lr:.3g}, LR {lr:.3g})")
+    phase(name, f"{what}: loss {got['loss']:.6f} vs one rank {loss:.6f}; {msg}")
+    if not ok:
+        raise AssertionError(f"{name} {what} disagrees: {msg}")
+    held = ", ".join(f"{p / 2**20:.1f} + {m / 2**20:.1f} MiB (peak {pk / 2**30:.2f} GiB)"
+                     for p, m, pk in got["per_rank"])
+    if got["secs"]:
+        med = statistics.median(got["secs"])
+        phase(name, f"{what}: step median {med * 1e3:.3f} ms on rank 0 (steps "
+                    f"2..{len(got['secs']) + 1}; one rank {one_rank[0] * 1e3:.3f} ms, ratio "
+                    f"{med / one_rank[0]:.3f})")
+    if "device_ms" in got:
+        phase(name, f"{what}: device {got['device_ms']:.3f} ms a step on rank 0, "
+                    f"{got['copy_ms']:.3f} of it copies and fills (torch.profiler, one step; one "
+                    f"rank {one_rank[1]:.3f}, {one_rank[2]:.3f}); collectives "
+                    f"{100 * got['collective_s'] / got['instrumented_s']:.1f}% of an "
+                    f"instrumented step ({got['collective_s'] * 1e3:.1f} of "
+                    f"{got['instrumented_s'] * 1e3:.1f} ms)")
+    phase(name, f"{what}: parameters + optimizer moments held per rank between steps, and "
+                f"peak memory: {held}")
+
+
+def check_shard_launches(kernels, name, got, per_step, steps) -> dict:
+    """Rank 0's launches over a case's ``steps`` steps: ``per_step`` each,
+    every other kernel 0 (the layout probe's too, which the ranks do not
+    import). Returns them."""
+    got = {fn.__name__: got.get(fn.__name__, 0) for fn in kernels}
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({k: v * steps for k, v in per_step.items()})
+    phase(name, f"launches on rank 0 over {steps} steps "
+                f"{({k: v for k, v in got.items() if v})} (want "
+                f"{({k: v for k, v in want.items() if v})}, the rest 0)")
+    if got != want:
+        raise AssertionError(f"{name}: launch counts {got} != {want}")
+    return got
+
+
+def shard_case(name, dtype, arch, steps, shift, batch, modes, profile=False):
+    """A case of ``shard_rank``; with random shift, the first of ``modes``
+    for each of the model's blocks; with ``profile``, one step more under
+    torch.profiler and one with its collectives clocked."""
+    from vil_tpu_torch.models.arch import parse_arch
+
+    depth = sum(c.num_blocks for c in parse_arch(arch)) if arch else len(modes)
+    return dict(name=name, dtype=dtype, arch=arch, steps=steps, shift=shift, batch=batch,
+                modes=modes[:depth] if shift else None, profile=profile)
+
+
+_SHARD_INPUTS: list = []  # shard_inputs' result, taken once a run
+
+
+def shard_inputs(torch):
+    """The sharded paths' batch, the recipe's first draw of per-block modes,
+    and the one-rank step in this call: its median wall, its device time and
+    the bytes of parameters and optimizer moments it holds. Taken once a
+    run."""
+    if _SHARD_INPUTS:
+        return _SHARD_INPUTS[0]
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import engine, recipe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    modes = engine.sample_vil_modes(torch.Generator().manual_seed(0), 12)
+    model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+    step = recipe.train_step(model, dev)
+    secs = []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, labels, torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    device, copies = step_device_ms(
+        torch, lambda: step(images, labels, torch.Generator(device=dev).manual_seed(3)))
+    one_rank = (statistics.median(secs[1:]), device, copies)
+    whole = parallel.param_bytes(model, step.optimizer)
+    phase("sharding", f"one rank, ViL-Small 224^2 bf16 batch {BATCH}: step median "
+                      f"{one_rank[0] * 1e3:.3f} ms (steps 2..{STEPS}); device {device:.3f} ms, "
+                      f"{copies:.3f} of it copies and fills (torch.profiler, one step); "
+                      f"parameters + optimizer moments {whole[0] / 2**20:.1f} + "
+                      f"{whole[1] / 2**20:.1f} MiB")
+    del model, step
+    torch.cuda.empty_cache()
+    _SHARD_INPUTS.append((images, labels, modes, one_rank, whole))
+    return _SHARD_INPUTS[0]
+
+
+def run_train_tp(torch, kernels) -> dict:
+    """Part ``train_tp``: the paths train_tp and train_tp_shift, ViL-Small
+    224² with the recipe's step (bf16 compute, f32 parameters, AdamW, mixup,
+    drop path) at batch 64 under TPU.PARAM_SHARDING 'tp' on a ('data',
+    'model') mesh of 1 × 3 ranks (H/3 = 1, 1, 2, 4 heads a rank, C/3
+    channels), at MODE 0 and with random shift (the recipe's first draw of
+    per-block modes, injected), every rank the whole batch and the one-rank
+    step's generator. Launches exact on rank 0 over SHARD_STEPS steps (one
+    with random shift): B1 3, B2 3 (B5 3, B6 3 with random shift), B3 9, B4
+    9 a step. The first step's
+    loss and gradients, gathered whole, against the one-rank step from the
+    same weights and batch in bf16 and, for the shallow model at SHARD_PAIR
+    images, in f32 (updated parameters too). Then the multi-card phase,
+    where the host has the cards. Returns {path: launches}."""
+    images, labels, modes, one_rank, _ = shard_inputs(torch)
+    cases = [shard_case("train_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
+                        profile=True),
+             shard_case("tp_f32", torch.float32, SHALLOW_VIL_SMALL, 1, False, SHARD_PAIR,
+                        modes),
+             shard_case("train_tp_shift", torch.bfloat16, "", 1, True, BATCH, modes),
+             shard_case("tp_shift_f32", torch.float32, SHALLOW_VIL_SMALL, 1, True, SHARD_PAIR,
+                        modes)]
+    got = run_sharded(torch, "train_tp", TP_RANKS, 1, TP_RANKS, cases, images, labels)
+    paths = {}
+    for c in cases:
+        path = "train_tp_shift" if c["shift"] else "train_tp"
+        parts = [(images[:c["batch"]], labels[:c["batch"]])]
+        ref = one_rank_ref(torch, c["dtype"], c["arch"], parts, c["shift"], c["modes"], False)
+        kind = "bf16" if c["dtype"] == torch.bfloat16 else "f32 shallow"
+        check_sharded(torch, path, f"{kind} step, batch {c['batch']}",
+                      got["cases"][c["name"]], ref, c["dtype"], one_rank)
+    for c in cases[::2]:
+        chunk = "vil_mode_attention" if c["shift"] else "vil_attention"
+        paths[c["name"]] = check_shard_launches(
+            kernels, c["name"], got["cases"][c["name"]]["launches"],
+            {f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
+             "full_attention_bwd": 9}, c["steps"])
+    run_multicard_tp(torch, images, labels, modes, one_rank)
+    return paths
+
+
+def run_train_fsdp(torch, kernels) -> dict:
+    """Part ``train_fsdp``: the same step under TPU.PARAM_SHARDING 'fsdp'
+    over a data axis of 2 ranks, each its 32 images with draws keyed by its
+    replica: the parameters of at least 2^14 elements and their Adam moments
+    held as 1/2 slices between steps, gathered a block at a time,
+    gradients reduce-scattered. Launches exact on rank 0: the one-rank
+    step's, B1 3, B2 3, B3 9, B4 9 a step. The first step's averaged
+    gradients against the one-rank steps of the two replicas (bf16; f32 for
+    the shallow model at SHARD_PAIR images a rank, updated parameters too);
+    the bytes each rank holds against the replicated run's, and its peak
+    memory. Returns {"train_fsdp": launches}."""
+    images, labels, modes, one_rank, whole = shard_inputs(torch)
+    cases = [shard_case("train_fsdp", torch.bfloat16, "", SHARD_STEPS, False, BATCH // 2,
+                        modes, profile=True),
+             shard_case("fsdp_f32", torch.float32, SHALLOW_VIL_SMALL, 1, False, SHARD_PAIR,
+                        modes)]
+    got = run_sharded(torch, "train_fsdp", FSDP_RANKS, FSDP_RANKS, 1, cases, images, labels)
+    share = BATCH // FSDP_RANKS
+    for c in cases:
+        parts = [(images[d * share:d * share + c["batch"]],
+                  labels[d * share:d * share + c["batch"]]) for d in range(FSDP_RANKS)]
+        ref = one_rank_ref(torch, c["dtype"], c["arch"], parts, False, None, True)
+        kind = "bf16" if c["dtype"] == torch.bfloat16 else "f32 shallow"
+        check_sharded(torch, "train_fsdp", f"{kind} step, {c['batch']} images a rank", got["cases"][c["name"]], ref, c["dtype"],
+                      one_rank)
+    launches = check_shard_launches(
+        kernels, "train_fsdp", got["cases"]["train_fsdp"]["launches"],
+        {"vil_attention_fwd": 3, "vil_attention_bwd": 3, "full_attention_fwd": 9,
+         "full_attention_bwd": 9}, SHARD_STEPS)
+    params, moments, _ = got["cases"]["train_fsdp"]["per_rank"][0]
+    phase("train_fsdp", f"held by rank 0 between steps {params / 2**20:.1f} + "
+                        f"{moments / 2**20:.1f} MiB against the replicated run's "
+                        f"{whole[0] / 2**20:.1f} + {whole[1] / 2**20:.1f} MiB")
+    if not (params < whole[0] and moments < whole[1]):
+        raise AssertionError(f"train_fsdp: a rank holds {params} + {moments} bytes, the "
+                             f"replicated run {whole}")
+    return {"train_fsdp": launches}
+
+
+def run_experiment_tp(torch, kernels) -> dict:
+    """Part ``experiment_tp``: ``run_experiment.main`` on a ('data',
+    'model') mesh of one card (TPU.MESH_AXES ['data','model'], MESH_SHAPE
+    [1,1], an ``nccl`` group of one) with TPU.PARAM_SHARDING 'tp', then
+    'fsdp' (its slices gathered and its gradients reduce-scattered through
+    the group), phase 15's recipe cut to one MODE-0 epoch of 8 steps, as
+    experiment_spatial; launches from the trainers' counts. The run without
+    sharding first, outside the path's counts: every logged loss to
+    EXPERIMENT_LOSS_TOL. Then the 'fsdp' run's checkpoint, written whole,
+    resumes a replicated Trainer: at epoch 1, step 8, its weights bit for
+    bit the sharded model's, gathered. Returns {"experiment_tp": launches}."""
+    import shutil
+
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.run_experiment import config_from_args, parse_args
+    from vil_tpu_torch.train.trainer import Trainer
+
+    name = "experiment_tp"
+    args = EXPERIMENT_ARGS[:EXPERIMENT_ARGS.index("OPTIM.EPOCHS")] + [
+        "OPTIM.EPOCHS", "1", "MODEL.VIT.MSVIT.MODE", "0", "LOG_FREQ", "1",
+        "DATALOADER.WORKERS", "0"]
+    mesh = ["TPU.MESH_AXES", "['data','model']", "TPU.MESH_SHAPE", "[1,1]"]
+    runs, outs = {}, {}
+    with OneRankGroup(name):
+        for label, extra in (("without sharding", []),
+                             ("tp", mesh + ["TPU.PARAM_SHARDING", "tp"]),
+                             ("fsdp", mesh + ["TPU.PARAM_SHARDING", "fsdp"])):
+            outs[label] = os.path.join(REPO, "build", f"chip_{name}_{label.split()[0]}")
+            shutil.rmtree(outs[label], ignore_errors=True)
+            argv = args + extra
+            argv[argv.index("--output_dir") + 1] = outs[label]
+            if label == "tp":  # the path: its counts from 0
+                for fn in kernels:
+                    fn.launches = 0
+            runs[label] = run_cli(torch, kernels, name, label, argv)
+        launches = launch_counts(kernels)
+        argv = list(args)
+        argv[argv.index("--output_dir") + 1] = outs["fsdp"]
+        gathered = parallel.full_state_dict(runs["fsdp"].model)
+        resumed = Trainer(config_from_args(parse_args(argv)))
+        same = all(torch.equal(v, gathered[k].to(v.device))
+                   for k, v in resumed.model.state_dict().items())
+        phase(name, f"the 'fsdp' run's checkpoint resumes a replicated Trainer at epoch "
+                    f"{resumed.start_epoch}, step {resumed.train_step.step}; its weights "
+                    f"{'equal' if same else 'differ from'} the sharded model's, gathered, bit "
+                    f"for bit; sharded leaves {len(runs['fsdp'].model.param_shards)} (fsdp), "
+                    f"{len(runs['tp'].model.param_shards)} (tp at a model axis of 1)")
+        if not (same and resumed.start_epoch == 1 and resumed.train_step.step == 8
+                and not resumed.model.param_shards and runs["fsdp"].model.param_shards):
+            raise AssertionError(f"{name}: the fsdp checkpoint does not resume a replicated "
+                                 f"Trainer")
+        del resumed
+    losses = {k: [r["loss"] for r in t.steps_log] for k, t in runs.items()}
+    ref = losses["without sharding"]
+    for label in ("tp", "fsdp"):
+        err = max(abs(a - b) for a, b in zip(losses[label], ref))
+        phase(name, f"{label}: {len(losses[label])} steps, losses "
+                    f"{', '.join(f'{v:.4f}' for v in losses[label])}; max |err| against the run "
+                    f"without sharding {err:.3e} (tol {EXPERIMENT_LOSS_TOL:g}); evals (top1, "
+                    f"loss) {[(e['top1'], e['loss']) for e in runs[label].evals]}")
+        if not (len(losses[label]) == len(ref) == 8 and err <= EXPERIMENT_LOSS_TOL):
+            raise AssertionError(f"{name} {label}: the losses differ: {losses}")
+    return {name: launches}
+
+
+def run_multicard_tp(torch, images, labels, modes, one_rank):
+    """The sharded multi-card phase, where the host has the cards: train_tp's
+    bf16 step at a model axis of 2 over nccl, a card a rank (ViL-Small's
+    stages 1-2, H 3, stay whole; 3-4 split), and at (data 2, model 2) on four
+    cards (draws keyed by the replica), each against the one-rank step. On
+    one card it only says so."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        phase("multicard", f"sharded multi-card phase not run: {cards} card")
+        return
+    for data, model in ((1, 2), (2, 2)):
+        if data * model > cards:
+            continue
+        case = shard_case("train_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH // data,
+                          modes)
+        got = run_sharded(torch, "multicard", data * model, data, model, [case], images,
+                          labels)
+        parts = [(images[d * (BATCH // data):(d + 1) * (BATCH // data)],
+                  labels[d * (BATCH // data):(d + 1) * (BATCH // data)]) for d in range(data)]
+        ref = one_rank_ref(torch, torch.bfloat16, "", parts, False, None, data > 1)
+        check_sharded(torch, "multicard", f"train_tp at (data {data}, model {model}) on "
+                      f"{data * model} cards", got["cases"]["train_tp"], ref, torch.bfloat16,
+                      one_rank)
+
+
 def run_probe(torch, kernels):
     """Phase 10: the layout probe tool, once: P between two GEMMs in both
     schemes, its census of copy ops and its time per pass."""
@@ -2803,7 +3310,8 @@ def run_highres(torch, kernels) -> dict:
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
-         "efficient", "highres", "train_spatial", "experiment_spatial")
+         "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
+         "experiment_tp")
 
 
 def only_arg(argv) -> "set | None":
@@ -2937,6 +3445,11 @@ def main() -> int:
         # point on the mesh
         "train_spatial": lambda: run_train_spatial(torch, kernels),
         "experiment_spatial": lambda: run_experiment_spatial(torch, kernels),
+        # parameter sharding: tensor parallelism over heads (3 ranks, MODE 0
+        # and random shift), FSDP over 2 ranks, both through the entry point
+        "train_tp": lambda: run_train_tp(torch, kernels),
+        "train_fsdp": lambda: run_train_fsdp(torch, kernels),
+        "experiment_tp": lambda: run_experiment_tp(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()
@@ -2949,7 +3462,7 @@ def main() -> int:
         t_part = time.perf_counter()
         if name == "serve_spatial":
             paths["serve_spatial"], paths["spatial_bwd"] = run()
-        elif name in ("efficient", "highres"):
+        elif name in ("efficient", "highres", "train_tp", "train_fsdp", "experiment_tp"):
             paths.update(run())
         else:
             paths[name] = run()

@@ -107,9 +107,6 @@ def test_freeze_and_clone():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("TPU.PARAM_SHARDING", "fsdp", "A12"),
-    ("TPU.PARAM_SHARDING", "tp", "A12"),
-    ("TPU.MESH_AXES", "['data', 'model']", "A12"),
     ("CKPT_BACKEND", "orbax", "A6"),
     ("DATALOADER.BACKEND", "grain", "A6"),
     ("MODEL.ARCH", "resnet50", "A10"),
@@ -124,6 +121,24 @@ def test_unported_keys_raise_naming_their_item(key, value, item):
     cfg.merge_from_list([key, value])
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         check_ported(cfg)
+
+
+@pytest.mark.parametrize("opts", [
+    ["TPU.PARAM_SHARDING", "fsdp"],
+    ["TPU.PARAM_SHARDING", "tp", "TPU.MESH_AXES", "['data', 'model']", "TPU.MESH_SHAPE",
+     "[1, 1]"],
+    ["TPU.MESH_AXES", "['data', 'model']", "TPU.MESH_SHAPE", "[1, -1]"],
+], ids=["fsdp", "tp", "model_axis"])
+def test_sharding_keys_are_accepted(opts):
+    """Parameter sharding (FSDP, tensor parallelism over heads) and the
+    model axis are ported: ``check_ported`` takes them, and the mesh of one
+    process builds with a model context where the axes name one."""
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))
+    cfg.merge_from_list(opts)
+    check_ported(cfg)
+    mesh = mesh_from_cfg(cfg)
+    assert (mesh.model is not None) == ("model" in cfg.TPU.MESH_AXES)
 
 
 @pytest.mark.parametrize("key,value", [("TPU.MESH_AXES", "['data', 'spatial']"),

@@ -32,9 +32,9 @@ on the CPU, in f32.
   the uninterrupted one.
 * Without a spawn: the port's ``accumulate_predictions`` against
   ``vil_tpu``'s on the same dicts, padded repeats included; each data
-  replica's sampler shard; ``check_ported`` still refusing FSDP, tensor
-  parallelism and a model axis, and ``init_process_group`` more NCCL ranks
-  than cards.
+  replica's sampler shard; ``check_ported`` still refusing a model axis or
+  FSDP beside a spatial axis and 'tp' without a model axis, and
+  ``init_process_group`` more NCCL ranks than cards.
 """
 import json
 import os
@@ -401,13 +401,20 @@ def test_each_data_replica_reads_its_shard():
         assert shard.batch_size == 4 and len(shard) == len(one) == 8
 
 
-@pytest.mark.parametrize("key,value", [("TPU.PARAM_SHARDING", "fsdp"),
-                                       ("TPU.PARAM_SHARDING", "tp"),
-                                       ("TPU.MESH_AXES", "['data', 'model']")])
-def test_sharding_and_the_model_axis_still_raise(key, value):
+@pytest.mark.parametrize("opts,error", [
+    (["TPU.MESH_AXES", "['data', 'model', 'spatial']", "TPU.MESH_SHAPE", "[1, 1, 1]"],
+     NotImplementedError),
+    (["TPU.PARAM_SHARDING", "fsdp", "TPU.MESH_AXES", "['data', 'spatial']"],
+     NotImplementedError),
+    (["TPU.PARAM_SHARDING", "tp"], ValueError),
+], ids=["model_beside_spatial", "fsdp_beside_spatial", "tp_without_model_axis"])
+def test_sharding_and_the_model_axis_still_raise(opts, error):
+    """Parameter sharding is ported, beside a data axis: a model axis or
+    FSDP beside a spatial axis still raise naming A12, and 'tp' without a
+    model axis raises ``ValueError``, as ``vil_tpu``'s trainer does."""
     cfg = get_default_cfg()
-    cfg.merge_from_list([key, value])
-    with pytest.raises(NotImplementedError, match="A12"):
+    cfg.merge_from_list(opts)
+    with pytest.raises(error, match="A12" if error is NotImplementedError else "'model' axis"):
         check_ported(cfg)
 
 

@@ -11,7 +11,7 @@ from .msvit import NO_WEIGHT_DECAY_SUBSTRINGS, MsViT
 
 
 def build_model(cfg, dtype=None, device=None, use_kernels=None,
-                generator=None, param_dtype=None, fused_block=None) -> MsViT:
+                generator=None, param_dtype=None, fused_block=None, mesh=None) -> MsViT:
     """Construct the model from a config tree, read by attribute as
     ``vil_tpu.models.build_model`` reads it (MODEL.ARCH may name an
     ``ARCH_ZOO`` entry or ``msvit``; the tree is not modified).
@@ -27,7 +27,12 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
     TPU.FUSED_LN (with the kernels) puts the LayerNorm kernels in the block
     pre-norms, and ``fused_block`` the fused attention block at mode 0; it
     defaults to the environment variable ``VIL_TPU_FUSED_BLOCK`` being "1",
-    read at each call, the switch of ``vil_tpu.models.attention``."""
+    read at each call, the switch of ``vil_tpu.models.attention``.
+
+    Under TPU.PARAM_SHARDING 'tp' with a ``mesh`` (``parallel.Mesh``) that
+    has a model axis, the model is this model rank's shard (``MsViT``'s
+    ``tp``), as ``vil_tpu`` passes its ``tp_mesh``; the classifier head, the
+    patch embeddings and the LayerNorms stay whole."""
     if fused_block is None:
         fused_block = os.environ.get("VIL_TPU_FUSED_BLOCK", "0") == "1"
     name = cfg.MODEL.ARCH
@@ -68,6 +73,7 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
         dtype=dtype,
         param_dtype=param_dtype,
         generator=generator,
+        tp=mesh.model if mesh is not None and cfg.TPU.PARAM_SHARDING == "tp" else None,
     )
 
 

@@ -50,12 +50,23 @@ soon as a table has changed (a new version or storage: an in-place write,
 an optimizer step, a load, ``.to()``). A write through ``.data`` bypasses
 the version counter and is not seen.
 
+Tensor parallelism (a ``parallel.TensorParallel`` context of n ranks, the
+model's ``tp``): a module whose heads divide by n holds this rank's H/n
+heads, with the query/key/value projections column-parallel and the output
+projection row-parallel (``parallel/tensor.py``), and calls the same kernels
+at H/n heads on C/n channels; its relative-position tables stay whole and it
+reads its heads' columns (bias (H/n, ...)). One whose heads do not divide
+computes whole on every rank. The fused block runs only unsplit: a split
+module takes the classic B1/B2 path, as ``vil_tpu`` does on a model axis.
+
 q is scaled by M^-½ before either kernel. With a gradient to take, the
 kernels run through their autograd Functions (forward with the log-sum-exp,
 then the backward kernel); ``use_kernels=False`` calls the plain versions
 directly instead, and autograd differentiates them.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -204,8 +215,9 @@ class RelativePositionBias:
     the mode-0 bias. The host class defines ``_assemble_rpe(mode)``."""
 
     def _init_rpe(self, rpe: bool, rows: int, num_heads: int, nglo: int, device,
-                  param_dtype: torch.dtype) -> None:
+                  param_dtype: torch.dtype, heads: slice = None) -> None:
         self.rpe = rpe
+        self.rpe_heads = heads  # this model rank's heads of the tables, or None: all
         self._rpe_cache = None  # (fingerprint of the tables, mode-0 bias)
         new = lambda *shape: nn.Parameter(torch.zeros(*shape, device=device, dtype=param_dtype))
         self.local_relative_position_bias_table = new(rows, num_heads) if rpe else None
@@ -217,6 +229,18 @@ class RelativePositionBias:
         return [t for t in (self.local_relative_position_bias_table,
                             self.g2l_relative_position_bias,
                             self.g2g_relative_position_bias) if t is not None]
+
+    def local_tables(self) -> list:
+        """The tables at this model rank's heads (all of them unsplit):
+        the local table's columns, g2l's and g2g's head rows."""
+        h = self.rpe_heads
+        if h is None:
+            return self.rpe_tables()
+        table, g2l, g2g = (self.local_relative_position_bias_table,
+                           self.g2l_relative_position_bias, self.g2g_relative_position_bias)
+        return [t for t in (table[:, h] if table is not None else None,
+                            g2l[:, h] if g2l is not None else None,
+                            g2g[h] if g2g is not None else None) if t is not None]
 
     def _rpe_fingerprint(self) -> tuple:
         """Each table's storage and version. The cache keeps the storage
@@ -270,19 +294,22 @@ class FullAttention(RelativePositionBias, nn.Module):
                  proj_drop: float = 0.0, rpe: bool = False, wx: int = 14, wy: int = 14,
                  nglo: int = 1, use_kernels: bool = True, device=None,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, tp=None, name: str = "FullAttention"):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.dim, self.num_heads = dim, num_heads
+        self.tp = tp if tp is not None and tp.splits(num_heads, name) else None
+        self.dim, self.head_dim = dim, dim // num_heads
+        self.num_heads = num_heads if self.tp is None else num_heads // self.tp.size  # local
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.wx, self.wy, self.nglo = wx, wy, nglo
         self.use_kernels = use_kernels
-        self.qkv = Linear(dim, 3 * dim, **kw)
-        self.proj = Linear(dim, dim, **kw)
-        self._init_rpe(rpe, (2 * wx - 1) * (2 * wy - 1), num_heads, nglo, device, param_dtype)
+        self.qkv = Linear(dim, 3 * dim, tp=self.tp, cut="column", pack=3, **kw)
+        self.proj = Linear(dim, dim, tp=self.tp, cut="row", **kw)
+        self._init_rpe(rpe, (2 * wx - 1) * (2 * wy - 1), num_heads, nglo, device, param_dtype,
+                       None if self.tp is None else self.tp.heads(num_heads))
 
     def _assemble_rpe(self, mode: int) -> torch.Tensor:
-        return self._assemble_from(*self.rpe_tables())
+        return self._assemble_from(*self.local_tables())
 
     def _assemble_from(self, table, g2l=None, g2g=None) -> torch.Tensor:
         """The dense bias from the tables ``rpe_tables()`` lists."""
@@ -294,7 +321,9 @@ class FullAttention(RelativePositionBias, nn.Module):
         H = self.num_heads
         if self.rpe and x.shape[1] != self.nglo + self.wx * self.wy:
             raise ValueError("For relative position, N != nglo + wx*wy")
-        scale = (self.dim // H) ** -0.5
+        scale = self.head_dim ** -0.5
+        if self.tp is not None:
+            x = self.tp.copy(x)
         q = self.qkv.part(x, 0, 3) * scale
         k = self.qkv.part(x, 1, 3)
         v = self.qkv.part(x, 2, 3)
@@ -302,7 +331,7 @@ class FullAttention(RelativePositionBias, nn.Module):
         if self.rpe and bias is None:
             if self.use_kernels:  # assembled inside the kernels' autograd Function
                 return self.proj(full_attention_rpe(q, k, v, self._assemble_from,
-                                                    self.rpe_tables(), H))
+                                                    self.local_tables(), H))
             bias = self._assemble_rpe(0)
         attend = full_attention if self.use_kernels else full_attention_reference
         return self.proj(attend(q, k, v, bias, H))
@@ -327,30 +356,43 @@ class VilAttention(RelativePositionBias, nn.Module):
                  exact: int = 0, rpe: bool = False, sharew: bool = True,
                  only_glo: bool = False, use_kernels: bool = True,
                  fused_block: bool = False, device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, tp=None, name: str = "VilAttention"):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         if only_glo and nglo < 1:
             raise ValueError("Nglo == 0 in the only global mode!")
-        self.dim, self.num_heads, self.w, self.nglo = dim, num_heads, w, nglo
+        self.tp = tp if tp is not None and tp.splits(num_heads, name) else None
+        if self.tp is not None and (only_glo or not sharew):
+            raise NotImplementedError("the only-global mode and the unshared global weights "
+                                      "under tensor parallelism are not ported (ROADMAP.md "
+                                      "§A, A12)")
+        if self.tp is not None and fused_block and use_kernels:
+            logging.getLogger(__name__).warning(
+                "%s: the fused attention block has no head-split form; a split block runs "
+                "the sliding-chunk kernels B1/B2 at its heads", name)
+        self.dim, self.w, self.nglo = dim, w, nglo
+        self.head_dim = dim // num_heads
+        self.num_heads = num_heads if self.tp is None else num_heads // self.tp.size  # local
         self.exact = exact
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.sharew, self.only_glo = sharew, only_glo
         self.use_kernels = use_kernels
-        self.fused_block = fused_block
-        self.query = Linear(dim, dim, **kw)
-        self.kv = Linear(dim, 2 * dim, **kw)
-        self.proj = Linear(dim, dim, **kw)
+        self.fused_block = fused_block and self.tp is None
+        tp_kw = dict(tp=self.tp)
+        self.query = Linear(dim, dim, cut="column", **tp_kw, **kw)
+        self.kv = Linear(dim, 2 * dim, cut="column", pack=2, **tp_kw, **kw)
+        self.proj = Linear(dim, dim, cut="row", **tp_kw, **kw)
         if not sharew:  # the global branch's own weights
             self.query_global = Linear(dim, dim, **kw)
             self.kv_global = Linear(dim, 2 * dim, **kw)
             self.proj_global = Linear(dim, dim, **kw)
         self._masks: dict = {}  # (nx, ny, mode 0 or 1, device) → additive tables
-        self._init_rpe(rpe, (4 * w - 1) ** 2, num_heads, nglo, device, param_dtype)
+        self._init_rpe(rpe, (4 * w - 1) ** 2, num_heads, nglo, device, param_dtype,
+                       None if self.tp is None else self.tp.heads(num_heads))
 
     def _assemble_rpe(self, mode: int) -> torch.Tensor:
-        return sliding_chunk_rpe_bias(self.local_relative_position_bias_table,
-                                      self.g2l_relative_position_bias, self.w, mode)
+        table, *rest = self.local_tables()
+        return sliding_chunk_rpe_bias(table, rest[0] if rest else None, self.w, mode)
 
     def _mask(self, nx: int, ny: int, mode: int, device) -> torch.Tensor:
         """Additive f32 mask of ``mode``: (mx, my, Wq, Nglo+9W²) for mode 0,
@@ -387,6 +429,9 @@ class VilAttention(RelativePositionBias, nn.Module):
             raise NotImplementedError("spatial parallelism runs the sliding-chunk attention "
                                       "at mode 0 only: random shift under the split needs "
                                       "halo forms of B5/B6 (ROADMAP.md §A, A12)")
+        if spatial is not None and self.tp is not None:
+            raise NotImplementedError("a model axis together with a spatial axis is not "
+                                      "ported (ROADMAP.md §A, A12)")
         if spatial is not None and self.fused_block and self.use_kernels:
             raise NotImplementedError("the fused attention block has no halo form: build "
                                       "the model without fused_block for spatial parallelism "
@@ -397,12 +442,13 @@ class VilAttention(RelativePositionBias, nn.Module):
         check_eval_only(self, self.attn_drop, "attention dropout")
         check_eval_only(self, self.proj_drop, "projection dropout")
         x_glo, x_img = x
+        if self.tp is not None:  # the input of the column-parallel projections
+            x_glo, x_img = self.tp.copy(x_glo), self.tp.copy(x_img)
         B, mx, my, W2, C = x_img.shape
         H, Nglo = self.num_heads, self.nglo
-        M = C // H
         if (0 if x_glo is None else x_glo.shape[1]) != Nglo:
             raise ValueError(f"expected {Nglo} global tokens")
-        scale = M ** -0.5
+        scale = self.head_dim ** -0.5
 
         kg = vg = None
         if Nglo >= 1:
@@ -466,15 +512,17 @@ class VilAttention(RelativePositionBias, nn.Module):
         ``x_glo`` over the keys and values of the global tokens (kg, vg) and
         of the local ones in chunks (k_img, v_img), through the shared
         weights or the ``*_global`` ones."""
-        B, Nglo, C = x_glo.shape
-        H = self.num_heads
+        B, Nglo, _ = x_glo.shape
+        H, M = self.num_heads, self.head_dim  # this model rank's heads
         query, proj = ((self.query, self.proj) if self.sharew else
                        (self.query_global, self.proj_global))
-        qg = (query(x_glo) * (C // H) ** -0.5).reshape(B, Nglo, H, C // H).transpose(1, 2)
-        g2g, g2l = self.g2g_relative_position_bias, self.g2l_relative_position_bias
+        qg = (query(x_glo) * M ** -0.5).reshape(B, Nglo, H, M).transpose(1, 2)
+        g2g = g2l = None
+        if self.g2g_relative_position_bias is not None:
+            _, g2l, g2g = self.local_tables()
         x0 = global_branch(qg, k_img, v_img, kg, vg, g2g, None if g2l is None else g2l[0],
                            valid, spatial)
-        return proj(x0.transpose(1, 2).to(k_img.dtype).reshape(B, Nglo, C))
+        return proj(x0.transpose(1, 2).to(k_img.dtype).reshape(B, Nglo, H * M))
 
     def _forward_only_global(self, x: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
         """The only-global mode (ONLY_GLOBAL), in token layout (B, Nglo +

@@ -10,6 +10,9 @@ Every layer takes flax's pair of types: its parameters are kept in
 in ``dtype``. Training keeps f32 parameters under bf16 compute; serving may
 store them in bf16, which computes the same function.
 
+Linear and Mlp take a tensor-parallel context (``parallel.TensorParallel``):
+the Megatron cut, column- and row-parallel, of ``parallel/tensor.py``.
+
 Stochastic depth is ported (one draw per sample from an explicit
 ``torch.Generator``). Dropout is not: a module with a nonzero dropout rate
 raises in training mode instead of running as in eval.
@@ -40,17 +43,52 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with parameters in ``param_dtype``, computed in ``dtype``."""
+    """``nn.Linear`` with parameters in ``param_dtype``, computed in ``dtype``.
+
+    With a tensor-parallel context ``tp`` (``parallel.TensorParallel``) of n
+    ranks and a ``cut``, it holds this rank's part of the whole layer: a
+    ``"column"`` layer its 1/n of the output features (of each of ``pack``
+    packed blocks: q, k, v), a ``"row"`` layer its 1/n of the input features,
+    whose partial products are summed over the model group before the bias
+    is added once. ``in_features`` and ``out_features`` are the whole
+    layer's; :meth:`shards` gives the cut of each parameter."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, tp=None, cut: str = "",
+                 pack: int = 1):
+        self.tp, self.cut, self.pack = (tp, cut, pack) if tp is not None else (None, "", 1)
+        n = 1 if tp is None else tp.size
+        if cut == "column":
+            out_features //= n
+        elif cut == "row":
+            in_features //= n
+        elif tp is not None:
+            raise ValueError(f"a tensor-parallel Linear is cut 'column' or 'row', not {cut!r}")
         super().__init__(in_features, out_features, bias, device=device, dtype=param_dtype)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.cut == "row":  # the partial products summed, then the bias
+            y = self.tp.reduce(F.linear(x.to(dt), self.weight.to(dt)))
+            return (y if self.bias is None else y + self.bias.float()).to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+    def shards(self) -> dict:
+        """{"weight" / "bias": its ``parallel.tensor.Shard``} of the cut
+        parameters (a row layer's bias is whole)."""
+        from ..parallel.tensor import Shard
+
+        if self.tp is None:
+            return {}
+        tp = self.tp
+        if self.cut == "row":
+            return {"weight": Shard(1, tp.size, tp.rank, tp.group)}
+        out = {"weight": Shard(0, tp.size, tp.rank, tp.group, self.pack)}
+        if self.bias is not None:
+            out["bias"] = Shard(0, tp.size, tp.rank, tp.group, self.pack)
+        return out
 
     def part(self, x: torch.Tensor, part: int, n_parts: int) -> torch.Tensor:
         """Output slice ``part`` of ``n_parts`` equal slices, computed alone so
@@ -152,15 +190,21 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, drop: float = 0.0,
                  device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, tp=None, name: str = "Mlp"):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.fc1 = Linear(in_features, hidden_features, **kw)
-        self.fc2 = Linear(hidden_features, out_features or in_features, **kw)
+        # under a tensor-parallel context: fc1 column-, fc2 row-parallel
+        # where the hidden features divide over the model axis
+        self.tp = tp if tp is not None and tp.splits(hidden_features, name) else None
+        self.fc1 = Linear(in_features, hidden_features, tp=self.tp, cut="column", **kw)
+        self.fc2 = Linear(hidden_features, out_features or in_features, tp=self.tp, cut="row",
+                          **kw)
         self.drop = drop
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         check_eval_only(self, self.drop, "Mlp dropout")
+        if self.tp is not None:
+            x = self.tp.copy(x)
         x = self.fc1(x)
         x = F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
         return self.fc2(x)

@@ -86,18 +86,22 @@ class AttnBlock(nn.Module):
                  use_kernels: bool = True, fused_ln: bool = False,
                  fused_block: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, tp=None, name: str = "attn"):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.norm = make_layer_norm(fused_ln, dim, eps=ln_eps, **kw)
         common = dict(dim=dim, num_heads=num_heads, attn_drop=attn_drop, proj_drop=drop, **kw)
         kernels = dict(rpe=rpe, use_kernels=use_kernels)
+        split = dict(tp=tp, name=name)
+        if tp is not None and tp.size > 1 and attn_type not in ("full", *LONGFORMER_TYPES):
+            raise NotImplementedError(f"the {attn_type} attention under tensor parallelism is "
+                                      f"not ported (ROADMAP.md §A, A12)")
         if attn_type == "full":
-            self.attn = FullAttention(wx=wx, wy=wy, nglo=nglo, **kernels, **common)
+            self.attn = FullAttention(wx=wx, wy=wy, nglo=nglo, **kernels, **common, **split)
         elif attn_type in LONGFORMER_TYPES:
             self.attn = VilAttention(w=num_feats, nglo=nglo, exact=sw_exact, sharew=sharew,
                                      only_glo=only_glo, fused_block=fused_block, **kernels,
-                                     **common)
+                                     **common, **split)
         elif attn_type == "linformer":
             self.attn = LinformerAttention(seq_len=wx * wy + nglo, num_feats=num_feats,
                                            share_kv=share_kv, **common)
@@ -128,11 +132,11 @@ class MlpBlock(nn.Module):
     def __init__(self, dim: int, mlp_ratio: float = 4.0, drop: float = 0.0,
                  drop_path: float = 0.0, ln_eps: float = 1e-6, fused_ln: bool = False,
                  device=None, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, tp=None, name: str = "mlp"):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.norm = make_layer_norm(fused_ln, dim, eps=ln_eps, **kw)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, tp=tp, name=name, **kw)
         self.droppath = DropPath(drop_path)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -158,6 +162,12 @@ class MsViT(nn.Module):
     package), and ``fused_block`` (``VIL_TPU_FUSED_BLOCK=1`` in the JAX
     package) runs each sliding-chunk attention at mode 0 as one fused block:
     projections, attention and output projection.
+    With ``tp`` (a ``parallel.TensorParallel`` context, TPU.PARAM_SHARDING
+    'tp') the model is this model rank's shard: each attention and MLP
+    block whose heads (hidden features) divide by the model axis holds its
+    rank's part (``parallel/tensor.py``); ``param_shards`` names each cut
+    parameter's :class:`~vil_tpu_torch.parallel.tensor.Shard`, and the
+    weights are those of the whole model from the same ``generator``.
     Weights are drawn by :meth:`init_weights` from ``generator``. ``mode``
     (MODEL.VIT.MSVIT.MODE) is carried as the flax field is and not read at
     call time: the neighbour mode is an argument of :meth:`forward`.
@@ -175,10 +185,11 @@ class MsViT(nn.Module):
                  fused_block: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, tp=None):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype, param_dtype=param_dtype)
         self.dtype = dtype
+        self.tp = tp
         cfgs = parse_arch(arch)
         self.layer_cfgs: list[StageCfg] = cfgs
         self.img_size, self.avg_pool = img_size, avg_pool
@@ -220,17 +231,29 @@ class MsViT(nn.Module):
                     drop=drop_rate, attn_drop=attn_drop_rate, drop_path=dpr,
                     sw_exact=sw_exact, sharew=sharew, only_glo=only_glo, share_kv=share_kv,
                     ln_eps=ln_eps, use_kernels=use_kernels, fused_ln=fused_ln,
-                    fused_block=fused_block, **kw,
+                    fused_block=fused_block, tp=tp, name=attn_name, **kw,
                 ))
                 setattr(self, mlp_name, MlpBlock(
                     dim=c.dim, drop=drop_rate, drop_path=dpr, ln_eps=ln_eps,
-                    fused_ln=fused_ln, **kw,
+                    fused_ln=fused_ln, tp=tp, name=mlp_name, **kw,
                 ))
                 names.append((attn_name, mlp_name))
             self.stage_blocks.append(names)
         self.norm = LayerNorm(cfgs[-1].dim, eps=ln_eps, **kw)
         self.head = Linear(cfgs[-1].dim, num_classes, **kw) if num_classes > 0 else None
+        # the plan: each cut parameter's shard (FSDP adds its own)
+        self.param_shards = {f"{name}.{leaf}": shard for name, mod in self.named_modules()
+                             if isinstance(mod, Linear) for leaf, shard in mod.shards().items()}
         self.init_weights(generator)
+
+    def partial_over_model(self) -> list:
+        """The parameters of which each model rank holds a part of the
+        gradient: the relative-position tables of the split blocks, each
+        rank's heads' columns. The training step sums them over the model
+        group (``parallel.average_gradients``)."""
+        return [t for mod in self.modules()
+                if isinstance(mod, (FullAttention, VilAttention)) and mod.rpe_heads is not None
+                for t in mod.rpe_tables()]
 
     @property
     def depth(self) -> int:
@@ -258,14 +281,17 @@ class MsViT(nn.Module):
         linformer's sequence projections are drawn uniform in ±1/√f, the
         performer's projection buffers anew."""
 
-        def trunc_normal_(p, std):
-            t = torch.empty(p.shape, dtype=torch.float32)
+        def trunc_normal_(p, std, shard=None):
+            # a cut weight takes its part of the whole layer's draw
+            t = torch.empty(p.shape if shard is None else shard.full_shape(p.shape),
+                            dtype=torch.float32)
             nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
-            p.copy_(t)
+            p.copy_(t if shard is None else shard.local(t))
 
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                trunc_normal_(mod.weight, 0.02)
+                trunc_normal_(mod.weight, 0.02,
+                              mod.shards().get("weight") if isinstance(mod, Linear) else None)
             elif isinstance(mod, nn.Conv2d):
                 fan_in = mod.in_channels * math.prod(mod.kernel_size)
                 # flax lecun_normal: unit variance after truncation at ±2σ

@@ -1,5 +1,6 @@
 """Process-group and mesh set-up, the whole-model spatial forward, and the
-gradient reduction of a training step over a ('data', 'spatial') mesh.
+gradient reduction of a training step over a ('data', 'spatial') or a
+('data', 'model') mesh.
 
 Counterpart of ``vil_tpu/parallel/mesh.py``. JAX's ``jit_spatial_forward``
 and ``jit_train_step`` shard the image's height over a mesh axis and let
@@ -27,6 +28,12 @@ under torchrun)::
     group = mesh.get_group("spatial")
     logits = parallel.spatial_forward(
         model.eval(), parallel.shard_image(images, model, group), group)
+
+A ('data', 'model') mesh (``parallel/tensor.py``) splits each block's heads
+over the model axis (``TPU.PARAM_SHARDING 'tp'``): every rank of a data
+replica takes the replica's images whole, and the gradients are averaged
+over the data axis alone. FSDP (``'fsdp'``) slices the parameters over the
+data axis (:func:`fully_shard`).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import torch.distributed as dist
 
 from .collectives import get_world_size, is_distributed
 from .spatial import SpatialContext
+from .tensor import FSDP_MIN_SIZE, FullyShardedParams, TensorParallel
 
 
 def check_cards(world_size: int, cards: int) -> None:
@@ -90,52 +98,113 @@ def resolve_shape(mesh_shape: Sequence[int], world: int) -> list[int]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place on a ('data', 'spatial') mesh: its data replica
-    ``data_rank`` of ``data_size`` (the images it reads) and, where the mesh
-    has a spatial axis, the context of its spatial group (the rows of each
-    image it holds). Without a process group: one replica, and a spatial
-    context of one rank that communicates nothing."""
+    """This process's place on a ('data', 'spatial') or ('data', 'model')
+    mesh: its data replica ``data_rank`` of ``data_size`` (the images it
+    reads); where the mesh has a spatial axis, the context of its spatial
+    group (the rows of each image it holds); where it has a model axis, the
+    context of its model group (``model``: the heads it holds under
+    TPU.PARAM_SHARDING 'tp') and ``data_group``, the ranks of the data axis
+    that hold the same heads, over which the gradients are averaged. Without
+    a process group: one replica, and a spatial context of one rank that
+    communicates nothing."""
 
     data_size: int = 1
     data_rank: int = 0
     spatial: Optional[SpatialContext] = None
+    model: Optional[TensorParallel] = None
+    data_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def replica(self):
+        """The context of the ranks that share one data replica's images
+        (the spatial or the model group), or None."""
+        return self.spatial if self.spatial is not None else self.model
 
 
 def mesh_from_cfg(cfg) -> Mesh:
     """The :class:`Mesh` of ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` over the
-    default group's ranks (axes ``data`` and ``spatial``; another raises)."""
+    default group's ranks (axes ``data`` with ``spatial`` or ``model``;
+    another raises, and a model axis beside a spatial one is not ported)."""
     axes = tuple(cfg.TPU.MESH_AXES)
-    if not set(axes) <= {"data", "spatial"} or len(set(axes)) != len(axes):
-        raise ValueError(f"TPU.MESH_AXES {list(axes)}: the port's mesh has the axes 'data' "
-                         f"and 'spatial'")
+    if not set(axes) <= {"data", "spatial", "model"} or len(set(axes)) != len(axes):
+        raise ValueError(f"TPU.MESH_AXES {list(axes)}: the port's mesh has the axes 'data', "
+                         f"'spatial' and 'model'")
+    if {"spatial", "model"} <= set(axes):
+        raise NotImplementedError("a model axis together with a spatial axis is not ported "
+                                  "(ROADMAP.md §A, A12)")
     shape = resolve_shape(cfg.TPU.MESH_SHAPE, get_world_size())
     if len(shape) != len(axes):
         raise ValueError(f"TPU.MESH_SHAPE {list(cfg.TPU.MESH_SHAPE)} and TPU.MESH_AXES "
                          f"{list(axes)} differ in length")
+    if "model" in axes and "data" not in axes:  # one data replica
+        axes, shape = ("data", *axes), [1, *shape]
     if not is_distributed():
-        return Mesh(spatial=SpatialContext.of(None) if "spatial" in axes else None)
+        return Mesh(spatial=SpatialContext.of(None) if "spatial" in axes else None,
+                    model=TensorParallel.of(None) if "model" in axes else None)
     mesh = create_mesh(shape, axes)
     data_size, data_rank = 1, 0
     if "data" in axes:
         data_size, data_rank = mesh.size(axes.index("data")), mesh.get_local_rank("data")
     spatial = SpatialContext.of(mesh.get_group("spatial")) if "spatial" in axes else None
-    return Mesh(data_size, data_rank, spatial)
+    model = data_group = None
+    if "model" in axes:
+        model, data_group = TensorParallel.of(mesh.get_group("model")), mesh.get_group("data")
+    return Mesh(data_size, data_rank, spatial, model, data_group)
 
 
-def average_gradients(params, data_size: int) -> None:
-    """Sum every parameter's gradient over all ranks in one all-reduce and
-    divide by the data replicas: the spatial ranks' partial gradients add up
-    to their replica's (``parallel/spatial.py``), and the replicas' are
-    averaged. Parameters without a gradient are left out, alike on every
-    rank. Nothing happens without a process group or at one rank."""
-    if get_world_size() == 1:
+def average_gradients(params, data_size: int, group=None, partial=()) -> None:
+    """Sum every parameter's gradient over the ranks of ``group`` (all ranks
+    when None) in one all-reduce and divide by the data replicas: the
+    spatial ranks' partial gradients add up to their replica's
+    (``parallel/spatial.py``), and the replicas' are averaged. On a model
+    axis ``group`` is the data axis (``Mesh.data_group``): the model ranks
+    hold whole gradients, or their part of the weights, and ``partial``
+    names the parameters of which each holds a part (``MsViT.partial_over_model``),
+    summed over the model group ``partial.group`` first. Parameters without
+    a gradient are left out, alike on every rank. Nothing happens without a
+    process group or at one rank."""
+    if not is_distributed():
+        return
+    if partial and partial.size > 1:
+        _sum_into([p.grad for p in partial.params if p.grad is not None], partial.group)
+    if get_world_size(group) == 1 and data_size == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
+    _sum_into(grads, group, data_size)
+
+
+def _sum_into(grads: list, group, divide: int = 1) -> None:
+    """Each tensor of ``grads`` replaced by its sum over ``group`` (in one
+    f32 all-reduce), divided by ``divide``."""
+    if not grads:
+        return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat)
-    flat /= data_size
+    if get_world_size(group) > 1:
+        dist.all_reduce(flat, group=group)
+    flat /= divide
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
+
+
+@dataclass(frozen=True)
+class Partial:
+    """Parameters of which each rank of a model ``group`` of ``size`` holds
+    a part of the gradient (:func:`average_gradients`)."""
+
+    params: tuple
+    group: Optional[dist.ProcessGroup]
+    size: int
+
+
+def fully_shard(model, mesh: Mesh, min_size: int = FSDP_MIN_SIZE) -> FullyShardedParams:
+    """FSDP of ``model`` over ``mesh``'s data axis (TPU.PARAM_SHARDING
+    'fsdp', ``parallel/tensor.py``): its large parameters become this
+    rank's slices; build the optimizer afterwards. Returns the state
+    (``model.fsdp``) that the train and eval steps drive."""
+    if mesh.spatial is not None:
+        raise NotImplementedError("FSDP together with a spatial axis is not ported "
+                                  "(ROADMAP.md §A, A12)")
+    return FullyShardedParams(model, mesh.data_group, min_size)
 
 
 def average_metrics(metrics: dict) -> dict:
@@ -149,15 +218,16 @@ def average_metrics(metrics: dict) -> dict:
     return dict(zip(metrics, stacked / get_world_size()))
 
 
-def broadcast_replica(t: torch.Tensor, spatial: Optional[SpatialContext]) -> torch.Tensor:
-    """``t`` as the first rank of the spatial group holds it, on every rank
-    of the group: a batch the ranks of one data replica must share. As it is
-    without a process group or on a group of one rank."""
-    if spatial is None or spatial.size == 1 or not is_distributed():
+def broadcast_replica(t: torch.Tensor, replica) -> torch.Tensor:
+    """``t`` as the first rank of the ``replica`` group (a spatial or model
+    context, ``Mesh.replica``) holds it, on every rank of the group: a batch
+    the ranks of one data replica must share. As it is without a process
+    group or on a group of one rank."""
+    if replica is None or replica.size == 1 or not is_distributed():
         return t
     t = t.contiguous()
-    src = dist.get_global_rank(spatial.group or dist.group.WORLD, 0)
-    dist.broadcast(t, src=src, group=spatial.group)
+    src = dist.get_global_rank(replica.group or dist.group.WORLD, 0)
+    dist.broadcast(t, src=src, group=replica.group)
     return t
 
 

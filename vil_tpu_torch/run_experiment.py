@@ -4,6 +4,10 @@
         [--data DIR] [--output_dir DIR] [--seed N] [KEY VALUE]...
     torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
         TPU.MESH_AXES "['data','spatial']" TPU.MESH_SHAPE "[a,b]"
+    torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
+        TPU.MESH_AXES "['data','model']" TPU.MESH_SHAPE "[a,b]" TPU.PARAM_SHARDING tp
+    torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
+        TPU.MESH_AXES "['data']" TPU.MESH_SHAPE "[N]" TPU.PARAM_SHARDING fsdp
 
 The counterpart of the repository's ``run_experiment.py`` for ``vil_tpu``:
 the same arguments and the same config handling (the yaml, then the dotted
@@ -12,7 +16,10 @@ KEY VALUE overrides, then ``--data``, ``--output_dir`` and ``--seed``), then
 ``LOCAL_RANK`` and ``TORCHELASTIC_RUN_ID`` in the environment) each process
 joins an ``nccl`` group through a ``FileStore`` in the temporary directory,
 named by the run id, takes card ``LOCAL_RANK`` and trains over the
-config's mesh (a·b = N); rank 0 alone logs. Without torchrun it runs on one
+config's mesh (a·b = N): data and spatial axes, or data and model axes
+with TPU.PARAM_SHARDING 'tp' (each rank b's share of the heads), or FSDP
+over the data axis ('fsdp'); rank 0 alone logs and writes checkpoints, whole,
+which a run of any mesh or sharding resumes. Without torchrun it runs on one
 card in one process. To run on the CPU, build
 ``train.trainer.Trainer(cfg, device="cpu")`` instead. ``--multi-host``
 raises: one host's cards (ROADMAP §A, A12).

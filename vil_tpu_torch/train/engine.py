@@ -14,6 +14,15 @@ alike (keyed by the seed, the step and the replica, not the rank), and runs
 the model on its rows; the loss, the same on every rank of the replica, is
 seeded with 1/D, and one all-reduce of the gradients over every rank makes
 them the global batch's (``parallel.average_gradients``).
+
+On a ('data', 'model') mesh the model is each model rank's shard
+(TPU.PARAM_SHARDING 'tp', ``parallel/tensor.py``): every rank of a replica
+takes the replica's images and draws alike, the model's collectives make
+the logits and the loss the same there, and the gradients are averaged over
+the data axis alone (the relative-position tables' parts summed over the
+model axis first). Under FSDP (``model.fsdp``, ``parallel.fully_shard``) the
+blocks gather their parameters as they run and the step reduce-scatters
+their gradients onto the slices before the update.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.mesh import Mesh, average_gradients, average_metrics, shard_image
+from ..parallel.mesh import Mesh, Partial, average_gradients, average_metrics, shard_image
 from ..utils.device import resolve_device
 
 
@@ -96,9 +105,12 @@ class TrainStep:
 
     On a ``mesh`` (``parallel.Mesh``) the step takes its data replica's
     images whole: with a spatial axis it runs the model on this rank's rows
-    (``parallel.shard_image``), and with a process group it averages the
-    gradients and the metrics over the replicas; the draws of a seeded step
-    are keyed by the replica too. Every rank then takes the same update.
+    (``parallel.shard_image``), with a model axis the model is this rank's
+    shard of the heads, and with a process group it averages the gradients
+    and the metrics over the replicas; the draws of a seeded step are keyed
+    by the replica too. Every rank then takes the same update (of its
+    shard). A model under FSDP (``model.fsdp``) has its gradients
+    reduce-scattered onto its slices before the update.
     Without a mesh the step is this process's alone, whatever process group
     exists."""
 
@@ -155,8 +167,18 @@ class TrainStep:
         # a loss computed alike on D ranks: each seeds its share of the
         # partial gradients, which average_gradients sums
         (loss if spatial is None else loss / spatial.size).backward()
+        fsdp = getattr(model, "fsdp", None)
+        if fsdp is not None:  # the sliced parameters' gradients onto the slices
+            fsdp.reduce_scatter_gradients(mesh.data_size if mesh else 1)
         if mesh is not None:
-            average_gradients(model.parameters(), mesh.data_size)
+            sliced = {id(p) for p in fsdp.params.values()} if fsdp is not None else set()
+            partial = ()
+            if mesh.model is not None:
+                partial = Partial(tuple(model.partial_over_model()), mesh.model.group,
+                                  mesh.model.size)
+            average_gradients([p for p in model.parameters() if id(p) not in sliced],
+                              mesh.data_size,
+                              mesh.data_group if mesh.model is not None else None, partial)
         lrs = ([self.schedule(self.step)] * len(self.base_lrs) if self.schedule is not None
                else self.base_lrs)
         for group, lr in zip(self.optimizer.param_groups, lrs):
@@ -212,6 +234,8 @@ def make_eval_step(model: nn.Module, criterion: Callable,
             images = shard_image(images, model, spatial.group)
             split = {"spatial": spatial}
         logits = model(images, **split).float()
+        if getattr(model, "fsdp", None) is not None:  # back to the slices
+            model.fsdp.release()
         n_valid = valid.sum().clamp(min=1.0)
         if per_sample_criterion is not None:
             loss = (per_sample_criterion(logits, targets) * valid).sum() / n_valid

@@ -17,6 +17,12 @@ The plateau drop of the trainer (``vil_tpu``'s ``lr_scalable`` and
 ``drop_lr``, which scale every update) is the train step's ``lr_scale``,
 which multiplies every group's LR from the schedule (:func:`drop_lr`).
 
+Under parameter sharding (TPU.PARAM_SHARDING 'tp' or 'fsdp') each rank
+holds its shard of a cut parameter and of its moments. AdamW, Adam, SGD and
+QHM act elementwise and need nothing more; LAMB's trust ratio takes the
+norms of whole tensors, so it sums the squares of a cut parameter's shards
+over their group (``model.param_shards``).
+
 The TPU layout knobs FLAT_OPT and STACKED_OPT have no counterpart here
 (``train.trainer.check_ported`` refuses them).
 """
@@ -25,6 +31,7 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.msvit import NO_WEIGHT_DECAY_SUBSTRINGS
@@ -77,7 +84,9 @@ def get_opt(cfg, model: nn.Module, lr: Union[float, None] = None) -> torch.optim
         groups = param_groups(model, wd, 0.0)
         if len(groups) > 1:
             groups[1]["l2"] = wd0  # WD0: coupled L2 on the no-decay group
-        return Lamb(groups, lr=lr, betas=betas, eps=eps)
+        shards = getattr(model, "param_shards", {})
+        cut = {id(p): shards[n].group for n, p in model.named_parameters() if n in shards}
+        return Lamb(groups, lr=lr, betas=betas, eps=eps, cut=cut)
     raise ValueError(f"Optimizer {name} not supported!")
 
 
@@ -113,12 +122,24 @@ class Lamb(torch.optim.Optimizer):
     """LAMB as ``optax.lamb``: Adam's bias-corrected direction m̂ / (√v̂ + ε),
     plus ``weight_decay``·p, scaled per tensor by the trust ratio ‖p‖ / ‖u‖
     (1 where either norm is 0), then by -lr. ``l2`` adds a coupled L2 term
-    to the gradient first (the JAX package's WD0 on the no-decay group)."""
+    to the gradient first (the JAX package's WD0 on the no-decay group).
+    ``cut`` maps the id of a parameter held as a shard to its process group:
+    its norms are those of the whole tensor, the squares summed over the
+    group."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
-                 weight_decay: float = 0.0, l2: float = 0.0):
+                 weight_decay: float = 0.0, l2: float = 0.0, cut: dict = None):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay, l2=l2))
+        self.cut = cut or {}
+
+    def _norm(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """‖t‖ of the whole tensor that ``t`` is p's shard of."""
+        if id(p) not in self.cut or not dist.is_initialized():
+            return t.norm()
+        sq = t.float().square().sum()
+        dist.all_reduce(sq, group=self.cut[id(p)])
+        return sq.sqrt().to(t.dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -142,7 +163,7 @@ class Lamb(torch.optim.Optimizer):
                 u = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + eps)
                 if wd:
                     u = u + wd * p
-                p_norm, u_norm = p.norm(), u.norm()
+                p_norm, u_norm = self._norm(p, p), self._norm(p, u)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                     p_norm / u_norm)
                 p.add_(u * ratio, alpha=-lr)

@@ -96,13 +96,15 @@ VARIANTS = {
 
 def vil_cfg(name: str = "vil_small", img_size: int = 224, batch: int = BATCH, mode: int = 0,
             fused: bool = False, rpe: bool = False, attn_type: str = "longformerhand",
-            arch: str = "", only_glo: bool = False, sharew: bool = True) -> NS:
+            arch: str = "", only_glo: bool = False, sharew: bool = True,
+            sharding: str = "replicated") -> NS:
     """The recipe's tree for the zoo model ``name`` (``ARCH_ZOO``) at
     ``img_size`` px, trained at ``batch`` images a step (the counterpart of
     ``benchmarks/model_bench.py``'s ``MsViT(arch=ARCH_ZOO[...],
     img_size=...)``): INPUT.IMAGE_SIZE, DATALOADER.BSZ and the steps an epoch
     follow them, every other key is ViL-Small's. ``arch`` replaces the zoo's
-    ARCH string (the attention families' ``f``)."""
+    ARCH string (the attention families' ``f``); ``sharding`` is
+    TPU.PARAM_SHARDING."""
     steps_per_epoch = IMAGENET_TRAIN_IMAGES // batch
     arch = arch or ARCH_ZOO[name]
     arch = rpe_arch(arch) if rpe else arch
@@ -115,7 +117,7 @@ def vil_cfg(name: str = "vil_small", img_size: int = 224, batch: int = BATCH, mo
             MSVIT=NS(ARCH=arch, SHARE_W=sharew, ATTN_TYPE=attn_type, SHARE_KV=True,
                      ONLY_GLOBAL=only_glo, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
         TPU=NS(COMPUTE_DTYPE="bfloat16", PARAM_DTYPE="float32", USE_PALLAS=True,
-               MODE_PER_LAYER=True, FUSED_LN=fused),
+               MODE_PER_LAYER=True, FUSED_LN=fused, PARAM_SHARDING=sharding),
         LOSS=NS(LOSS="xentropy", LABEL_SMOOTHING=0.1),
         AUG=NS(MIXUP_PROB=1.0, MIXUP=0.8, MIXCUT=1.0, MIXUP_SWITCH_PROB=0.5),
         OPTIM=NS(OPT="adamw", LR=5e-4, WD=0.05, WD0=0.0, MOM=0.9, EPOCHS=300,
@@ -137,16 +139,18 @@ def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False,
 
 def vil(name: str, img_size: int, dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
         use_kernels: bool = True, device=None, fused: bool = False, rpe: bool = False,
-        **variant) -> MsViT:
+        mesh=None, **variant) -> MsViT:
     """The zoo model ``name`` at ``img_size`` px (:func:`vil_cfg`), computed
     in ``dtype`` with parameters in ``param_dtype``; random weights from seed
     0 (the same with ``fused``; with ``rpe`` the model with relative position
     bias in every stage, whose tables are drawn too). ``variant`` is one of
     :data:`VARIANTS`' keyword sets, or keywords of :func:`vil_cfg`
-    (``attn_type``, ``arch``, ``only_glo``, ``sharew``)."""
+    (``attn_type``, ``arch``, ``only_glo``, ``sharew``, ``sharding``). With
+    ``sharding="tp"`` and a ``mesh`` (``parallel.Mesh``) with a model axis,
+    this model rank's shard of the same weights."""
     return build_model(vil_cfg(name, img_size, fused=fused, rpe=rpe, **variant), dtype=dtype,
                        param_dtype=param_dtype, device=device, use_kernels=use_kernels,
-                       fused_block=fused, generator=torch.Generator().manual_seed(0))
+                       fused_block=fused, generator=torch.Generator().manual_seed(0), mesh=mesh)
 
 
 def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
@@ -158,16 +162,18 @@ def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
 
 
 def train_step(model: MsViT, device=None, random_shift: bool = False,
-               batch: int = BATCH, mesh=None) -> Callable:
+               batch: int = BATCH, mesh=None, seed=None) -> Callable:
     """``engine.make_train_step`` over ``model`` with the recipe's criterion,
     optimizer, schedule and mixup, its schedule's epochs of ``batch``
     images a step. ``random_shift`` takes the MODE 1 recipe: per-layer
     neighbour modes drawn each step from a CPU generator seeded with 0.
-    ``mesh`` (``parallel.Mesh``) trains on a ('data', 'spatial') mesh."""
+    ``mesh`` (``parallel.Mesh``) trains on a ('data', 'spatial') or
+    ('data', 'model') mesh; with a ``seed`` a step given no generator draws
+    from one keyed by (seed, step, data replica)."""
     cfg = vil_cfg(batch=batch, mode=1 if random_shift else 0)
     mode_generator = torch.Generator().manual_seed(0) if random_shift else None
     return engine.make_train_step(model, loss.get_criterion(cfg), optim.get_opt(cfg, model),
                                   schedulers.get_lr_schedule(cfg), mixup_from_cfg(cfg),
                                   device=device, random_shift=random_shift,
                                   per_layer_modes=cfg.TPU.MODE_PER_LAYER,
-                                  mode_generator=mode_generator, mesh=mesh)
+                                  mode_generator=mode_generator, mesh=mesh, seed=seed)

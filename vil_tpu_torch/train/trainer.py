@@ -22,15 +22,20 @@ details, as ``vil_tpu`` does:
   ride in the checkpoint's ``state_dict``.
 
 One process per card. On a ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` mesh of
-``data`` and ``spatial`` axes over the default process group
+``data`` and ``spatial`` or ``model`` axes over the default process group
 (``parallel.mesh_from_cfg``; ``run_experiment`` joins one under torchrun)
 each data replica reads its shard of the data, its spatial ranks split each
 image's rows (the training step and the eval step of ``train.engine``), the
 gradients are averaged over the replicas, and the evaluation counts each
-image once. Rank 0 alone writes checkpoints, ``config.yaml`` and the
-TensorBoard logs; every rank loads on resume. Keys that select what the port
-lacks raise (:func:`check_ported`), each naming its ROADMAP item: parameter
-sharding and the ``model`` axis (A12), the ResNet zoo (A10), and the rest.
+image once. TPU.PARAM_SHARDING 'tp' builds each model rank's shard of the
+heads (a ``model`` axis is needed: ``ValueError`` without one, as in
+``vil_tpu``), 'fsdp' slices the large parameters and their moments over
+the data axis (``parallel.fully_shard``), as ``vil_tpu``'s trainer
+shards its state. Rank 0 alone writes checkpoints (gathered whole under
+sharding), ``config.yaml`` and the TensorBoard logs; every rank loads on
+resume. Keys that select what the port lacks raise (:func:`check_ported`),
+each naming its ROADMAP item: a model or FSDP axis beside a spatial one
+(A12), the ResNet zoo (A10), and the rest.
 The Trainer builds on the CUDA card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -63,13 +68,22 @@ logger = logging.getLogger(__name__)
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a key that selects something the
-    port lacks, naming its ROADMAP §A item; such a key is never ignored."""
+    port lacks, naming its ROADMAP §A item; such a key is never ignored.
+    TPU.PARAM_SHARDING 'tp' without a model axis raises ``ValueError``, as
+    ``vil_tpu``'s trainer does."""
     tpu = cfg.TPU
+    axes = list(tpu.MESH_AXES)
+    if tpu.PARAM_SHARDING not in ("replicated", "fsdp", "tp"):
+        raise ValueError(f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r}: one of 'replicated', "
+                         f"'fsdp', 'tp'")
+    if tpu.PARAM_SHARDING == "tp" and "model" not in axes:
+        raise ValueError("PARAM_SHARDING 'tp' needs a 'model' axis in TPU.MESH_AXES")
     refused = [
-        (cfg.TPU.PARAM_SHARDING != "replicated",
-         f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r} (FSDP and tensor parallelism: A12)"),
-        ("model" in tpu.MESH_AXES,
-         f"TPU.MESH_AXES {list(tpu.MESH_AXES)} (the model axis, tensor parallelism: A12)"),
+        ("model" in axes and "spatial" in axes,
+         f"TPU.MESH_AXES {axes} (a model axis beside a spatial axis: A12)"),
+        (tpu.PARAM_SHARDING == "fsdp" and "spatial" in axes,
+         f"TPU.PARAM_SHARDING 'fsdp' on TPU.MESH_AXES {axes} (FSDP beside a spatial axis: "
+         f"A12)"),
         (cfg.CKPT_BACKEND == "orbax", "CKPT_BACKEND 'orbax' (vil_tpu's checkpoints: A6)"),
         (cfg.DATALOADER.BACKEND != "threads",
          f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} (the grain loader: A6)"),
@@ -108,8 +122,11 @@ class Trainer:
             # the reference's torch.autograd.set_detect_anomaly
             # (run_experiment.py:233)
             torch.autograd.set_detect_anomaly(True)
-        self.model = build_model(cfg, device=self.device,
+        # under 'tp' this model rank's shard of the weights drawn from the seed
+        self.model = build_model(cfg, device=self.device, mesh=self.mesh,
                                  generator=torch.Generator().manual_seed(cfg.TPU.SEED))
+        if cfg.TPU.PARAM_SHARDING == "fsdp":  # before the optimizer: moments at the slices
+            parallel.fully_shard(self.model, self.mesh)
         self.mixup_fn = mixup_from_cfg(cfg)
         self.criterion = get_criterion(cfg, train=True)
         self.criterion_eval = get_criterion(cfg, train=False)
@@ -141,14 +158,11 @@ class Trainer:
             is_test=cfg.EVALUATE,
             data_dir=cfg.DATA.DATA_DIR,
         )
-        # rank 0 loads first (and, starting from nothing, writes the initial
-        # checkpoint); the others then load what it found or wrote
-        load = lambda: self.checkpointer.load(self.model, self.optimizer, cfg.MODEL.MODEL_PATH,
-                                              resume=not cfg.EVALUATE)
-        header = load() if parallel.is_main_process() else None
+        # every rank loads the file rank 0 chose (starting from nothing, the
+        # initial checkpoint is written, gathered under sharding)
+        header = self.checkpointer.load(self.model, self.optimizer, cfg.MODEL.MODEL_PATH,
+                                        resume=not cfg.EVALUATE)
         parallel.synchronize()
-        if header is None:
-            header = load()
         self.start_epoch = int(header.get("epoch", 0))
         self.best_acc = float(header.get("best_acc", 0.0))
         self.train_step = engine.make_train_step(
@@ -198,15 +212,15 @@ class Trainer:
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """A host batch on the trainer's device, through pinned memory, the
-        same on every rank of a data replica: the spatial group's first rank
-        sends its own (the loaders' augmentations draw from Python's
+        same on every rank of a data replica: the spatial (model) group's
+        first rank sends its own (the loaders' augmentations draw from Python's
         ``random`` in their threads, so two ranks that read the same indices
         need not draw alike)."""
         t = torch.from_numpy(array)
         if self.device.type == "cuda":
             t = t.pin_memory()
         return parallel.mesh.broadcast_replica(t.to(self.device, non_blocking=True),
-                                               self.mesh.spatial)
+                                               self.mesh.replica)
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int, meters: Optional[TensorboardLogger] = None):

@@ -13,7 +13,11 @@ The payload is written with ``torch.save`` through a ``.tmp`` file and
 model.state_dict(), "optimizer": optimizer.state_dict(), "step": global
 step, "lr_scale": the plateau multiplier}``. The model's lazily built mask
 tables and its relative-position serving cache are not parameters and are
-not saved. Loading also accepts a reference ``.pth`` (through
+not saved. Under parameter sharding (TPU.PARAM_SHARDING 'tp' or 'fsdp', the
+model's ``param_shards``) every rank takes part in the save, which gathers
+the whole model and optimizer state, and rank 0 writes it in the format of
+a replicated run; on load each rank takes its slice. A sharded run and a
+replicated one therefore resume each other's checkpoints. Loading also accepts a reference ``.pth`` (through
 ``utils.torch_import``). A checkpoint written by ``vil_tpu`` (flax msgpack
 or an orbax directory) raises: reading one needs flax (ROADMAP §A, A6); so
 does CKPT_BACKEND 'orbax' (``trainer.check_ported``).
@@ -30,7 +34,8 @@ from typing import Optional
 
 import torch
 
-from ..parallel.collectives import is_main_process
+from ..parallel import tensor
+from ..parallel.collectives import all_gather, is_main_process
 
 logger = logging.getLogger(__name__)
 
@@ -70,8 +75,18 @@ class Checkpointer:
     # -- save -----------------------------------------------------------------
     def save(self, name_or_epoch, model, optimizer, step: int, lr_scale: float = 1.0,
              best_acc: float = 0.0, is_best: bool = False, **extra) -> Optional[str]:
-        if not (self.save_dir and is_main_process()):
+        """Write the checkpoint (rank 0 alone). A sharded model's state is
+        gathered first, a collective that every rank enters."""
+        if not self.save_dir:
             return None
+        sharded = bool(getattr(model, "param_shards", None))
+        if sharded:
+            model_state = tensor.full_state_dict(model)
+            optim_state = tensor.full_optimizer_state(optimizer, model)
+        if not is_main_process():
+            return None
+        if not sharded:
+            model_state, optim_state = model.state_dict(), optimizer.state_dict()
         os.makedirs(self.save_dir, exist_ok=True)
         if isinstance(name_or_epoch, int):
             name = "checkpoint_last" if self.only_save_last else f"checkpoint_{name_or_epoch}"
@@ -79,8 +94,8 @@ class Checkpointer:
         else:
             name, epoch = name_or_epoch, extra.pop("epoch", 0)
         payload = {
-            "model": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+            "model": model_state,
+            "optimizer": optim_state,
             "step": int(step),
             "lr_scale": float(lr_scale),
         }
@@ -106,10 +121,13 @@ class Checkpointer:
         when resuming ({} when nothing was loaded). Prefers the
         last_checkpoint tag over ``model_path`` (checkpoint.py:199-227);
         falls back to a DATA_DIR join for test-time paths (:175-176);
-        imports a reference .pth."""
+        imports a reference .pth. In a run of several processes every rank
+        takes rank 0's choice of file, made before anyone writes, and a
+        sharded model takes its slices."""
         path = model_path
         if resume and self.has_checkpoint() and not self.is_test:
             path = self.get_checkpoint_file()
+        path = all_gather(path)[0]
         if not path:
             logger.info("No checkpoint found. Initializing model from scratch")
             # save the random init so a crash before the first epoch can
@@ -140,13 +158,13 @@ class Checkpointer:
                 f"{path} is not a checkpoint of the port; a vil_tpu msgpack checkpoint "
                 f"needs flax to read (ROADMAP §A, A6)")
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(payload["model"])
+        tensor.load_full_state_dict(model, payload["model"])
         header = {}
         if op.isfile(path + ".json"):
             with open(path + ".json", "r") as f:
                 header = json.load(f)
         if resume:
-            optimizer.load_state_dict(payload["optimizer"])
+            tensor.load_full_optimizer_state(optimizer, model, payload["optimizer"])
             header.update(step=payload["step"], lr_scale=payload["lr_scale"])
         logger.info("Loaded checkpoint %s (epoch %s)", path, header.get("epoch"))
         return header

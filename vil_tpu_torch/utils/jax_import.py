@@ -8,6 +8,10 @@ port's modules carry the flax names, so the mapping is per leaf:
 * LayerNorm ``scale``               → ``weight``
 * everything else keeps its name and layout.
 
+A sharded model (TPU.PARAM_SHARDING 'tp' or 'fsdp': ``model.param_shards``)
+takes each cut parameter's slice of the whole leaf, so that both packages
+start from the same weights.
+
 Strict both ways: a port parameter left unfilled or a JAX leaf left unused
 raises. The flax ``buffers`` collection (the performer's
 ``projection_matrix``), given as ``buffers=``, fills the port's buffers of
@@ -48,9 +52,11 @@ def _to_torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     return name, arr
 
 
-def _copy_tree(tree: Mapping, targets: dict, what: str) -> None:
+def _copy_tree(tree: Mapping, targets: dict, what: str, shards: Optional[dict] = None) -> None:
     """Copy every leaf of ``tree`` into the tensor of ``targets`` that its
-    mapped name names; raise unless each leaf and each target is used."""
+    mapped name names (its slice, for a name in ``shards``); raise unless
+    each leaf and each target is used."""
+    shards = shards or {}
     filled = set()
     unused = []
     for name, arr in _flatten(tree):
@@ -58,11 +64,12 @@ def _copy_tree(tree: Mapping, targets: dict, what: str) -> None:
         if tname not in targets:
             unused.append(name)
             continue
-        p = targets[tname]
-        if tuple(p.shape) != tarr.shape:
-            raise ValueError(f"{name} → {tname}: shape {tarr.shape} != "
-                             f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(tarr, dtype=np.float32, order="C")))
+        p, shard = targets[tname], shards.get(tname)
+        whole = tuple(p.shape) if shard is None else shard.full_shape(p.shape)
+        if whole != tarr.shape:
+            raise ValueError(f"{name} → {tname}: shape {tarr.shape} != {whole}")
+        value = torch.from_numpy(np.array(tarr, dtype=np.float32, order="C"))
+        p.copy_(value if shard is None else shard.local(value))
         filled.add(tname)
     missing = sorted(set(targets) - filled)
     if unused or missing:
@@ -81,6 +88,7 @@ def load_jax_params(model: nn.Module, params: Mapping,
     if buffers is None and targets:
         raise KeyError(f"the model has buffers {sorted(targets)}: give the flax "
                        f"'buffers' collection as buffers=")
-    _copy_tree(params, dict(model.named_parameters()), "parameter")
+    _copy_tree(params, dict(model.named_parameters()), "parameter",
+               getattr(model, "param_shards", {}))
     _copy_tree(buffers or {}, targets, "buffer")
     return model

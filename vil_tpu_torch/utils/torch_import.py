@@ -140,7 +140,9 @@ def import_torch_checkpoint(state: Dict[str, np.ndarray], model: nn.Module) -> n
     """Fill ``model``'s parameters and buffers (the performer's projections)
     in place from a reference state dict, casting to each
     one's dtype and device. Those with no match keep their values (with a
-    warning), as the reference loads leniently."""
+    warning), as the reference loads leniently. A sharded parameter
+    (``model.param_shards``) takes its slice of the whole one."""
+    shards = getattr(model, "param_shards", {})
     used = set()
     missing = []
     for name, param in [*model.named_parameters(), *model.named_buffers()]:
@@ -156,10 +158,13 @@ def import_torch_checkpoint(state: Dict[str, np.ndarray], model: nn.Module) -> n
             else:
                 missing.append(key)
                 continue
-        adapted = _adapt(key, state[key], tuple(param.shape))
+        shard = shards.get(name)
+        whole = tuple(param.shape) if shard is None else shard.full_shape(param.shape)
+        adapted = _adapt(key, state[key], whole)
         if adapted is None:
             continue
-        param.copy_(torch.from_numpy(np.array(adapted, dtype=np.float32, order="C")))
+        value = torch.from_numpy(np.array(adapted, dtype=np.float32, order="C"))
+        param.copy_(value if shard is None else shard.local(value))
         used.add(key)
 
     if missing:
