@@ -99,8 +99,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
    eval batches): two epochs, random shift in the first (VIL_MODE_SWITCH
    0.5), MODE 0 in the second; a resume of the same directory to three
    epochs (from the ``last_checkpoint`` tag at epoch 2, step 16, at the
-   schedule's LR there; its epoch under ``torch.profiler`` for the card's
-   busy share); the last checkpoint reloaded under EVALUATE, its eval bit
+   schedule's LR there; its steps 2..8 under ``torch.profiler`` for the
+   card's busy share, ``ProfiledSteps``'s window as in phase 20); the last checkpoint reloaded under EVALUATE, its eval bit
    for bit the run's; the same eval in f32 with the kernels and with the
    plain versions (TPU.USE_PALLAS), loss to LOSS_TOL and top1 equal. Each
    run's launches must equal the formula from the trainer's own counts
@@ -172,6 +172,26 @@ Phases, one line each; any failure raises and the exit code is not 0:
    threads cut to 0), its eval, one checkpoint and the best checkpoint's
    eval; launches from the trainer's counts (B7a, B7b for B1, B2), every
    logged loss against the same run without the mesh.
+20. from_vil_tpu — what ``vil_tpu``'s users hold, through ``run_experiment.main``
+   (configs/msvit.yaml's recipe, ViL-Small 224² at full width and depth,
+   batch 64, MODE 0): a Trainer of the recipe takes two steps, and its
+   weights and AdamW state are written as ``vil_tpu``'s OUTPUT_DIR (a flax
+   msgpack file by ``flax_msgpack_bytes``, an encoder of flax's format kept
+   here, since the card's host has no flax; the header ``.json`` and the
+   ``last_checkpoint`` tag) and in the port's format; EVALUATE from
+   MODEL.MODEL_PATH on each file, loss and top1 bit for bit equal (the
+   file's size and the load's seconds printed); a resume of the ``vil_tpu``
+   directory for one epoch of 8 steps, its first step against the source
+   Trainer's same step on the same batch (loss to LOSS_TOL, every parameter
+   to PARAM_GRAD_TOL of its max|ref|); a TSV of 2048 seeded JPEGs at 256²:
+   ``tools/data_bench``'s img/s at batch 256 for the threads loader with the
+   Python and the native reader and 'grain' at 0, 4, 8 and 16 worker
+   processes, the native reader asserted in use, then one MODE-0 epoch of
+   ``run_experiment.main`` on the TSV with DATALOADER.BACKEND 'grain'
+   (median batch_time and data_time, img/s, the card's busy share under
+   ``torch.profiler``); last, the eval transform's batches of the TSV from
+   'grain' and from 'threads', bit for bit. Every run of the CLI holds its
+   launches to the trainer's counts.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -214,7 +234,7 @@ N 4097, batch 8 (one group of 8 images) and B2 on the 37x37 grid at batch 2
 (bit for bit again), and the dense bias's assembly (the gather against the
 skew, forward and backward, equal bit for bit) at the paths' grids.
 
-Each path of phases 4-19 sets the launch counts to 0 before it and reads
+Each path of phases 4-20 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
@@ -228,7 +248,9 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_shift_1024``, ``launches_base_deep_384``, ``launches_serve_384_rpe``,
 ``launches_train_384_rpe``, ``launches_serve_1024_rpe``,
 ``launches_train_1024_rpe``, ``launches_finetune_384``,
-``launches_train_spatial`` and ``launches_experiment_spatial`` each path's;
+``launches_train_spatial``, ``launches_experiment_spatial``, ``launches_train_tp``,
+``launches_train_tp_shift``, ``launches_train_fsdp``, ``launches_experiment_tp`` and
+``launches_from_vil_tpu`` each path's;
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
 training path that runs the kernel: MODE 0, random shift for B5/B6, fused
 for B8/B9, train_spatial for B7b (one rank); for B7a per spatial serving
@@ -2593,6 +2615,50 @@ def run_cli(torch, kernels, name: str, label: str, argv: list):
     return trainer
 
 
+class ProfiledSteps:
+    """Train steps ``first`` to ``first + count - 1`` of the next run
+    (counted from 1, by ``engine.TrainStep`` calls) under ``torch.profiler``,
+    the card's activity alone (which keeps the profiler's own work small):
+    the window's wall, the loop's work between the steps included, and the
+    card's kernel time in it, in seconds. Their ratio is the busy share of a
+    steady window, after the loader's start-up."""
+
+    def __init__(self, torch, first: int, count: int):
+        self.torch, self.first, self.count = torch, first, count
+        self.wall = self.device = 0.0
+
+    def __enter__(self):
+        from vil_tpu_torch.tools.profile_step import kernel_ms
+        from vil_tpu_torch.train import engine
+
+        torch, rec, call = self.torch, self, engine.TrainStep.__call__
+        calls = []
+
+        def profiled(step, *args, **kwargs):
+            calls.append(None)
+            if len(calls) == rec.first:
+                torch.cuda.synchronize()
+                rec.prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                rec.prof.__enter__()
+                rec.t0 = time.perf_counter()
+            out = call(step, *args, **kwargs)
+            if len(calls) == rec.first + rec.count - 1:
+                torch.cuda.synchronize()
+                rec.wall = time.perf_counter() - rec.t0
+                rec.prof.__exit__(None, None, None)
+                rec.device = sum(kernel_ms(rec.prof).values()) / 1e3
+            return out
+
+        self._restore = (engine.TrainStep, call)
+        engine.TrainStep.__call__ = profiled
+        return self
+
+    def __exit__(self, *exc):
+        cls, call = self._restore
+        cls.__call__ = call
+
+
 def run_experiment_path(torch, kernels):
     """Phase 15: the port's entry point, ``python -m vil_tpu_torch.run_experiment``,
     driven in-process through its ``main(argv)`` at ViL-Small's full width
@@ -2601,9 +2667,7 @@ def run_experiment_path(torch, kernels):
     the same eval in f32 with the kernels and with the plain versions."""
     import shutil
 
-    from vil_tpu_torch.tools.profile_step import kernel_ms
     from vil_tpu_torch.train import schedulers
-    from vil_tpu_torch.train.trainer import Trainer
 
     name = "experiment"
     shutil.rmtree(EXPERIMENT_DIR, ignore_errors=True)
@@ -2637,29 +2701,13 @@ def run_experiment_path(torch, kernels):
         + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del first
 
-    # 2. a resume to three epochs, its MODE-0 epoch under torch.profiler for
-    # the card's busy share (the profiler's host work lengthens the wall, so
-    # the share is a lower bound)
-    profiled = {}
-    train_epoch = Trainer.train_epoch
-
-    def profiled_epoch(self, epoch, meters=None):
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            train_epoch(self, epoch, meters)
-            torch.cuda.synchronize()
-            profiled["wall"] = time.perf_counter() - t0
-        profiled["device"] = sum(kernel_ms(prof).values()) / 1e3
-
+    # 2. a resume to three epochs, its MODE-0 steps 2..8 under torch.profiler
+    # for the card's busy share (the profiler's host work lengthens the wall,
+    # so the share is a lower bound)
     argv = EXPERIMENT_ARGS[:EXPERIMENT_ARGS.index("OPTIM.EPOCHS") + 1] + ["3"] + \
         EXPERIMENT_ARGS[EXPERIMENT_ARGS.index("OPTIM.EPOCHS") + 2:]
-    Trainer.train_epoch = profiled_epoch
-    try:
+    with ProfiledSteps(torch, 2, 7) as profiled:
         resumed = run("resume to 3 epochs", argv)
-    finally:
-        Trainer.train_epoch = train_epoch
     log = resumed.steps_log
     want_lr = schedulers.get_lr_schedule(resumed.cfg)(16)
     phase(name, f"resume: start epoch {resumed.start_epoch}, first step {log[0]['step']}, its "
@@ -2669,12 +2717,12 @@ def run_experiment_path(torch, kernels):
             and len(log) == 8 and not any(r["random_shift"] for r in log)):
         raise AssertionError("the resume did not start at epoch 2, step 16, at its LR, MODE 0")
     epochs(resumed, "resume (profiled)")
-    steps = len(log)
-    device = profiled["device"] / steps
-    phase(name, f"resume epoch 2 under torch.profiler: wall {profiled['wall'] * 1e3 / steps:.3f} "
-                f"ms per step, device {device * 1e3:.3f} ms per step, busy "
-                f"{100 * device * steps / profiled['wall']:.1f}%; against the two-epoch run's "
-                f"unprofiled MODE-0 median wall {mode0_wall * 1e3:.3f} ms: idle "
+    steps = profiled.count
+    device = profiled.device / steps
+    phase(name, f"resume epoch 2, steps 2..{steps + 1} under torch.profiler: wall "
+                f"{profiled.wall * 1e3 / steps:.3f} ms per step, device {device * 1e3:.3f} ms "
+                f"per step, busy {100 * profiled.device / profiled.wall:.1f}%; against the "
+                f"two-epoch run's unprofiled MODE-0 median wall {mode0_wall * 1e3:.3f} ms: idle "
                 f"{100 * (1 - device / mode0_wall):.1f}%")
     last = resumed.evals[0]  # after epoch 2, from checkpoint_3's weights
     for f in ("checkpoint_1.ckpt", "checkpoint_2.ckpt", "checkpoint_3.ckpt",
@@ -3307,11 +3355,391 @@ def run_highres(torch, kernels) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- from_vil_tpu
+
+def _msgpack_head(out: bytearray, n: int, small: int, tiny_limit: int, codes: tuple) -> None:
+    """A msgpack length header: ``small | n`` below ``tiny_limit``, else the
+    8-, 16- or 32-bit form of ``codes`` (``None`` where there is none)."""
+    if n < tiny_limit:
+        out.append(small | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += bytes((codes[0], n))
+    elif n < 1 << 16:
+        out.append(codes[1])
+        out += n.to_bytes(2, "big")
+    else:
+        out.append(codes[2])
+        out += n.to_bytes(4, "big")
+
+
+def _msgpack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out += bytes((fixed[len(data)], code))
+    else:
+        _msgpack_head(out, len(data), 0, 0, (0xC7, 0xC8, 0xC9))
+        out.append(code)
+    out += data
+
+
+def _msgpack_pack(obj, out: bytearray) -> None:
+    """Append ``obj`` as ``msgpack.packb(obj, default=flax's ext hook,
+    strict_types=True)`` writes it: maps, str, bin, ints, floats, bool,
+    nil, lists, and numpy arrays (ext 1) and scalars (ext 3) as flax's
+    ``_msgpack_ext_pack`` records them."""
+    import struct
+
+    import numpy as np
+
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, (np.ndarray, np.generic)):  # before float: np.float64 is one
+        arr = np.asarray(obj)
+        record = bytearray()
+        _msgpack_pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], record)
+        _msgpack_ext(out, 1 if isinstance(obj, np.ndarray) else 3, bytes(record))
+    elif isinstance(obj, dict):
+        _msgpack_head(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for key, val in obj.items():
+            _msgpack_pack(key, out)
+            _msgpack_pack(val, out)
+    elif isinstance(obj, (list, tuple)):
+        _msgpack_head(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for val in obj:
+            _msgpack_pack(val, out)
+    elif isinstance(obj, str):
+        data = obj.encode()
+        _msgpack_head(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _msgpack_head(out, len(obj), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, int):
+        if 0 <= obj < 128 or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj >= 0:
+            for code, fmt, top in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                   (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+                if obj < top:
+                    out.append(code)
+                    out += struct.pack(fmt, obj)
+                    break
+        else:
+            for code, fmt, bottom in ((0xD0, ">b", -(1 << 7)), (0xD1, ">h", -(1 << 15)),
+                                      (0xD2, ">i", -(1 << 31)), (0xD3, ">q", -(1 << 63))):
+                if obj >= bottom:
+                    out.append(code)
+                    out += struct.pack(fmt, obj)
+                    break
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    else:
+        raise TypeError(f"no msgpack form for {type(obj).__name__}")
+
+
+def flax_msgpack_bytes(tree) -> bytes:
+    """``flax.serialization.to_bytes`` of a state dict (nested dicts with
+    string keys and numpy leaves), byte for byte, without flax or msgpack:
+    the card's host has neither (``tests/test_torch_flax_msgpack.py`` holds
+    the two equal). The package only reads this format
+    (``vil_tpu_torch/utils/flax_msgpack.py``)."""
+    out = bytearray()
+    _msgpack_pack(tree, out)
+    return bytes(out)
+
+
+FROM_VIL_DIR = os.path.join(REPO, "build", "chip_from_vil_tpu")
+# configs/msvit.yaml's recipe at batch 64 on the synthetic set, MODE 0: the
+# run whose two steps are written as vil_tpu's state, and its resume
+FROM_VIL_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit.yaml"),
+                 "--output_dir", FROM_VIL_DIR, "--seed", "0",
+                 "DATA.TRAIN", "('synthetic',)", "DATA.TEST", "('synthetic',)",
+                 "DATALOADER.BSZ", str(BATCH), "OPTIM.EPOCHS", "2", "MODEL.VIT.MSVIT.MODE", "0",
+                 "LOG_FREQ", "1"]
+SOURCE_STEPS = 2  # recipe steps before vil_tpu's state is written
+TSV_IMAGES, TSV_SIZE, BENCH_BATCH = 2048, 256, 256
+BENCH_WORKERS = (0, 4, 8, 16)
+
+
+def _argv(base: list, out: str, *opts) -> list:
+    argv = base + list(opts)
+    argv[argv.index("--output_dir") + 1] = out
+    return argv
+
+
+def flax_tree(named: dict) -> dict:
+    """Port tensors by name as a flax tree: ``weight`` → ``kernel``
+    transposed (Linear, Conv2d) or ``scale`` (LayerNorm), numpy f32, the
+    inverse of ``utils.jax_import``'s mapping."""
+    import numpy as np
+
+    tree = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def write_vil_tpu_dir(out: str, trainer, epoch: int) -> str:
+    """``trainer``'s model and AdamW state as ``vil_tpu``'s Checkpointer writes
+    them with CKPT_BACKEND 'msgpack': the payload {params, opt_state, buffers,
+    step} with the trainer's ``{"inner", "lr_scale"}`` wrapper around
+    ``optax.adamw``'s chain (ScaleByAdamState, the masked decay, the
+    schedule's count; ``with_wd0``'s masked element in front under WD0), the
+    header ``.json`` and the ``last_checkpoint`` tag. Returns the file."""
+    import numpy as np
+    import torch
+
+    model, optimizer, step = trainer.model, trainer.optimizer, trainer.train_step
+    if not isinstance(optimizer, torch.optim.Adam):
+        raise AssertionError(f"the recipe's optimizer is {type(optimizer).__name__}")
+    params = dict(model.named_parameters())
+    state = {n: optimizer.state[p] for n, p in params.items()}
+    count = np.array(int(next(iter(state.values()))["step"]), np.int32)
+    chain = {"0": {"count": count,
+                   "mu": flax_tree({n: st["exp_avg"] for n, st in state.items()}),
+                   "nu": flax_tree({n: st["exp_avg_sq"] for n, st in state.items()})},
+             "1": {"inner_state": {}}, "2": {"count": np.array(step.step, np.int32)}}
+    if trainer.cfg.OPTIM.WD0 > 0:
+        chain = {"0": {"inner_state": {}}, "1": chain}
+    buffers = dict(model.named_buffers())
+    payload = {"params": flax_tree(params),
+               "opt_state": {"inner": chain, "lr_scale": np.array(step.lr_scale, np.float32)},
+               "buffers": {"buffers": flax_tree(buffers)} if buffers else {},
+               "step": np.array(step.step, np.int32)}
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"checkpoint_{epoch}.ckpt")
+    with open(path, "wb") as f:
+        f.write(flax_msgpack_bytes(payload))
+    with open(path + ".json", "w") as f:
+        json.dump({"arch": trainer.cfg.MODEL.VIT.MSVIT.ARCH, "epoch": epoch,
+                   "best_acc": trainer.best_acc}, f)
+    with open(os.path.join(out, "last_checkpoint"), "w") as f:
+        f.write(os.path.basename(path))
+    return path
+
+
+def run_from_vil_tpu(torch, kernels) -> dict:
+    """Part ``from_vil_tpu`` (phase 20): the entry point fed by what
+    ``vil_tpu`` users hold. ViL-Small 224² at full width and depth, batch 64,
+    configs/msvit.yaml's recipe at MODE 0:
+
+    (a) a Trainer of the recipe takes SOURCE_STEPS steps; its weights and
+        AdamW state are written as ``vil_tpu``'s OUTPUT_DIR (flax msgpack,
+        ``write_vil_tpu_dir``) and in the port's format; EVALUATE from each
+        file through ``run_experiment.main``: loss and top1 bit for bit
+        equal; the load's seconds and the file's size;
+    (b) a resume of the ``vil_tpu`` directory for one epoch of 8 steps; its
+        first step against the same step of the source Trainer on the same
+        batch: loss to LOSS_TOL, every parameter to PARAM_GRAD_TOL of its
+        max|ref|;
+    (c) a TSV of TSV_IMAGES seeded JPEGs at TSV_SIZE²: ``tools/data_bench``'s
+        rates at batch BENCH_BATCH, the native reader asserted in use; one
+        MODE-0 epoch of ``run_experiment.main`` on the TSV with
+        DATALOADER.BACKEND 'grain' (medians of batch_time and data_time,
+        img/s, the card's busy share under ``torch.profiler``);
+    (d) the eval transform's batches of the TSV from 'grain' and from
+        'threads', bit for bit.
+
+    Every run of the CLI holds its launches to the trainer's counts."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from vil_tpu_torch import run_experiment as cli
+    from vil_tpu_torch.data import loader as data_loader
+    from vil_tpu_torch.data import native
+    from vil_tpu_torch.data.grain_loader import GrainDataLoader
+    from vil_tpu_torch.models import build_model
+    from vil_tpu_torch.tools import data_bench
+    from vil_tpu_torch.train import engine, optim
+    from vil_tpu_torch.train.trainer import Trainer
+    from vil_tpu_torch.utils.checkpoint import Checkpointer
+
+    name = "from_vil_tpu"
+    shutil.rmtree(FROM_VIL_DIR, ignore_errors=True)
+    for fn in kernels:
+        fn.launches = 0
+    run = lambda label, argv: run_cli(torch, kernels, name, label, argv)  # noqa: E731
+
+    # (a) the source: SOURCE_STEPS recipe steps, written in both formats
+    source = Trainer(cli.config_from_args(cli.parse_args(_argv(
+        FROM_VIL_ARGS, os.path.join(FROM_VIL_DIR, "source")))))
+    source.trainloader.sampler.set_epoch(0)
+    batches = iter(source.trainloader)
+    for _ in range(SOURCE_STEPS):
+        images, targets = next(batches)
+        source.train_step(source._to_device(images), source._to_device(targets))
+    batches.close()
+    vil_dir = os.path.join(FROM_VIL_DIR, "vil_tpu_run")
+    t0 = time.perf_counter()
+    vil_file = write_vil_tpu_dir(vil_dir, source, epoch=1)
+    written = time.perf_counter() - t0
+    port_file = source.checkpointer.save(1, source.model, source.optimizer,
+                                         source.train_step.step, source.train_step.lr_scale)
+    size = os.path.getsize(vil_file)
+    # the load's time, into a model and optimizer of their own
+    probe = build_model(source.cfg, device=source.device)
+    probe_opt = optim.get_opt(source.cfg, probe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    header = Checkpointer("", arch=source.cfg.MODEL.VIT.MSVIT.ARCH).load(
+        probe, probe_opt, vil_file, resume=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(probe.state_dict().values(),
+                                                  source.model.state_dict().values()))
+    phase(name, f"vil_tpu's OUTPUT_DIR written: {os.path.relpath(vil_file, REPO)}, "
+                f"{size / 2**20:.1f} MiB (params, AdamW mu and nu, step {header['step']}) in "
+                f"{written:.2f} s; the port's load of it (model and optimizer, resume) "
+                f"{load_s:.3f} s; the weights bit for bit the source's: {same}")
+    if not (same and header["step"] == SOURCE_STEPS and header["epoch"] == 1):
+        raise AssertionError(f"{name}: the load differs from the source ({header})")
+    del probe, probe_opt
+    evals = {}
+    for label, path in (("the port's file", port_file), ("vil_tpu's file", vil_file)):
+        argv = _argv(FROM_VIL_ARGS, os.path.join(FROM_VIL_DIR, f"eval_{len(evals)}"),
+                     "EVALUATE", "True", "MODEL.MODEL_PATH", path)
+        t0 = time.perf_counter()
+        trainer = run(f"EVALUATE from {label}", argv)
+        evals[label] = trainer.evals[-1], time.perf_counter() - t0
+        del trainer
+    (port_eval, port_wall), (vil_eval, vil_wall) = evals.values()
+    phase(name, f"EVALUATE from vil_tpu's file: top1 {vil_eval['top1']!r} loss "
+                f"{vil_eval['loss']!r} ({vil_wall:.1f} s); from the port's file of the same "
+                f"model: top1 {port_eval['top1']!r} loss {port_eval['loss']!r} "
+                f"({port_wall:.1f} s)")
+    if (vil_eval["top1"], vil_eval["loss"]) != (port_eval["top1"], port_eval["loss"]):
+        raise AssertionError(f"{name}: EVALUATE from vil_tpu's file differs")
+
+    # (b) a resume of vil_tpu's directory, its first step against the source's
+    first = {}
+    call = engine.TrainStep.__call__
+
+    def watched(self, images, targets, *args, **kwargs):
+        if first:
+            return call(self, images, targets, *args, **kwargs)
+        first["batch"] = (images.clone(), targets.clone())
+        out = call(self, images, targets, *args, **kwargs)
+        first["loss"] = float(out["loss"])
+        first["params"] = {n: p.detach().float().clone()
+                           for n, p in self.model.named_parameters()}
+        return out
+
+    engine.TrainStep.__call__ = watched
+    try:
+        t0 = time.perf_counter()
+        resumed = run("resume of vil_tpu's OUTPUT_DIR", _argv(FROM_VIL_ARGS, vil_dir))
+        resume_wall = time.perf_counter() - t0
+    finally:
+        engine.TrainStep.__call__ = call
+    log = resumed.steps_log
+    if not (resumed.start_epoch == 1 and log[0]["step"] == SOURCE_STEPS and len(log) == 8):
+        raise AssertionError(f"{name}: the resume started at epoch {resumed.start_epoch}, "
+                             f"step {log[0]['step']}, {len(log)} steps")
+    del resumed
+    want = source.train_step(*first["batch"])
+    loss_err = abs(first["loss"] - float(want["loss"]))
+    worst, worst_name = 0.0, ""
+    for n, p in source.model.named_parameters():
+        ref = p.detach().float()
+        if not ref.numel():
+            continue
+        err = (first["params"][n] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if err > worst:
+            worst, worst_name = err, n
+    phase(name, f"resume: {resume_wall:.1f} s for 8 steps, their eval and the best "
+                f"checkpoint's eval; its first step (step {SOURCE_STEPS}) against the source's "
+                f"on the same batch: loss {first['loss']:.6f} vs {float(want['loss']):.6f} "
+                f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameters max|err|/max|ref| "
+                f"{worst:.3e} at {worst_name or '-'} (tol {PARAM_GRAD_TOL:g})")
+    if not (loss_err <= LOSS_TOL and worst <= PARAM_GRAD_TOL):
+        raise AssertionError(f"{name}: the resumed step differs from the source's")
+    del source, first, want
+    gc.collect()
+
+    # (c) the TSV: the loader's rates, then one epoch through grain
+    root = os.path.join(FROM_VIL_DIR, "tsv")
+    t0 = time.perf_counter()
+    yaml_path = data_bench.make_tsv(root, TSV_IMAGES, TSV_SIZE, seed=0)
+    phase(name, f"TSV of {TSV_IMAGES} JPEGs at {TSV_SIZE}², "
+                f"{os.path.getsize(os.path.join(root, 'train.tsv')) / 2**20:.1f} MiB, written in "
+                f"{time.perf_counter() - t0:.1f} s")
+    data_bench.run(root, TSV_IMAGES, TSV_SIZE, BENCH_BATCH, BENCH_WORKERS, sets=("tsv",),
+                   report=lambda line: phase(name, f"data_bench: {line}"))
+    reader = data_bench.tsv_dataset(yaml_path, None).img_tsv
+    reader.seek(0)
+    if native.get_lib() is None or not isinstance(reader._native, native.NativeRowReader):
+        raise AssertionError(f"{name}: the native TSV reader is not in use")
+    phase(name, f"native reader in use: {os.path.relpath(str(native.library_path()), REPO)}")
+    tsv_args = ["DATA.TRAIN", f"('{yaml_path}',)", "DATA.TEST", f"('{yaml_path}',)",
+                "OPTIM.EPOCHS", "1", "DATALOADER.BACKEND", "grain"]
+    steps = TSV_IMAGES // BATCH
+    with ProfiledSteps(torch, 2, steps - 1) as profiled:
+        t0 = time.perf_counter()
+        tsv_run = run("one epoch on the TSV through grain",
+                      _argv(FROM_VIL_ARGS, os.path.join(FROM_VIL_DIR, "tsv_run"), *tsv_args))
+        tsv_wall = time.perf_counter() - t0
+    if not isinstance(tsv_run.trainloader, GrainDataLoader):
+        raise AssertionError(f"{name}: the TSV run did not load through grain")
+    rows = tsv_run.steps_log
+    batch_time = statistics.median(r["batch_time"] for r in rows[1:])
+    data_time = statistics.median(r["data_time"] for r in rows[1:])
+    workers = tsv_run.cfg.DATALOADER.WORKERS
+    phase(name, f"TSV epoch through grain ({workers} workers, {len(rows)} steps, "
+                f"{tsv_wall:.1f} s with its evals): median batch_time {batch_time * 1e3:.3f} ms, "
+                f"data_time {data_time * 1e3:.3f} ms (steps 2..{len(rows)}), "
+                f"{BATCH / batch_time:.1f} img/s; first batch's data_time "
+                f"{rows[0]['data_time'] * 1e3:.1f} ms (the workers' start); steps 2..{steps} "
+                f"under torch.profiler (the card's activity): wall {profiled.wall:.3f} s, device "
+                f"{profiled.device:.3f} s ({profiled.device * 1e3 / (steps - 1):.3f} ms a step), "
+                f"busy {100 * profiled.device / profiled.wall:.1f}%")
+    if len(rows) != steps or not profiled.wall:
+        raise AssertionError(f"{name}: {len(rows)} steps on the TSV, want {steps}")
+    del tsv_run
+    gc.collect()
+
+    # (d) the eval transform's batches, grain against threads
+    cfg = cli.config_from_args(cli.parse_args(_argv(
+        FROM_VIL_ARGS, os.path.join(FROM_VIL_DIR, "tsv_eval"), *tsv_args)))
+    cfg.defrost()
+    got = {}
+    for backend in ("grain", "threads"):
+        cfg.DATALOADER.BACKEND = backend
+        got[backend] = list(data_loader.make_epoch_data_loader(cfg, is_train=False,
+                                                               drop_last=False)[0])
+    same = len(got["grain"]) == len(got["threads"]) == TSV_IMAGES // BATCH and all(
+        np.array_equal(a, b) for ga, gb in zip(got["grain"], got["threads"])
+        for a, b in zip(ga, gb))
+    phase(name, f"eval batches of the TSV, grain vs threads ({cfg.DATALOADER.WORKERS} each): "
+                f"{len(got['grain'])} batches, dtype {got['grain'][0][0].dtype}, equal bit "
+                f"for bit: {same}")
+    if not same:
+        raise AssertionError(f"{name}: grain's eval batches differ from the threads loader's")
+    del got
+    gc.collect()
+    return launch_counts(kernels)
+
+
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
          "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
-         "experiment_tp")
+         "experiment_tp", "from_vil_tpu")
 
 
 def only_arg(argv) -> "set | None":
@@ -3450,6 +3878,9 @@ def main() -> int:
         "train_tp": lambda: run_train_tp(torch, kernels),
         "train_fsdp": lambda: run_train_fsdp(torch, kernels),
         "experiment_tp": lambda: run_experiment_tp(torch, kernels),
+        # what vil_tpu's users hold: its checkpoints (eval, resume) and a TSV
+        # set through the native reader and the grain loader's processes
+        "from_vil_tpu": lambda: run_from_vil_tpu(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()

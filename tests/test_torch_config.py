@@ -108,7 +108,7 @@ def test_freeze_and_clone():
 
 @pytest.mark.parametrize("key,value,item", [
     ("CKPT_BACKEND", "orbax", "A6"),
-    ("DATALOADER.BACKEND", "grain", "A6"),
+    ("TPU.STACKED_OPT", "True", "A13"),
     ("MODEL.ARCH", "resnet50", "A10"),
     ("TPU.REMAT", "full", "A13"),
     ("TPU.FLAT_OPT", "True", "A13"),

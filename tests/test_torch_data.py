@@ -270,11 +270,14 @@ def test_loader_keeps_uint8_under_device_normalize():
     np.testing.assert_array_equal(y, jy)
 
 
-@pytest.mark.parametrize("what", ["grain"])
+@pytest.mark.parametrize("what", ["dali"])
 def test_loader_refuses_what_is_not_ported(what):
+    """A backend that is neither 'threads' nor 'grain' (ported since the grain
+    loader, tests/test_torch_grain_loader.py) raises; vil_tpu would read with
+    threads."""
     cfg, _ = _cfgs("DATA.TEST", "('synthetic',)")
     cfg.DATALOADER.BACKEND = what
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="'threads', 'grain'"):
         loader.make_epoch_data_loader(cfg, is_train=False)
 
 

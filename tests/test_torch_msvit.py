@@ -310,9 +310,11 @@ def test_port_imports_no_jax():
             "vil_tpu_torch.utils.torch_import, vil_tpu_torch.utils.profiling, "
             "vil_tpu_torch.train.trainer, vil_tpu_torch.run_experiment, "
             "vil_tpu_torch.models.attention_efficient, vil_tpu_torch.train.redraw, "
-            "vil_tpu_torch.ops.flops; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'vil_tpu' or m.startswith('vil_tpu.')); print(bad); "
+            "vil_tpu_torch.ops.flops, vil_tpu_torch.utils.flax_msgpack, "
+            "vil_tpu_torch.data.native, vil_tpu_torch.data.grain_loader, "
+            "vil_tpu_torch.tools.data_bench; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'vil_tpu', 'flax', 'optax', 'orbax', 'msgpack', 'grain')); print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

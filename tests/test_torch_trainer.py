@@ -223,9 +223,18 @@ def test_checkpointer_cycle(tmp_path):
     assert sorted(os.listdir(tmp_path / "last")) == [
         "checkpoint_last.ckpt", "checkpoint_last.ckpt.json", "last_checkpoint"]
 
-    (tmp_path / "flax.ckpt").write_bytes(b"\x82\xa6params\x80")  # a msgpack map
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a vil_tpu checkpoint is read (tests/test_torch_vil_checkpoint.py); a
+    # msgpack map cut short, one that is not vil_tpu's payload, and a file of
+    # neither format raise
+    (tmp_path / "flax.ckpt").write_bytes(b"\x82\xa6params\x80")  # a msgpack map, cut short
+    with pytest.raises(ValueError, match="truncated"):
         Checkpointer("").load(model, optimizer, str(tmp_path / "flax.ckpt"), resume=False)
+    (tmp_path / "flax.ckpt").write_bytes(b"\x81\xa6params\x80")
+    with pytest.raises(ValueError, match="not a vil_tpu checkpoint payload"):
+        Checkpointer("").load(model, optimizer, str(tmp_path / "flax.ckpt"), resume=False)
+    (tmp_path / "text.ckpt").write_bytes(b"neither")
+    with pytest.raises(ValueError, match="neither"):
+        Checkpointer("").load(model, optimizer, str(tmp_path / "text.ckpt"), resume=False)
     (tmp_path / "state.orbax").mkdir()
     with pytest.raises(NotImplementedError, match="A6"):
         Checkpointer("").load(model, optimizer, str(tmp_path / "state.orbax"), resume=False)

@@ -11,8 +11,9 @@ and the consumer is a CUDA step, which copies each batch to the card itself.
 In a multi-process run (``is_distributed``) each data replica reads its
 shard of the dataset (``num_replicas`` the size of the mesh's data axis,
 ``rank`` the replica's index, so the spatial ranks of one replica read the
-same images) and the batch is the global one divided by the replicas. The
-grain backend is not ported (ROADMAP §A, A6).
+same images) and the batch is the global one divided by the replicas.
+DATALOADER.BACKEND 'grain' selects ``grain_loader.GrainDataLoader``, the
+same batches assembled in worker processes.
 """
 from __future__ import annotations
 
@@ -107,6 +108,33 @@ def build_dataset(cfg, is_train: bool = True):
     return [datasets[0] if len(datasets) == 1 else D.ConcatDataset(datasets)]
 
 
+def batch_indices(sampler, batch_size: int, drop_last: bool):
+    """The sampler's order cut into batches of indices; a short last batch
+    is dropped under ``drop_last``."""
+    idxs = list(sampler)
+    for i in range(0, len(idxs), batch_size):
+        batch = idxs[i : i + batch_size]
+        if drop_last and len(batch) < batch_size:
+            return
+        yield batch
+
+
+def collate(samples, batch_idxs=None, return_indices: bool = False):
+    """One batch of (image, target) samples: (images NHWC, targets int32[,
+    dataset indices int64])."""
+    # uint8 images (INPUT.DEVICE_NORMALIZE) stay uint8: the model
+    # normalises them on the device (vil_tpu's copy casts them to f32)
+    imgs = np.stack([np.asarray(s[0]) for s in samples])
+    if imgs.dtype != np.uint8:
+        imgs = imgs.astype(np.float32, copy=False)
+    targets = np.asarray([s[1] for s in samples], dtype=np.int32)
+    if imgs.ndim == 3:  # grayscale H,W -> H,W,1
+        imgs = imgs[..., None]
+    if return_indices:
+        return imgs, targets, np.asarray(batch_idxs, dtype=np.int64)
+    return imgs, targets
+
+
 class DataLoader:
     """Batching iterator with background prefetch threads."""
 
@@ -128,25 +156,10 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self):
-        idxs = list(self.sampler)
-        for i in range(0, len(idxs), self.batch_size):
-            batch = idxs[i : i + self.batch_size]
-            if self.drop_last and len(batch) < self.batch_size:
-                return
-            yield batch
+        return batch_indices(self.sampler, self.batch_size, self.drop_last)
 
     def _collate(self, samples, batch_idxs=None):
-        # uint8 images (INPUT.DEVICE_NORMALIZE) stay uint8: the model
-        # normalises them on the device (vil_tpu's copy casts them to f32)
-        imgs = np.stack([np.asarray(s[0]) for s in samples])
-        if imgs.dtype != np.uint8:
-            imgs = imgs.astype(np.float32, copy=False)
-        targets = np.asarray([s[1] for s in samples], dtype=np.int32)
-        if imgs.ndim == 3:  # grayscale H,W -> H,W,1
-            imgs = imgs[..., None]
-        if self.return_indices:
-            return imgs, targets, np.asarray(batch_idxs, dtype=np.int64)
-        return imgs, targets
+        return collate(samples, batch_idxs, self.return_indices)
 
     def __iter__(self) -> Iterator:
         if self.num_workers == 0:
@@ -213,12 +226,16 @@ def make_epoch_data_loader(cfg, is_train: bool = True, drop_last: bool = True,
                            num_replicas: int = 1, rank: int = 0):
     """Reference make_epoch_data_loader (loader.py:131-168). With
     ``is_distributed`` the samplers shard the dataset over ``num_replicas``
-    data replicas (``rank``: this replica's index, not the global rank);
-    DATALOADER.BACKEND 'grain' raises (ROADMAP A6)."""
-    if getattr(cfg.DATALOADER, "BACKEND", "threads") != "threads":
-        raise NotImplementedError(
-            f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} is not ported (ROADMAP §A, "
-            f"A6: the grain loader); use 'threads'")
+    data replicas (``rank``: this replica's index, not the global rank).
+    DATALOADER.BACKEND 'threads' loads in threads, 'grain' in worker
+    processes (``grain_loader``); another value raises."""
+    backend = cfg.DATALOADER.BACKEND
+    if backend == "grain":
+        from .grain_loader import GrainDataLoader as loader_cls
+    elif backend == "threads":
+        loader_cls = DataLoader
+    else:
+        raise ValueError(f"DATALOADER.BACKEND {backend!r}: one of 'threads', 'grain'")
     datasets = build_dataset(cfg, is_train)
     images_per_batch = cfg.DATALOADER.BSZ
     assert images_per_batch % num_replicas == 0, (
@@ -238,7 +255,7 @@ def make_epoch_data_loader(cfg, is_train: bool = True, drop_last: bool = True,
             cfg.AUG.REPEATED_AUG, num_replicas, rank, seed=cfg.TPU.SEED,
         )
         loaders.append(
-            DataLoader(
+            loader_cls(
                 dataset, sampler, images_per_host, drop_last=drop_last,
                 num_workers=cfg.DATALOADER.WORKERS,
             )

@@ -7,11 +7,13 @@ generation). File formats are byte-compatible with the reference so existing
 datasets load unchanged. Worker-fork safety follows the reference's
 pid-checked reopen (tsv_file.py:38-41).
 
-A copy of ``vil_tpu/data/tsv.py``'s Python path. ``vil_tpu`` tries its
-native C++ scanner and row reader (``vil_tpu/data/native.py``) first and
-falls back to this path on any exception; the port reads in Python only
-(the native reader is ROADMAP §A, A6). One file handle is shared by the
-loader's threads, so a seek and its read hold a lock.
+A copy of ``vil_tpu/data/tsv.py``. As there, the native C++ scanner and
+row reader (``data.native``, built from ``native/tsv_core.cpp``) come
+first: ``create_lineidx`` scans natively and ``TSVFile.seek`` preads the row
+at its offset with no lock, the loader's threads sharing one descriptor.
+Where the native core is unavailable (one logged warning), the Python path
+reads instead; its file handle is shared by the threads, so a seek and its
+read hold a lock.
 """
 from __future__ import annotations
 
@@ -25,9 +27,15 @@ from typing import Iterable, Optional
 
 import numpy as np
 
+from . import native
+
 
 def create_lineidx(filein: str, idxout: str) -> None:
-    """Write byte offsets of each line (reference tsv_file.py:7-16)."""
+    """Write byte offsets of each line (reference tsv_file.py:7-16): the
+    native single-pass scanner, else the Python loop; the files are the
+    same."""
+    if native.build_lineidx(filein, idxout):
+        return
     idxout_tmp = idxout + ".tmp"
     with open(filein, "rb") as fin, open(idxout_tmp, "w") as fout:
         fsize = os.fstat(fin.fileno()).st_size
@@ -47,6 +55,7 @@ class TSVFile:
         self.lineidx = op.splitext(tsv_file)[0] + ".lineidx"
         self._fp = None
         self._lineidx = None
+        self._native = None  # the native reader; None untried, False unavailable
         self._lock = threading.Lock()
         self.pid = None
         if not op.isfile(self.lineidx) and generate_lineidx:
@@ -57,12 +66,13 @@ class TSVFile:
             self._fp.close()
 
     def __getstate__(self):
-        # picklable for process-based loaders: drop the open file handle
-        # and the lock; the handle lazily reopens in the worker
-        # (_ensure_open is pid-aware)
+        # picklable for process-based loaders: drop the open file handle, the
+        # native reader (a descriptor behind ctypes) and the lock; each is
+        # made again in the worker (seek and _ensure_open are pid-aware)
         state = self.__dict__.copy()
         state["_fp"] = None
         state["pid"] = None
+        state["_native"] = None
         del state["_lock"]
         return state
 
@@ -79,10 +89,16 @@ class TSVFile:
 
     def seek(self, idx: int) -> list[str]:
         self._ensure_lineidx()
-        with self._lock:  # the loader's threads share the file position
-            self._ensure_open()
-            self._fp.seek(self._lineidx[idx])
-            line = self._fp.readline()
+        reader = self._native_reader()
+        if reader:  # pread: no shared file position, no lock
+            offsets = self._lineidx
+            length = offsets[idx + 1] - offsets[idx] if idx + 1 < len(offsets) else None
+            line = reader.read(offsets[idx], length).decode()
+        else:
+            with self._lock:  # the loader's threads share the file position
+                self._ensure_open()
+                self._fp.seek(self._lineidx[idx])
+                line = self._fp.readline()
         return [s.strip() for s in line.split("\t")]
 
     def seek_first_column(self, idx: int) -> str:
@@ -90,6 +106,15 @@ class TSVFile:
 
     def __getitem__(self, idx: int) -> list[str]:
         return self.seek(idx)
+
+    def _native_reader(self):
+        if self._native is None:
+            with self._lock:
+                if self._native is None:
+                    lib = native.get_lib()
+                    self._native = (native.NativeRowReader(self.tsv_file, lib)
+                                    if lib is not None else False)
+        return self._native
 
     def _ensure_lineidx(self):
         if self._lineidx is None:

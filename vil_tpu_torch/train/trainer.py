@@ -84,9 +84,9 @@ def check_ported(cfg) -> None:
         (tpu.PARAM_SHARDING == "fsdp" and "spatial" in axes,
          f"TPU.PARAM_SHARDING 'fsdp' on TPU.MESH_AXES {axes} (FSDP beside a spatial axis: "
          f"A12)"),
-        (cfg.CKPT_BACKEND == "orbax", "CKPT_BACKEND 'orbax' (vil_tpu's checkpoints: A6)"),
-        (cfg.DATALOADER.BACKEND != "threads",
-         f"DATALOADER.BACKEND {cfg.DATALOADER.BACKEND!r} (the grain loader: A6)"),
+        (cfg.CKPT_BACKEND == "orbax",
+         "CKPT_BACKEND 'orbax' (orbax writes OCDBT, which only tensorstore reads, and the "
+         "card's host has no tensorstore: A6)"),
         (not (cfg.MODEL.ARCH in ARCH_ZOO or cfg.MODEL.ARCH.startswith("msvit")),
          f"MODEL.ARCH {cfg.MODEL.ARCH!r} (the ResNet zoo: A10)"),
         (bool(tpu.REMAT), f"TPU.REMAT {tpu.REMAT!r} (A13)"),

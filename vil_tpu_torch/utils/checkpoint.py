@@ -18,9 +18,16 @@ model's ``param_shards``) every rank takes part in the save, which gathers
 the whole model and optimizer state, and rank 0 writes it in the format of
 a replicated run; on load each rank takes its slice. A sharded run and a
 replicated one therefore resume each other's checkpoints. Loading also accepts a reference ``.pth`` (through
-``utils.torch_import``). A checkpoint written by ``vil_tpu`` (flax msgpack
-or an orbax directory) raises: reading one needs flax (ROADMAP §A, A6); so
-does CKPT_BACKEND 'orbax' (``trainer.check_ported``).
+``utils.torch_import``) and a checkpoint that ``vil_tpu`` wrote with its
+default backend, a flax msgpack file (``utils.flax_msgpack``, mapped by
+``utils.jax_import.vil_tpu_payload``): from MODEL.MODEL_PATH, from the
+``last_checkpoint`` tag of a ``vil_tpu`` OUTPUT_DIR or as
+``model_best.ckpt``. Its header must name the model's ``arch``; a load that
+resumes takes the optimizer's moments, the step and ``lr_scale`` too, one
+that does not the parameters and buffers alone, as ``vil_tpu``'s does. The
+port goes on writing its own format. An orbax directory (CKPT_BACKEND
+'orbax') raises: orbax writes OCDBT, which only tensorstore reads, and the
+card's host has no tensorstore (ROADMAP §A, A6).
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import logging
 import os
 import os.path as op
 import shutil
+import time
 import zipfile
 from typing import Optional
 
@@ -36,8 +44,14 @@ import torch
 
 from ..parallel import tensor
 from ..parallel.collectives import all_gather, is_main_process
+from . import flax_msgpack, jax_import
 
 logger = logging.getLogger(__name__)
+
+ORBAX_REFUSED = (
+    "{} is an orbax checkpoint of vil_tpu (CKPT_BACKEND 'orbax'): orbax writes OCDBT "
+    "(manifest.ocdbt, ocdbt.process_*/), which only tensorstore reads, and the card's host "
+    "has no tensorstore (ROADMAP.md §A, A6)")
 
 
 class Checkpointer:
@@ -150,19 +164,26 @@ class Checkpointer:
             load_into_model(path, model)
             return {}
         if op.isdir(path) or path.endswith(".orbax"):
-            raise NotImplementedError(
-                f"{path} is an orbax checkpoint of vil_tpu; reading one needs flax "
-                f"(ROADMAP §A, A6)")
-        if not zipfile.is_zipfile(path):  # torch.save writes a zip archive
-            raise NotImplementedError(
-                f"{path} is not a checkpoint of the port; a vil_tpu msgpack checkpoint "
-                f"needs flax to read (ROADMAP §A, A6)")
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        tensor.load_full_state_dict(model, payload["model"])
+            raise NotImplementedError(ORBAX_REFUSED.format(path))
         header = {}
         if op.isfile(path + ".json"):
             with open(path + ".json", "r") as f:
                 header = json.load(f)
+        if zipfile.is_zipfile(path):  # torch.save writes a zip archive
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+        elif flax_msgpack.starts_a_map(path):
+            if self.arch and header.get("arch", self.arch) != self.arch:
+                raise ValueError(f"{path} holds arch {header['arch']!r}, the model is "
+                                 f"{self.arch!r}")
+            t0 = time.perf_counter()
+            payload = jax_import.vil_tpu_payload(model, optimizer if resume else None,
+                                                 flax_msgpack.load(path))
+            logger.info("Read vil_tpu checkpoint %s (%.1f MB) in %.2f s", path,
+                        op.getsize(path) / 1e6, time.perf_counter() - t0)
+        else:
+            raise ValueError(f"{path} is neither a checkpoint of the port (a zip archive) "
+                             f"nor one of vil_tpu (a flax msgpack file)")
+        tensor.load_full_state_dict(model, payload["model"])
         if resume:
             tensor.load_full_optimizer_state(optimizer, model, payload["optimizer"])
             header.update(step=payload["step"], lr_scale=payload["lr_scale"])

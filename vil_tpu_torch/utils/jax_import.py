@@ -18,9 +18,32 @@ raises. The flax ``buffers`` collection (the performer's
 the same names, as strictly: a model with buffers and no ``buffers=``
 raises too. JAX itself is not imported: leaves are anything
 ``np.asarray`` accepts.
+
+The optimizer state of a ``vil_tpu`` checkpoint maps too
+(:func:`optimizer_state_dict`, :func:`vil_tpu_payload`): every optimizer
+that ``vil_tpu/train/optim.py::get_opt`` builds, inside the trainer's
+``{"inner", "lr_scale"}`` wrapper (``lr_scalable``). Flax writes an optax
+chain as a map keyed ``'0'``, ``'1'``, ...; ``with_wd0``'s extra element
+nests the chain once more; a ``MaskedState`` is ``{"inner_state": ...}``,
+and the ``add_decayed_weights`` it masks holds no state, so no masked-out
+leaf is written; an ``EmptyState`` is ``{}``; a learning-rate schedule's
+``count`` is the step's. What holds moments:
+
+* SGD's ``trace``                         → ``momentum_buffer``
+* Adam's and AdamW's ``mu``, ``nu``, ``count`` → ``exp_avg``, ``exp_avg_sq``,
+  ``step`` (``scale_by_adam``; the port's ``torch.optim.Adam``)
+* QHM's ``h``                             → ``h`` (the port's ``QHM``)
+* LAMB's ``mu``, ``nu``, ``count``        → ``m``, ``v``, ``step`` (``Lamb``)
+
+each moment leaf under its parameter's name and layout (``kernel`` →
+``weight``, transposed). As strict as the parameters: a moment for no
+parameter, a parameter with none, or an optax state the port's optimizer
+does not keep raises. A state written under TPU.FLAT_OPT or STACKED_OPT
+(its moments keyed by dtype group, not by parameter) raises naming A13.
 """
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Optional
 
@@ -52,29 +75,40 @@ def _to_torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     return name, arr
 
 
-def _copy_tree(tree: Mapping, targets: dict, what: str, shards: Optional[dict] = None) -> None:
-    """Copy every leaf of ``tree`` into the tensor of ``targets`` that its
-    mapped name names (its slice, for a name in ``shards``); raise unless
-    each leaf and each target is used."""
-    shards = shards or {}
-    filled = set()
+def _whole_tree(tree: Mapping, shapes: dict, what: str) -> dict:
+    """Every leaf of ``tree`` under its mapped name, as an f32 CPU tensor of
+    the whole shape that ``shapes`` gives that name; raise unless each leaf
+    and each name is used."""
+    out = {}
     unused = []
     for name, arr in _flatten(tree):
         tname, tarr = _to_torch_leaf(name, arr)
-        if tname not in targets:
+        if tname not in shapes:
             unused.append(name)
             continue
-        p, shard = targets[tname], shards.get(tname)
-        whole = tuple(p.shape) if shard is None else shard.full_shape(p.shape)
-        if whole != tarr.shape:
-            raise ValueError(f"{name} → {tname}: shape {tarr.shape} != {whole}")
-        value = torch.from_numpy(np.array(tarr, dtype=np.float32, order="C"))
-        p.copy_(value if shard is None else shard.local(value))
-        filled.add(tname)
-    missing = sorted(set(targets) - filled)
+        if tuple(shapes[tname]) != tarr.shape:
+            raise ValueError(f"{name} → {tname}: shape {tarr.shape} != {tuple(shapes[tname])}")
+        out[tname] = torch.from_numpy(np.array(tarr, dtype=np.float32, order="C"))
+    missing = sorted(set(shapes) - set(out))
     if unused or missing:
         raise KeyError(f"{what} trees differ: unused JAX leaves {unused}, "
                        f"unfilled port {what}s {missing}")
+    return out
+
+
+def _whole_shapes(model: nn.Module) -> dict:
+    """{parameter name: its whole shape}: a sharded one's before the cut."""
+    shards = getattr(model, "param_shards", {})
+    return {n: (shards[n].full_shape(p.shape) if n in shards else tuple(p.shape))
+            for n, p in model.named_parameters()}
+
+
+def _buffer_shapes(model: nn.Module, buffers: Optional[Mapping]) -> dict:
+    targets = {n: tuple(b.shape) for n, b in model.named_buffers()}
+    if buffers is None and targets:
+        raise KeyError(f"the model has buffers {sorted(targets)}: give the flax "
+                       f"'buffers' collection as buffers=")
+    return targets
 
 
 @torch.no_grad()
@@ -84,11 +118,139 @@ def load_jax_params(model: nn.Module, params: Mapping,
     into ``model`` in place, casting to each parameter's dtype and device,
     and the flax ``buffers`` collection into the model's buffers. A model
     that has buffers needs ``buffers``."""
+    buffer_shapes = _buffer_shapes(model, buffers)
+    shards = getattr(model, "param_shards", {})
+    targets = dict(model.named_parameters())
+    for name, value in _whole_tree(params, _whole_shapes(model), "parameter").items():
+        targets[name].copy_(value if name not in shards else shards[name].local(value))
     targets = dict(model.named_buffers())
-    if buffers is None and targets:
-        raise KeyError(f"the model has buffers {sorted(targets)}: give the flax "
-                       f"'buffers' collection as buffers=")
-    _copy_tree(params, dict(model.named_parameters()), "parameter",
-               getattr(model, "param_shards", {}))
-    _copy_tree(buffers or {}, targets, "buffer")
+    for name, value in _whole_tree(buffers or {}, buffer_shapes, "buffer").items():
+        targets[name].copy_(value)
     return model
+
+
+def model_state_dict(model: nn.Module, params: Mapping,
+                     buffers: Optional[Mapping] = None) -> dict:
+    """The flax ``params`` and ``buffers`` collection as the port's whole
+    (replicated-format) ``state_dict`` of ``model``, f32 on the CPU."""
+    state = _whole_tree(params, _whole_shapes(model), "parameter")
+    state.update(_whole_tree(buffers or {}, _buffer_shapes(model, buffers), "buffer"))
+    return state
+
+
+# ---------------------------------------------------------------- optimizer state
+
+# the optax state that holds a port optimizer's moments: its fields, and the
+# port's state keys each moment goes to
+_MOMENTS = {
+    "SGD": ({"trace"}, {"momentum_buffer": "trace"}),
+    "Adam": ({"count", "mu", "nu"}, {"exp_avg": "mu", "exp_avg_sq": "nu"}),
+    "QHM": ({"h"}, {"h": "h"}),
+    "Lamb": ({"count", "mu", "nu"}, {"m": "mu", "v": "nu"}),
+}
+# the keys FLAT_OPT and STACKED_OPT give a moment tree: dtype groups, not parameters
+_GROUPED = re.compile(r"(wd|nd)_[a-z0-9]+(_[0-9x]*)?|leaf[0-9]+")
+
+
+def _chain_states(node, where: str = "opt_state") -> list:
+    """The states of an optax chain as flax wrote it, flat and in order:
+    chains (maps keyed '0'..'n-1') and ``MaskedState``s opened, ``EmptyState``s
+    dropped; each state a (path, map) pair."""
+    if not isinstance(node, Mapping):
+        raise ValueError(f"{where}: an optax state is a map, got {type(node).__name__}")
+    if not node:
+        return []
+    if set(node) == {"inner_state"}:
+        inner = _chain_states(node["inner_state"], where + ".inner_state")
+        if inner:
+            raise ValueError(f"{where}: a masked transform with state; vil_tpu masks only "
+                             f"add_decayed_weights, which has none")
+        return []
+    if set(node) == {str(i) for i in range(len(node))}:
+        return [s for i in range(len(node)) for s in _chain_states(node[str(i)], f"{where}.{i}")]
+    return [(where, node)]
+
+
+def optimizer_state_dict(model: nn.Module, optimizer, opt_state: Mapping,
+                         step: int) -> tuple[dict, float]:
+    """``vil_tpu``'s optax state ``opt_state`` (the trainer's ``{"inner",
+    "lr_scale"}`` wrapper, or a bare chain) as the port's whole
+    (replicated-format) state dict of ``optimizer`` over ``model``, and the
+    plateau multiplier ``lr_scale``. ``step`` is the checkpoint's step, which
+    a learning-rate schedule's count must equal: the port takes its LR from
+    the step."""
+    lr_scale = 1.0
+    if isinstance(opt_state, Mapping) and set(opt_state) == {"inner", "lr_scale"}:
+        lr_scale = float(np.asarray(opt_state["lr_scale"]))
+        opt_state = opt_state["inner"]
+    kind = type(optimizer).__name__
+    if kind not in _MOMENTS:
+        raise ValueError(f"the port's {kind} has no counterpart in vil_tpu's optimizers")
+    fields, moments = _MOMENTS[kind]
+    held = []
+    for where, state in _chain_states(opt_state):
+        keys = set(state)
+        if keys == {"count"}:  # a schedule's count (scale_by_schedule)
+            if int(np.asarray(state["count"])) != step:
+                raise ValueError(f"{where}: the schedule's count {int(np.asarray(state['count']))} "
+                                 f"!= the step {step}; the port takes the LR from the step")
+            continue
+        if keys != fields:
+            raise ValueError(f"{where}: optax state with fields {sorted(keys)}; the port's "
+                             f"{kind} keeps {sorted(fields)}")
+        held.append(state)
+    if len(held) != 1:
+        raise ValueError(f"{len(held)} optax states with fields {sorted(fields)}; want 1 for the "
+                         f"port's {kind}")
+    state = held[0]
+    for field in sorted(fields - {"count"}):
+        if isinstance(state[field], Mapping) and state[field] and all(
+                _GROUPED.fullmatch(k) for k in state[field]):
+            raise NotImplementedError(
+                "the optimizer state was written under TPU.FLAT_OPT or STACKED_OPT (moments "
+                "by dtype group, not by parameter), which is not ported (ROADMAP.md §A, A13)")
+    shapes = _whole_shapes(model)
+    trees = {key: _whole_tree(state[field], shapes, f"{kind} {field}")
+             for key, field in moments.items()}
+    count = int(np.asarray(state["count"])) if "count" in state else None
+    index = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups
+                                            for p in g["params"])}
+    per_param = {}
+    for name, p in model.named_parameters():
+        if id(p) not in index:
+            continue
+        st = {key: tree[name] for key, tree in trees.items()}
+        if kind == "Adam":  # torch keeps Adam's step as an f32 tensor on the host
+            st["step"] = torch.tensor(float(count), dtype=torch.float32)
+        elif kind == "Lamb":
+            st["step"] = count
+        per_param[index[id(p)]] = st
+    if len(per_param) != len(index):
+        raise KeyError("the optimizer holds parameters that the model does not name")
+    return {"state": per_param, "param_groups": optimizer.state_dict()["param_groups"]}, lr_scale
+
+
+def vil_tpu_payload(model: nn.Module, optimizer, payload: Mapping) -> dict:
+    """A ``vil_tpu`` checkpoint's payload (``{"params", "opt_state",
+    "buffers", "step"}``, as ``vil_tpu/utils/checkpoint.py`` writes it) as the
+    port's whole-state payload: ``{"model": state dict, "optimizer": state
+    dict, "step", "lr_scale"}``; with ``optimizer=None`` the model's alone
+    (a load that does not resume takes the parameters and buffers only). A
+    ResNet's ``batch_stats`` raises (A10)."""
+    missing = {"params", "buffers", "step"} - set(payload)
+    if missing or (optimizer is not None and "opt_state" not in payload):
+        raise ValueError(f"not a vil_tpu checkpoint payload: keys {sorted(payload)}")
+    collections = dict(payload["buffers"] or {})
+    if "batch_stats" in collections:
+        raise NotImplementedError("a checkpoint with a 'batch_stats' collection (the ResNet "
+                                  "zoo's) is not ported (ROADMAP.md §A, A10)")
+    unknown = set(collections) - {"buffers"}
+    if unknown:
+        raise ValueError(f"the checkpoint's collections {sorted(unknown)} have no port "
+                         f"counterpart")
+    out = {"model": model_state_dict(model, payload["params"], collections.get("buffers", {})),
+           "step": int(np.asarray(payload["step"])), "lr_scale": 1.0}
+    if optimizer is not None:
+        out["optimizer"], out["lr_scale"] = optimizer_state_dict(
+            model, optimizer, payload["opt_state"], out["step"])
+    return out
