@@ -192,6 +192,26 @@ Phases, one line each; any failure raises and the exit code is not 0:
    ``torch.profiler``); last, the eval transform's batches of the TSV from
    'grain' and from 'threads', bit for bit. Every run of the CLI holds its
    launches to the trainer's counts.
+21. train_drop — phase 5 at MODEL.VIT.DROP 0.1 (``run_train(drop=0.1)``): the
+   same launches a step, the dropout masks drawn from the step's generator,
+   the f32 and bf16 kernels-vs-plain step pairs from the same seed.
+22. self_chunk — the self-only (mode -1) instances of B5/B6 against their
+   plain versions (phase 3's self cases: ViL-Small's stage 1 and 2 shapes,
+   a padded biased grid, SW_EXACT -1, W 9, head dim 128, the RPE bias of
+   mode -1 from tables; bf16 and f32), then ViL-Small 224² served and
+   trained at mode -1 (the self-only pair 3, B3, B4 9 a step; no B1/B2/B5/
+   B6), its f32 and bf16 logits and step gradients kernels vs plain.
+23. train_remat — ViL-Small 224² and ViL-Medium-Deep 384² at batch 64
+   under TPU.REMAT '', 'minimal' and 'full': the first step's gradients
+   against the '' step's (and whether bit for bit), step walls, device time,
+   peak memory, the launches a step with the recomputed B1 and B3.
+24. resnet — ResNet-50 224² at batch 64 (bf16 compute, cuDNN convolutions,
+   no kernel of the port): serve and train walls, device time, peak memory;
+   the card's f32 logits, loss, running statistics and gradients against
+   the CPU's from the same weights and images (the gradients to twice the
+   CPU's own f32 error against its f64 step); ``run_experiment.main`` with
+   MODEL.ARCH resnet50: one epoch and its eval, its resume to two, equal to
+   an uninterrupted run of two.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -249,11 +269,13 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_train_384_rpe``, ``launches_serve_1024_rpe``,
 ``launches_train_1024_rpe``, ``launches_finetune_384``,
 ``launches_train_spatial``, ``launches_experiment_spatial``, ``launches_train_tp``,
-``launches_train_tp_shift``, ``launches_train_fsdp``, ``launches_experiment_tp`` and
-``launches_from_vil_tpu`` each path's;
+``launches_train_tp_shift``, ``launches_train_fsdp``, ``launches_experiment_tp``,
+``launches_from_vil_tpu``, ``launches_train_drop``, ``launches_self_chunk``, ``launches_train_remat`` and
+``launches_resnet`` each path's;
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
-training path that runs the kernel: MODE 0, random shift for B5/B6, fused
-for B8/B9, train_spatial for B7b (one rank); for B7a per spatial serving
+training path that runs the kernel: MODE 0, random shift for B5/B6, mode
+-1 for their self-only instances, fused for B8/B9, train_spatial for B7b
+(one rank); for B7a per spatial serving
 forward on one rank (no LSE); for P per call at the probe's shape), and the line before that the card as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
 """
@@ -486,8 +508,10 @@ def bound_ms(moved_bytes: int, flops: float) -> tuple[float, float]:
     return moved_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
 
-def check_kernels(torch, records):
-    """Phase 3. Fills ``records[name]`` with errors and per-step times."""
+def check_kernels(torch, records, self_only=False):
+    """Phase 3. Fills ``records[name]`` with errors and per-step times. With
+    ``self_only`` the self-only (mode -1) cases alone (part self_chunk),
+    which the phase itself leaves out."""
     import torch.nn.functional as F
 
     from vil_tpu_torch.ops import masks as masks_lib
@@ -504,6 +528,7 @@ def check_kernels(torch, records):
         vil_mode_attention_bwd_reference, vil_mode_attention_fwd, vil_mode_attention_reference,
     )
     from vil_tpu_torch.ops.kernels.vil_attention_halo import halo_neighborhood
+    from vil_tpu_torch.models.attention import sliding_chunk_rpe_bias
     from vil_tpu_torch.tools import layout_probe
 
     dev = torch.device("cuda")
@@ -574,21 +599,22 @@ def check_kernels(torch, records):
     def chunk_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, mode=0, per_step=0.0,
                    bias=None, timed=False, repeat=False):
         """A sliding-chunk case: B1/B2 at mode 0, B5/B6 (the sampled
-        neighbour of ``mode``) at modes 1..8. ``per_step`` is the case's
-        share of one training step's launches; ``timed`` times it without a
-        share. ``bias`` (f32, front order) replaces the random one. With
-        ``repeat`` the backward is launched again and must give the same
-        bits."""
+        neighbour of ``mode``) at modes 1..8, their self-only instances at
+        mode -1. ``per_step`` is the case's share of one training step's
+        launches; ``timed`` times it without a share. ``bias`` (f32, front
+        order) replaces the random one. With ``repeat`` the backward is
+        launched again and must give the same bits."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
-        cols = nglo + (9 if mode == 0 else 2) * w2
+        cols = nglo + (9 if mode == 0 else 1 if mode == -1 else 2) * w2
         if mode == 0:  # B2 and B6 take the forward's out (their bf16 kernels' δ)
             name, fwd = "vil_attention", vil_attention_fwd
             bwd = lambda *a, bias, g, out, lse: vil_attention_bwd(*a, bias, g, out, mask, lse, H)
             fwd_ref, bwd_ref = vil_attention_reference, vil_attention_bwd_reference
             tail = ()
-        else:
-            name, fwd = "vil_mode_attention", vil_mode_attention_fwd
+        else:  # through vil_self_attention_fwd / _bwd at mode -1
+            name = "vil_self_attention" if mode == -1 else "vil_mode_attention"
+            fwd = vil_mode_attention_fwd
             bwd = lambda *a, bias, g, out, lse: vil_mode_attention_bwd(*a, bias, g, out, mask,
                                                                        lse, H, mode)
             fwd_ref, bwd_ref = vil_mode_attention_reference, vil_mode_attention_bwd_reference
@@ -1085,6 +1111,33 @@ def check_kernels(torch, records):
                                  f"{err:.3e} (tol 0)")
                 check(f"{name} {label} vs x*2", err, 0.0)
 
+    def tables(rows, H, nglo):
+        """(local table, g2l, g2g) at σ 1."""
+        return (randn(rows, H), randn(2, H, nglo) if nglo else None,
+                randn(H, nglo, nglo) if nglo else None)
+
+    if self_only:
+        # the self-only instances of B5/B6 (mode -1): ViL-Small 224²'s
+        # sliding-chunk blocks (a mode -1 step's launches), a padded grid
+        # with a bias, SW_EXACT -1, two 64-row slices a chunk (W 9), head
+        # dim 128 without global rows, and the RPE bias of its stages from
+        # tables (front order [g2l | self])
+        chunk_case("self stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, -1,
+                   per_step=1)
+        chunk_case("self stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, -1,
+                   per_step=2)
+        chunk_case("self biased, padded 3x4 grid, nglo 2", 2, 19, 25, 7, 64, 2, 2, 0, True, -1,
+                   repeat=True)
+        chunk_case("self SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False, -1)
+        chunk_case("self W 9, 3x3 grid, biased, nglo 1", 2, 27, 27, 9, 64, 2, 1, 0, True, -1)
+        chunk_case("self 3x3 grid, nglo 0, head dim 128", 2, 21, 21, 7, 256, 2, 0, 0, False, -1)
+        for mx, C in ((8, 96), (4, 192)):
+            table, g2l, _ = tables(27 * 27, 3, 1)
+            chunk_case(f"self RPE (64,{mx},{mx},49,{C}) H3, bias (3,49,50) from tables", 64,
+                       7 * mx, 7 * mx, 7, C, 3, 1, 0, True, -1, timed=True,
+                       bias=sliding_chunk_rpe_bias(table, g2l, 7, -1))
+        return
+
     # ViL-Small 224²: stage 1 (1 block) and stage 2 (2 blocks) sliding-chunk
     chunk_case("stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False, per_step=1)
     chunk_case("stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False, per_step=2)
@@ -1150,12 +1203,7 @@ def check_kernels(torch, records):
     # step's shapes, its bias assembled from tables drawn at σ 1 by the
     # model's own assembly (front order [g2l | local]; the dense one with g2g
     # and g2l), checked as above (dbias too) and timed per call with the bias
-    from vil_tpu_torch.models.attention import full_rpe_bias, sliding_chunk_rpe_bias
-
-    def tables(rows, H, nglo):
-        """(local table, g2l, g2g) at σ 1."""
-        return (randn(rows, H), randn(2, H, nglo) if nglo else None,
-                randn(H, nglo, nglo) if nglo else None)
+    from vil_tpu_torch.models.attention import full_rpe_bias
 
     full_case("RPE stage3 (64,197,384) H6, bias (6,197,197) from tables", 64, 197, 384, 6,
               True, timed=True, bias=full_rpe_bias(*tables(27 * 27, 6, 1), 14, 14), repeat=True)
@@ -1483,16 +1531,21 @@ def bf16_grad_worst(grads: dict, refs: dict) -> tuple[float, str]:
     return errs[name], name
 
 
-def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
+def run_train(torch, kernels, random_shift=False, fused=False, rpe=False, drop=0.0):
     """Phase 5 (with ``random_shift`` phase 6, with ``fused`` phase 8, with
-    ``rpe`` phase 12): the training step of ViL-Small 224² at batch 64 (with
-    ``rpe`` ViL-Small RPE). With ``rpe`` and ``random_shift`` or ``fused``
-    (phases 13, 14) the path is the f32 kernels-vs-plain step pair alone,
-    its launches counted over the kernels' steps."""
+    ``rpe`` phase 12, with ``drop`` part train_drop): the training step of
+    ViL-Small 224² at batch 64 (with ``rpe`` ViL-Small RPE, with ``drop`` at
+    MODEL.VIT.DROP ``drop``, its masks drawn from the step's generator, the
+    same for the kernels and the plain versions). With ``rpe`` and
+    ``random_shift`` or ``fused`` (phases 13, 14) the path is the f32
+    kernels-vs-plain step pair alone, its launches counted over the kernels'
+    steps."""
     from vil_tpu_torch.train import engine, recipe
 
     if rpe:
         name = "shift_rpe" if random_shift else "train_fused_rpe" if fused else "train_rpe"
+    elif drop:
+        name = "train_drop"
     else:
         name = "train_shift" if random_shift else "train_fused" if fused else "train"
     dev = torch.device("cuda")
@@ -1508,7 +1561,8 @@ def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
         per_step.update({f"{chunk}_fwd": 3, f"{chunk}_bwd": 3})
     steps_run = not (rpe and (random_shift or fused))
     if steps_run:
-        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=fused, rpe=rpe)
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev, fused=fused, rpe=rpe,
+                                 drop=drop)
         step = recipe.train_step(model, dev, random_shift)
         step_gen = torch.Generator(device=dev).manual_seed(3)
         for fn in kernels:
@@ -1528,7 +1582,8 @@ def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
             if rose != per_step:
                 raise AssertionError(f"step {i}: launches rose by {rose}, want {per_step}")
         launches = launch_counts(kernels)
-        what = "ViL-Small RPE 224^2" if rpe else "ViL-Small 224^2"
+        what = ("ViL-Small RPE 224^2" if rpe else f"ViL-Small 224^2 at DROP {drop}" if drop else
+                "ViL-Small 224^2")
         phase(name, f"{what} bf16 compute, f32 parameters, batch {BATCH}: {STEPS} "
                     f"steps, launches {launches} ({per_step} per step)")
         if random_shift:
@@ -1557,7 +1612,8 @@ def run_train(torch, kernels, random_shift=False, fused=False, rpe=False):
         """One step from the recipe's weights (with ``std`` every table
         drawn at σ ``std``), the same images, draws and (random shift) the
         first step's modes: (loss, parameter gradients)."""
-        m = recipe.vil_small(dtype, torch.float32, use_kernels, dev, fused=fused, rpe=rpe)
+        m = recipe.vil_small(dtype, torch.float32, use_kernels, dev, fused=fused, rpe=rpe,
+                             drop=drop)
         if std is not None:
             draw_tables(torch, m, std)
         s = recipe.train_step(m, dev, random_shift)
@@ -3736,10 +3792,349 @@ def run_from_vil_tpu(torch, kernels) -> dict:
 
 
 # the parts ``--only`` picks from: phase 3, then the main paths in run order
+def run_self_chunk(torch, kernels, records):
+    """Part self_chunk: the self-only (mode -1) instances of B5/B6 against
+    their plain versions (phase 3's self cases, ``check_kernels(...,
+    self_only=True)``), then ViL-Small 224² (bf16 compute, f32 parameters,
+    batch 64) served at mode -1 (STEPS forwards: the self-only forward 3 and
+    B3 9 a forward) and trained at mode -1 (STEPS steps: the self-only pair 3
+    each, B3, B4 9 a step; B1, B2, B5, B6 none); then the f32 and bf16
+    logits and one step's gradients, kernels vs plain versions from the same
+    weights, images and generator."""
+    from vil_tpu_torch.train import recipe
+
+    name = "self_chunk"
+    check_kernels(torch, records, self_only=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    per_forward = {fn.__name__: 0 for fn in kernels}
+    per_forward.update(vil_self_attention_fwd=3, full_attention_fwd=9)
+    per_step = dict(per_forward, vil_self_attention_bwd=3, full_attention_bwd=9)
+    model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+    step = recipe.train_step(model, dev)
+
+    def serve():
+        with torch.inference_mode():
+            out = model.eval()(images, mode=-1)
+        if out.shape != (BATCH, 1000) or not torch.isfinite(out).all():
+            raise AssertionError(f"mode -1 logits bad: {tuple(out.shape)}")
+
+    losses = []
+    train = lambda: losses.append(step(images, labels, torch.Generator(device=dev).manual_seed(3),
+                                       modes=-1)["loss"].item())
+    for fn in kernels:
+        fn.launches = 0
+    medians = []
+    for want, run in ((per_forward, serve), (per_step, train)):
+        secs = []
+        for i in range(STEPS):
+            before = launch_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+            if rose != want:
+                raise AssertionError(f"mode -1 run {i}: launches rose by {rose}, want {want}")
+        medians.append(statistics.median(secs[1:]))
+    launches = launch_counts(kernels)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mode -1 losses not finite: {losses}")
+    phase(name, f"ViL-Small 224^2 at mode -1, bf16 compute, f32 parameters, batch {BATCH}: "
+                f"{STEPS} forwards, median {medians[0] * 1e3:.3f} ms ({BATCH / medians[0]:.1f} "
+                f"img/s); {STEPS} steps, median {medians[1] * 1e3:.3f} ms "
+                f"({BATCH / medians[1]:.1f} img/s), losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; launches {launches} "
+                f"({ {k: v for k, v in per_step.items() if v} } a step)")
+    del model, step
+
+    def pair(dtype, use_kernels):
+        """Logits and one step's (loss, gradients) at mode -1 from the
+        recipe's weights."""
+        m = recipe.vil_small(dtype, torch.float32, use_kernels, dev)
+        with torch.inference_mode():
+            logits = m.eval()(images, mode=-1).float()
+        s = recipe.train_step(m, dev)
+        loss = s(images, labels, torch.Generator(device=dev).manual_seed(3),
+                 modes=-1)["loss"].item()
+        return logits, loss, {n: p.grad.clone() for n, p in m.named_parameters()}
+
+    (lg_k, loss_k, grads_k), (lg_p, loss_p, grads_p) = (pair(torch.float32, True),
+                                                         pair(torch.float32, False))
+    lg_err, loss_err = (lg_k - lg_p).abs().max().item(), abs(loss_k - loss_p)
+    grad_err, worst, _ = f32_grad_errors(grads_k, grads_p)
+    phase(name, f"f32 at mode -1, kernels vs plain versions: logits max|err| {lg_err:.3e} (tol "
+                f"{LOGITS_TOL:g}); step loss |err| {loss_err:.3e} (tol {LOSS_TOL:g}); "
+                f"parameter gradients max rel err {grad_err:.3e} at {worst} (tol "
+                f"{PARAM_GRAD_TOL:g})")
+    if not (lg_err <= LOGITS_TOL and loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+        raise AssertionError(f"mode -1 f32 disagrees: logits {lg_err}, loss {loss_err}, "
+                             f"gradients {grad_err}")
+    (bl_k, bf_loss_k, bf_k), (bl_p, _, bf_p) = (pair(torch.bfloat16, True),
+                                                pair(torch.bfloat16, False))
+    lg_err = ((bl_k - bl_p).abs().max() / bl_p.abs().max()).item()
+    err, at = bf16_grad_worst(bf_k, bf_p)
+    own, own_at = bf16_grad_worst(bf_p, grads_p)
+    phase(name, f"bf16 at mode -1, kernels vs plain versions: logits max|err| / max|ref| "
+                f"{lg_err:.3e} (tol {BF16_LOGITS_TOL:g}); step gradients max ‖err‖ / ‖ref‖ "
+                f"{err:.3e} at {at} (tol {BF16_PARAM_GRAD_TOL:g}); plain bf16 vs plain f32 "
+                f"{own:.3e} at {own_at}")
+    if not (math.isfinite(bf_loss_k) and lg_err <= BF16_LOGITS_TOL
+            and err <= BF16_PARAM_GRAD_TOL):
+        raise AssertionError(f"mode -1 bf16 disagrees: logits {lg_err}, gradients {err}")
+    return launches
+
+
+# part train_remat: (zoo name, image size, batch): ViL-Small 224² and
+# ViL-Medium-Deep 384² (HIGHRES' train_384)
+REMAT_MODELS = (("vil_small", 224, BATCH), ("vil_medium_deep", 384, BATCH))
+REMAT_STEPS = 3  # steps of each REMAT setting; the first is held, the others timed
+
+
+def run_train_remat(torch, kernels):
+    """Part train_remat: the recipe's bf16 step of ViL-Small 224² and of
+    ViL-Medium-Deep 384² at batch 64 under TPU.REMAT '', 'minimal' and
+    'full', each from the same weights, images and generator: the first
+    step's gradients against the '' step's (BF16_PARAM_GRAD_TOL on
+    ‖err‖ / ‖ref‖, and whether they are equal bit for bit), the median wall
+    of the later steps, one more step's card time under torch.profiler, the
+    peak memory, and the launches a step: the forward kernels (B1, B3) once
+    more under a REMAT, their recompute in the backward."""
+    from vil_tpu_torch.train import recipe
+
+    name = "train_remat"
+    dev = torch.device("cuda")
+    for fn in kernels:
+        fn.launches = 0
+    for arch, img, batch in REMAT_MODELS:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        images = torch.randn(batch, img, img, 3, generator=gen, device=dev)
+        labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+        ref = None
+        for remat in ("", "minimal", "full"):
+            model = recipe.vil(arch, img, torch.bfloat16, torch.float32, device=dev, remat=remat)
+            chunk, dense = block_counts(model)
+            again = 2 if remat else 1
+            want = {fn.__name__: 0 for fn in kernels}
+            want.update(vil_attention_fwd=again * chunk, vil_attention_bwd=chunk,
+                        full_attention_fwd=again * dense, full_attention_bwd=dense)
+            step = recipe.train_step(model, dev, batch=batch)
+            run = lambda: step(images, labels, torch.Generator(device=dev).manual_seed(3))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            secs = []
+            for i in range(REMAT_STEPS):
+                before = launch_counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = run()["loss"].item()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+                if rose != want or not math.isfinite(loss):
+                    raise AssertionError(f"{arch} {img}^2 REMAT {remat!r} step {i}: launches "
+                                         f"{rose} (want {want}), loss {loss}")
+                if i == 0:
+                    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            device, _ = step_device_ms(torch, run)
+            med = statistics.median(secs[1:])
+            held = ""
+            if ref is None:
+                ref = grads
+            else:
+                err, at = bf16_grad_worst(grads, ref)
+                same = all(torch.equal(grads[n], ref[n]) for n in ref)
+                held = (f"; first step's gradients against REMAT '' max ‖err‖ / ‖ref‖ "
+                        f"{err:.3e} at {at} (tol {BF16_PARAM_GRAD_TOL:g}), bit for bit {same}")
+                if not err <= BF16_PARAM_GRAD_TOL:
+                    raise AssertionError(f"{arch} REMAT {remat!r} gradients disagree: {err}")
+            phase(name, f"{arch} {img}^2 batch {batch}, REMAT {remat!r}: step median "
+                        f"{med * 1e3:.3f} ms ({batch / med:.1f} img/s, steps 2..{REMAT_STEPS}), "
+                        f"device {device:.3f} ms, peak memory {peak:.2f} GiB; launches a "
+                        f"step { {k: v for k, v in want.items() if v} }{held}")
+            del model, step, grads
+            torch.cuda.empty_cache()
+        del ref
+    return launch_counts(kernels)
+
+
+RESNET_DIR = os.path.join(REPO, "build", "chip_resnet")
+# the CLI on ResNet-50: configs/msvit.yaml's recipe (AdamW, mixup, label
+# smoothing) with MODEL.ARCH resnet50 on the synthetic set, the data
+# pipeline's own draws off (no flip, crop or erasing), so that a resumed run
+# sees what an uninterrupted one sees
+RESNET_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit.yaml"),
+               "--output_dir", RESNET_DIR, "--seed", "0", "MODEL.ARCH", "resnet50",
+               "DATA.TRAIN", "('synthetic',)", "DATA.TEST", "('synthetic',)",
+               "DATALOADER.BSZ", str(BATCH), "LOG_FREQ", "1",
+               "AUG.TIMM_AUG.USE_TRANSFORM", "True", "AUG.TIMM_AUG.HFLIP", "0.0",
+               "AUG.TIMM_AUG.VFLIP", "0.0", "AUG.TIMM_AUG.AUTO_AUGMENT", "",
+               "AUG.TIMM_AUG.RE_PROB", "0.0", "AUG.SCALE", "(1.0, 1.0)", "AUG.RATIO",
+               "(1.0, 1.0)"]
+RESNET_HOST_BATCH = 2  # images of the card-vs-CPU comparison
+
+
+def run_resnet(torch, kernels):
+    """Part resnet: ResNet-50 224² (``build_model``, MODEL.ARCH resnet50,
+    bf16 compute over f32 parameters, channels-last, its convolutions by
+    cuDNN) served (REQUESTS forwards of uint8 images, batch 64) and trained
+    (STEPS steps of AdamW, batch 64), peak memory; then in f32 (no TF32) the
+    card's eval logits, one training step's loss, gradients and running
+    statistics against the CPU's from the same weights and images
+    (RESNET_HOST_BATCH images), the gradients held to twice the CPU's own
+    f32 error against its f64 step (f32 sums over a channel's terms, which
+    cancel at random weights, leave both a few percent of a BatchNorm
+    gradient's norm); then ``run_experiment.main`` with MODEL.ARCH
+    resnet50: one epoch of 8 steps and its eval, a resume of it to two
+    epochs, and an uninterrupted run of two epochs that the cut and resumed
+    one equals (cuDNN deterministic for these runs). No kernel of the port
+    runs on this path."""
+    import shutil
+
+    from vil_tpu_torch.config import get_default_cfg
+    from vil_tpu_torch.models import build_model
+    from vil_tpu_torch.train import engine, loss, optim
+
+    name = "resnet"
+    dev = torch.device("cuda")
+    for fn in kernels:
+        fn.launches = 0
+
+    def cfg_of(dtype):
+        cfg = get_default_cfg()
+        cfg.merge_from_list(["MODEL.ARCH", "resnet50", "DATA.NUM_CLASSES", "1000",
+                             "TPU.COMPUTE_DTYPE", dtype, "OPTIM.OPT", "adamw", "OPTIM.LR",
+                             "1e-3", "OPTIM.WD", "0.05"])
+        return cfg
+
+    cfg = cfg_of("bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    uint8 = torch.randint(0, 256, (BATCH, 224, 224, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    step = engine.make_train_step(model, loss.cross_entropy, optim.get_opt(cfg, model),
+                                  device=dev, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    serve_secs, step_secs, losses = [], [], []
+    for i in range(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model.eval()(uint8)
+        torch.cuda.synchronize()
+        serve_secs.append(time.perf_counter() - t0)
+        if out.dtype != torch.float32 or out.shape != (BATCH, 1000) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"resnet50 logits bad: {out.dtype} {tuple(out.shape)}")
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = model.bn1.running_var.clone()
+    for i in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(images, labels)["loss"].item())
+        torch.cuda.synchronize()
+        step_secs.append(time.perf_counter() - t0)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    device, _ = step_device_ms(torch, lambda: step(images, labels))
+    serve, train = statistics.median(serve_secs[1:]), statistics.median(step_secs[1:])
+    moved = not torch.equal(stats0, model.bn1.running_var)
+    phase(name, f"ResNet-50 224^2 bf16 compute, f32 parameters, batch {BATCH}: serve median "
+                f"{serve * 1e3:.3f} ms ({BATCH / serve:.1f} img/s, requests 2..{REQUESTS}), "
+                f"peak {serve_peak:.2f} GiB; train median {train * 1e3:.3f} ms "
+                f"({BATCH / train:.1f} img/s, steps 2..{STEPS}), device {device:.3f} ms a "
+                f"step, peak {train_peak:.2f} GiB; losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; running statistics updated {moved}")
+    if not (all(math.isfinite(v) for v in losses) and moved):
+        raise AssertionError(f"resnet50 steps: losses {losses}, statistics moved {moved}")
+    del model, step
+
+    # the card's f32 against the CPU's, same weights and images
+    n = RESNET_HOST_BATCH
+    x_host, y_host = images[:n].cpu(), labels[:n].cpu()
+    runs = {}
+    for key, where, dtype in (("card", dev, torch.float32), ("cpu", "cpu", torch.float32),
+                              ("cpu f64", "cpu", torch.float64)):
+        m = build_model(cfg_of("float32"), device=where, dtype=dtype, param_dtype=dtype,
+                        generator=torch.Generator().manual_seed(0))
+        x = x_host.to(where, dtype)
+        with torch.inference_mode():
+            served = m.eval()(x).cpu().double()
+        lo = loss.cross_entropy(m.train()(x), y_host.to(where))
+        lo.backward()
+        runs[key] = (served, lo.item(),
+                     {k: p.grad.cpu().double() for k, p in m.named_parameters()},
+                     {k: b.cpu().double() for k, b in m.named_buffers()})
+        del m
+    exact = runs["cpu f64"]
+
+    def worst(key):
+        grads = runs[key][2]
+        errs = {k: ((grads[k] - r).norm() / r.norm()).item() for k, r in exact[2].items()
+                if r.norm() > 0}
+        at = max(errs, key=errs.get)
+        return errs[at], at
+
+    lg_err = (runs["card"][0] - runs["cpu"][0]).abs().max().item()
+    loss_err = abs(runs["card"][1] - runs["cpu"][1])
+    stat_err = max((runs["card"][3][k] - v).abs().max().item() for k, v in runs["cpu"][3].items())
+    (card_err, card_at), (cpu_err, cpu_at) = worst("card"), worst("cpu")
+    grad_tol = 2 * cpu_err + 1e-5
+    phase(name, f"f32 card vs CPU (batch {n}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}): "
+                f"eval logits max|err| {lg_err:.3e} (tol {LOGITS_TOL:g}); training loss |err| "
+                f"{loss_err:.3e} (tol {LOSS_TOL:g}); running statistics max|err| {stat_err:.3e} "
+                f"(tol {LOSS_TOL:g}); gradients against the CPU's f64 step, max ‖err‖ / ‖ref‖: "
+                f"card f32 {card_err:.3e} at {card_at}, CPU f32 {cpu_err:.3e} at {cpu_at} (tol "
+                f"{grad_tol:.3e}: twice the CPU's)")
+    if not (lg_err <= LOGITS_TOL and loss_err <= LOSS_TOL and stat_err <= LOSS_TOL
+            and card_err <= grad_tol):
+        raise AssertionError(f"resnet50 f32 card vs CPU disagrees: logits {lg_err}, loss "
+                             f"{loss_err}, statistics {stat_err}, gradients {card_err}")
+
+    # the entry point: one epoch and its eval, its resume to two, and an
+    # uninterrupted run of two
+    shutil.rmtree(RESNET_DIR, ignore_errors=True)
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def cli(label, out, epochs):
+        argv = list(RESNET_ARGS) + ["OPTIM.EPOCHS", str(epochs)]
+        argv[argv.index("--output_dir") + 1] = out
+        return run_cli(torch, kernels, name, label, argv)
+
+    try:
+        cut = cli("one epoch", os.path.join(RESNET_DIR, "cut"), 1)
+        resumed = cli("resume to two epochs", os.path.join(RESNET_DIR, "cut"), 2)
+        whole = cli("two epochs uninterrupted", os.path.join(RESNET_DIR, "whole"), 2)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    got = [r["loss"] for r in cut.steps_log + resumed.steps_log]
+    want = [r["loss"] for r in whole.steps_log]
+    err = max((abs(a - b) for a, b in zip(got, want)), default=math.inf)
+    batch_time = statistics.median(r["batch_time"] for r in cut.steps_log[1:])
+    phase(name, f"run_experiment MODEL.ARCH resnet50: epoch 0, {len(cut.steps_log)} steps "
+                f"(median batch_time {batch_time * 1e3:.3f} ms, {BATCH / batch_time:.1f} img/s), "
+                f"its eval top1 {cut.evals[0]['top1']:.4f}; the resume started at epoch "
+                f"{resumed.start_epoch}, step {resumed.steps_log[0]['step']}; the 16 losses "
+                f"against the uninterrupted run's: max|err| {err:.3e} (tol {LOSS_TOL:g}), equal "
+                f"bit for bit {got == want}; evals after epoch 1 top1 "
+                f"{resumed.evals[0]['top1']:.4f} and {whole.evals[1]['top1']:.4f}")
+    if not (len(got) == len(want) == 16 and err <= LOSS_TOL and resumed.start_epoch == 1
+            and resumed.steps_log[0]["step"] == 8 and cut.evals):
+        raise AssertionError(f"resnet50 resume differs from the uninterrupted run: {err}")
+    return launch_counts(kernels)
+
+
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
          "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
-         "experiment_tp", "from_vil_tpu")
+         "experiment_tp", "from_vil_tpu", "train_drop", "self_chunk", "train_remat", "resnet")
 
 
 def only_arg(argv) -> "set | None":
@@ -3800,8 +4195,8 @@ def main() -> int:
     every = sass_census.census("")  # one disassembly of the library (~30 s), every kernel
     for match, want in (("full_attention", 15), ("vil_attention_fwd", 5),
                         ("vil_attention_bwd", 10), ("vil_attention_halo_fwd", 5),
-                        ("vil_attention_halo_bwd", 10), ("vil_mode_attention_fwd", 5),
-                        ("vil_mode_attention_bwd", 10), ("vil_block_fwd", 13),
+                        ("vil_attention_halo_bwd", 10), ("vil_mode_attention_fwd", 10),
+                        ("vil_mode_attention_bwd", 20), ("vil_block_fwd", 13),
                         ("vil_block_bwd", 22)):
         census = {name: counts for name, counts in every.items() if match in name}
         for name, counts in sorted(census.items()):
@@ -3837,6 +4232,11 @@ def main() -> int:
                                    "vil_tpu/ops/pallas/vil_kernel.py:821"),
         "vil_attention_halo_bwd": ("vil_tpu_torch/csrc/vil_attention_halo_bwd.cu",
                                    "vil_tpu/ops/pallas/vil_backward.py:757"),
+        # mode -1: no Pallas kernel in vil_tpu, which runs its XLA tier there
+        "vil_self_attention_fwd": ("vil_tpu_torch/csrc/vil_mode_attention_fwd.cu",
+                                   "vil_tpu/models/attention.py:768"),
+        "vil_self_attention_bwd": ("vil_tpu_torch/csrc/vil_mode_attention_bwd.cu",
+                                   "vil_tpu/models/attention.py:768"),
         "consume_base": ("vil_tpu_torch/csrc/layout_probe.cu", "tools/layout_probe.py:36"),
         "consume_perm": ("vil_tpu_torch/csrc/layout_probe.cu", "tools/layout_probe.py:48"),
     }
@@ -3881,6 +4281,13 @@ def main() -> int:
         # what vil_tpu's users hold: its checkpoints (eval, resume) and a TSV
         # set through the native reader and the grain loader's processes
         "from_vil_tpu": lambda: run_from_vil_tpu(torch, kernels),
+        # the rest of vil_tpu's build_model: dropout, the self chunk alone
+        # (mode -1: the self-only instances of B5/B6), TPU.REMAT and the
+        # ResNet zoo
+        "train_drop": lambda: run_train(torch, kernels, drop=0.1),
+        "self_chunk": lambda: run_self_chunk(torch, kernels, records),
+        "train_remat": lambda: run_train_remat(torch, kernels),
+        "resnet": lambda: run_resnet(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()

@@ -106,19 +106,36 @@ def test_freeze_and_clone():
     assert cfg.OPTIM.LR == 0.2
 
 
+# what a key ported alone is refused beside: a mesh other than the data axis
+OFF_THE_DATA_AXIS = {
+    "MODEL.ARCH": ["TPU.MESH_AXES", "['data', 'model']", "TPU.PARAM_SHARDING", "tp"],
+    "TPU.REMAT": ["TPU.MESH_AXES", "['data', 'spatial']"],
+    "MODEL.VIT.DROP": ["TPU.MESH_AXES", "['data', 'spatial']"],
+}
+
+
 @pytest.mark.parametrize("key,value,item", [
     ("CKPT_BACKEND", "orbax", "A6"),
     ("TPU.STACKED_OPT", "True", "A13"),
-    ("MODEL.ARCH", "resnet50", "A10"),
-    ("TPU.REMAT", "full", "A13"),
+    ("MODEL.ARCH", "resnet50", "A12"),
+    ("TPU.REMAT", "full", "A12"),
     ("TPU.FLAT_OPT", "True", "A13"),
+    ("MODEL.VIT.DROP", "0.1", "A12"),
 ])
 def test_unported_keys_raise_naming_their_item(key, value, item):
+    """A key that selects what the port lacks raises, naming its item; the
+    ResNet zoo, TPU.REMAT and dropout are ported and raise only off the data
+    axis (A12)."""
     cfg = get_default_cfg()
     check_ported(cfg)
     cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))
     check_ported(cfg)
     cfg.merge_from_list([key, value])
+    if key in OFF_THE_DATA_AXIS:
+        check_ported(cfg)
+        cfg.merge_from_list(["TPU.MESH_AXES", "['data']", "TPU.MESH_SHAPE", "[2]"])
+        check_ported(cfg)
+        cfg.merge_from_list(OFF_THE_DATA_AXIS[key] + ["TPU.MESH_SHAPE", "[1, 2]"])
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         check_ported(cfg)
 

@@ -271,17 +271,24 @@ def test_unported_features_raise():
     exact1 = MsViT(ARCH_PAD, sharew=True, sw_exact=1, mode=1, **cpu).train()
     with pytest.raises(ValueError, match="SW_EXACT 1"):
         exact1(torch.zeros(1, 56, 56, 3), mode=3)
-    # mode -1 (the self chunk alone) raises where it is run
-    with pytest.raises(NotImplementedError, match="mode -1"):
-        MsViT(ARCH_PAD, sharew=True, **cpu).train()(torch.zeros(1, 56, 56, 3), mode=-1)
-    # training mode with a nonzero dropout rate raises instead of running as
+    # mode -1 (the self chunk alone) runs (tests/test_torch_model_options.py);
+    # under spatial parallelism it raises, as modes 1..8 do (A12)
+    from vil_tpu_torch.parallel import SpatialContext
+
+    with pytest.raises(NotImplementedError, match="mode -1.*A12"):
+        MsViT(ARCH_PAD, sharew=True, **cpu).train()(torch.zeros(1, 56, 56, 3), mode=-1,
+                                                     spatial=SpatialContext.of(None))
+    # dropout runs in training (tests/test_torch_model_options.py); attention
+    # dropout, which no config of vil_tpu sets, raises instead of running as
     # eval (stochastic depth is ported: test_torch_train.py)
-    model = MsViT(ARCH_PAD, num_classes=5, sharew=True, drop_rate=0.1, **cpu)
+    model = MsViT(ARCH_PAD, num_classes=5, sharew=True, attn_drop_rate=0.1, **cpu)
     x = torch.zeros(1, 56, 56, 3)
     with torch.inference_mode():
         model.eval()(x)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="attention dropout"):
             model.train()(x)
+        assert torch.isfinite(MsViT(ARCH_PAD, num_classes=5, sharew=True, drop_rate=0.1,
+                                    **cpu).train()(x, torch.Generator())).all()
     with pytest.raises(ValueError, match="Fix input size"):
         model.eval()(torch.zeros(1, 60, 60, 3))
 

@@ -306,6 +306,19 @@ TRAINER_OPTS = [
     "0.0", "AUG.SCALE", "(1.0, 1.0)", "AUG.RATIO", "(1.0, 1.0)"]
 TRAINER_RUNS = {"tp": _mesh(1, 2, "tp"), "fsdp": _mesh(2, 1, "fsdp")}
 
+# a narrow ResNet of the zoo on a data axis of 2: its BatchNorms take the
+# global batch's statistics, as vil_tpu's jitted step on the sharded batch
+RESNET = dict(name="resnet50", layers=[1, 1, 1, 1], state="resnet.npz",
+              opts=["DATA.NUM_CLASSES", "10", "TPU.COMPUTE_DTYPE", "float32", "OPTIM.OPT",
+                    "adamw", "OPTIM.LR", "1e-2"] + _mesh(2, 1, "replicated"))
+
+
+def _resnet(group_size=1):
+    from vil_tpu_torch.models import build_resnet
+
+    return build_resnet(RESNET["name"], 10, device="cpu", layers=tuple(RESNET["layers"]),
+                        generator=torch.Generator().manual_seed(3), group_size=group_size)
+
 
 @pytest.fixture(scope="module")
 def sharded_runs(tmp_path_factory):
@@ -320,6 +333,11 @@ def sharded_runs(tmp_path_factory):
     images = rng.standard_normal((BATCH, IMG, IMG, 3)).astype(np.float32)
     targets = rng.integers(0, 10, BATCH).astype(np.int64)
     np.savez(inputs / "inputs.npz", images=images, targets=targets)
+    rng_bn = np.random.default_rng(5)  # running statistics other than the init's
+    np.savez(inputs / "resnet.npz", **{
+        k: (v.numpy() if "running" not in k else
+            rng_bn.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        for k, v in _resnet().state_dict().items()})
     jax_side = {w: _jax_params(_opts(a), images, seed) for w, a, seed in (
         ("ape", ARCH, 1), ("rpe", ARCH_RPE, 2))}
     for weights, (_, _, params) in jax_side.items():
@@ -329,7 +347,7 @@ def sharded_runs(tmp_path_factory):
     try:
         for world in (2, 4):
             out = tmp_path_factory.mktemp(f"sharding_world{world}")
-            for name in ("inputs.npz", "ape.npz", "rpe.npz"):
+            for name in ("inputs.npz", "ape.npz", "rpe.npz", "resnet.npz"):
                 os.symlink(inputs / name, out / name)
             steps = {case: dict(opts=_opts(ARCH_RPE if weights == "rpe" else ARCH, opt)
                                 + _mesh(data, model, sharding), params=f"{weights}.npz",
@@ -339,7 +357,8 @@ def sharded_runs(tmp_path_factory):
             trainers = {n: dict(opts=TRAINER_OPTS + o, resume=True)
                         for n, o in TRAINER_RUNS.items()} if world == 2 else {}
             with open(out / "spec.json", "w") as f:
-                json.dump({"steps": steps, "trainers": trainers}, f)
+                json.dump({"steps": steps, "trainers": trainers,
+                           "resnet": RESNET if world == 2 else {}}, f)
             spawns[world] = out, _launch(out, world)
         refs = {w: _jax_step(*jax_side[w], images, targets) for w in jax_side}
         refs["shift"] = _jax_step(*jax_side["ape"], images, targets, random_shift=True)
@@ -350,6 +369,7 @@ def sharded_runs(tmp_path_factory):
         out1 = tmp_path_factory.mktemp("sharding_world1")
         cfg.merge_from_list(TRAINER_OPTS + ["OUTPUT_DIR", str(out1)])
         refs["world1"] = run_experiment(cfg, device="cpu"), out1
+        refs["inputs"] = inputs
         yield refs, spawns
     finally:
         for _, procs in spawns.values():
@@ -429,3 +449,34 @@ def test_trainer_at_world_2_matches_world_1(sharded_runs, spawned, name):
     ref = torch.load(out1 / "checkpoint_2.ckpt", weights_only=True)["model"]
     for k, v in replicated.model.state_dict().items():
         torch.testing.assert_close(v, ref[k], rtol=0, atol=TOL, msg=f"{name}: {k}")
+
+
+def test_resnet_data_axis_step_matches_one_process(sharded_runs, spawned):
+    """A narrow ResNet-50 over two gloo ranks on the data axis, each on half
+    the batch, against one process's step on the whole batch: the loss,
+    every gradient, the updated parameters (their resolved entries, as
+    test_sharded_step_matches_vil_tpu's) and the running statistics to 1e-5
+    (the BatchNorms' sums all-reduced forward and backward)."""
+    inputs = sharded_runs[0]["inputs"]
+    inp = np.load(inputs / "inputs.npz")
+    cfg = get_default_cfg()
+    cfg.merge_from_list(RESNET["opts"][:8])
+    model = _resnet()
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in np.load(inputs / "resnet.npz").items()})
+    step = engine.make_train_step(model, loss.cross_entropy, optim.get_opt(cfg, model),
+                                  device="cpu", seed=0)
+    ref_loss = step(torch.from_numpy(inp["images"]), torch.from_numpy(inp["targets"]))["loss"]
+    _, results = spawned(2)
+    for r, res in enumerate(results):
+        assert abs(float(res["resnet/loss"]) - ref_loss.item()) <= TOL, r
+        for name, p in model.named_parameters():
+            g = p.grad.numpy()
+            err = np.abs(res[f"resnet/grad/{name}"] - g).max()
+            assert err <= TOL * max(1.0, np.abs(g).max()), (r, "grad", name, err)
+            keep = np.abs(g) >= RESOLVED * np.abs(g).max(initial=0.0)
+            err = np.abs(res[f"resnet/param/{name}"] - p.detach().numpy())[keep].max(initial=0.0)
+            assert err <= TOL, (r, "updated", name, err)
+        for name, b in model.named_buffers():
+            err = np.abs(res[f"resnet/buffer/{name}"] - b.numpy()).max()
+            assert err <= TOL * max(1.0, b.abs().max().item()), (r, name, err)

@@ -18,7 +18,12 @@ runs what DIR/spec.json lists:
 * ``trainers``: for each run (its options and whether to resume),
   ``train.trainer.run_experiment`` into DIR/run_NAME; with ``resume``, a
   run into DIR/cut_NAME stopped when its second epoch starts and a new
-  Trainer that resumes it; it writes the logged losses and the evals.
+  Trainer that resumes it; it writes the logged losses and the evals;
+* ``resnet``: a narrow ResNet of the zoo on the data axis of every rank
+  (its BatchNorms over the global batch), its weights and running
+  statistics from DIR/STATE (the port's names), one AdamW step on its
+  replica's share of the global batch; it writes the loss, every gradient,
+  the updated parameters and the running statistics.
 
 Each rank writes DIR/rank{RANK}.npz. It imports neither jax nor ``vil_tpu``.
 """
@@ -33,7 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vil_tpu_torch import parallel  # noqa: E402
 from vil_tpu_torch.config import get_default_cfg  # noqa: E402
-from vil_tpu_torch.models import build_model  # noqa: E402
+from vil_tpu_torch.models import build_model, build_resnet  # noqa: E402
 from vil_tpu_torch.train import engine, loss, optim  # noqa: E402
 from vil_tpu_torch.train.trainer import Trainer, run_experiment  # noqa: E402
 from vil_tpu_torch.utils import jax_import  # noqa: E402
@@ -83,6 +88,33 @@ def run_steps(out_dir, cases: dict) -> dict:
         for name, p in model.named_parameters():
             res[f"{case}/grad/{name}"] = whole(model, name, p.grad)
             res[f"{case}/param/{name}"] = whole(model, name, p)
+    return res
+
+
+def run_resnet(out_dir, spec: dict) -> dict:
+    if not spec:
+        return {}
+    inp = np.load(os.path.join(out_dir, "inputs.npz"))
+    cfg = get_default_cfg()
+    cfg.merge_from_list(spec["opts"])
+    mesh = parallel.mesh_from_cfg(cfg)
+    model = build_resnet(spec["name"], cfg.DATA.NUM_CLASSES, device="cpu",
+                         layers=tuple(spec["layers"]), group=mesh.data_group,
+                         group_size=mesh.data_size)
+    state = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(out_dir,
+                                                                     spec["state"])).items()}
+    model.load_state_dict(state)
+    step = engine.make_train_step(model, loss.cross_entropy, optim.get_opt(cfg, model),
+                                  device="cpu", seed=0, mesh=mesh)
+    n = len(inp["images"]) // mesh.data_size
+    rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
+    metrics = step(torch.from_numpy(inp["images"][rows]), torch.from_numpy(inp["targets"][rows]))
+    res = {"resnet/loss": metrics["loss"].item()}
+    for name, p in model.named_parameters():
+        res[f"resnet/grad/{name}"] = p.grad.numpy()
+        res[f"resnet/param/{name}"] = p.detach().numpy()
+    for name, b in model.named_buffers():
+        res[f"resnet/buffer/{name}"] = b.numpy()
     return res
 
 
@@ -136,6 +168,7 @@ def main():
     res = {}
     res.update(run_steps(out_dir, spec.get("steps", {})))
     res.update(run_trainers(out_dir, spec.get("trainers", {})))
+    res.update(run_resnet(out_dir, spec.get("resnet", {})))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{k: np.asarray(v) for k, v in res.items()})
     parallel.synchronize()

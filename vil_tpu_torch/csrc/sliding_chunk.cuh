@@ -13,11 +13,12 @@
 // cols = nglo + kCount W²; Wq is 1 (one mask row per chunk) or W² (one per
 // query pixel). q arrives scaled by M^-1/2; no kernel scales.
 //
-// Two neighbourhoods:
+// The neighbourhoods:
 //   FullNbh      the 3x3 cyclic neighbourhood of MODE 0, in the order of
 //                masks.NEIGHBOR_OFFSETS: (dx, dy) = (n / 3 - 1, n % 3 - 1)
 //   SampledNbh   [self ‖ one sampled neighbour] of MODE 1..8 (random-shift
 //                training): (0, 0), then (dx, dy) = -MODE_ROLL_SHIFTS[mode]
+//   SelfNbh      the self chunk alone, mode -1: (0, 0)
 //   HaloNbh      FullNbh's neighbours over halo-extended K/V (spatial
 //                parallelism): K/V hold mx + 2 chunk rows, a shard's own rows
 //                between the previous shard's last row (row 0) and the next
@@ -45,6 +46,12 @@ struct SampledNbh {
   int sdx, sdy;  // offset of the sampled chunk, each in {-1, 0, 1}
   __device__ __forceinline__ int dx(int n) const { return n == 0 ? 0 : sdx; }
   __device__ __forceinline__ int dy(int n) const { return n == 0 ? 0 : sdy; }
+};
+
+struct SelfNbh {
+  static constexpr int kCount = 1;
+  __device__ __forceinline__ int dx(int) const { return 0; }
+  __device__ __forceinline__ int dy(int) const { return 0; }
 };
 
 struct HaloNbh : FullNbh {};

@@ -1,5 +1,5 @@
 // Sampled-neighbour sliding-chunk attention backward for Hopper (sm_90a):
-// random-shift training, MODE 1..8.
+// random-shift training, MODE 1..8, and its self-only instance, mode -1.
 //
 // Replaces the TPU kernel vil_tpu/ops/pallas/vil_mode_kernel.py::mode_backward
 // (Pallas bodies _bwd_kernel_img, _bwd_kernel_row). Given the forward's
@@ -60,13 +60,19 @@
 // (sliding_chunk.cuh) over SampledNbh: one warp per row, δ by a first sweep
 // of pass 1 (`out` is not read). Scores never reach device memory, and no
 // rolled copy of K, V, dK or dV is made.
+//
+// Mode -1 (vil_self_attention_bwd): the same bodies over SelfNbh, the self
+// chunk alone: pass 1 sweeps [glo ‖ self] (one 64-key tile at nglo 1), pass
+// 2 the W² query rows of the chunk itself. vil_tpu differentiates its XLA
+// tier there (vil_tpu/models/attention.py:768); the kernel is the port's, so
+// that mode -1 trains on the card without its plain oracle.
 #include "sliding_chunk_tc.cuh"
 
 namespace vil {
 
-template <typename T, int M>
+template <typename T, int M, typename Nbh>
 __global__ void __launch_bounds__(kThreads)
-vil_mode_attention_bwd_pass1(SampledNbh nbh, const T* __restrict__ q, const T* __restrict__ k,
+vil_mode_attention_bwd_pass1(Nbh nbh, const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ k_glo,
                              const T* __restrict__ v_glo, const T* __restrict__ g,
                              const float* __restrict__ bias, const float* __restrict__ mask,
@@ -78,9 +84,9 @@ vil_mode_attention_bwd_pass1(SampledNbh nbh, const T* __restrict__ q, const T* _
                                 ds_glo, dbias_part, mx, my, w2, C, nglo, wq, chunks_per_block);
 }
 
-template <typename T, int M>
+template <typename T, int M, typename Nbh>
 __global__ void __launch_bounds__(kThreads)
-vil_mode_attention_bwd_pass2(SampledNbh nbh, const T* __restrict__ q, const T* __restrict__ k,
+vil_mode_attention_bwd_pass2(Nbh nbh, const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ g,
                              const float* __restrict__ bias, const float* __restrict__ mask,
                              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -90,9 +96,9 @@ vil_mode_attention_bwd_pass2(SampledNbh nbh, const T* __restrict__ q, const T* _
                                 nglo, wq);
 }
 
-template <int M>
+template <int M, typename Nbh>
 __global__ void __launch_bounds__(kTcThreads)
-vil_mode_attention_bwd_wgmma_pass1(SampledNbh nbh, const bf16* __restrict__ q,
+vil_mode_attention_bwd_wgmma_pass1(Nbh nbh, const bf16* __restrict__ q,
                                    const bf16* __restrict__ k, const bf16* __restrict__ v,
                                    const bf16* __restrict__ k_glo,
                                    const bf16* __restrict__ v_glo, const bf16* __restrict__ g,
@@ -107,9 +113,9 @@ vil_mode_attention_bwd_wgmma_pass1(SampledNbh nbh, const bf16* __restrict__ q,
                                 chunks_per_block);
 }
 
-template <int M>
+template <int M, typename Nbh>
 __global__ void __launch_bounds__(kTcThreads)
-vil_mode_attention_bwd_wgmma_pass2(SampledNbh nbh, const bf16* __restrict__ q,
+vil_mode_attention_bwd_wgmma_pass2(Nbh nbh, const bf16* __restrict__ q,
                                    const bf16* __restrict__ k, const bf16* __restrict__ v,
                                    const bf16* __restrict__ g, const float* __restrict__ bias,
                                    const float* __restrict__ mask, const float* __restrict__ lse,
@@ -120,13 +126,13 @@ vil_mode_attention_bwd_wgmma_pass2(SampledNbh nbh, const bf16* __restrict__ q,
                                 nglo, wq);
 }
 
-template <typename T>
+template <typename T, typename Nbh>
 cudaError_t launch_vil_mode_bwd(const void* q, const void* k, const void* v, const void* k_glo,
                                 const void* v_glo, const void* g, const void* out,
                                 const float* bias, const float* mask, const float* lse,
                                 float* delta, void* dq, void* dk, void* dv, float* p_glo,
                                 float* ds_glo, float* dbias_part, int B, int mx, int my, int w2,
-                                int C, int H, int nglo, int wq, SampledNbh nbh,
+                                int C, int H, int nglo, int wq, Nbh nbh,
                                 cudaStream_t stream) {
   // with a bias, one block walks all chunks of its image (one writer per
   // dbias partial); without, one block per chunk
@@ -136,23 +142,23 @@ cudaError_t launch_vil_mode_bwd(const void* q, const void* k, const void* v, con
     if constexpr (std::is_same_v<T, bf16>) {
       const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
       cudaError_t err = launch_with(
-          vil_mode_attention_bwd_wgmma_pass1<M>, dim3(mx * my / per_block * slices, H, B),
+          vil_mode_attention_bwd_wgmma_pass1<M, Nbh>, dim3(mx * my / per_block * slices, H, B),
           kTcThreads, tc_pass1_smem_bytes(M), stream, nbh, (const T*)q, (const T*)k,
           (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g, (const T*)out, bias, mask,
           lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq, per_block);
       if (err != cudaSuccess) return err;
-      return launch_with(vil_mode_attention_bwd_wgmma_pass2<M>, dim3(mx * my * slices, H, B),
+      return launch_with(vil_mode_attention_bwd_wgmma_pass2<M, Nbh>, dim3(mx * my * slices, H, B),
                          kTcThreads, tc_pass2_smem_bytes(M), stream, nbh, (const T*)q,
                          (const T*)k, (const T*)v, (const T*)g, bias, mask, lse,
                          (const float*)delta, (T*)dk, (T*)dv, mx, my, w2, C, nglo, wq);
     } else {
-      cudaError_t err = launch(vil_mode_attention_bwd_pass1<T, M>,
+      cudaError_t err = launch(vil_mode_attention_bwd_pass1<T, M, Nbh>,
                                dim3(mx * my / per_block, H, B), pass1_smem_bytes(w2, M), stream,
                                nbh, (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo,
                                (const T*)v_glo, (const T*)g, bias, mask, lse, delta, (T*)dq,
                                p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq, per_block);
       if (err != cudaSuccess) return err;
-      return launch(vil_mode_attention_bwd_pass2<T, M>, dim3(mx * my, H, B),
+      return launch(vil_mode_attention_bwd_pass2<T, M, Nbh>, dim3(mx * my, H, B),
                     pass2_smem_bytes(w2, M), stream, nbh, (const T*)q, (const T*)k, (const T*)v,
                     (const T*)g, bias, mask, lse, (const float*)delta, (T*)dk, (T*)dv, mx, my,
                     w2, C, nglo, wq);
@@ -188,6 +194,34 @@ extern "C" int vil_mode_attention_bwd(const void* q, const void* k, const void* 
   auto* dsg = static_cast<float*>(ds_glo);
   auto* db = static_cast<float*>(dbias_part);
   const vil::SampledNbh nbh{dx, dy};
+  if (is_bf16)
+    return vil::launch_vil_mode_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
+                                                   lse_f, delta_f, dq, dk, dv, pg, dsg, db, B,
+                                                   mx, my, w2, C, H, nglo, wq, nbh, s);
+  return vil::launch_vil_mode_bwd<float>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f, lse_f,
+                                         delta_f, dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H,
+                                         nglo, wq, nbh, s);
+}
+
+// The self-only instance (mode -1): vil_mode_attention_bwd's arguments
+// without the offset; bias (H, w2, nglo + w2) f32 or null, mask
+// (mx, my, wq, nglo + w2) f32, dbias_part (B, H, w2, nglo + w2).
+extern "C" int vil_self_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* k_glo, const void* v_glo, const void* g,
+                                      const void* out, const void* bias, const void* mask,
+                                      const void* lse, void* delta, void* dq, void* dk, void* dv,
+                                      void* p_glo, void* ds_glo, void* dbias_part, int B, int mx,
+                                      int my, int w2, int C, int H, int nglo, int wq,
+                                      int is_bf16, void* stream) {
+  auto* s = static_cast<cudaStream_t>(stream);
+  auto* bias_f = static_cast<const float*>(bias);
+  auto* mask_f = static_cast<const float*>(mask);
+  auto* lse_f = static_cast<const float*>(lse);
+  auto* delta_f = static_cast<float*>(delta);
+  auto* pg = static_cast<float*>(p_glo);
+  auto* dsg = static_cast<float*>(ds_glo);
+  auto* db = static_cast<float*>(dbias_part);
+  const vil::SelfNbh nbh{};
   if (is_bf16)
     return vil::launch_vil_mode_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
                                                    lse_f, delta_f, dq, dk, dv, pg, dsg, db, B,

@@ -1,5 +1,5 @@
 // Sampled-neighbour sliding-chunk attention forward for Hopper (sm_90a):
-// random-shift training, MODE 1..8.
+// random-shift training, MODE 1..8, and its self-only instance, mode -1.
 //
 // Replaces the TPU kernel vil_tpu/ops/pallas/vil_mode_kernel.py::mode_forward
 // (Pallas bodies _fwd_kernel_img, _fwd_kernel_row). For every query chunk
@@ -53,13 +53,21 @@
 // (sliding_chunk.cuh) over SampledNbh: one block of 256 threads per (query
 // chunk, head, image), one warp per query row, an online softmax over the
 // column tiles (the global keys, the self chunk, the sampled chunk).
+//
+// Mode -1 (vil_self_attention_fwd): the same two bodies over SelfNbh, the
+// self chunk alone, [glo ‖ self]: 50 columns at nglo 1, one 64-key tile in
+// bf16. It replaces no TPU kernel: vil_tpu runs mode -1 in its XLA tier
+// (vil_tpu/models/attention.py:768). It exists so that mode -1 runs a kernel
+// on the card, where the port's plain version is an oracle only. Its bound
+// is the same bytes as B5's (q, k, v, out), half its products: device memory
+// again.
 #include "sliding_chunk_tc.cuh"
 
 namespace vil {
 
-template <typename T, int M>
+template <typename T, int M, typename Nbh>
 __global__ void __launch_bounds__(kThreads)
-vil_mode_attention_fwd_kernel(SampledNbh nbh, const T* __restrict__ q, const T* __restrict__ k,
+vil_mode_attention_fwd_kernel(Nbh nbh, const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ k_glo,
                               const T* __restrict__ v_glo, const float* __restrict__ bias,
                               const float* __restrict__ mask, T* __restrict__ out,
@@ -69,9 +77,9 @@ vil_mode_attention_fwd_kernel(SampledNbh nbh, const T* __restrict__ q, const T* 
                           wq);
 }
 
-template <int M>
+template <int M, typename Nbh>
 __global__ void __launch_bounds__(kTcThreads)
-vil_mode_attention_fwd_wgmma(SampledNbh nbh, const bf16* __restrict__ q,
+vil_mode_attention_fwd_wgmma(Nbh nbh, const bf16* __restrict__ q,
                              const bf16* __restrict__ k, const bf16* __restrict__ v,
                              const bf16* __restrict__ k_glo, const bf16* __restrict__ v_glo,
                              const float* __restrict__ bias, const float* __restrict__ mask,
@@ -81,21 +89,21 @@ vil_mode_attention_fwd_wgmma(SampledNbh nbh, const bf16* __restrict__ q,
                           wq);
 }
 
-template <typename T>
+template <typename T, typename Nbh>
 cudaError_t launch_vil_mode(const void* q, const void* k, const void* v, const void* k_glo,
                             const void* v_glo, const float* bias, const float* mask, void* out,
                             float* lse, int B, int mx, int my, int w2, int C, int H, int nglo,
-                            int wq, SampledNbh nbh, cudaStream_t stream) {
+                            int wq, Nbh nbh, cudaStream_t stream) {
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
     if constexpr (std::is_same_v<T, bf16>) {
       const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
-      return launch_with(vil_mode_attention_fwd_wgmma<M>, dim3(slices * mx * my, H, B),
-                         kTcThreads, tc_fwd_smem_bytes(M, nglo + SampledNbh::kCount * w2),
+      return launch_with(vil_mode_attention_fwd_wgmma<M, Nbh>, dim3(slices * mx * my, H, B),
+                         kTcThreads, tc_fwd_smem_bytes(M, nglo + Nbh::kCount * w2),
                          stream, nbh, (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo,
                          (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
     } else {
-      return launch(vil_mode_attention_fwd_kernel<T, M>, dim3(mx * my, H, B),
+      return launch(vil_mode_attention_fwd_kernel<T, M, Nbh>, dim3(mx * my, H, B),
                     fwd_smem_bytes(w2, M), stream, nbh, (const T*)q, (const T*)k, (const T*)v,
                     (const T*)k_glo, (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C,
                     nglo, wq);
@@ -121,6 +129,26 @@ extern "C" int vil_mode_attention_fwd(const void* q, const void* k, const void* 
   auto* mask_f = static_cast<const float*>(mask);
   auto* lse_f = static_cast<float*>(lse);
   const vil::SampledNbh nbh{dx, dy};
+  if (is_bf16)
+    return vil::launch_vil_mode<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out,
+                                               lse_f, B, mx, my, w2, C, H, nglo, wq, nbh, s);
+  return vil::launch_vil_mode<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx,
+                                     my, w2, C, H, nglo, wq, nbh, s);
+}
+
+// The self-only instance (mode -1): vil_mode_attention_fwd's arguments
+// without the offset; bias (H, w2, nglo + w2) f32 or null, mask
+// (mx, my, wq, nglo + w2) f32.
+extern "C" int vil_self_attention_fwd(const void* q, const void* k, const void* v,
+                                      const void* k_glo, const void* v_glo, const void* bias,
+                                      const void* mask, void* out, void* lse, int B, int mx,
+                                      int my, int w2, int C, int H, int nglo, int wq,
+                                      int is_bf16, void* stream) {
+  auto* s = static_cast<cudaStream_t>(stream);
+  auto* bias_f = static_cast<const float*>(bias);
+  auto* mask_f = static_cast<const float*>(mask);
+  auto* lse_f = static_cast<float*>(lse);
+  const vil::SelfNbh nbh{};
   if (is_bf16)
     return vil::launch_vil_mode<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out,
                                                lse_f, B, mx, my, w2, C, H, nglo, wq, nbh, s);

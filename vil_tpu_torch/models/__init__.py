@@ -1,6 +1,8 @@
-"""Model registry: the MsViT family (counterpart of ``vil_tpu/models``)."""
+"""Model registry: the MsViT family and the ResNet zoo (counterpart of
+``vil_tpu/models``)."""
 from __future__ import annotations
 
+import logging
 import os
 
 import torch
@@ -8,13 +10,39 @@ import torch
 from .arch import ARCH_ZOO, StageCfg, parse_arch
 from .attention import RelativePositionBias
 from .msvit import NO_WEIGHT_DECAY_SUBSTRINGS, MsViT
+from .resnet import RESNET_ZOO, BatchNorm, ResNet, build_resnet
+
+logger = logging.getLogger(__name__)
+
+
+def _resnet(cfg, name, dtype, device, generator, param_dtype, mesh) -> ResNet:
+    """``vil_tpu``'s route for a ``RESNET_ZOO`` name: MODEL.PRETRAINED
+    raises (it would need torchvision's hub), the computation in
+    TPU.COMPUTE_DTYPE, the parameters in f32 (``vil_tpu`` passes no
+    PARAM_DTYPE to its ResNet); on a data axis of several replicas every
+    BatchNorm takes the global batch's statistics."""
+    if cfg.MODEL.PRETRAINED:
+        raise ValueError("MODEL.PRETRAINED needs torchvision hub access; load local "
+                         "weights via MODEL.MODEL_PATH (a torchvision .pth) instead")
+    if mesh is not None and (mesh.spatial is not None or mesh.model is not None):
+        raise NotImplementedError("a ResNet under spatial or tensor parallelism is not "
+                                  "ported (ROADMAP.md §A, A12)")
+    if dtype is None:
+        dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
+    logger.info("=> creating torchvision-zoo model '%s'", name)
+    data = dict(group=mesh.data_group, group_size=mesh.data_size) if mesh is not None else {}
+    return build_resnet(name, cfg.DATA.NUM_CLASSES, dtype, param_dtype or torch.float32,
+                        device, input_mean=tuple(cfg.INPUT.MEAN),
+                        input_std=tuple(cfg.INPUT.STD), generator=generator, **data)
 
 
 def build_model(cfg, dtype=None, device=None, use_kernels=None,
-                generator=None, param_dtype=None, fused_block=None, mesh=None) -> MsViT:
+                generator=None, param_dtype=None, fused_block=None, mesh=None,
+                remat=None):
     """Construct the model from a config tree, read by attribute as
     ``vil_tpu.models.build_model`` reads it (MODEL.ARCH may name an
-    ``ARCH_ZOO`` entry or ``msvit``; the tree is not modified).
+    ``ARCH_ZOO`` entry, ``msvit`` or a ``RESNET_ZOO`` entry, the ResNets of
+    ``models/resnet.py``; the tree is not modified).
 
     ``dtype``, the type of the computation, defaults to TPU.COMPUTE_DTYPE;
     the parameters are kept in ``param_dtype``, by default TPU.PARAM_DTYPE
@@ -32,10 +60,17 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
     Under TPU.PARAM_SHARDING 'tp' with a ``mesh`` (``parallel.Mesh``) that
     has a model axis, the model is this model rank's shard (``MsViT``'s
     ``tp``), as ``vil_tpu`` passes its ``tp_mesh``; the classifier head, the
-    patch embeddings and the LayerNorms stay whole."""
+    patch embeddings and the LayerNorms stay whole.
+
+    ``remat`` defaults to TPU.REMAT ('', 'minimal', 'full'). As ``vil_tpu``
+    does, it is dropped under MODEL.VIT.MSVIT.MODE > 0, whose random shift
+    needs a mode that ``nn.remat`` cannot hold static; the port logs that it
+    dropped it."""
     if fused_block is None:
         fused_block = os.environ.get("VIL_TPU_FUSED_BLOCK", "0") == "1"
     name = cfg.MODEL.ARCH
+    if name in RESNET_ZOO:
+        return _resnet(cfg, name, dtype, device, generator, param_dtype, mesh)
     if name in ARCH_ZOO:
         arch = ARCH_ZOO[name]
     elif name.startswith("msvit"):
@@ -49,6 +84,13 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
     if use_kernels is None:
         use_kernels = bool(cfg.TPU.USE_PALLAS)
     msvit = cfg.MODEL.VIT.MSVIT
+    if remat is None:
+        remat = getattr(cfg.TPU, "REMAT", "")
+    if remat and msvit.MODE > 0:
+        logger.warning("TPU.REMAT %r is dropped under MODEL.VIT.MSVIT.MODE %d (random shift "
+                       "needs a mode that rematerialisation cannot hold static), as vil_tpu "
+                       "drops it", remat, msvit.MODE)
+        remat = ""
     return MsViT(
         arch=arch,
         img_size=cfg.INPUT.IMAGE_SIZE,
@@ -74,6 +116,7 @@ def build_model(cfg, dtype=None, device=None, use_kernels=None,
         param_dtype=param_dtype,
         generator=generator,
         tp=mesh.model if mesh is not None and cfg.TPU.PARAM_SHARDING == "tp" else None,
+        remat=remat,
     )
 
 
@@ -95,5 +138,6 @@ def precompute_rpe_cache(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-__all__ = ["ARCH_ZOO", "MsViT", "NO_WEIGHT_DECAY_SUBSTRINGS", "StageCfg", "build_model",
-           "parse_arch", "precompute_rpe_cache"]
+__all__ = ["ARCH_ZOO", "BatchNorm", "MsViT", "NO_WEIGHT_DECAY_SUBSTRINGS", "RESNET_ZOO",
+           "ResNet", "StageCfg", "build_model", "build_resnet", "parse_arch",
+           "precompute_rpe_cache"]

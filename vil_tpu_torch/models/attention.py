@@ -8,7 +8,9 @@ Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
   on the stage-resident chunked layout. At neighbour mode 0 the
   local branch runs the sliding-chunk kernels (``ops/kernels/vil_attention.py``);
   at modes 1..8 (random-shift training: self + one sampled neighbour chunk)
-  the sampled-neighbour kernels (``ops/kernels/vil_mode_attention.py``).
+  the sampled-neighbour kernels (``ops/kernels/vil_mode_attention.py``), and
+  at mode -1 (the self chunk alone, ``MsViT(..., mode=-1)``) their self-only
+  instances, each mode with its own mask table and relative-position index.
   With ``fused_block`` (the JAX package's ``VIL_TPU_FUSED_BLOCK=1``), mode 0
   runs the query/key/value projections, the attention and the output
   projection as one fused block (``ops/kernels/vil_block.py``) instead. The
@@ -92,7 +94,7 @@ from ..parallel.spatial import (
     spatial_local_attention,
     spatial_local_attention_kernel,
 )
-from .layers import Linear, check_eval_only
+from .layers import Dropout, Linear, check_eval_only
 
 
 def split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -195,13 +197,12 @@ def full_rpe_bias_skew(table, g2l, g2g, wx: int, wy: int) -> torch.Tensor:
 
 def sliding_chunk_rpe_bias(table, g2l, w: int, mode: int = 0) -> torch.Tensor:
     """(H, W², Nglo + K·W²) f32 sliding-chunk bias in the kernels' front
-    column order [g2l[1]·1 ‖ local]: K = 9 key chunks at mode 0, [self ‖
-    sampled] at modes 1..8 (the JAX mode kernels take [self ‖ sampled ‖
-    glo])."""
-    # modes 1..8 index the copied stack of the sampled-neighbour tables
-    index = _index(table.device, ("chunk", w, mode),
-                   lambda: rpe_lib.all_mode_rpe_indices(w)[mode - 1] if mode
-                   else rpe_lib.sliding_chunk_rpe_index(w))
+    column order [g2l[1]·1 ‖ local]: K = 9 key chunks at mode 0, the self
+    chunk alone at mode -1, [self ‖ sampled] at modes 1..8 (the JAX mode
+    kernels take [self ‖ sampled ‖ glo]). Each mode's index is its own
+    slice of the 3×3 neighbourhood's (``rpe.sliding_chunk_rpe_index_mode``)."""
+    index = _index(table.device, ("chunk", w, sc.check_mode(mode)),
+                   lambda: rpe_lib.sliding_chunk_rpe_index_mode(w, mode))
     local = gather_table(table, index)
     if g2l is None:
         return local.contiguous()
@@ -300,7 +301,7 @@ class FullAttention(RelativePositionBias, nn.Module):
         self.tp = tp if tp is not None and tp.splits(num_heads, name) else None
         self.dim, self.head_dim = dim, dim // num_heads
         self.num_heads = num_heads if self.tp is None else num_heads // self.tp.size  # local
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop = attn_drop, Dropout(proj_drop)
         self.wx, self.wy, self.nglo = wx, wy, nglo
         self.use_kernels = use_kernels
         self.qkv = Linear(dim, 3 * dim, tp=self.tp, cut="column", pack=3, **kw)
@@ -315,9 +316,9 @@ class FullAttention(RelativePositionBias, nn.Module):
         """The dense bias from the tables ``rpe_tables()`` lists."""
         return full_rpe_bias_skew(table, g2l, g2g, self.wx, self.wy)
 
-    def forward(self, x: torch.Tensor, nx: int, ny: int, mode: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nx: int, ny: int, mode: int = 0,
+                generator=None) -> torch.Tensor:
         check_eval_only(self, self.attn_drop, "attention dropout")
-        check_eval_only(self, self.proj_drop, "projection dropout")
         H = self.num_heads
         if self.rpe and x.shape[1] != self.nglo + self.wx * self.wy:
             raise ValueError("For relative position, N != nglo + wx*wy")
@@ -328,13 +329,15 @@ class FullAttention(RelativePositionBias, nn.Module):
         k = self.qkv.part(x, 1, 3)
         v = self.qkv.part(x, 2, 3)
         bias = self._rpe_served() if self.rpe else None
-        if self.rpe and bias is None:
-            if self.use_kernels:  # assembled inside the kernels' autograd Function
-                return self.proj(full_attention_rpe(q, k, v, self._assemble_from,
-                                                    self.local_tables(), H))
-            bias = self._assemble_rpe(0)
-        attend = full_attention if self.use_kernels else full_attention_reference
-        return self.proj(attend(q, k, v, bias, H))
+        if self.rpe and bias is None and self.use_kernels:
+            # the bias assembled inside the kernels' autograd Function
+            out = full_attention_rpe(q, k, v, self._assemble_from, self.local_tables(), H)
+        else:
+            if self.rpe and bias is None:
+                bias = self._assemble_rpe(0)
+            attend = full_attention if self.use_kernels else full_attention_reference
+            out = attend(q, k, v, bias, H)
+        return self.proj_drop(self.proj(out), generator)
 
 
 class VilAttention(RelativePositionBias, nn.Module):
@@ -344,11 +347,13 @@ class VilAttention(RelativePositionBias, nn.Module):
     ``forward`` takes and returns the stage-resident chunked pair
     ``(x_glo (B, Nglo, C) | None, x_img (B, mx, my, W², C))``.
     ``exact`` selects the mask semantics (SW_EXACT 1, 0 or -1). The
-    neighbour ``mode`` is 0 (the 3×3 chunk neighbourhood) or 1..8 (self and
-    the sampled neighbour of random-shift training; SW_EXACT 1 has no tables
-    for it and raises, as in the JAX package). With a ``spatial`` context
-    x_img holds this rank's chunk rows of the (nx, ny) grid (the context's
-    ``span``), at mode 0.
+    neighbour ``mode`` is 0 (the 3×3 chunk neighbourhood), -1 (the self
+    chunk alone) or 1..8 (self and the sampled neighbour of random-shift
+    training); SW_EXACT 1 has tables for mode 0 alone and raises at the
+    others, as in the JAX package. With a ``spatial`` context x_img holds
+    this rank's chunk rows of the (nx, ny) grid (the context's ``span``), at
+    mode 0. The projection dropout (MODEL.VIT.DROP) follows the output
+    projections of both branches, each with its own draw from ``generator``.
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -374,7 +379,7 @@ class VilAttention(RelativePositionBias, nn.Module):
         self.head_dim = dim // num_heads
         self.num_heads = num_heads if self.tp is None else num_heads // self.tp.size  # local
         self.exact = exact
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop = attn_drop, Dropout(proj_drop)
         self.sharew, self.only_glo = sharew, only_glo
         self.use_kernels = use_kernels
         self.fused_block = fused_block and self.tp is None
@@ -386,7 +391,7 @@ class VilAttention(RelativePositionBias, nn.Module):
             self.query_global = Linear(dim, dim, **kw)
             self.kv_global = Linear(dim, 2 * dim, **kw)
             self.proj_global = Linear(dim, dim, **kw)
-        self._masks: dict = {}  # (nx, ny, mode 0 or 1, device) → additive tables
+        self._masks: dict = {}  # (nx, ny, mode 0, -1 or 1, device) → additive tables
         self._init_rpe(rpe, (4 * w - 1) ** 2, num_heads, nglo, device, param_dtype,
                        None if self.tp is None else self.tp.heads(num_heads))
 
@@ -396,17 +401,20 @@ class VilAttention(RelativePositionBias, nn.Module):
 
     def _mask(self, nx: int, ny: int, mode: int, device) -> torch.Tensor:
         """Additive f32 mask of ``mode``: (mx, my, Wq, Nglo+9W²) for mode 0,
+        (mx, my, 1, Nglo+W²) for mode -1 (the self chunk alone),
         (mx, my, 1, Nglo+2W²) for modes 1..8. Built once per grid and device
         (the model may be cast to bf16; the tables stay f32); the eight
-        sampled-neighbour tables are built together, as one stack. They are
-        built outside inference mode, so that tables first built while
-        serving can be saved for a backward later."""
-        key = (nx, ny, min(mode, 1), str(device))
+        sampled-neighbour tables are built together, as one stack, and a
+        mode ≤ 0 has a table of its own. They are built outside inference
+        mode, so that tables first built while serving can be saved for a
+        backward later."""
+        kind = min(sc.check_mode(mode), 1)  # 0, -1, or 1 for the stack of 1..8
+        key = (nx, ny, kind, str(device))
         if key not in self._masks:
             W = self.w
             padx, pady, mx, my = sc.chunk_grid(nx, ny, W)
-            if mode == 0:
-                tables = [masks_lib.invalid_mask(mx, my, padx, pady, W, self.exact, 0)]
+            if kind <= 0:
+                tables = [masks_lib.invalid_mask(mx, my, padx, pady, W, self.exact, mode)]
             else:  # (8, mx·my, 2W²): modes 1..8
                 tables = masks_lib.all_mode_masks(mx, my, padx, pady, W, self.exact)
             with torch.inference_mode(False):
@@ -414,21 +422,19 @@ class VilAttention(RelativePositionBias, nn.Module):
                     torch.from_numpy(mask_to_additive(t, mx, my, W * W, self.nglo)).to(device)
                     for t in tables
                 ]
-        return self._masks[key][max(mode - 1, 0)]
+        return self._masks[key][mode - 1 if kind == 1 else 0]
 
-    def forward(self, x, nx: int, ny: int, mode: int = 0, spatial=None):
+    def forward(self, x, nx: int, ny: int, mode: int = 0, spatial=None, generator=None):
         mode = sc.check_mode(mode)
-        if mode == -1:
-            raise NotImplementedError("sliding-chunk mode -1 (self chunk only) is not ported")
         if self.only_glo:
-            return self._forward_only_global(x, nx, ny)
+            return self._forward_only_global(x, nx, ny, generator)
         if spatial is not None and not self.sharew:
             raise NotImplementedError("the unshared global weights (SHARE_W False) under "
                                       "spatial parallelism are not ported (ROADMAP.md §A, A12)")
         if spatial is not None and mode != 0:
             raise NotImplementedError("spatial parallelism runs the sliding-chunk attention "
-                                      "at mode 0 only: random shift under the split needs "
-                                      "halo forms of B5/B6 (ROADMAP.md §A, A12)")
+                                      "at mode 0 only: random shift and mode -1 under the "
+                                      "split need halo forms of B5/B6 (ROADMAP.md §A, A12)")
         if spatial is not None and self.tp is not None:
             raise NotImplementedError("a model axis together with a spatial axis is not "
                                       "ported (ROADMAP.md §A, A12)")
@@ -436,11 +442,10 @@ class VilAttention(RelativePositionBias, nn.Module):
             raise NotImplementedError("the fused attention block has no halo form: build "
                                       "the model without fused_block for spatial parallelism "
                                       "(ROADMAP.md §A, A12)")
-        if mode > 0 and self.exact == 1:
+        if mode != 0 and self.exact == 1:
             raise ValueError("SW_EXACT 1 has no mask tables for the sampled-neighbour "
-                             "modes 1..8 (only mode 0)")
+                             "modes 1..8 or the self-only mode -1 (only mode 0)")
         check_eval_only(self, self.attn_drop, "attention dropout")
-        check_eval_only(self, self.proj_drop, "projection dropout")
         x_glo, x_img = x
         if self.tp is not None:  # the input of the column-parallel projections
             x_glo, x_img = self.tp.copy(x_glo), self.tp.copy(x_img)
@@ -462,7 +467,8 @@ class VilAttention(RelativePositionBias, nn.Module):
             # the fused block: projections, attention and output projection
             # from the raw weights, in (in, out) layout and the compute type
             # (wq and bq scale-folded); it returns k and v for the global
-            # branch below
+            # branch below. Modes -1 and 1..8 take the classic projections,
+            # as vil_tpu's use_fused_block needs mode 0
             cd, f32 = self.query.compute_dtype, torch.float32
             w_in = lambda w: w.t().to(cd).contiguous()
             b = lambda t: t.to(f32)
@@ -485,10 +491,11 @@ class VilAttention(RelativePositionBias, nn.Module):
             elif mode == 0:
                 attend = vil_attention if self.use_kernels else vil_attention_reference
                 x1 = attend(q_img, k_img, v_img, kg, vg, bias, mask, H)
-            else:
+            else:  # the self chunk alone (-1) or a sampled neighbour (1..8)
                 attend = vil_mode_attention if self.use_kernels else vil_mode_attention_reference
                 x1 = attend(q_img, k_img, v_img, kg, vg, bias, mask, H, mode)
             x1 = self.proj(x1)
+        x1 = self.proj_drop(x1, generator)  # after B9a's output projection too
         if Nglo == 0:
             return None, x1
 
@@ -505,7 +512,7 @@ class VilAttention(RelativePositionBias, nn.Module):
             if spatial is not None:
                 valid = spatial.rows(valid)
         x0 = self._global(x_glo, k_img, v_img, kg, vg, valid, spatial)
-        return x0, x1
+        return self.proj_drop(x0, generator), x1
 
     def _global(self, x_glo, k_img, v_img, kg, vg, valid=None, spatial=None) -> torch.Tensor:
         """The global branch's output (B, Nglo, C): the queries of
@@ -524,14 +531,14 @@ class VilAttention(RelativePositionBias, nn.Module):
                            valid, spatial)
         return proj(x0.transpose(1, 2).to(k_img.dtype).reshape(B, Nglo, H * M))
 
-    def _forward_only_global(self, x: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    def _forward_only_global(self, x: torch.Tensor, nx: int, ny: int,
+                             generator=None) -> torch.Tensor:
         """The only-global mode (ONLY_GLOBAL), in token layout (B, Nglo +
         nx·ny, C): the local queries attend to the global keys alone, with
         no relative-position bias (the reference bypasses it there), and the
         global queries densely to every token, through :meth:`_global` with
         the local tokens as one chunk of nx·ny and no pad."""
         check_eval_only(self, self.attn_drop, "attention dropout")
-        check_eval_only(self, self.proj_drop, "projection dropout")
         if isinstance(x, tuple):
             raise ValueError("the only-global mode runs in token layout, not on chunks")
         B, N, C = x.shape
@@ -546,4 +553,4 @@ class VilAttention(RelativePositionBias, nn.Module):
             k, v = self.kv_global.part(x, 0, 2), self.kv_global.part(x, 1, 2)
         loc = lambda t: t[:, Nglo:].reshape(B, 1, 1, N - Nglo, C)
         x0 = self._global(x[:, :Nglo], loc(k), loc(v), k[:, :Nglo], v[:, :Nglo])
-        return torch.cat([x0, x1], dim=1)
+        return self.proj_drop(torch.cat([x0, x1], dim=1), generator)

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from .attention import merge_heads, scores_f32, softmax_max_sub, split_heads
-from .layers import Conv2d, Linear, check_eval_only
+from .layers import Conv2d, Dropout, Linear, check_eval_only
 
 
 def gaussian_orthogonal_random_matrix(nb_rows: int, nb_columns: int, scaling: int = 0,
@@ -96,7 +96,7 @@ class PerformerAttention(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.dim, self.num_heads = dim, num_heads
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop = attn_drop, Dropout(proj_drop)
         m = dim // num_heads
         self.nb_features = nb_features or int(m * math.log(m))
         self.qkv = Linear(dim, 3 * dim, **kw)
@@ -107,13 +107,13 @@ class PerformerAttention(nn.Module):
         self.register_buffer("projection_matrix", gaussian_orthogonal_random_matrix(
             self.nb_features, m, generator=torch.Generator().manual_seed(0)).to(device=device))
 
-    def forward(self, x: torch.Tensor, nx: int = 0, ny: int = 0, mode: int = 0) -> torch.Tensor:
-        check_eval_only(self, self.proj_drop, "projection dropout")
+    def forward(self, x: torch.Tensor, nx: int = 0, ny: int = 0, mode: int = 0,
+                generator=None) -> torch.Tensor:
         H = self.num_heads
         q, k, v = (split_heads(self.qkv.part(x, i, 3), H) for i in range(3))
         q = softmax_kernel(q, self.projection_matrix, is_query=True)
         k = softmax_kernel(k, self.projection_matrix, is_query=False)
-        return self.proj(merge_heads(linear_attention(q, k, v)))
+        return self.proj_drop(self.proj(merge_heads(linear_attention(q, k, v))), generator)
 
 
 class LinformerAttention(nn.Module):
@@ -128,7 +128,7 @@ class LinformerAttention(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.dim, self.num_heads, self.seq_len, self.num_feats = dim, num_heads, seq_len, num_feats
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop = attn_drop, Dropout(proj_drop)
         self.share_kv = share_kv
         self.compute_dtype = dtype
         self.query = Linear(dim, dim, **kw)
@@ -139,9 +139,9 @@ class LinformerAttention(nn.Module):
         self.proj_k = new()
         self.proj_v = None if share_kv else new()
 
-    def forward(self, x: torch.Tensor, nx: int = 0, ny: int = 0, mode: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nx: int = 0, ny: int = 0, mode: int = 0,
+                generator=None) -> torch.Tensor:
         check_eval_only(self, self.attn_drop, "attention dropout")
-        check_eval_only(self, self.proj_drop, "projection dropout")
         n, H, dt = x.shape[1], self.num_heads, self.compute_dtype
         if n != self.seq_len:
             raise ValueError(f"the sequence length of the key / values must be "
@@ -151,7 +151,8 @@ class LinformerAttention(nn.Module):
         k = torch.einsum("bnd,nk->bkd", self.kv.part(x, 0, 2), self.proj_k.to(dt))
         v = torch.einsum("bnd,nk->bkd", self.kv.part(x, 1, 2), proj_v.to(dt))
         probs = softmax_max_sub(scores_f32(q, split_heads(k, H)))
-        return self.proj(merge_heads(torch.matmul(probs.to(dt), split_heads(v, H))))
+        out = self.proj(merge_heads(torch.matmul(probs.to(dt), split_heads(v, H))))
+        return self.proj_drop(out, generator)
 
 
 def instance_norm_nchw(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -174,16 +175,16 @@ class SRAttention(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.dim, self.num_heads, self.rratio = dim, num_heads, rratio
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop = attn_drop, Dropout(proj_drop)
         self.compute_dtype = dtype
         self.query = Linear(dim, dim, **kw)
         self.proj_sr = Conv2d(dim, dim, rratio, stride=rratio, bias=False, **kw)
         self.kv = Linear(dim, 2 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor, nx: int, ny: int, mode: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nx: int, ny: int, mode: int = 0,
+                generator=None) -> torch.Tensor:
         check_eval_only(self, self.attn_drop, "attention dropout")
-        check_eval_only(self, self.proj_drop, "projection dropout")
         b, n, d = x.shape
         H, dt = self.num_heads, self.compute_dtype
         q = split_heads(self.query(x), H) * (d // H) ** -0.5
@@ -194,4 +195,4 @@ class SRAttention(nn.Module):
         k = split_heads(self.kv.part(x_kv, 0, 2), H)
         v = split_heads(self.kv.part(x_kv, 1, 2), H)
         probs = softmax_max_sub(scores_f32(q, k))
-        return self.proj(merge_heads(torch.matmul(probs.to(dt), v)))
+        return self.proj_drop(self.proj(merge_heads(torch.matmul(probs.to(dt), v))), generator)

@@ -13,9 +13,12 @@ store them in bf16, which computes the same function.
 Linear and Mlp take a tensor-parallel context (``parallel.TensorParallel``):
 the Megatron cut, column- and row-parallel, of ``parallel/tensor.py``.
 
-Stochastic depth is ported (one draw per sample from an explicit
-``torch.Generator``). Dropout is not: a module with a nonzero dropout rate
-raises in training mode instead of running as in eval.
+Stochastic depth (one draw per sample) and dropout (one draw per element,
+MODEL.VIT.DROP: :class:`Dropout`) draw from the explicit ``torch.Generator``
+that the model's forward is given, the training step's, keyed by its seed
+and step. Attention dropout (on the softmax probabilities) is not ported:
+a module with a nonzero ``attn_drop`` raises in training mode instead of
+running as in eval (:func:`check_eval_only`).
 """
 from __future__ import annotations
 
@@ -30,12 +33,38 @@ from ..ops.kernels.layer_norm import layer_norm
 
 
 def check_eval_only(module: nn.Module, rate: float, what: str) -> None:
-    """Raise if ``module`` would have to draw random numbers for dropout: a
-    nonzero ``rate`` in training mode."""
+    """Raise if ``module`` would have to draw random numbers for attention
+    dropout: a nonzero ``rate`` in training mode. No config of ``vil_tpu``
+    sets it (its ``build_model`` passes no ``attn_drop_rate``), and its own
+    XLA tier is the only one that takes it."""
     if rate and module.training:
         raise NotImplementedError(
-            f"{what} (rate {rate}) in training mode is not ported yet"
+            f"{what} (rate {rate}) in training mode is not ported (ROADMAP.md §A, A18)"
         )
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout, flax's ``nn.Dropout``: each element kept with
+    probability 1 - ``rate`` (one uniform draw from ``generator``, on x's
+    device) and scaled by 1 / (1 - rate), the others set to 0."""
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """MODEL.VIT.DROP at one site (``vil_tpu``'s ``nn.Dropout(drop)``):
+    :func:`dropout` in training mode at a nonzero rate, the identity
+    otherwise. Its forward takes the step's ``generator``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        return dropout(x, self.rate, generator)
 
 
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -105,9 +134,9 @@ class Conv2d(nn.Conv2d):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, bias: bool = True, device=None,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride, bias=bias,
-                         device=device, dtype=param_dtype)
+                 param_dtype: torch.dtype = torch.float32, padding: int = 0, groups: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                         groups=groups, bias=bias, device=device, dtype=param_dtype)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,15 +228,15 @@ class Mlp(nn.Module):
         self.fc1 = Linear(in_features, hidden_features, tp=self.tp, cut="column", **kw)
         self.fc2 = Linear(hidden_features, out_features or in_features, tp=self.tp, cut="row",
                           **kw)
-        self.drop = drop
+        self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_eval_only(self, self.drop, "Mlp dropout")
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if self.tp is not None:
             x = self.tp.copy(x)
         x = self.fc1(x)
         x = F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
-        return self.fc2(x)
+        return self.drop(self.fc2(self.drop(x, generator)), generator)
 
 
 class PatchEmbed(nn.Module):
@@ -230,7 +259,8 @@ class PatchEmbed(nn.Module):
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         pkw = dict(device=device, dtype=param_dtype)
         self.patch_size, self.nx, self.ny = patch_size, nx, ny
-        self.embed_dim, self.nglo, self.drop_rate = embed_dim, nglo, drop_rate
+        self.embed_dim, self.nglo = embed_dim, nglo
+        self.pos_drop = Dropout(drop_rate)
         self.compute_dtype = dtype
         self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size, **kw)
         self.norm_embed = LayerNorm(embed_dim, eps=ln_eps, **kw) if norm_embed else None
@@ -248,10 +278,12 @@ class PatchEmbed(nn.Module):
         self._u8_scale = (1.0 / (255.0 * std)).tolist()
         self._u8_offset = (-mean / std).tolist()
 
-    def forward(self, x: torch.Tensor, rows: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[tuple[int, int]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``rows`` = (first row, row count) of the patch grid that x covers,
         for a row block of the image (spatial parallelism); the whole grid
-        by default. The position embedding adds those rows."""
+        by default. The position embedding adds those rows. Dropout after
+        it draws from ``generator``."""
         B = x.shape[0]
         dt = self.compute_dtype
         row0, nrows = (0, self.nx) if rows is None else rows
@@ -279,5 +311,4 @@ class PatchEmbed(nn.Module):
                 dim=-1,
             ).reshape(1, nrows * self.ny, self.embed_dim)
             x = x + torch.cat([self.cls_pos_embed, pos2d], dim=1).to(dt)
-        check_eval_only(self, self.drop_rate, "patch-embedding dropout")
-        return x
+        return self.pos_drop(x, generator)

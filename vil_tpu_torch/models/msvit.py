@@ -12,11 +12,26 @@ attention, the efficient families of the paper's ablation (``linformer``
 with ``share_kv``, ``srformer``, ``performer``: ``models/attention_efficient``),
 APE and relative position bias (``a0``: the tables of each block, their bias
 passed to the kernels; ``models.precompute_rpe_cache`` for serving),
-stochastic depth, and the fused-kernel switches of the JAX package
-(``fused_ln``: the block pre-norms through the LayerNorm kernels;
-``fused_block``: each sliding-chunk attention at mode 0 as one fused
-attention-block kernel pair). Not ported yet: mode -1, which raises when it
-is run, and dropout, which raises in training mode.
+stochastic depth and dropout (MODEL.VIT.DROP: after the position embedding,
+in the MLPs and after the attention's output projections), the self-only
+neighbour mode -1 (``forward(x, mode=-1)``), rematerialisation of the
+blocks in training (TPU.REMAT, ``remat``), and the fused-kernel switches of
+the JAX package (``fused_ln``: the block pre-norms through the LayerNorm
+kernels; ``fused_block``: each sliding-chunk attention at mode 0 as one fused
+attention-block kernel pair). Not ported: attention dropout (on the softmax
+probabilities, ``attn_drop_rate``), which raises in training mode.
+
+Rematerialisation (TPU.REMAT, ``vil_tpu``'s ``nn.remat`` of each attention
+and MLP block): ``'full'`` keeps a block's input alone and recomputes the
+block in the backward (``torch.utils.checkpoint``, non-reentrant);
+``'minimal'`` keeps the products' outputs too (``aten.mm``, ``addmm``,
+``bmm``: a selective-checkpoint policy, ``jax.checkpoint_policies.dots_saveable``'s
+counterpart) and recomputes the rest, the kernels' autograd Functions
+included, as JAX recomputes ``pallas_call`` outputs. A block's recompute draws
+its drop-path and dropout masks again from the generator's state at the
+block's entry, so they come out the same. As in ``vil_tpu``, where
+``nn.remat`` needs a static mode, a model with ``remat`` refuses the
+sampled-neighbour modes 1..8 in training.
 
 Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)`` runs the
 forward, in eval (``parallel.spatial_forward``) or in training (the step of
@@ -35,11 +50,13 @@ parameters of ``vil_tpu``'s MsViT load with ``utils.jax_import``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from functools import partial
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..ops import sliding_chunk as sc
 from ..parallel.spatial import row_split
@@ -67,6 +84,44 @@ NO_WEIGHT_DECAY_SUBSTRINGS = (
     "relative_position",
     "head.bias",
 )
+
+
+REMAT_POLICIES = ("", "minimal", "full")
+# the ops whose outputs TPU.REMAT 'minimal' keeps: the products
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_saveable``: keep the products' outputs,
+    recompute everything else."""
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def remat_block(run: Callable, x, remat: str, generator: Optional[torch.Generator]):
+    """``run(x)`` (one attention or MLP block) under ``torch.utils.checkpoint``:
+    ``remat`` 'full' recomputes the whole block in the backward, 'minimal'
+    keeps the products' outputs (:func:`_dots_saveable`). The recompute
+    starts ``generator`` from its state at the block's entry and gives it
+    back its state after, so the block draws the same masks both times and
+    the draws after it are not moved."""
+    entry = None if generator is None else generator.get_state()
+    calls = []
+
+    def again(x):
+        calls.append(None)
+        if len(calls) == 1 or entry is None:
+            return run(x)
+        now = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return run(x)
+        finally:
+            generator.set_state(now)
+
+    context = (lambda: torch_checkpoint.create_selective_checkpoint_contexts(_dots_saveable)) \
+        if remat == "minimal" else torch_checkpoint.noop_context_fn
+    return torch_checkpoint.checkpoint(again, x, use_reentrant=False, context_fn=context)
 
 
 class AttnBlock(nn.Module):
@@ -119,10 +174,11 @@ class AttnBlock(nn.Module):
             x_glo, x_img = x
             y_glo, y_img = self.droppath(self.attn(
                 (None if x_glo is None else self.norm(x_glo), self.norm(x_img)),
-                nx, ny, mode, spatial,
+                nx, ny, mode, spatial, generator=generator,
             ), generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
-        return x + self.droppath(self.attn(self.norm(x), nx, ny, mode), generator)
+        return x + self.droppath(self.attn(self.norm(x), nx, ny, mode, generator=generator),
+                                 generator)
 
 
 class MlpBlock(nn.Module):
@@ -142,10 +198,11 @@ class MlpBlock(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if isinstance(x, tuple):
             x_glo, x_img = x
-            y_glo = None if x_glo is None else self.mlp(self.norm(x_glo))
-            y_glo, y_img = self.droppath((y_glo, self.mlp(self.norm(x_img))), generator)
+            y_glo = None if x_glo is None else self.mlp(self.norm(x_glo), generator)
+            y_glo, y_img = self.droppath((y_glo, self.mlp(self.norm(x_img), generator)),
+                                         generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
-        return x + self.droppath(self.mlp(self.norm(x)), generator)
+        return x + self.droppath(self.mlp(self.norm(x), generator), generator)
 
 
 class MsViT(nn.Module):
@@ -171,6 +228,8 @@ class MsViT(nn.Module):
     Weights are drawn by :meth:`init_weights` from ``generator``. ``mode``
     (MODEL.VIT.MSVIT.MODE) is carried as the flax field is and not read at
     call time: the neighbour mode is an argument of :meth:`forward`.
+    ``remat`` (TPU.REMAT: '', 'minimal' or 'full') rematerialises each
+    attention and MLP block in training (:func:`remat_block`).
     """
 
     def __init__(self, arch: str, img_size: int = 512, num_classes: int = 1000,
@@ -185,8 +244,10 @@ class MsViT(nn.Module):
                  fused_block: bool = False, device=None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, tp=None):
+                 generator: Optional[torch.Generator] = None, tp=None, remat: str = ""):
         super().__init__()
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES}")
         kw = dict(device=resolve_device(device), dtype=dtype, param_dtype=param_dtype)
         self.dtype = dtype
         self.tp = tp
@@ -194,6 +255,7 @@ class MsViT(nn.Module):
         self.layer_cfgs: list[StageCfg] = cfgs
         self.img_size, self.avg_pool = img_size, avg_pool
         self.mode = mode
+        self.remat, self.drop_rate = remat, drop_rate
         self._splits: dict = {}  # rank count → its spatial split
 
         dprs = np.linspace(0, drop_path_rate, self.depth)
@@ -320,14 +382,25 @@ class MsViT(nn.Module):
         """The neighbour mode of each attention block, in order: ``mode``
         itself for all of them, or its entries when it is a sequence of
         ``depth`` host ints (one per block, the dense blocks included, which
-        ignore theirs). In eval mode every block runs at mode 0."""
+        ignore theirs). In eval mode the sampled modes 1..8 of random-shift
+        training run at mode 0; mode -1, the self chunk alone, is served as
+        it is asked for, as in ``vil_tpu``. A model with ``remat`` refuses
+        modes 1..8 in training, as ``vil_tpu``'s ``nn.remat`` of a static
+        mode does."""
         if isinstance(mode, (int, np.integer)):
             modes = [int(mode)] * self.depth
         else:
             modes = [int(m) for m in mode]
             if len(modes) != self.depth:
                 raise ValueError(f"expected {self.depth} per-layer modes, got {len(modes)}")
-        return modes if self.training else [0] * self.depth
+        if not self.training:
+            return [m if m <= 0 else 0 for m in modes]
+        if self.remat and any(m > 0 for m in modes):
+            raise ValueError(f"TPU.REMAT {self.remat!r} needs a static neighbour mode: the "
+                             f"sampled modes 1..8 of random-shift training are refused, as "
+                             f"vil_tpu's nn.remat refuses its traced mode (build_model drops "
+                             f"REMAT under MODE > 0)")
+        return modes
 
     def spatial_split(self, size: int):
         """The chunk-aligned split of the image's rows over ``size`` ranks
@@ -370,7 +443,7 @@ class MsViT(nn.Module):
             if split is not None:
                 lo, hi = split.tokens[sid][spatial.rank]
                 rows = (lo, hi - lo)
-            x = getattr(self, f"stage{sid + 1}_patch_embed")(x, rows)
+            x = getattr(self, f"stage{sid + 1}_patch_embed")(x, rows, generator)
             nx_here = nx if rows is None else rows[1]
             ctx = None if split is None else spatial.at(split.chunks[sid][spatial.rank])
             if chunked:
@@ -378,8 +451,12 @@ class MsViT(nn.Module):
                 x = (x[:, :g] if g > 0 else None,
                      sc.chunkify(x[:, g:], nx_here, ny, w_s))
             for attn_name, mlp_name in names:
-                x = getattr(self, attn_name)(x, nx, ny, generator, next(modes), ctx)
-                x = getattr(self, mlp_name)(x, generator)
+                # bound now: a rematerialised block runs again in the backward
+                x = self._block(partial(getattr(self, attn_name), nx=nx, ny=ny,
+                                        generator=generator, mode=next(modes), spatial=ctx),
+                                x, generator)
+                x = self._block(partial(getattr(self, mlp_name), generator=generator), x,
+                                generator)
             if chunked:
                 x_glo, x_img = x
                 loc = sc.unchunkify(x_img, nx_here, ny, w_s)
@@ -388,6 +465,13 @@ class MsViT(nn.Module):
         if nglos[-1] > 0 and not self.avg_pool:
             return x[:, 0]
         return x.mean(dim=1)
+
+    def _block(self, run: Callable, x, generator: Optional[torch.Generator]):
+        """One block, rematerialised under ``remat`` where a training
+        forward records a gradient."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat_block(run, x, self.remat, generator)
+        return run(x)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 mode: Union[int, Sequence[int]] = 0, spatial=None) -> torch.Tensor:
@@ -399,6 +483,11 @@ class MsViT(nn.Module):
         at mode 0. With a ``spatial`` context (``parallel.spatial_forward``,
         and the training step on a mesh with a spatial axis) x holds this
         rank's rows of the images (``parallel.shard_image``) and the logits
-        are the same on every rank of the group."""
+        are the same on every rank of the group. Dropout in training under a
+        spatial context or a model axis raises (A12): the ranks would have to
+        draw alike for the values they hold alike."""
+        if self.training and self.drop_rate and (spatial is not None or self.tp is not None):
+            raise NotImplementedError("dropout (MODEL.VIT.DROP) under spatial or tensor "
+                                      "parallelism is not ported (ROADMAP.md §A, A12)")
         feats = self.forward_features(x, generator, mode, spatial)
         return feats if self.head is None else self.head(feats)

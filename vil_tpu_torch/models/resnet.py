@@ -1,0 +1,222 @@
+"""The torchvision ResNet zoo of ``MODEL.ARCH``, with ``vil_tpu``'s BatchNorm.
+
+Counterpart of ``vil_tpu/models/resnet.py``: the v1.5 graph (the stride on
+the bottleneck's 3×3 convolution), conv7×7/2 → bn → relu → maxpool3×3/2 →
+four stages → global average pool → fc, for the nine names of
+:data:`RESNET_ZOO`. The module and parameter names are torchvision's
+(``layer1.0.conv1.weight``, ``layer1.0.downsample.0/1``, ``fc``), so a
+torchvision ``state_dict`` loads as it is (``utils.torch_import``, which
+truncates the head rows), and ``utils.jax_import`` maps ``vil_tpu``'s flax
+tree onto them (``layerI_J`` → ``layerI.J``, ``downsample_conv/bn`` →
+``downsample.0/1``, HWIO → OIHW, ``batch_stats`` → the running buffers).
+
+Images are NHWC, f32 or uint8 (normalised on the device, as in
+``PatchEmbed``), and the network computes in channels-last layout: the NHWC
+input viewed as NCHW, each convolution's output in the same layout.
+Convolutions run through ``F.conv2d`` (cuDNN on the card): ``vil_tpu``
+computes them in XLA, outside any Pallas kernel. Parameters are kept in
+``param_dtype`` (f32) and cast to ``dtype``, the compute type, where they
+are used; the logits are f32, as the JAX package's are.
+
+:class:`BatchNorm` is flax's ``nn.BatchNorm`` as ``vil_tpu`` configures it,
+in plain PyTorch (``vil_tpu``'s is XLA): f32 statistics, the variance as
+E[x²] − E[x]² clipped at 0, the biased batch variance into
+``running_var`` with flax's momentum 0.9 (torch's 0.1), eps 1e-5, and the
+running statistics in eval. ``torch.nn.BatchNorm2d`` keeps the unbiased
+variance and so cannot stand in for it. Under ``jit`` ``vil_tpu`` takes the
+statistics of the global batch; with a data ``group`` (a data axis of more
+than one replica) the per-channel sums are all-reduced over it, forward and
+backward (``parallel.tensor.sum_over``), for the same statistics.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..parallel.tensor import sum_over
+from ..utils.device import resolve_device
+from .layers import Conv2d, Linear
+
+# name → constructor keywords, torchvision's classification zoo
+RESNET_ZOO = {
+    "resnet18": dict(layers=(2, 2, 2, 2), bottleneck=False),
+    "resnet34": dict(layers=(3, 4, 6, 3), bottleneck=False),
+    "resnet50": dict(layers=(3, 4, 6, 3)),
+    "resnet101": dict(layers=(3, 4, 23, 3)),
+    "resnet152": dict(layers=(3, 8, 36, 3)),
+    "resnext50_32x4d": dict(layers=(3, 4, 6, 3), groups=32, base_width=4),
+    "resnext101_32x8d": dict(layers=(3, 4, 23, 3), groups=32, base_width=8),
+    "wide_resnet50_2": dict(layers=(3, 4, 6, 3), base_width=128),
+    "wide_resnet101_2": dict(layers=(3, 4, 23, 3), base_width=128),
+}
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels
+    of an NCHW tensor (any memory layout), the module docstring's semantics.
+    ``weight`` / ``bias`` are flax's ``scale`` / ``bias``; ``running_mean`` /
+    ``running_var`` (f32 buffers) its ``batch_stats`` ``mean`` / ``var``.
+    ``group``: the process group whose ranks' batches make the statistics'
+    batch (None: this process's batch alone)."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32, group=None, group_size: int = 1):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.compute_dtype = dtype
+        self.group, self.group_size = group, group_size
+        self.weight = nn.Parameter(torch.ones(channels, device=device, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device, dtype=param_dtype))
+        self.register_buffer("running_mean", torch.zeros(channels, device=device))
+        self.register_buffer("running_var", torch.ones(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least f32, as flax's
+        shape = (1, -1, 1, 1)
+        if self.training:
+            dims = (0, 2, 3)
+            sums = torch.stack([xf.sum(dims), (xf * xf).sum(dims)])  # (2, C): Σx, Σx²
+            count = xf.numel() // xf.shape[1]
+            if self.group_size > 1:  # the global batch's sums
+                sums = sum_over(sums, self.group)
+                count *= self.group_size
+            mean, mean_sq = sums[0] / count, sums[1] / count
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
+        return y.to(self.compute_dtype)
+
+
+class Block(nn.Module):
+    """BasicBlock (expansion 1) or Bottleneck (expansion 4), torchvision's
+    names: conv1/bn1, conv2/bn2 (, conv3/bn3), ``downsample`` (conv, bn)."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int, bottleneck: bool,
+                 downsample: bool, groups: int = 1, base_width: int = 64, **kw):
+        super().__init__()
+        bn_kw = {k: v for k, v in kw.items() if k not in ("group", "group_size")}
+        conv = lambda i, o, k, s, g=1: Conv2d(i, o, k, stride=s, bias=False, padding=k // 2,
+                                              groups=g, **bn_kw)
+        self.bottleneck = bottleneck
+        if bottleneck:
+            width = int(planes * (base_width / 64.0)) * groups
+            out = planes * 4
+            self.conv1, self.bn1 = conv(in_planes, width, 1, 1), BatchNorm(width, **kw)
+            self.conv2 = conv(width, width, 3, stride, groups)
+            self.bn2 = BatchNorm(width, **kw)
+            self.conv3, self.bn3 = conv(width, out, 1, 1), BatchNorm(out, **kw)
+        else:
+            out = planes
+            self.conv1, self.bn1 = conv(in_planes, planes, 3, stride), BatchNorm(planes, **kw)
+            self.conv2, self.bn2 = conv(planes, planes, 3, 1), BatchNorm(planes, **kw)
+        self.downsample = (nn.Sequential(conv(in_planes, out, 1, stride), BatchNorm(out, **kw))
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.bottleneck:
+            out = self.bn3(self.conv3(F.relu(out)))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """torchvision-graph ResNet: NHWC images (B, H, W, 3), f32 or uint8, →
+    (B, num_classes) f32 logits. ``forward`` takes the training step's
+    ``generator`` and ``mode`` and ignores them, as ``vil_tpu``'s takes
+    ``mode``. Built on the CUDA card unless ``device`` names another;
+    weights drawn by :meth:`init_weights` from ``generator``. ``group`` /
+    ``group_size``: the data replicas' process group, over which every
+    BatchNorm takes the global batch's statistics (:class:`BatchNorm`)."""
+
+    def __init__(self, layers: Sequence[int], num_classes: int = 1000, bottleneck: bool = True,
+                 groups: int = 1, base_width: int = 64, device=None,
+                 dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+                 input_mean: tuple = (0.485, 0.456, 0.406),
+                 input_std: tuple = (0.229, 0.224, 0.225),
+                 generator: Optional[torch.Generator] = None, group=None, group_size: int = 1):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype, param_dtype=param_dtype)
+        bn = dict(kw, group=group, group_size=group_size)
+        self.dtype = dtype
+        self.param_shards: dict = {}  # none: the ResNet is not sharded
+        self.conv1 = Conv2d(3, 64, 7, stride=2, bias=False, padding=3, **kw)
+        self.bn1 = BatchNorm(64, **bn)
+        expansion = 4 if bottleneck else 1
+        in_planes = 64
+        for stage, nblocks in enumerate(layers):
+            planes = 64 * 2 ** stage
+            blocks = []
+            for j in range(nblocks):
+                stride = 2 if stage > 0 and j == 0 else 1
+                down = j == 0 and (stride != 1 or in_planes != planes * expansion)
+                blocks.append(Block(in_planes, planes, stride, bottleneck, down, groups,
+                                    base_width, **bn))
+                in_planes = planes * expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.num_stages = len(layers)
+        self.fc = Linear(in_planes, num_classes, **kw)
+        mean = np.asarray(input_mean, np.float32)
+        std = np.asarray(input_std, np.float32)
+        self._u8_scale = (1.0 / (255.0 * std)).tolist()
+        self._u8_offset = (-mean / std).tolist()
+        self.init_weights(generator)
+        self.to(memory_format=torch.channels_last)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
+        """Flax's initialisers, as ``vil_tpu``'s modules take them: the
+        convolutions' and fc's kernels LeCun-normal (truncated at ±2σ, unit
+        variance after the cut), biases 0, BatchNorm scales 1. Drawn in f32
+        on the CPU from ``generator``, then copied, so one seed gives the
+        same weights on any device."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)) and not mod.weight.is_meta:
+                fan_in = math.prod(mod.weight.shape[1:])
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                t = torch.empty(mod.weight.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+                mod.weight.copy_(t)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                mode=0, spatial=None) -> torch.Tensor:
+        if spatial is not None:
+            raise NotImplementedError("a ResNet under spatial parallelism is not ported "
+                                      "(ROADMAP.md §A, A12)")
+        dt = self.dtype
+        if x.dtype == torch.uint8:
+            scale = torch.tensor(self._u8_scale, dtype=dt, device=x.device)
+            offset = torch.tensor(self._u8_offset, dtype=dt, device=x.device)
+            x = x.to(dt) * scale + offset
+        x = x.to(dt).permute(0, 3, 1, 2)  # NHWC viewed as NCHW: channels-last
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for stage in range(self.num_stages):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        x = x.float().mean(dim=(2, 3)).to(dt)  # global average pool
+        return self.fc(x).float()
+
+
+def build_resnet(name: str, num_classes: int, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32, device=None, **overrides) -> ResNet:
+    """The zoo model ``name`` (:data:`RESNET_ZOO`); ``overrides`` replace its
+    keywords (``layers=(1, 1, 1, 1)``) or add ResNet's others."""
+    kwargs = dict(RESNET_ZOO[name])
+    kwargs.update(overrides)
+    return ResNet(num_classes=num_classes, dtype=dtype, param_dtype=param_dtype, device=device,
+                  **kwargs)

@@ -52,6 +52,8 @@ from .vil_mode_attention import (
     vil_mode_attention_bwd_reference,
     vil_mode_attention_fwd,
     vil_mode_attention_reference,
+    vil_self_attention_bwd,
+    vil_self_attention_fwd,
 )
 
 # every kernel wrapper, each with its launch count: the first two forwards
@@ -60,10 +62,13 @@ from .vil_mode_attention import (
 # random-shift (MODE > 0) training step, and in the fused-kernel
 # configuration the LayerNorm pair runs in the block pre-norms and the fused
 # block pair in the sliding-chunk pair's place; under spatial (chunk-row)
-# parallelism the halo-input pair takes it
+# parallelism the halo-input pair takes it; at mode -1 (the self chunk
+# alone) the self-only pair, the sampled-neighbour kernels' instance over one
+# chunk
 KERNELS = (vil_attention_fwd, full_attention_fwd, vil_attention_bwd, full_attention_bwd,
            vil_mode_attention_fwd, vil_mode_attention_bwd, layer_norm_fwd, layer_norm_bwd,
-           vil_block_fwd, vil_block_bwd, vil_attention_halo_fwd, vil_attention_halo_bwd)
+           vil_block_fwd, vil_block_bwd, vil_attention_halo_fwd, vil_attention_halo_bwd,
+           vil_self_attention_fwd, vil_self_attention_bwd)
 
 __all__ = [
     "KERNELS",
@@ -105,4 +110,6 @@ __all__ = [
     "vil_mode_attention_bwd_reference",
     "vil_mode_attention_fwd",
     "vil_mode_attention_reference",
+    "vil_self_attention_bwd",
+    "vil_self_attention_fwd",
 ]

@@ -60,6 +60,10 @@ SIGNATURES = {
     # is_bf16
     "vil_mode_attention_fwd": [_P] * 9 + [_I] * 11 + [_P],
     "vil_mode_attention_bwd": [_P] * 17 + [_I] * 11 + [_P],
+    # the self-only (mode -1) instances: vil_mode_attention_fwd / _bwd's
+    # signatures without the offset
+    "vil_self_attention_fwd": [_P] * 9 + [_I] * 9 + [_P],
+    "vil_self_attention_bwd": [_P] * 17 + [_I] * 9 + [_P],
     # the same as vil_attention_fwd / _bwd (without chunks_per_block), with
     # k, v (and dk, dv) of mx + 2 chunk rows
     "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],

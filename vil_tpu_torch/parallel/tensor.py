@@ -113,6 +113,28 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over a group forward and backward: each rank's value enters
+    every rank's sum, so each rank's input gradient sums every rank's
+    upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (the default group when
+    None), differentiably: the BatchNorm statistics of the global batch on a
+    data axis (``models/resnet.py``)."""
+    return _SumOverGroup.apply(x, group)
+
+
 def all_gather_flat(local: torch.Tensor, group) -> list[torch.Tensor]:
     """Every rank's equal-length flat ``local``, in rank order."""
     size = dist.get_world_size(group)

@@ -97,14 +97,14 @@ VARIANTS = {
 def vil_cfg(name: str = "vil_small", img_size: int = 224, batch: int = BATCH, mode: int = 0,
             fused: bool = False, rpe: bool = False, attn_type: str = "longformerhand",
             arch: str = "", only_glo: bool = False, sharew: bool = True,
-            sharding: str = "replicated") -> NS:
+            sharding: str = "replicated", drop: float = 0.0) -> NS:
     """The recipe's tree for the zoo model ``name`` (``ARCH_ZOO``) at
     ``img_size`` px, trained at ``batch`` images a step (the counterpart of
     ``benchmarks/model_bench.py``'s ``MsViT(arch=ARCH_ZOO[...],
     img_size=...)``): INPUT.IMAGE_SIZE, DATALOADER.BSZ and the steps an epoch
     follow them, every other key is ViL-Small's. ``arch`` replaces the zoo's
     ARCH string (the attention families' ``f``); ``sharding`` is
-    TPU.PARAM_SHARDING."""
+    TPU.PARAM_SHARDING; ``drop`` MODEL.VIT.DROP (the yaml's 0.0)."""
     steps_per_epoch = IMAGENET_TRAIN_IMAGES // batch
     arch = arch or ARCH_ZOO[name]
     arch = rpe_arch(arch) if rpe else arch
@@ -113,7 +113,7 @@ def vil_cfg(name: str = "vil_small", img_size: int = 224, batch: int = BATCH, mo
         DATALOADER=NS(BSZ=batch),
         INPUT=NS(IMAGE_SIZE=img_size, MEAN=[0.485, 0.456, 0.406], STD=[0.229, 0.224, 0.225]),
         MODEL=NS(ARCH="msvit", VIT=NS(
-            DROP=0.0, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
+            DROP=drop, DROP_PATH=0.1, NORM_EMBED=True, AVG_POOL=False,
             MSVIT=NS(ARCH=arch, SHARE_W=sharew, ATTN_TYPE=attn_type, SHARE_KV=True,
                      ONLY_GLOBAL=only_glo, SW_EXACT=0, LN_EPS=1e-6, MODE=mode))),
         TPU=NS(COMPUTE_DTYPE="bfloat16", PARAM_DTYPE="float32", USE_PALLAS=True,
@@ -139,18 +139,20 @@ def vil_small_cfg(mode: int = 0, fused: bool = False, rpe: bool = False,
 
 def vil(name: str, img_size: int, dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,
         use_kernels: bool = True, device=None, fused: bool = False, rpe: bool = False,
-        mesh=None, **variant) -> MsViT:
+        mesh=None, remat: str = "", **variant) -> MsViT:
     """The zoo model ``name`` at ``img_size`` px (:func:`vil_cfg`), computed
     in ``dtype`` with parameters in ``param_dtype``; random weights from seed
     0 (the same with ``fused``; with ``rpe`` the model with relative position
     bias in every stage, whose tables are drawn too). ``variant`` is one of
     :data:`VARIANTS`' keyword sets, or keywords of :func:`vil_cfg`
-    (``attn_type``, ``arch``, ``only_glo``, ``sharew``, ``sharding``). With
-    ``sharding="tp"`` and a ``mesh`` (``parallel.Mesh``) with a model axis,
-    this model rank's shard of the same weights."""
+    (``attn_type``, ``arch``, ``only_glo``, ``sharew``, ``sharding``, ``drop``).
+    With ``sharding="tp"`` and a ``mesh`` (``parallel.Mesh``) with a model
+    axis, this model rank's shard of the same weights. ``remat`` is
+    TPU.REMAT ('', 'minimal', 'full')."""
     return build_model(vil_cfg(name, img_size, fused=fused, rpe=rpe, **variant), dtype=dtype,
                        param_dtype=param_dtype, device=device, use_kernels=use_kernels,
-                       fused_block=fused, generator=torch.Generator().manual_seed(0), mesh=mesh)
+                       fused_block=fused, generator=torch.Generator().manual_seed(0), mesh=mesh,
+                       remat=remat)
 
 
 def vil_small(dtype: torch.dtype, param_dtype: torch.dtype = torch.float32,

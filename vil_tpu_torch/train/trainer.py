@@ -34,8 +34,11 @@ the data axis (``parallel.fully_shard``), as ``vil_tpu``'s trainer
 shards its state. Rank 0 alone writes checkpoints (gathered whole under
 sharding), ``config.yaml`` and the TensorBoard logs; every rank loads on
 resume. Keys that select what the port lacks raise (:func:`check_ported`),
-each naming its ROADMAP item: a model or FSDP axis beside a spatial one
-(A12), the ResNet zoo (A10), and the rest.
+each naming its ROADMAP item: a model or FSDP axis beside a spatial one,
+REMAT, dropout or a ResNet on a mesh other than the data axis (A12), and
+the rest. A ResNet of the zoo (MODEL.ARCH ``resnet50`` ...) trains and
+evaluates as a ViL does, its BatchNorm buffers updated by the step and read
+by the eval; the random-shift switch never fires for it.
 The Trainer builds on the CUDA card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 
 from .. import parallel
 from ..data import make_epoch_data_loader, mixup_from_cfg
-from ..models import ARCH_ZOO, build_model
+from ..models import RESNET_ZOO, build_model
 from ..utils.checkpoint import Checkpointer
 from ..utils.device import resolve_device
 from ..utils.metric_logger import TensorboardLogger
@@ -73,6 +76,8 @@ def check_ported(cfg) -> None:
     ``vil_tpu``'s trainer does."""
     tpu = cfg.TPU
     axes = list(tpu.MESH_AXES)
+    resnet = cfg.MODEL.ARCH in RESNET_ZOO
+    split = "spatial" in axes or "model" in axes or tpu.PARAM_SHARDING != "replicated"
     if tpu.PARAM_SHARDING not in ("replicated", "fsdp", "tp"):
         raise ValueError(f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r}: one of 'replicated', "
                          f"'fsdp', 'tp'")
@@ -87,9 +92,15 @@ def check_ported(cfg) -> None:
         (cfg.CKPT_BACKEND == "orbax",
          "CKPT_BACKEND 'orbax' (orbax writes OCDBT, which only tensorstore reads, and the "
          "card's host has no tensorstore: A6)"),
-        (not (cfg.MODEL.ARCH in ARCH_ZOO or cfg.MODEL.ARCH.startswith("msvit")),
-         f"MODEL.ARCH {cfg.MODEL.ARCH!r} (the ResNet zoo: A10)"),
-        (bool(tpu.REMAT), f"TPU.REMAT {tpu.REMAT!r} (A13)"),
+        (resnet and split,
+         f"MODEL.ARCH {cfg.MODEL.ARCH!r} on TPU.MESH_AXES {axes} with TPU.PARAM_SHARDING "
+         f"{tpu.PARAM_SHARDING!r} (a ResNet off the data axis: A12)"),
+        (bool(tpu.REMAT) and split,
+         f"TPU.REMAT {tpu.REMAT!r} on TPU.MESH_AXES {axes} with TPU.PARAM_SHARDING "
+         f"{tpu.PARAM_SHARDING!r} (rematerialisation off the data axis: A12)"),
+        (not resnet and cfg.MODEL.VIT.DROP > 0 and ("spatial" in axes or "model" in axes),
+         f"MODEL.VIT.DROP {cfg.MODEL.VIT.DROP} on TPU.MESH_AXES {axes} (dropout beside a "
+         f"spatial or model axis: A12)"),
         (bool(tpu.FLAT_OPT) or bool(tpu.STACKED_OPT), "TPU.FLAT_OPT / STACKED_OPT (A13)"),
     ]
     for bad, what in refused:
@@ -205,6 +216,8 @@ class Trainer:
 
     def _random_shift_active(self, epoch: int) -> bool:
         cfg = self.cfg
+        if cfg.MODEL.ARCH in RESNET_ZOO:  # a ResNet has no neighbour mode
+            return False
         if cfg.MODEL.VIT.MSVIT.ATTN_TYPE.startswith("longformer"):
             switch = cfg.MODEL.VIT.MSVIT.VIL_MODE_SWITCH * cfg.OPTIM.EPOCHS
             return cfg.MODEL.VIT.MSVIT.MODE > 0 and epoch < switch

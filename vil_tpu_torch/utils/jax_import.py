@@ -5,8 +5,14 @@ port's modules carry the flax names, so the mapping is per leaf:
 
 * Dense ``kernel`` (in, out)        → Linear ``weight`` (out, in)
 * Conv ``kernel`` (kh, kw, I, O)    → Conv2d ``weight`` (O, I, kh, kw)
-* LayerNorm ``scale``               → ``weight``
+* LayerNorm and BatchNorm ``scale`` → ``weight``
 * everything else keeps its name and layout.
+
+The ResNet zoo's modules carry torchvision's names, so its tree maps by
+module too: ``layerI_J`` → ``layerI.J``, ``downsample_conv`` /
+``downsample_bn`` → ``downsample.0`` / ``downsample.1``; its
+``batch_stats`` collection (``mean``, ``var``) fills the BatchNorms'
+``running_mean`` and ``running_var`` (``batch_stats=``).
 
 A sharded model (TPU.PARAM_SHARDING 'tp' or 'fsdp': ``model.param_shards``)
 takes each cut parameter's slice of the whole leaf, so that both packages
@@ -61,8 +67,35 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, np.asarray(val)
 
 
+_RESNET_MODULES = ((re.compile(r"(^|\.)layer(\d+)_(\d+)(?=\.)"), r"\1layer\2.\3"),
+                   (re.compile(r"(^|\.)downsample_conv(?=\.)"), r"\1downsample.0"),
+                   (re.compile(r"(^|\.)downsample_bn(?=\.)"), r"\1downsample.1"))
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _module_path(name: str) -> str:
+    """The port's module path of a flax leaf path: the ResNet zoo's blocks
+    and downsample pairs renamed to torchvision's (no MsViT path holds
+    those names)."""
+    for pattern, repl in _RESNET_MODULES:
+        name = pattern.sub(repl, name)
+    return name
+
+
+def _stats_tree(batch_stats: Mapping) -> dict:
+    """A flax ``batch_stats`` collection as a buffer tree of the port's
+    leaf names: ``mean`` → ``running_mean``, ``var`` → ``running_var``."""
+    out = {}
+    for name, arr in _flatten(batch_stats):
+        base, _, leaf = name.rpartition(".")
+        if leaf not in _BATCH_STATS:
+            raise KeyError(f"batch_stats leaf {name}: a BatchNorm holds mean and var")
+        out[f"{base}.{_BATCH_STATS[leaf]}"] = arr
+    return out
+
+
 def _to_torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
-    base, _, leaf = name.rpartition(".")
+    base, _, leaf = _module_path(name).rpartition(".")
     prefix = base + "." if base else ""
     if leaf == "kernel":
         if arr.ndim == 2:
@@ -72,7 +105,7 @@ def _to_torch_leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         raise ValueError(f"{name}: kernel of rank {arr.ndim} has no mapping")
     if leaf == "scale":
         return prefix + "weight", arr
-    return name, arr
+    return prefix + leaf, arr
 
 
 def _whole_tree(tree: Mapping, shapes: dict, what: str) -> dict:
@@ -103,38 +136,46 @@ def _whole_shapes(model: nn.Module) -> dict:
             for n, p in model.named_parameters()}
 
 
-def _buffer_shapes(model: nn.Module, buffers: Optional[Mapping]) -> dict:
+def _buffers(model: nn.Module, buffers: Optional[Mapping],
+             batch_stats: Optional[Mapping]) -> dict:
+    """The model's buffers from the flax ``buffers`` collection and the
+    ``batch_stats`` one, f32 CPU tensors by name, strictly: a model that has
+    buffers needs one of them."""
     targets = {n: tuple(b.shape) for n, b in model.named_buffers()}
-    if buffers is None and targets:
+    if buffers is None and batch_stats is None and targets:
         raise KeyError(f"the model has buffers {sorted(targets)}: give the flax "
-                       f"'buffers' collection as buffers=")
-    return targets
+                       f"'buffers' collection as buffers= (a ResNet's 'batch_stats' as "
+                       f"batch_stats=)")
+    tree = dict(buffers or {})
+    tree.update(_stats_tree(batch_stats or {}))
+    return _whole_tree(tree, targets, "buffer")
 
 
 @torch.no_grad()
-def load_jax_params(model: nn.Module, params: Mapping,
-                    buffers: Optional[Mapping] = None) -> nn.Module:
+def load_jax_params(model: nn.Module, params: Mapping, buffers: Optional[Mapping] = None,
+                    batch_stats: Optional[Mapping] = None) -> nn.Module:
     """Copy the flax parameter tree ``params`` (nested mappings of arrays)
     into ``model`` in place, casting to each parameter's dtype and device,
-    and the flax ``buffers`` collection into the model's buffers. A model
-    that has buffers needs ``buffers``."""
-    buffer_shapes = _buffer_shapes(model, buffers)
+    and the flax ``buffers`` collection (or a ResNet's ``batch_stats``) into
+    the model's buffers. A model that has buffers needs one of them."""
+    state = _buffers(model, buffers, batch_stats)
     shards = getattr(model, "param_shards", {})
     targets = dict(model.named_parameters())
     for name, value in _whole_tree(params, _whole_shapes(model), "parameter").items():
         targets[name].copy_(value if name not in shards else shards[name].local(value))
     targets = dict(model.named_buffers())
-    for name, value in _whole_tree(buffers or {}, buffer_shapes, "buffer").items():
+    for name, value in state.items():
         targets[name].copy_(value)
     return model
 
 
-def model_state_dict(model: nn.Module, params: Mapping,
-                     buffers: Optional[Mapping] = None) -> dict:
-    """The flax ``params`` and ``buffers`` collection as the port's whole
-    (replicated-format) ``state_dict`` of ``model``, f32 on the CPU."""
+def model_state_dict(model: nn.Module, params: Mapping, buffers: Optional[Mapping] = None,
+                     batch_stats: Optional[Mapping] = None) -> dict:
+    """The flax ``params`` and ``buffers`` (or ``batch_stats``) collections
+    as the port's whole (replicated-format) ``state_dict`` of ``model``, f32
+    on the CPU."""
     state = _whole_tree(params, _whole_shapes(model), "parameter")
-    state.update(_whole_tree(buffers or {}, _buffer_shapes(model, buffers), "buffer"))
+    state.update(_buffers(model, buffers, batch_stats))
     return state
 
 
@@ -236,19 +277,17 @@ def vil_tpu_payload(model: nn.Module, optimizer, payload: Mapping) -> dict:
     port's whole-state payload: ``{"model": state dict, "optimizer": state
     dict, "step", "lr_scale"}``; with ``optimizer=None`` the model's alone
     (a load that does not resume takes the parameters and buffers only). A
-    ResNet's ``batch_stats`` raises (A10)."""
+    ResNet's ``batch_stats`` fill its BatchNorms' running statistics."""
     missing = {"params", "buffers", "step"} - set(payload)
     if missing or (optimizer is not None and "opt_state" not in payload):
         raise ValueError(f"not a vil_tpu checkpoint payload: keys {sorted(payload)}")
     collections = dict(payload["buffers"] or {})
-    if "batch_stats" in collections:
-        raise NotImplementedError("a checkpoint with a 'batch_stats' collection (the ResNet "
-                                  "zoo's) is not ported (ROADMAP.md §A, A10)")
-    unknown = set(collections) - {"buffers"}
+    unknown = set(collections) - {"buffers", "batch_stats"}
     if unknown:
         raise ValueError(f"the checkpoint's collections {sorted(unknown)} have no port "
                          f"counterpart")
-    out = {"model": model_state_dict(model, payload["params"], collections.get("buffers", {})),
+    out = {"model": model_state_dict(model, payload["params"], collections.get("buffers", {}),
+                                     collections.get("batch_stats")),
            "step": int(np.asarray(payload["step"])), "lr_scale": 1.0}
     if optimizer is not None:
         out["optimizer"], out["lr_scale"] = optimizer_state_dict(

@@ -19,7 +19,12 @@ on the port's module, lives under the reference's FastAttention submodule
 (``attn.fast_attention.projection_matrix``, its performer.py:133), as
 ``vil_tpu`` maps it into its ``buffers`` collection.
 
-with the reference's fuzzy-loading behaviours (its checkpoint.py:10-131), as
+A ResNet of the zoo (``models/resnet.py``) carries torchvision's names, so a
+torchvision ``state_dict`` maps name for name (its ``num_batches_tracked``
+counters are not read), the classifier ``fc`` rows truncated as the head's
+are, as ``vil_tpu``'s ``import_torch_resnet`` feeds its aligner.
+
+Both go with the reference's fuzzy-loading behaviours (its checkpoint.py:10-131), as
 ``vil_tpu`` keeps them: ``module.`` prefix stripping, a unique-suffix match
 for a missing key, linear resize of the 1-D x/y position embeddings and of
 the 2-D relative-position table on a shape mismatch (the arithmetic of
@@ -104,7 +109,7 @@ def _adapt(name: str, value: np.ndarray, target_shape: tuple) -> Optional[np.nda
         return resize_pos_embed_1d(value, target_shape)
     if "local_relative_position_bias_table" in name:
         return resize_pos_embed_2d(value, target_shape)
-    if name.startswith("head.") and value.shape[0] > target_shape[0]:
+    if name.startswith(("head.", "fc.")) and value.shape[0] > target_shape[0]:
         logger.warning("Truncating %s: %s -> %s", name, value.shape, target_shape)
         return value[: target_shape[0]]
     logger.warning("Skipping %s: ckpt %s vs model %s", name, value.shape, target_shape)
@@ -142,11 +147,14 @@ def import_torch_checkpoint(state: Dict[str, np.ndarray], model: nn.Module) -> n
     one's dtype and device. Those with no match keep their values (with a
     warning), as the reference loads leniently. A sharded parameter
     (``model.param_shards``) takes its slice of the whole one."""
+    from ..models.resnet import ResNet
+
+    torchvision = isinstance(model, ResNet)
     shards = getattr(model, "param_shards", {})
     used = set()
     missing = []
     for name, param in [*model.named_parameters(), *model.named_buffers()]:
-        key = reference_key(name)
+        key = name if torchvision else reference_key(name)
         if key is None:
             continue
         if key not in state:
@@ -170,7 +178,7 @@ def import_torch_checkpoint(state: Dict[str, np.ndarray], model: nn.Module) -> n
     if missing:
         logger.warning("%d params not found in checkpoint: %s...", len(missing), missing[:8])
     unused = [k for k in state if k not in used and "relative_position_index" not in k
-              and "calls_since_last_redraw" not in k]
+              and "calls_since_last_redraw" not in k and "num_batches_tracked" not in k]
     if unused:
         logger.info("%d checkpoint tensors unused: %s...", len(unused), unused[:8])
     return model
