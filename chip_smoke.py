@@ -9,8 +9,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
 1. device  — refuse to run without CUDA; the card's name and power limit.
 2. build   — compile ``vil_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
    nvcc per source, all at once; the SASS census of the dense kernels, of
-   the sliding-chunk forwards B1, B7a and B5, of the sliding-chunk backwards
-   B2, B7b and B6 and of the fused block's forward B9a and backward B9b
+   the sliding-chunk forwards B1, B7a, B5 and B5h, of the sliding-chunk
+   backwards B2, B7b, B6 and B6h and of the fused block's forward B9a and
+   backward B9b
    (``tools/sass_census.py``, with each kernel's registers): their bf16
    instances must hold wgmma (HGMMA) and cp.async (LDGSTS) instructions.
 3. kernels — each kernel against its plain PyTorch version on the same
@@ -212,6 +213,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
    CPU's own f32 error against its f64 step); ``run_experiment.main`` with
    MODEL.ARCH resnet50: one epoch and its eval, its resume to two, equal to
    an uninterrupted run of two.
+25. shift_spatial — random shift under the split: shift_1024's step
+   (ViL-Small 1024², MODE 1, batch 8, bf16, per-block modes keyed by
+   (seed, step)) on a ('data', 'spatial') mesh of one card (``nccl``):
+   launches exact per step (the sampled-neighbour halo pair B5h, B6h 3
+   each, B3, B4 9; no B5/B6, B7a/B7b), beside the classic shift_1024 step
+   from the same weights, which must draw the same modes (outside the
+   path's counts; wall, device time, idle share, peak memory); one bf16 step
+   spatial vs classic at the same modes (every gradient to
+   BF16_PARAM_GRAD_TOL) and one f32 step on the mesh, kernels vs plain
+   versions (ViL-Small with stage 3 cut to one block, batch 2). With two
+   cards or more, the same multi-card phase as phase 18 at these modes.
+26. self_spatial — ViL-Small 224² at mode -1 on the one-card mesh: serving
+   forwards through ``parallel.spatial_forward(..., mode=-1)`` (the
+   self-only B5 3, B3 9) and steps at mode -1 (the self-only pair 3 each,
+   B3, B4 9), on each rank's rows without an exchange; f32 logits and one
+   f32 step against the classic self_chunk path's.
+27. experiment_spatial_shift — phase 19 with phase 15's recipe: two epochs,
+   random shift in the first (B5h, B6h), MODE 0 in the second (B7a, B7b),
+   every logged loss against the same run without the mesh.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -237,7 +257,16 @@ and without a bias from tables, each shard timed), in f32 and bf16 (the
 shards' outputs together must equal B1's on the
 whole grid, their dK/dV folded onto the rows' owners B2's; SDPA on the
 materialised halo neighbourhood as the library call; a bf16 operand off a
-16-byte boundary must raise ValueError), and P's two entry points against
+16-byte boundary must raise ValueError); their sampled-neighbour form B5h,
+B6h (random shift under the split) the same way at every mode 1..8 on
+ViL-Small 224²'s stage 1 and 2 split over 1, 2 and 4 ranks and on 1024²'s
+37×37 grid whole and split 20/17 and 10/10/10/7, on a biased padded grid
+without global rows, SW_EXACT -1 at W 4 and with the RPE bias of modes 2
+and 5 from tables (against B5 and B6 on the whole grid, each shard's bound
+printed, a second backward bit for bit, modes 1 and 6 timed per shard
+beside SDPA on the materialised [glo | self | sampled] keys), last at the
+path's shapes (1024², batch 8, one rank, timed as a shift_spatial step);
+and P's two entry points against
 ``x * 2``, exactly, at the probe's shape (event time, the time of 100 calls
 between one pair of events, and the card's time by ``torch.profiler``, each
 beside ``torch.mul``'s), on a ragged shape, on a view one element into its
@@ -254,7 +283,7 @@ N 4097, batch 8 (one group of 8 images) and B2 on the 37x37 grid at batch 2
 (bit for bit again), and the dense bias's assembly (the gather against the
 skew, forward and backward, equal bit for bit) at the paths' grids.
 
-Each path of phases 4-20 sets the launch counts to 0 before it and reads
+Each path of phases 4-27 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
@@ -270,12 +299,13 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_train_1024_rpe``, ``launches_finetune_384``,
 ``launches_train_spatial``, ``launches_experiment_spatial``, ``launches_train_tp``,
 ``launches_train_tp_shift``, ``launches_train_fsdp``, ``launches_experiment_tp``,
-``launches_from_vil_tpu``, ``launches_train_drop``, ``launches_self_chunk``, ``launches_train_remat`` and
-``launches_resnet`` each path's;
+``launches_from_vil_tpu``, ``launches_train_drop``, ``launches_self_chunk``, ``launches_train_remat``,
+``launches_resnet``, ``launches_shift_spatial``, ``launches_self_spatial`` and
+``launches_experiment_spatial_shift`` each path's;
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
 training path that runs the kernel: MODE 0, random shift for B5/B6, mode
 -1 for their self-only instances, fused for B8/B9, train_spatial for B7b
-(one rank); for B7a per spatial serving
+and shift_spatial for B5h/B6h (one rank); for B7a per spatial serving
 forward on one rank (no LSE); for P per call at the probe's shape), and the line before that the card as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
 """
@@ -524,10 +554,13 @@ def check_kernels(torch, records, self_only=False):
         vil_attention_halo_bwd_reference, vil_attention_halo_fwd,
         vil_attention_halo_reference, vil_attention_reference, vil_block_bwd,
         vil_block_bwd_reference, vil_block_fwd, vil_block_fwd_reference, vil_block_reference,
-        vil_mode_attention_bwd,
-        vil_mode_attention_bwd_reference, vil_mode_attention_fwd, vil_mode_attention_reference,
+        vil_mode_attention_bwd, vil_mode_attention_bwd_reference, vil_mode_attention_fwd,
+        vil_mode_attention_halo_bwd, vil_mode_attention_halo_bwd_reference,
+        vil_mode_attention_halo_fwd, vil_mode_attention_halo_reference,
+        vil_mode_attention_reference,
     )
     from vil_tpu_torch.ops.kernels.vil_attention_halo import halo_neighborhood
+    from vil_tpu_torch.ops.kernels.vil_mode_attention_halo import halo_sampled_neighborhood
     from vil_tpu_torch.models.attention import sliding_chunk_rpe_bias
     from vil_tpu_torch.tools import layout_probe
 
@@ -933,22 +966,41 @@ def check_kernels(torch, records, self_only=False):
             phase("kernels", f"  vil_block_fwd without lse (serving): {serve_ms:.4f} ms")
 
     def halo_case(label, B, nx, ny, w, C, H, nglo, exact, with_bias, splits, per_fwd=0,
-                  per_bwd=0, bias=None, timed=False):
-        """Halo-input cases: B7a and B7b on every shard of the grid split
-        over each D of ``splits`` (equal shards), or into the chunk-row
-        counts of each tuple of ``splits`` (a ragged split: every shard's
-        B7a and B7b timed in bf16), against their plain versions; the shards
-        together against B1 and B2 on the whole grid. ``per_fwd`` is the
-        case's share of one spatial serving forward's B7a launches on one
-        rank (D = 1), ``per_bwd`` its share of one train_spatial step's B7b
-        launches; with ``per_fwd``, ``per_bwd`` or ``timed`` every equal
-        split's shard 0 is timed (all its shards do the same work; SDPA
-        with the bias in its mask)."""
+                  per_bwd=0, bias=None, timed=False, mode=0):
+        """Halo-input cases: at mode 0 B7a and B7b, at modes 1..8 (random
+        shift) their sampled-neighbour form B5h and B6h, on every shard of
+        the grid split over each D of ``splits`` (equal shards), or into the
+        chunk-row counts of each tuple of ``splits`` (a ragged split: every
+        shard's kernels timed in bf16), against their plain versions; the
+        shards together against B1 and B2 (B5 and B6 at ``mode``) on the
+        whole grid. ``per_fwd`` is the case's share of one spatial serving
+        forward's B7a launches on one rank (D = 1), or of one shift_spatial
+        step's B5h launches, ``per_bwd`` its share of one train_spatial
+        step's B7b launches (shift_spatial's B6h); with ``per_fwd``,
+        ``per_bwd`` or ``timed`` every equal split's shard 0 is timed (all
+        its shards do the same work; SDPA with the bias in its mask). At
+        modes 1..8 every case prints its bound per shard, and the first
+        shard's backward is launched twice, bit for bit."""
         padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
         w2, M = w * w, C // H
-        cols = nglo + 9 * w2
+        cols = nglo + (9 if mode == 0 else 2) * w2
+        if mode == 0:
+            name, tail = "vil_attention_halo", ()
+            h_fwd, h_bwd = vil_attention_halo_fwd, vil_attention_halo_bwd
+            h_fwd_ref, h_bwd_ref = vil_attention_halo_reference, vil_attention_halo_bwd_reference
+            whole_fwd, whole_bwd, whole = vil_attention_fwd, vil_attention_bwd, ("B1", "B2")
+            nbh_of = halo_neighborhood
+        else:
+            name, tail = "vil_mode_attention_halo", (mode,)
+            h_fwd, h_bwd = vil_mode_attention_halo_fwd, vil_mode_attention_halo_bwd
+            h_fwd_ref = vil_mode_attention_halo_reference
+            h_bwd_ref = vil_mode_attention_halo_bwd_reference
+            whole_fwd, whole_bwd, whole = vil_mode_attention_fwd, vil_mode_attention_bwd, ("B5",
+                                                                                           "B6")
+            nbh_of = lambda t: halo_sampled_neighborhood(t, mode)
         mask = torch.from_numpy(mask_to_additive(
-            masks_lib.invalid_mask(mx, my, padx, pady, w, exact, 0), mx, my, w2, nglo)).to(dev)
+            masks_lib.invalid_mask(mx, my, padx, pady, w, exact, mode), mx, my, w2,
+            nglo)).to(dev)
         acts = [randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
         acts += [randn(B, nglo, C) if nglo else None for _ in range(2)]
         g0 = randn(B, mx, my, w2, C)
@@ -958,8 +1010,8 @@ def check_kernels(torch, records, self_only=False):
             a = cast(acts, dtype)
             g = g0.to(dtype)
             dt = str(dtype)[6:]
-            b1_out, b1_lse = vil_attention_fwd(*a, bias, mask, H, with_lse=True)
-            b2_grads = vil_attention_bwd(*a, bias, g, b1_out, mask, b1_lse, H)
+            b1_out, b1_lse = whole_fwd(*a, bias, mask, H, *tail, with_lse=True)
+            b2_grads = whole_bwd(*a, bias, g, b1_out, mask, b1_lse, H, *tail)
             for split in splits:
                 ragged = not isinstance(split, int)
                 counts = list(split) if ragged else [mx // split] * split
@@ -975,10 +1027,13 @@ def check_kernels(torch, records, self_only=False):
                     m_rows = mask[lo:lo + n]
                     gs = g[:, lo:lo + n].contiguous()
                     ops32 = cast(ops, torch.float32)
-                    out, lse = vil_attention_halo_fwd(*ops, m_rows, H, with_lse=True)
-                    ref, ref_lse = vil_attention_halo_reference(*ops32, m_rows, H, with_lse=True)
-                    grads = vil_attention_halo_bwd(*ops, gs, out, m_rows, lse, H)
-                    refs = vil_attention_halo_bwd_reference(*ops32, gs.float(), m_rows, H)
+                    out, lse = h_fwd(*ops, m_rows, H, *tail, with_lse=True)
+                    ref, ref_lse = h_fwd_ref(*ops32, m_rows, H, *tail, with_lse=True)
+                    grads = h_bwd(*ops, gs, out, m_rows, lse, H, *tail)
+                    refs = h_bwd_ref(*ops32, gs.float(), m_rows, H, *tail)
+                    if mode and sh == 0:
+                        same_bits(f"{name}_bwd {label}, D {D} {dt}", grads,
+                                  h_bwd(*ops, gs, out, m_rows, lse, H, *tail))
                     torch.cuda.synchronize()
                     if dtype == torch.bfloat16:
                         for n, e in chunk_scaled(out, ref, grads, refs).items():
@@ -995,43 +1050,52 @@ def check_kernels(torch, records, self_only=False):
                     shards.append((ops, m_rows, gs, out, lse, grads))
                 e_b1 = max_err(torch.cat(outs, dim=1), b1_out)
                 e_b2 = max(rel_err(dk, b2_grads[1]), rel_err(dv, b2_grads[2]))
-                phase("kernels", f"vil_attention_halo {label}, D {D} (rows {counts}) {dt}: "
+                phase("kernels", f"{name} {label}, D {D} (rows {counts}) {dt}: "
                                  f"out {e_out:.3e} (tol {tol:g}), lse {e_lse:.3e} (tol "
                                  f"{LSE_TOL:g}); grads rel {e_grad:.3e} (tol {GRAD_TOL[dt]:g})"
-                                 f"{scaled_text(e_scaled)}; shards vs B1 on the whole grid "
-                                 f"{e_b1:.3e}, folded dK/dV vs B2 rel {e_b2:.3e}")
-                check(f"halo fwd {label} D {D} {dt}", e_out, tol)
-                check(f"halo lse {label} D {D} {dt}", e_lse, LSE_TOL)
-                check(f"halo bwd {label} D {D} {dt}", e_grad, GRAD_TOL[dt])
-                check(f"halo shards vs B1 {label} D {D} {dt}", e_b1, tol)
-                check(f"halo folded dK/dV vs B2 {label} D {D} {dt}", e_b2, GRAD_TOL[dt])
+                                 f"{scaled_text(e_scaled)}; shards vs {whole[0]} on the whole "
+                                 f"grid {e_b1:.3e}, folded dK/dV vs {whole[1]} rel {e_b2:.3e}")
+                check(f"{name} fwd {label} D {D} {dt}", e_out, tol)
+                check(f"{name} lse {label} D {D} {dt}", e_lse, LSE_TOL)
+                check(f"{name} bwd {label} D {D} {dt}", e_grad, GRAD_TOL[dt])
+                check(f"{name} shards vs {whole[0]} {label} D {D} {dt}", e_b1, tol)
+                check(f"{name} folded dK/dV {label} D {D} {dt}", e_b2, GRAD_TOL[dt])
                 for n, e in e_scaled.items():
-                    check(f"halo {n} scaled {label} D {D} {dt}", e, CHUNK_SCALED_TOL)
+                    check(f"{name} {n} scaled {label} D {D} {dt}", e, CHUNK_SCALED_TOL)
                 if dtype != torch.bfloat16:
                     continue
+                fwd_flops = [4.0 * B * n * my * w2 * C * cols for n in counts]
+                if mode:  # each shard's bound: q, K/V with halos, mask, out, lse / g, grads
+                    bounds = [max(*bound_ms(nbytes(*o, m, out, lse), f)) for (o, m, _, out, lse, _),
+                              f in zip(shards, fwd_flops)]
+                    bwd_bounds = [max(*bound_ms(nbytes(*o, m, lse, gg, *gr), 2.5 * f))
+                                  for (o, m, gg, _, lse, gr), f in zip(shards, fwd_flops)]
+                    phase("kernels", f"  {name} {label}, rows {counts}, per shard: bound fwd "
+                                     f"{[round(b, 4) for b in bounds]} ms, bwd "
+                                     f"{[round(b, 4) for b in bwd_bounds]} ms")
                 if ragged:  # each shard's kernels, as a training step launches them
-                    times = [(time_ms(lambda: vil_attention_halo_fwd(*o, m, H, with_lse=True)),
-                              time_ms(lambda: vil_attention_halo_bwd(*o, gg, out, m, lse, H)))
+                    times = [(time_ms(lambda: h_fwd(*o, m, H, *tail, with_lse=True)),
+                              time_ms(lambda: h_bwd(*o, gg, out, m, lse, H, *tail)))
                              for o, m, gg, out, lse, _ in shards]
-                    phase("kernels", f"  vil_attention_halo {label}, rows {counts}, per shard: "
-                                     f"B7a with lse {[round(f, 4) for f, _ in times]} ms, B7b "
+                    phase("kernels", f"  {name} {label}, rows {counts}, per shard: "
+                                     f"fwd with lse {[round(f, 4) for f, _ in times]} ms, bwd "
                                      f"{[round(b, 4) for _, b in times]} ms")
                     continue
                 if not (per_fwd or per_bwd or timed):
                     continue
                 mxs = counts[0]
                 if per_fwd:
-                    records["vil_attention_halo_fwd"]["max_abs_err"] = max(
-                        records["vil_attention_halo_fwd"]["max_abs_err"], e_out)
-                    records["vil_attention_halo_bwd"]["max_abs_err"] = max(
-                        records["vil_attention_halo_bwd"]["max_abs_err"], e_abs)
+                    records[f"{name}_fwd"]["max_abs_err"] = max(
+                        records[f"{name}_fwd"]["max_abs_err"], e_out)
+                    records[f"{name}_bwd"]["max_abs_err"] = max(
+                        records[f"{name}_bwd"]["max_abs_err"], e_abs)
                 ops, m_rows, gs, out, lse, grads = shards[0]
                 heads = lambda t: t.view(B * mxs * my, -1, H, M).transpose(1, 2)
 
-                def materialise():  # [glo ‖ 3×3 halo neighbourhood] keys, values
+                def materialise():  # [glo ‖ halo neighbourhood] keys, values
                     kv = []
                     for t, t_glo in ((ops[1], ops[3]), (ops[2], ops[4])):
-                        nbh = halo_neighborhood(t)
+                        nbh = nbh_of(t)
                         if nglo:
                             nbh = torch.cat([t_glo[:, None, None].expand(B, mxs, my, nglo, C),
                                              nbh], dim=3)
@@ -1044,25 +1108,27 @@ def check_kernels(torch, records, self_only=False):
                 attn_mask = (rows_mask[None].expand(B, -1, -1, -1, -1, -1)
                              .reshape(B * mxs * my, rows_mask.shape[2], -1, cols))
                 lib_fwd, lib_bwd, _ = sdpa_times(heads(ops[0]), k_cat, v_cat, heads(gs), attn_mask)
-                act = B * mxs * my * w2 * C
-                fwd_flops = 4.0 * act * cols
-                fwd_ms = time_ms(lambda: vil_attention_halo_fwd(*ops, m_rows, H))
-                fwd_lse_ms = time_ms(lambda: vil_attention_halo_fwd(*ops, m_rows, H,
-                                                                    with_lse=True))
-                bwd_ms = time_ms(lambda: vil_attention_halo_bwd(*ops, gs, out, m_rows, lse, H))
-                fwd_plain = time_ms(lambda: vil_attention_halo_reference(*ops, m_rows, H))
-                bwd_plain = time_ms(lambda: vil_attention_halo_bwd_reference(*ops, gs, m_rows, H))
+                fwd_ms = time_ms(lambda: h_fwd(*ops, m_rows, H, *tail))
+                fwd_lse_ms = time_ms(lambda: h_fwd(*ops, m_rows, H, *tail, with_lse=True))
+                bwd_ms = time_ms(lambda: h_bwd(*ops, gs, out, m_rows, lse, H, *tail))
+                fwd_plain = time_ms(lambda: h_fwd_ref(*ops, m_rows, H, *tail))
+                bwd_plain = time_ms(lambda: h_bwd_ref(*ops, gs, m_rows, H, *tail))
                 fwd_bytes = nbytes(*ops, m_rows, out)
                 bwd_bytes = nbytes(*ops, m_rows, lse, gs, *grads)
                 one_rank = D == 1  # the records hold the one-rank paths
-                f_msg = account("vil_attention_halo_fwd", per_fwd * one_rank, fwd_ms, fwd_plain,
-                                fwd_bytes, fwd_flops, lib_fwd)
-                b_msg = account("vil_attention_halo_bwd", per_bwd * one_rank, bwd_ms, bwd_plain,
-                                bwd_bytes, 2.5 * fwd_flops, lib_bwd)
-                phase("kernels", f"  vil_attention_halo_fwd {label}, D {D}, per shard (serving, "
-                                 f"no lse): {f_msg}, SDPA forward {lib_fwd:.4f} ms; with lse "
-                                 f"{fwd_lse_ms:.4f} ms")
-                phase("kernels", f"  vil_attention_halo_bwd {label}, D {D}, per shard: {b_msg}, "
+                # B7a's record is a serving forward's (no LSE), B5h's a
+                # training step's (with it)
+                f_msg = account(f"{name}_fwd", per_fwd * one_rank,
+                                fwd_lse_ms if mode else fwd_ms, fwd_plain,
+                                fwd_bytes + (nbytes(lse) if mode else 0), fwd_flops[0], lib_fwd)
+                b_msg = account(f"{name}_bwd", per_bwd * one_rank, bwd_ms, bwd_plain,
+                                bwd_bytes, 2.5 * fwd_flops[0], lib_bwd)
+                fwd_kind = "with lse" if mode else "serving, no lse"
+                phase("kernels", f"  {name}_fwd {label}, D {D}, per shard ({fwd_kind}): "
+                                 f"{f_msg}, SDPA forward {lib_fwd:.4f} ms; "
+                                 f"{'without' if mode else 'with'} lse "
+                                 f"{(fwd_ms if mode else fwd_lse_ms):.4f} ms")
+                phase("kernels", f"  {name}_bwd {label}, D {D}, per shard: {b_msg}, "
                                  f"SDPA backward {lib_bwd:.4f} ms")
 
     def probe_case():
@@ -1338,6 +1404,47 @@ def check_kernels(torch, records, self_only=False):
                   False, ((20, 17), (10, 10, 10, 7)), bias=bias)
         halo_case(f"1024^2 stage2 (8,19,19,49,192) H3, pad 5{what}", 8, 128, 128, 7, 192, 3, 1,
                   0, False, ((10, 9), (5, 5, 5, 4)), bias=bias)
+    # random shift under the split (the paths shift_spatial and
+    # experiment_spatial_shift): the sampled-neighbour halo kernels B5h/B6h at
+    # every mode on ViL-Small 224²'s stage 1 and 2 split over 1, 2 and 4 ranks
+    # (modes 1 and 6 timed per shard beside SDPA) and on 1024²'s 37x37 grid
+    # whole and on the ragged shards of 2 and 4 ranks; a biased padded grid
+    # without global rows, SW_EXACT -1 at W 4, the RPE bias of a mode from
+    # tables (front order [g2l | self | sampled]); last the path's own shapes,
+    # ViL-Small 1024² at batch 8 on one rank, timed as a shift_spatial step
+    # (stage 1 once, stage 2 twice, the mean of modes 1 and 6)
+    for mode in range(1, 9):
+        timed = mode in (1, 6)
+        halo_case(f"mode {mode} stage1 (64,8,8,49,96) H3", 64, 56, 56, 7, 96, 3, 1, 0, False,
+                  (1, 2, 4), mode=mode, timed=timed)
+        halo_case(f"mode {mode} stage2 (64,4,4,49,192) H3", 64, 28, 28, 7, 192, 3, 1, 0, False,
+                  (1, 2, 4), mode=mode, timed=timed)
+        halo_case(f"mode {mode} 1024^2 stage1 (2,37,37,49,96) H3, pad 3", 2, 256, 256, 7, 96, 3,
+                  1, 0, False, (1, (20, 17), (10, 10, 10, 7)), mode=mode)
+    halo_case("mode 3 biased, padded 3x3 grid, nglo 0", 2, 19, 20, 7, 64, 2, 0, 0, True, (1, 3),
+              mode=3)
+    halo_case("mode 7 SW_EXACT -1, W 4", 3, 14, 15, 4, 48, 3, 1, -1, False, (1, 2), mode=7)
+    table, g2l, _ = tables(27 * 27, 3, 1)
+    for mode in (2, 5):
+        halo_case(f"RPE mode {mode} stage1 (64,8,8,49,96) H3, bias (3,49,99) from tables", 64, 56,
+                  56, 7, 96, 3, 1, 0, True, (2, (3, 3, 2)), mode=mode,
+                  bias=sliding_chunk_rpe_bias(table, g2l, 7, mode), timed=True)
+    # the tensor-core B5h copies rows 16 bytes at a time, as B7a does
+    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+    q_off.copy_(q)
+    try:
+        vil_mode_attention_halo_fwd(q_off, *kv_ext, *glo, None,
+                                    torch.zeros(2, 2, 1, 1 + 2 * 49, device=dev), 2, 4)
+    except ValueError as e:
+        phase("kernels", f"vil_mode_attention_halo bf16 q 2 bytes off a 16-byte boundary: "
+                         f"raises ValueError ({e})")
+    else:
+        raise AssertionError("a misaligned bf16 sampled-neighbour halo forward did not raise")
+    for mode in (1, 6):
+        halo_case(f"mode {mode} 1024^2 stage1 (8,37,37,49,96) H3, pad 3", 8, 256, 256, 7, 96, 3,
+                  1, 0, False, (1,), mode=mode, per_fwd=0.5, per_bwd=0.5)
+        halo_case(f"mode {mode} 1024^2 stage2 (8,19,19,49,192) H3, pad 5", 8, 128, 128, 7, 192,
+                  3, 1, 0, False, (1, (10, 9), (5, 5, 5, 4)), mode=mode, per_fwd=1, per_bwd=1)
 
 
 def launch_counts(kernels) -> dict:
@@ -1822,20 +1929,24 @@ SHALLOW_VIL_SMALL = ("l1,h3,d96,n1,s1,g1,p4,f7_l2,h3,d192,n2,s1,g1,p2,f7_"
                      "l3,h6,d384,n1,s0,g1,p2,f7_l4,h12,d768,n1,s0,g0,p2,f7")
 
 
-def spatial_step_pair(torch, dtype, batch, arch, images, labels, mesh):
+def spatial_step_pair(torch, dtype, batch, arch, images, labels, mesh, modes=None,
+                      runs=None):
     """One recipe step of ViL-Small 1024² (``arch``, computed in ``dtype``,
     f32 parameters) from its seeded weights, classic and on ``mesh``, from
-    the same images, labels and draws: {"classic": (loss, gradients),
-    "spatial": (loss, gradients)}."""
+    the same images, labels and draws, at the per-block ``modes`` of random
+    shift where given: {"classic": (loss, gradients), "spatial": (loss,
+    gradients)}. ``runs`` replaces the pair: {label: (mesh, use_kernels)}."""
     from vil_tpu_torch.train import recipe
 
     dev = torch.device("cuda")
     out = {}
-    for label, on in (("classic", None), ("spatial", mesh)):
-        m = recipe.vil("vil_small", SPATIAL_IMG, dtype, torch.float32, device=dev, arch=arch)
-        s = recipe.train_step(m, dev, batch=SPATIAL_BATCH, mesh=on)
-        loss = s(images[:batch], labels[:batch],
-                 torch.Generator(device=dev).manual_seed(3))["loss"].item()
+    runs = runs or {"classic": (None, True), "spatial": (mesh, True)}
+    for label, (on, use_kernels) in runs.items():
+        m = recipe.vil("vil_small", SPATIAL_IMG, dtype, torch.float32, use_kernels, dev,
+                       arch=arch)
+        s = recipe.train_step(m, dev, modes is not None, batch=SPATIAL_BATCH, mesh=on, seed=0)
+        loss = s(images[:batch], labels[:batch], torch.Generator(device=dev).manual_seed(3),
+                 modes=modes)["loss"].item()
         out[label] = (loss, {n: p.grad.clone() for n, p in m.named_parameters()})
         del m, s
         torch.cuda.empty_cache()
@@ -1960,7 +2071,8 @@ def run_train_spatial(torch, kernels):
 def multicard_rank(rank, world, store, inputs, result):
     """One rank of the multi-card phase: ViL-Small 1024²'s bf16 recipe step
     from the seeded weights, its rows split over ``world`` cards (``nccl``,
-    a ('data', 'spatial') mesh of 1 × world), on the batch of ``inputs``;
+    a ('data', 'spatial') mesh of 1 × world), on the batch of ``inputs``
+    (at its per-block ``modes`` of random shift where it holds them);
     rank 0 writes its loss and gradients to ``result``."""
     import torch
 
@@ -1975,15 +2087,18 @@ def multicard_rank(rank, world, store, inputs, result):
         mesh = parallel.create_mesh((1, world), ("data", "spatial"))
         on = parallel.Mesh(spatial=parallel.SpatialContext.of(mesh.get_group("spatial")))
         model = recipe.vil("vil_small", SPATIAL_IMG, torch.bfloat16, torch.float32, device=dev)
-        step = recipe.train_step(model, dev, batch=SPATIAL_BATCH, mesh=on)
+        modes = data.get("modes")
+        step = recipe.train_step(model, dev, modes is not None, batch=SPATIAL_BATCH, mesh=on,
+                                 seed=0)
         gen = torch.Generator(device=dev)
-        loss = step(data["images"], data["labels"], gen.manual_seed(3))["loss"].item()
+        loss = step(data["images"], data["labels"], gen.manual_seed(3),
+                    modes=modes)["loss"].item()
         grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
         secs = []
         for _ in range(STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(data["images"], data["labels"], gen.manual_seed(3))
+            step(data["images"], data["labels"], gen.manual_seed(3), modes=modes)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         if rank == 0:
@@ -1994,25 +2109,27 @@ def multicard_rank(rank, world, store, inputs, result):
         dist.destroy_process_group()
 
 
-def run_multicard(torch, images, labels, one_rank):
+def run_multicard(torch, images, labels, one_rank, modes=None):
     """The multi-card phase, with more than one card: the train_spatial
-    step at D 2, and at D 4 where four cards exist (the ragged split 280,
-    280, 280, 184 rows), each in D spawned ``nccl`` ranks, one card each,
-    its first step's gradients against the one-rank step's (``one_rank``:
-    loss, gradients) at BF16_PARAM_GRAD_TOL; then STEPS more steps timed on
-    rank 0 (the weights move, so only the first is compared). On one card
-    it only says so."""
+    step (shift_spatial's, at its per-block ``modes``, where they are given)
+    at D 2, and at D 4 where four cards exist (the ragged split 280, 280,
+    280, 184 rows), each in D spawned ``nccl`` ranks, one card each, its
+    first step's gradients against the one-rank step's (``one_rank``: loss,
+    gradients) at BF16_PARAM_GRAD_TOL; then STEPS more steps timed on rank 0
+    (the weights move, so only the first is compared). On one card it only
+    says so."""
+    path = "train_spatial" if modes is None else "shift_spatial"
     cards = torch.cuda.device_count()
     if cards < 2:
-        phase("multicard", f"multi-card phase not run: {cards} card")
+        phase("multicard", f"multi-card phase of {path} not run: {cards} card")
         return
     import torch.multiprocessing as mp
 
     for world in (w for w in (2, 4) if w <= cards):
-        tmp = os.path.join(REPO, "build", f"multicard.{os.getpid()}.{world}")
+        tmp = os.path.join(REPO, "build", f"multicard.{os.getpid()}.{path}.{world}")
         os.makedirs(tmp, exist_ok=True)
         inputs, result = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "result.pt")
-        torch.save({"images": images.cpu(), "labels": labels.cpu()}, inputs)
+        torch.save({"images": images.cpu(), "labels": labels.cpu(), "modes": modes}, inputs)
         t0 = time.perf_counter()
         mp.spawn(multicard_rank, args=(world, os.path.join(tmp, "store"), inputs, result),
                  nprocs=world)
@@ -2020,7 +2137,7 @@ def run_multicard(torch, images, labels, one_rank):
         grads = {n: g.to(images.device) for n, g in got["grads"].items()}
         err, at = bf16_grad_worst(grads, one_rank[1])
         med = statistics.median(got["secs"])
-        phase("multicard", f"train_spatial at D {world} on {world} cards (nccl, {cards} "
+        phase("multicard", f"{path} at D {world} on {world} cards (nccl, {cards} "
                            f"present), {time.perf_counter() - t0:.1f} s with start-up: loss "
                            f"{got['loss']:.6f} vs one rank {one_rank[0]:.6f}; gradients max "
                            f"‖err‖ / ‖ref‖ {err:.3e} at {at} (tol {BF16_PARAM_GRAD_TOL:g}); step "
@@ -2072,6 +2189,276 @@ def run_experiment_spatial(torch, kernels):
     if not (len(losses["mesh"]) == len(losses["without the mesh"]) == 8
             and err <= EXPERIMENT_LOSS_TOL):
         raise AssertionError(f"{name}: the mesh's losses differ: {losses}")
+    return launches
+
+
+SHIFT_SPATIAL_STEPS = 3  # timed steps of shift_spatial's two runs; the first is the warm-up
+
+
+def run_shift_spatial(torch, kernels):
+    """Part ``shift_spatial``: shift_1024's step (ViL-Small 1024², the MODE 1
+    recipe at batch 8, bf16, per-block modes drawn by the step keyed by
+    (seed, step)) on a ('data', 'spatial') mesh of one card (an ``nccl``
+    group of one, the halos through the exchange), the chunked stages
+    through the sampled-neighbour halo kernels B5h and B6h. The classic
+    shift_1024 step from the same weights runs first, outside the path's
+    counts; each takes SHIFT_SPATIAL_STEPS steps and PROFILED more under
+    torch.profiler (wall, device time, idle share, peak memory), and the two
+    must draw the same modes. Launches exact: B5h 3, B6h 3, B3 9, B4 9 a
+    step (B3t/B4b 8 of them, at N 4097), nothing else. Then one bf16 step,
+    spatial vs classic, from the same weights and modes (gradients to
+    BF16_PARAM_GRAD_TOL), and one f32 step on the mesh of ViL-Small with
+    stage 3 cut to one block at batch 2, kernels vs plain versions (loss to
+    LOSS_TOL, gradients to PARAM_GRAD_TOL of their max|ref|)."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.tools.profile_step import family, kernel_ms
+    from vil_tpu_torch.train import recipe
+
+    name = "shift_spatial"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (SPATIAL_BATCH,), generator=gen, device=dev)
+    with OneRankGroup(name):
+        mesh = parallel.Mesh(spatial=parallel.SpatialContext.of(None))
+        walls, launches, drawn = {}, None, {}
+        for label, on, chunk in (("shift_1024", None, "vil_mode_attention"),
+                                 ("shift_spatial", mesh, "vil_mode_attention_halo")):
+            per_step = {fn.__name__: 0 for fn in kernels}
+            per_step.update({f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
+                             "full_attention_bwd": 9})
+            model = recipe.vil("vil_small", SPATIAL_IMG, torch.bfloat16, torch.float32,
+                               device=dev)
+            step = recipe.train_step(model, dev, True, batch=SPATIAL_BATCH, mesh=on, seed=0)
+            step_gen = torch.Generator(device=dev).manual_seed(3)
+            secs, losses, modes = [], [], []
+
+            def timed():
+                before = launch_counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(images, labels, step_gen)
+                losses.append(metrics["loss"].item())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                modes.append(metrics["modes"])
+                rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+                if rose != per_step:
+                    raise AssertionError(f"{label} step {len(secs)}: launches rose by {rose}, "
+                                         f"want {per_step}")
+
+            if on is not None:  # the path: its counts from 0
+                for fn in kernels:
+                    fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(SHIFT_SPATIAL_STEPS):
+                timed()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(PROFILED):
+                    timed()
+            if on is not None:
+                launches = launch_counts(kernels)
+            families = {}
+            for kernel, ms in kernel_ms(prof).items():
+                families[family(kernel)] = families.get(family(kernel), 0.0) + ms
+            device = sum(families.values()) / PROFILED
+            med = statistics.median(secs[1:SHIFT_SPATIAL_STEPS])
+            walls[label], drawn[label] = (med, device), modes
+            top = ", ".join(f"{k} {v / PROFILED:.3f}" for k, v in
+                            sorted(families.items(), key=lambda kv: -kv[1])[:8])
+            phase(name, f"{label}: ViL-Small {SPATIAL_IMG}^2 MODE 1 bf16 batch {SPATIAL_BATCH}"
+                        f"{' on a group of 1 (nccl)' if on else ''}: median {med * 1e3:.3f} ms, "
+                        f"{SPATIAL_BATCH / med:.1f} img/s (steps 2..{SHIFT_SPATIAL_STEPS}), "
+                        f"first {secs[0] * 1e3:.1f} ms; device {device:.3f} ms a step "
+                        f"(torch.profiler over {PROFILED} more: {top}), idle "
+                        f"{100 * (1 - device / med / 1e3):.1f}%; peak memory "
+                        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+                        f"{', '.join(f'{v:.4f}' for v in losses)}; modes of the first step "
+                        f"{modes[0]}")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name} {label}: losses not finite: {losses}")
+            del model, step
+            torch.cuda.empty_cache()
+        if drawn["shift_1024"] != drawn["shift_spatial"]:
+            raise AssertionError(f"{name}: the runs drew other modes: {drawn}")
+        steps = SHIFT_SPATIAL_STEPS + PROFILED
+        want = {fn.__name__: 0 for fn in kernels}
+        want.update(vil_mode_attention_halo_fwd=3 * steps, vil_mode_attention_halo_bwd=3 * steps,
+                    full_attention_fwd=9 * steps, full_attention_bwd=9 * steps)
+        phase(name, f"launches {({k: v for k, v in launches.items() if v})} (want "
+                    f"{({k: v for k, v in want.items() if v})}, the rest 0); spatial / classic "
+                    f"wall {walls['shift_spatial'][0] / walls['shift_1024'][0]:.3f}, device "
+                    f"{walls['shift_spatial'][1] / walls['shift_1024'][1]:.3f}")
+        if launches != want:
+            raise AssertionError(f"{name}: launch counts {launches} != {want}")
+
+        modes = drawn["shift_spatial"][0]
+        bf = spatial_step_pair(torch, torch.bfloat16, SPATIAL_BATCH, "", images, labels, mesh,
+                               modes)
+        err, at = bf16_grad_worst(bf["spatial"][1], bf["classic"][1])
+        phase(name, f"bf16 step at modes {modes}, batch {SPATIAL_BATCH}, spatial vs classic: "
+                    f"loss {bf['spatial'][0]:.6f} vs {bf['classic'][0]:.6f}; parameter "
+                    f"gradients max ‖err‖ / ‖ref‖ {err:.3e} at {at} (tol "
+                    f"{BF16_PARAM_GRAD_TOL:g})")
+        if not (math.isfinite(bf["spatial"][0]) and err <= BF16_PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: bf16 step disagrees: gradients {err} at {at}")
+        one_rank = bf["spatial"]
+        del bf
+        # f32 on the mesh: B5h/B6h's f32 bodies against the plain spatial tier
+        f32 = spatial_step_pair(torch, torch.float32, SPATIAL_PAIR, SHALLOW_VIL_SMALL, images,
+                                labels, mesh, modes[:5],
+                                runs={"kernels": (mesh, True), "plain": (mesh, False)})
+        loss_err = abs(f32["kernels"][0] - f32["plain"][0])
+        grad_err, worst, _ = f32_grad_errors(f32["kernels"][1], f32["plain"][1])
+        phase(name, f"f32 step on the mesh at modes {modes[:5]}, ViL-Small with stage 3 cut to "
+                    f"one block, batch {SPATIAL_PAIR}, kernels vs plain versions: loss "
+                    f"{f32['kernels'][0]:.6f} vs {f32['plain'][0]:.6f} (|err| {loss_err:.3e}, "
+                    f"tol {LOSS_TOL:g}); parameter gradients max rel err {grad_err:.3e} at "
+                    f"{worst} (tol {PARAM_GRAD_TOL:g})")
+        if not (loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+            raise AssertionError(f"{name}: f32 step disagrees: loss {loss_err}, gradients "
+                                 f"{grad_err} at {worst}")
+        del f32
+        torch.cuda.empty_cache()
+    run_multicard(torch, images, labels, one_rank, modes)
+    return launches
+
+
+def run_self_spatial(torch, kernels):
+    """Part ``self_spatial``: ViL-Small 224² (bf16 compute, f32 parameters,
+    batch 64) at mode -1 on a ('data', 'spatial') mesh of one card (an
+    ``nccl`` group of one): REQUESTS serving forwards through
+    ``parallel.spatial_forward(..., mode=-1)`` (the self-only B5 3, B3 9 a
+    forward) and STEPS training steps at mode -1 on the mesh (the self-only
+    pair 3 each, B3, B4 9 a step), on each rank's rows without an exchange;
+    nothing else launched. Then the f32 logits and one f32 step's loss and
+    gradients on the mesh against the classic self_chunk path's (no mesh)
+    from the same weights, images and generator, at LOGITS_TOL, LOSS_TOL and
+    PARAM_GRAD_TOL."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import recipe
+
+    name = "self_spatial"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    per_forward = {fn.__name__: 0 for fn in kernels}
+    per_forward.update(vil_self_attention_fwd=3, full_attention_fwd=9)
+    per_step = dict(per_forward, vil_self_attention_bwd=3, full_attention_bwd=9)
+    with OneRankGroup(name):
+        mesh = parallel.Mesh(spatial=parallel.SpatialContext.of(None))
+        model = recipe.vil_small(torch.bfloat16, torch.float32, device=dev)
+        step = recipe.train_step(model, dev, mesh=mesh)
+        rows = parallel.shard_image(images, model)
+
+        def serve():
+            with torch.inference_mode():
+                out = parallel.spatial_forward(model.eval(), rows, mode=-1)
+            if out.shape != (BATCH, 1000) or not torch.isfinite(out).all():
+                raise AssertionError(f"{name}: logits bad: {tuple(out.shape)}")
+
+        losses = []
+        train = lambda: losses.append(step(images, labels,
+                                           torch.Generator(device=dev).manual_seed(3),
+                                           modes=-1)["loss"].item())
+        for fn in kernels:
+            fn.launches = 0
+        medians = []
+        for want, run, count in ((per_forward, serve, REQUESTS), (per_step, train, STEPS)):
+            secs = []
+            for i in range(count):
+                before = launch_counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+                if rose != want:
+                    raise AssertionError(f"{name} run {i}: launches rose by {rose}, want {want}")
+            medians.append(statistics.median(secs[1:]))
+        launches = launch_counts(kernels)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: losses not finite: {losses}")
+        phase(name, f"ViL-Small 224^2 at mode -1 on a group of 1 (nccl), bf16 compute, f32 "
+                    f"parameters, batch {BATCH}: {REQUESTS} spatial_forward calls, median "
+                    f"{medians[0] * 1e3:.3f} ms ({BATCH / medians[0]:.1f} img/s); {STEPS} "
+                    f"steps, median {medians[1] * 1e3:.3f} ms ({BATCH / medians[1]:.1f} "
+                    f"img/s), losses {', '.join(f'{v:.4f}' for v in losses)}; launches "
+                    f"{ {k: v for k, v in launches.items() if v} } "
+                    f"({ {k: v for k, v in per_step.items() if v} } a step)")
+        del model, step
+
+        def run_f32(on):
+            """f32 logits and one step's (loss, gradients) at mode -1, on
+            the mesh or classic, from the recipe's weights."""
+            m = recipe.vil_small(torch.float32, torch.float32, True, dev)
+            with torch.inference_mode():
+                logits = (parallel.spatial_forward(m.eval(), parallel.shard_image(images, m),
+                                                   mode=-1) if on else
+                          m.eval()(images, mode=-1)).float()
+            s = recipe.train_step(m, dev, mesh=on)
+            loss = s(images, labels, torch.Generator(device=dev).manual_seed(3),
+                     modes=-1)["loss"].item()
+            return logits, loss, {n: p.grad.clone() for n, p in m.named_parameters()}
+
+        (lg_s, loss_s, grads_s), (lg_c, loss_c, grads_c) = run_f32(mesh), run_f32(None)
+    lg_err, loss_err = (lg_s - lg_c).abs().max().item(), abs(loss_s - loss_c)
+    grad_err, worst, _ = f32_grad_errors(grads_s, grads_c)
+    phase(name, f"f32 at mode -1, mesh vs classic (self_chunk's path): logits max|err| "
+                f"{lg_err:.3e} (tol {LOGITS_TOL:g}); step loss {loss_s:.6f} vs {loss_c:.6f} "
+                f"(|err| {loss_err:.3e}, tol {LOSS_TOL:g}); parameter gradients max rel err "
+                f"{grad_err:.3e} at {worst} (tol {PARAM_GRAD_TOL:g})")
+    if not (lg_err <= LOGITS_TOL and loss_err <= LOSS_TOL and grad_err <= PARAM_GRAD_TOL):
+        raise AssertionError(f"{name}: f32 disagrees: logits {lg_err}, loss {loss_err}, "
+                             f"gradients {grad_err} at {worst}")
+    return launches
+
+
+def run_experiment_spatial_shift(torch, kernels):
+    """Part ``experiment_spatial_shift``: ``run_experiment.main`` with
+    TPU.MESH_AXES ['data','spatial'] and MESH_SHAPE [1,1] on an ``nccl``
+    group of one, phase 15's recipe (MODEL.VIT.MSVIT.MODE 1, VIL_MODE_SWITCH
+    0.5 of 2 epochs: random shift in the first, MODE 0 in the second; the
+    loader's threads cut to 0, its evals and checkpoints); launches from the
+    trainer's counts (B5h, B6h in the first epoch, B7a, B7b in the second),
+    every logged loss against the same run without the mesh first, outside
+    the path's counts, at EXPERIMENT_LOSS_TOL."""
+    import shutil
+
+    name = "experiment_spatial_shift"
+    args = EXPERIMENT_ARGS + ["DATALOADER.WORKERS", "0"]
+    runs = {}
+    with OneRankGroup(name):
+        for label, mesh in (("without the mesh", []),
+                            ("mesh", ["TPU.MESH_AXES", "['data','spatial']",
+                                      "TPU.MESH_SHAPE", "[1,1]"])):
+            out = os.path.join(REPO, "build", f"chip_{name}_{len(runs)}")
+            shutil.rmtree(out, ignore_errors=True)
+            argv = args + mesh
+            argv[argv.index("--output_dir") + 1] = out
+            if mesh:
+                for fn in kernels:
+                    fn.launches = 0
+            runs[label] = run_cli(torch, kernels, name, label, argv)
+        launches = launch_counts(kernels)
+    trainer = runs["mesh"]
+    losses = {k: [r["loss"] for r in t.steps_log] for k, t in runs.items()}
+    shifted = [r["random_shift"] for r in trainer.steps_log]
+    err = max(abs(a - b) for a, b in zip(losses["mesh"], losses["without the mesh"]))
+    evals = {k: [(e["top1"], e["loss"]) for e in t.evals] for k, t in runs.items()}
+    phase(name, f"{len(losses['mesh'])} steps on the mesh (random shift {shifted.count(True)}, "
+                f"MODE 0 {shifted.count(False)}): losses "
+                f"{', '.join(f'{v:.4f}' for v in losses['mesh'])}; max |err| against the run "
+                f"without the mesh {err:.3e} (tol {EXPERIMENT_LOSS_TOL:g}); evals (top1, loss) "
+                f"{evals['mesh']} vs {evals['without the mesh']}")
+    if not (len(losses["mesh"]) == len(losses["without the mesh"]) == 16
+            and shifted == [True] * 8 + [False] * 8 and err <= EXPERIMENT_LOSS_TOL):
+        raise AssertionError(f"{name}: the mesh's run differs: {losses}, random shift {shifted}")
+    if not (launches["vil_mode_attention_halo_fwd"] and launches["vil_attention_halo_bwd"]):
+        raise AssertionError(f"{name}: B5h or B7b not launched: {launches}")
     return launches
 
 
@@ -2627,7 +3014,8 @@ def experiment_want(trainer, kernels) -> tuple[dict, str]:
     counts and its model's blocks (ViL-Small: 3 sliding-chunk, 9 dense): per
     random-shift step B5, B6 one per sliding-chunk block and B3, B4 one per
     dense block; per MODE-0 step B1, B2 and B3, B4 the same (B7a, B7b for
-    B1, B2 on a mesh with a spatial axis); per eval batch (the best
+    B1, B2 and B5h, B6h for B5, B6 on a mesh with a spatial axis); per eval
+    batch (the best
     checkpoint's eval included) B1 (B7a) and B3; none with the plain
     versions."""
     want = {fn.__name__: 0 for fn in kernels}
@@ -2637,11 +3025,13 @@ def experiment_want(trainer, kernels) -> tuple[dict, str]:
     if not trainer.cfg.TPU.USE_PALLAS:
         return want, formula + ", plain versions"
     chunk, dense = block_counts(trainer.model)
-    local = "vil_attention_halo" if trainer.mesh.spatial is not None else "vil_attention"
-    want.update(vil_mode_attention_fwd=chunk * shift, vil_mode_attention_bwd=chunk * shift,
-                full_attention_fwd=dense * (shift + mode0 + ev),
+    split = trainer.mesh.spatial is not None
+    local = "vil_attention_halo" if split else "vil_attention"
+    sampled = "vil_mode_attention_halo" if split else "vil_mode_attention"
+    want.update(full_attention_fwd=dense * (shift + mode0 + ev),
                 full_attention_bwd=dense * (shift + mode0))
-    want.update({f"{local}_fwd": chunk * (mode0 + ev), f"{local}_bwd": chunk * mode0})
+    want.update({f"{local}_fwd": chunk * (mode0 + ev), f"{local}_bwd": chunk * mode0,
+                 f"{sampled}_fwd": chunk * shift, f"{sampled}_bwd": chunk * shift})
     return want, formula + f", {chunk} sliding-chunk and {dense} dense blocks" + (
         ", on a spatial mesh" if local != "vil_attention" else "")
 
@@ -4134,7 +4524,8 @@ def run_resnet(torch, kernels):
 PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "serve_spatial",
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
          "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
-         "experiment_tp", "from_vil_tpu", "train_drop", "self_chunk", "train_remat", "resnet")
+         "experiment_tp", "from_vil_tpu", "train_drop", "self_chunk", "train_remat", "resnet",
+         "shift_spatial", "self_spatial", "experiment_spatial_shift")
 
 
 def only_arg(argv) -> "set | None":
@@ -4197,7 +4588,8 @@ def main() -> int:
                         ("vil_attention_bwd", 10), ("vil_attention_halo_fwd", 5),
                         ("vil_attention_halo_bwd", 10), ("vil_mode_attention_fwd", 10),
                         ("vil_mode_attention_bwd", 20), ("vil_block_fwd", 13),
-                        ("vil_block_bwd", 22)):
+                        ("vil_block_bwd", 22), ("vil_mode_attention_halo_fwd", 5),
+                        ("vil_mode_attention_halo_bwd", 10)):
         census = {name: counts for name, counts in every.items() if match in name}
         for name, counts in sorted(census.items()):
             phase("build", f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
@@ -4237,6 +4629,12 @@ def main() -> int:
                                    "vil_tpu/models/attention.py:768"),
         "vil_self_attention_bwd": ("vil_tpu_torch/csrc/vil_mode_attention_bwd.cu",
                                    "vil_tpu/models/attention.py:768"),
+        # random shift under the split: the mode kernels as vil_tpu runs them
+        # on a shard, after neighborhood_spatial's gather
+        "vil_mode_attention_halo_fwd": ("vil_tpu_torch/csrc/vil_mode_attention_halo_fwd.cu",
+                                        "vil_tpu/ops/pallas/vil_mode_kernel.py:665"),
+        "vil_mode_attention_halo_bwd": ("vil_tpu_torch/csrc/vil_mode_attention_halo_bwd.cu",
+                                        "vil_tpu/ops/pallas/vil_mode_kernel.py:786"),
         "consume_base": ("vil_tpu_torch/csrc/layout_probe.cu", "tools/layout_probe.py:36"),
         "consume_perm": ("vil_tpu_torch/csrc/layout_probe.cu", "tools/layout_probe.py:48"),
     }
@@ -4288,6 +4686,12 @@ def main() -> int:
         "self_chunk": lambda: run_self_chunk(torch, kernels, records),
         "train_remat": lambda: run_train_remat(torch, kernels),
         "resnet": lambda: run_resnet(torch, kernels),
+        # random shift and mode -1 under the split: shift_1024's step on the
+        # one-card mesh (B5h/B6h), ViL-Small 224² at mode -1 on it, and the
+        # entry point's random-shift epoch on it
+        "shift_spatial": lambda: run_shift_spatial(torch, kernels),
+        "self_spatial": lambda: run_self_spatial(torch, kernels),
+        "experiment_spatial_shift": lambda: run_experiment_spatial_shift(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()

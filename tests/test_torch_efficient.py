@@ -46,6 +46,17 @@ BF16_TOL = 2.5e-2
 SR_CONV_TOL = {"module": 1e-4, "model": 3e-4}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rng(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 

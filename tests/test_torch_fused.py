@@ -60,6 +60,17 @@ COMMON = dict(attn_type="longformerhand", sharew=True, norm_embed=True)
 make_fused = jax_vil_block.make_fused_vil_block
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     """The JAX package's Pallas kernels in interpret mode, and its fused

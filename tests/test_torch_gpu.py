@@ -51,10 +51,23 @@ from vil_tpu_torch.ops.kernels import (
     vil_mode_attention_bwd,
     vil_mode_attention_bwd_reference,
     vil_mode_attention_fwd,
+    vil_mode_attention_halo_bwd,
+    vil_mode_attention_halo_bwd_reference,
+    vil_mode_attention_halo_fwd,
+    vil_mode_attention_halo_reference,
     vil_mode_attention_reference,
 )
 
 pytestmark = pytest.mark.gpu
+
+
+def _launches(first: int = 12) -> list:
+    """The launch counts of the first ``first`` wrappers of ``KERNELS``, in
+    its order; the wrappers after them (the self-only and the
+    sampled-neighbour halo pairs) must not have launched."""
+    counts = [fn.launches for fn in KERNELS]
+    assert counts[first:] == [0] * (len(counts) - first), counts
+    return counts[:first]
 
 
 @pytest.fixture
@@ -106,7 +119,7 @@ def test_kernels_match_plain_versions(cuda, dtype, tol):
         out = full_attention_fwd(q, k, v, bias, 3)
         ref = full_attention_reference(q.float(), k.float(), v.float(), bias, 3)
         assert out.dtype == dtype and _max_err(out, ref) <= tol
-    assert [fn.launches for fn in KERNELS] == [4, 3] + [0] * 10
+    assert _launches() == [4, 3] + [0] * 10
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -151,7 +164,7 @@ def test_backward_kernels_match_plain_versions(cuda, dtype, tol):
             assert (out is None) == (ref is None), name
             if ref is not None:
                 assert _rel_err(out, ref) <= tol, (name, N, _rel_err(out, ref))
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3] + [0] * 8
+    assert _launches() == [3, 3, 3, 3] + [0] * 8
 
 
 DENSE_BF16_TOL, DENSE_LSE_TOL, DENSE_GRAD_TOL = 2e-2, 2e-5, 1e-2  # chip_smoke.py's
@@ -787,7 +800,7 @@ def test_sampled_neighbour_kernels_match_plain_versions(cuda, dtype, tol, grad_t
             assert (o is None) == (r is None), name
             if r is not None:
                 assert _rel_err(o, r) <= grad_tol, (name, mx, my, mode, _rel_err(o, r))
-    assert [fn.launches for fn in KERNELS] == [0] * 4 + [len(cases)] * 2 + [0] * 6
+    assert _launches() == [0] * 4 + [len(cases)] * 2 + [0] * 6
 
 
 def test_model_runs_through_the_kernels(cuda):
@@ -803,14 +816,14 @@ def test_model_runs_through_the_kernels(cuda):
                           norm_embed=True, device=cuda, use_kernels=use_kernels,
                           generator=torch.Generator().manual_seed(0)).eval()
             logits[use_kernels] = model(x)
-    assert [fn.launches for fn in KERNELS] == [3, 3] + [0] * 10
+    assert _launches() == [3, 3] + [0] * 10
     assert torch.isfinite(logits[True]).all()
     assert _max_err(logits[True], logits[False]) <= 1e-3
     # with a gradient to take, the autograd Function runs both kernels
     q = torch.randn(1, 9, 64, device=cuda, requires_grad=True)
     full_attention(q, q, q, None, 1).sum().backward()
     assert torch.isfinite(q.grad).all()
-    assert [fn.launches for fn in KERNELS] == [3, 4, 0, 1] + [0] * 8
+    assert _launches() == [3, 4, 0, 1] + [0] * 8
 
 
 def test_train_step_runs_through_the_kernels(cuda):
@@ -836,7 +849,7 @@ def test_train_step_runs_through_the_kernels(cuda):
         metrics = step(x, y, torch.Generator(device=cuda).manual_seed(1))
         results[use_kernels] = (metrics["loss"].item(),
                                 {n: p.grad for n, p in model.named_parameters()})
-    assert [fn.launches for fn in KERNELS] == [3, 3, 3, 3] + [0] * 8
+    assert _launches() == [3, 3, 3, 3] + [0] * 8
     (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
     assert abs(loss_k - loss_p) <= 1e-4
     for name, ref in grads_p.items():
@@ -863,7 +876,7 @@ def test_layer_norm_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
         refs = layer_norm_bwd_reference(x.float(), gamma, dy.float())
         for name, out, r in zip(("dx", "dgamma", "dbeta"), grads, refs):
             assert _rel_err(out, r) <= grad_tol, (name, rows, C, _rel_err(out, r))
-    assert [fn.launches for fn in KERNELS] == [0] * 6 + [len(cases)] * 2 + [0] * 4
+    assert _launches() == [0] * 6 + [len(cases)] * 2 + [0] * 4
 
 
 @pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
@@ -914,7 +927,7 @@ def test_fused_block_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
             scale = refs[3] if i == 4 else ref
             err = (out.float() - ref).abs().max().item() / max(1.0, scale.abs().max().item())
             assert err <= grad_tol, (i, mx, my, err)
-    assert [fn.launches for fn in KERNELS] == [0] * 8 + [len(cases)] * 2 + [0] * 2
+    assert _launches() == [0] * 8 + [len(cases)] * 2 + [0] * 2
 
 
 def test_fused_configuration_runs_through_the_kernels(cuda):
@@ -935,11 +948,11 @@ def test_fused_configuration_runs_through_the_kernels(cuda):
         with torch.inference_mode():
             logits = model.eval()(x)
         if fused:
-            assert [fn.launches for fn in KERNELS] == [0, 3, 0, 0, 0, 0, 18, 0, 3, 0, 0, 0]
+            assert _launches() == [0, 3, 0, 0, 0, 0, 18, 0, 3, 0, 0, 0]
         out = torch.nn.functional.cross_entropy(model.train()(x).float(), y)
         out.backward()
         results[fused] = (logits, out.item(), {n: p.grad for n, p in model.named_parameters()})
-    assert [fn.launches for fn in KERNELS] == [0, 6, 0, 3, 0, 0, 36, 18, 6, 3, 0, 0]
+    assert _launches() == [0, 6, 0, 3, 0, 0, 36, 18, 6, 3, 0, 0]
     (l_k, loss_k, g_k), (l_p, loss_p, g_p) = results[True], results[False]
     assert torch.isfinite(l_k).all() and _max_err(l_k, l_p.float()) <= 1e-3
     assert abs(loss_k - loss_p) <= 1e-4
@@ -1009,7 +1022,69 @@ def test_halo_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
         whole_grads = vil_attention_bwd_reference(*f32(acts), bias, g.float(), mask, 2)
         assert _rel_err(dk, whole_grads[1]) <= grad_tol
         assert _rel_err(dv, whole_grads[2]) <= grad_tol
-    assert [fn.launches for fn in KERNELS] == [0] * 10 + [launches] * 2
+    assert _launches() == [0] * 10 + [launches] * 2
+
+
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-4, 1e-4),
+                                                (torch.bfloat16, 2e-2, 3e-2)])
+def test_halo_mode_kernels_match_plain_versions(cuda, dtype, tol, grad_tol):
+    """B5h and B6h, the sampled-neighbour halo kernels of random shift
+    under the split, at every mode on every shard of an 8-row grid split
+    into 4/4, 2/2/2/2 and 3/3/2 rows (nglo 1), and at modes 2 and 7 on a
+    padded 4-row grid with a bias and no global rows, split 2/2: out, LSE
+    and every gradient against the plain versions in f32 on the same
+    values; the shards together against B5 and B6 on the whole grid, their
+    dK/dV folded onto the rows' owners."""
+    rng = np.random.default_rng(12)
+    rnd = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    f32 = lambda ts: [None if t is None else t.float() for t in ts]
+    cases = [(56, 21, 1, False, split, mode) for split in ((4, 4), (2, 2, 2, 2), (3, 3, 2))
+             for mode in range(1, 9)]
+    cases += [(26, 20, 0, True, (2, 2), mode) for mode in (2, 7)]
+    launches = 0
+    for nx, ny, nglo, with_bias, split, mode in cases:
+        w, w2 = 7, 49
+        padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+        acts = [rnd(2, mx, my, w2, 64) * 0.5 for _ in range(3)]
+        acts += [rnd(2, nglo, 64) if nglo else None for _ in range(2)]
+        acts = [None if a is None else a.to(dtype) for a in acts]
+        q, k, v, kg, vg = acts
+        bias = rnd(2, w2, nglo + 2 * w2) if with_bias else None
+        mask = torch.from_numpy(mask_to_additive(
+            masks.invalid_mask(mx, my, padx, pady, w, 0, mode), mx, my, w2, nglo)).to(cuda)
+        g = rnd(2, mx, my, w2, 64).to(dtype)
+        outs = []
+        dk, dv = (torch.zeros(t.shape, device=cuda) for t in (k, v))
+        for sh, n in enumerate(split):
+            lo = sum(split[:sh])
+            rows = [(lo - 1) % mx, *range(lo, lo + n), (lo + n) % mx]
+            ops = [q[:, lo:lo + n].contiguous(), k[:, rows].contiguous(),
+                   v[:, rows].contiguous(), kg, vg, bias]
+            m_rows, gs = mask[lo:lo + n], g[:, lo:lo + n].contiguous()
+            at = (split, mode, sh)
+            out, lse = vil_mode_attention_halo_fwd(*ops, m_rows, 2, mode, with_lse=True)
+            ref, lse_ref = vil_mode_attention_halo_reference(*f32(ops), m_rows, 2, mode,
+                                                             with_lse=True)
+            assert out.dtype == dtype and _max_err(out, ref) <= tol, at
+            assert _max_err(lse, lse_ref) <= tol, at
+            grads = vil_mode_attention_halo_bwd(*ops, gs, out, m_rows, lse, 2, mode)
+            refs = vil_mode_attention_halo_bwd_reference(*f32(ops), gs.float(), m_rows, 2, mode)
+            for name, o, r in zip(("dq", "dk_ext", "dv_ext", "dkg", "dvg", "dbias"), grads, refs):
+                assert (o is None) == (r is None), name
+                if r is not None:
+                    assert _rel_err(o, r) <= grad_tol, (name, at, _rel_err(o, r))
+            outs.append(out.float())
+            for e, row in enumerate(rows):
+                dk[:, row] += grads[1][:, e].float()
+                dv[:, row] += grads[2][:, e].float()
+            launches += 1
+        whole = vil_mode_attention_reference(*f32(acts), bias, mask, 2, mode)
+        assert _max_err(torch.cat(outs, 1), whole) <= tol, (split, mode)
+        whole_grads = vil_mode_attention_bwd_reference(*f32(acts), bias, g.float(), mask, 2,
+                                                       mode)
+        assert _rel_err(dk, whole_grads[1]) <= grad_tol, (split, mode)
+        assert _rel_err(dv, whole_grads[2]) <= grad_tol, (split, mode)
+    assert _launches(16) == [0] * 14 + [launches] * 2
 
 
 @pytest.mark.parametrize("nx,ny,w,nglo,exact,with_bias",
@@ -1067,14 +1142,14 @@ def test_spatial_forward_runs_through_the_halo_kernels(cuda):
                   device=cuda, generator=torch.Generator().manual_seed(0)).eval()
     with torch.inference_mode():
         spatial = parallel.spatial_forward(model, x)
-        assert [fn.launches for fn in KERNELS] == [0, 3] + [0] * 8 + [3, 0]
+        assert _launches() == [0, 3] + [0] * 8 + [3, 0]
         classic = model(x)
     assert torch.isfinite(spatial).all() and _max_err(spatial, classic.float()) <= 1e-3
     q, k, v = (torch.randn(2, 4, 3, 49, 64, device=cuda, requires_grad=True) for _ in range(3))
     mask = torch.zeros(4, 3, 1, 9 * 49, device=cuda)
     parallel.spatial_local_attention_kernel(q, k, v, None, None, None, mask, 2).sum().backward()
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
-    assert [fn.launches for fn in KERNELS][10:] == [4, 1]
+    assert _launches()[10:] == [4, 1]
 
 
 def test_spatial_train_step_runs_through_the_halo_kernels(cuda):
@@ -1109,6 +1184,49 @@ def test_spatial_train_step_runs_through_the_halo_kernels(cuda):
     for n, ref in grads_c.items():
         if ref.numel():  # not the (1, 0, C) table of a stage without global tokens
             assert _max_err(grads_s[n], ref) <= 1e-4 * ref.abs().max().item(), n
+
+
+def test_spatial_shift_and_self_steps_run_through_their_kernels(cuda):
+    """Random shift and mode -1 on a 1 × 1 ('data', 'spatial') mesh without
+    a process group, the narrow 4-stage 224² model: at the modes the step
+    draws from its seed (keyed by (seed, step), the same as the classic
+    step's) B5h and B6h once per sliding-chunk block, no B5/B6; at mode -1
+    the self-only pair on the rank's rows; f32 loss and every gradient
+    equal to the classic step's within 1e-4 of their max|ref|."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import engine, loss
+
+    arch = ("l1,h2,d64,n1,s1,g1,p4,f7_l2,h2,d64,n2,s1,g1,p2,f7_"
+            "l3,h2,d128,n2,s0,g1,p2,f7_l4,h2,d128,n1,s0,g0,p2,f7")
+    x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    y = torch.tensor([1, 2, 3, 4], device=cuda)
+    for modes, chunk in ((None, "vil_mode_attention"), (-1, "vil_self_attention")):
+        out = {}
+        for name, mesh in (("classic", None), ("spatial", parallel.Mesh(
+                spatial=parallel.SpatialContext.of(None)))):
+            model = MsViT(arch, img_size=224, num_classes=10, sharew=True, norm_embed=True,
+                          device=cuda, generator=torch.Generator().manual_seed(0))
+            step = engine.make_train_step(model, loss.cross_entropy,
+                                          torch.optim.AdamW(model.parameters()), device=cuda,
+                                          seed=0, mesh=mesh, random_shift=modes is None)
+            for fn in KERNELS:
+                fn.launches = 0
+            metrics = step(x, y, modes=modes)
+            out[name] = (metrics["loss"].item(), metrics.get("modes"),
+                         {n: p.grad for n, p in model.named_parameters()},
+                         {fn.__name__: fn.launches for fn in KERNELS})
+        (loss_c, modes_c, grads_c, launches_c), (loss_s, modes_s, grads_s, launches) = (
+            out["classic"], out["spatial"])
+        assert modes_s == modes_c
+        halo = "vil_mode_attention_halo" if modes is None else chunk
+        assert launches[f"{halo}_fwd"] == launches[f"{halo}_bwd"] == 3, launches
+        assert launches_c[f"{chunk}_fwd"] == launches_c[f"{chunk}_bwd"] == 3, launches_c
+        if modes is None:
+            assert launches[f"{chunk}_fwd"] == launches[f"{chunk}_bwd"] == 0, launches
+        assert abs(loss_s - loss_c) <= 1e-4
+        for n, ref in grads_c.items():
+            if ref.numel():  # not the (1, 0, C) table of a stage without global tokens
+                assert _max_err(grads_s[n], ref) <= 1e-4 * ref.abs().max().item(), n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1339,7 +1457,7 @@ def test_rpe_model_serves_and_trains_through_the_kernels(cuda):
                     assert "relative_position" not in n or torch.equal(gr, grads[True][n]), n
             grads[use_kernels] = step
     # per forward B1 3 and B3 3: two served, two trained (B2 and B4 3 each)
-    assert [fn.launches for fn in KERNELS] == [12, 12, 6, 6] + [0] * 8
+    assert _launches() == [12, 12, 6, 6] + [0] * 8
     assert _max_err(logits[True], logits[False]) <= 1e-3
     for name, ref in grads[False].items():
         if ref.numel():
@@ -1367,7 +1485,7 @@ def test_run_experiment_cli_one_epoch(cuda, tmp_path):
     assert trainer.steps_run[True] == 0 and steps == 8
     assert ev == 8 * (2 if trainer.best_evaluated else 1)
     # B1 3 a forward, B3 9; B2 3 and B4 9 a step; the rest 0
-    assert [fn.launches for fn in KERNELS] == [3 * (steps + ev), 9 * (steps + ev), 3 * steps,
+    assert _launches() == [3 * (steps + ev), 9 * (steps + ev), 3 * steps,
                                                9 * steps] + [0] * 8
     assert all(math.isfinite(r["loss"]) for r in trainer.steps_log)
     assert all(math.isfinite(e["loss"]) for e in trainer.evals)

@@ -43,6 +43,17 @@ from vil_tpu_torch.ops.kernels.vil_attention_halo import (
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _vil_inputs(seed, B, nx, ny, w, C, H, nglo, exact, with_bias):
     rng = np.random.default_rng(seed)
     padx, pady, mx, my = sc.chunk_grid(nx, ny, w)

@@ -267,8 +267,10 @@ def test_self_only_wrappers():
 
 def test_mode_minus_one_routes(monkeypatch):
     """Mode -1 under the fused block takes the classic projections (the
-    fused block runs at mode 0 alone), refuses a spatial context (A12) and
-    SW_EXACT 1, whose tables are mode 0's alone."""
+    fused block runs at mode 0 alone) and refuses SW_EXACT 1, whose tables
+    are mode 0's alone. Under a spatial context of one rank it gives the
+    module's own output (the self chunk needs no halo); a fused-block module
+    still refuses the split (A12)."""
     x = _t(_rng(20, (2, 56, 56, 3)))
     kw = dict(img_size=56, device="cpu", **COMMON)
     fused = MsViT(ARCH, fused_block=True, generator=torch.Generator().manual_seed(1), **kw)
@@ -281,9 +283,13 @@ def test_mode_minus_one_routes(monkeypatch):
     with torch.inference_mode():
         assert torch.equal(fused.eval()(x, mode=-1), classic.eval()(x, mode=-1))
     attn = classic.stage1_block0_attn.attn
-    chunks = (torch.zeros(1, 1, 32), torch.zeros(1, 4, 4, 16, 32))
-    with pytest.raises(NotImplementedError, match="mode -1.*A12"):
-        attn(chunks, 14, 14, -1, parallel.SpatialContext.of(None))
+    chunks = (_t(_rng(21, (1, 1, 32))), _t(_rng(22, (1, 4, 4, 16, 32))))
+    ctx = parallel.SpatialContext.of(None).at((0, 4))
+    with torch.inference_mode():
+        for ours, ref in zip(attn(chunks, 14, 14, -1, ctx), attn(chunks, 14, 14, -1)):
+            torch.testing.assert_close(ours, ref, atol=1e-6, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="no halo form.*A12"):
+        fused.stage1_block0_attn.attn(chunks, 14, 14, -1, ctx)
     exact1 = MsViT(ARCH, sw_exact=1, generator=torch.Generator().manual_seed(1), **kw)
     with pytest.raises(ValueError, match="SW_EXACT 1"):
         exact1.train()(x, mode=-1)

@@ -40,6 +40,17 @@ ARCH_224 = ("l1,h2,d32,n1,s1,g1,p4,f7_l2,h2,d32,n2,s1,g1,p2,f7_"
 ARCH_PAD = "l1,h2,d32,n1,s1,g1,p4,f4_l2,h2,d64,n1,s1,g2,p2,f4_l3,h2,d64,n1,s0,g1,p2,f4"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     """Run the JAX package's Pallas kernels in interpret mode."""
@@ -271,13 +282,19 @@ def test_unported_features_raise():
     exact1 = MsViT(ARCH_PAD, sharew=True, sw_exact=1, mode=1, **cpu).train()
     with pytest.raises(ValueError, match="SW_EXACT 1"):
         exact1(torch.zeros(1, 56, 56, 3), mode=3)
-    # mode -1 (the self chunk alone) runs (tests/test_torch_model_options.py);
-    # under spatial parallelism it raises, as modes 1..8 do (A12)
+    # mode -1 (the self chunk alone) runs (tests/test_torch_model_options.py),
+    # under spatial parallelism too, as modes 1..8 do
+    # (tests/test_torch_spatial_mode.py); the fused block there raises (A12)
     from vil_tpu_torch.parallel import SpatialContext
 
-    with pytest.raises(NotImplementedError, match="mode -1.*A12"):
-        MsViT(ARCH_PAD, sharew=True, **cpu).train()(torch.zeros(1, 56, 56, 3), mode=-1,
-                                                     spatial=SpatialContext.of(None))
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((1, 56, 56, 3))
+                         .astype(np.float32))
+    shallow = MsViT(ARCH_PAD, sharew=True, **cpu).train()
+    torch.testing.assert_close(shallow(x, mode=-1, spatial=SpatialContext.of(None)),
+                               shallow(x, mode=-1), atol=1e-5, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="no halo form.*A12"):
+        MsViT(ARCH_PAD, sharew=True, fused_block=True, **cpu).train()(
+            x, mode=-1, spatial=SpatialContext.of(None))
     # dropout runs in training (tests/test_torch_model_options.py); attention
     # dropout, which no config of vil_tpu sets, raises instead of running as
     # eval (stochastic depth is ported: test_torch_train.py)

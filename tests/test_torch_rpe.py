@@ -59,6 +59,17 @@ TABLES = ("local_relative_position_bias_table", "g2l_relative_position_bias",
           "g2g_relative_position_bias")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     """Run the JAX package's Pallas kernels in interpret mode."""

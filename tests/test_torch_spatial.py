@@ -73,6 +73,17 @@ ARCH = "l1,h2,d16,n1,s1,g1,p4,f2_l2,h2,d32,n2,s1,g1,p2,f2_l3,h2,d32,n1,s0,g1,p2,
 IMG = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rng(seed, *shape, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 

@@ -22,19 +22,31 @@ on the CPU, in f32.
   their gradient alone). At (2, 2) and (4, 2) also a step with drop path
   0.5, its draws keyed by the step and the data replica: against the
   port's unsplit step of each data replica on its images (at (4, 2) the
-  two replicas' mean), every replica's draws dropping some sample.
+  two replicas' mean), every replica's draws dropping some sample. At
+  (2, 2) and (4, 2) also a random-shift step, its per-block modes drawn by
+  the step from the seed (keyed by (seed, step): the same on every rank,
+  [8, 1, 2] at seed 0, whose chunked blocks read the halo rows below and
+  above), and a step at mode −1 (the self chunk alone, no halo): loss and
+  every gradient against ``jax.value_and_grad`` of ``vil_tpu``'s model at
+  the same modes, to 1e-5 of max|ref|; and at (2, 2) a step with unshared
+  global weights (SHARE_W False) against ``vil_tpu``'s step of the
+  unshared model, as the APE case.
 * The Trainer (``run_experiment``) at world 2, as spatial 2 (a 3-block
   image split 2/1) and as data 2, on the synthetic set with a draw-free
-  pipeline, against the same config at world 1 in this process: every
-  logged loss to 1e-5, every eval's top1 equal (each image counted once),
-  one ``model_best.ckpt`` and one ``config.yaml``; at spatial 2 a run
-  stopped when its second epoch starts and resumed by a new Trainer equals
-  the uninterrupted one.
+  pipeline, at MODEL.VIT.MSVIT.MODE 1 switched off at half of the 2 epochs
+  (random shift, then MODE 0), against the same config at world 1 in this
+  process: every logged loss to 1e-5, every eval's top1 equal (each image
+  counted once), one ``model_best.ckpt`` and one ``config.yaml``; at
+  spatial 2 a run stopped when its second epoch starts and resumed by a new
+  Trainer equals the uninterrupted one.
 * Without a spawn: the port's ``accumulate_predictions`` against
   ``vil_tpu``'s on the same dicts, padded repeats included; each data
   replica's sampler shard; ``check_ported`` still refusing a model axis or
   FSDP beside a spatial axis and 'tp' without a model axis, and
-  ``init_process_group`` more NCCL ranks than cards.
+  ``init_process_group`` more NCCL ranks than cards; the Trainer on a 1 × 1
+  mesh without a process group, random shift then MODE 0, against the same
+  run without the mesh, and a fused block or a model axis under the split
+  still raising.
 """
 import json
 import os
@@ -77,6 +89,7 @@ DROP_PATH = 0.5  # the draws' case: rates 0, 0.25, 0.5 over the three blocks
 ARCH = "l1,h2,d16,n1,s1,g1,p4,f3_l2,h2,d32,n1,s1,g1,p2,f3_l3,h2,d32,n1,s0,g1,p2,f3"
 ARCH_RPE = "l1,h2,d16,n1,s1,g1,p4,f3,a0_l2,h2,d32,n1,s1,g1,p2,f3,a0_l3,h2,d32,n1,s0,g1,p2,f3,a0"
 IMG, BATCH = 104, 8
+SHIFT_SEED = 0  # the worker's step seed: its first draw of modes is [8, 1, 2]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,11 +102,11 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _opts(arch, drop_path=0.0):
+def _opts(arch, drop_path=0.0, sharew=True):
     return ["MODEL.VIT.MSVIT.ARCH", arch, "INPUT.IMAGE_SIZE", str(IMG),
             "DATA.NUM_CLASSES", "10", "TPU.COMPUTE_DTYPE", "float32",
             "MODEL.VIT.DROP_PATH", str(drop_path), "MODEL.VIT.NORM_EMBED", "True",
-            "MODEL.VIT.MSVIT.SHARE_W", "True", "OPTIM.OPT", "adamw", "OPTIM.LR", "1e-3"]
+            "MODEL.VIT.MSVIT.SHARE_W", str(sharew), "OPTIM.OPT", "adamw", "OPTIM.LR", "1e-3"]
 
 
 # ------------------------------------------------------------ the split rule
@@ -156,10 +169,15 @@ def _spawn(case_dir, world, spatial, mode):
     return [dict(np.load(case_dir / f"rank{r}.npz")) for r in range(world)]
 
 
-def _jax_step(opts, images, targets, seed):
-    """Draw flax parameters (LayerNorm scales near 1), take vil_tpu's
-    single-device step on the whole batch: (params, loss, grads, updated
-    params), the trees under the port's names."""
+def _jax_tree(t) -> dict:
+    """A flax tree under the port's names and layouts."""
+    return {n: a for n, a in (jax_import._to_torch_leaf(k, np.asarray(v))
+                              for k, v in jax_import._flatten(t))}
+
+
+def _jax_model(opts, images, seed):
+    """vil_tpu's model of ``opts`` and flax parameters drawn from ``seed``
+    (LayerNorm scales near 1)."""
     cfg = jax_default_cfg()
     cfg.merge_from_list(opts)
     model = jax_build_model(cfg, use_pallas=False)
@@ -170,6 +188,14 @@ def _jax_step(opts, images, targets, seed):
         lambda path, sds: (float(path[-1].key == "scale")
                            + 0.05 * rng.standard_normal(sds.shape)).astype(np.float32),
         shapes)
+    return cfg, model, params
+
+
+def _jax_step(opts, images, targets, seed):
+    """Draw flax parameters, take vil_tpu's single-device step on the whole
+    batch: (params, loss, grads, updated params), the trees under the port's
+    names."""
+    cfg, model, params = _jax_model(opts, images, seed)
     tx = jax_optim.get_opt(cfg, params, lr=float(cfg.OPTIM.LR))
     state = jax_engine.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                                   opt_state=tx.init(params), buffers={})
@@ -181,9 +207,22 @@ def _jax_step(opts, images, targets, seed):
         state.opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
         if isinstance(s, optax.ScaleByAdamState))
     grads = jax.tree_util.tree_map(lambda m: m / (1 - cfg.OPTIM.ADAM.BETA1), adam.mu)
-    tree = lambda t: {n: a for n, a in (jax_import._to_torch_leaf(k, np.asarray(v))
-                                        for k, v in jax_import._flatten(t))}
-    return params, float(metrics["loss"]), tree(grads), tree(state.params)
+    return params, float(metrics["loss"]), _jax_tree(grads), _jax_tree(state.params)
+
+
+def _jax_mode_grads(opts, images, targets, seed, modes):
+    """Loss and parameter gradients of vil_tpu's model in training at the
+    per-block ``modes`` (a list: traced, as random shift runs them) or one
+    static mode, from the parameters ``_jax_step`` draws from ``seed``."""
+    _, model, params = _jax_model(opts, images, seed)
+    mode = jnp.asarray(modes) if isinstance(modes, list) else modes
+
+    def loss_fn(p):
+        logits = model.apply({"params": p}, jnp.asarray(images), deterministic=False, mode=mode)
+        return jax_loss.cross_entropy(logits, jnp.asarray(targets))
+
+    value, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    return float(value), _jax_tree(grads), None
 
 
 @pytest.fixture(scope="module")
@@ -196,16 +235,25 @@ def step_case(tmp_path_factory):
     images = rng.standard_normal((BATCH, IMG, IMG, 3)).astype(np.float32)
     targets = rng.integers(0, 10, BATCH).astype(np.int64)
     np.savez(out_dir / "inputs.npz", images=images, targets=targets)
-    # each case's options and the weights it starts from
+    # each case's options, the weights it starts from and how its step runs:
+    # random shift drawn from the seed, or one mode given to the step
     cases = {"ape": (_opts(ARCH), "ape.pt"), "rpe": (_opts(ARCH_RPE), "rpe.pt"),
-             "drop": (_opts(ARCH, DROP_PATH), "ape.pt")}
+             "drop": (_opts(ARCH, DROP_PATH), "ape.pt"),
+             "shift": (_opts(ARCH), "ape.pt", {"random_shift": True}),
+             "self": (_opts(ARCH), "ape.pt", {"modes": -1}),
+             "unshared": (_opts(ARCH, sharew=False), "unshared.pt")}
     refs = {}
-    for case, seed in (("ape", 1), ("rpe", 2)):
+    for case, seed in (("ape", 1), ("rpe", 2), ("unshared", 3)):
         params, *refs[case] = _jax_step(cases[case][0], images, targets, seed)
         cfg = get_default_cfg()
         cfg.merge_from_list(cases[case][0])
         model = jax_import.load_jax_params(build_model(cfg, device="cpu"), params)
         torch.save(model.state_dict(), out_dir / f"{case}.pt")
+    # the modes the shift case's step draws at step 0, the same on every rank
+    refs["modes"] = engine.sample_vil_modes(
+        torch.Generator().manual_seed(engine.keyed_seed(SHIFT_SEED, 0, 1)), 3)
+    refs["shift"] = _jax_mode_grads(cases["shift"][0], images, targets, 1, refs["modes"])
+    refs["self"] = _jax_mode_grads(cases["self"][0], images, targets, 1, -1)
     # drop path: the port's own unsplit steps of each data replica
     refs["drop"], refs["dropped"] = {}, {}
     for data_size in (1, 2):
@@ -274,7 +322,7 @@ def spawned(step_case, tmp_path_factory):
     def run(world, spatial):
         if (world, spatial) not in done:
             out = tmp_path_factory.mktemp(f"world{world}_spatial{spatial}")
-            for name in ("inputs.npz", "ape.pt", "rpe.pt"):
+            for name in ("inputs.npz", "ape.pt", "rpe.pt", "unshared.pt"):
                 os.symlink(case_dir / name, out / name)
             with open(out / "cases.json", "w") as f:
                 json.dump({c: o for c, o in cases.items() if c in _step_cases(world, spatial)}, f)
@@ -288,10 +336,11 @@ def spawned(step_case, tmp_path_factory):
 
 
 def _step_cases(world, spatial):
-    """APE everywhere; RPE on the ragged data × spatial mesh; drop path on
-    the meshes whose replicas have two spatial ranks."""
-    return {(2, 2): ("ape", "drop"), (4, 2): ("ape", "rpe", "drop")}.get((world, spatial),
-                                                                       ("ape",))
+    """APE everywhere; RPE on the ragged data × spatial mesh; drop path,
+    random shift and mode −1 on the meshes whose replicas have two spatial
+    ranks; unshared weights on the spatial 2 mesh."""
+    return {(2, 2): ("ape", "drop", "shift", "self", "unshared"),
+            (4, 2): ("ape", "rpe", "drop", "shift", "self")}.get((world, spatial), ("ape",))
 
 
 @pytest.mark.parametrize("world,spatial", list(SPAWNS),
@@ -310,12 +359,16 @@ def test_step_on_a_mesh_matches_vil_tpu(step_case, spawned, world, spatial):
         ref_loss, ref_grads, ref_params = ref
         for r, res in enumerate(results):
             at = f"{case}, rank {r} of ({world}, {spatial})"
+            if case == "shift":  # every rank drew the modes keyed by (seed, step)
+                assert list(res["shift/modes"]) == refs["modes"], at
             assert abs(float(res[f"{case}/loss"]) - ref_loss) <= TOL, at
             assert {k.split("/", 2)[2] for k in res if k.startswith(f"{case}/grad/")} == \
                 set(ref_grads), at
             for name, ref in ref_grads.items():
                 err = np.abs(res[f"{case}/grad/{name}"] - ref).max()
                 assert err <= TOL * np.abs(ref).max(), f"{at}: grad {name} {err:.3e}"
+                if ref_params is None:  # held by loss and gradients alone
+                    continue
                 # Adam's first update, lr·g/(|g| + 1e-8), of an entry whose
                 # gradient is near 1e-8 follows the gradient's rounding
                 keep = np.abs(ref) >= RESOLVED * np.abs(ref).max()
@@ -328,7 +381,8 @@ def test_step_on_a_mesh_matches_vil_tpu(step_case, spawned, world, spatial):
 
 # a 48² image in 3 blocks of 16 rows (6 and 3 chunk rows of 2): split 2/1;
 # the pipeline draws nothing (the whole square image, no flip, no
-# RandAugment, no erasing), so data replicas read what one process reads
+# RandAugment, no erasing), so data replicas read what one process reads;
+# random shift in the first of the 2 epochs, MODE 0 in the second
 TRAINER_OPTS = [
     "MODEL.VIT.MSVIT.ARCH", "l1,h1,d16,n1,s1,g1,p4,f2_l2,h2,d32,n1,s1,g1,p2,f2_l3,h2,d32,n1,s0,g0,"
     "p2,f2", "INPUT.IMAGE_SIZE", "48", "DATA.NUM_CLASSES", "10", "DATALOADER.BSZ", "8",
@@ -337,7 +391,8 @@ TRAINER_OPTS = [
     "OPTIM.EPOCHS", "2", "SOLVER.LR_POLICY", "cosine", "SOLVER.WARMUP_EPOCHS", "1.0",
     "LOG_FREQ", "1", "AUG.TIMM_AUG.USE_TRANSFORM", "True", "AUG.TIMM_AUG.HFLIP", "0.0",
     "AUG.TIMM_AUG.VFLIP", "0.0", "AUG.TIMM_AUG.AUTO_AUGMENT", "", "AUG.TIMM_AUG.RE_PROB",
-    "0.0", "AUG.SCALE", "(1.0, 1.0)", "AUG.RATIO", "(1.0, 1.0)"]
+    "0.0", "AUG.SCALE", "(1.0, 1.0)", "AUG.RATIO", "(1.0, 1.0)",
+    "MODEL.VIT.MSVIT.MODE", "1", "MODEL.VIT.MSVIT.VIL_MODE_SWITCH", "0.5"]
 
 
 @pytest.fixture(scope="module")
@@ -354,6 +409,7 @@ def test_trainer_at_world_2_matches_world_1(one_process, spawned, spatial):
     losses = [r["loss"] for r in one_process.steps_log]
     top1 = [e["top1"] for e in one_process.evals]
     assert len(losses) == 16 and one_process.best_evaluated
+    assert [r["random_shift"] for r in one_process.steps_log] == [True] * 8 + [False] * 8
     for r, res in enumerate(results):
         assert (int(res["data"]), int(res["spatial_rank"])) == divmod(r, spatial)
         np.testing.assert_allclose(res["losses"], losses, rtol=0, atol=TOL, err_msg=f"rank {r}")
@@ -430,24 +486,31 @@ def test_more_nccl_ranks_than_cards_raise(monkeypatch, tmp_path):
     assert not torch.distributed.is_initialized()
 
 
-def test_trainer_on_a_mesh_without_a_process_group(tmp_path):
+def test_trainer_on_a_mesh_without_a_process_group(tmp_path, monkeypatch):
     """A ('data', 'spatial') mesh of one rank without a process group: the
-    spatial route on one rank of one, the same losses as without the mesh;
-    random shift under the split raises naming A12."""
+    spatial route on one rank of one, through the sampled-neighbour halo
+    route in the random-shift epoch and the halo route in the MODE 0 one,
+    the same losses as without the mesh; a fused block and a model axis
+    under the split raise naming A12."""
+    mesh = ["TPU.MESH_AXES", "['data','spatial']", "TPU.MESH_SHAPE", "[1,1]"]
     runs = {}
-    for name, extra in (("plain", []), ("mesh", ["TPU.MESH_AXES", "['data','spatial']",
-                                                 "TPU.MESH_SHAPE", "[1,1]"])):
+    for name, extra in (("plain", []), ("mesh", mesh)):
         cfg = get_default_cfg()
-        cfg.merge_from_list(TRAINER_OPTS + extra + ["OPTIM.EPOCHS", "1",
-                                                    "OUTPUT_DIR", str(tmp_path / name)])
+        cfg.merge_from_list(TRAINER_OPTS + extra + ["OUTPUT_DIR", str(tmp_path / name)])
         runs[name] = Trainer(cfg, device="cpu")
         runs[name].fit()
     assert runs["mesh"].mesh.spatial is not None and runs["plain"].mesh.spatial is None
+    assert runs["mesh"].steps_run == {True: 8, False: 8}  # random shift, then MODE 0
     np.testing.assert_allclose([r["loss"] for r in runs["mesh"].steps_log],
                                [r["loss"] for r in runs["plain"].steps_log], rtol=0, atol=TOL)
     cfg = get_default_cfg()
-    cfg.merge_from_list(TRAINER_OPTS + ["TPU.MESH_AXES", "['data','spatial']", "TPU.MESH_SHAPE",
-                                        "[1,1]", "MODEL.VIT.MSVIT.MODE", "1",
-                                        "OUTPUT_DIR", str(tmp_path / "shift")])
+    cfg.merge_from_list(TRAINER_OPTS + mesh + ["OUTPUT_DIR", str(tmp_path / "fused")])
+    monkeypatch.setenv("VIL_TPU_FUSED_BLOCK", "1")
     with pytest.raises(NotImplementedError, match="A12"):
         Trainer(cfg, device="cpu").fit()
+    cfg = get_default_cfg()
+    cfg.merge_from_list(TRAINER_OPTS + ["TPU.MESH_AXES", "['data','model','spatial']",
+                                        "TPU.MESH_SHAPE", "[1,1,1]",
+                                        "OUTPUT_DIR", str(tmp_path / "model")])
+    with pytest.raises(NotImplementedError, match="A12"):
+        Trainer(cfg, device="cpu")

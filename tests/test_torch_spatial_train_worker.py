@@ -7,10 +7,12 @@ builds the config's ('data', 'spatial') mesh (``TPU.MESH_AXES`` 'data' and
 'spatial' with SPATIAL ranks on the spatial axis; 'data' alone when SPATIAL
 is 1 and WORLD is not), and runs each MODE in turn:
 
-* ``step``: for each case of DIR/cases.json (its options and the file of
-  its weights in DIR), the model takes one training step (``train.engine.TrainStep`` on the mesh) on its
+* ``step``: for each case of DIR/cases.json (its options, the file of
+  its weights in DIR and, optionally, how the step runs: ``random_shift``
+  draws the modes from the step's seed, ``modes`` gives them), the model
+  takes one training step (``train.engine.TrainStep`` on the mesh) on its
   data replica's share of the global batch in DIR/inputs.npz; it writes the
-  loss, every parameter's gradient and updated value;
+  loss, every parameter's gradient and updated value, and the modes drawn;
 * ``trainer``: ``train.trainer.run_experiment`` of DIR/trainer.json's
   options into DIR/run, then, with ``resume`` set, a run into DIR/cut
   stopped when its second epoch starts and a new Trainer that resumes it;
@@ -46,7 +48,8 @@ def run_steps(out_dir, world, spatial) -> dict:
     with open(os.path.join(out_dir, "cases.json")) as f:
         cases = json.load(f)
     res, mesh = {}, None
-    for case, (opts, weights) in cases.items():
+    for case, (opts, weights, *how) in cases.items():
+        how = how[0] if how else {}
         cfg = get_default_cfg()
         cfg.merge_from_list(opts + mesh_opts(world, spatial))
         if mesh is None:  # one mesh, one set of process groups, for every case
@@ -56,12 +59,15 @@ def run_steps(out_dir, world, spatial) -> dict:
         model = build_model(cfg, device="cpu")
         model.load_state_dict(torch.load(os.path.join(out_dir, weights)))
         step = engine.make_train_step(model, loss.cross_entropy, optim.get_opt(cfg, model),
-                                      device="cpu", seed=0, mesh=mesh)
+                                      device="cpu", seed=0, mesh=mesh,
+                                      random_shift=how.get("random_shift", False))
         n = len(inp["images"]) // mesh.data_size
         rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
         metrics = step(torch.from_numpy(inp["images"][rows]),
-                       torch.from_numpy(inp["targets"][rows]))
+                       torch.from_numpy(inp["targets"][rows]), modes=how.get("modes"))
         res[f"{case}/loss"] = metrics["loss"].item()
+        if "modes" in metrics:
+            res[f"{case}/modes"] = metrics["modes"]
         for name, p in model.named_parameters():
             res[f"{case}/grad/{name}"] = p.grad.numpy()
             res[f"{case}/param/{name}"] = p.detach().numpy()

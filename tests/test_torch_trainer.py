@@ -52,6 +52,17 @@ ARCH = "l1,h1,d16,n1,s1,g1,p4,f2_l2,h2,d32,n1,s1,g1,p2,f2_l3,h2,d32,n1,s0,g0,p2,
 ARCH_RPE = ARCH + ",a0"  # the dense stage with relative position bias
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _opts(out_dir, *extra):
     return ["MODEL.VIT.MSVIT.ARCH", ARCH, "INPUT.IMAGE_SIZE", "32", "DATA.NUM_CLASSES", "10",
             "DATALOADER.BSZ", "8", "DATALOADER.WORKERS", "0", "DATA.TRAIN", "('synthetic',)",

@@ -12,8 +12,11 @@ classes, batch 4):
 * the performer's projections, and bf16 parameters bit for bit;
 * the Trainer's resume of ``vil_tpu``'s OUTPUT_DIR at its epoch, best_acc,
   step and lr_scale, and EVALUATE from MODEL.MODEL_PATH;
-* what still raises, each naming its item: TPU.FLAT_OPT (A13), an orbax
-  directory (OCDBT), a ResNet's ``batch_stats`` (A10), another arch.
+* what still raises: TPU.FLAT_OPT (A13) and an orbax directory (OCDBT,
+  A6), each naming its item; another arch in the header (``ValueError``);
+  a ``batch_stats`` collection whose leaves the ViL has no buffer for
+  (``KeyError``, unused JAX leaves: a ResNet's loads into a ResNet,
+  ``tests/test_torch_resnet.py``).
 
 One ``vil_tpu`` model is built, its state drawn from a seed over
 ``jax.eval_shape``'s tree of its init, and its gradient (with the logits)
@@ -51,6 +54,17 @@ IMG, BATCH = 64, 4
 RNG = np.random.default_rng(0)
 IMAGES = RNG.standard_normal((3, BATCH, IMG, IMG, 3)).astype(np.float32)
 LABELS = RNG.integers(0, 10, (3, BATCH)).astype(np.int32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One CPU thread for torch in this module: the test runner's workers
+    share the cores, and torch's own threads, one a core in each worker,
+    spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _opts(out_dir, *extra):

@@ -19,12 +19,13 @@
 //   SampledNbh   [self ‖ one sampled neighbour] of MODE 1..8 (random-shift
 //                training): (0, 0), then (dx, dy) = -MODE_ROLL_SHIFTS[mode]
 //   SelfNbh      the self chunk alone, mode -1: (0, 0)
-//   HaloNbh      FullNbh's neighbours over halo-extended K/V (spatial
+//   Halo<Base>   Base's neighbours over halo-extended K/V (spatial
 //                parallelism): K/V hold mx + 2 chunk rows, a shard's own rows
 //                between the previous shard's last row (row 0) and the next
 //                shard's first (row mx + 1), so neighbour (dx, dy) of query
 //                row i is K/V row i + dx + 1, never wrapped; columns still
-//                wrap over my
+//                wrap over my. HaloNbh = Halo<FullNbh> (MODE 0, B7a/B7b),
+//                HaloSampledNbh = Halo<SampledNbh> (MODE 1..8, B5h/B6h)
 // Each entry point (vil_attention_*.cu, vil_mode_attention_*.cu) wraps these
 // bodies in __global__ kernels of its own name.
 #pragma once
@@ -54,12 +55,15 @@ struct SelfNbh {
   __device__ __forceinline__ int dy(int) const { return 0; }
 };
 
-struct HaloNbh : FullNbh {};
+template <typename Base>
+struct Halo : Base {};
+using HaloNbh = Halo<FullNbh>;
+using HaloSampledNbh = Halo<SampledNbh>;
 
 // Row addressing. A cyclic neighbourhood reads K/V of q's mx rows and wraps
-// the row index; HaloNbh reads mx + 2 rows and does not wrap.
+// the row index; a Halo one reads mx + 2 rows and does not wrap.
 template <typename Nbh>
-__device__ __forceinline__ int kv_rows(const Nbh&, int mx) { return mx; }
+__host__ __device__ __forceinline__ int kv_rows(const Nbh&, int mx) { return mx; }
 // the K/V row of neighbour n of query row i
 template <typename Nbh>
 __device__ __forceinline__ int key_row(const Nbh& nbh, int i, int n, int mx) {
@@ -71,12 +75,17 @@ __device__ __forceinline__ int query_row(const Nbh& nbh, int r, int n, int mx) {
   return (r - nbh.dx(n) + mx) % mx;
 }
 
-__device__ __forceinline__ int kv_rows(const HaloNbh&, int mx) { return mx + 2; }
-__device__ __forceinline__ int key_row(const HaloNbh& nbh, int i, int n, int) {
+template <typename Base>
+__host__ __device__ __forceinline__ int kv_rows(const Halo<Base>&, int mx) { return mx + 2; }
+template <typename Base>
+__device__ __forceinline__ int key_row(const Halo<Base>& nbh, int i, int n, int) {
   return i + nbh.dx(n) + 1;
 }
-// the halo rows 0 and mx + 1 are seen by query rows 0 and mx - 1 only
-__device__ __forceinline__ int query_row(const HaloNbh& nbh, int r, int n, int mx) {
+// the halo row 0 (mx + 1) is seen by query row 0 (mx - 1) alone, through
+// the neighbours with dx = -1 (+1); a neighbourhood without such a
+// neighbour (the sampled chunk of a mode with dx = 0) never reads it
+template <typename Base>
+__device__ __forceinline__ int query_row(const Halo<Base>& nbh, int r, int n, int mx) {
   const int i = r - 1 - nbh.dx(n);
   return i >= 0 && i < mx ? i : -1;
 }

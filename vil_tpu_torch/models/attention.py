@@ -22,9 +22,13 @@ Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
   ``parallel.spatial_forward``) the module holds its rank's chunk rows: the
   local branch exchanges halos and runs the halo-input kernels
   (``ops/kernels/vil_attention_halo.py``; the plain spatial tier with
-  ``use_kernels=False``) at mode 0, and the global branch spreads its
-  softmax over the ranks. The fused block has no halo form: a module built
-  with ``fused_block`` raises under a spatial context.
+  ``use_kernels=False``) at mode 0, their sampled-neighbour halo form
+  (``ops/kernels/vil_mode_attention_halo.py``) at modes 1..8, and the
+  self-only kernels on its rows without an exchange at mode -1; the global
+  branch spreads its softmax over the ranks, with shared or unshared
+  weights. The fused block has no halo form: a module built with
+  ``fused_block`` raises under a spatial context, and so does a module split
+  over a model axis.
 
 With ``rpe`` (an ``a0`` stage) each module holds the JAX package's
 relative-position-bias tables under its names: the local table, and with
@@ -352,8 +356,12 @@ class VilAttention(RelativePositionBias, nn.Module):
     training); SW_EXACT 1 has tables for mode 0 alone and raises at the
     others, as in the JAX package. With a ``spatial`` context x_img holds
     this rank's chunk rows of the (nx, ny) grid (the context's ``span``), at
-    mode 0. The projection dropout (MODEL.VIT.DROP) follows the output
-    projections of both branches, each with its own draw from ``generator``.
+    any mode: modes 0 and 1..8 exchange one-chunk-row halos with the
+    neighbouring ranks, mode -1 needs none; with unshared weights
+    (SHARE_W False) the global branch's keys and values are projected from
+    this rank's rows and reduced over the group as the shared ones are. The
+    projection dropout (MODEL.VIT.DROP) follows the output projections of
+    both branches, each with its own draw from ``generator``.
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -428,13 +436,6 @@ class VilAttention(RelativePositionBias, nn.Module):
         mode = sc.check_mode(mode)
         if self.only_glo:
             return self._forward_only_global(x, nx, ny, generator)
-        if spatial is not None and not self.sharew:
-            raise NotImplementedError("the unshared global weights (SHARE_W False) under "
-                                      "spatial parallelism are not ported (ROADMAP.md §A, A12)")
-        if spatial is not None and mode != 0:
-            raise NotImplementedError("spatial parallelism runs the sliding-chunk attention "
-                                      "at mode 0 only: random shift and mode -1 under the "
-                                      "split need halo forms of B5/B6 (ROADMAP.md §A, A12)")
         if spatial is not None and self.tp is not None:
             raise NotImplementedError("a model axis together with a spatial axis is not "
                                       "ported (ROADMAP.md §A, A12)")
@@ -482,12 +483,9 @@ class VilAttention(RelativePositionBias, nn.Module):
             k_img = self.kv.part(x_img, 0, 2)
             v_img = self.kv.part(x_img, 1, 2)
             if spatial is not None:
-                if self.use_kernels:
-                    x1 = spatial_local_attention_kernel(q_img, k_img, v_img, kg, vg, bias,
-                                                        mask, H, spatial.group)
-                else:
-                    x1 = spatial_local_attention(q_img, k_img, v_img, kg, vg, bias, mask, H,
-                                                 spatial.group)
+                attend = (spatial_local_attention_kernel if self.use_kernels
+                          else spatial_local_attention)
+                x1 = attend(q_img, k_img, v_img, kg, vg, bias, mask, H, spatial.group, mode)
             elif mode == 0:
                 attend = vil_attention if self.use_kernels else vil_attention_reference
                 x1 = attend(q_img, k_img, v_img, kg, vg, bias, mask, H)

@@ -55,6 +55,14 @@ from .vil_mode_attention import (
     vil_self_attention_bwd,
     vil_self_attention_fwd,
 )
+from .vil_mode_attention_halo import (
+    VilModeAttentionHaloFunction,
+    vil_mode_attention_halo,
+    vil_mode_attention_halo_bwd,
+    vil_mode_attention_halo_bwd_reference,
+    vil_mode_attention_halo_fwd,
+    vil_mode_attention_halo_reference,
+)
 
 # every kernel wrapper, each with its launch count: the first two forwards
 # serve inference, the first four run in a MODE-0 training step, the
@@ -64,11 +72,13 @@ from .vil_mode_attention import (
 # block pair in the sliding-chunk pair's place; under spatial (chunk-row)
 # parallelism the halo-input pair takes it; at mode -1 (the self chunk
 # alone) the self-only pair, the sampled-neighbour kernels' instance over one
-# chunk
+# chunk; in random-shift training under the split the sampled-neighbour
+# pair's halo form
 KERNELS = (vil_attention_fwd, full_attention_fwd, vil_attention_bwd, full_attention_bwd,
            vil_mode_attention_fwd, vil_mode_attention_bwd, layer_norm_fwd, layer_norm_bwd,
            vil_block_fwd, vil_block_bwd, vil_attention_halo_fwd, vil_attention_halo_bwd,
-           vil_self_attention_fwd, vil_self_attention_bwd)
+           vil_self_attention_fwd, vil_self_attention_bwd, vil_mode_attention_halo_fwd,
+           vil_mode_attention_halo_bwd)
 
 __all__ = [
     "KERNELS",
@@ -78,6 +88,7 @@ __all__ = [
     "VilAttentionHaloFunction",
     "VilBlockFunction",
     "VilModeAttentionFunction",
+    "VilModeAttentionHaloFunction",
     "full_attention",
     "full_attention_bwd",
     "full_attention_bwd_reference",
@@ -109,6 +120,11 @@ __all__ = [
     "vil_mode_attention_bwd",
     "vil_mode_attention_bwd_reference",
     "vil_mode_attention_fwd",
+    "vil_mode_attention_halo",
+    "vil_mode_attention_halo_bwd",
+    "vil_mode_attention_halo_bwd_reference",
+    "vil_mode_attention_halo_fwd",
+    "vil_mode_attention_halo_reference",
     "vil_mode_attention_reference",
     "vil_self_attention_bwd",
     "vil_self_attention_fwd",

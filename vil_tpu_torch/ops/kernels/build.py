@@ -68,6 +68,10 @@ SIGNATURES = {
     # k, v (and dk, dv) of mx + 2 chunk rows
     "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],
     "vil_attention_halo_bwd": [_P] * 17 + [_I] * 9 + [_P],
+    # the sampled-neighbour halo forms (B5h, B6h): vil_mode_attention_fwd /
+    # _bwd's signatures, with k, v (and dk, dv) of mx + 2 chunk rows
+    "vil_mode_attention_halo_fwd": [_P] * 9 + [_I] * 11 + [_P],
+    "vil_mode_attention_halo_bwd": [_P] * 17 + [_I] * 11 + [_P],
     # P's strided path: x, y, the 5 sizes of the layout, x's and y's 5
     # strides (elements), is_bf16, stream; one entry point per layout
     "layout_probe_base": [_P] * 2 + [_L] * 15 + [_I, _P],

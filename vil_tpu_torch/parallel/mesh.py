@@ -240,12 +240,15 @@ def shard_image(x: torch.Tensor, model, group=None) -> torch.Tensor:
     return x[:, lo:hi].contiguous()
 
 
-def spatial_forward(model, x_rows: torch.Tensor, group=None) -> torch.Tensor:
-    """The model's eval forward with the image's rows split over ``group``
-    (the default group when None): ``x_rows`` is this rank's
-    :func:`shard_image`. The chunked stages run on their rows, their
-    sliding-chunk attention through the halo kernels; the dense stages run
-    whole on every rank. Returns the logits, the same on every rank of the
-    group. Raises ``ValueError`` when the split would leave a rank no row
-    of a chunked stage."""
-    return model(x_rows, spatial=SpatialContext.of(group))
+def spatial_forward(model, x_rows: torch.Tensor, group=None, mode=0) -> torch.Tensor:
+    """The model's forward with the image's rows split over ``group`` (the
+    default group when None): ``x_rows`` is this rank's :func:`shard_image`.
+    The chunked stages run on their rows, their sliding-chunk attention at
+    ``mode`` (an int, or one per attention block, as the model's forward
+    takes it): through the halo kernels at mode 0 (and at modes 1..8,
+    which a model in eval mode serves at 0), through the self-only kernels
+    on the rows alone at mode -1; the dense stages run whole on every rank.
+    Returns the logits, the same on every rank of the group. Raises
+    ``ValueError`` when the split would leave a rank no row of a chunked
+    stage."""
+    return model(x_rows, mode=mode, spatial=SpatialContext.of(group))

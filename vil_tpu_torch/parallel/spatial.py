@@ -63,6 +63,11 @@ import torch.distributed as dist
 from ..ops import sliding_chunk as sc
 from ..ops.kernels.vil_attention import neighbourhood_attention
 from ..ops.kernels.vil_attention_halo import halo_neighborhood, vil_attention_halo
+from ..ops.kernels.vil_mode_attention import vil_mode_attention
+from ..ops.kernels.vil_mode_attention_halo import (
+    halo_sampled_neighborhood,
+    vil_mode_attention_halo,
+)
 from .collectives import get_rank, get_world_size, is_distributed
 
 Span = tuple[int, int]  # [first, last) rows along the split axis
@@ -287,13 +292,9 @@ def neighborhood_spatial(t: torch.Tensor, group=None, mode: int = 0) -> torch.Te
     mode = sc.check_mode(mode)
     if mode == -1:
         return t
-    mxs = t.shape[1]
     top, bot = halo_rows(t, group)
     ext = torch.cat([top, t, bot], dim=1)  # (B, mxs+2, my, W², M)
-    if mode == 0:
-        return halo_neighborhood(ext)
-    sx, sy = (int(s) for s in sc.MODE_ROLL_SHIFTS[mode])
-    return torch.cat([t, torch.roll(ext[:, 1 - sx:1 - sx + mxs], sy, dims=2)], dim=3)
+    return halo_neighborhood(ext) if mode == 0 else halo_sampled_neighborhood(ext, mode)
 
 
 def spatial_local_attention(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
@@ -311,17 +312,28 @@ def spatial_local_attention(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: in
 
 
 def spatial_local_attention_kernel(q, k, v, k_glo, v_glo, bias, mask_rows, num_heads: int,
-                                   group=None) -> torch.Tensor:
-    """The local branch under the row split through the halo kernels (B7a,
-    B7b; their plain versions on the CPU), mode 0: exchange the ±1 chunk-row
-    halos of k and v, then :func:`vil_attention_halo` on this rank's rows.
-    Operands as :func:`spatial_local_attention`. The gradients of the halo
-    rows go back through the exchange to the ranks that own them."""
+                                   group=None, mode: int = 0) -> torch.Tensor:
+    """The local branch under the row split through the kernels (their
+    plain versions on the CPU). Mode 0: exchange the ±1 chunk-row halos of
+    k and v, then the halo kernels B7a/B7b (:func:`vil_attention_halo`) on
+    this rank's rows; modes 1..8 (random shift): the same exchange, then the
+    sampled-neighbour halo kernels B5h/B6h (:func:`vil_mode_attention_halo`);
+    mode −1 (the self chunk alone): no exchange, the self-only B5/B6 on this
+    rank's rows as they are. Operands as :func:`spatial_local_attention`.
+    The gradients of the halo rows go back through the exchange to the ranks
+    that own them. Both halo rows are exchanged at every mode, cyclic as in
+    ``vil_tpu``, though a sampled neighbour reads one of them or none."""
+    mode = sc.check_mode(mode)
+    if mode == -1:
+        return vil_mode_attention(q, k, v, k_glo, v_glo, bias, mask_rows, num_heads, -1)
     top_k, bot_k = halo_rows(k, group)
     top_v, bot_v = halo_rows(v, group)
     k_ext = torch.cat([top_k, k, bot_k], dim=1)
     v_ext = torch.cat([top_v, v, bot_v], dim=1)
-    return vil_attention_halo(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, num_heads)
+    if mode == 0:
+        return vil_attention_halo(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, num_heads)
+    return vil_mode_attention_halo(q, k_ext, v_ext, k_glo, v_glo, bias, mask_rows, num_heads,
+                                   mode)
 
 
 def spatial_global_branch(qg, k_img, v_img, k_glo, v_glo, g2g=None, g2l0=None, valid=None,

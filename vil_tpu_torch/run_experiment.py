@@ -16,7 +16,8 @@ KEY VALUE overrides, then ``--data``, ``--output_dir`` and ``--seed``), then
 ``LOCAL_RANK`` and ``TORCHELASTIC_RUN_ID`` in the environment) each process
 joins an ``nccl`` group through a ``FileStore`` in the temporary directory,
 named by the run id, takes card ``LOCAL_RANK`` and trains over the
-config's mesh (a·b = N): data and spatial axes, or data and model axes
+config's mesh (a·b = N): data and spatial axes (at every neighbour mode:
+the random-shift epochs of MODEL.VIT.MSVIT.MODE 1 too), or data and model axes
 with TPU.PARAM_SHARDING 'tp' (each rank b's share of the heads), or FSDP
 over the data axis ('fsdp'); rank 0 alone logs and writes checkpoints, whole,
 which a run of any mesh or sharding resumes. Without torchrun it runs on one

@@ -49,6 +49,8 @@ FAMILIES = [
     ("B6 sampled-neighbour bwd", r"vil_mode_attention_bwd_(wgmma_)?pass"),
     ("B7a halo fwd", r"vil_attention_halo_fwd_(wgmma|kernel)"),
     ("B7b halo bwd", r"vil_attention_halo_bwd_(wgmma_)?pass"),
+    ("B5h sampled-neighbour halo fwd", r"vil_mode_attention_halo_fwd_(wgmma|kernel)"),
+    ("B6h sampled-neighbour halo bwd", r"vil_mode_attention_halo_bwd_(wgmma_)?pass"),
     ("B8 LayerNorm fwd", r"vil_ln_fwd"),
     # B8b in two parts: dx with the per-block partials, and their sum
     ("B8 LayerNorm bwd: rows", r"vil_ln_bwd_rows"),

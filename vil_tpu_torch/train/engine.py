@@ -101,7 +101,11 @@ class TrainStep:
     the default, as TPU.MODE_PER_LAYER) or one for all; ``modes`` given to
     the step replaces the draw. The modes used are returned as the metric
     ``modes``. A caller may set ``step``, ``lr_scale`` and ``random_shift``
-    between updates.
+    between updates. On a mesh with a spatial axis every rank of a group
+    must attend to the same neighbours, or the halos would not match: there
+    the modes are drawn from the seed alone, keyed by (seed, step) and never
+    by the rank or the replica (:meth:`_mode_generator`), and a
+    ``mode_generator`` raises ``ValueError``.
 
     On a ``mesh`` (``parallel.Mesh``) the step takes its data replica's
     images whole: with a spatial axis it runs the model on this rank's rows
@@ -123,6 +127,9 @@ class TrainStep:
                  mesh: Optional[Mesh] = None):
         if random_shift and mode_generator is None and seed is None:
             raise ValueError("random_shift draws its modes from a CPU mode_generator; give one")
+        if mode_generator is not None and mesh is not None and mesh.spatial is not None:
+            raise ValueError("on a mesh with a spatial axis the ranks of a group draw the same "
+                             "modes, keyed by (seed, step): give a seed, not a mode_generator")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.criterion, self.optimizer = criterion, optimizer
@@ -197,6 +204,8 @@ class TrainStep:
         return metrics
 
     def _mode_generator(self) -> torch.Generator:
+        """The CPU generator of this step's modes: ``mode_generator``, or
+        one seeded by (seed, step) alone, the same on every rank."""
         if self.mode_generator is not None:
             return self.mode_generator
         if self.seed is None:

@@ -168,12 +168,14 @@ def train_step(model: MsViT, device=None, random_shift: bool = False,
     """``engine.make_train_step`` over ``model`` with the recipe's criterion,
     optimizer, schedule and mixup, its schedule's epochs of ``batch``
     images a step. ``random_shift`` takes the MODE 1 recipe: per-layer
-    neighbour modes drawn each step from a CPU generator seeded with 0.
+    neighbour modes drawn each step from a CPU generator seeded with 0, or,
+    with a ``seed``, keyed by (seed, step) (the rule on a spatial axis).
     ``mesh`` (``parallel.Mesh``) trains on a ('data', 'spatial') or
     ('data', 'model') mesh; with a ``seed`` a step given no generator draws
     from one keyed by (seed, step, data replica)."""
     cfg = vil_cfg(batch=batch, mode=1 if random_shift else 0)
-    mode_generator = torch.Generator().manual_seed(0) if random_shift else None
+    mode_generator = (torch.Generator().manual_seed(0) if random_shift and seed is None
+                      else None)
     return engine.make_train_step(model, loss.get_criterion(cfg), optim.get_opt(cfg, model),
                                   schedulers.get_lr_schedule(cfg), mixup_from_cfg(cfg),
                                   device=device, random_shift=random_shift,

@@ -27,7 +27,11 @@ One process per card. On a ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` mesh of
 each data replica reads its shard of the data, its spatial ranks split each
 image's rows (the training step and the eval step of ``train.engine``), the
 gradients are averaged over the replicas, and the evaluation counts each
-image once. TPU.PARAM_SHARDING 'tp' builds each model rank's shard of the
+image once. The random-shift epochs (MODEL.VIT.MSVIT.MODE 1) run on a
+spatial axis too, through the sampled-neighbour halo kernels, their
+per-block modes keyed by (TPU.SEED, step) alone, so that every rank of a
+spatial group draws the same ones; SHARE_W False runs there as well.
+TPU.PARAM_SHARDING 'tp' builds each model rank's shard of the
 heads (a ``model`` axis is needed: ``ValueError`` without one, as in
 ``vil_tpu``), 'fsdp' slices the large parameters and their moments over
 the data axis (``parallel.fully_shard``), as ``vil_tpu``'s trainer
@@ -71,7 +75,11 @@ logger = logging.getLogger(__name__)
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a key that selects something the
-    port lacks, naming its ROADMAP §A item; such a key is never ignored.
+    port lacks, naming its ROADMAP §A item; such a key is never ignored:
+    beside a spatial axis a model axis or FSDP, off the data axis REMAT, a
+    ResNet or dropout (A12), orbax checkpoints (A6) and the flat or stacked
+    optimizer states (A13). Random shift, mode -1 and SHARE_W False pass on
+    a spatial axis; the fused block there raises in the model (A12).
     TPU.PARAM_SHARDING 'tp' without a model axis raises ``ValueError``, as
     ``vil_tpu``'s trainer does."""
     tpu = cfg.TPU
