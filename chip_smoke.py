@@ -186,8 +186,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
    Trainer's same step on the same batch (loss to LOSS_TOL, every parameter
    to PARAM_GRAD_TOL of its max|ref|); a TSV of 2048 seeded JPEGs at 256²:
    ``tools/data_bench``'s img/s at batch 256 for the threads loader with the
-   Python and the native reader and 'grain' at 0, 4, 8 and 16 worker
-   processes, the native reader asserted in use, then one MODE-0 epoch of
+   Python and the native reader and 'grain' at 8 worker processes, the
+   native reader asserted in use, then one MODE-0 epoch of
    ``run_experiment.main`` on the TSV with DATALOADER.BACKEND 'grain'
    (median batch_time and data_time, img/s, the card's busy share under
    ``torch.profiler``); last, the eval transform's batches of the TSV from
@@ -202,8 +202,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
    mode -1 from tables; bf16 and f32), then ViL-Small 224² served and
    trained at mode -1 (the self-only pair 3, B3, B4 9 a step; no B1/B2/B5/
    B6), its f32 and bf16 logits and step gradients kernels vs plain.
-23. train_remat — ViL-Small 224² and ViL-Medium-Deep 384² at batch 64
-   under TPU.REMAT '', 'minimal' and 'full': the first step's gradients
+23. train_remat — ViL-Small 224² at batch 64 under TPU.REMAT '',
+   'minimal' and 'full' (ViL-Medium-Deep 384² left out: REMAT at high
+   resolution runs in spatial_options): the first step's gradients
    against the '' step's (and whether bit for bit), step walls, device time,
    peak memory, the launches a step with the recomputed B1 and B3.
 24. resnet — ResNet-50 224² at batch 64 (bf16 compute, cuDNN convolutions,
@@ -232,6 +233,20 @@ Phases, one line each; any failure raises and the exit code is not 0:
 27. experiment_spatial_shift — phase 19 with phase 15's recipe: two epochs,
    random shift in the first (B5h, B6h), MODE 0 in the second (B7a, B7b),
    every logged loss against the same run without the mesh.
+28. spatial_options — train_spatial's step on the one-card mesh as two
+   paths: train_spatial_remat (TPU.REMAT '', 'minimal', 'full': B7a 3 → 6,
+   B3 9 → 18 a step) and train_spatial_drop (MODEL.VIT.DROP 0.1, then with
+   REMAT 'full'); each setting's first step's gradients against the path's
+   first setting (bit for bit) and the classic one-rank step (bf16 limit),
+   its wall, device time, peak memory and collectives a step; and the time
+   of drawing the whole stage-1 hidden mask against a rank's part of it.
+   The parts train_tp and train_fsdp (phases 18's sharded twins, above the
+   experiment_tp part) run, in the same spawns, the paths train_tp_remat,
+   train_tp_drop and resnet_tp ('tp', 1 × 3 ranks: REMAT 'full' and
+   'minimal', DROP 0.1, ResNet-50 whole on every rank) and
+   train_fsdp_remat and resnet_fsdp ('fsdp' over 2 ranks), each REMAT case
+   against its twin without REMAT bit for bit (B1 3 → 6, B3 9 → 18 a step),
+   with its peaks a rank, walls, device time and collectives a step.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -300,8 +315,11 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_train_spatial``, ``launches_experiment_spatial``, ``launches_train_tp``,
 ``launches_train_tp_shift``, ``launches_train_fsdp``, ``launches_experiment_tp``,
 ``launches_from_vil_tpu``, ``launches_train_drop``, ``launches_self_chunk``, ``launches_train_remat``,
-``launches_resnet``, ``launches_shift_spatial``, ``launches_self_spatial`` and
-``launches_experiment_spatial_shift`` each path's;
+``launches_resnet``, ``launches_shift_spatial``, ``launches_self_spatial``,
+``launches_experiment_spatial_shift``, ``launches_train_tp_remat``,
+``launches_train_tp_drop``, ``launches_resnet_tp``, ``launches_train_fsdp_remat``,
+``launches_resnet_fsdp``, ``launches_train_spatial_remat`` and
+``launches_train_spatial_drop`` each path's;
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
 training path that runs the kernel: MODE 0, random shift for B5/B6, mode
 -1 for their self-only instances, fused for B8/B9, train_spatial for B7b
@@ -2068,6 +2086,128 @@ def run_train_spatial(torch, kernels):
     return launches
 
 
+SPATIAL_OPTION_STEPS = 3  # steps of each setting: the first compared, the others timed
+# the paths' settings (REMAT, DROP): the first of each path is its twin
+SPATIAL_OPTIONS = {"train_spatial_remat": (("", 0.0), ("minimal", 0.0), ("full", 0.0)),
+                   "train_spatial_drop": (("", 0.1), ("full", 0.1))}
+
+
+def run_spatial_options(torch, kernels) -> dict:
+    """Part ``spatial_options``: train_spatial's step (ViL-Small 1024²,
+    batch 8, bf16, the one-card ('data', 'spatial') mesh of an ``nccl``
+    group of one) as two paths, each with counts of its own:
+    ``train_spatial_remat`` at TPU.REMAT '', 'minimal' and 'full', and
+    ``train_spatial_drop`` at MODEL.VIT.DROP 0.1, then with REMAT 'full'
+    (each mask of the whole value drawn, this rank's rows kept). Each
+    setting from the same weights, images and generator: SPATIAL_OPTION_STEPS
+    steps (the first one's collectives counted, ``parallel.count_collectives``),
+    one more under torch.profiler, the peak memory; launches exact a step
+    (B7a 3, B7b 3, B3 9, B4 9; under REMAT B7a 6 and B3 18: the recompute).
+    The first step's gradients against the path's first setting (bit for
+    bit) and against the classic one-rank step at the same DROP (the bf16
+    limit), which runs first, outside the counts. Then the cost of drawing
+    the whole mask where a rank of two holds part of it: the stage-1 MLP's
+    hidden mask of the whole grid against the first rank's 20 of 37 chunk
+    rows, CUDA events. Returns {path: launches}."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import recipe
+
+    name = "spatial_options"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (SPATIAL_BATCH,), generator=gen, device=dev)
+
+    def model_step(remat, drop, on):
+        m = recipe.vil("vil_small", SPATIAL_IMG, torch.bfloat16, torch.float32, device=dev,
+                       remat=remat, drop=drop)
+        return m, recipe.train_step(m, dev, batch=SPATIAL_BATCH, mesh=on, seed=0)
+
+    run = lambda step: step(images, labels, torch.Generator(device=dev).manual_seed(3))
+    classic = {}
+    for drop in sorted({d for settings in SPATIAL_OPTIONS.values() for _, d in settings}):
+        m, s = model_step("", drop, None)
+        loss = run(s)["loss"].item()
+        classic[drop] = (loss, {n: p.grad.clone() for n, p in m.named_parameters()})
+        del m, s
+        torch.cuda.empty_cache()
+    paths = {}
+    with OneRankGroup(name):
+        mesh = parallel.Mesh(spatial=parallel.SpatialContext.of(None))
+        for path, settings in SPATIAL_OPTIONS.items():
+            for fn in kernels:
+                fn.launches = 0
+            twin = None
+            for remat, drop in settings:
+                per_step = {fn.__name__: 0 for fn in kernels}
+                again = 2 if remat else 1
+                per_step.update(vil_attention_halo_fwd=3 * again, vil_attention_halo_bwd=3,
+                                full_attention_fwd=9 * again, full_attention_bwd=9)
+                model, step = model_step(remat, drop, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                secs, losses = [], []
+                for i in range(SPATIAL_OPTION_STEPS):
+                    before = launch_counts(kernels)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with parallel.count_collectives() as issued:
+                        losses.append(run(step)["loss"].item())
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    rose = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+                    if rose != per_step or not math.isfinite(losses[-1]):
+                        raise AssertionError(f"{path} REMAT {remat!r} DROP {drop} step {i}: "
+                                             f"launches {rose} (want {per_step}), loss "
+                                             f"{losses[-1]}")
+                    if i == 0:
+                        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+                        first = issued
+                before = launch_counts(kernels)
+                device, _ = step_device_ms(torch, lambda: run(step))
+                for fn in kernels:  # the profiled step is not the path's
+                    fn.launches = before[fn.__name__]
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                med = statistics.median(secs[1:])
+                err, at = bf16_grad_worst(grads, classic[drop][1])
+                held = (f"against the classic one-rank step (DROP {drop}) max ‖err‖ / ‖ref‖ "
+                        f"{err:.3e} at {at} (tol {BF16_PARAM_GRAD_TOL:g})")
+                same = True
+                if twin is not None:
+                    same = all(torch.equal(grads[n], g) for n, g in twin.items())
+                    held += f"; against REMAT '' bit for bit {same}"
+                phase(path, f"ViL-Small {SPATIAL_IMG}^2 bf16 batch {SPATIAL_BATCH} on the "
+                            f"one-card mesh, REMAT {remat!r}, DROP {drop}: step median "
+                            f"{med * 1e3:.3f} ms ({SPATIAL_BATCH / med:.1f} img/s, steps "
+                            f"2..{SPATIAL_OPTION_STEPS}), device {device:.3f} ms (torch.profiler, "
+                            f"one step), idle {100 * (1 - device / med / 1e3):.1f}%, peak memory "
+                            f"{peak:.2f} GiB; launches a step "
+                            f"{ {k: v for k, v in per_step.items() if v} }; a step's "
+                            f"{collectives_line(first)}; losses "
+                            f"{', '.join(f'{v:.4f}' for v in losses)}; first step's gradients "
+                            f"{held}")
+                if not (err <= BF16_PARAM_GRAD_TOL and same):
+                    raise AssertionError(f"{path} REMAT {remat!r} DROP {drop}: gradients "
+                                         f"{err} at {at}, bit for bit {same}")
+                twin = twin or grads
+                del model, step, grads
+                torch.cuda.empty_cache()
+            paths[path] = launch_counts(kernels)
+    # the draw of a whole mask where a rank holds part of it: ViL-Small
+    # 1024²'s stage-1 MLP hidden (37x37 chunks of 49, 384 features), against
+    # the first rank's 20 chunk rows of a split of 2
+    g = torch.Generator(device=dev).manual_seed(0)
+    whole = (SPATIAL_BATCH, 37, 37, 49, 384)
+    part = (SPATIAL_BATCH, 20, 37, 49, 384)
+    ms_whole = time_ms(lambda: torch.rand(whole, generator=g, device=dev) < 0.9)
+    ms_part = time_ms(lambda: torch.rand(part, generator=g, device=dev) < 0.9)
+    phase(name, f"dropout draw at stage 1's hidden, ViL-Small {SPATIAL_IMG}^2 batch "
+                f"{SPATIAL_BATCH}: the whole grid's mask {ms_whole:.3f} ms "
+                f"({math.prod(whole) * 4 / 2**20:.0f} MiB of f32 uniforms) against a rank's "
+                f"20 of 37 chunk rows {ms_part:.3f} ms (CUDA events, median of 20)")
+    return paths
+
+
 def multicard_rank(rank, world, store, inputs, result):
     """One rank of the multi-card phase: ViL-Small 1024²'s bf16 recipe step
     from the seeded weights, its rows split over ``world`` cards (``nccl``,
@@ -2462,10 +2602,11 @@ def run_experiment_spatial_shift(torch, kernels):
     return launches
 
 
-# parameter sharding (part ``sharding``): train_tp (ViL-Small 224² over a
-# ('data', 'model') mesh of 1 × 3 ranks), train_tp_shift (the same with
-# random shift) and train_fsdp (FSDP over a data axis of 2), each rank a
-# process. On one card the ranks share it over a gloo group (NCCL refuses
+# parameter sharding (parts ``train_tp``, ``train_fsdp``): train_tp
+# (ViL-Small 224² over a ('data', 'model') mesh of 1 × 3 ranks),
+# train_tp_shift (the same with random shift), train_tp_remat,
+# train_tp_drop, resnet_tp, and train_fsdp (FSDP over a data axis of 2),
+# train_fsdp_remat, resnet_fsdp, each rank a process. On one card the ranks share it over a gloo group (NCCL refuses
 # two ranks on one card); where the host has a card a rank, over nccl.
 # Their f32 pairs run the shallow ViL-Small at SHARD_PAIR images a replica
 TP_RANKS, FSDP_RANKS, SHARD_PAIR = 3, 2, 2
@@ -2523,12 +2664,11 @@ def shard_rank(rank, world, spec_path):
         out["walls"] = {"start": time.perf_counter() - t_start}
         for case in spec["cases"]:
             t_case = time.perf_counter()
-            model = recipe.vil("vil_small", 224, case["dtype"], torch.float32, device=dev,
-                               mesh=mesh, sharding=sharding, arch=case["arch"])
-            if sharding == "fsdp":
-                parallel.fully_shard(model, mesh)
-            step = recipe.train_step(model, dev, case["shift"], batch=BATCH, mesh=mesh,
-                                     seed=0 if keyed else None)
+            on = mesh if case["mesh"] else parallel.Mesh(spec["data"], mesh.data_rank)
+            model = shard_model(torch, case, dev, on, sharding if case["mesh"] else "")
+            if sharding == "fsdp" and case["mesh"]:
+                parallel.fully_shard(model, on)
+            step = shard_step(torch, model, case, dev, on, keyed)
             lo = mesh.data_rank * share
             images = data["images"][lo:lo + case["batch"]]
             labels = data["labels"][lo:lo + case["batch"]]
@@ -2542,14 +2682,15 @@ def shard_rank(rank, world, spec_path):
                 fn.launches = 0
             torch.cuda.reset_peak_memory_stats(dev)
             t_built = time.perf_counter()
-            loss = run()["loss"].item()
+            with parallel.count_collectives() as issued:
+                loss = run()["loss"].item()
             t_first = time.perf_counter()
 
             def whole(n, t):
                 return (model.param_shards[n].gather(t) if n in model.param_shards
                         else t).cpu()
 
-            got = {"loss": loss,
+            got = {"loss": loss, "collectives": issued,
                    "grads": {n: whole(n, p.grad) for n, p in model.named_parameters()}}
             if case["dtype"] == torch.float32:  # the f32 pair checks the update too
                 got["params"] = {n: whole(n, p.detach()) for n, p in model.named_parameters()}
@@ -2603,6 +2744,62 @@ def shard_rank(rank, world, spec_path):
         dist.destroy_process_group()
 
 
+def resnet_cfg(dtype: str):
+    """ResNet-50 224² of the zoo through ``build_model``'s tree: 1000
+    classes, ``dtype`` compute, AdamW as the recipe's."""
+    from vil_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_list(["MODEL.ARCH", "resnet50", "DATA.NUM_CLASSES", "1000",
+                         "TPU.COMPUTE_DTYPE", dtype, "OPTIM.OPT", "adamw", "OPTIM.LR", "1e-3",
+                         "OPTIM.WD", "0.05"])
+    return cfg
+
+
+def shard_model(torch, case, dev, mesh, sharding):
+    """A sharded path's model on ``mesh``: the recipe's ViL-Small 224² of
+    ``case`` (this model rank's shard under 'tp'), at its REMAT and DROP, or
+    ResNet-50 (whole on every model rank; its BatchNorms over the data
+    axis), from seeded weights."""
+    from vil_tpu_torch.models import build_model
+    from vil_tpu_torch.train import recipe
+
+    if case["resnet"]:
+        dtype = "bfloat16" if case["dtype"] == torch.bfloat16 else "float32"
+        return build_model(resnet_cfg(dtype), device=dev, mesh=mesh,
+                           generator=torch.Generator().manual_seed(0))
+    return recipe.vil("vil_small", 224, case["dtype"], torch.float32, device=dev, mesh=mesh,
+                      sharding=sharding, arch=case["arch"], remat=case["remat"],
+                      drop=case["drop"])
+
+
+def shard_step(torch, model, case, dev, mesh, keyed):
+    """The recipe's step for a ViL; for the ResNet AdamW and cross-entropy
+    without mixup (its BatchNorms couple the replicas' images: a mixup
+    keyed by the replica would give no one-rank twin)."""
+    from vil_tpu_torch.train import engine, loss, optim, recipe
+
+    if case["resnet"]:
+        return engine.make_train_step(model, loss.cross_entropy,
+                                      optim.get_opt(resnet_cfg("float32"), model), device=dev,
+                                      seed=0, mesh=mesh)
+    return recipe.train_step(model, dev, case["shift"], batch=BATCH, mesh=mesh,
+                             seed=0 if keyed else None)
+
+
+def collectives_line(issued) -> str:
+    """A step's collectives (``parallel.count_collectives``) by kind: count
+    and MiB this rank handed over."""
+    kinds = {}
+    for name, sent in issued:
+        n, b = kinds.get(name, (0, 0))
+        kinds[name] = (n + 1, b + sent)
+    total = sum(b for _, b in kinds.values())
+    return (f"{len(issued)} collectives, {total / 2**20:.2f} MiB ("
+            + ", ".join(f"{k} {n} / {b / 2**20:.2f} MiB" for k, (n, b) in sorted(kinds.items()))
+            + ")")
+
+
 def step_device_ms(torch, run) -> tuple[float, float]:
     """The card's time of one ``run()`` under torch.profiler: (everything,
     the copies and fills among it)."""
@@ -2615,21 +2812,29 @@ def step_device_ms(torch, run) -> tuple[float, float]:
     return sum(ms.values()), sum(v for k, v in ms.items() if "Memcpy" in k or "Memset" in k)
 
 
-def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed):
+def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resnet=False):
     """The one-rank recipe step from the seeded weights, without a process
     group, on each data replica's ``parts`` (images, labels): one part with
     the tp ranks' generator, or (``keyed``) each replica's step with its
     draws keyed by (0, 0, replica) (``parallel.Mesh(D, d)``), the gradients
     averaged and, in f32, one AdamW update taken from the average. Returns
     (loss, gradients, updated parameters or None, the update's LR), on the
-    host."""
+    host. ``drop``: MODEL.VIT.DROP. ``resnet``: ResNet-50's step without
+    mixup on every part's images at once (its BatchNorms take the whole
+    batch's statistics, as on the mesh)."""
     from vil_tpu_torch import parallel
     from vil_tpu_torch.train import recipe
 
     dev = parts[0][0].device
+    if resnet:
+        case = dict(resnet=True, dtype=dtype)
+        m = shard_model(torch, case, dev, None, "")
+        s = shard_step(torch, m, case, dev, None, False)
+        loss = s(torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))["loss"]
+        return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}, None, None
     losses, grads = [], []
     for d, (images, labels) in enumerate(parts):
-        m = recipe.vil("vil_small", 224, dtype, torch.float32, device=dev, arch=arch)
+        m = recipe.vil("vil_small", 224, dtype, torch.float32, device=dev, arch=arch, drop=drop)
         s = recipe.train_step(m, dev, shift, batch=BATCH, seed=0 if keyed else None,
                               mesh=parallel.Mesh(len(parts), d) if keyed else None)
         gen = None if keyed else torch.Generator(device=dev).manual_seed(3)
@@ -2713,6 +2918,7 @@ def check_sharded(torch, name, what, got, ref, dtype, one_rank):
     phase(name, f"{what}: loss {got['loss']:.6f} vs one rank {loss:.6f}; {msg}")
     if not ok:
         raise AssertionError(f"{name} {what} disagrees: {msg}")
+    phase(name, f"{what}: a step's {collectives_line(got['collectives'])} on rank 0")
     held = ", ".join(f"{p / 2**20:.1f} + {m / 2**20:.1f} MiB (peak {pk / 2**30:.2f} GiB)"
                      for p, m, pk in got["per_rank"])
     if got["secs"]:
@@ -2746,15 +2952,20 @@ def check_shard_launches(kernels, name, got, per_step, steps) -> dict:
     return got
 
 
-def shard_case(name, dtype, arch, steps, shift, batch, modes, profile=False):
+def shard_case(name, dtype, arch, steps, shift, batch, modes, profile=False, remat="",
+               drop=0.0, resnet=False, mesh=True):
     """A case of ``shard_rank``; with random shift, the first of ``modes``
     for each of the model's blocks; with ``profile``, one step more under
-    torch.profiler and one with its collectives clocked."""
+    torch.profiler and one with its collectives clocked; ``remat``
+    (TPU.REMAT) and ``drop`` (MODEL.VIT.DROP) of the ViL, or ResNet-50
+    (``resnet``); ``mesh`` False: each rank its replica's step on the data
+    axis alone, without sharding."""
     from vil_tpu_torch.models.arch import parse_arch
 
     depth = sum(c.num_blocks for c in parse_arch(arch)) if arch else len(modes)
     return dict(name=name, dtype=dtype, arch=arch, steps=steps, shift=shift, batch=batch,
-                modes=modes[:depth] if shift else None, profile=profile)
+                modes=modes[:depth] if shift else None, profile=profile, remat=remat,
+                drop=drop, resnet=resnet, mesh=mesh)
 
 
 _SHARD_INPUTS: list = []  # shard_inputs' result, taken once a run
@@ -2799,6 +3010,33 @@ def shard_inputs(torch):
     return _SHARD_INPUTS[0]
 
 
+REMAT_PER_STEP = {"vil_attention_fwd": 6, "vil_attention_bwd": 3, "full_attention_fwd": 18,
+                  "full_attention_bwd": 9}  # ViL-Small under REMAT: the forwards twice
+PLAIN_PER_STEP = {"vil_attention_fwd": 3, "vil_attention_bwd": 3, "full_attention_fwd": 9,
+                  "full_attention_bwd": 9}
+
+
+def check_twin(torch, name, what, got, twin, twin_what):
+    """A case against its twin in the same spawn (REMAT against the same
+    mesh's step without it, FSDP against the data axis without FSDP): the
+    first step's gradients equal bit for bit (else raises; the bf16 error
+    printed), and beside each other each one's peak memory a rank and its
+    collectives a step on rank 0."""
+    same = got["loss"] == twin["loss"] and all(
+        torch.equal(g, twin["grads"][n]) for n, g in got["grads"].items())
+    dev = torch.device("cuda")
+    err, at = bf16_grad_worst({n: g.to(dev) for n, g in got["grads"].items()},
+                              {n: g.to(dev) for n, g in twin["grads"].items()})
+    peaks = lambda c: ", ".join(f"{pk / 2**30:.2f}" for _, _, pk in c["per_rank"])
+    phase(name, f"{what} vs {twin_what}: loss {got['loss']:.6f} vs {twin['loss']:.6f}, "
+                f"gradients bit for bit {same} (max ‖err‖ / ‖ref‖ {err:.3e} at {at}); peak "
+                f"memory a rank {peaks(got)} GiB against {peaks(twin)}; collectives a step "
+                f"on rank 0: {collectives_line(got['collectives'])} against "
+                f"{collectives_line(twin['collectives'])}")
+    if not same:
+        raise AssertionError(f"{name}: {what} differs from {twin_what}: {err} at {at}")
+
+
 def run_train_tp(torch, kernels) -> dict:
     """Part ``train_tp``: the paths train_tp and train_tp_shift, ViL-Small
     224² with the recipe's step (bf16 compute, f32 parameters, AdamW, mixup,
@@ -2806,13 +3044,19 @@ def run_train_tp(torch, kernels) -> dict:
     'model') mesh of 1 × 3 ranks (H/3 = 1, 1, 2, 4 heads a rank, C/3
     channels), at MODE 0 and with random shift (the recipe's first draw of
     per-block modes, injected), every rank the whole batch and the one-rank
-    step's generator. Launches exact on rank 0 over SHARD_STEPS steps (one
+    step's generator; in the same spawn the paths train_tp_remat (REMAT
+    'full' and 'minimal'), train_tp_drop (MODEL.VIT.DROP 0.1) and resnet_tp
+    (ResNet-50 224², whole on every model rank, one step and its timed and
+    profiled ones). Launches exact on rank 0 over SHARD_STEPS steps (one
     with random shift): B1 3, B2 3 (B5 3, B6 3 with random shift), B3 9, B4
-    9 a step. The first step's
-    loss and gradients, gathered whole, against the one-rank step from the
-    same weights and batch in bf16 and, for the shallow model at SHARD_PAIR
-    images, in f32 (updated parameters too). Then the multi-card phase,
-    where the host has the cards. Returns {path: launches}."""
+    9 a step; under REMAT B1 6 and B3 18 (the recompute); none for the
+    ResNet. The first step's loss and gradients, gathered whole, against
+    the one-rank step from the same weights and batch in bf16 (with the
+    dropout's masks of the same generator) and, for the shallow model at
+    SHARD_PAIR images, in f32 (updated parameters too); each REMAT case's
+    against train_tp's, bit for bit, with both peaks and collectives. Then
+    the multi-card phase, where the host has the cards. Returns {path:
+    launches}."""
     images, labels, modes, one_rank, _ = shard_inputs(torch)
     cases = [shard_case("train_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
                         profile=True),
@@ -2821,23 +3065,59 @@ def run_train_tp(torch, kernels) -> dict:
              shard_case("train_tp_shift", torch.bfloat16, "", 1, True, BATCH, modes),
              shard_case("tp_shift_f32", torch.float32, SHALLOW_VIL_SMALL, 1, True, SHARD_PAIR,
                         modes)]
-    got = run_sharded(torch, "train_tp", TP_RANKS, 1, TP_RANKS, cases, images, labels)
+    extra = [shard_case("tp_remat_full", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
+                        profile=True, remat="full"),
+             shard_case("tp_remat_minimal", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
+                        profile=True, remat="minimal"),
+             shard_case("train_tp_drop", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
+                        profile=True, drop=0.1),
+             shard_case("resnet_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
+                        profile=True, resnet=True)]
+    got = run_sharded(torch, "train_tp", TP_RANKS, 1, TP_RANKS, cases + extra, images, labels)
     paths = {}
-    for c in cases:
-        path = "train_tp_shift" if c["shift"] else "train_tp"
+    for c in cases + extra[2:]:
+        path = ("train_tp_shift" if c["shift"] else "train_tp" if c in cases else c["name"])
         parts = [(images[:c["batch"]], labels[:c["batch"]])]
-        ref = one_rank_ref(torch, c["dtype"], c["arch"], parts, c["shift"], c["modes"], False)
+        ref = one_rank_ref(torch, c["dtype"], c["arch"], parts, c["shift"], c["modes"], False,
+                           c["drop"], c["resnet"])
         kind = "bf16" if c["dtype"] == torch.bfloat16 else "f32 shallow"
         check_sharded(torch, path, f"{kind} step, batch {c['batch']}",
                       got["cases"][c["name"]], ref, c["dtype"], one_rank)
-    for c in cases[::2]:
+    for c in cases[::2] + extra[2:3]:
         chunk = "vil_mode_attention" if c["shift"] else "vil_attention"
         paths[c["name"]] = check_shard_launches(
             kernels, c["name"], got["cases"][c["name"]]["launches"],
             {f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
              "full_attention_bwd": 9}, c["steps"])
+    paths["resnet_tp"] = check_shard_launches(kernels, "resnet_tp",
+                                              got["cases"]["resnet_tp"]["launches"], {},
+                                              SHARD_STEPS)
+    paths["train_tp_remat"] = remat_paths(torch, kernels, "train_tp_remat", got, extra[:2],
+                                          "train_tp", "the same 'tp' step without REMAT")
     run_multicard_tp(torch, images, labels, modes, one_rank)
     return paths
+
+
+def remat_paths(torch, kernels, name, got, cases, twin, twin_what) -> dict:
+    """The REMAT cases of a sharded path, 'full' then 'minimal': each
+    against its twin without REMAT (bit for bit) and printed as
+    ``check_sharded`` prints (wall, device time, collectives' share); their
+    launches each exact (REMAT_PER_STEP) and summed for the path."""
+    total = {fn.__name__: 0 for fn in kernels}
+    for c in cases:
+        case = got["cases"][c["name"]]
+        check_twin(torch, name, f"REMAT {c['remat']!r}", case, got["cases"][twin], twin_what)
+        one = check_shard_launches(kernels, f"{name} {c['remat']!r}", case["launches"],
+                                   REMAT_PER_STEP, c["steps"])
+        total = {k: total[k] + one[k] for k in total}
+        if case["secs"]:
+            phase(name, f"REMAT {c['remat']!r}: step median "
+                        f"{statistics.median(case['secs']) * 1e3:.3f} ms on rank 0 "
+                        f"(steps 2..{len(case['secs']) + 1}); device {case['device_ms']:.3f} ms "
+                        f"a step, {case['copy_ms']:.3f} of it copies and fills (torch.profiler, "
+                        f"one step); collectives {100 * case['collective_s'] / case['instrumented_s']:.1f}% "
+                        f"of an instrumented step")
+    return total
 
 
 def run_train_fsdp(torch, kernels) -> dict:
@@ -2846,17 +3126,31 @@ def run_train_fsdp(torch, kernels) -> dict:
     replica: the parameters of at least 2^14 elements and their Adam moments
     held as 1/2 slices between steps, gathered a block at a time,
     gradients reduce-scattered. Launches exact on rank 0: the one-rank
-    step's, B1 3, B2 3, B3 9, B4 9 a step. The first step's averaged
-    gradients against the one-rank steps of the two replicas (bf16; f32 for
-    the shallow model at SHARD_PAIR images a rank, updated parameters too);
-    the bytes each rank holds against the replicated run's, and its peak
-    memory. Returns {"train_fsdp": launches}."""
+    step's, B1 3, B2 3, B3 9, B4 9 a step (under REMAT B1 6, B3 18). The
+    first step's averaged gradients against the one-rank steps of the two
+    replicas (bf16; f32 for the shallow model at SHARD_PAIR images a rank,
+    updated parameters too); the bytes each rank holds against the
+    replicated run's, and its peak memory. In the same spawn the paths
+    train_fsdp_remat (REMAT 'full' and 'minimal', each against train_fsdp
+    bit for bit) and resnet_fsdp (ResNet-50 224², 32 images a rank, its
+    BatchNorms over both: against the same step on the data axis without
+    FSDP bit for bit, and, printed, against the one-rank step on the 64
+    images; no kernel of the port). Returns {path: launches}."""
     images, labels, modes, one_rank, whole = shard_inputs(torch)
     cases = [shard_case("train_fsdp", torch.bfloat16, "", SHARD_STEPS, False, BATCH // 2,
                         modes, profile=True),
              shard_case("fsdp_f32", torch.float32, SHALLOW_VIL_SMALL, 1, False, SHARD_PAIR,
                         modes)]
-    got = run_sharded(torch, "train_fsdp", FSDP_RANKS, FSDP_RANKS, 1, cases, images, labels)
+    extra = [shard_case("fsdp_remat_full", torch.bfloat16, "", SHARD_STEPS, False, BATCH // 2,
+                        modes, profile=True, remat="full"),
+             shard_case("fsdp_remat_minimal", torch.bfloat16, "", SHARD_STEPS, False,
+                        BATCH // 2, modes, profile=True, remat="minimal"),
+             shard_case("resnet_fsdp", torch.bfloat16, "", SHARD_STEPS, False, BATCH // 2,
+                        modes, profile=True, resnet=True),
+             shard_case("resnet_data", torch.bfloat16, "", 1, False, BATCH // 2, modes,
+                        resnet=True, mesh=False)]
+    got = run_sharded(torch, "train_fsdp", FSDP_RANKS, FSDP_RANKS, 1, cases + extra, images,
+                      labels)
     share = BATCH // FSDP_RANKS
     for c in cases:
         parts = [(images[d * share:d * share + c["batch"]],
@@ -2876,7 +3170,30 @@ def run_train_fsdp(torch, kernels) -> dict:
     if not (params < whole[0] and moments < whole[1]):
         raise AssertionError(f"train_fsdp: a rank holds {params} + {moments} bytes, the "
                              f"replicated run {whole}")
-    return {"train_fsdp": launches}
+    paths = {"train_fsdp": launches}
+    paths["train_fsdp_remat"] = remat_paths(torch, kernels, "train_fsdp_remat", got, extra[:2],
+                                            "train_fsdp", "the same 'fsdp' step without REMAT")
+    # the ResNet: against the data axis without FSDP (the same BatchNorm
+    # sums), and, printed, against one rank on the whole batch
+    res = got["cases"]["resnet_fsdp"]
+    check_twin(torch, "resnet_fsdp", "ResNet-50 under 'fsdp'", res, got["cases"]["resnet_data"],
+               "the data axis without FSDP")
+    ref = one_rank_ref(torch, torch.bfloat16, "", [(images, labels)], False, None, False,
+                       resnet=True)
+    dev = torch.device("cuda")
+    err, at = bf16_grad_worst({n: g.to(dev) for n, g in res["grads"].items()},
+                              {n: g.to(dev) for n, g in ref[1].items()})
+    phase("resnet_fsdp", f"against one rank on the {BATCH} images (printed: two replicas' "
+                         f"BatchNorm sums add in another order, and a BatchNorm gradient "
+                         f"cancels): loss {res['loss']:.6f} vs {ref[0]:.6f}, gradients max "
+                         f"‖err‖ / ‖ref‖ {err:.3e} at {at}; step median "
+                         f"{statistics.median(res['secs']) * 1e3:.3f} ms on rank 0, device "
+                         f"{res['device_ms']:.3f} ms a step")
+    if not math.isfinite(res["loss"]):
+        raise AssertionError(f"resnet_fsdp: loss {res['loss']}")
+    paths["resnet_fsdp"] = check_shard_launches(kernels, "resnet_fsdp", res["launches"], {},
+                                                SHARD_STEPS)
+    return paths
 
 
 def run_experiment_tp(torch, kernels) -> dict:
@@ -3907,7 +4224,9 @@ FROM_VIL_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit.yaml"),
                  "LOG_FREQ", "1"]
 SOURCE_STEPS = 2  # recipe steps before vil_tpu's state is written
 TSV_IMAGES, TSV_SIZE, BENCH_BATCH = 2048, 256, 256
-BENCH_WORKERS = (0, 4, 8, 16)
+# 'grain' at 8 workers, the host's cores: the sweep over 0, 4, 8 and 16
+# workers (their figures stand in PERF.md) took most of the part's time
+BENCH_WORKERS = (8,)
 
 
 def _argv(base: list, out: str, *opts) -> list:
@@ -4278,16 +4597,16 @@ def run_self_chunk(torch, kernels, records):
     return launches
 
 
-# part train_remat: (zoo name, image size, batch): ViL-Small 224² and
-# ViL-Medium-Deep 384² (HIGHRES' train_384)
-REMAT_MODELS = (("vil_small", 224, BATCH), ("vil_medium_deep", 384, BATCH))
+# part train_remat: (zoo name, image size, batch): ViL-Small 224²
+# (ViL-Medium-Deep 384² is left out: REMAT at high resolution runs in the
+# part spatial_options, at ViL-Small 1024²)
+REMAT_MODELS = (("vil_small", 224, BATCH),)
 REMAT_STEPS = 3  # steps of each REMAT setting; the first is held, the others timed
 
 
 def run_train_remat(torch, kernels):
-    """Part train_remat: the recipe's bf16 step of ViL-Small 224² and of
-    ViL-Medium-Deep 384² at batch 64 under TPU.REMAT '', 'minimal' and
-    'full', each from the same weights, images and generator: the first
+    """Part train_remat: the recipe's bf16 step of each of REMAT_MODELS at
+    batch 64 under TPU.REMAT '', 'minimal' and 'full', each from the same weights, images and generator: the first
     step's gradients against the '' step's (BF16_PARAM_GRAD_TOL on
     ‖err‖ / ‖ref‖, and whether they are equal bit for bit), the median wall
     of the later steps, one more step's card time under torch.profiler, the
@@ -4525,7 +4844,7 @@ PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "se
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
          "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
          "experiment_tp", "from_vil_tpu", "train_drop", "self_chunk", "train_remat", "resnet",
-         "shift_spatial", "self_spatial", "experiment_spatial_shift")
+         "shift_spatial", "self_spatial", "experiment_spatial_shift", "spatial_options")
 
 
 def only_arg(argv) -> "set | None":
@@ -4692,6 +5011,11 @@ def main() -> int:
         "shift_spatial": lambda: run_shift_spatial(torch, kernels),
         "self_spatial": lambda: run_self_spatial(torch, kernels),
         "experiment_spatial_shift": lambda: run_experiment_spatial_shift(torch, kernels),
+        # TPU.REMAT and MODEL.VIT.DROP on the split: train_spatial's step at
+        # each REMAT and at DROP 0.1 on the one-card mesh (the REMAT, DROP
+        # and ResNet paths of 'tp' and 'fsdp' run in the parts train_tp and
+        # train_fsdp)
+        "spatial_options": lambda: run_spatial_options(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()
@@ -4704,7 +5028,8 @@ def main() -> int:
         t_part = time.perf_counter()
         if name == "serve_spatial":
             paths["serve_spatial"], paths["spatial_bwd"] = run()
-        elif name in ("efficient", "highres", "train_tp", "train_fsdp", "experiment_tp"):
+        elif name in ("efficient", "highres", "train_tp", "train_fsdp", "experiment_tp",
+                      "spatial_options"):
             paths.update(run())
         else:
             paths[name] = run()

@@ -106,11 +106,20 @@ def test_freeze_and_clone():
     assert cfg.OPTIM.LR == 0.2
 
 
-# what a key ported alone is refused beside: a mesh other than the data axis
-OFF_THE_DATA_AXIS = {
-    "MODEL.ARCH": ["TPU.MESH_AXES", "['data', 'model']", "TPU.PARAM_SHARDING", "tp"],
-    "TPU.REMAT": ["TPU.MESH_AXES", "['data', 'spatial']"],
-    "MODEL.VIT.DROP": ["TPU.MESH_AXES", "['data', 'spatial']"],
+# the meshes a key passes on, and the mesh that still refuses it, naming A12
+MESHES = {
+    "data": ["TPU.MESH_AXES", "['data']", "TPU.MESH_SHAPE", "[2]"],
+    "spatial": ["TPU.MESH_AXES", "['data', 'spatial']", "TPU.MESH_SHAPE", "[1, 2]"],
+    "tp": ["TPU.MESH_AXES", "['data', 'model']", "TPU.MESH_SHAPE", "[1, 2]",
+           "TPU.PARAM_SHARDING", "tp"],
+    "fsdp": ["TPU.MESH_AXES", "['data']", "TPU.MESH_SHAPE", "[2]", "TPU.PARAM_SHARDING", "fsdp"],
+    "model_beside_spatial": ["TPU.MESH_AXES", "['data', 'model', 'spatial']",
+                             "TPU.MESH_SHAPE", "[1, 1, 2]", "TPU.PARAM_SHARDING", "replicated"],
+}
+OFF_THE_DATA_AXIS = {  # key → (the meshes it passes on, the mesh that refuses it)
+    "MODEL.ARCH": (("data", "tp", "fsdp"), "spatial"),
+    "TPU.REMAT": (("data", "spatial", "tp", "fsdp"), "model_beside_spatial"),
+    "MODEL.VIT.DROP": (("data", "spatial", "tp", "fsdp"), "model_beside_spatial"),
 }
 
 
@@ -123,9 +132,11 @@ OFF_THE_DATA_AXIS = {
     ("MODEL.VIT.DROP", "0.1", "A12"),
 ])
 def test_unported_keys_raise_naming_their_item(key, value, item):
-    """A key that selects what the port lacks raises, naming its item; the
-    ResNet zoo, TPU.REMAT and dropout are ported and raise only off the data
-    axis (A12)."""
+    """A key that selects what the port lacks raises, naming its item. The
+    ResNet zoo passes on the data axis, under 'tp' and under 'fsdp', and
+    raises on a spatial axis (A12); TPU.REMAT and dropout pass on every mesh
+    the port runs, and with them a mesh the port lacks (a model axis beside a
+    spatial one) still raises naming A12."""
     cfg = get_default_cfg()
     check_ported(cfg)
     cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))
@@ -133,9 +144,12 @@ def test_unported_keys_raise_naming_their_item(key, value, item):
     cfg.merge_from_list([key, value])
     if key in OFF_THE_DATA_AXIS:
         check_ported(cfg)
-        cfg.merge_from_list(["TPU.MESH_AXES", "['data']", "TPU.MESH_SHAPE", "[2]"])
-        check_ported(cfg)
-        cfg.merge_from_list(OFF_THE_DATA_AXIS[key] + ["TPU.MESH_SHAPE", "[1, 2]"])
+        passes, refused = OFF_THE_DATA_AXIS[key]
+        for mesh in passes:
+            cfg.merge_from_list(MESHES[mesh])
+            check_ported(cfg)
+            cfg.merge_from_list(["TPU.PARAM_SHARDING", "replicated"])
+        cfg.merge_from_list(MESHES[refused])
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         check_ported(cfg)
 

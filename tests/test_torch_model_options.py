@@ -373,7 +373,7 @@ def test_dropout_forced_to_ones_is_drop_zero(monkeypatch):
     path 0.1 in both: the sites change nothing else of the step."""
     x, y = _rng(22, (2, 56, 56, 3)), np.array([1, 7])
     base = _port_step(_vil_cfg("MODEL.VIT.DROP_PATH", "0.1"), x, y)
-    monkeypatch.setattr(layers, "dropout", lambda x, rate, generator: x)
+    monkeypatch.setattr(layers, "dropout", lambda x, rate, generator, part=None: x)
     forced = _port_step(_vil_cfg("MODEL.VIT.DROP_PATH", "0.1", "MODEL.VIT.DROP", "0.1"), x, y)
     assert forced[0] == base[0]
     assert all(torch.equal(forced[1][n], g) for n, g in base[1].items())
@@ -384,8 +384,9 @@ def test_dropout_forced_to_ones_is_drop_zero(monkeypatch):
 
 def test_attention_dropout_still_raises():
     """attn_drop (no config of vil_tpu sets it) raises in training, naming
-    its ROADMAP item; dropout under a spatial context or a model axis raises
-    naming A12."""
+    its ROADMAP item. Dropout under a spatial context runs: on a group of
+    one the rank's part of each mask is the whole mask, so the forward is
+    the unsplit one's from the same generator state."""
     x = torch.zeros(1, 56, 56, 3)
     kw = dict(img_size=56, device="cpu", **COMMON)
     model = MsViT(ARCH, attn_drop_rate=0.1, **kw)
@@ -394,8 +395,10 @@ def test_attention_dropout_still_raises():
     with pytest.raises(NotImplementedError, match="attention dropout.*A18"):
         model.train()(x)
     dropped = MsViT(ARCH, drop_rate=0.1, **kw).train()
-    with pytest.raises(NotImplementedError, match="A12"):
-        dropped(x, spatial=parallel.SpatialContext.of(None))
+    x = _t(_rng(25, (2, 56, 56, 3)))
+    split = dropped(x, torch.Generator().manual_seed(4), spatial=parallel.SpatialContext.of(None))
+    whole = dropped(x, torch.Generator().manual_seed(4))
+    torch.testing.assert_close(split, whole, rtol=0, atol=TOL)
 
 
 # ------------------------------------------------------------------ REMAT

@@ -7,6 +7,7 @@ JAX side runs its Pallas kernels in interpret mode where it would reach them,
 as the JAX package's own tests do. Tolerance: the repo's parity tolerance,
 atol 2e-4 / rtol 1e-3, for whole models; 1e-5 for single modules.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -62,8 +63,9 @@ def _rng_array(seed, shape, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 
 
-def _init(module, *args, **kw):
-    variables = module.init({"params": jax.random.PRNGKey(0)}, *args, **kw)
+def _init(module, *args, jit=False, **kw):
+    init = jax.jit(module.init) if jit else module.init
+    variables = init({"params": jax.random.PRNGKey(0)}, *args, **kw)
     return jax.tree_util.tree_map(np.asarray, variables["params"])
 
 
@@ -71,12 +73,21 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
+@functools.lru_cache(maxsize=None)
+def _msvit_params(arch, img, batch, num_classes):
+    """The flax MsViT's initial parameters, drawn once per shape: they
+    depend on neither use_pallas nor SW_EXACT. Jitted: an eager init of the
+    whole model dispatches op by op."""
+    model = JaxMsViT(arch=arch, img_size=img, num_classes=num_classes,
+                     attn_type="longformerhand", sharew=True, norm_embed=True)
+    return _init(model, jnp.zeros((batch, img, img, 3)), jit=True)
+
+
 def _run_msvit_pair(arch, img, batch=2, num_classes=10, **kw):
     common = dict(arch=arch, img_size=img, num_classes=num_classes,
                   attn_type="longformerhand", sharew=True, norm_embed=True, **kw)
     x = _rng_array(1, (batch, img, img, 3))
-    # the param tree does not depend on use_pallas: init without kernels
-    params = _init(JaxMsViT(**common), jnp.asarray(x))
+    params = _msvit_params(arch, img, batch, num_classes)
     ours = load_jax_params(MsViT(device="cpu", **common), params).eval()
     ref = JaxMsViT(use_pallas=True, **common).apply({"params": params}, jnp.asarray(x))
     with torch.inference_mode():
@@ -111,7 +122,7 @@ def test_build_model_matches_jax_build_model(interpret):
     assert ours.head.out_features == 7 and ours.head.weight.dtype == torch.float32
     jax_model = jax_build_model(cfg, use_pallas=True)
     x = _rng_array(2, (2, 56, 56, 3))
-    params = _init(jax_build_model(cfg, use_pallas=False), jnp.asarray(x))
+    params = _init(jax_build_model(cfg, use_pallas=False), jnp.asarray(x), jit=True)
     load_jax_params(ours, params)
     ref = jax_model.apply({"params": params}, jnp.asarray(x))
     with torch.inference_mode():

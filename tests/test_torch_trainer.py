@@ -78,6 +78,25 @@ def _cfg(out_dir, *extra, jax_side=False):
     return cfg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jitted_jax_init():
+    """``vil_tpu``'s Trainer initialises its model through
+    ``engine.create_train_state``, eagerly: op by op, 40-50 s for the narrow
+    model. The same state from a jitted ``model.init`` for this module's
+    ``vil_tpu`` Trainers; the port loads whatever parameters they hold."""
+
+    def create_train_state(model, tx, rng, sample_input):
+        variables = dict(jax.jit(model.init)({"params": rng}, sample_input))
+        params = variables.pop("params")
+        return jax_engine.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                     opt_state=tx.init(params), buffers=variables)
+
+    original = jax_engine.create_train_state
+    jax_engine.create_train_state = create_train_state
+    yield
+    jax_engine.create_train_state = original
+
+
 def _seed(seed=42):
     """The host augmentation streams, as ``set_seed`` leaves them."""
     random.seed(seed)

@@ -20,13 +20,18 @@ def _resnet(cfg, name, dtype, device, generator, param_dtype, mesh) -> ResNet:
     raises (it would need torchvision's hub), the computation in
     TPU.COMPUTE_DTYPE, the parameters in f32 (``vil_tpu`` passes no
     PARAM_DTYPE to its ResNet); on a data axis of several replicas every
-    BatchNorm takes the global batch's statistics."""
+    BatchNorm takes the global batch's statistics, over the data group.
+    On a model axis (TPU.PARAM_SHARDING 'tp') the ResNet is whole on every
+    model rank, which runs it on its replica's images: ``vil_tpu``'s plan
+    cuts no ResNet leaf, so GSPMD replicates it there. Under 'fsdp' the
+    caller slices it (``parallel.fully_shard``). A spatial axis raises."""
     if cfg.MODEL.PRETRAINED:
         raise ValueError("MODEL.PRETRAINED needs torchvision hub access; load local "
                          "weights via MODEL.MODEL_PATH (a torchvision .pth) instead")
-    if mesh is not None and (mesh.spatial is not None or mesh.model is not None):
-        raise NotImplementedError("a ResNet under spatial or tensor parallelism is not "
-                                  "ported (ROADMAP.md §A, A12)")
+    if mesh is not None and mesh.spatial is not None:
+        raise NotImplementedError("a ResNet on a spatial axis is not ported (ROADMAP.md §A, "
+                                  "A12: halo convolutions, pooling and BatchNorm over the "
+                                  "spatial group)")
     if dtype is None:
         dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
     logger.info("=> creating torchvision-zoo model '%s'", name)

@@ -361,7 +361,9 @@ class VilAttention(RelativePositionBias, nn.Module):
     (SHARE_W False) the global branch's keys and values are projected from
     this rank's rows and reduced over the group as the shared ones are. The
     projection dropout (MODEL.VIT.DROP) follows the output projections of
-    both branches, each with its own draw from ``generator``.
+    both branches, each with its own draw from ``generator``: under the
+    split the local branch keeps its rows of the whole grid's mask, and
+    both draw whole masks under 'tp', after the model group's reduce.
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -432,7 +434,12 @@ class VilAttention(RelativePositionBias, nn.Module):
                 ]
         return self._masks[key][mode - 1 if kind == 1 else 0]
 
-    def forward(self, x, nx: int, ny: int, mode: int = 0, spatial=None, generator=None):
+    def forward(self, x, nx: int, ny: int, mode: int = 0, spatial=None, generator=None,
+                part=None):
+        """``part``: the ``layers.Part`` of the whole chunk grid that x_img
+        holds under the spatial split (its chunk rows), for the local
+        branch's projection dropout; the global branch's output is whole on
+        every rank."""
         mode = sc.check_mode(mode)
         if self.only_glo:
             return self._forward_only_global(x, nx, ny, generator)
@@ -493,7 +500,7 @@ class VilAttention(RelativePositionBias, nn.Module):
                 attend = vil_mode_attention if self.use_kernels else vil_mode_attention_reference
                 x1 = attend(q_img, k_img, v_img, kg, vg, bias, mask, H, mode)
             x1 = self.proj(x1)
-        x1 = self.proj_drop(x1, generator)  # after B9a's output projection too
+        x1 = self.proj_drop(x1, generator, part=part)  # after B9a's output projection too
         if Nglo == 0:
             return None, x1
 

@@ -19,9 +19,19 @@ that the model's forward is given, the training step's, keyed by its seed
 and step. Attention dropout (on the softmax probabilities) is not ported:
 a module with a nonzero ``attn_drop`` raises in training mode instead of
 running as in eval (:func:`check_eval_only`).
+
+Dropout on a split model draws alike. ``vil_tpu`` draws one mask for the
+whole tensor and GSPMD shards it, so a rank that holds a :class:`Part` of a
+value (its chunk rows under the spatial split, its hidden features under
+'tp') draws the whole tensor's mask from the same generator state as the
+one-rank model and keeps its part of it; a value that every rank holds
+whole (the global tokens, an output after the model group's reduce) takes
+the whole mask. Either way the generator ends where the one-rank step
+leaves it.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -43,28 +53,68 @@ def check_eval_only(module: nn.Module, rate: float, what: str) -> None:
         )
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+@dataclass(frozen=True)
+class Part:
+    """Where a tensor lies in the whole one that the unsplit model holds:
+    for each cut (dim, total, spans), the whole tensor has ``total`` entries
+    along ``dim`` and this one holds the [first, last) ``spans`` of them,
+    concatenated in order. No cut: the whole tensor."""
+
+    cuts: tuple = ()
+
+    def along(self, dim: int, total: int, *spans: tuple) -> "Part":
+        """This part, cut again along ``dim`` (empty spans left out)."""
+        return Part(self.cuts + ((dim, total, tuple(s for s in spans if s[1] > s[0])),))
+
+    def whole_shape(self, shape) -> tuple:
+        """The shape of the whole tensor of which one of ``shape`` is this part."""
+        shape = list(shape)
+        for dim, total, spans in self.cuts:
+            if sum(hi - lo for lo, hi in spans) != shape[dim]:
+                raise ValueError(f"a part of {shape[dim]} along dim {dim}, spans {spans}")
+            shape[dim] = total
+        return tuple(shape)
+
+    def of(self, whole: torch.Tensor) -> torch.Tensor:
+        """This part of the ``whole`` tensor."""
+        for dim, total, spans in self.cuts:
+            if spans == ((0, total),):
+                continue
+            pieces = [whole.narrow(dim, lo, hi - lo) for lo, hi in spans]
+            whole = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+        return whole
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            part: Optional[Part] = None) -> torch.Tensor:
     """Inverted dropout, flax's ``nn.Dropout``: each element kept with
     probability 1 - ``rate`` (one uniform draw from ``generator``, on x's
-    device) and scaled by 1 / (1 - rate), the others set to 0."""
+    device) and scaled by 1 / (1 - rate), the others set to 0. With a
+    ``part``, x is that part of a whole tensor: the whole tensor's mask is
+    drawn, as the unsplit model draws it, and x takes its part."""
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if part is None else part.whole_shape(x.shape)
+    kept = torch.rand(shape, generator=generator, device=x.device) < keep
+    if part is not None:
+        kept = part.of(kept)
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
 class Dropout(nn.Module):
     """MODEL.VIT.DROP at one site (``vil_tpu``'s ``nn.Dropout(drop)``):
     :func:`dropout` in training mode at a nonzero rate, the identity
-    otherwise. Its forward takes the step's ``generator``."""
+    otherwise. Its forward takes the step's ``generator`` and the
+    :class:`Part` of the whole value that x is, on a split model."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                part: Optional[Part] = None):
         if self.rate == 0.0 or not self.training:
             return x
-        return dropout(x, self.rate, generator)
+        return dropout(x, self.rate, generator, part)
 
 
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -214,7 +264,10 @@ class DropPath(nn.Module):
 class Mlp(nn.Module):
     """fc1 → GELU → fc2. The GELU follows the input's dtype, as the JAX
     package's follows its compute dtype: tanh-approximate in bf16, exact
-    (erf) otherwise."""
+    (erf) otherwise. Under 'tp' the hidden features are this rank's columns
+    of the whole layer's, and their dropout keeps those columns of the
+    whole mask; fc2's output, reduced over the model group, takes it
+    whole."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, drop: float = 0.0,
@@ -230,13 +283,18 @@ class Mlp(nn.Module):
                           **kw)
         self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                part: Optional[Part] = None) -> torch.Tensor:
+        """``part``: the :class:`Part` of the whole tokens that x is (a
+        rank's chunk rows under the spatial split), None for all of them."""
+        hidden = part
         if self.tp is not None:
             x = self.tp.copy(x)
+            h, r = self.fc1.out_features, self.tp.rank  # this rank's columns
+            hidden = (part or Part()).along(-1, h * self.tp.size, (r * h, (r + 1) * h))
         x = self.fc1(x)
         x = F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
-        return self.drop(self.fc2(self.drop(x, generator)), generator)
+        return self.drop(self.fc2(self.drop(x, generator, part=hidden)), generator, part=part)
 
 
 class PatchEmbed(nn.Module):
@@ -283,7 +341,8 @@ class PatchEmbed(nn.Module):
         """``rows`` = (first row, row count) of the patch grid that x covers,
         for a row block of the image (spatial parallelism); the whole grid
         by default. The position embedding adds those rows. Dropout after
-        it draws from ``generator``."""
+        it draws from ``generator`` the whole grid's mask and keeps the
+        global tokens' and those rows' part."""
         B = x.shape[0]
         dt = self.compute_dtype
         row0, nrows = (0, self.nx) if rows is None else rows
@@ -311,4 +370,7 @@ class PatchEmbed(nn.Module):
                 dim=-1,
             ).reshape(1, nrows * self.ny, self.embed_dim)
             x = x + torch.cat([self.cls_pos_embed, pos2d], dim=1).to(dt)
-        return self.pos_drop(x, generator)
+        g, first = self.nglo, self.nglo + row0 * self.ny
+        part = None if rows is None else Part().along(
+            1, g + self.nx * self.ny, (0, g), (first, first + nrows * self.ny))
+        return self.pos_drop(x, generator, part=part)

@@ -29,9 +29,17 @@ block in the backward (``torch.utils.checkpoint``, non-reentrant);
 counterpart) and recomputes the rest, the kernels' autograd Functions
 included, as JAX recomputes ``pallas_call`` outputs. A block's recompute draws
 its drop-path and dropout masks again from the generator's state at the
-block's entry, so they come out the same. As in ``vil_tpu``, where
-``nn.remat`` needs a static mode, a model with ``remat`` refuses the
-sampled-neighbour modes 1..8 in training.
+block's entry, so they come out the same (on a split model the same parts
+of the whole masks). On a mesh the recompute re-issues the block's
+collectives in the forward's order, the same on every rank: a spatial
+block's halo exchanges and global-branch all-reduces, a 'tp' block's
+model-group all-reduce. 'minimal' recomputes them too (c10d's collectives
+write into their inputs in place, so a cached output would leave the
+buffer the caller reads unreduced; and ``dots_saveable`` keeps products
+alone). Under FSDP the recompute runs the block's gather hook again, which
+finds the weights the forward gathered; they are let go only after the
+backward. As in ``vil_tpu``, where ``nn.remat`` needs a static mode, a model
+with ``remat`` refuses the sampled-neighbour modes 1..8 in training.
 
 Spatial (chunk-row) parallelism: ``forward(x, spatial=ctx)`` runs the
 forward, in eval (``parallel.spatial_forward``) or in training (the step of
@@ -69,7 +77,7 @@ from .attention_efficient import (
     SRAttention,
     gaussian_orthogonal_random_matrix,
 )
-from .layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed, make_layer_norm
+from .layers import DropPath, LayerNorm, Linear, Mlp, PatchEmbed, Part, make_layer_norm
 
 LONGFORMER_TYPES = ("longformerhand", "longformerauto", "longformer_cuda")
 
@@ -93,7 +101,8 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten
 
 def _dots_saveable(ctx, op, *args, **kwargs):
     """``jax.checkpoint_policies.dots_saveable``: keep the products' outputs,
-    recompute everything else."""
+    recompute everything else, the collectives (c10d's in-place ops) among
+    it."""
     policy = torch_checkpoint.CheckpointPolicy
     return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
 
@@ -169,12 +178,14 @@ class AttnBlock(nn.Module):
         self.droppath = DropPath(drop_path)
 
     def forward(self, x, nx: int, ny: int, generator: Optional[torch.Generator] = None,
-                mode: int = 0, spatial=None):
+                mode: int = 0, spatial=None, part: Optional[Part] = None):
+        """``part``: the chunk rows of the image that a rank holds under the
+        spatial split (``spatial``), for the projection dropout."""
         if isinstance(x, tuple):  # sliding-chunk attention, maybe on a rank's rows
             x_glo, x_img = x
             y_glo, y_img = self.droppath(self.attn(
                 (None if x_glo is None else self.norm(x_glo), self.norm(x_img)),
-                nx, ny, mode, spatial, generator=generator,
+                nx, ny, mode, spatial, generator=generator, part=part,
             ), generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
         return x + self.droppath(self.attn(self.norm(x), nx, ny, mode, generator=generator),
@@ -195,14 +206,18 @@ class MlpBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, tp=tp, name=name, **kw)
         self.droppath = DropPath(drop_path)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                part: Optional[Part] = None):
+        """``part``: the :class:`~.layers.Part` of the whole image tokens
+        that x (or the pair's x_img) holds on a split model, for the
+        dropout; the global tokens are whole on every rank."""
         if isinstance(x, tuple):
             x_glo, x_img = x
             y_glo = None if x_glo is None else self.mlp(self.norm(x_glo), generator)
-            y_glo, y_img = self.droppath((y_glo, self.mlp(self.norm(x_img), generator)),
+            y_glo, y_img = self.droppath((y_glo, self.mlp(self.norm(x_img), generator, part)),
                                          generator)
             return None if x_glo is None else x_glo + y_glo, x_img + y_img
-        return x + self.droppath(self.mlp(self.norm(x), generator), generator)
+        return x + self.droppath(self.mlp(self.norm(x), generator, part), generator)
 
 
 class MsViT(nn.Module):
@@ -445,7 +460,11 @@ class MsViT(nn.Module):
                 rows = (lo, hi - lo)
             x = getattr(self, f"stage{sid + 1}_patch_embed")(x, rows, generator)
             nx_here = nx if rows is None else rows[1]
-            ctx = None if split is None else spatial.at(split.chunks[sid][spatial.rank])
+            ctx = part = None
+            if split is not None:  # this rank's chunk rows, of the whole grid's
+                ctx = spatial.at(split.chunks[sid][spatial.rank])
+                part = Part().along(1, sc.chunk_grid(nx, ny, self.layer_cfgs[sid].num_feats)[2],
+                                    ctx.span)
             if chunked:
                 g, w_s = nglos[sid], self.layer_cfgs[sid].num_feats
                 x = (x[:, :g] if g > 0 else None,
@@ -453,10 +472,11 @@ class MsViT(nn.Module):
             for attn_name, mlp_name in names:
                 # bound now: a rematerialised block runs again in the backward
                 x = self._block(partial(getattr(self, attn_name), nx=nx, ny=ny,
-                                        generator=generator, mode=next(modes), spatial=ctx),
+                                        generator=generator, mode=next(modes), spatial=ctx,
+                                        part=part),
                                 x, generator)
-                x = self._block(partial(getattr(self, mlp_name), generator=generator), x,
-                                generator)
+                x = self._block(partial(getattr(self, mlp_name), generator=generator,
+                                        part=part), x, generator)
             if chunked:
                 x_glo, x_img = x
                 loc = sc.unchunkify(x_img, nx_here, ny, w_s)
@@ -483,11 +503,9 @@ class MsViT(nn.Module):
         at mode 0. With a ``spatial`` context (``parallel.spatial_forward``,
         and the training step on a mesh with a spatial axis) x holds this
         rank's rows of the images (``parallel.shard_image``) and the logits
-        are the same on every rank of the group. Dropout in training under a
-        spatial context or a model axis raises (A12): the ranks would have to
-        draw alike for the values they hold alike."""
-        if self.training and self.drop_rate and (spatial is not None or self.tp is not None):
-            raise NotImplementedError("dropout (MODEL.VIT.DROP) under spatial or tensor "
-                                      "parallelism is not ported (ROADMAP.md §A, A12)")
+        are the same on every rank of the group. Dropout draws each mask of
+        the whole value and keeps this rank's part of it (``layers.Part``),
+        so that the ranks of a split model, given generators in the same
+        state, compute what the unsplit model computes from that state."""
         feats = self.forward_features(x, generator, mode, spatial)
         return feats if self.head is None else self.head(feats)

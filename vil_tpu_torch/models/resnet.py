@@ -140,7 +140,11 @@ class ResNet(nn.Module):
     ``mode``. Built on the CUDA card unless ``device`` names another;
     weights drawn by :meth:`init_weights` from ``generator``. ``group`` /
     ``group_size``: the data replicas' process group, over which every
-    BatchNorm takes the global batch's statistics (:class:`BatchNorm`)."""
+    BatchNorm takes the global batch's statistics (:class:`BatchNorm`); on
+    a ('data', 'model') mesh that is the data axis alone, the model ranks
+    running the whole net on the same images. FSDP slices its large
+    convolution weights over the data axis like any other leaf
+    (``parallel.fully_shard``)."""
 
     def __init__(self, layers: Sequence[int], num_classes: int = 1000, bottleneck: bool = True,
                  groups: int = 1, base_width: int = 64, device=None,
@@ -152,7 +156,7 @@ class ResNet(nn.Module):
         kw = dict(device=resolve_device(device), dtype=dtype, param_dtype=param_dtype)
         bn = dict(kw, group=group, group_size=group_size)
         self.dtype = dtype
-        self.param_shards: dict = {}  # none: the ResNet is not sharded
+        self.param_shards: dict = {}  # no tp cut; FSDP adds its slices (fully_shard)
         self.conv1 = Conv2d(3, 64, 7, stride=2, bias=False, padding=3, **kw)
         self.bn1 = BatchNorm(64, **bn)
         expansion = 4 if bottleneck else 1
@@ -176,6 +180,11 @@ class ResNet(nn.Module):
         self.init_weights(generator)
         self.to(memory_format=torch.channels_last)
 
+    def partial_over_model(self) -> list:
+        """None of the parameters: on a model axis every rank holds the
+        whole ResNet and its whole gradient (``MsViT.partial_over_model``)."""
+        return []
+
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """Flax's initialisers, as ``vil_tpu``'s modules take them: the
@@ -196,8 +205,9 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 mode=0, spatial=None) -> torch.Tensor:
         if spatial is not None:
-            raise NotImplementedError("a ResNet under spatial parallelism is not ported "
-                                      "(ROADMAP.md §A, A12)")
+            raise NotImplementedError("a ResNet on a spatial axis is not ported (ROADMAP.md "
+                                      "§A, A12: halo convolutions, pooling and BatchNorm "
+                                      "over the spatial group)")
         dt = self.dtype
         if x.dtype == torch.uint8:
             scale = torch.tensor(self._u8_scale, dtype=dt, device=x.device)

@@ -9,10 +9,16 @@ communicates nothing.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import numpy as np
 import torch.distributed as dist
+
+# the torch.distributed calls the port's collectives make, and the argument
+# that holds the buffer a rank hands over
+_COUNTED = {"all_reduce": 0, "all_gather": 1, "all_gather_into_tensor": 1,
+            "reduce_scatter_tensor": 1, "broadcast": 0, "batch_isend_irecv": 0}
 
 
 def is_distributed() -> bool:
@@ -81,3 +87,37 @@ def accumulate_predictions(predictions_per_rank: dict) -> dict:
     for d in all_gather(predictions_per_rank):
         merged.update(d)
     return merged
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Record every collective this process issues inside the block, in
+    order, as (name, bytes): ``all_reduce``, ``all_gather``,
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``broadcast``
+    (the bytes of the buffer this rank hands over) and
+    ``batch_isend_irecv`` (one entry a batch, the bytes it sends). Yields
+    the list. Instrumentation: it wraps ``torch.distributed``'s functions,
+    through which every collective of ``parallel/`` goes, for the block."""
+    log: list = []
+    originals = {name: getattr(dist, name) for name in _COUNTED}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            arg = args[_COUNTED[name]]
+            if name == "batch_isend_irecv":
+                sent = sum(op.tensor.numel() * op.tensor.element_size() for op in arg
+                           if op.op in (dist.isend, dist.send))
+            else:
+                sent = arg.numel() * arg.element_size()
+            log.append((name, sent))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+

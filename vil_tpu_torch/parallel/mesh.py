@@ -46,7 +46,7 @@ import torch.distributed as dist
 
 from .collectives import get_world_size, is_distributed
 from .spatial import SpatialContext
-from .tensor import FSDP_MIN_SIZE, FullyShardedParams, TensorParallel
+from .tensor import FSDP_MIN_SIZE, FullyShardedParams, TensorParallel, wide
 
 
 def check_cards(world_size: int, cards: int) -> None:
@@ -175,10 +175,12 @@ def average_gradients(params, data_size: int, group=None, partial=()) -> None:
 
 def _sum_into(grads: list, group, divide: int = 1) -> None:
     """Each tensor of ``grads`` replaced by its sum over ``group`` (in one
-    f32 all-reduce), divided by ``divide``."""
+    all-reduce, in f32, or f64 when a gradient is f64), divided by
+    ``divide``."""
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dtype = wide(*(g.dtype for g in grads))
+    flat = torch.cat([g.reshape(-1).to(dtype) for g in grads])
     if get_world_size(group) > 1:
         dist.all_reduce(flat, group=group)
     flat /= divide

@@ -53,6 +53,7 @@ slice, so a sharded run and a replicated one resume each other.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import math
 from dataclasses import dataclass
@@ -77,9 +78,16 @@ FSDP_MIN_SIZE = 2 ** 14  # vil_tpu's fsdp_sharding default
 
 # ---------------------------------------------------------------- collectives
 
+def wide(*dtypes: torch.dtype) -> torch.dtype:
+    """The type a sum over ranks of values of ``dtypes`` is taken in: f32,
+    or f64 where one of them is f64."""
+    return functools.reduce(torch.promote_types, dtypes, torch.float32)
+
+
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, taken in f32 and returned in t's type."""
-    out = t.float().contiguous().clone() if t.dtype != torch.float32 else t.contiguous().clone()
+    """The sum of ``t`` over ``group``, taken in at least f32 and returned
+    in t's type."""
+    out = t.to(wide(t.dtype)).contiguous().clone()
     dist.all_reduce(out, group=group)
     return out.to(t.dtype)
 
@@ -226,10 +234,11 @@ class TensorParallel:
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of the partial products over the model group (after a
-        row-parallel layer), in f32."""
+        row-parallel layer), in f32 (f64 for f64)."""
+        x = x.to(wide(x.dtype))
         if not is_distributed():
-            return x.float()
-        return _ReduceFromModel.apply(x.float(), self.group)
+            return x
+        return _ReduceFromModel.apply(x, self.group)
 
     def heads(self, num_heads: int) -> slice:
         """This rank's heads of ``num_heads``."""
@@ -357,9 +366,11 @@ class FullyShardedParams:
         every parameter back to its slice with its slice's gradient."""
         names = [n for n in self.local if self.params[n].grad is not None]
         if names:
-            # rank-major: block r holds every parameter's part r, flat
+            # rank-major: block r holds every parameter's part r, flat, in
+            # f32 (f64 when a gradient is f64)
+            dtype = wide(*(self.params[n].grad.dtype for n in names))
             send = torch.cat([torch.cat([
-                self.shards[n].local_of(self.params[n].grad, r).reshape(-1).float()
+                self.shards[n].local_of(self.params[n].grad, r).reshape(-1).to(dtype)
                 for n in names]) for r in range(self.size)])
             mine = reduce_scatter_flat(send, self.group) if is_distributed() else send
             mine /= data_size

@@ -19,11 +19,14 @@ named by the run id, takes card ``LOCAL_RANK`` and trains over the
 config's mesh (a·b = N): data and spatial axes (at every neighbour mode:
 the random-shift epochs of MODEL.VIT.MSVIT.MODE 1 too), or data and model axes
 with TPU.PARAM_SHARDING 'tp' (each rank b's share of the heads), or FSDP
-over the data axis ('fsdp'); rank 0 alone logs and writes checkpoints, whole,
-which a run of any mesh or sharding resumes. Without torchrun it runs on one
-card in one process. To run on the CPU, build
-``train.trainer.Trainer(cfg, device="cpu")`` instead. ``--multi-host``
-raises: one host's cards (ROADMAP §A, A12).
+over the data axis ('fsdp'); TPU.REMAT and MODEL.VIT.DROP on each of them,
+and a ResNet of the zoo on the data axis, under 'fsdp' and under 'tp'; rank
+0 alone logs and writes checkpoints, whole, which a run of any mesh or
+sharding resumes. Without torchrun it runs on one card in one process. To
+run on the CPU, build ``train.trainer.Trainer(cfg, device="cpu")`` instead.
+Still raising, each naming its ROADMAP item (``train.trainer.check_ported``):
+a model axis, FSDP or a ResNet beside a spatial axis (A12), and
+``--multi-host``: one host's cards (ROADMAP §A, A12).
 """
 from __future__ import annotations
 

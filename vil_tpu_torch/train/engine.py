@@ -9,15 +9,17 @@ neighbour modes are drawn on the host from a CPU generator: they choose the
 kernels' arguments, so a draw on the card would make every step wait for it.
 
 On a ('data', 'spatial') mesh (``parallel.Mesh``) every rank of a data
-replica takes the replica's whole images, draws mixup and stochastic depth
-alike (keyed by the seed, the step and the replica, not the rank), and runs
-the model on its rows; the loss, the same on every rank of the replica, is
+replica takes the replica's whole images, draws mixup, stochastic depth and
+dropout alike (keyed by the seed, the step and the replica, not the rank;
+each dropout mask is the whole value's, of which a rank keeps its rows), and
+runs the model on its rows; the loss, the same on every rank of the replica, is
 seeded with 1/D, and one all-reduce of the gradients over every rank makes
 them the global batch's (``parallel.average_gradients``).
 
 On a ('data', 'model') mesh the model is each model rank's shard
 (TPU.PARAM_SHARDING 'tp', ``parallel/tensor.py``): every rank of a replica
-takes the replica's images and draws alike, the model's collectives make
+takes the replica's images and draws alike (a dropout mask of the MLP's
+hidden features is the whole layer's, of which a rank keeps its columns), the model's collectives make
 the logits and the loss the same there, and the gradients are averaged over
 the data axis alone (the relative-position tables' parts summed over the
 model axis first). Under FSDP (``model.fsdp``, ``parallel.fully_shard``) the

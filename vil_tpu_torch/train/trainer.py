@@ -38,11 +38,14 @@ the data axis (``parallel.fully_shard``), as ``vil_tpu``'s trainer
 shards its state. Rank 0 alone writes checkpoints (gathered whole under
 sharding), ``config.yaml`` and the TensorBoard logs; every rank loads on
 resume. Keys that select what the port lacks raise (:func:`check_ported`),
-each naming its ROADMAP item: a model or FSDP axis beside a spatial one,
-REMAT, dropout or a ResNet on a mesh other than the data axis (A12), and
-the rest. A ResNet of the zoo (MODEL.ARCH ``resnet50`` ...) trains and
-evaluates as a ViL does, its BatchNorm buffers updated by the step and read
-by the eval; the random-shift switch never fires for it.
+each naming its ROADMAP item: a model axis, FSDP or a ResNet beside a
+spatial axis (A12), and the rest. TPU.REMAT and MODEL.VIT.DROP run on
+every mesh: the recompute of a block re-issues its collectives, and each
+rank keeps its part of the masks the one-rank step draws. A ResNet of the
+zoo (MODEL.ARCH ``resnet50`` ...) trains and evaluates as a ViL does, on a
+data axis, under 'fsdp' and whole on every rank of a model axis, its
+BatchNorm buffers updated by the step and read by the eval; the
+random-shift switch never fires for it.
 The Trainer builds on the CUDA card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -76,16 +79,17 @@ logger = logging.getLogger(__name__)
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a key that selects something the
     port lacks, naming its ROADMAP §A item; such a key is never ignored:
-    beside a spatial axis a model axis or FSDP, off the data axis REMAT, a
-    ResNet or dropout (A12), orbax checkpoints (A6) and the flat or stacked
-    optimizer states (A13). Random shift, mode -1 and SHARE_W False pass on
-    a spatial axis; the fused block there raises in the model (A12).
+    beside a spatial axis a model axis, FSDP or a ResNet (A12), orbax
+    checkpoints (A6) and the flat or stacked optimizer states (A13).
+    Random shift, mode -1, SHARE_W False, TPU.REMAT and MODEL.VIT.DROP pass
+    on a spatial axis; TPU.REMAT and MODEL.VIT.DROP under 'tp' and 'fsdp'
+    too, and a ResNet under both. The fused block under the split and the
+    efficient families under 'tp' raise in the model (A12).
     TPU.PARAM_SHARDING 'tp' without a model axis raises ``ValueError``, as
     ``vil_tpu``'s trainer does."""
     tpu = cfg.TPU
     axes = list(tpu.MESH_AXES)
     resnet = cfg.MODEL.ARCH in RESNET_ZOO
-    split = "spatial" in axes or "model" in axes or tpu.PARAM_SHARDING != "replicated"
     if tpu.PARAM_SHARDING not in ("replicated", "fsdp", "tp"):
         raise ValueError(f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r}: one of 'replicated', "
                          f"'fsdp', 'tp'")
@@ -100,15 +104,9 @@ def check_ported(cfg) -> None:
         (cfg.CKPT_BACKEND == "orbax",
          "CKPT_BACKEND 'orbax' (orbax writes OCDBT, which only tensorstore reads, and the "
          "card's host has no tensorstore: A6)"),
-        (resnet and split,
-         f"MODEL.ARCH {cfg.MODEL.ARCH!r} on TPU.MESH_AXES {axes} with TPU.PARAM_SHARDING "
-         f"{tpu.PARAM_SHARDING!r} (a ResNet off the data axis: A12)"),
-        (bool(tpu.REMAT) and split,
-         f"TPU.REMAT {tpu.REMAT!r} on TPU.MESH_AXES {axes} with TPU.PARAM_SHARDING "
-         f"{tpu.PARAM_SHARDING!r} (rematerialisation off the data axis: A12)"),
-        (not resnet and cfg.MODEL.VIT.DROP > 0 and ("spatial" in axes or "model" in axes),
-         f"MODEL.VIT.DROP {cfg.MODEL.VIT.DROP} on TPU.MESH_AXES {axes} (dropout beside a "
-         f"spatial or model axis: A12)"),
+        (resnet and "spatial" in axes,
+         f"MODEL.ARCH {cfg.MODEL.ARCH!r} on TPU.MESH_AXES {axes} (a ResNet on a spatial axis: "
+         f"A12, halo convolutions, pooling and BatchNorm over the spatial group)"),
         (bool(tpu.FLAT_OPT) or bool(tpu.STACKED_OPT), "TPU.FLAT_OPT / STACKED_OPT (A13)"),
     ]
     for bad, what in refused:
