@@ -124,16 +124,19 @@ Phases, one line each; any failure raises and the exit code is not 0:
    change before exactly the steps a fresh ``RedrawSchedule`` names, the
    resumed run's count must start afresh, the checkpoint's buffers be the
    last step's and the last redraw the draw keyed by (seed, step).
-17. highres — high resolution at full width and depth (``HIGHRES``,
-   ``recipe.vil``): ViL-Medium-Deep 384² served at batch 64 (``serve_384``:
-   14x14 chunks of W 7 pad 2, 7x7 pad 1, dense N 577 and 144; B1 5, B3 17 a
-   forward) and trained at 64 (``train_384``: B1, B2 5, B3, B4 17 a step);
+17. highres — high resolution at full width, at full depth but where
+   ``HIGHRES_ARCH`` cuts it to ViL-Small's (``HIGHRES``,
+   ``recipe.vil``): ViL-Medium-Deep 384² (since PR 23 at ViL-Small's
+   depth) served at batch 64 (``serve_384``: 14x14 chunks of W 7 pad 2, 7x7
+   pad 1, dense N 577 and 144; B1 3, B3 9 a forward, 5 and 17 at full
+   depth) and trained at 64 (``train_384``: B1, B2 3, B3, B4 9 a step);
    ViL-Small 1024² served at batch 8 (``serve_1024``: 37x37 pad 3, 19x19 pad
    5, dense N 4097 and 1024; B1 3, B3 9), trained at 8 at MODE 0
    (``train_1024``) and at random shift (``shift_1024``: B5, B6 3, B3, B4 9,
-   B1, B2 0); ViL-Base-Deep-384 served and trained at batch 32
-   (``base_deep_384``: 16x16 W 6, 6x6 W 8; B1 9, B3 25 a forward, B2 9, B4 25
-   more a step). Each: REQUESTS forwards and/or STEPS steps (walls the
+   B1, B2 0); ViL-Base-Deep-384 (since PR 23 at ViL-Small's depth) served
+   and trained at batch 32 (``base_deep_384``: 16x16 W 6, 6x6 W 8; B1 3, B3
+   9 a forward, B2 3, B4 9 more a step; 9 and 25 at full depth). Each:
+   REQUESTS forwards and/or STEPS steps (walls the
    median of all but the first, img/s, GMACs an image from ops/flops.py,
    peak memory), PROFILED more under torch.profiler (the card's time, idle
    share, top families); launches exact per forward and step; then the f32
@@ -184,9 +187,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
    file's size and the load's seconds printed); a resume of the ``vil_tpu``
    directory for one epoch of 8 steps, its first step against the source
    Trainer's same step on the same batch (loss to LOSS_TOL, every parameter
-   to PARAM_GRAD_TOL of its max|ref|); a TSV of 2048 seeded JPEGs at 256²:
-   ``tools/data_bench``'s img/s at batch 256 for the threads loader with the
-   Python and the native reader and 'grain' at 8 worker processes, the
+   to PARAM_GRAD_TOL of its max|ref|); a TSV of 1024 seeded JPEGs at 256²:
+   ``tools/data_bench``'s img/s at batch 256 for 'grain' at 8 worker
+   processes, the
    native reader asserted in use, then one MODE-0 epoch of
    ``run_experiment.main`` on the TSV with DATALOADER.BACKEND 'grain'
    (median batch_time and data_time, img/s, the card's busy share under
@@ -247,6 +250,19 @@ Phases, one line each; any failure raises and the exit code is not 0:
    train_fsdp_remat and resnet_fsdp ('fsdp' over 2 ranks), each REMAT case
    against its twin without REMAT bit for bit (B1 3 → 6, B3 9 → 18 a step),
    with its peaks a rank, walls, device time and collectives a step.
+29. train_spatial_tp, train_spatial_fsdp — heads and rows split at once:
+   train_spatial's step (ViL-Small 1024², batch 8, bf16) under
+   TPU.PARAM_SHARDING 'tp' on a (1, 2, 3) ('data', 'spatial', 'model') mesh
+   (a rank's H/3 heads of its rows) and under 'fsdp' on a (2, 2) ('data',
+   'spatial') mesh, the mesh ``parallel.mesh_from_cfg``'s, ranks spawned
+   on the card over gloo (nccl with a card a rank): at MODE 0, with random
+   shift and under REMAT 'full' (the paths ``<part>``, ``<part>_shift`` and
+   ``<part>_remat``): launches exact on rank 0 (B7a 3, B7b 3, B3 9, B4 9 a
+   step; B5h/B6h with random shift; B7a 6 and B3 18 under REMAT), the
+   gradients against the classic one-rank step at BF16_PARAM_GRAD_TOL,
+   REMAT bit for bit; walls, device time, peak memory a rank, collectives
+   and bytes a step; ``run_experiment.main`` on the (2, 2) mesh for one
+   epoch. With four cards, (1, 2, 2) over nccl; on one a line says so.
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -296,9 +312,14 @@ biased B2 and B4 launched twice, bit for bit (their dbias partials by chunk
 and image groups). Last, the high-resolution cases, with the biased B4 at
 N 4097, batch 8 (one group of 8 images) and B2 on the 37x37 grid at batch 2
 (bit for bit again), and the dense bias's assembly (the gather against the
-skew, forward and backward, equal bit for bit) at the paths' grids.
+skew, forward and backward, equal bit for bit) at the paths' grids. Then
+``vil_tpu``'s BF16_EXP (``BF16_EXP_CASES``): B1/B2, B5/B6, the self-only
+B5/B6, B7a/B7b, B5h/B6h and B9a/B9b in bf16 under ``VIL_TPU_BF16_EXP`` 1
+and 0, each against the f32 plain version at the limits above and against
+the plain versions' bf16 emulation of its setting, their stage-1 shapes
+timed under both.
 
-Each path of phases 4-27 sets the launch counts to 0 before it and reads
+Each path of phases 4-29 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
@@ -318,8 +339,11 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_resnet``, ``launches_shift_spatial``, ``launches_self_spatial``,
 ``launches_experiment_spatial_shift``, ``launches_train_tp_remat``,
 ``launches_train_tp_drop``, ``launches_resnet_tp``, ``launches_train_fsdp_remat``,
-``launches_resnet_fsdp``, ``launches_train_spatial_remat`` and
-``launches_train_spatial_drop`` each path's;
+``launches_resnet_fsdp``, ``launches_train_spatial_remat``,
+``launches_train_spatial_drop``, ``launches_train_spatial_tp``,
+``launches_train_spatial_tp_shift``, ``launches_train_spatial_tp_remat``,
+``launches_train_spatial_fsdp``, ``launches_train_spatial_fsdp_shift`` and
+``launches_train_spatial_fsdp_remat`` each path's;
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
 training path that runs the kernel: MODE 0, random shift for B5/B6, mode
 -1 for their self-only instances, fused for B8/B9, train_spatial for B7b
@@ -559,7 +583,23 @@ def bound_ms(moved_bytes: int, flops: float) -> tuple[float, float]:
 def check_kernels(torch, records, self_only=False):
     """Phase 3. Fills ``records[name]`` with errors and per-step times. With
     ``self_only`` the self-only (mode -1) cases alone (part self_chunk),
-    which the phase itself leaves out."""
+    which the phase itself leaves out. Its cases run the bf16 sliding-chunk
+    kernels under ``VIL_TPU_BF16_EXP`` 0, the f32 exponent their limits
+    against the f32 plain versions were measured on (PRs 6-22);
+    ``check_bf16_exp`` then holds them under both settings."""
+    saved = os.environ.get("VIL_TPU_BF16_EXP")
+    os.environ["VIL_TPU_BF16_EXP"] = "0"
+    try:
+        check_kernel_cases(torch, records, self_only)
+    finally:
+        if saved is None:
+            os.environ.pop("VIL_TPU_BF16_EXP", None)
+        else:
+            os.environ["VIL_TPU_BF16_EXP"] = saved
+
+
+def check_kernel_cases(torch, records, self_only):
+    """Phase 3's cases (``check_kernels``)."""
     import torch.nn.functional as F
 
     from vil_tpu_torch.ops import masks as masks_lib
@@ -1463,6 +1503,234 @@ def check_kernels(torch, records, self_only=False):
                   1, 0, False, (1,), mode=mode, per_fwd=0.5, per_bwd=0.5)
         halo_case(f"mode {mode} 1024^2 stage2 (8,19,19,49,192) H3, pad 5", 8, 128, 128, 7, 192,
                   3, 1, 0, False, (1, (10, 9), (5, 5, 5, 4)), mode=mode, per_fwd=1, per_bwd=1)
+    # vil_tpu's BF16_EXP: every bf16 sliding-chunk kernel under both settings
+    check_bf16_exp(torch, randn, cast, chunk_scaled, scaled_text, scaled_err, rel_err, max_err)
+
+
+# the kernels whose bf16 bodies take vil_tpu's BF16_EXP (the sliding-chunk
+# forwards and backwards, their halo, sampled-neighbour and self-only forms,
+# the fused block's attention), each at ViL-Small 224²'s stage 1 (batch 64;
+# the halo forms on the first shard of D 2) and on a small biased grid:
+# (label, kind, mode, B, nx, ny, C, H, nglo, biased)
+BF16_EXP_CASES = (
+    ("B1/B2 stage1 (64,8,8,49,96) H3", "chunk", 0, 64, 56, 56, 96, 3, 1, False),
+    ("B1/B2 biased, padded 3x3 grid, nglo 2", "chunk", 0, 2, 19, 20, 64, 2, 2, True),
+    ("B5/B6 mode 3 stage1", "chunk", 3, 64, 56, 56, 96, 3, 1, False),
+    ("B5/B6 mode 6 biased, padded 3x4 grid", "chunk", 6, 2, 19, 25, 64, 2, 2, True),
+    ("self-only B5/B6 stage1", "chunk", -1, 64, 56, 56, 96, 3, 1, False),
+    ("B7a/B7b stage1, D 2", "halo", 0, 64, 56, 56, 96, 3, 1, False),
+    ("B7a/B7b biased, padded 3x3 grid, D 3", "halo", 0, 2, 19, 20, 64, 2, 2, True),
+    ("B5h/B6h mode 6 stage1, D 2", "halo", 6, 64, 56, 56, 96, 3, 1, False),
+    ("B5h/B6h mode 2 biased, padded 3x3 grid, D 3", "halo", 2, 2, 19, 20, 64, 2, 1, True),
+    ("B9a/B9b stage1 (64,8,8,49,96) H3", "block", 0, 64, 56, 56, 96, 3, 1, False),
+    ("B9a/B9b biased, padded, cyclic 2x2 grid", "block", 0, 2, 13, 14, 64, 2, 1, True),
+)
+
+
+def check_bf16_exp(torch, randn, cast, chunk_scaled, scaled_text, scaled_err, rel_err, max_err):
+    """Phase 3's BF16_EXP cases (``BF16_EXP_CASES``): each bf16 kernel pair
+    under ``VIL_TPU_BF16_EXP`` 1 (``vil_tpu``'s default, the port's too) and
+    0, each against the plain versions' bf16 emulation of its own setting
+    (``neighbourhood_attention_bf16`` and its backward) at phase 3's limits
+    (out to BF16_TOL, the LSE's rms to LSE_TOL, the gradients to GRAD_TOL of
+    max(1, max|ref|), every output and gradient to CHUNK_SCALED_TOL of
+    max|ref|; B9a's attention on its own q, k, v), and against the f32
+    plain version: under 0 at the same limits, asserted (phase 3's cases);
+    under 1 printed, the readings over those limits listed at the end (the
+    rounded exponent's own error, which ``vil_tpu``'s kernels carry too;
+    ROADMAP.md §C). The relative rms errors against both settings'
+    emulations are printed; the stage-1 cases timed under both settings
+    (CUDA events, median of 20). The switch is restored after."""
+    from vil_tpu_torch.ops import masks as masks_lib
+    from vil_tpu_torch.ops import sliding_chunk as sc
+    from vil_tpu_torch.ops.kernels import (
+        mask_to_additive, vil_attention_bwd, vil_attention_bwd_reference, vil_attention_fwd,
+        vil_attention_halo_bwd, vil_attention_halo_bwd_reference, vil_attention_halo_fwd,
+        vil_attention_halo_reference, vil_attention_reference, vil_mode_attention_bwd,
+        vil_mode_attention_bwd_reference, vil_mode_attention_fwd,
+        vil_mode_attention_halo_bwd, vil_mode_attention_halo_bwd_reference,
+        vil_mode_attention_halo_fwd, vil_mode_attention_halo_reference,
+        vil_mode_attention_reference)
+    from vil_tpu_torch.ops.kernels.vil_attention import (
+        bf16_exp, neighbourhood_attention_bf16, neighbourhood_attention_bf16_bwd)
+    from vil_tpu_torch.ops.kernels.vil_attention_halo import halo_neighborhood
+    from vil_tpu_torch.ops.kernels.vil_mode_attention_halo import halo_sampled_neighborhood
+
+    dev = torch.device("cuda")
+    rms = lambda t: t.float().pow(2).mean().sqrt().item()
+    rel_rms = lambda x, r: rms(x.float() - r.float()) / max(rms(r), 1e-30)
+    saved = os.environ.get("VIL_TPU_BF16_EXP")
+    over = []  # (case, what, reading, limit) of BF16_EXP 1 over the f32 limits
+
+    def hold(setting, label, checks, against_f32):
+        """Raise on a check over its limit, or, under BF16_EXP 1 against the
+        f32 plain version, list it."""
+        for what, err, tol in checks:
+            if err <= tol:
+                continue
+            if against_f32 and setting == "1":
+                over.append((label, what, err, tol))
+            else:
+                raise AssertionError(f"BF16_EXP {setting} {label} {what}: error {err} > {tol}")
+
+    try:
+        for label, kind, mode, B, nx, ny, C, H, nglo, biased in BF16_EXP_CASES:
+            w, w2 = 7, 49
+            padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+            cols = nglo + (9 if mode == 0 else 1 if mode == -1 else 2) * w2
+            mask = torch.from_numpy(mask_to_additive(
+                masks_lib.invalid_mask(mx, my, padx, pady, w, 0, mode), mx, my, w2,
+                nglo)).to(dev)
+            bias = randn(H, w2, cols, scale=0.5) if biased else None
+            a = cast([randn(B, mx, my, w2, C, scale=C ** -0.25) for _ in range(3)]
+                     + [randn(B, nglo, C) if nglo else None for _ in range(2)], torch.bfloat16)
+            g = randn(B, mx, my, w2, C).to(torch.bfloat16)
+            tail = () if mode == 0 else (mode,)
+            if kind == "block":
+                block_exp(torch, label, randn, a[0], g, a[3:], bias, mask, H, scaled_err,
+                          max_err, scaled_text, rel_rms, neighbourhood_attention_bf16, hold)
+                continue
+            if kind == "halo":  # the first shard of D equal or ragged shards
+                D = 2 if B == 64 else 3
+                n = -(-mx // D)
+                rows = [mx - 1, *range(n), n % mx]
+                ops = [a[0][:, :n].contiguous(), a[1][:, rows].contiguous(),
+                       a[2][:, rows].contiguous(), a[3], a[4], bias]
+                mask, g = mask[:n], g[:, :n].contiguous()
+                nbh = (halo_neighborhood if mode == 0 else
+                       lambda t: halo_sampled_neighborhood(t, mode))
+                fwd, bwd = ((vil_attention_halo_fwd, vil_attention_halo_bwd) if mode == 0 else
+                            (vil_mode_attention_halo_fwd, vil_mode_attention_halo_bwd))
+                fwd_ref, bwd_ref = ((vil_attention_halo_reference,
+                                     vil_attention_halo_bwd_reference) if mode == 0 else
+                                    (vil_mode_attention_halo_reference,
+                                     vil_mode_attention_halo_bwd_reference))
+            else:
+                ops = [*a, bias]
+                nbh = lambda t: sc.neighborhood(t, mode)
+                fwd, bwd = ((vil_attention_fwd, vil_attention_bwd) if mode == 0 else
+                            (vil_mode_attention_fwd, vil_mode_attention_bwd))
+                fwd_ref, bwd_ref = ((vil_attention_reference, vil_attention_bwd_reference)
+                                    if mode == 0 else
+                                    (vil_mode_attention_reference,
+                                     vil_mode_attention_bwd_reference))
+            ops32 = cast(ops, torch.float32)
+            ref, ref_lse = fwd_ref(*ops32, mask, H, *tail, with_lse=True)
+            refs = bwd_ref(*ops32, g.float(), mask, H, *tail)
+            emu = {on: neighbourhood_attention_bf16(*ops[:5], bias, mask, H, nbh, on,
+                                                    with_lse=True) for on in (True, False)}
+            times = {}
+            for setting in ("1", "0"):
+                os.environ["VIL_TPU_BF16_EXP"] = setting
+                on = bf16_exp()
+                out, lse = fwd(*ops, mask, H, *tail, with_lse=True)
+                grads = bwd(*ops, g, out, mask, lse, H, *tail)
+                emu_grads = {e: neighbourhood_attention_bf16_bwd(*ops[:5], bias, g, out, lse,
+                                                                 mask, H, nbh, e)
+                             for e in (True, False)}
+                torch.cuda.synchronize()
+                e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+                e_grad = max(rel_err(x, r) for x, r in zip(grads, refs) if r is not None)
+                e_scaled = chunk_scaled(out, ref, grads, refs)
+                e_emu = chunk_scaled(out, emu[on][0], grads, emu_grads[on])
+                # the LSE in rms: where the kernel's sums and the emulation's put
+                # a shifted score on opposite sides of a bf16 rounding boundary,
+                # that P moves by a bf16 step of its exponent (the maximum reads
+                # ≈ 1e-4 at stage 1, the rms ≈ 1e-6)
+                emu_out, emu_lse = max_err(out, emu[on][0]), rms(lse - emu[on][1])
+                emu_grad = max(rel_err(x, r) for x, r in zip(grads, emu_grads[on])
+                               if r is not None)
+                vs = {e: [rel_rms(out, emu[e][0])] + [rel_rms(x, r) for x, r in
+                                                      zip(grads[:3], emu_grads[e][:3])]
+                      for e in (True, False)}
+                phase("kernels", f"BF16_EXP {setting}, {label}: against f32 plain out "
+                                 f"{e_out:.3e} (tol {BF16_TOL:g}), lse {e_lse:.3e} (tol "
+                                 f"{LSE_TOL:g}), grads rel {e_grad:.3e} (tol "
+                                 f"{GRAD_TOL['bfloat16']:g}){scaled_text(e_scaled)}")
+                phase("kernels", f"BF16_EXP {setting}, {label}: against its own setting's "
+                                 f"emulation out {emu_out:.3e}, lse rms {emu_lse:.3e} (max "
+                                 f"{max_err(lse, emu[on][1]):.3e}), grads rel "
+                                 f"{emu_grad:.3e}{scaled_text(e_emu)}; relative rms of out, dq, "
+                                 f"dk, dv against the emulation with BF16_EXP "
+                                 f"{[f'{v:.3e}' for v in vs[True]]}, without "
+                                 f"{[f'{v:.3e}' for v in vs[False]]}")
+                limits = lambda o, l, gr, sc: (
+                    ("out", o, BF16_TOL), ("lse", l, LSE_TOL), ("grads", gr, GRAD_TOL["bfloat16"]),
+                    *((f"{n} scaled", e, CHUNK_SCALED_TOL) for n, e in sc.items()))
+                hold(setting, label, limits(e_out, e_lse, e_grad, e_scaled), True)
+                hold(setting, label, [(f"{w} vs emulation", e, t) for w, e, t in
+                                      limits(emu_out, emu_lse, emu_grad, e_emu)], False)
+                if B == 64:
+                    times[setting] = (time_ms(lambda: fwd(*ops, mask, H, *tail, with_lse=True)),
+                                      time_ms(lambda: bwd(*ops, g, out, mask, lse, H, *tail)))
+            if times:
+                phase("kernels", f"BF16_EXP times, {label}, a call: forward with lse "
+                                 f"{times['1'][0]:.4f} ms (on) / {times['0'][0]:.4f} (off), "
+                                 f"backward {times['1'][1]:.4f} / {times['0'][1]:.4f}")
+        phase("kernels", f"BF16_EXP 1 readings over the f32 plain version's limits (the "
+                         f"rounded exponent's own error): {len(over)} "
+                         + "; ".join(f"{c}: {w} {e:.3e} (limit {t:g})" for c, w, e, t in over))
+    finally:
+        if saved is None:
+            os.environ.pop("VIL_TPU_BF16_EXP", None)
+        else:
+            os.environ["VIL_TPU_BF16_EXP"] = saved
+
+
+def block_exp(torch, label, randn, x, g, glo, bias, mask, H, scaled_err, max_err, scaled_text,
+              rel_rms, emulate, hold):
+    """A fused-block BF16_EXP case (``check_bf16_exp``): B9a and B9b under
+    both settings against the f32 plain versions (y, q, k, v, attn and the
+    LSE, every gradient, to CHUNK_SCALED_TOL of max|ref|, dbk at dWk's scale;
+    the gradients to GRAD_TOL of max(1, max|ref|); ``hold``: asserted under
+    0, listed under 1), and B9a's attention output against the emulation on
+    B9a's own q, k, v (its setting's held to CHUNK_SCALED_TOL, both
+    printed); at batch 64 timed under both."""
+    from vil_tpu_torch.ops import sliding_chunk as sc
+    from vil_tpu_torch.ops.kernels import (vil_block_bwd, vil_block_bwd_reference,
+                                           vil_block_fwd, vil_block_fwd_reference)
+
+    C, B = x.shape[-1], x.shape[0]
+    M = C // H
+    w = [randn(C, C, scale=C ** -0.5 * (M ** -0.5 if i == 0 else 1.0)).to(torch.bfloat16)
+         for i in range(4)]
+    b = [randn(C, scale=0.02 * (M ** -0.5 if i == 0 else 1.0)) for i in range(4)]
+    ops = [x, w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3], *glo, bias]
+    ops32 = [None if t is None else t.float() for t in ops]
+    fwd_refs = vil_block_fwd_reference(*ops32, mask, H, with_lse=True)
+    refs = vil_block_bwd_reference(*ops32, g.float(), mask, H)
+    nbh = lambda t: sc.neighborhood(t, 0)
+    times = {}
+    for setting in ("1", "0"):
+        os.environ["VIL_TPU_BF16_EXP"] = setting
+        y, k, v, lse, q, attn = vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)
+        grads = vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))
+        torch.cuda.synchronize()
+        errs = {n: scaled_err(a, r) for n, a, r in zip(BLOCK_FWD_OUTS, (y, q, k, v, attn, lse),
+                                                       fwd_refs)}
+        errs.update({n: max_err(a, r) / refs[3 if i == 4 else i].abs().max().item()
+                     for i, (n, a, r) in enumerate(zip(BLOCK_GRADS, grads, refs))
+                     if r is not None})
+        e_grad = max(max_err(a, r) / max(1.0, refs[3 if i == 4 else i].abs().max().item())
+                     for i, (a, r) in enumerate(zip(grads, refs)) if r is not None)
+        emu = {e: emulate(q, k, v, *glo, bias, mask, H, nbh, e) for e in (True, False)}
+        own = scaled_err(attn, emu[setting == "1"])
+        phase("kernels", f"BF16_EXP {setting}, {label}: against f32 plain grads rel "
+                         f"{e_grad:.3e} (tol {GRAD_TOL['bfloat16']:g}){scaled_text(errs)}; "
+                         f"attn against its own setting's emulation on B9a's q, k, v scaled "
+                         f"{own:.3e}, relative rms with BF16_EXP {rel_rms(attn, emu[True]):.3e}, "
+                         f"without {rel_rms(attn, emu[False]):.3e}")
+        hold(setting, label, [*((f"{n} scaled", e, CHUNK_SCALED_TOL) for n, e in errs.items()),
+                              ("grads", e_grad, GRAD_TOL["bfloat16"])], True)
+        hold(setting, label, [("attn vs emulation", own, CHUNK_SCALED_TOL)], False)
+        if B == 64:
+            times[setting] = (
+                time_ms(lambda: vil_block_fwd(*ops, mask, H, with_lse=True, saved=True)),
+                time_ms(lambda: vil_block_bwd(*ops, g, mask, lse, H, (q, k, v, attn))))
+    if times:
+        phase("kernels", f"BF16_EXP times, {label}, a call: forward with lse {times['1'][0]:.4f} "
+                         f"ms (on) / {times['0'][0]:.4f} (off), backward {times['1'][1]:.4f} / "
+                         f"{times['0'][1]:.4f}")
 
 
 def launch_counts(kernels) -> dict:
@@ -2657,10 +2925,17 @@ def shard_rank(rank, world, spec_path):
     out = {"backend": "nccl" if nccl else "gloo", "cases": {}}
     try:
         data = torch.load(spec["inputs"], map_location=dev)
-        mesh = shard_mesh(torch, spec["data"], spec["model"])
-        sharding = "tp" if spec["model"] > 1 else "fsdp"
+        if "mesh_opts" in spec:  # beside a spatial axis: the entry point's own mesh
+            from vil_tpu_torch.config import get_default_cfg
+
+            cfg = get_default_cfg()
+            cfg.merge_from_list(spec["mesh_opts"])
+            mesh, sharding = parallel.mesh_from_cfg(cfg), cfg.TPU.PARAM_SHARDING
+        else:
+            mesh = shard_mesh(torch, spec["data"], spec["model"])
+            sharding = "tp" if spec["model"] > 1 else "fsdp"
         keyed = spec["data"] > 1  # the replicas' draws keyed by (seed, step, replica)
-        share = BATCH // spec["data"]
+        share = spec.get("batch", BATCH) // spec["data"]
         out["walls"] = {"start": time.perf_counter() - t_start}
         for case in spec["cases"]:
             t_case = time.perf_counter()
@@ -2705,6 +2980,7 @@ def shard_rank(rank, world, spec_path):
             got["secs"] = secs
             if case["profile"]:
                 got["device_ms"], got["copy_ms"] = step_device_ms(torch, run)
+            if case["profile"] and case["clocked"]:
                 names = ("all_reduce", "all_gather", "all_gather_into_tensor",
                          "reduce_scatter_tensor")
                 originals, spent = {n: getattr(dist, n) for n in names}, [0.0]
@@ -2738,6 +3014,20 @@ def shard_rank(rank, world, spec_path):
                                           time.perf_counter() - t_first)
             del model, step
             torch.cuda.empty_cache()
+        if spec.get("cli"):  # the entry point on the same mesh, every rank
+            from vil_tpu_torch import run_experiment as cli
+
+            for fn in KERNELS:
+                fn.launches = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            trainer = cli.main(spec["cli"])
+            torch.cuda.synchronize(dev)
+            want, formula = experiment_want(trainer, KERNELS)
+            out["cli"] = {"wall": time.perf_counter() - t0, "formula": formula, "want": want,
+                          "launches": {fn.__name__: fn.launches for fn in KERNELS},
+                          "losses": [r["loss"] for r in trainer.steps_log],
+                          "evals": [(e["top1"], e["loss"]) for e in trainer.evals]}
         if rank == 0:
             torch.save(out, spec["result"])
     finally:
@@ -2768,8 +3058,8 @@ def shard_model(torch, case, dev, mesh, sharding):
         dtype = "bfloat16" if case["dtype"] == torch.bfloat16 else "float32"
         return build_model(resnet_cfg(dtype), device=dev, mesh=mesh,
                            generator=torch.Generator().manual_seed(0))
-    return recipe.vil("vil_small", 224, case["dtype"], torch.float32, device=dev, mesh=mesh,
-                      sharding=sharding, arch=case["arch"], remat=case["remat"],
+    return recipe.vil("vil_small", case["img"], case["dtype"], torch.float32, device=dev,
+                      mesh=mesh, sharding=sharding, arch=case["arch"], remat=case["remat"],
                       drop=case["drop"])
 
 
@@ -2783,8 +3073,10 @@ def shard_step(torch, model, case, dev, mesh, keyed):
         return engine.make_train_step(model, loss.cross_entropy,
                                       optim.get_opt(resnet_cfg("float32"), model), device=dev,
                                       seed=0, mesh=mesh)
-    return recipe.train_step(model, dev, case["shift"], batch=BATCH, mesh=mesh,
-                             seed=0 if keyed else None)
+    # on a spatial axis the modes are keyed by the seed (injected here)
+    split = mesh is not None and mesh.spatial is not None
+    return recipe.train_step(model, dev, case["shift"], batch=case["step_batch"], mesh=mesh,
+                             seed=0 if keyed or split else None)
 
 
 def collectives_line(issued) -> str:
@@ -2812,7 +3104,8 @@ def step_device_ms(torch, run) -> tuple[float, float]:
     return sum(ms.values()), sum(v for k, v in ms.items() if "Memcpy" in k or "Memset" in k)
 
 
-def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resnet=False):
+def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resnet=False,
+                 img=224, step_batch=BATCH):
     """The one-rank recipe step from the seeded weights, without a process
     group, on each data replica's ``parts`` (images, labels): one part with
     the tp ranks' generator, or (``keyed``) each replica's step with its
@@ -2821,7 +3114,8 @@ def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resne
     (loss, gradients, updated parameters or None, the update's LR), on the
     host. ``drop``: MODEL.VIT.DROP. ``resnet``: ResNet-50's step without
     mixup on every part's images at once (its BatchNorms take the whole
-    batch's statistics, as on the mesh)."""
+    batch's statistics, as on the mesh). ``img``, ``step_batch``: the
+    ViL's image size and its recipe step's batch."""
     from vil_tpu_torch import parallel
     from vil_tpu_torch.train import recipe
 
@@ -2834,13 +3128,14 @@ def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resne
         return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}, None, None
     losses, grads = [], []
     for d, (images, labels) in enumerate(parts):
-        m = recipe.vil("vil_small", 224, dtype, torch.float32, device=dev, arch=arch, drop=drop)
-        s = recipe.train_step(m, dev, shift, batch=BATCH, seed=0 if keyed else None,
+        m = recipe.vil("vil_small", img, dtype, torch.float32, device=dev, arch=arch, drop=drop)
+        s = recipe.train_step(m, dev, shift, batch=step_batch, seed=0 if keyed else None,
                               mesh=parallel.Mesh(len(parts), d) if keyed else None)
         gen = None if keyed else torch.Generator(device=dev).manual_seed(3)
         losses.append(s(images, labels, gen, modes=modes)["loss"].item())
         grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
-        del m
+        del m, s
+        torch.cuda.empty_cache()
     if dtype != torch.float32:
         return (sum(losses) / len(parts),
                 {n: (sum(g[n] for g in grads) / len(parts)).cpu() for n in grads[0]}, None, None)
@@ -2856,9 +3151,11 @@ def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resne
             {n: p.detach().cpu() for n, p in m.named_parameters()}, lr)
 
 
-def run_sharded(torch, name, world, data, model, cases, images, labels):
-    """Spawn ``world`` ranks of ``shard_rank`` on a (data, model) mesh;
-    returns rank 0's results."""
+def run_sharded(torch, name, world, data, model, cases, images, labels, **extra):
+    """Spawn ``world`` ranks of ``shard_rank`` on a (data, model) mesh, or
+    on the mesh of ``extra``'s ``mesh_opts`` (TPU.MESH_AXES, MESH_SHAPE and
+    PARAM_SHARDING; ``batch``: the global batch; ``cli``: the entry point's
+    arguments, run after the cases); returns rank 0's results."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -2868,7 +3165,7 @@ def run_sharded(torch, name, world, data, model, cases, images, labels):
     os.makedirs(tmp)
     spec = {"store": os.path.join(tmp, "store"), "inputs": os.path.join(tmp, "inputs.pt"),
             "result": os.path.join(tmp, "result.pt"), "data": data, "model": model,
-            "cases": cases}
+            "cases": cases, **extra}
     torch.save({"images": images.cpu(), "labels": labels.cpu()}, spec["inputs"])
     torch.save(spec, os.path.join(tmp, "spec.pt"))
     t0 = time.perf_counter()
@@ -2880,7 +3177,9 @@ def run_sharded(torch, name, world, data, model, cases, images, labels):
     walls = got["walls"]
     cases_s = "; ".join(f"{k} {b:.1f} build, {f:.1f} first step, {r:.1f} the rest"
                         for k, (b, f, r) in ((k, v) for k, v in walls.items() if k != "start"))
-    phase(name, f"{world} ranks ({data} data x {model} model) over {got['backend']}, "
+    layout = (f"{extra['mesh_opts'][3]} {extra['mesh_opts'][1]}" if "mesh_opts" in extra else
+              f"{data} data x {model} model")
+    phase(name, f"{world} ranks ({layout}) over {got['backend']}, "
                 f"{torch.cuda.device_count()} card(s) present: {time.perf_counter() - t0:.1f} s; "
                 f"rank 0 up in {walls['start']:.1f} s, then (s) {cases_s}")
     return got
@@ -2927,12 +3226,12 @@ def check_sharded(torch, name, what, got, ref, dtype, one_rank):
                     f"2..{len(got['secs']) + 1}; one rank {one_rank[0] * 1e3:.3f} ms, ratio "
                     f"{med / one_rank[0]:.3f})")
     if "device_ms" in got:
+        share = (f"; collectives {100 * got['collective_s'] / got['instrumented_s']:.1f}% of an "
+                 f"instrumented step ({got['collective_s'] * 1e3:.1f} of "
+                 f"{got['instrumented_s'] * 1e3:.1f} ms)" if "collective_s" in got else "")
         phase(name, f"{what}: device {got['device_ms']:.3f} ms a step on rank 0, "
                     f"{got['copy_ms']:.3f} of it copies and fills (torch.profiler, one step; one "
-                    f"rank {one_rank[1]:.3f}, {one_rank[2]:.3f}); collectives "
-                    f"{100 * got['collective_s'] / got['instrumented_s']:.1f}% of an "
-                    f"instrumented step ({got['collective_s'] * 1e3:.1f} of "
-                    f"{got['instrumented_s'] * 1e3:.1f} ms)")
+                    f"rank {one_rank[1]:.3f}, {one_rank[2]:.3f}){share}")
     phase(name, f"{what}: parameters + optimizer moments held per rank between steps, and "
                 f"peak memory: {held}")
 
@@ -2953,19 +3252,21 @@ def check_shard_launches(kernels, name, got, per_step, steps) -> dict:
 
 
 def shard_case(name, dtype, arch, steps, shift, batch, modes, profile=False, remat="",
-               drop=0.0, resnet=False, mesh=True):
+               drop=0.0, resnet=False, mesh=True, img=224, step_batch=BATCH, clocked=True):
     """A case of ``shard_rank``; with random shift, the first of ``modes``
     for each of the model's blocks; with ``profile``, one step more under
-    torch.profiler and one with its collectives clocked; ``remat``
-    (TPU.REMAT) and ``drop`` (MODEL.VIT.DROP) of the ViL, or ResNet-50
-    (``resnet``); ``mesh`` False: each rank its replica's step on the data
-    axis alone, without sharding."""
+    torch.profiler and (``clocked``) one with its collectives clocked; ``remat``
+    (TPU.REMAT) and ``drop`` (MODEL.VIT.DROP) of the ViL (ViL-Small at
+    ``img`` px, the recipe's step at ``step_batch`` images a step), or
+    ResNet-50 (``resnet``); ``mesh`` False: each rank its replica's step on
+    the data axis alone, without sharding."""
     from vil_tpu_torch.models.arch import parse_arch
 
     depth = sum(c.num_blocks for c in parse_arch(arch)) if arch else len(modes)
     return dict(name=name, dtype=dtype, arch=arch, steps=steps, shift=shift, batch=batch,
                 modes=modes[:depth] if shift else None, profile=profile, remat=remat,
-                drop=drop, resnet=resnet, mesh=mesh)
+                drop=drop, resnet=resnet, mesh=mesh, img=img, step_batch=step_batch,
+                clocked=clocked)
 
 
 _SHARD_INPUTS: list = []  # shard_inputs' result, taken once a run
@@ -3066,13 +3367,13 @@ def run_train_tp(torch, kernels) -> dict:
              shard_case("tp_shift_f32", torch.float32, SHALLOW_VIL_SMALL, 1, True, SHARD_PAIR,
                         modes)]
     extra = [shard_case("tp_remat_full", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, remat="full"),
+                        profile=True, clocked=False, remat="full"),
              shard_case("tp_remat_minimal", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, remat="minimal"),
+                        profile=True, clocked=False, remat="minimal"),
              shard_case("train_tp_drop", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, drop=0.1),
+                        profile=True, clocked=False, drop=0.1),
              shard_case("resnet_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, resnet=True)]
+                        profile=True, clocked=False, resnet=True)]
     got = run_sharded(torch, "train_tp", TP_RANKS, 1, TP_RANKS, cases + extra, images, labels)
     paths = {}
     for c in cases + extra[2:]:
@@ -3115,8 +3416,7 @@ def remat_paths(torch, kernels, name, got, cases, twin, twin_what) -> dict:
                         f"{statistics.median(case['secs']) * 1e3:.3f} ms on rank 0 "
                         f"(steps 2..{len(case['secs']) + 1}); device {case['device_ms']:.3f} ms "
                         f"a step, {case['copy_ms']:.3f} of it copies and fills (torch.profiler, "
-                        f"one step); collectives {100 * case['collective_s'] / case['instrumented_s']:.1f}% "
-                        f"of an instrumented step")
+                        f"one step)")
     return total
 
 
@@ -3142,11 +3442,12 @@ def run_train_fsdp(torch, kernels) -> dict:
              shard_case("fsdp_f32", torch.float32, SHALLOW_VIL_SMALL, 1, False, SHARD_PAIR,
                         modes)]
     extra = [shard_case("fsdp_remat_full", torch.bfloat16, "", SHARD_STEPS, False, BATCH // 2,
-                        modes, profile=True, remat="full"),
+                        modes, profile=True, clocked=False, remat="full"),
              shard_case("fsdp_remat_minimal", torch.bfloat16, "", SHARD_STEPS, False,
-                        BATCH // 2, modes, profile=True, remat="minimal"),
+                        BATCH // 2, modes, profile=True, clocked=False,
+                        remat="minimal"),
              shard_case("resnet_fsdp", torch.bfloat16, "", SHARD_STEPS, False, BATCH // 2,
-                        modes, profile=True, resnet=True),
+                        modes, profile=True, clocked=False, resnet=True),
              shard_case("resnet_data", torch.bfloat16, "", 1, False, BATCH // 2, modes,
                         resnet=True, mesh=False)]
     got = run_sharded(torch, "train_fsdp", FSDP_RANKS, FSDP_RANKS, 1, cases + extra, images,
@@ -3194,6 +3495,160 @@ def run_train_fsdp(torch, kernels) -> dict:
     paths["resnet_fsdp"] = check_shard_launches(kernels, "resnet_fsdp", res["launches"], {},
                                                 SHARD_STEPS)
     return paths
+
+
+# heads and rows split at once (parts train_spatial_tp, train_spatial_fsdp):
+# part → (TPU.MESH_AXES, TPU.MESH_SHAPE, TPU.PARAM_SHARDING)
+SPLIT_MESHES = {"train_spatial_tp": (("data", "spatial", "model"), (1, 2, 3), "tp"),
+                "train_spatial_fsdp": (("data", "spatial"), (2, 2), "fsdp")}
+# a step's launches on a spatial axis: B7a/B7b at MODE 0, B5h/B6h with random
+# shift, and under REMAT 'full' the forwards twice
+SPLIT_PER_STEP = {"": {"vil_attention_halo_fwd": 3, "vil_attention_halo_bwd": 3,
+                       "full_attention_fwd": 9, "full_attention_bwd": 9},
+                  "shift": {"vil_mode_attention_halo_fwd": 3, "vil_mode_attention_halo_bwd": 3,
+                            "full_attention_fwd": 9, "full_attention_bwd": 9},
+                  "remat": {"vil_attention_halo_fwd": 6, "vil_attention_halo_bwd": 3,
+                            "full_attention_fwd": 18, "full_attention_bwd": 9}}
+_SPLIT_INPUTS: list = []  # split_inputs' result, taken once a run
+
+
+def split_inputs(torch):
+    """train_spatial's batch (ViL-Small 1024², 8 images), the recipe's first
+    draw of per-block modes and the classic one-rank step in this call: its
+    median wall over STEPS steps (the first left out) and its device time
+    and copies under torch.profiler (one step). Taken once a run."""
+    if _SPLIT_INPUTS:
+        return _SPLIT_INPUTS[0]
+    from vil_tpu_torch.train import engine, recipe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (SPATIAL_BATCH,), generator=gen, device=dev)
+    modes = engine.sample_vil_modes(torch.Generator().manual_seed(0), 12)
+    torch.cuda.reset_peak_memory_stats()
+    model = recipe.vil("vil_small", SPATIAL_IMG, torch.bfloat16, torch.float32, device=dev)
+    step = recipe.train_step(model, dev, batch=SPATIAL_BATCH)
+    run = lambda: step(images, labels, torch.Generator(device=dev).manual_seed(3))
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    device, copies = step_device_ms(torch, run)
+    one_rank = (statistics.median(secs[1:]), device, copies)
+    phase("split", f"one rank, ViL-Small {SPATIAL_IMG}^2 bf16 batch {SPATIAL_BATCH}: step median "
+                   f"{one_rank[0] * 1e3:.3f} ms (steps 2..3); device {device:.3f} ms, {copies:.3f} "
+                   f"of it copies and fills (torch.profiler, one step); peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, step
+    torch.cuda.empty_cache()
+    _SPLIT_INPUTS.append((images, labels, modes, one_rank))
+    return _SPLIT_INPUTS[0]
+
+
+def run_split_sharded(torch, kernels, name: str) -> dict:
+    """Parts ``train_spatial_tp`` and ``train_spatial_fsdp``: train_spatial's
+    step (ViL-Small 1024², batch 8, bf16 compute, f32 parameters, the
+    recipe's AdamW, mixup and drop path) with heads and rows split at once,
+    its ranks sharing the card over gloo (nccl where the host has a card a
+    rank): under 'tp' on a (1, 2, 3) ('data', 'spatial', 'model') mesh, each
+    rank its model group's H/3 heads (1, 1, 2, 4) of its spatial group's
+    rows (20/17 chunk rows at stage 1); under 'fsdp' on a (2, 2) ('data',
+    'spatial') mesh, each replica 4 images, its rows over 2 ranks, the
+    parameters sliced over the data axis. The mesh is the entry point's
+    (``parallel.mesh_from_cfg``). Per part three cases: MODE 0 (SHARD_STEPS
+    steps and one more under torch.profiler), random shift (the recipe's
+    first draw of per-block modes, injected) and REMAT 'full'. Launches
+    exact on rank 0 (SPLIT_PER_STEP: B7a 3, B7b 3, B3 9, B4 9 a step at H/3
+    or H heads; B5h/B6h with random shift; B7a 6, B3 18 under REMAT); the
+    first step's loss and gradients,
+    gathered whole, against the classic one-rank step from the same weights
+    and batch (the two replicas' keyed steps averaged under 'fsdp') at
+    BF16_PARAM_GRAD_TOL; REMAT bit for bit the MODE-0 case. Printed: walls,
+    device time, the collectives and bytes a step, what each rank holds and
+    its peak. The 'fsdp' spawn then runs ``run_experiment.main`` on its
+    mesh for one epoch (ViL-Small 224², DATALOADER.BSZ 16, 8 steps), its
+    launches held to the trainer's counts. Returns {path: launches}."""
+    import shutil
+
+    images, labels, modes, one_rank = split_inputs(torch)
+    axes, shape, sharding = SPLIT_MESHES[name]
+    data, world = shape[0], math.prod(shape)
+    mesh_opts = ["TPU.MESH_AXES", str(list(axes)), "TPU.MESH_SHAPE", str(list(shape)),
+                 "TPU.PARAM_SHARDING", sharding]
+    share = SPATIAL_BATCH // data
+    split = dict(img=SPATIAL_IMG, step_batch=SPATIAL_BATCH)
+    cases = [shard_case(name, torch.bfloat16, "", SHARD_STEPS, False, share, modes,
+                        profile=True, clocked=False, **split),
+             shard_case(f"{name}_shift", torch.bfloat16, "", 1, True, share, modes, **split),
+             shard_case(f"{name}_remat", torch.bfloat16, "", 1, False, share, modes,
+                        remat="full", **split)]
+    extra = {}
+    if sharding == "fsdp":
+        cli_dir = os.path.join(SHARD_DIR, f"{name}_cli.{os.getpid()}")
+        shutil.rmtree(cli_dir, ignore_errors=True)
+        args = EXPERIMENT_ARGS[:EXPERIMENT_ARGS.index("DATALOADER.BSZ")]
+        args[args.index("--output_dir") + 1] = cli_dir
+        extra["cli"] = args + ["DATALOADER.BSZ", "16", "OPTIM.EPOCHS", "1",
+                               "MODEL.VIT.MSVIT.MODE", "0", "LOG_FREQ", "1",
+                               "DATALOADER.WORKERS", "0", *mesh_opts]
+    got = run_sharded(torch, name, world, data, 1, cases, images, labels, mesh_opts=mesh_opts,
+                      batch=SPATIAL_BATCH, **extra)
+    parts = [(images[d * share:(d + 1) * share], labels[d * share:(d + 1) * share])
+             for d in range(data)]
+    paths = {}
+    for c, kind in zip(cases, ("", "shift", "remat")):
+        case = got["cases"][c["name"]]
+        if kind == "remat":
+            check_twin(torch, name, "REMAT 'full'", case, got["cases"][name],
+                       f"the same {sharding!r} step without REMAT")
+        else:
+            ref = one_rank_ref(torch, torch.bfloat16, "", parts, c["shift"], c["modes"],
+                               data > 1, **split)
+            check_sharded(torch, c["name"], f"bf16 step, {share} images a replica", case, ref,
+                          torch.bfloat16, one_rank)
+        paths[c["name"]] = check_shard_launches(kernels, c["name"], case["launches"],
+                                                SPLIT_PER_STEP[kind], c["steps"])
+    if "cli" in got:
+        cli = got["cli"]
+        shown = {k: v for k, v in cli["launches"].items() if v or cli["want"][k]}
+        phase(name, f"run_experiment.main on the mesh: {cli['wall']:.1f} s on rank 0; losses "
+                    f"{', '.join(f'{v:.4f}' for v in cli['losses'])}; evals (top1, loss) "
+                    f"{cli['evals']}; launches on rank 0 {shown} (the rest 0), want "
+                    f"{ {k: cli['want'][k] for k in shown} } from {cli['formula']}")
+        if cli["launches"] != cli["want"] or not all(math.isfinite(v) for v in cli["losses"]):
+            raise AssertionError(f"{name}: the entry point's run on the mesh: launches "
+                                 f"{cli['launches']} != {cli['want']} or losses {cli['losses']}")
+        shutil.rmtree(extra["cli"][extra["cli"].index("--output_dir") + 1], ignore_errors=True)
+    run_multicard_split(torch, name, images, labels, modes, one_rank)
+    return paths
+
+
+def run_multicard_split(torch, name, images, labels, modes, one_rank):
+    """The spatial-and-model multi-card phase, where the host has four
+    cards: the MODE-0 case of train_spatial_tp on a (1, 2, 2) mesh over
+    nccl, a card a rank, against the one-rank step. Elsewhere it only says
+    so."""
+    cards = torch.cuda.device_count()
+    if name != "train_spatial_tp":
+        return
+    if cards < 4:
+        phase("multicard", f"(1, 2, 2) ('data', 'spatial', 'model') over nccl not run: {cards} "
+                           f"card(s)")
+        return
+    case = shard_case(name, torch.bfloat16, "", SHARD_STEPS, False, SPATIAL_BATCH, modes,
+                      img=SPATIAL_IMG, step_batch=SPATIAL_BATCH)
+    opts = ["TPU.MESH_AXES", "['data', 'spatial', 'model']", "TPU.MESH_SHAPE", "[1, 2, 2]",
+            "TPU.PARAM_SHARDING", "tp"]
+    got = run_sharded(torch, "multicard", 4, 1, 1, [case], images, labels, mesh_opts=opts,
+                      batch=SPATIAL_BATCH)
+    ref = one_rank_ref(torch, torch.bfloat16, "", [(images, labels)], False, None, False,
+                       img=SPATIAL_IMG, step_batch=SPATIAL_BATCH)
+    check_sharded(torch, "multicard", "train_spatial_tp at (1, 2, 2) on 4 cards over nccl",
+                  got["cases"][name], ref, torch.bfloat16, one_rank)
 
 
 def run_experiment_tp(torch, kernels) -> dict:
@@ -3790,10 +4245,21 @@ HIGHRES = {
     "train_1024_rpe": ("vil_small", 1024, 8, 2, False, True, False, True),
 }
 PROFILED = 2  # requests or steps of a path under torch.profiler, after the timed ones
+# paths whose depth is cut (PR 23, to keep the whole run in its time), each to
+# ViL-Small's depth (2 stage-2 and 8 stage-3 blocks) at its own widths and
+# windows: ViL-Base-Deep 384² (8 and 24 in the zoo) and ViL-Medium-Deep 384²
+# (4 and 16); PR 15's and PR 16's figures at full depth stand in PERF.md
+_MEDIUM_DEEP_CUT = "l1,h3,d96,n1,s1,g1,p4,f7_l2,h3,d192,n2,s1,g1,p2,f7_l3,h6,d384,n8,s0,g1,p2,f7_" \
+                   "l4,h12,d768,n1,s0,g0,p2,f7"
+HIGHRES_ARCH = {"base_deep_384": "l1,h3,d96,n1,s1,g1,p4,f6_l2,h3,d192,n2,s1,g1,p2,f8_"
+                                 "l3,h6,d384,n8,s0,g1,p2,f7_l4,h12,d768,n1,s0,g0,p2,f7",
+                **dict.fromkeys(("serve_384", "train_384", "serve_384_rpe", "train_384_rpe"),
+                                _MEDIUM_DEEP_CUT)}
 
 
 def run_highres_path(torch, kernels, name: str) -> dict:
-    """One high-resolution path of ``HIGHRES`` at full width and depth,
+    """One high-resolution path of ``HIGHRES`` at full width (the depth of
+    ``HIGHRES_ARCH`` where it names the path),
     seeded random weights (``recipe.vil``), bf16 compute: ``REQUESTS``
     serving forwards of uint8 images (bf16 parameters) and/or ``STEPS``
     training steps of the recipe (f32 parameters; ``recipe.train_step``,
@@ -3821,8 +4287,11 @@ def run_highres_path(torch, kernels, name: str) -> dict:
                            dtype=torch.uint8)
     images = torch.randn(batch, img, img, 3, generator=gen, device=dev)
     labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
-    macs = flops.model_macs(recipe.vil_cfg(arch_name, img, rpe=rpe).MODEL.VIT.MSVIT.ARCH, img)
-    what = f"{arch_name}{' RPE' if rpe else ''} {img}^2 bf16 batch {batch}"
+    arch = HIGHRES_ARCH.get(name, "")
+    macs = flops.model_macs(recipe.vil_cfg(arch_name, img, rpe=rpe, arch=arch).MODEL.VIT.MSVIT.ARCH,
+                            img)
+    what = (f"{arch_name}{' RPE' if rpe else ''}{' (depth cut)' if arch else ''} {img}^2 bf16 "
+            f"batch {batch}")
     phase(name, f"{what}: {macs['gmacs']:.3f} GMACs an image (ops/flops.py), "
                 f"{macs['params'] / 1e6:.2f} M parameters")
     want = {fn.__name__: 0 for fn in kernels}
@@ -3872,7 +4341,7 @@ def run_highres_path(torch, kernels, name: str) -> dict:
         fn.launches = 0
     modes0 = None
     if serves:
-        model = recipe.vil(arch_name, img, torch.bfloat16, torch.bfloat16, device=dev,
+        model = recipe.vil(arch_name, img, torch.bfloat16, torch.bfloat16, device=dev, arch=arch,
                            rpe=rpe).eval()
         if rpe:
             precompute_rpe_cache(model)
@@ -3888,7 +4357,8 @@ def run_highres_path(torch, kernels, name: str) -> dict:
                 REQUESTS)
         del model
     if trains:
-        model = recipe.vil(arch_name, img, torch.bfloat16, torch.float32, device=dev, rpe=rpe)
+        model = recipe.vil(arch_name, img, torch.bfloat16, torch.float32, device=dev, rpe=rpe,
+                           arch=arch)
         chunk, dense = block_counts(model)
         step = recipe.train_step(model, dev, shift, batch=batch)
         step_gen = torch.Generator(device=dev).manual_seed(3)
@@ -3918,7 +4388,8 @@ def run_highres_path(torch, kernels, name: str) -> dict:
     torch.cuda.empty_cache()
 
     def build(dtype, param_dtype, use_kernels):
-        return recipe.vil(arch_name, img, dtype, param_dtype, use_kernels, dev, rpe=rpe)
+        return recipe.vil(arch_name, img, dtype, param_dtype, use_kernels, dev, rpe=rpe,
+                          arch=arch)
 
     if serves:  # logits, kernels vs plain versions, in f32 then bf16
         x, outs = served[:pair], {}
@@ -4223,10 +4694,14 @@ FROM_VIL_ARGS = ["--config-file", os.path.join(REPO, "configs", "msvit.yaml"),
                  "DATALOADER.BSZ", str(BATCH), "OPTIM.EPOCHS", "2", "MODEL.VIT.MSVIT.MODE", "0",
                  "LOG_FREQ", "1"]
 SOURCE_STEPS = 2  # recipe steps before vil_tpu's state is written
-TSV_IMAGES, TSV_SIZE, BENCH_BATCH = 2048, 256, 256
+# 1024 JPEGs (2048 up to PR 22): an epoch of 16 steps on the TSV
+TSV_IMAGES, TSV_SIZE, BENCH_BATCH = 1024, 256, 256
 # 'grain' at 8 workers, the host's cores: the sweep over 0, 4, 8 and 16
-# workers (their figures stand in PERF.md) took most of the part's time
+# workers (their figures stand in PERF.md) took most of the part's time;
+# no threads loader (its rates through the Python and the native reader,
+# 295 and 287 img/s in PR 22's run, stand there too)
 BENCH_WORKERS = (8,)
+BENCH_READERS = ()
 
 
 def _argv(base: list, out: str, *opts) -> list:
@@ -4445,7 +4920,8 @@ def run_from_vil_tpu(torch, kernels) -> dict:
                 f"{os.path.getsize(os.path.join(root, 'train.tsv')) / 2**20:.1f} MiB, written in "
                 f"{time.perf_counter() - t0:.1f} s")
     data_bench.run(root, TSV_IMAGES, TSV_SIZE, BENCH_BATCH, BENCH_WORKERS, sets=("tsv",),
-                   report=lambda line: phase(name, f"data_bench: {line}"))
+                   report=lambda line: phase(name, f"data_bench: {line}"),
+                   readers=BENCH_READERS)
     reader = data_bench.tsv_dataset(yaml_path, None).img_tsv
     reader.seek(0)
     if native.get_lib() is None or not isinstance(reader._native, native.NativeRowReader):
@@ -4844,7 +5320,8 @@ PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "se
          "probe", "serve_rpe", "train_rpe", "shift_rpe", "train_fused_rpe", "experiment",
          "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
          "experiment_tp", "from_vil_tpu", "train_drop", "self_chunk", "train_remat", "resnet",
-         "shift_spatial", "self_spatial", "experiment_spatial_shift", "spatial_options")
+         "shift_spatial", "self_spatial", "experiment_spatial_shift", "spatial_options",
+         "train_spatial_tp", "train_spatial_fsdp")
 
 
 def only_arg(argv) -> "set | None":
@@ -5016,6 +5493,11 @@ def main() -> int:
         # and ResNet paths of 'tp' and 'fsdp' run in the parts train_tp and
         # train_fsdp)
         "spatial_options": lambda: run_spatial_options(torch, kernels),
+        # heads and rows split at once: train_spatial's step under 'tp' on a
+        # (1, 2, 3) ('data', 'spatial', 'model') mesh and under 'fsdp' on a
+        # (2, 2) ('data', 'spatial') mesh, the entry point on the second
+        "train_spatial_tp": lambda: run_split_sharded(torch, kernels, "train_spatial_tp"),
+        "train_spatial_fsdp": lambda: run_split_sharded(torch, kernels, "train_spatial_fsdp"),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()
@@ -5029,7 +5511,7 @@ def main() -> int:
         if name == "serve_spatial":
             paths["serve_spatial"], paths["spatial_bwd"] = run()
         elif name in ("efficient", "highres", "train_tp", "train_fsdp", "experiment_tp",
-                      "spatial_options"):
+                      "spatial_options", "train_spatial_tp", "train_spatial_fsdp"):
             paths.update(run())
         else:
             paths[name] = run()

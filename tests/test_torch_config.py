@@ -106,7 +106,8 @@ def test_freeze_and_clone():
     assert cfg.OPTIM.LR == 0.2
 
 
-# the meshes a key passes on, and the mesh that still refuses it, naming A12
+# the meshes a key passes on, and the configuration that still refuses it,
+# naming A12
 MESHES = {
     "data": ["TPU.MESH_AXES", "['data']", "TPU.MESH_SHAPE", "[2]"],
     "spatial": ["TPU.MESH_AXES", "['data', 'spatial']", "TPU.MESH_SHAPE", "[1, 2]"],
@@ -114,12 +115,17 @@ MESHES = {
            "TPU.PARAM_SHARDING", "tp"],
     "fsdp": ["TPU.MESH_AXES", "['data']", "TPU.MESH_SHAPE", "[2]", "TPU.PARAM_SHARDING", "fsdp"],
     "model_beside_spatial": ["TPU.MESH_AXES", "['data', 'model', 'spatial']",
-                             "TPU.MESH_SHAPE", "[1, 1, 2]", "TPU.PARAM_SHARDING", "replicated"],
+                             "TPU.MESH_SHAPE", "[1, 1, 2]", "TPU.PARAM_SHARDING", "tp"],
+    "fsdp_beside_spatial": ["TPU.MESH_AXES", "['data', 'spatial']", "TPU.MESH_SHAPE", "[1, 2]",
+                            "TPU.PARAM_SHARDING", "fsdp"],
+    "resnet_spatial": ["MODEL.ARCH", "resnet50", "TPU.MESH_AXES", "['data', 'spatial']",
+                       "TPU.MESH_SHAPE", "[1, 2]", "TPU.PARAM_SHARDING", "replicated"],
 }
-OFF_THE_DATA_AXIS = {  # key → (the meshes it passes on, the mesh that refuses it)
+ALL_MESHES = ("data", "spatial", "tp", "fsdp", "model_beside_spatial", "fsdp_beside_spatial")
+OFF_THE_DATA_AXIS = {  # key → (the meshes it passes on, the configuration that refuses it)
     "MODEL.ARCH": (("data", "tp", "fsdp"), "spatial"),
-    "TPU.REMAT": (("data", "spatial", "tp", "fsdp"), "model_beside_spatial"),
-    "MODEL.VIT.DROP": (("data", "spatial", "tp", "fsdp"), "model_beside_spatial"),
+    "TPU.REMAT": (ALL_MESHES, "resnet_spatial"),
+    "MODEL.VIT.DROP": (ALL_MESHES, "resnet_spatial"),
 }
 
 
@@ -135,8 +141,9 @@ def test_unported_keys_raise_naming_their_item(key, value, item):
     """A key that selects what the port lacks raises, naming its item. The
     ResNet zoo passes on the data axis, under 'tp' and under 'fsdp', and
     raises on a spatial axis (A12); TPU.REMAT and dropout pass on every mesh
-    the port runs, and with them a mesh the port lacks (a model axis beside a
-    spatial one) still raises naming A12."""
+    the port runs (a model axis and FSDP beside a spatial axis among them),
+    and with them a configuration the port lacks (a ResNet on a spatial
+    axis) still raises naming A12."""
     cfg = get_default_cfg()
     check_ported(cfg)
     cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))

@@ -1759,3 +1759,70 @@ def test_rpe_highres_sliding_chunk_backward(cuda, dtype):
     a32 = [None if a is None else a.float() for a in acts]
     _grads_close(grads, vil_attention_bwd_reference(*a32, bias, g.float(), mask, 3), dtype,
                  CHUNK_NAMES)
+
+
+# vil_tpu's BF16_EXP in the bf16 sliding-chunk kernels: (mode, halo)
+BF16_EXP_KINDS = [(0, False), (3, False), (-1, False), (0, True), (6, True)]
+
+
+@pytest.mark.parametrize("setting", ["1", "0"])
+@pytest.mark.parametrize("mode,halo", BF16_EXP_KINDS,
+                         ids=["B1B2", "B5B6", "self", "B7aB7b", "B5hB6h"])
+def test_bf16_exp_kernels_match_their_emulation(cuda, monkeypatch, mode, halo, setting):
+    """Under ``VIL_TPU_BF16_EXP`` 1 (the default) and 0, each bf16
+    sliding-chunk pair (the halo forms on the first shard of two) against
+    the plain versions' bf16 emulation of the same setting and against the
+    f32 plain version: out, dq, dk, dv, dk_glo, dv_glo and dbias to 2e-2 of
+    max|ref| (chip_smoke.py's CHUNK_SCALED_TOL)."""
+    from vil_tpu_torch.ops.kernels.vil_attention import (
+        neighbourhood_attention_bf16, neighbourhood_attention_bf16_bwd)
+    from vil_tpu_torch.ops.kernels.vil_attention_halo import halo_neighborhood
+    from vil_tpu_torch.ops.kernels.vil_mode_attention_halo import halo_sampled_neighborhood
+
+    monkeypatch.setenv("VIL_TPU_BF16_EXP", setting)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, nx, ny, w, C, H, nglo = 2, 19, 25, 7, 64, 2, 1
+    padx, pady, mx, my = sc.chunk_grid(nx, ny, w)
+    w2 = w * w
+    cols = nglo + (9 if mode == 0 else 1 if mode == -1 else 2) * w2
+    mask = torch.from_numpy(mask_to_additive(masks.invalid_mask(mx, my, padx, pady, w, 0, mode),
+                                             mx, my, w2, nglo)).to(dev)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    bias = rnd(H, w2, cols, scale=0.5)
+    a = [rnd(B, mx, my, w2, C, scale=C ** -0.25).bfloat16() for _ in range(3)]
+    a += [rnd(B, nglo, C).bfloat16() for _ in range(2)]
+    g = rnd(B, mx, my, w2, C).bfloat16()
+    tail = () if mode == 0 else (mode,)
+    if halo:
+        n = 2
+        rows = [mx - 1, *range(n), n]
+        ops = [a[0][:, :n].contiguous(), a[1][:, rows].contiguous(), a[2][:, rows].contiguous(),
+               a[3], a[4], bias]
+        mask, g = mask[:n], g[:, :n].contiguous()
+        nbh = halo_neighborhood if mode == 0 else lambda t: halo_sampled_neighborhood(t, mode)
+        fwd, bwd, fwd_ref, bwd_ref = (
+            (vil_attention_halo_fwd, vil_attention_halo_bwd, vil_attention_halo_reference,
+             vil_attention_halo_bwd_reference) if mode == 0 else
+            (vil_mode_attention_halo_fwd, vil_mode_attention_halo_bwd,
+             vil_mode_attention_halo_reference, vil_mode_attention_halo_bwd_reference))
+    else:
+        ops = [*a, bias]
+        nbh = lambda t: sc.neighborhood(t, mode)
+        fwd, bwd, fwd_ref, bwd_ref = (
+            (vil_attention_fwd, vil_attention_bwd, vil_attention_reference,
+             vil_attention_bwd_reference) if mode == 0 else
+            (vil_mode_attention_fwd, vil_mode_attention_bwd, vil_mode_attention_reference,
+             vil_mode_attention_bwd_reference))
+    out, lse = fwd(*ops, mask, H, *tail, with_lse=True)
+    grads = bwd(*ops, g, out, mask, lse, H, *tail)
+    ops32 = [None if t is None else t.float() for t in ops]
+    plain = (fwd_ref(*ops32, mask, H, *tail), *bwd_ref(*ops32, g.float(), mask, H, *tail))
+    on = setting == "1"
+    emulated = (neighbourhood_attention_bf16(*ops[:5], bias, mask, H, nbh, on),
+                *neighbourhood_attention_bf16_bwd(*ops[:5], bias, g, out, lse, mask, H, nbh, on))
+    for refs, what in ((plain, "f32 plain"), (emulated, "emulation")):
+        for name, x, r in zip(("out", "dq", "dk", "dv", "dk_glo", "dv_glo", "dbias"),
+                              (out, *grads), refs):
+            err = (x.float() - r.float()).abs().max() / r.float().abs().max()
+            assert err <= 2e-2, (what, name, float(err))

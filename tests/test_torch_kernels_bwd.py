@@ -84,7 +84,9 @@ def _close(ours, ref, name=""):
 
 
 def _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, H):
-    """jax.vjp of the XLA reference, (dq, dk, dv, dk_glo, dv_glo, dbias)."""
+    """jax.vjp of the XLA reference, (dq, dk, dv, dk_glo, dv_glo, dbias),
+    jitted: one compile of the whole backward, where op-by-op dispatch takes
+    several times as long (the mask is a constant of the trace)."""
     operands = tuple(map(_j, (q, k, v, kg, vg, bias)))
     present = [a for a in operands if a is not None]
 
@@ -93,9 +95,23 @@ def _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, H):
         full = [None if a is None else next(it) for a in operands]
         return jax_vil_kernel._xla_reference_mh(*full, mask, H)
 
-    _, vjp = jax.vjp(fn, *present)
-    grads = iter(vjp(jnp.asarray(g)))
+    @jax.jit
+    def grads_of(upstream, *args):
+        return jax.vjp(fn, *args)[1](upstream)
+
+    grads = iter(grads_of(jnp.asarray(g), *present))
     return tuple(None if a is None else next(grads) for a in operands)
+
+
+def _pallas_vil(jargs, g, mask, H):
+    """``vil_tpu``'s Pallas forward with the LSE and its backward from that
+    LSE, in interpret mode, each jitted with the mask as a constant: (out,
+    lse, (dq, dk, dv, dk_glo, dv_glo, dbias))."""
+    out, lse = jax.jit(lambda *a: jax_vil_kernel._pallas_forward_mh(
+        *a, mask, H, interpret=True, with_lse=True))(*jargs)
+    grads = jax.jit(lambda *a: jax_vil_backward.vil_attention_backward(
+        *a, mask, H, lse=lse, interpret=True))(*jargs, jnp.asarray(g))
+    return out, lse, grads
 
 
 @pytest.mark.parametrize("exact", [0, -1, 1])
@@ -109,14 +125,10 @@ def test_vil_backward_matches_pallas_and_xla(nglo, with_bias, H, exact):
     q, k, v, kg, vg, bias, g, mask = _vil_inputs(0, 2, 7, 8, 3, 8 * H, H, nglo, exact,
                                                  with_bias)
     out, lse = vil_attention_fwd(*map(_t, (q, k, v, kg, vg, bias, mask)), H, with_lse=True)
-    jargs = tuple(map(_j, (q, k, v, kg, vg, bias)))
-    p_out, p_lse = jax_vil_kernel._pallas_forward_mh(*jargs, mask, H, interpret=True,
-                                                     with_lse=True)
+    p_out, p_lse, pallas = _pallas_vil(tuple(map(_j, (q, k, v, kg, vg, bias))), g, mask, H)
     _close(out.numpy(), p_out, "out")
     _close(lse.numpy(), p_lse, "lse")
     ours = vil_attention_bwd(*map(_t, (q, k, v, kg, vg, bias, g)), out, _t(mask), lse, H)
-    pallas = jax_vil_backward.vil_attention_backward(*jargs, jnp.asarray(g), mask, H,
-                                                     lse=p_lse, interpret=True)
     xla = _xla_vil_vjp(q, k, v, kg, vg, bias, g, mask, H)
     for name, a, b, c in zip(("dq", "dk", "dv", "dk_glo", "dv_glo", "dbias"),
                              ours, pallas, xla):
@@ -220,9 +232,13 @@ def test_full_backward_matches_pallas_and_xla(with_bias, H, N, M):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g), p_lse, _j(bias), H,
         interpret=True)
     present = [a for a in jargs if a is not None]
-    _, vjp = jax.vjp(lambda *a: jax_full_attention._xla_reference(
-        *a, *([None] if bias is None else []), H), *present)
-    xla = vjp(jnp.asarray(g))
+
+    @jax.jit  # one compile of the whole backward, as _xla_vil_vjp
+    def xla_vjp(upstream, *a):
+        return jax.vjp(lambda *b: jax_full_attention._xla_reference(
+            *b, *([None] if bias is None else []), H), *a)[1](upstream)
+
+    xla = xla_vjp(jnp.asarray(g), *present)
     for i, name in enumerate(("dq", "dk", "dv", "dbias")):
         if name == "dbias" and bias is None:
             assert ours[3] is None

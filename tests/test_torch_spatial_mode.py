@@ -29,8 +29,10 @@ flipped offset sign shows).
 * ``VilAttention`` under a spatial context of one rank (no process group:
   the halos are the shard's own rows, as on a 1 × 1 mesh) at modes 1..8 and
   −1, with shared and unshared (SHARE_W False) weights, kernels' route and
-  plain route, equals the module without the context; the fused block and a
-  model axis under the split still raise naming A12.
+  plain route, equals the module without the context; the fused block
+  under the split still raises naming A12, and a module split over a model
+  axis as well runs there: its two model ranks' partial outputs sum to the
+  unsplit module's.
 * The training step's draws of random shift are keyed by (seed, step) alone:
   every (data, spatial) rank draws the same modes, and a step given a
   ``mode_generator`` on a spatial mesh raises.
@@ -52,6 +54,7 @@ from vil_tpu.ops.pallas import vil_mode_kernel as jax_mode_kernel
 from vil_tpu_torch import parallel
 from vil_tpu_torch.models import MsViT
 from vil_tpu_torch.models.attention import VilAttention
+from vil_tpu_torch.models.layers import Linear
 from vil_tpu_torch.ops import masks
 from vil_tpu_torch.ops import sliding_chunk as sc
 from vil_tpu_torch.ops.kernels import (
@@ -345,17 +348,37 @@ def test_vil_attention_under_a_one_rank_split_at_every_mode(use_kernels, sharew)
 
 
 def test_fused_block_and_model_axis_under_the_split_still_raise():
-    """The fused block has no halo form and a model axis beside the split
-    is not ported: both raise naming A12, at any mode."""
+    """The fused block has no halo form: it raises naming A12 under the
+    split, at any mode. A module split over a model axis as well runs the
+    split's route at its heads: without a process group each of the two
+    model ranks' modules (the unsplit module's weights, cut by
+    ``Linear.shards``) leaves its partial output unsummed, and the two, less
+    the output projection's bias the second adds again, sum to the unsplit
+    module's output, at modes 0, 3 and −1."""
     nx, ny, x_glo, x_img = _module_inputs()
     ctx = parallel.SpatialContext(None, 1, 0, (0, MX))
     fused = VilAttention(dim=C, num_heads=H, w=W, nglo=1, fused_block=True)
-    split = VilAttention(dim=C, num_heads=H, w=W, nglo=1,
-                         tp=parallel.TensorParallel(None, 2, 0))
-    for attn in (fused, split):
+    for mode in (0, 3, -1):
+        with pytest.raises(NotImplementedError, match="A12"):
+            fused((x_glo, x_img), nx, ny, mode, spatial=ctx)
+    whole = VilAttention(dim=C, num_heads=H, w=W, nglo=1)
+    parts = [VilAttention(dim=C, num_heads=H, w=W, nglo=1,
+                          tp=parallel.TensorParallel(None, 2, r)) for r in range(2)]
+    with torch.no_grad():
+        for part in parts:
+            for name, mod in part.named_modules():
+                if isinstance(mod, Linear):
+                    src = whole.get_submodule(name)
+                    for leaf in ("weight", "bias"):
+                        shard = mod.shards().get(leaf)
+                        full = getattr(src, leaf)
+                        getattr(mod, leaf).copy_(full if shard is None else shard.local(full))
         for mode in (0, 3, -1):
-            with pytest.raises(NotImplementedError, match="A12"):
-                attn((x_glo, x_img), nx, ny, mode, spatial=ctx)
+            ref = whole((x_glo, x_img), nx, ny, mode, spatial=ctx)
+            outs = [part((x_glo, x_img), nx, ny, mode, spatial=ctx) for part in parts]
+            for got, want in zip(zip(*outs), ref):
+                torch.testing.assert_close(got[0] + got[1] - whole.proj.bias, want,
+                                           atol=VAL_TOL, rtol=VAL_TOL, msg=f"mode {mode}")
 
 
 def test_random_shift_draws_alike_on_every_rank_of_a_mesh():

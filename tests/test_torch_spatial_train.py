@@ -41,12 +41,12 @@ on the CPU, in f32.
   Trainer equals the uninterrupted one.
 * Without a spawn: the port's ``accumulate_predictions`` against
   ``vil_tpu``'s on the same dicts, padded repeats included; each data
-  replica's sampler shard; ``check_ported`` still refusing a model axis or
-  FSDP beside a spatial axis and 'tp' without a model axis, and
+  replica's sampler shard; ``check_ported`` taking a model axis or FSDP
+  beside a spatial axis and refusing 'tp' without a model axis, and
   ``init_process_group`` more NCCL ranks than cards; the Trainer on a 1 × 1
   mesh without a process group, random shift then MODE 0, against the same
-  run without the mesh, and a fused block or a model axis under the split
-  still raising.
+  run without the mesh and as on a ('data', 'model', 'spatial') mesh of
+  one rank, and a fused block under the split still raising.
 """
 import json
 import os
@@ -458,19 +458,25 @@ def test_each_data_replica_reads_its_shard():
 
 
 @pytest.mark.parametrize("opts,error", [
-    (["TPU.MESH_AXES", "['data', 'model', 'spatial']", "TPU.MESH_SHAPE", "[1, 1, 1]"],
-     NotImplementedError),
-    (["TPU.PARAM_SHARDING", "fsdp", "TPU.MESH_AXES", "['data', 'spatial']"],
-     NotImplementedError),
+    (["TPU.MESH_AXES", "['data', 'model', 'spatial']", "TPU.MESH_SHAPE", "[1, 1, 1]"], None),
+    (["TPU.PARAM_SHARDING", "fsdp", "TPU.MESH_AXES", "['data', 'spatial']", "TPU.MESH_SHAPE",
+      "[1, 1]"], None),
     (["TPU.PARAM_SHARDING", "tp"], ValueError),
 ], ids=["model_beside_spatial", "fsdp_beside_spatial", "tp_without_model_axis"])
 def test_sharding_and_the_model_axis_still_raise(opts, error):
-    """Parameter sharding is ported, beside a data axis: a model axis or
-    FSDP beside a spatial axis still raise naming A12, and 'tp' without a
-    model axis raises ``ValueError``, as ``vil_tpu``'s trainer does."""
+    """Parameter sharding is ported beside a data axis and beside a spatial
+    one: a model axis or FSDP beside a spatial axis pass (and build their
+    mesh without a process group), and 'tp' without a model axis raises
+    ``ValueError``, as ``vil_tpu``'s trainer does."""
     cfg = get_default_cfg()
     cfg.merge_from_list(opts)
-    with pytest.raises(error, match="A12" if error is NotImplementedError else "'model' axis"):
+    if error is None:
+        check_ported(cfg)
+        mesh = parallel.mesh_from_cfg(cfg)
+        assert mesh.spatial is not None
+        assert (mesh.model is not None) == ("model" in cfg.TPU.MESH_AXES)
+        return
+    with pytest.raises(error, match="'model' axis"):
         check_ported(cfg)
 
 
@@ -490,8 +496,9 @@ def test_trainer_on_a_mesh_without_a_process_group(tmp_path, monkeypatch):
     """A ('data', 'spatial') mesh of one rank without a process group: the
     spatial route on one rank of one, through the sampled-neighbour halo
     route in the random-shift epoch and the halo route in the MODE 0 one,
-    the same losses as without the mesh; a fused block and a model axis
-    under the split raise naming A12."""
+    the same losses as without the mesh, and as on a ('data', 'model',
+    'spatial') mesh of one rank under 'tp' (its model and spatial contexts
+    both there); a fused block under the split raises naming A12."""
     mesh = ["TPU.MESH_AXES", "['data','spatial']", "TPU.MESH_SHAPE", "[1,1]"]
     runs = {}
     for name, extra in (("plain", []), ("mesh", mesh)):
@@ -510,7 +517,11 @@ def test_trainer_on_a_mesh_without_a_process_group(tmp_path, monkeypatch):
         Trainer(cfg, device="cpu").fit()
     cfg = get_default_cfg()
     cfg.merge_from_list(TRAINER_OPTS + ["TPU.MESH_AXES", "['data','model','spatial']",
-                                        "TPU.MESH_SHAPE", "[1,1,1]",
+                                        "TPU.MESH_SHAPE", "[1,1,1]", "TPU.PARAM_SHARDING", "tp",
                                         "OUTPUT_DIR", str(tmp_path / "model")])
-    with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(cfg, device="cpu")
+    monkeypatch.setenv("VIL_TPU_FUSED_BLOCK", "0")
+    both = Trainer(cfg, device="cpu")
+    assert both.mesh.spatial is not None and both.mesh.model is not None
+    both.fit()
+    np.testing.assert_allclose([r["loss"] for r in both.steps_log],
+                               [r["loss"] for r in runs["plain"].steps_log], rtol=0, atol=TOL)

@@ -51,9 +51,10 @@ from a seed (its REMAT 'full' model), loaded into the port.
   normalised updates amplify it step by step: 5.7e-5 at the second step,
   0.3 at the sixth, the run on the data axis without FSDP as far; the f64
   step above holds the ResNet under 'fsdp' itself).
-* Without a spawn: ``check_ported`` accepts what this slice ports and
-  still refuses a ResNet, a model axis and FSDP beside a spatial axis,
-  naming A12.
+* Without a spawn: ``check_ported`` accepts what this slice ports, and a
+  model axis or FSDP beside a spatial axis, and still refuses a ResNet on
+  a spatial axis (A12), orbax (A6) and the flat or stacked optimizer
+  states (A13) on those meshes.
 """
 import json
 import os
@@ -453,20 +454,32 @@ def test_trainer_at_world_2_matches_world_1(split_runs, ranks, name):
     ["MODEL.VIT.DROP", "0.1", "TPU.REMAT", "minimal", *MESHES["tp"]],
     ["MODEL.ARCH", "resnet50", *MESHES["fsdp"]],
     ["MODEL.ARCH", "resnet50", *MESHES["tp"]],
+    ["TPU.REMAT", "full", "TPU.MESH_AXES", "['data','spatial','model']", "TPU.MESH_SHAPE",
+     "[1,1,2]", "TPU.PARAM_SHARDING", "tp"],
+    ["MODEL.VIT.DROP", "0.1", "TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]],
 ], ids=["remat_spatial", "remat_tp", "remat_fsdp", "drop_spatial", "drop_remat_tp",
-        "resnet_fsdp", "resnet_tp"])
+        "resnet_fsdp", "resnet_tp", "remat_model_beside_spatial", "drop_fsdp_beside_spatial"])
 def test_check_ported_accepts(opts):
     check_ported(_cfg(opts))
 
 
 @pytest.mark.parametrize("opts,what", [
-    (["MODEL.ARCH", "resnet50", *MESHES["spatial"]], "a ResNet on a spatial axis"),
-    (["TPU.MESH_AXES", "['data','model','spatial']", "TPU.MESH_SHAPE", "[1,1,1]"],
-     "a model axis beside a spatial axis"),
-    (["TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]], "FSDP beside a spatial axis"),
-], ids=["resnet_spatial", "model_beside_spatial", "fsdp_beside_spatial"])
+    (["MODEL.ARCH", "resnet50", *MESHES["spatial"]], "a ResNet on a spatial axis: A12"),
+    (["MODEL.ARCH", "resnet50", "TPU.MESH_AXES", "['data','model','spatial']",
+      "TPU.MESH_SHAPE", "[1,1,1]"], "a ResNet on a spatial axis: A12"),
+    (["CKPT_BACKEND", "orbax", "TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]],
+     "orbax.*A6"),
+    (["TPU.FLAT_OPT", "True", "TPU.MESH_AXES", "['data','spatial','model']",
+      "TPU.MESH_SHAPE", "[1,1,1]", "TPU.PARAM_SHARDING", "tp"], "FLAT_OPT / STACKED_OPT.*A13"),
+    (["TPU.STACKED_OPT", "True", "TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]],
+     "FLAT_OPT / STACKED_OPT.*A13"),
+], ids=["resnet_spatial", "model_beside_spatial", "fsdp_beside_spatial", "flat_opt_3d",
+        "stacked_opt_fsdp_spatial"])
 def test_check_ported_still_refuses(opts, what):
-    with pytest.raises(NotImplementedError, match=f"{what}: A12"):
+    """Beside a spatial axis a model axis and FSDP pass (the two meshes
+    ``tests/test_torch_mesh3d.py`` runs); a ResNet there, orbax and the flat
+    or stacked optimizer states still raise on them, naming their items."""
+    with pytest.raises(NotImplementedError, match=what):
         check_ported(_cfg(opts))
 
 

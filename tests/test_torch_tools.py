@@ -97,3 +97,25 @@ def test_census_names_keep_every_template_argument():
     assert sass_census.kernel_name(line.replace("(bool)1", "(bool)0")).endswith("<32, 0>")
     assert sass_census.kernel_name("void vil::vil_ln_fwd<float>(const float *)") == (
         "vil::vil_ln_fwd<float>")
+
+
+def test_census_counts_opcodes_of_each_function():
+    """``count_classes`` counts an instruction of a class by its opcode,
+    predicated or not, with or without modifiers, and not an opcode that
+    only begins with a class's name (LDSM) nor a class's name among the
+    operands; each function's counts apart."""
+    sass = """
+        Function : _Z1av
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 FFMA R2, R3, R4, R5 ;
+        /*0020*/                   LDS.U.128 R4, [R2] ;
+        /*0030*/                   LDSM.16.M88.4 R8, [R2] ;
+        /*0040*/               @UP1 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        Function : _Z1bv
+        /*0000*/                   LDGSTS.E.BYPASS.128 [R1], desc[UR4][R2.64] ;
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/                   IADD3 R2, R2, FFMA, RZ ;
+    """
+    counts = sass_census.count_classes(sass)
+    assert counts["_Z1av"] == dict(HGMMA=1, HMMA=0, LDGSTS=0, UTMALDG=0, FFMA=1, LDS=1)
+    assert counts["_Z1bv"] == dict(HGMMA=0, HMMA=0, LDGSTS=1, UTMALDG=0, FFMA=1, LDS=0)

@@ -58,8 +58,17 @@
 //
 // P is rounded to bf16 before dS and the products, dS after the dbias
 // partial and before the products, where the TPU kernel rounds them
-// (vil_backward.py:376, :393). Tiles come by cp.async into a two-stage ring,
-// one row at a time with a zero fill (no read across images or chunks);
+// (vil_backward.py:376, :393). Every body takes bf16_exp, vil_tpu's
+// BF16_EXP (vil_kernel.py:71, on by default there and in the wrappers):
+// with it the exponent's input, S − m in the forward (against the running
+// maximum) and S − L in both passes, is rounded to bf16 before exp, as
+// vil_kernel.py:388-389 and vil_backward.py's _probs_lse round it; without
+// it the exponent takes the f32 difference. The forward's denominator and
+// its LSE, log Σ P, sum the P it multiplies V by, as vil_kernel.py's do, so
+// under BF16_EXP the LSE moves off the scores' own log Σ exp(S) by the
+// exponents' rounding (≈ 4e-4 rms at unit scale). Tiles come by cp.async
+// into a two-stage ring, one row at a time with a zero fill (no read across
+// images or chunks);
 // keys (pass 1) and query rows (pass 2) past the list get P = 0 and are never
 // stored. Layouts and instructions: tensor_core.cuh.
 #pragma once
@@ -71,11 +80,19 @@ namespace vil {
 
 using bf16 = __nv_bfloat16;
 
+// x rounded to bf16 (round to nearest even), back in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // P = exp(x - L) rounded to bf16, as the TPU kernel rounds it: one rounding
 // of one expression in both passes, so that dQ and dK/dV see the same P.
-__device__ __forceinline__ float prob_bf16(float x, float lse) {
-  return __bfloat162float(
-      __float2bfloat16(exp2f(__fmaf_rn(x, kLog2e, -__fmul_rn(lse, kLog2e)))));
+// With bf16_exp (vil_tpu's BF16_EXP, its default) the exponent's input
+// x - L is rounded to bf16 first, as vil_backward.py's _probs_lse rounds it:
+// P = bf16(exp(bf16(x - L))).
+__device__ __forceinline__ float prob_bf16(float x, float lse, bool bf16_exp) {
+  if (bf16_exp) return round_bf16(exp2f(round_bf16(x - lse) * kLog2e));
+  return round_bf16(exp2f(__fmaf_rn(x, kLog2e, -__fmul_rn(lse, kLog2e))));
 }
 
 // The concatenated [glo ‖ neighbour 0 ‖ ... ‖ neighbour kCount-1] key (or
@@ -121,7 +138,8 @@ __device__ __forceinline__ void sliding_chunk_fwd_tc(
     Nbh nbh, const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ k_glo, const bf16* __restrict__ v_glo,
     const float* __restrict__ bias, const float* __restrict__ mask, bf16* __restrict__ out,
-    float* __restrict__ lse, int mx, int my, int w2, int C, int nglo, int wq) {
+    float* __restrict__ lse, int mx, int my, int w2, int C, int nglo, int wq,
+    bool bf16_exp) {
   constexpr int DP = M < 16 ? 16 : M, TILE = kTcRows * DP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -214,7 +232,9 @@ __device__ __forceinline__ void sliding_chunk_fwd_tc(
     }
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
-      const float p = exp2f((s[e] - m[(e / 2) % 2]) * kLog2e);
+      // vil_kernel.py's BF16_EXP: the shifted score rounded to bf16
+      const float z = s[e] - m[(e / 2) % 2];
+      const float p = exp2f((bf16_exp ? round_bf16(z) : z) * kLog2e);
       s[e] = p;
       l[(e / 2) % 2] += p;  // the unrounded probability
     }
@@ -271,13 +291,13 @@ cudaError_t launch_full_fwd_tc(KernelFor kernel_for, const bf16* q, const bf16* 
                                const bf16* v, const bf16* k_glo, const bf16* v_glo,
                                const float* bias, const float* mask, bf16* out, float* lse,
                                int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
-                               cudaStream_t stream) {
+                               bool bf16_exp, cudaStream_t stream) {
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
     const int slices = (w2 + kTcRows - 1) / kTcRows;  // 64-row slices of a chunk
     return launch_with(kernel_for(m), dim3(slices * mx * my, H, B), kTcThreads,
                        tc_fwd_smem_bytes(M, nglo + FullNbh::kCount * w2), stream, q, k, v,
-                       k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C, nglo, wq);
+                       k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C, nglo, wq, bf16_exp);
   });
 }
 
@@ -295,7 +315,7 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
     const bf16* __restrict__ out, const float* __restrict__ bias, const float* __restrict__ mask,
     const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
     float* __restrict__ p_glo, float* __restrict__ ds_glo, float* __restrict__ dbias_part,
-    int mx, int my, int w2, int C, int nglo, int wq, int chunks_per_block) {
+    int mx, int my, int w2, int C, int nglo, int wq, int chunks_per_block, bool bf16_exp) {
   constexpr int DP = M < 16 ? 16 : M, TILE = kTcRows * DP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -420,7 +440,7 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass1(
               else if (bias_h != nullptr)
                 xs += bias_h[(long)qr * cols + col];
             }
-            const float p = inside ? prob_bf16(xs, lr[x]) : 0.f;  // 0 past the columns
+            const float p = inside ? prob_bf16(xs, lr[x], bf16_exp) : 0.f;  // 0 past the columns
             const float ds = p * (dp[e] - dl[x]);
             if (inside && col < nglo) {  // (b, h, i, j, row, glo column)
               p_glo[(row0 + qr) * nglo + col] = p;
@@ -457,7 +477,7 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass2(
     Nbh nbh, const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ g, const float* __restrict__ bias, const float* __restrict__ mask,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int mx, int my, int w2, int C, int nglo, int wq) {
+    bf16* __restrict__ dv, int mx, int my, int w2, int C, int nglo, int wq, bool bf16_exp) {
   constexpr int DP = M < 16 ? 16 : M, TILE = kTcRows * DP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
@@ -573,7 +593,7 @@ __device__ __forceinline__ void sliding_chunk_bwd_tc_pass2(
             xs += mask[moff + key];
             if (bias != nullptr) xs += bias[boff_u[col] + key];
           }
-          const float p = valid ? prob_bf16(xs, lse_u[col]) : 0.f;
+          const float p = valid ? prob_bf16(xs, lse_u[col], bf16_exp) : 0.f;
           s[e] = p;
           dp[e] = p * (dp[e] - delta_u[col]);
         }

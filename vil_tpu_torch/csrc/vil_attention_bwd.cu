@@ -96,10 +96,11 @@ vil_attention_bwd_wgmma_pass1(const bf16* __restrict__ q, const bf16* __restrict
                               float* __restrict__ delta, bf16* __restrict__ dq,
                               float* __restrict__ p_glo, float* __restrict__ ds_glo,
                               float* __restrict__ dbias_part, int mx, int my, int w2, int C,
-                              int nglo, int wq, int chunks_per_block) {
+                              int nglo, int wq, int chunks_per_block, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass1<M, FullNbh, kBiased>(FullNbh{}, q, k, v, k_glo, v_glo, g, out, bias,
                                                  mask, lse, delta, dq, p_glo, ds_glo, dbias_part,
-                                                 mx, my, w2, C, nglo, wq, chunks_per_block);
+                                                 mx, my, w2, C, nglo, wq, chunks_per_block,
+                                                 bf16_exp);
 }
 
 template <int M>
@@ -109,9 +110,9 @@ vil_attention_bwd_wgmma_pass2(const bf16* __restrict__ q, const bf16* __restrict
                               const float* __restrict__ bias, const float* __restrict__ mask,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               bf16* __restrict__ dk, bf16* __restrict__ dv, int mx, int my,
-                              int w2, int C, int nglo, int wq) {
+                              int w2, int C, int nglo, int wq, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass2<M>(FullNbh{}, q, k, v, g, bias, mask, lse, delta, dk, dv, mx, my, w2,
-                                C, nglo, wq);
+                                C, nglo, wq, bf16_exp);
 }
 
 template <typename T>
@@ -120,7 +121,7 @@ cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const vo
                            const float* mask, const float* lse, float* delta, void* dq,
                            void* dk, void* dv, float* p_glo, float* ds_glo, float* dbias_part,
                            int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
-                           int chunks_per_block, cudaStream_t stream) {
+                           int chunks_per_block, bool bf16_exp, cudaStream_t stream) {
   // with a bias, one block walks a group of chunks (one writer per dbias
   // partial); without, one block per chunk
   const int per_block = dbias_part != nullptr ? chunks_per_block : 1;
@@ -134,7 +135,7 @@ cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const vo
                            tc_pass1_smem_bytes(M), stream, (const T*)q, (const T*)k,
                            (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g,
                            (const T*)out, bias, mask, lse, delta, (T*)dq, p_glo, ds_glo,
-                           dbias_part, mx, my, w2, C, nglo, wq, per_block);
+                           dbias_part, mx, my, w2, C, nglo, wq, per_block, bf16_exp);
       };
       cudaError_t err = dbias_part != nullptr ? pass1(vil_attention_bwd_wgmma_pass1<M, true>)
                                               : pass1(vil_attention_bwd_wgmma_pass1<M, false>);
@@ -142,7 +143,7 @@ cudaError_t launch_vil_bwd(const void* q, const void* k, const void* v, const vo
       return launch_with(vil_attention_bwd_wgmma_pass2<M>, dim3(mx * my * slices, H, B),
                          kTcThreads, tc_pass2_smem_bytes(M), stream, (const T*)q, (const T*)k,
                          (const T*)v, (const T*)g, bias, mask, lse, (const float*)delta, (T*)dk,
-                         (T*)dv, mx, my, w2, C, nglo, wq);
+                         (T*)dv, mx, my, w2, C, nglo, wq, bf16_exp);
     } else {
       cudaError_t err = launch(vil_attention_bwd_pass1<T, M>, dim3(groups, H, B),
                                pass1_smem_bytes(w2, M), stream, (const T*)q, (const T*)k,
@@ -174,8 +175,8 @@ extern "C" int vil_attention_bwd(const void* q, const void* k, const void* v, co
                                  void* delta, void* dq,
                                  void* dk, void* dv, void* p_glo, void* ds_glo,
                                  void* dbias_part, int B, int mx, int my, int w2, int C, int H,
-                                 int nglo, int wq, int chunks_per_block, int is_bf16,
-                                 void* stream) {
+                                 int nglo, int wq, int chunks_per_block, int is_bf16, int bf16_exp,
+                                void* stream) {
   if (dbias_part != nullptr && chunks_per_block < 1) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
@@ -188,8 +189,9 @@ extern "C" int vil_attention_bwd(const void* q, const void* k, const void* v, co
   if (is_bf16)
     return vil::launch_vil_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
                                               lse_f, delta_f, dq, dk, dv, pg, dsg, db, B, mx, my,
-                                              w2, C, H, nglo, wq, chunks_per_block, s);
+                                              w2, C, H, nglo, wq, chunks_per_block, bf16_exp != 0,
+                                              s);
   return vil::launch_vil_bwd<float>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f, lse_f, delta_f,
                                     dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H, nglo, wq,
-                                    chunks_per_block, s);
+                                    chunks_per_block, bf16_exp != 0, s);
 }

@@ -92,21 +92,21 @@ vil_attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v_glo, const float* __restrict__ bias,
                         const float* __restrict__ mask, bf16* __restrict__ out,
                         float* __restrict__ lse, int mx, int my, int w2, int C, int nglo,
-                        int wq) {
+                        int wq, bool bf16_exp) {
   sliding_chunk_fwd_tc<M>(FullNbh{}, q, k, v, k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C,
-                          nglo, wq);
+                          nglo, wq, bf16_exp);
 }
 
 template <typename T>
 cudaError_t launch_vil(const void* q, const void* k, const void* v, const void* k_glo,
                        const void* v_glo, const float* bias, const float* mask, void* out,
                        float* lse, int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
-                       cudaStream_t stream) {
+                       bool bf16_exp, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>) {
     return launch_full_fwd_tc(
         [](auto m) { return vil_attention_fwd_wgmma<decltype(m)::value>; }, (const T*)q,
         (const T*)k, (const T*)v, (const T*)k_glo, (const T*)v_glo, bias, mask, (T*)out, lse, B,
-        mx, my, w2, C, H, nglo, wq, stream);
+        mx, my, w2, C, H, nglo, wq, bf16_exp, stream);
   } else {
     return dispatch_head_dim(C / H, [&](auto m) {
       constexpr int M = decltype(m)::value;
@@ -126,16 +126,17 @@ cudaError_t launch_vil(const void* q, const void* k, const void* v, const void* 
 extern "C" int vil_attention_fwd(const void* q, const void* k, const void* v, const void* k_glo,
                                  const void* v_glo, const void* bias, const void* mask,
                                  void* out, void* lse, int B, int mx, int my, int w2, int C,
-                                 int H, int nglo, int wq, int is_bf16, void* stream) {
+                                 int H, int nglo, int wq, int is_bf16, int bf16_exp,
+                                 void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
   auto* lse_f = static_cast<float*>(lse);
   if (is_bf16)
     return vil::launch_vil<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B,
-                                          mx, my, w2, C, H, nglo, wq, s);
+                                          mx, my, w2, C, H, nglo, wq, bf16_exp != 0, s);
   return vil::launch_vil<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx, my,
-                                w2, C, H, nglo, wq, s);
+                                w2, C, H, nglo, wq, bf16_exp != 0, s);
 }
 
 extern "C" const char* vil_cuda_error_string(int err) {

@@ -69,10 +69,10 @@ vil_attention_halo_bwd_wgmma_pass1(const bf16* __restrict__ q, const bf16* __res
                                    float* __restrict__ delta, bf16* __restrict__ dq,
                                    float* __restrict__ p_glo, float* __restrict__ ds_glo,
                                    float* __restrict__ dbias_part, int mx, int my, int w2, int C,
-                                   int nglo, int wq, int chunks_per_block) {
+                                   int nglo, int wq, int chunks_per_block, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass1<M>(HaloNbh{}, q, k_ext, v_ext, k_glo, v_glo, g, out, bias, mask, lse,
                                 delta, dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-                                chunks_per_block);
+                                chunks_per_block, bf16_exp);
 }
 
 template <int M>
@@ -82,9 +82,9 @@ vil_attention_halo_bwd_wgmma_pass2(const bf16* __restrict__ q, const bf16* __res
                                    const float* __restrict__ bias, const float* __restrict__ mask,
                                    const float* __restrict__ lse, const float* __restrict__ delta,
                                    bf16* __restrict__ dk_ext, bf16* __restrict__ dv_ext, int mx,
-                                   int my, int w2, int C, int nglo, int wq) {
+                                   int my, int w2, int C, int nglo, int wq, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass2<M>(HaloNbh{}, q, k_ext, v_ext, g, bias, mask, lse, delta, dk_ext,
-                                dv_ext, mx, my, w2, C, nglo, wq);
+                                dv_ext, mx, my, w2, C, nglo, wq, bf16_exp);
 }
 
 template <typename T>
@@ -94,7 +94,7 @@ cudaError_t launch_vil_halo_bwd(const void* q, const void* k_ext, const void* v_
                                 const float* lse, float* delta, void* dq, void* dk_ext,
                                 void* dv_ext, float* p_glo, float* ds_glo, float* dbias_part,
                                 int B, int mx, int my, int w2, int C, int H, int nglo, int wq,
-                                cudaStream_t stream) {
+                                bool bf16_exp, cudaStream_t stream) {
   const int per_block = dbias_part != nullptr ? mx * my : 1;
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
@@ -105,12 +105,13 @@ cudaError_t launch_vil_halo_bwd(const void* q, const void* k_ext, const void* v_
           kTcThreads, tc_pass1_smem_bytes(M), stream, (const T*)q, (const T*)k_ext,
           (const T*)v_ext, (const T*)k_glo, (const T*)v_glo, (const T*)g, (const T*)out, bias,
           mask, lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-          per_block);
+          per_block, bf16_exp);
       if (err != cudaSuccess) return err;
       return launch_with(vil_attention_halo_bwd_wgmma_pass2<M>, dim3((mx + 2) * my * slices, H, B),
                          kTcThreads, tc_pass2_smem_bytes(M), stream, (const T*)q,
                          (const T*)k_ext, (const T*)v_ext, (const T*)g, bias, mask, lse,
-                         (const float*)delta, (T*)dk_ext, (T*)dv_ext, mx, my, w2, C, nglo, wq);
+                         (const float*)delta, (T*)dk_ext, (T*)dv_ext, mx, my, w2, C, nglo, wq,
+                         bf16_exp);
     } else {
       cudaError_t err = launch(vil_attention_halo_bwd_pass1<T, M>,
                                dim3(mx * my / per_block, H, B), pass1_smem_bytes(w2, M), stream,
@@ -142,7 +143,8 @@ extern "C" int vil_attention_halo_bwd(const void* q, const void* k_ext, const vo
                                       const void* lse, void* delta, void* dq, void* dk_ext,
                                       void* dv_ext, void* p_glo, void* ds_glo, void* dbias_part,
                                       int B, int mx, int my, int w2, int C, int H, int nglo,
-                                      int wq, int is_bf16, void* stream) {
+                                      int wq, int is_bf16, int bf16_exp,
+                                      void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
@@ -154,8 +156,9 @@ extern "C" int vil_attention_halo_bwd(const void* q, const void* k_ext, const vo
   if (is_bf16)
     return vil::launch_vil_halo_bwd<__nv_bfloat16>(q, k_ext, v_ext, k_glo, v_glo, g, out, bias_f,
                                                    mask_f, lse_f, delta_f, dq, dk_ext, dv_ext,
-                                                   pg, dsg, db, B, mx, my, w2, C, H, nglo, wq, s);
+                                                   pg, dsg, db, B, mx, my, w2, C, H, nglo, wq,
+                                                   bf16_exp != 0, s);
   return vil::launch_vil_halo_bwd<float>(q, k_ext, v_ext, k_glo, v_glo, g, out, bias_f, mask_f,
                                          lse_f, delta_f, dq, dk_ext, dv_ext, pg, dsg, db, B, mx,
-                                         my, w2, C, H, nglo, wq, s);
+                                         my, w2, C, H, nglo, wq, bf16_exp != 0, s);
 }

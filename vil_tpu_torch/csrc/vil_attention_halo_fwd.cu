@@ -68,16 +68,17 @@ vil_attention_halo_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict_
                              const bf16* __restrict__ v_glo, const float* __restrict__ bias,
                              const float* __restrict__ mask, bf16* __restrict__ out,
                              float* __restrict__ lse, int mx, int my, int w2, int C, int nglo,
-                             int wq) {
+                             int wq, bool bf16_exp) {
   sliding_chunk_fwd_tc<M>(HaloNbh{}, q, k_ext, v_ext, k_glo, v_glo, bias, mask, out, lse, mx, my,
-                          w2, C, nglo, wq);
+                          w2, C, nglo, wq, bf16_exp);
 }
 
 template <typename T>
 cudaError_t launch_vil_halo(const void* q, const void* k_ext, const void* v_ext,
                             const void* k_glo, const void* v_glo, const float* bias,
                             const float* mask, void* out, float* lse, int B, int mx, int my,
-                            int w2, int C, int H, int nglo, int wq, cudaStream_t stream) {
+                            int w2, int C, int H, int nglo, int wq, bool bf16_exp,
+                            cudaStream_t stream) {
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
     if constexpr (std::is_same_v<T, bf16>) {
@@ -85,7 +86,8 @@ cudaError_t launch_vil_halo(const void* q, const void* k_ext, const void* v_ext,
       return launch_with(vil_attention_halo_fwd_wgmma<M>, dim3(slices * mx * my, H, B),
                          kTcThreads, tc_fwd_smem_bytes(M, nglo + HaloNbh::kCount * w2), stream,
                          (const T*)q, (const T*)k_ext, (const T*)v_ext, (const T*)k_glo,
-                         (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
+                         (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq,
+                         bf16_exp);
     } else {
       return launch(vil_attention_halo_fwd_kernel<T, M>, dim3(mx * my, H, B),
                     fwd_smem_bytes(w2, M), stream, (const T*)q, (const T*)k_ext,
@@ -106,14 +108,16 @@ extern "C" int vil_attention_halo_fwd(const void* q, const void* k_ext, const vo
                                       const void* k_glo, const void* v_glo, const void* bias,
                                       const void* mask, void* out, void* lse, int B, int mx,
                                       int my, int w2, int C, int H, int nglo, int wq,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, int bf16_exp,
+                                      void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
   auto* lse_f = static_cast<float*>(lse);
   if (is_bf16)
     return vil::launch_vil_halo<__nv_bfloat16>(q, k_ext, v_ext, k_glo, v_glo, bias_f, mask_f, out,
-                                               lse_f, B, mx, my, w2, C, H, nglo, wq, s);
+                                               lse_f, B, mx, my, w2, C, H, nglo, wq, bf16_exp != 0,
+                                               s);
   return vil::launch_vil_halo<float>(q, k_ext, v_ext, k_glo, v_glo, bias_f, mask_f, out, lse_f, B,
-                                     mx, my, w2, C, H, nglo, wq, s);
+                                     mx, my, w2, C, H, nglo, wq, bf16_exp != 0, s);
 }

@@ -206,10 +206,10 @@ vil_block_bwd_attn_wgmma_pass1(const bf16* __restrict__ q, const bf16* __restric
                                float* __restrict__ delta, bf16* __restrict__ dq,
                                float* __restrict__ p_glo, float* __restrict__ ds_glo,
                                float* __restrict__ dbias_part, int mx, int my, int w2, int C,
-                               int nglo, int wq, int chunks_per_block) {
+                               int nglo, int wq, int chunks_per_block, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass1<M>(FullNbh{}, q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta,
                                 dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-                                chunks_per_block);
+                                chunks_per_block, bf16_exp);
 }
 
 template <int M>
@@ -219,9 +219,9 @@ vil_block_bwd_attn_wgmma_pass2(const bf16* __restrict__ q, const bf16* __restric
                                const float* __restrict__ bias, const float* __restrict__ mask,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                bf16* __restrict__ dk, bf16* __restrict__ dv, int mx, int my,
-                               int w2, int C, int nglo, int wq) {
+                               int w2, int C, int nglo, int wq, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass2<M>(FullNbh{}, q, k, v, g, bias, mask, lse, delta, dk, dv, mx, my,
-                                w2, C, nglo, wq);
+                                w2, C, nglo, wq, bf16_exp);
 }
 
 // The partial of slice s = blockIdx.z / kProblems for problem blockIdx.z %
@@ -258,7 +258,8 @@ inline cudaError_t launch_block_bwd_tc(
     const bf16* k, const bf16* v, const bf16* attn, const bf16* g, const float* lse, bf16* dattn,
     float* delta, bf16* dq, bf16* dk, bf16* dv, float* p_glo, float* ds_glo, float* dbias_part,
     float* dkg, float* dvg, float* part, float* grads, bf16* dx, int B, int mx, int my, int w2,
-    int C, int H, int nglo, int wq_rows, int slices, int rows_per_slice, cudaStream_t stream) {
+    int C, int H, int nglo, int wq_rows, int slices, int rows_per_slice, bool bf16_exp,
+    cudaStream_t stream) {
   const int R = B * mx * my * w2;
   const int row_tiles = (R + kGemmTile - 1) / kGemmTile;
   cudaError_t err = dispatch_col_tiles(C, [&](auto nb) {
@@ -278,12 +279,12 @@ inline cudaError_t launch_block_bwd_tc(
         vil_block_bwd_attn_wgmma_pass1<M>, dim3(mx * my / per_block * slices_q, H, B),
         kTcThreads, tc_pass1_smem_bytes(M), stream, q, k, v, k_glo, v_glo, (const bf16*)dattn,
         attn, bias, mask, lse, delta, dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo,
-        wq_rows, per_block);
+        wq_rows, per_block, bf16_exp);
     if (e != cudaSuccess) return e;
     return launch_with(vil_block_bwd_attn_wgmma_pass2<M>, dim3(mx * my * slices_q, H, B),
                        kTcThreads, tc_pass2_smem_bytes(M), stream, q, k, v, (const bf16*)dattn,
                        bias, mask, lse, (const float*)delta, dk, dv, mx, my, w2, C, nglo,
-                       wq_rows);
+                       wq_rows, bf16_exp);
   });
   if (err != cudaSuccess) return err;
   if (nglo > 0) {
@@ -320,7 +321,7 @@ cudaError_t launch_block_bwd(const T* x, const T* wq, const T* wk, const T* wv, 
                              T* dv, float* p_glo, float* ds_glo, float* dbias_part, float* dkg,
                              float* dvg, float* part, float* grads, T* dx, int B, int mx, int my,
                              int w2, int C, int H, int nglo, int wq_rows, int slices,
-                             int rows_per_slice, cudaStream_t stream) {
+                             int rows_per_slice, bool bf16_exp, cudaStream_t stream) {
   const int R = B * mx * my * w2;
   cudaError_t err = launch(vil_block_bwd_proj_out<T>, tile_grid(R, C, 1), 0, stream,
                            NtSegments<T>{{g}, {wo}, 1}, dattn, R, C);
@@ -380,6 +381,7 @@ extern "C" int vil_block_bwd(const void* x, const void* wq, const void* wk, cons
                              void* ds_glo, void* dbias_part, void* dkg, void* dvg, void* part,
                              void* grads, void* dx, int B, int mx, int my, int w2, int C, int H,
                              int nglo, int wq_rows, int slices, int rows_per_slice, int is_bf16,
+                             int bf16_exp,
                              void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto f = [](void* p) { return static_cast<float*>(p); };
@@ -391,7 +393,8 @@ extern "C" int vil_block_bwd(const void* x, const void* wq, const void* wk, cons
                 (const T*)k_glo, (const T*)v_glo, cf(bias), cf(mask), (const T*)q, (const T*)k,
                 (const T*)v, (const T*)attn, (const T*)g, cf(lse), (T*)dattn, f(delta), (T*)dq,
                 (T*)dk, (T*)dv, f(p_glo), f(ds_glo), f(dbias_part), f(dkg), f(dvg), f(part),
-                f(grads), (T*)dx, B, mx, my, w2, C, H, nglo, wq_rows, slices, rows_per_slice, s);
+                f(grads), (T*)dx, B, mx, my, w2, C, H, nglo, wq_rows, slices, rows_per_slice,
+                bf16_exp != 0, s);
     };
     if constexpr (std::is_same_v<T, float>) return call(vil::launch_block_bwd<float>);
     else return call(vil::launch_block_bwd_tc);

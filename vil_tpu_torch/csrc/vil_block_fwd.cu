@@ -121,9 +121,9 @@ vil_block_fwd_attn_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v_glo, const float* __restrict__ bias,
                          const float* __restrict__ mask, bf16* __restrict__ out,
                          float* __restrict__ lse, int mx, int my, int w2, int C, int nglo,
-                         int wq) {
+                         int wq, bool bf16_exp) {
   sliding_chunk_fwd_tc<M>(FullNbh{}, q, k, v, k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C,
-                          nglo, wq);
+                          nglo, wq, bf16_exp);
 }
 
 template <int NB>
@@ -141,7 +141,8 @@ inline cudaError_t launch_block_fwd_tc(const bf16* x, const bf16* wq, const bf16
                                        const bf16* k_glo, const bf16* v_glo, const float* bias,
                                        const float* mask, bf16* q, bf16* k, bf16* v, bf16* attn,
                                        bf16* y, float* lse, int B, int mx, int my, int w2, int C,
-                                       int H, int nglo, int wq_rows, cudaStream_t stream) {
+                                       int H, int nglo, int wq_rows, bool bf16_exp,
+                                       cudaStream_t stream) {
   const int R = B * mx * my * w2;
   const int row_tiles = (R + kGemmTile - 1) / kGemmTile;
   cudaError_t err = dispatch_col_tiles(C, [&](auto nb) {
@@ -154,7 +155,7 @@ inline cudaError_t launch_block_fwd_tc(const bf16* x, const bf16* wq, const bf16
   if (err != cudaSuccess) return err;
   err = launch_full_fwd_tc([](auto m) { return vil_block_fwd_attn_wgmma<decltype(m)::value>; },
                            q, k, v, k_glo, v_glo, bias, mask, attn, lse, B, mx, my, w2, C, H,
-                           nglo, wq_rows, stream);
+                           nglo, wq_rows, bf16_exp, stream);
   if (err != cudaSuccess) return err;
   return dispatch_col_tiles(C, [&](auto nb) {
     constexpr int NB = decltype(nb)::value;
@@ -173,7 +174,8 @@ cudaError_t launch_block_fwd(const T* x, const T* wq, const T* wk, const T* wv, 
                              const float* bk, const float* bv, const T* wo, const float* bo,
                              const T* k_glo, const T* v_glo, const float* bias, const float* mask,
                              T* q, T* k, T* v, T* attn, T* y, float* lse, int B, int mx, int my,
-                             int w2, int C, int H, int nglo, int wq_rows, cudaStream_t stream) {
+                             int w2, int C, int H, int nglo, int wq_rows, bool bf16_exp,
+                             cudaStream_t stream) {
   const int R = B * mx * my * w2;
   QkvProjection<T> proj{{wq, wk, wv}, {bq, bk, bv}, {q, k, v}};
   cudaError_t err = launch(vil_block_fwd_proj_qkv<T>, proj_grid(R, C, 3), 0, stream, x, proj, R, C);
@@ -202,7 +204,8 @@ extern "C" int vil_block_fwd(const void* x, const void* wq, const void* wk, cons
                              const void* bo, const void* k_glo, const void* v_glo,
                              const void* bias, const void* mask, void* q, void* k, void* v,
                              void* attn, void* y, void* lse, int B, int mx, int my, int w2, int C,
-                             int H, int nglo, int wq_rows, int is_bf16, void* stream) {
+                             int H, int nglo, int wq_rows, int is_bf16, int bf16_exp,
+                             void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto run = [&](auto tag) {
@@ -211,7 +214,7 @@ extern "C" int vil_block_fwd(const void* x, const void* wq, const void* wk, cons
       return fn((const T*)x, (const T*)wq, (const T*)wk, (const T*)wv, f(bq), f(bk), f(bv),
                 (const T*)wo, f(bo), (const T*)k_glo, (const T*)v_glo, f(bias), f(mask), (T*)q,
                 (T*)k, (T*)v, (T*)attn, (T*)y, static_cast<float*>(lse), B, mx, my, w2, C, H,
-                nglo, wq_rows, s);
+                nglo, wq_rows, bf16_exp != 0, s);
     };
     if constexpr (std::is_same_v<T, float>) return call(vil::launch_block_fwd<float>);
     else return call(vil::launch_block_fwd_tc);

@@ -107,10 +107,10 @@ vil_mode_attention_bwd_wgmma_pass1(Nbh nbh, const bf16* __restrict__ q,
                                    float* __restrict__ delta, bf16* __restrict__ dq,
                                    float* __restrict__ p_glo, float* __restrict__ ds_glo,
                                    float* __restrict__ dbias_part, int mx, int my, int w2, int C,
-                                   int nglo, int wq, int chunks_per_block) {
+                                   int nglo, int wq, int chunks_per_block, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass1<M>(nbh, q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta, dq,
                                 p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-                                chunks_per_block);
+                                chunks_per_block, bf16_exp);
 }
 
 template <int M, typename Nbh>
@@ -121,9 +121,9 @@ vil_mode_attention_bwd_wgmma_pass2(Nbh nbh, const bf16* __restrict__ q,
                                    const float* __restrict__ mask, const float* __restrict__ lse,
                                    const float* __restrict__ delta, bf16* __restrict__ dk,
                                    bf16* __restrict__ dv, int mx, int my, int w2, int C,
-                                   int nglo, int wq) {
+                                   int nglo, int wq, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass2<M>(nbh, q, k, v, g, bias, mask, lse, delta, dk, dv, mx, my, w2, C,
-                                nglo, wq);
+                                nglo, wq, bf16_exp);
 }
 
 template <typename T, typename Nbh>
@@ -133,7 +133,7 @@ cudaError_t launch_vil_mode_bwd(const void* q, const void* k, const void* v, con
                                 float* delta, void* dq, void* dk, void* dv, float* p_glo,
                                 float* ds_glo, float* dbias_part, int B, int mx, int my, int w2,
                                 int C, int H, int nglo, int wq, Nbh nbh,
-                                cudaStream_t stream) {
+                                bool bf16_exp, cudaStream_t stream) {
   // with a bias, one block walks all chunks of its image (one writer per
   // dbias partial); without, one block per chunk
   const int per_block = dbias_part != nullptr ? mx * my : 1;
@@ -145,12 +145,13 @@ cudaError_t launch_vil_mode_bwd(const void* q, const void* k, const void* v, con
           vil_mode_attention_bwd_wgmma_pass1<M, Nbh>, dim3(mx * my / per_block * slices, H, B),
           kTcThreads, tc_pass1_smem_bytes(M), stream, nbh, (const T*)q, (const T*)k,
           (const T*)v, (const T*)k_glo, (const T*)v_glo, (const T*)g, (const T*)out, bias, mask,
-          lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq, per_block);
+          lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq, per_block,
+          bf16_exp);
       if (err != cudaSuccess) return err;
       return launch_with(vil_mode_attention_bwd_wgmma_pass2<M, Nbh>, dim3(mx * my * slices, H, B),
                          kTcThreads, tc_pass2_smem_bytes(M), stream, nbh, (const T*)q,
                          (const T*)k, (const T*)v, (const T*)g, bias, mask, lse,
-                         (const float*)delta, (T*)dk, (T*)dv, mx, my, w2, C, nglo, wq);
+                         (const float*)delta, (T*)dk, (T*)dv, mx, my, w2, C, nglo, wq, bf16_exp);
     } else {
       cudaError_t err = launch(vil_mode_attention_bwd_pass1<T, M, Nbh>,
                                dim3(mx * my / per_block, H, B), pass1_smem_bytes(w2, M), stream,
@@ -183,7 +184,8 @@ extern "C" int vil_mode_attention_bwd(const void* q, const void* k, const void* 
                                       const void* lse, void* delta, void* dq, void* dk, void* dv,
                                       void* p_glo, void* ds_glo, void* dbias_part, int B, int mx,
                                       int my, int w2, int C, int H, int nglo, int wq, int dx,
-                                      int dy, int is_bf16, void* stream) {
+                                      int dy, int is_bf16, int bf16_exp,
+                                      void* stream) {
   if (dx < -1 || dx > 1 || dy < -1 || dy > 1) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
@@ -197,10 +199,11 @@ extern "C" int vil_mode_attention_bwd(const void* q, const void* k, const void* 
   if (is_bf16)
     return vil::launch_vil_mode_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
                                                    lse_f, delta_f, dq, dk, dv, pg, dsg, db, B,
-                                                   mx, my, w2, C, H, nglo, wq, nbh, s);
+                                                   mx, my, w2, C, H, nglo, wq, nbh, bf16_exp != 0,
+                                                   s);
   return vil::launch_vil_mode_bwd<float>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f, lse_f,
                                          delta_f, dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H,
-                                         nglo, wq, nbh, s);
+                                         nglo, wq, nbh, bf16_exp != 0, s);
 }
 
 // The self-only instance (mode -1): vil_mode_attention_bwd's arguments
@@ -212,7 +215,8 @@ extern "C" int vil_self_attention_bwd(const void* q, const void* k, const void* 
                                       const void* lse, void* delta, void* dq, void* dk, void* dv,
                                       void* p_glo, void* ds_glo, void* dbias_part, int B, int mx,
                                       int my, int w2, int C, int H, int nglo, int wq,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, int bf16_exp,
+                                      void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
@@ -225,8 +229,9 @@ extern "C" int vil_self_attention_bwd(const void* q, const void* k, const void* 
   if (is_bf16)
     return vil::launch_vil_mode_bwd<__nv_bfloat16>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f,
                                                    lse_f, delta_f, dq, dk, dv, pg, dsg, db, B,
-                                                   mx, my, w2, C, H, nglo, wq, nbh, s);
+                                                   mx, my, w2, C, H, nglo, wq, nbh, bf16_exp != 0,
+                                                   s);
   return vil::launch_vil_mode_bwd<float>(q, k, v, k_glo, v_glo, g, out, bias_f, mask_f, lse_f,
                                          delta_f, dq, dk, dv, pg, dsg, db, B, mx, my, w2, C, H,
-                                         nglo, wq, nbh, s);
+                                         nglo, wq, nbh, bf16_exp != 0, s);
 }

@@ -84,16 +84,16 @@ vil_mode_attention_fwd_wgmma(Nbh nbh, const bf16* __restrict__ q,
                              const bf16* __restrict__ k_glo, const bf16* __restrict__ v_glo,
                              const float* __restrict__ bias, const float* __restrict__ mask,
                              bf16* __restrict__ out, float* __restrict__ lse, int mx, int my,
-                             int w2, int C, int nglo, int wq) {
+                             int w2, int C, int nglo, int wq, bool bf16_exp) {
   sliding_chunk_fwd_tc<M>(nbh, q, k, v, k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C, nglo,
-                          wq);
+                          wq, bf16_exp);
 }
 
 template <typename T, typename Nbh>
 cudaError_t launch_vil_mode(const void* q, const void* k, const void* v, const void* k_glo,
                             const void* v_glo, const float* bias, const float* mask, void* out,
                             float* lse, int B, int mx, int my, int w2, int C, int H, int nglo,
-                            int wq, Nbh nbh, cudaStream_t stream) {
+                            int wq, Nbh nbh, bool bf16_exp, cudaStream_t stream) {
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
     if constexpr (std::is_same_v<T, bf16>) {
@@ -101,7 +101,8 @@ cudaError_t launch_vil_mode(const void* q, const void* k, const void* v, const v
       return launch_with(vil_mode_attention_fwd_wgmma<M, Nbh>, dim3(slices * mx * my, H, B),
                          kTcThreads, tc_fwd_smem_bytes(M, nglo + Nbh::kCount * w2),
                          stream, nbh, (const T*)q, (const T*)k, (const T*)v, (const T*)k_glo,
-                         (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq);
+                         (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2, C, nglo, wq,
+                         bf16_exp);
     } else {
       return launch(vil_mode_attention_fwd_kernel<T, M, Nbh>, dim3(mx * my, H, B),
                     fwd_smem_bytes(w2, M), stream, nbh, (const T*)q, (const T*)k, (const T*)v,
@@ -122,7 +123,8 @@ extern "C" int vil_mode_attention_fwd(const void* q, const void* k, const void* 
                                       const void* k_glo, const void* v_glo, const void* bias,
                                       const void* mask, void* out, void* lse, int B, int mx,
                                       int my, int w2, int C, int H, int nglo, int wq, int dx,
-                                      int dy, int is_bf16, void* stream) {
+                                      int dy, int is_bf16, int bf16_exp,
+                                      void* stream) {
   if (dx < -1 || dx > 1 || dy < -1 || dy > 1) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
@@ -131,9 +133,10 @@ extern "C" int vil_mode_attention_fwd(const void* q, const void* k, const void* 
   const vil::SampledNbh nbh{dx, dy};
   if (is_bf16)
     return vil::launch_vil_mode<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out,
-                                               lse_f, B, mx, my, w2, C, H, nglo, wq, nbh, s);
+                                               lse_f, B, mx, my, w2, C, H, nglo, wq, nbh,
+                                               bf16_exp != 0, s);
   return vil::launch_vil_mode<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx,
-                                     my, w2, C, H, nglo, wq, nbh, s);
+                                     my, w2, C, H, nglo, wq, nbh, bf16_exp != 0, s);
 }
 
 // The self-only instance (mode -1): vil_mode_attention_fwd's arguments
@@ -143,7 +146,8 @@ extern "C" int vil_self_attention_fwd(const void* q, const void* k, const void* 
                                       const void* k_glo, const void* v_glo, const void* bias,
                                       const void* mask, void* out, void* lse, int B, int mx,
                                       int my, int w2, int C, int H, int nglo, int wq,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, int bf16_exp,
+                                      void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
   auto* mask_f = static_cast<const float*>(mask);
@@ -151,7 +155,8 @@ extern "C" int vil_self_attention_fwd(const void* q, const void* k, const void* 
   const vil::SelfNbh nbh{};
   if (is_bf16)
     return vil::launch_vil_mode<__nv_bfloat16>(q, k, v, k_glo, v_glo, bias_f, mask_f, out,
-                                               lse_f, B, mx, my, w2, C, H, nglo, wq, nbh, s);
+                                               lse_f, B, mx, my, w2, C, H, nglo, wq, nbh,
+                                               bf16_exp != 0, s);
   return vil::launch_vil_mode<float>(q, k, v, k_glo, v_glo, bias_f, mask_f, out, lse_f, B, mx,
-                                     my, w2, C, H, nglo, wq, nbh, s);
+                                     my, w2, C, H, nglo, wq, nbh, bf16_exp != 0, s);
 }

@@ -83,10 +83,10 @@ vil_mode_attention_halo_bwd_wgmma_pass1(
     const float* __restrict__ bias, const float* __restrict__ mask,
     const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
     float* __restrict__ p_glo, float* __restrict__ ds_glo, float* __restrict__ dbias_part,
-    int mx, int my, int w2, int C, int nglo, int wq, int chunks_per_block) {
+    int mx, int my, int w2, int C, int nglo, int wq, int chunks_per_block, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass1<M>(nbh, q, k_ext, v_ext, k_glo, v_glo, g, out, bias, mask, lse,
                                 delta, dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-                                chunks_per_block);
+                                chunks_per_block, bf16_exp);
 }
 
 template <int M>
@@ -96,9 +96,9 @@ vil_mode_attention_halo_bwd_wgmma_pass2(
     const bf16* __restrict__ v_ext, const bf16* __restrict__ g, const float* __restrict__ bias,
     const float* __restrict__ mask, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk_ext, bf16* __restrict__ dv_ext,
-    int mx, int my, int w2, int C, int nglo, int wq) {
+    int mx, int my, int w2, int C, int nglo, int wq, bool bf16_exp) {
   sliding_chunk_bwd_tc_pass2<M>(nbh, q, k_ext, v_ext, g, bias, mask, lse, delta, dk_ext, dv_ext,
-                                mx, my, w2, C, nglo, wq);
+                                mx, my, w2, C, nglo, wq, bf16_exp);
 }
 
 template <typename T>
@@ -109,7 +109,7 @@ cudaError_t launch_vil_mode_halo_bwd(const void* q, const void* k_ext, const voi
                                      void* dv_ext, float* p_glo, float* ds_glo,
                                      float* dbias_part, int B, int mx, int my, int w2, int C,
                                      int H, int nglo, int wq, HaloSampledNbh nbh,
-                                     cudaStream_t stream) {
+                                     bool bf16_exp, cudaStream_t stream) {
   // with a bias, one block walks all chunks of its image (one writer per
   // dbias partial); without, one block per chunk
   const int per_block = dbias_part != nullptr ? mx * my : 1;
@@ -123,12 +123,13 @@ cudaError_t launch_vil_mode_halo_bwd(const void* q, const void* k_ext, const voi
           kTcThreads, tc_pass1_smem_bytes(M), stream, nbh, (const T*)q, (const T*)k_ext,
           (const T*)v_ext, (const T*)k_glo, (const T*)v_glo, (const T*)g, (const T*)out, bias,
           mask, lse, delta, (T*)dq, p_glo, ds_glo, dbias_part, mx, my, w2, C, nglo, wq,
-          per_block);
+          per_block, bf16_exp);
       if (err != cudaSuccess) return err;
       return launch_with(vil_mode_attention_halo_bwd_wgmma_pass2<M>, dim3(kv * my * slices, H, B),
                          kTcThreads, tc_pass2_smem_bytes(M), stream, nbh, (const T*)q,
                          (const T*)k_ext, (const T*)v_ext, (const T*)g, bias, mask, lse,
-                         (const float*)delta, (T*)dk_ext, (T*)dv_ext, mx, my, w2, C, nglo, wq);
+                         (const float*)delta, (T*)dk_ext, (T*)dv_ext, mx, my, w2, C, nglo, wq,
+                         bf16_exp);
     } else {
       cudaError_t err = launch(vil_mode_attention_halo_bwd_pass1<T, M>,
                                dim3(mx * my / per_block, H, B), pass1_smem_bytes(w2, M), stream,
@@ -163,7 +164,8 @@ extern "C" int vil_mode_attention_halo_bwd(const void* q, const void* k_ext, con
                                            void* dv_ext, void* p_glo, void* ds_glo,
                                            void* dbias_part, int B, int mx, int my, int w2,
                                            int C, int H, int nglo, int wq, int dx, int dy,
-                                           int is_bf16, void* stream) {
+                                           int is_bf16, int bf16_exp,
+                                           void* stream) {
   if (dx < -1 || dx > 1 || dy < -1 || dy > 1) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* bias_f = static_cast<const float*>(bias);
@@ -178,8 +180,9 @@ extern "C" int vil_mode_attention_halo_bwd(const void* q, const void* k_ext, con
     return vil::launch_vil_mode_halo_bwd<__nv_bfloat16>(q, k_ext, v_ext, k_glo, v_glo, g, out,
                                                         bias_f, mask_f, lse_f, delta_f, dq,
                                                         dk_ext, dv_ext, pg, dsg, db, B, mx, my,
-                                                        w2, C, H, nglo, wq, nbh, s);
+                                                        w2, C, H, nglo, wq, nbh, bf16_exp != 0, s);
   return vil::launch_vil_mode_halo_bwd<float>(q, k_ext, v_ext, k_glo, v_glo, g, out, bias_f,
                                               mask_f, lse_f, delta_f, dq, dk_ext, dv_ext, pg,
-                                              dsg, db, B, mx, my, w2, C, H, nglo, wq, nbh, s);
+                                              dsg, db, B, mx, my, w2, C, H, nglo, wq, nbh,
+                                              bf16_exp != 0, s);
 }

@@ -65,9 +65,9 @@ vil_mode_attention_halo_fwd_wgmma(HaloSampledNbh nbh, const bf16* __restrict__ q
                                   const bf16* __restrict__ v_glo, const float* __restrict__ bias,
                                   const float* __restrict__ mask, bf16* __restrict__ out,
                                   float* __restrict__ lse, int mx, int my, int w2, int C,
-                                  int nglo, int wq) {
+                                  int nglo, int wq, bool bf16_exp) {
   sliding_chunk_fwd_tc<M>(nbh, q, k_ext, v_ext, k_glo, v_glo, bias, mask, out, lse, mx, my, w2, C,
-                          nglo, wq);
+                          nglo, wq, bf16_exp);
 }
 
 template <typename T>
@@ -75,7 +75,7 @@ cudaError_t launch_vil_mode_halo(const void* q, const void* k_ext, const void* v
                                  const void* k_glo, const void* v_glo, const float* bias,
                                  const float* mask, void* out, float* lse, int B, int mx, int my,
                                  int w2, int C, int H, int nglo, int wq, HaloSampledNbh nbh,
-                                 cudaStream_t stream) {
+                                 bool bf16_exp, cudaStream_t stream) {
   return dispatch_head_dim(C / H, [&](auto m) {
     constexpr int M = decltype(m)::value;
     if constexpr (std::is_same_v<T, bf16>) {
@@ -84,7 +84,7 @@ cudaError_t launch_vil_mode_halo(const void* q, const void* k_ext, const void* v
                          kTcThreads, tc_fwd_smem_bytes(M, nglo + HaloSampledNbh::kCount * w2),
                          stream, nbh, (const T*)q, (const T*)k_ext, (const T*)v_ext,
                          (const T*)k_glo, (const T*)v_glo, bias, mask, (T*)out, lse, mx, my, w2,
-                         C, nglo, wq);
+                         C, nglo, wq, bf16_exp);
     } else {
       return launch(vil_mode_attention_halo_fwd_kernel<T, M>, dim3(mx * my, H, B),
                     fwd_smem_bytes(w2, M), stream, nbh, (const T*)q, (const T*)k_ext,
@@ -107,6 +107,7 @@ extern "C" int vil_mode_attention_halo_fwd(const void* q, const void* k_ext, con
                                            const void* bias, const void* mask, void* out,
                                            void* lse, int B, int mx, int my, int w2, int C, int H,
                                            int nglo, int wq, int dx, int dy, int is_bf16,
+                                           int bf16_exp,
                                            void* stream) {
   if (dx < -1 || dx > 1 || dy < -1 || dy > 1) return cudaErrorInvalidValue;
   auto* s = static_cast<cudaStream_t>(stream);
@@ -117,7 +118,8 @@ extern "C" int vil_mode_attention_halo_fwd(const void* q, const void* k_ext, con
   if (is_bf16)
     return vil::launch_vil_mode_halo<__nv_bfloat16>(q, k_ext, v_ext, k_glo, v_glo, bias_f,
                                                     mask_f, out, lse_f, B, mx, my, w2, C, H,
-                                                    nglo, wq, nbh, s);
+                                                    nglo, wq, nbh, bf16_exp != 0, s);
   return vil::launch_vil_mode_halo<float>(q, k_ext, v_ext, k_glo, v_glo, bias_f, mask_f, out,
-                                          lse_f, B, mx, my, w2, C, H, nglo, wq, nbh, s);
+                                          lse_f, B, mx, my, w2, C, H, nglo, wq, nbh, bf16_exp != 0,
+                                          s);
 }

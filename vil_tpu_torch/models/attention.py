@@ -27,8 +27,13 @@ Counterpart of ``vil_tpu/models/attention.py`` for the ported path:
   self-only kernels on its rows without an exchange at mode -1; the global
   branch spreads its softmax over the ranks, with shared or unshared
   weights. The fused block has no halo form: a module built with
-  ``fused_block`` raises under a spatial context, and so does a module split
-  over a model axis.
+  ``fused_block`` raises under a spatial context. A module split over a
+  model axis as well takes the split's route on its heads: the
+  column-parallel projections, the halo exchange of its heads' K and V with
+  the same model rank of the neighbouring spatial ranks, the halo kernels
+  at its H/n heads, the global branch reduced over the spatial group per
+  head, then the row-parallel output projection reduced over the model
+  group.
 
 With ``rpe`` (an ``a0`` stage) each module holds the JAX package's
 relative-position-bias tables under its names: the local table, and with
@@ -363,7 +368,8 @@ class VilAttention(RelativePositionBias, nn.Module):
     projection dropout (MODEL.VIT.DROP) follows the output projections of
     both branches, each with its own draw from ``generator``: under the
     split the local branch keeps its rows of the whole grid's mask, and
-    both draw whole masks under 'tp', after the model group's reduce.
+    both draw whole masks under 'tp', after the model group's reduce. Split
+    over a model axis too, the module runs the spatial route at its heads.
     """
 
     def __init__(self, dim: int, num_heads: int, w: int = 7,
@@ -443,9 +449,6 @@ class VilAttention(RelativePositionBias, nn.Module):
         mode = sc.check_mode(mode)
         if self.only_glo:
             return self._forward_only_global(x, nx, ny, generator)
-        if spatial is not None and self.tp is not None:
-            raise NotImplementedError("a model axis together with a spatial axis is not "
-                                      "ported (ROADMAP.md §A, A12)")
         if spatial is not None and self.fused_block and self.use_kernels:
             raise NotImplementedError("the fused attention block has no halo form: build "
                                       "the model without fused_block for spatial parallelism "

@@ -41,37 +41,38 @@ SIGNATURES = {
     # is_bf16, stream
     "layer_norm_bwd": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 3 + [_P],
     # x, wq, wk, wv, bq, bk, bv, wo, bo, k_glo, v_glo, bias, mask, q, k, v,
-    # attn, y, lse, B, mx, my, w2, C, H, nglo, wq_rows, is_bf16, stream
-    "vil_block_fwd": [_P] * 19 + [_I] * 9 + [_P],
+    # attn, y, lse, B, mx, my, w2, C, H, nglo, wq_rows, is_bf16, bf16_exp, stream
+    "vil_block_fwd": [_P] * 19 + [_I] * 10 + [_P],
     # x, wq, wk, wv, wo, k_glo, v_glo, bias, mask, q, k, v, attn, g, lse,
     # dattn, delta, dq, dk, dv, p_glo, ds_glo, dbias_part, dkg, dvg, part,
     # grads, dx, B, mx, my, w2, C, H, nglo, wq_rows, slices, rows_per_slice,
-    # is_bf16, stream
-    "vil_block_bwd": [_P] * 28 + [_I] * 11 + [_P],
+    # is_bf16, bf16_exp, stream
+    "vil_block_bwd": [_P] * 28 + [_I] * 12 + [_P],
     # q, k, v, k_glo, v_glo, bias, mask, out, lse,
-    # B, mx, my, w2, C, H, nglo, wq, is_bf16, stream
-    "vil_attention_fwd": [_P] * 9 + [_I] * 9 + [_P],
+    # B, mx, my, w2, C, H, nglo, wq, is_bf16, bf16_exp, stream (bf16_exp:
+    # vil_tpu's BF16_EXP for the bf16 kernels, vil_attention.bf16_exp())
+    "vil_attention_fwd": [_P] * 9 + [_I] * 10 + [_P],
     # q, k, v, k_glo, v_glo, g, out, bias, mask, lse, delta, dq, dk, dv,
     # p_glo, ds_glo, dbias_part, B, mx, my, w2, C, H, nglo, wq,
-    # chunks_per_block, is_bf16, stream
-    "vil_attention_bwd": [_P] * 17 + [_I] * 10 + [_P],
+    # chunks_per_block, is_bf16, bf16_exp, stream
+    "vil_attention_bwd": [_P] * 17 + [_I] * 11 + [_P],
     # the same as vil_attention_fwd / _bwd (the backward with out after g,
     # without chunks_per_block) with the sampled chunk's offset dx, dy before
     # is_bf16
-    "vil_mode_attention_fwd": [_P] * 9 + [_I] * 11 + [_P],
-    "vil_mode_attention_bwd": [_P] * 17 + [_I] * 11 + [_P],
+    "vil_mode_attention_fwd": [_P] * 9 + [_I] * 12 + [_P],
+    "vil_mode_attention_bwd": [_P] * 17 + [_I] * 12 + [_P],
     # the self-only (mode -1) instances: vil_mode_attention_fwd / _bwd's
     # signatures without the offset
-    "vil_self_attention_fwd": [_P] * 9 + [_I] * 9 + [_P],
-    "vil_self_attention_bwd": [_P] * 17 + [_I] * 9 + [_P],
+    "vil_self_attention_fwd": [_P] * 9 + [_I] * 10 + [_P],
+    "vil_self_attention_bwd": [_P] * 17 + [_I] * 10 + [_P],
     # the same as vil_attention_fwd / _bwd (without chunks_per_block), with
     # k, v (and dk, dv) of mx + 2 chunk rows
-    "vil_attention_halo_fwd": [_P] * 9 + [_I] * 9 + [_P],
-    "vil_attention_halo_bwd": [_P] * 17 + [_I] * 9 + [_P],
+    "vil_attention_halo_fwd": [_P] * 9 + [_I] * 10 + [_P],
+    "vil_attention_halo_bwd": [_P] * 17 + [_I] * 10 + [_P],
     # the sampled-neighbour halo forms (B5h, B6h): vil_mode_attention_fwd /
     # _bwd's signatures, with k, v (and dk, dv) of mx + 2 chunk rows
-    "vil_mode_attention_halo_fwd": [_P] * 9 + [_I] * 11 + [_P],
-    "vil_mode_attention_halo_bwd": [_P] * 17 + [_I] * 11 + [_P],
+    "vil_mode_attention_halo_fwd": [_P] * 9 + [_I] * 12 + [_P],
+    "vil_mode_attention_halo_bwd": [_P] * 17 + [_I] * 12 + [_P],
     # P's strided path: x, y, the 5 sizes of the layout, x's and y's 5
     # strides (elements), is_bf16, stream; one entry point per layout
     "layout_probe_base": [_P] * 2 + [_L] * 15 + [_I, _P],

@@ -28,6 +28,7 @@ share them.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -47,6 +48,18 @@ HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernel is compiled for
 # pass2_smem_bytes); the bf16 tensor-core bodies size theirs by the 64-row
 # tile and take every W
 SMEM_PER_BLOCK = 232448
+
+
+def bf16_exp() -> bool:
+    """``vil_tpu``'s BF16_EXP (``vil_tpu/ops/pallas/vil_kernel.py``): whether
+    the bf16 sliding-chunk kernels round the exponent's input to bf16, P =
+    bf16(exp(bf16(S − L))) in the backward and exp(bf16(S − m)) against the
+    running maximum in the forward, where without it they take the exponent
+    of the f32 difference; the forward's LSE sums the same P. The
+    environment variable ``VIL_TPU_BF16_EXP``,
+    "1" (on) by default as in ``vil_tpu``, read at each launch; the f32
+    kernels and the dense ones ignore it."""
+    return os.environ.get("VIL_TPU_BF16_EXP", "1") == "1"
 
 
 def mask_to_additive(mask_bool: np.ndarray, mx: int, my: int, w2: int,
@@ -140,6 +153,109 @@ def chunk_attention_bwd_reference(q, k, v, k_glo, v_glo, bias, g, mask_add, num_
     return grads_by_autograd(
         lambda *ops: chunk_attention_reference(*ops, mask_add, num_heads, mode),
         (q, k, v, k_glo, v_glo, bias), g)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even), kept in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _emulated_keys(k, v, k_glo, v_glo, num_heads: int, neighbours):
+    """[glo ‖ neighbourhood] keys and values of every query chunk in heads
+    layout, (B·H, mx, my, Nglo + K·W², M) f32, from the leaves they are cut
+    of (autograd carries a gradient back through the gather)."""
+    kn, vn = neighbours(_heads(k, num_heads)), neighbours(_heads(v, num_heads))
+    if k_glo is None:
+        return kn, vn
+    glo = lambda t: _glo_heads(t, num_heads)[:, None, None].expand(
+        -1, kn.shape[1], kn.shape[2], -1, -1)
+    return torch.cat([glo(k_glo), kn], dim=3), torch.cat([glo(v_glo), vn], dim=3)
+
+
+def _emulated_scores(q, kcat, bias, mask_add, num_heads: int) -> torch.Tensor:
+    """S + bias + mask (B·H, mx, my, W², cols) f32, S from the operands'
+    values with f32 sums."""
+    scores = torch.matmul(_heads(q, num_heads), kcat.transpose(-1, -2))
+    if bias is not None:
+        scores = scores + bias.float().repeat(q.shape[0], 1, 1)[:, None, None]
+    return scores + mask_add.float()[None]
+
+
+KEY_TILE = 64  # the tensor-core forward's keys a tile (csrc/tensor_core.cuh, kTcRows)
+
+
+def neighbourhood_attention_bf16(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
+                                 neighbours, exp_bf16: bool, with_lse: bool = False):
+    """The bf16 tensor-core forward's arithmetic, emulated in f32 (the plain
+    version's operands and ``neighbours``): S with f32 sums, taken in tiles of
+    ``KEY_TILE`` keys in the column order [glo ‖ neighbourhood] with a
+    running maximum m, as the kernel's online softmax takes them: P =
+    exp(S − m), the difference rounded to bf16 first when ``exp_bf16``
+    (``vil_tpu``'s BF16_EXP, :func:`bf16_exp`), the denominator summed from
+    the unrounded P and P rounded to bf16 for P·V, both rescaled when a
+    later tile raises m; the output rounded to q's dtype, the LSE m + log Σ
+    P. Used by the tests; :func:`neighbourhood_attention` stays the oracle
+    of the kernels' limits. With ``with_lse`` it returns (out, lse)."""
+    B, mx, my, w2, C = q.shape
+    H = num_heads
+    kcat, vcat = _emulated_keys(k, v, k_glo, v_glo, H, neighbours)
+    scores = _emulated_scores(q, kcat, bias, mask_add, H)
+    m = scores.new_full(scores.shape[:-1] + (1,), float("-inf"))
+    den = torch.zeros_like(m)
+    acc = scores.new_zeros(scores.shape[:-1] + (C // H,))
+    for t in range(0, scores.shape[-1], KEY_TILE):
+        tile = scores[..., t:t + KEY_TILE]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        z = tile - m_new
+        p = torch.exp(_bf16(z) if exp_bf16 else z)
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(_bf16(p), vcat[..., t:t + KEY_TILE, :])
+        m = m_new
+    out = (acc / den).reshape(B, H, mx, my, w2, C // H).permute(0, 2, 3, 4, 1, 5)
+    out = out.reshape(B, mx, my, w2, C).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, (m + torch.log(den))[..., 0].reshape(B, H, mx, my, w2)
+
+
+def neighbourhood_attention_bf16_bwd(q, k, v, k_glo, v_glo, bias, g, out, lse, mask_add,
+                                     num_heads: int, neighbours, exp_bf16: bool):
+    """The bf16 tensor-core backward's arithmetic, emulated in f32 from the
+    forward's ``out`` and ``lse``: P = bf16(exp(S − L)), S − L rounded to
+    bf16 first when ``exp_bf16``; dP = g·Vᵀ, δ = rowsum(g ∘ out), dS = P ∘
+    (dP − δ); dbias and the global keys' dK from the unrounded dS, the rest
+    from dS rounded to bf16; dV from the rounded P. Returns (dq, dk, dv,
+    dk_glo, dv_glo, dbias) as the backward wrappers do."""
+    B, mx, my, w2, C = q.shape
+    H, M = num_heads, C // num_heads
+    nglo = 0 if k_glo is None else k_glo.shape[1]
+    leaves = [None if t is None else t.detach().float().requires_grad_()
+              for t in (k, v, k_glo, v_glo)]
+    with torch.enable_grad():
+        kcat, vcat = _emulated_keys(*leaves, H, neighbours)
+    scores = _emulated_scores(q, kcat.detach(), bias, mask_add, H)
+    z = scores - lse.reshape(B * H, mx, my, w2)[..., None]
+    p = _bf16(torch.exp(_bf16(z) if exp_bf16 else z))
+    gh = _heads(g, H)
+    dp = torch.matmul(gh, vcat.detach().transpose(-1, -2))
+    ds = p * (dp - (gh * _heads(out, H)).sum(dim=-1, keepdim=True))
+    dsb = _bf16(ds)
+    qh = _heads(q, H)
+    dq = torch.matmul(dsb, kcat.detach())
+    dk_rows = torch.cat([ds[..., :nglo], dsb[..., nglo:]], dim=-1)
+    dkcat = torch.matmul(dk_rows.transpose(-1, -2), qh)
+    dvcat = torch.matmul(p.transpose(-1, -2), gh)
+    present = [t for t in leaves if t is not None]
+    grads = iter(torch.autograd.grad((kcat, vcat), present, (dkcat, dvcat)))
+    dk, dv, dkg, dvg = (None if t is None else next(grads) for t in leaves)
+    dq = dq.reshape(B, H, mx, my, w2, M).permute(0, 2, 3, 4, 1, 5).reshape(B, mx, my, w2, C)
+    dbias = None
+    if bias is not None:
+        dbias = ds.reshape(B, H, mx, my, w2, -1).sum(dim=(0, 2, 3))
+    cast = lambda t, like: None if t is None else t.to(like.dtype)
+    return (dq.to(q.dtype), cast(dk, k), cast(dv, v), cast(dkg, k_glo), cast(dvg, v_glo),
+            dbias)
 
 
 def vil_attention_reference(q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int,
@@ -303,7 +419,7 @@ def launch_fwd(entry: str, q, k, v, k_glo, v_glo, bias, mask_add, num_heads: int
         err = getattr(build.load(), entry)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(k_glo), _ptr(v_glo), _ptr(bias),
             _ptr(mask_add), _ptr(out), _ptr(lse), B, mx, my, w2, C, num_heads, nglo,
-            mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16),
+            mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16), int(bf16_exp()),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, entry)
@@ -334,7 +450,7 @@ def launch_bwd(entry: str, span: int, q, k, v, k_glo, v_glo, bias, g, mask_add, 
             *(() if out is None else (_ptr(out),)), _ptr(bias),
             _ptr(mask_add), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
             _ptr(p_glo), _ptr(ds_glo), _ptr(dbias_part), B, mx, my, w2, C, H, nglo,
-            mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16),
+            mask_add.shape[2], *extra, int(q.dtype == torch.bfloat16), int(bf16_exp()),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, entry)

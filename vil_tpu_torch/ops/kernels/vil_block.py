@@ -43,6 +43,7 @@ from . import build
 from .vil_attention import (
     _check_aligned,
     _ptr,
+    bf16_exp,
     check_grad_operands,
     check_operands,
     vil_attention_reference,
@@ -152,7 +153,7 @@ def vil_block_fwd(x: torch.Tensor, wq: torch.Tensor, bq: Optional[torch.Tensor],
             *(_ptr(t) for t in (x, wq, wk, wv, bq, bk, bv, wo, bo, k_glo, v_glo, bias,
                                 mask_add, q, k, v, attn, y, lse)),
             B, mx, my, w2, C, num_heads, nglo, mask_add.shape[2],
-            int(x.dtype == torch.bfloat16), build.stream(x.device))
+            int(x.dtype == torch.bfloat16), int(bf16_exp()), build.stream(x.device))
         build.check(err, "vil_block_fwd")
         vil_block_fwd.launches += 1
     out = (y, k, v) + ((lse,) if with_lse else ())
@@ -207,7 +208,7 @@ def vil_block_bwd(x, wq, bq, wk, bk, wv, bv, wo, bo, k_glo, v_glo, bias, g, mask
                             g, lse, dattn, delta, dq, dk, dv, p_glo, ds_glo, dbias_part,
                             dkg, dvg, part, grads, dx)),
         B, mx, my, w2, C, H, nglo, mask_add.shape[2], slices, per_slice,
-        int(x.dtype == torch.bfloat16), build.stream(x.device))
+        int(x.dtype == torch.bfloat16), int(bf16_exp()), build.stream(x.device))
     build.check(err, "vil_block_bwd")
     vil_block_bwd.launches += 1
     dw = grads[:4 * C * C].view(4, C, C)

@@ -1,6 +1,6 @@
 """Process-group and mesh set-up, the whole-model spatial forward, and the
-gradient reduction of a training step over a ('data', 'spatial') or a
-('data', 'model') mesh.
+gradient reduction of a training step over a ('data', 'spatial'), a
+('data', 'model') or a ('data', 'spatial', 'model') mesh.
 
 Counterpart of ``vil_tpu/parallel/mesh.py``. JAX's ``jit_spatial_forward``
 and ``jit_train_step`` shard the image's height over a mesh axis and let
@@ -34,6 +34,20 @@ over the model axis (``TPU.PARAM_SHARDING 'tp'``): every rank of a data
 replica takes the replica's images whole, and the gradients are averaged
 over the data axis alone. FSDP (``'fsdp'``) slices the parameters over the
 data axis (:func:`fully_shard`).
+
+Both go beside a spatial axis, as ``vil_tpu``'s Trainer runs them under
+GSPMD. On a ('data', 'spatial', 'model') mesh under 'tp' a rank holds its
+model group's heads of its spatial group's rows: the spatial group is the
+ranks with its (data, model) index, the model group those with its (data,
+spatial) index, the data group those with its (spatial, model) index, and
+the ranks of one data replica (spatial × model) share its images. The
+gradients are summed over the ranks that hold the same parameters (the
+data and spatial axes, :attr:`Mesh.param_group`), the relative-position
+tables' head parts over the model group first. On a ('data', 'spatial')
+mesh under 'fsdp' the parameters are sliced over the data axis alone, whole
+across the spatial group: the gathers and the reduce-scatter run over the
+data group of a rank's spatial index, and each rank's row-partial gradients
+are summed over the spatial group before the reduce-scatter.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -98,58 +113,81 @@ def resolve_shape(mesh_shape: Sequence[int], world: int) -> list[int]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place on a ('data', 'spatial') or ('data', 'model')
-    mesh: its data replica ``data_rank`` of ``data_size`` (the images it
-    reads); where the mesh has a spatial axis, the context of its spatial
-    group (the rows of each image it holds); where it has a model axis, the
-    context of its model group (``model``: the heads it holds under
-    TPU.PARAM_SHARDING 'tp') and ``data_group``, the ranks of the data axis
-    that hold the same heads, over which the gradients are averaged. Without
-    a process group: one replica, and a spatial context of one rank that
-    communicates nothing."""
+    """This process's place on a mesh of a data axis and a spatial axis, a
+    model axis or both: its data replica ``data_rank`` of ``data_size`` (the
+    images it reads); where the mesh has a spatial axis, the context of its
+    spatial group (the rows of each image it holds); where it has a model
+    axis, the context of its model group (``model``: the heads it holds
+    under TPU.PARAM_SHARDING 'tp'). ``data_group`` is the ranks of the data
+    axis that hold the same rows and heads (FSDP slices over it; None: every
+    rank, on a mesh of the data axis alone); ``param_group`` the ranks that
+    hold the same parameters, over which the gradients are summed (None:
+    every rank; on a mesh of data and model axes ``data_group``, its
+    default); ``replica_group`` the ranks of one data replica where the
+    mesh has both a spatial and a model axis. Without a process group: one
+    replica, and contexts of one rank that communicate nothing."""
 
     data_size: int = 1
     data_rank: int = 0
     spatial: Optional[SpatialContext] = None
     model: Optional[TensorParallel] = None
     data_group: Optional[dist.ProcessGroup] = None
+    param_group: Optional[dist.ProcessGroup] = None
+    replica_group: Optional[dist.ProcessGroup] = None
+
+    def __post_init__(self):
+        if self.param_group is None and self.model is not None and self.spatial is None:
+            object.__setattr__(self, "param_group", self.data_group)
 
     @property
     def replica(self):
         """The context of the ranks that share one data replica's images
-        (the spatial or the model group), or None."""
+        (the spatial group, the model group, or both together), or None."""
+        if self.spatial is not None and self.model is not None:
+            return TensorParallel.of(self.replica_group)
         return self.spatial if self.spatial is not None else self.model
+
+
+def _flat_group(shape: Sequence[int], kept: Sequence[int]):
+    """This rank's group of the ranks that share its index on every axis of
+    the mesh of ``shape`` but the ``kept`` ones (``create_mesh`` numbers the
+    ranks row-major). Every rank creates every such group, in one order."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    others = [a for a in range(len(shape)) if a not in kept]
+    rows = ranks.transpose(others + list(kept)).reshape(-1, math.prod(shape[a] for a in kept))
+    group, _ = dist.new_subgroups_by_enumeration([r.tolist() for r in rows])
+    return group
 
 
 def mesh_from_cfg(cfg) -> Mesh:
     """The :class:`Mesh` of ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` over the
-    default group's ranks (axes ``data`` with ``spatial`` or ``model``;
-    another raises, and a model axis beside a spatial one is not ported)."""
+    default group's ranks: the axes ``data``, ``spatial`` and ``model``, in
+    any order, each at most once (another raises); a mesh without a data
+    axis has one data replica."""
     axes = tuple(cfg.TPU.MESH_AXES)
     if not set(axes) <= {"data", "spatial", "model"} or len(set(axes)) != len(axes):
         raise ValueError(f"TPU.MESH_AXES {list(axes)}: the port's mesh has the axes 'data', "
                          f"'spatial' and 'model'")
-    if {"spatial", "model"} <= set(axes):
-        raise NotImplementedError("a model axis together with a spatial axis is not ported "
-                                  "(ROADMAP.md §A, A12)")
     shape = resolve_shape(cfg.TPU.MESH_SHAPE, get_world_size())
     if len(shape) != len(axes):
         raise ValueError(f"TPU.MESH_SHAPE {list(cfg.TPU.MESH_SHAPE)} and TPU.MESH_AXES "
                          f"{list(axes)} differ in length")
-    if "model" in axes and "data" not in axes:  # one data replica
+    if "data" not in axes:  # one data replica
         axes, shape = ("data", *axes), [1, *shape]
     if not is_distributed():
         return Mesh(spatial=SpatialContext.of(None) if "spatial" in axes else None,
                     model=TensorParallel.of(None) if "model" in axes else None)
     mesh = create_mesh(shape, axes)
-    data_size, data_rank = 1, 0
-    if "data" in axes:
-        data_size, data_rank = mesh.size(axes.index("data")), mesh.get_local_rank("data")
+    data_size, data_rank = mesh.size(axes.index("data")), mesh.get_local_rank("data")
     spatial = SpatialContext.of(mesh.get_group("spatial")) if "spatial" in axes else None
-    model = data_group = None
-    if "model" in axes:
-        model, data_group = TensorParallel.of(mesh.get_group("model")), mesh.get_group("data")
-    return Mesh(data_size, data_rank, spatial, model, data_group)
+    model = TensorParallel.of(mesh.get_group("model")) if "model" in axes else None
+    data_group = mesh.get_group("data") if len(axes) > 1 else None
+    param_group = replica_group = None
+    if model is not None and spatial is not None:
+        at = axes.index
+        param_group = _flat_group(shape, (at("data"), at("spatial")))
+        replica_group = _flat_group(shape, (at("spatial"), at("model")))
+    return Mesh(data_size, data_rank, spatial, model, data_group, param_group, replica_group)
 
 
 def average_gradients(params, data_size: int, group=None, partial=()) -> None:
@@ -157,12 +195,14 @@ def average_gradients(params, data_size: int, group=None, partial=()) -> None:
     when None) in one all-reduce and divide by the data replicas: the
     spatial ranks' partial gradients add up to their replica's
     (``parallel/spatial.py``), and the replicas' are averaged. On a model
-    axis ``group`` is the data axis (``Mesh.data_group``): the model ranks
-    hold whole gradients, or their part of the weights, and ``partial``
-    names the parameters of which each holds a part (``MsViT.partial_over_model``),
-    summed over the model group ``partial.group`` first. Parameters without
-    a gradient are left out, alike on every rank. Nothing happens without a
-    process group or at one rank."""
+    axis ``group`` is the ranks that hold the same parameters
+    (``Mesh.param_group``: the data axis, with the spatial axis where the
+    mesh has one): the model ranks hold whole gradients, or their part of
+    the weights, and ``partial`` names the parameters of which each holds a
+    part (``MsViT.partial_over_model``), summed over the model group
+    ``partial.group`` first. Parameters without a gradient are left out,
+    alike on every rank. Nothing happens without a process group or at one
+    rank."""
     if not is_distributed():
         return
     if partial and partial.size > 1:
@@ -201,11 +241,10 @@ class Partial:
 def fully_shard(model, mesh: Mesh, min_size: int = FSDP_MIN_SIZE) -> FullyShardedParams:
     """FSDP of ``model`` over ``mesh``'s data axis (TPU.PARAM_SHARDING
     'fsdp', ``parallel/tensor.py``): its large parameters become this
-    rank's slices; build the optimizer afterwards. Returns the state
+    rank's slices of the data group of its spatial index (whole across the
+    spatial group, as ``vil_tpu``'s ``fsdp_sharding`` shards over 'data'
+    alone); build the optimizer afterwards. Returns the state
     (``model.fsdp``) that the train and eval steps drive."""
-    if mesh.spatial is not None:
-        raise NotImplementedError("FSDP together with a spatial axis is not ported "
-                                  "(ROADMAP.md §A, A12)")
     return FullyShardedParams(model, mesh.data_group, min_size)
 
 
@@ -221,8 +260,8 @@ def average_metrics(metrics: dict) -> dict:
 
 
 def broadcast_replica(t: torch.Tensor, replica) -> torch.Tensor:
-    """``t`` as the first rank of the ``replica`` group (a spatial or model
-    context, ``Mesh.replica``) holds it, on every rank of the group: a batch
+    """``t`` as the first rank of the ``replica`` group (``Mesh.replica``)
+    holds it, on every rank of the group: a batch
     the ranks of one data replica must share. As it is without a process
     group or on a group of one rank."""
     if replica is None or replica.size == 1 or not is_distributed():

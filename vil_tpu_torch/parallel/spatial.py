@@ -229,12 +229,18 @@ def _shift(to_next: torch.Tensor, to_prev: torch.Tensor, group):
     back). Tags tell the two messages apart where next and previous are one
     rank; NCCL, which ignores tags, pairs them in the order posted. A group
     of one sends to itself under NCCL; gloo has no pair to its own rank, so
-    there the exchange is a copy."""
+    there the exchange is a copy. Gloo's point-to-point reads and writes host
+    memory, so card tensors (ranks sharing a card over gloo) pass through the
+    host."""
     d, r = dist.get_world_size(group), dist.get_rank(group)
     if d == 1 and dist.get_backend(group) != "nccl":
         return to_next.clone(), to_prev.clone()
     g = dist.group.WORLD if group is None else group
     nxt, prv = (dist.get_global_rank(g, (r + 1) % d), dist.get_global_rank(g, (r - 1) % d))
+    device = to_next.device
+    staged = device.type != "cpu" and dist.get_backend(group) == "gloo"
+    if staged:
+        to_next, to_prev = to_next.cpu(), to_prev.cpu()
     to_next, to_prev = to_next.contiguous(), to_prev.contiguous()
     from_prev, from_next = torch.empty_like(to_next), torch.empty_like(to_prev)
     ops = [dist.P2POp(dist.isend, to_next, nxt, group, 0),
@@ -243,6 +249,8 @@ def _shift(to_next: torch.Tensor, to_prev: torch.Tensor, group):
            dist.P2POp(dist.irecv, from_next, nxt, group, 1)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    if staged:
+        return from_prev.to(device), from_next.to(device)
     return from_prev, from_next
 
 

@@ -41,7 +41,10 @@ steps, along the dimension ``vil_tpu``'s rule picks (:func:`fsdp_dim`).
 Each block's parameters are all-gathered in one collective before the
 block runs and stay gathered until the step's end; after the backward their
 gradients are reduce-scattered, averaged over the replicas, onto the
-shards, and the gathered copies are let go. Written by hand over
+shards, and the gathered copies are let go. Beside a spatial axis the data
+group is that of a rank's spatial index, and each rank's row-partial
+gradients are summed over the spatial group before the reduce-scatter.
+Written by hand over
 ``torch.distributed`` (``all_gather_into_tensor``, ``reduce_scatter_tensor``:
 ``nccl``, and ``gloo`` on CPU and CUDA tensors alike).
 
@@ -360,15 +363,24 @@ class FullyShardedParams:
         self.local = {}
 
     @torch.no_grad()
-    def reduce_scatter_gradients(self, data_size: int) -> None:
+    def reduce_scatter_gradients(self, data_size: int, partial_group=None) -> None:
         """The gathered parameters' gradients summed over the group in one
         reduce-scatter, divided by ``data_size``, onto the slices; then
-        every parameter back to its slice with its slice's gradient."""
+        every parameter back to its slice with its slice's gradient. With a
+        ``partial_group`` (the spatial group, on a mesh with a spatial axis)
+        each rank holds a part of every gradient: they are summed over it in
+        one all-reduce first."""
         names = [n for n in self.local if self.params[n].grad is not None]
         if names:
+            dtype = wide(*(self.params[n].grad.dtype for n in names))
+            if partial_group is not None and get_world_size(partial_group) > 1:
+                grads = [self.params[n].grad for n in names]
+                flat = torch.cat([g.reshape(-1).to(dtype) for g in grads])
+                dist.all_reduce(flat, group=partial_group)
+                for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                    g.copy_(part.view_as(g))
             # rank-major: block r holds every parameter's part r, flat, in
             # f32 (f64 when a gradient is f64)
-            dtype = wide(*(self.params[n].grad.dtype for n in names))
             send = torch.cat([torch.cat([
                 self.shards[n].local_of(self.params[n].grad, r).reshape(-1).to(dtype)
                 for n in names]) for r in range(self.size)])

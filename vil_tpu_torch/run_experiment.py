@@ -8,6 +8,11 @@
         TPU.MESH_AXES "['data','model']" TPU.MESH_SHAPE "[a,b]" TPU.PARAM_SHARDING tp
     torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
         TPU.MESH_AXES "['data']" TPU.MESH_SHAPE "[N]" TPU.PARAM_SHARDING fsdp
+    torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
+        TPU.MESH_AXES "['data','spatial','model']" TPU.MESH_SHAPE "[a,b,c]" \
+        TPU.PARAM_SHARDING tp
+    torchrun --standalone --nproc_per_node=N -m vil_tpu_torch.run_experiment ... \
+        TPU.MESH_AXES "['data','spatial']" TPU.MESH_SHAPE "[a,b]" TPU.PARAM_SHARDING fsdp
 
 The counterpart of the repository's ``run_experiment.py`` for ``vil_tpu``:
 the same arguments and the same config handling (the yaml, then the dotted
@@ -16,17 +21,19 @@ KEY VALUE overrides, then ``--data``, ``--output_dir`` and ``--seed``), then
 ``LOCAL_RANK`` and ``TORCHELASTIC_RUN_ID`` in the environment) each process
 joins an ``nccl`` group through a ``FileStore`` in the temporary directory,
 named by the run id, takes card ``LOCAL_RANK`` and trains over the
-config's mesh (a·b = N): data and spatial axes (at every neighbour mode:
-the random-shift epochs of MODEL.VIT.MSVIT.MODE 1 too), or data and model axes
-with TPU.PARAM_SHARDING 'tp' (each rank b's share of the heads), or FSDP
-over the data axis ('fsdp'); TPU.REMAT and MODEL.VIT.DROP on each of them,
+config's mesh (a·b = N, a·b·c = N): data and spatial axes (at every
+neighbour mode: the random-shift epochs of MODEL.VIT.MSVIT.MODE 1 too), or
+data and model axes with TPU.PARAM_SHARDING 'tp' (each rank b's share of the
+heads), or FSDP over the data axis ('fsdp'), or both beside a spatial axis:
+'tp' on data, spatial and model axes (a rank's heads of its rows), 'fsdp'
+on data and spatial axes; TPU.REMAT and MODEL.VIT.DROP on each of them,
 and a ResNet of the zoo on the data axis, under 'fsdp' and under 'tp'; rank
 0 alone logs and writes checkpoints, whole, which a run of any mesh or
 sharding resumes. Without torchrun it runs on one card in one process. To
 run on the CPU, build ``train.trainer.Trainer(cfg, device="cpu")`` instead.
 Still raising, each naming its ROADMAP item (``train.trainer.check_ported``):
-a model axis, FSDP or a ResNet beside a spatial axis (A12), and
-``--multi-host``: one host's cards (ROADMAP §A, A12).
+a ResNet on a spatial axis (A12), and ``--multi-host``: one host's cards
+(ROADMAP §A, A12).
 """
 from __future__ import annotations
 

@@ -195,17 +195,19 @@ def measure(dataset, batch: int, backend: str, workers: int, seed: int = 0) -> d
 
 def run(root: str, images: int = 2048, img_size: int = 256, batch: int = 256,
         workers=(0, 4, 8, 16), sets=("tsv", "zip"), seed: int = 0,
-        report=print) -> list[dict]:
-    """Every loader setting of ``sets``; ``report`` gets a line each."""
+        report=print, readers=("python", "native")) -> list[dict]:
+    """Every loader setting of ``sets``; ``report`` gets a line each. The
+    threads loader reads a TSV through each of ``readers`` (the Python
+    reader, the native one)."""
     threads = cores()
     transform = train_transform()
     settings = []
     if "tsv" in sets:
         yaml_path = make_tsv(root, images, img_size, seed)
-        settings += [("tsv", "threads", "python", threads,
-                      lambda: tsv_dataset(yaml_path, transform, native_reader=False)),
-                     ("tsv", "threads", "native", threads,
-                      lambda: tsv_dataset(yaml_path, transform))]
+        settings += [("tsv", "threads", reader, threads,
+                      lambda native=reader == "native": tsv_dataset(yaml_path, transform,
+                                                                    native_reader=native))
+                     for reader in readers]
         settings += [("tsv", "grain", "native", w, lambda: tsv_dataset(yaml_path, transform))
                      for w in workers]
     if "zip" in sets:

@@ -5,7 +5,8 @@
 Builds the kernel library if needed (``ops/kernels/build.py``), disassembles
 it with ``cuobjdump -sass`` from the CUDA toolkit and prints, for every kernel
 whose name holds ``--match``, how many instructions of each class its code
-holds (static counts, not executions): tensor-core products (HGMMA is
+holds (static counts, not executions; each of the library's cubins
+disassembled by its own ``cuobjdump``, all at once): tensor-core products (HGMMA is
 ``wgmma``, HMMA ``mma.sync``), asynchronous copies into shared memory (LDGSTS
 is ``cp.async``, UTMALDG a TMA load), f32 fused multiply-adds on the CUDA
 cores (FFMA), and shared-memory loads (LDS), and the registers a thread of
@@ -19,12 +20,17 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
+from pathlib import Path
 
 from ..ops.kernels import build
 
 CLASSES = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "FFMA", "LDS")
 _FUNCTION = re.compile(r"Function : (\S+)")
-_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+# an instruction of CLASSES: its address, its predicate if any, its opcode
+# (modifiers after a dot)
+_COUNTED = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?(" + "|".join(CLASSES)
+                      + r")(?![A-Z0-9_])")
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _REGISTERS = re.compile(r"Used (\d+) registers")
 
@@ -69,27 +75,44 @@ def kernel_name(demangled: str) -> str:
     return re.sub(r"\((?:int|bool)\)", "", demangled).split("(")[0].replace("void ", "")
 
 
+def count_classes(sass: str) -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {instruction class: count}} of ``cuobjdump
+    -sass`` output."""
+    counts: dict[str, dict[str, int]] = {}
+    pieces = _FUNCTION.split(sass)  # [preamble, name, code, name, code, ...]
+    for name, code in zip(pieces[1::2], pieces[2::2]):
+        current = counts.setdefault(name, dict.fromkeys(CLASSES, 0))
+        for op in _COUNTED.findall(code):
+            current[op] += 1
+    return counts
+
+
+def disassemble(lib: Path) -> str:
+    """``cuobjdump -sass`` of every cubin in ``lib``, one process a cubin,
+    all at once."""
+    tool = _tool("cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([tool, "-xelf", "all", str(lib)], cwd=tmp, capture_output=True,
+                       check=True)
+        cubins = sorted(Path(tmp).glob("*.cubin"))
+        if not cubins:
+            raise RuntimeError(f"cuobjdump found no cubin in {lib}")
+        procs = [subprocess.Popen([tool, "-sass", str(c)], stdout=subprocess.PIPE, text=True)
+                 for c in cubins]
+        outs = [proc.communicate()[0] for proc in procs]
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"cuobjdump -sass failed on {lib}'s cubins")
+    return "".join(outs)
+
+
 def census(match: str = "full_attention") -> dict[str, dict[str, int | None]]:
     """{kernel name: {instruction class: count, "registers": registers a
     thread (None without the compiler's report)}} for the kernels whose
     demangled name holds ``match``."""
     lib = build.build()
-    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
+    counts = count_classes(disassemble(lib))
     report = lib.with_suffix(".log")
     regs = registers(report.read_text()) if report.exists() else {}
-    counts: dict[str, dict[str, int]] = {}
-    current = None
-    for line in sass.splitlines():
-        fn = _FUNCTION.search(line)
-        if fn:
-            current = counts.setdefault(fn.group(1), dict.fromkeys(CLASSES, 0))
-            continue
-        op = _OPCODE.search(line)
-        if current is not None and op:
-            base = op.group(1).split(".")[0]
-            if base in current:
-                current[base] += 1
     names = {k: kernel_name(v) for k, v in _demangle(list(counts)).items()}
     return {names[k]: {**v, "registers": regs.get(k)} for k, v in counts.items()
             if match in names[k]}

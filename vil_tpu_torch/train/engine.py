@@ -25,6 +25,14 @@ the data axis alone (the relative-position tables' parts summed over the
 model axis first). Under FSDP (``model.fsdp``, ``parallel.fully_shard``) the
 blocks gather their parameters as they run and the step reduce-scatters
 their gradients onto the slices before the update.
+
+The two compose with the spatial axis: on a ('data', 'spatial', 'model')
+mesh under 'tp' a rank runs its heads of its rows, every rank of a replica
+(spatial × model) draws alike, the loss is seeded 1/D as on the spatial
+mesh, and the gradients are summed over the data and spatial axes
+(``Mesh.param_group``); on a ('data', 'spatial') mesh under 'fsdp' the
+sliced parameters' row-partial gradients are summed over the spatial group,
+then reduce-scattered over the data group of the rank's spatial index.
 """
 from __future__ import annotations
 
@@ -178,7 +186,8 @@ class TrainStep:
         (loss if spatial is None else loss / spatial.size).backward()
         fsdp = getattr(model, "fsdp", None)
         if fsdp is not None:  # the sliced parameters' gradients onto the slices
-            fsdp.reduce_scatter_gradients(mesh.data_size if mesh else 1)
+            fsdp.reduce_scatter_gradients(mesh.data_size if mesh else 1,
+                                          spatial.group if spatial is not None else None)
         if mesh is not None:
             sliced = {id(p) for p in fsdp.params.values()} if fsdp is not None else set()
             partial = ()
@@ -186,8 +195,7 @@ class TrainStep:
                 partial = Partial(tuple(model.partial_over_model()), mesh.model.group,
                                   mesh.model.size)
             average_gradients([p for p in model.parameters() if id(p) not in sliced],
-                              mesh.data_size,
-                              mesh.data_group if mesh.model is not None else None, partial)
+                              mesh.data_size, mesh.param_group, partial)
         lrs = ([self.schedule(self.step)] * len(self.base_lrs) if self.schedule is not None
                else self.base_lrs)
         for group, lr in zip(self.optimizer.param_groups, lrs):

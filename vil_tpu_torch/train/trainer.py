@@ -22,7 +22,7 @@ details, as ``vil_tpu`` does:
   ride in the checkpoint's ``state_dict``.
 
 One process per card. On a ``TPU.MESH_SHAPE`` / ``TPU.MESH_AXES`` mesh of
-``data`` and ``spatial`` or ``model`` axes over the default process group
+``data``, ``spatial`` and ``model`` axes over the default process group
 (``parallel.mesh_from_cfg``; ``run_experiment`` joins one under torchrun)
 each data replica reads its shard of the data, its spatial ranks split each
 image's rows (the training step and the eval step of ``train.engine``), the
@@ -35,11 +35,14 @@ TPU.PARAM_SHARDING 'tp' builds each model rank's shard of the
 heads (a ``model`` axis is needed: ``ValueError`` without one, as in
 ``vil_tpu``), 'fsdp' slices the large parameters and their moments over
 the data axis (``parallel.fully_shard``), as ``vil_tpu``'s trainer
-shards its state. Rank 0 alone writes checkpoints (gathered whole under
+shards its state; both beside a spatial axis too: 'tp' on a ('data',
+'spatial', 'model') mesh (a rank's heads of a rank's rows), 'fsdp' on a
+('data', 'spatial') mesh (the slices over the data group of a rank's
+spatial index). Rank 0 alone writes checkpoints (gathered whole under
 sharding), ``config.yaml`` and the TensorBoard logs; every rank loads on
 resume. Keys that select what the port lacks raise (:func:`check_ported`),
-each naming its ROADMAP item: a model axis, FSDP or a ResNet beside a
-spatial axis (A12), and the rest. TPU.REMAT and MODEL.VIT.DROP run on
+each naming its ROADMAP item: a ResNet on a spatial axis (A12), and the
+rest. TPU.REMAT and MODEL.VIT.DROP run on
 every mesh: the recompute of a block re-issues its collectives, and each
 rank keeps its part of the masks the one-rank step draws. A ResNet of the
 zoo (MODEL.ARCH ``resnet50`` ...) trains and evaluates as a ViL does, on a
@@ -78,13 +81,14 @@ logger = logging.getLogger(__name__)
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a key that selects something the
-    port lacks, naming its ROADMAP §A item; such a key is never ignored:
-    beside a spatial axis a model axis, FSDP or a ResNet (A12), orbax
-    checkpoints (A6) and the flat or stacked optimizer states (A13).
-    Random shift, mode -1, SHARE_W False, TPU.REMAT and MODEL.VIT.DROP pass
-    on a spatial axis; TPU.REMAT and MODEL.VIT.DROP under 'tp' and 'fsdp'
-    too, and a ResNet under both. The fused block under the split and the
-    efficient families under 'tp' raise in the model (A12).
+    port lacks, naming its ROADMAP §A item; such a key is never ignored: a
+    ResNet on a spatial axis (A12), orbax checkpoints (A6) and the flat or
+    stacked optimizer states (A13). Random shift, mode -1, SHARE_W False,
+    TPU.REMAT and MODEL.VIT.DROP pass on a spatial axis; TPU.REMAT and
+    MODEL.VIT.DROP under 'tp' and 'fsdp' too, and a ResNet under both; a
+    model axis ('tp') and FSDP beside a spatial axis. The fused block under
+    the split and the efficient families under 'tp' raise in the model
+    (A12).
     TPU.PARAM_SHARDING 'tp' without a model axis raises ``ValueError``, as
     ``vil_tpu``'s trainer does."""
     tpu = cfg.TPU
@@ -96,11 +100,6 @@ def check_ported(cfg) -> None:
     if tpu.PARAM_SHARDING == "tp" and "model" not in axes:
         raise ValueError("PARAM_SHARDING 'tp' needs a 'model' axis in TPU.MESH_AXES")
     refused = [
-        ("model" in axes and "spatial" in axes,
-         f"TPU.MESH_AXES {axes} (a model axis beside a spatial axis: A12)"),
-        (tpu.PARAM_SHARDING == "fsdp" and "spatial" in axes,
-         f"TPU.PARAM_SHARDING 'fsdp' on TPU.MESH_AXES {axes} (FSDP beside a spatial axis: "
-         f"A12)"),
         (cfg.CKPT_BACKEND == "orbax",
          "CKPT_BACKEND 'orbax' (orbax writes OCDBT, which only tensorstore reads, and the "
          "card's host has no tensorstore: A6)"),
@@ -231,8 +230,8 @@ class Trainer:
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """A host batch on the trainer's device, through pinned memory, the
-        same on every rank of a data replica: the spatial (model) group's
-        first rank sends its own (the loaders' augmentations draw from Python's
+        same on every rank of a data replica: the replica's first rank (of
+        its spatial group, model group, or both) sends its own (the loaders' augmentations draw from Python's
         ``random`` in their threads, so two ranks that read the same indices
         need not draw alike)."""
         t = torch.from_numpy(array)
