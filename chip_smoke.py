@@ -249,7 +249,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
    'minimal', DROP 0.1, ResNet-50 whole on every rank) and
    train_fsdp_remat and resnet_fsdp ('fsdp' over 2 ranks), each REMAT case
    against its twin without REMAT bit for bit (B1 3 → 6, B3 9 → 18 a step),
-   with its peaks a rank, walls, device time and collectives a step.
+   with its peaks a rank and collectives a step (under 'tp' one step each;
+   'fsdp' also its walls and device time).
 29. train_spatial_tp, train_spatial_fsdp — heads and rows split at once:
    train_spatial's step (ViL-Small 1024², batch 8, bf16) under
    TPU.PARAM_SHARDING 'tp' on a (1, 2, 3) ('data', 'spatial', 'model') mesh
@@ -263,6 +264,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
    REMAT bit for bit; walls, device time, peak memory a rank, collectives
    and bytes a step; ``run_experiment.main`` on the (2, 2) mesh for one
    epoch. With four cards, (1, 2, 2) over nccl; on one a line says so.
+30. resnet_spatial — a ResNet on a spatial axis: ResNet-50 1024², batch 8,
+   on a (1, 2) ('data', 'spatial') mesh, two ranks sharing the card over
+   gloo, each 16 of the image's 32 blocks of 32 rows (halo convolutions and
+   max-pool, BatchNorm and the pool summed over both): a bf16 step and its
+   timed and profiled ones beside the one-rank step's, printed against it;
+   an f32 step at 2 images whose gradients are held, each, to twice the
+   same gradient's error in the one-rank f32 step against the one-rank f64
+   step; no kernel of the
+   port (cuDNN's convolutions). Part train_tp's spawn also trains the five
+   attention families of ``recipe.VARIANTS`` under 'tp' (the paths
+   ``train_tp_<family>``: B3 9, B4 9 a step at H/3 heads, B1 3, B2 3 for
+   the unshared ViL), their bf16 gradients against the one-rank step (the
+   srformer's ``proj_sr`` gradient cancels through the instance norm:
+   those of its parameters that bf16's rounding alone moves by more than
+   the limit are printed, and every gradient is held by an f32 step
+   of the shallow srformer at 2 images, ``proj_sr``'s to SR_CONV_TOL).
 Phase 9 also serves ViL-Small RPE (tables at σ 1) through the spatial route
 and holds its f32 logits to the classic forward's and to the plain versions'.
 
@@ -319,7 +336,7 @@ and 0, each against the f32 plain version at the limits above and against
 the plain versions' bf16 emulation of its setting, their stage-1 shapes
 timed under both.
 
-Each path of phases 4-29 sets the launch counts to 0 before it and reads
+Each path of phases 4-30 sets the launch counts to 0 before it and reads
 them after it; a kernel that none of them launched fails the run. The last line is ``{"ok": true, "device": {...}}``; the line
 before it holds every kernel's record (``launches`` is the sum over the
 paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
@@ -342,8 +359,11 @@ paths, ``launches_serve``, ``launches_train``, ``launches_shift``,
 ``launches_resnet_fsdp``, ``launches_train_spatial_remat``,
 ``launches_train_spatial_drop``, ``launches_train_spatial_tp``,
 ``launches_train_spatial_tp_shift``, ``launches_train_spatial_tp_remat``,
-``launches_train_spatial_fsdp``, ``launches_train_spatial_fsdp_shift`` and
-``launches_train_spatial_fsdp_remat`` each path's;
+``launches_train_spatial_fsdp``, ``launches_train_spatial_fsdp_shift``,
+``launches_train_spatial_fsdp_remat``, ``launches_train_tp_linformer``,
+``launches_train_tp_srformer``, ``launches_train_tp_performer``,
+``launches_train_tp_global``, ``launches_train_tp_unshared`` and
+``launches_resnet_spatial`` each path's;
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per step of the
 training path that runs the kernel: MODE 0, random shift for B5/B6, mode
 -1 for their self-only instances, fused for B8/B9, train_spatial for B7b
@@ -401,6 +421,11 @@ BF16_LOGITS_TOL = 2.5e-2
 # fails however small the change is at random weights
 RPE_SHARE_TOL = 1e-2
 BF16_PARAM_GRAD_TOL = 2.5e-2
+# the srformer's proj_sr gradient in f32, max|err| / max|ref|: it reaches its
+# weights through the instance norm, whose gradient takes out each channel's
+# mean, and the sum that is left cancels; tests/test_torch_efficient.py's
+# SR_CONV_TOL['model'] (the split against one rank on the CPU read 7.6e-5)
+SR_CONV_TOL = 3e-4
 # experiment_spatial: each logged loss of the bf16 recipe on the mesh of one
 # card against the same run without the mesh (B7a/B7b for B1/B2, the halo
 # rows' gradients added after the kernel): the steps' small differences in
@@ -2878,6 +2903,8 @@ def run_experiment_spatial_shift(torch, kernels):
 # two ranks on one card); where the host has a card a rank, over nccl.
 # Their f32 pairs run the shallow ViL-Small at SHARD_PAIR images a replica
 TP_RANKS, FSDP_RANKS, SHARD_PAIR = 3, 2, 2
+# the attention families under 'tp' (train_tp_families): recipe.VARIANTS' names
+TP_FAMILIES = ("linformer", "srformer", "performer", "global", "unshared")
 SHARD_STEPS = 2  # steps of a sharded path: the first compared, the second timed
 SHARD_DIR = os.path.join(REPO, "build", "chip_sharding")
 
@@ -3034,33 +3061,41 @@ def shard_rank(rank, world, spec_path):
         dist.destroy_process_group()
 
 
-def resnet_cfg(dtype: str):
-    """ResNet-50 224² of the zoo through ``build_model``'s tree: 1000
-    classes, ``dtype`` compute, AdamW as the recipe's."""
+def resnet_cfg(dtype: str, img: int = 224):
+    """ResNet-50 of the zoo at ``img`` px (INPUT.IMAGE_SIZE, what a spatial
+    split cuts) through ``build_model``'s tree: 1000 classes, ``dtype``
+    compute, AdamW as the recipe's."""
     from vil_tpu_torch.config import get_default_cfg
 
     cfg = get_default_cfg()
     cfg.merge_from_list(["MODEL.ARCH", "resnet50", "DATA.NUM_CLASSES", "1000",
                          "TPU.COMPUTE_DTYPE", dtype, "OPTIM.OPT", "adamw", "OPTIM.LR", "1e-3",
-                         "OPTIM.WD", "0.05"])
+                         "OPTIM.WD", "0.05", "INPUT.IMAGE_SIZE", str(img)])
     return cfg
 
 
 def shard_model(torch, case, dev, mesh, sharding):
-    """A sharded path's model on ``mesh``: the recipe's ViL-Small 224² of
-    ``case`` (this model rank's shard under 'tp'), at its REMAT and DROP, or
-    ResNet-50 (whole on every model rank; its BatchNorms over the data
-    axis), from seeded weights."""
+    """A sharded path's model on ``mesh``: the recipe's ViL-Small of
+    ``case`` at its image size (one of ``recipe.VARIANTS``' attention
+    families where it names one, at the case's ARCH where it gives one;
+    this model rank's shard under 'tp'), at
+    its REMAT and DROP, or ResNet-50 (whole on every model rank; its
+    BatchNorms over the data and spatial axes; parameters in f64 for an f64
+    case, else f32), from seeded weights."""
     from vil_tpu_torch.models import build_model
     from vil_tpu_torch.train import recipe
 
     if case["resnet"]:
         dtype = "bfloat16" if case["dtype"] == torch.bfloat16 else "float32"
-        return build_model(resnet_cfg(dtype), device=dev, mesh=mesh,
+        wide = torch.float64 if case["dtype"] == torch.float64 else torch.float32
+        return build_model(resnet_cfg(dtype, case["img"]), device=dev, mesh=mesh,
+                           dtype=case["dtype"], param_dtype=wide,
                            generator=torch.Generator().manual_seed(0))
+    variant = dict(recipe.VARIANTS.get(case["variant"], {}))
+    variant["arch"] = case["arch"] or variant.get("arch", "")
     return recipe.vil("vil_small", case["img"], case["dtype"], torch.float32, device=dev,
-                      mesh=mesh, sharding=sharding, arch=case["arch"], remat=case["remat"],
-                      drop=case["drop"])
+                      mesh=mesh, sharding=sharding, remat=case["remat"], drop=case["drop"],
+                      **variant)
 
 
 def shard_step(torch, model, case, dev, mesh, keyed):
@@ -3105,7 +3140,7 @@ def step_device_ms(torch, run) -> tuple[float, float]:
 
 
 def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resnet=False,
-                 img=224, step_batch=BATCH):
+                 img=224, step_batch=BATCH, variant=""):
     """The one-rank recipe step from the seeded weights, without a process
     group, on each data replica's ``parts`` (images, labels): one part with
     the tp ranks' generator, or (``keyed``) each replica's step with its
@@ -3114,21 +3149,23 @@ def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resne
     (loss, gradients, updated parameters or None, the update's LR), on the
     host. ``drop``: MODEL.VIT.DROP. ``resnet``: ResNet-50's step without
     mixup on every part's images at once (its BatchNorms take the whole
-    batch's statistics, as on the mesh). ``img``, ``step_batch``: the
-    ViL's image size and its recipe step's batch."""
+    batch's statistics, as on the mesh). ``img``: the model's image size;
+    ``step_batch``: the ViL's recipe step's batch; ``variant``: one of
+    ``recipe.VARIANTS``' attention families."""
     from vil_tpu_torch import parallel
     from vil_tpu_torch.train import recipe
 
     dev = parts[0][0].device
     if resnet:
-        case = dict(resnet=True, dtype=dtype)
+        case = dict(resnet=True, dtype=dtype, img=img)
         m = shard_model(torch, case, dev, None, "")
         s = shard_step(torch, m, case, dev, None, False)
         loss = s(torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))["loss"]
         return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}, None, None
     losses, grads = [], []
     for d, (images, labels) in enumerate(parts):
-        m = recipe.vil("vil_small", img, dtype, torch.float32, device=dev, arch=arch, drop=drop)
+        m = shard_model(torch, dict(resnet=False, dtype=dtype, img=img, arch=arch, drop=drop,
+                                    remat="", variant=variant), dev, None, "replicated")
         s = recipe.train_step(m, dev, shift, batch=step_batch, seed=0 if keyed else None,
                               mesh=parallel.Mesh(len(parts), d) if keyed else None)
         gen = None if keyed else torch.Generator(device=dev).manual_seed(3)
@@ -3139,7 +3176,8 @@ def one_rank_ref(torch, dtype, arch, parts, shift, modes, keyed, drop=0.0, resne
     if dtype != torch.float32:
         return (sum(losses) / len(parts),
                 {n: (sum(g[n] for g in grads) / len(parts)).cpu() for n in grads[0]}, None, None)
-    m = recipe.vil("vil_small", 224, dtype, torch.float32, device=dev, arch=arch)
+    m = shard_model(torch, dict(resnet=False, dtype=dtype, img=224, arch=arch, drop=0.0,
+                                remat="", variant=variant), dev, None, "replicated")
     s = recipe.train_step(m, dev, shift, batch=BATCH)
     lr = s.schedule(0)
     for n, p in m.named_parameters():
@@ -3185,11 +3223,13 @@ def run_sharded(torch, name, world, data, model, cases, images, labels, **extra)
     return got
 
 
-def check_sharded(torch, name, what, got, ref, dtype, one_rank):
+def check_sharded(torch, name, what, got, ref, dtype, one_rank, own_tol=None):
     """Hold a sharded case to its one-rank reference: bf16 gradients to
     BF16_PARAM_GRAD_TOL (‖err‖ / ‖ref‖ per parameter); f32 loss to
-    LOSS_TOL, gradients to PARAM_GRAD_TOL of max|ref| and the updated
-    parameters, where the gradient is resolved (≥ 1e-4 of its max|ref|), to
+    LOSS_TOL, gradients to PARAM_GRAD_TOL of max|ref| (those named in
+    ``own_tol``, {parameter: limit}, to their own limit) and the updated
+    parameters, where the gradient is resolved (≥ 1e-4 of its max|ref|, or
+    twice its own limit), to
     a quarter of the update's LR (AdamW's first update moves each by about
     ±LR: a slice updated from another's gradient moves by 2·LR). Prints
     the walls, the collectives' share and what each rank holds."""
@@ -3203,17 +3243,22 @@ def check_sharded(torch, name, what, got, ref, dtype, one_rank):
         msg = (f"parameter gradients max ‖err‖ / ‖ref‖ {err:.3e} at {at} "
                f"(tol {BF16_PARAM_GRAD_TOL:g})")
     else:
-        err, at, _ = f32_grad_errors(mine, refs)
+        own_tol = own_tol or {}
+        err, at, _ = f32_grad_errors(mine, {n: g for n, g in refs.items() if n not in own_tol})
+        own = {n: f32_grad_errors(mine, {n: refs[n]})[0] for n in own_tol}
         loss_err = abs(got["loss"] - loss)
         upd = 0.0
         for n, g in grads.items():
-            keep = g.abs() >= 1e-4 * g.abs().max() if g.numel() else g.bool()
+            floor = max(1e-4, 2 * own_tol.get(n, 0.0))  # no sign flipped by the error
+            keep = g.abs() >= floor * g.abs().max() if g.numel() else g.bool()
             if keep.any():
                 upd = max(upd, (got["params"][n] - params[n])[keep].abs().max().item())
-        ok = loss_err <= LOSS_TOL and err <= PARAM_GRAD_TOL and upd <= 0.25 * lr
+        ok = (loss_err <= LOSS_TOL and err <= PARAM_GRAD_TOL and upd <= 0.25 * lr
+              and all(e <= own_tol[n] for n, e in own.items()))
         msg = (f"|loss err| {loss_err:.3e} (tol {LOSS_TOL:g}); parameter gradients max rel err "
-               f"{err:.3e} at {at} (tol {PARAM_GRAD_TOL:g}); updated parameters max |err| "
-               f"{upd:.3e} (tol {0.25 * lr:.3g}, LR {lr:.3g})")
+               f"{err:.3e} at {at} (tol {PARAM_GRAD_TOL:g})"
+               + "".join(f", {n} {e:.3e} (tol {own_tol[n]:g})" for n, e in own.items())
+               + f"; updated parameters max |err| {upd:.3e} (tol {0.25 * lr:.3g}, LR {lr:.3g})")
     phase(name, f"{what}: loss {got['loss']:.6f} vs one rank {loss:.6f}; {msg}")
     if not ok:
         raise AssertionError(f"{name} {what} disagrees: {msg}")
@@ -3252,21 +3297,23 @@ def check_shard_launches(kernels, name, got, per_step, steps) -> dict:
 
 
 def shard_case(name, dtype, arch, steps, shift, batch, modes, profile=False, remat="",
-               drop=0.0, resnet=False, mesh=True, img=224, step_batch=BATCH, clocked=True):
+               drop=0.0, resnet=False, mesh=True, img=224, step_batch=BATCH, clocked=True,
+               variant=""):
     """A case of ``shard_rank``; with random shift, the first of ``modes``
     for each of the model's blocks; with ``profile``, one step more under
     torch.profiler and (``clocked``) one with its collectives clocked; ``remat``
     (TPU.REMAT) and ``drop`` (MODEL.VIT.DROP) of the ViL (ViL-Small at
-    ``img`` px, the recipe's step at ``step_batch`` images a step), or
-    ResNet-50 (``resnet``); ``mesh`` False: each rank its replica's step on
-    the data axis alone, without sharding."""
+    ``img`` px, the recipe's step at ``step_batch`` images a step; ``variant``
+    one of ``recipe.VARIANTS``' attention families), or ResNet-50 at ``img``
+    px (``resnet``); ``mesh`` False: each rank its replica's step on the
+    data axis alone, without sharding."""
     from vil_tpu_torch.models.arch import parse_arch
 
     depth = sum(c.num_blocks for c in parse_arch(arch)) if arch else len(modes)
     return dict(name=name, dtype=dtype, arch=arch, steps=steps, shift=shift, batch=batch,
                 modes=modes[:depth] if shift else None, profile=profile, remat=remat,
                 drop=drop, resnet=resnet, mesh=mesh, img=img, step_batch=step_batch,
-                clocked=clocked)
+                clocked=clocked, variant=variant)
 
 
 _SHARD_INPUTS: list = []  # shard_inputs' result, taken once a run
@@ -3346,18 +3393,26 @@ def run_train_tp(torch, kernels) -> dict:
     channels), at MODE 0 and with random shift (the recipe's first draw of
     per-block modes, injected), every rank the whole batch and the one-rank
     step's generator; in the same spawn the paths train_tp_remat (REMAT
-    'full' and 'minimal'), train_tp_drop (MODEL.VIT.DROP 0.1) and resnet_tp
-    (ResNet-50 224², whole on every model rank, one step and its timed and
-    profiled ones). Launches exact on rank 0 over SHARD_STEPS steps (one
-    with random shift): B1 3, B2 3 (B5 3, B6 3 with random shift), B3 9, B4
-    9 a step; under REMAT B1 6 and B3 18 (the recompute); none for the
-    ResNet. The first step's loss and gradients, gathered whole, against
+    'full' and 'minimal', one held step each),
+    train_tp_drop (MODEL.VIT.DROP 0.1), resnet_tp (ResNet-50 224², whole on
+    every model rank, one step and its timed and profiled ones) and the
+    attention families (train_tp_families: one step each of the linformer,
+    srformer, performer, only-global and unshared-global ViL-Small of
+    ``recipe.VARIANTS``, a rank its H/3 heads, the paths
+    ``train_tp_<family>``). Launches exact on rank 0 over SHARD_STEPS steps
+    (one with random shift, under REMAT, at DROP 0.1 or for a family: their
+    walls and device time are not taken again; PERF.md §5 keeps the earlier
+    readings): B1 3, B2 3 (B5 3, B6 3 with random shift), B3 9, B4 9 a step; under REMAT B1 6 and B3 18 (the recompute);
+    B3 9, B4 9 for a family (and B1 3, B2 3 for the unshared one); none for
+    the ResNet. The first step's loss and gradients, gathered whole, against
     the one-rank step from the same weights and batch in bf16 (with the
     dropout's masks of the same generator) and, for the shallow model at
     SHARD_PAIR images, in f32 (updated parameters too); each REMAT case's
     against train_tp's, bit for bit, with both peaks and collectives. Then
     the multi-card phase, where the host has the cards. Returns {path:
     launches}."""
+    from vil_tpu_torch.train import recipe
+
     images, labels, modes, one_rank, _ = shard_inputs(torch)
     cases = [shard_case("train_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
                         profile=True),
@@ -3366,30 +3421,51 @@ def run_train_tp(torch, kernels) -> dict:
              shard_case("train_tp_shift", torch.bfloat16, "", 1, True, BATCH, modes),
              shard_case("tp_shift_f32", torch.float32, SHALLOW_VIL_SMALL, 1, True, SHARD_PAIR,
                         modes)]
-    extra = [shard_case("tp_remat_full", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, clocked=False, remat="full"),
-             shard_case("tp_remat_minimal", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, clocked=False, remat="minimal"),
-             shard_case("train_tp_drop", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
-                        profile=True, clocked=False, drop=0.1),
+    extra = [shard_case("tp_remat_full", torch.bfloat16, "", 1, False, BATCH, modes,
+                        remat="full"),
+             shard_case("tp_remat_minimal", torch.bfloat16, "", 1, False, BATCH, modes,
+                        remat="minimal"),
+             shard_case("train_tp_drop", torch.bfloat16, "", 1, False, BATCH, modes, drop=0.1),
              shard_case("resnet_tp", torch.bfloat16, "", SHARD_STEPS, False, BATCH, modes,
                         profile=True, clocked=False, resnet=True)]
-    got = run_sharded(torch, "train_tp", TP_RANKS, 1, TP_RANKS, cases + extra, images, labels)
+    families = [shard_case(f"train_tp_{v}", torch.bfloat16, "", 1, False, BATCH, modes,
+                           variant=v) for v in TP_FAMILIES]
+    # the srformer's gradients held in f32, as tp_f32 holds the ViL's
+    sr_f32 = shard_case("tp_srformer_f32", torch.float32,
+                        recipe.stage_feats(SHALLOW_VIL_SMALL, 8, 4), 1, False, SHARD_PAIR, modes,
+                        variant="srformer")
+    got = run_sharded(torch, "train_tp", TP_RANKS, 1, TP_RANKS,
+                      cases + extra + families + [sr_f32], images, labels)
     paths = {}
-    for c in cases + extra[2:]:
-        path = ("train_tp_shift" if c["shift"] else "train_tp" if c in cases else c["name"])
+    for c in cases + extra[2:] + families + [sr_f32]:
+        path = ("train_tp_shift" if c["shift"] else "train_tp" if c in cases else
+                f"train_tp_{c['variant']}" if c["variant"] else c["name"])
         parts = [(images[:c["batch"]], labels[:c["batch"]])]
         ref = one_rank_ref(torch, c["dtype"], c["arch"], parts, c["shift"], c["modes"], False,
-                           c["drop"], c["resnet"])
+                           c["drop"], c["resnet"], variant=c["variant"])
+        case, own_tol = got["cases"][c["name"]], None
+        if c is sr_f32:
+            own_tol = {n: SR_CONV_TOL for n in ref[1] if n.endswith("proj_sr.weight")}
+        elif c["variant"] == "srformer":
+            case, ref = unheld_srformer(torch, path, case, ref, parts)
         kind = "bf16" if c["dtype"] == torch.bfloat16 else "f32 shallow"
-        check_sharded(torch, path, f"{kind} step, batch {c['batch']}",
-                      got["cases"][c["name"]], ref, c["dtype"], one_rank)
+        check_sharded(torch, path, f"{kind} step, batch {c['batch']}", case, ref, c["dtype"],
+                      one_rank, own_tol)
     for c in cases[::2] + extra[2:3]:
         chunk = "vil_mode_attention" if c["shift"] else "vil_attention"
         paths[c["name"]] = check_shard_launches(
             kernels, c["name"], got["cases"][c["name"]]["launches"],
             {f"{chunk}_fwd": 3, f"{chunk}_bwd": 3, "full_attention_fwd": 9,
              "full_attention_bwd": 9}, c["steps"])
+    # the families: B3/B4 at H/3 heads in the dense stages; the sliding-chunk
+    # pair in stages 1-2 for the unshared-global ViL alone
+    for c in families:
+        per_step = {"full_attention_fwd": 9, "full_attention_bwd": 9}
+        if c["variant"] == "unshared":
+            per_step.update(vil_attention_fwd=3, vil_attention_bwd=3)
+        paths[c["name"]] = check_shard_launches(kernels, c["name"],
+                                                got["cases"][c["name"]]["launches"], per_step,
+                                                c["steps"])
     paths["resnet_tp"] = check_shard_launches(kernels, "resnet_tp",
                                               got["cases"]["resnet_tp"]["launches"], {},
                                               SHARD_STEPS)
@@ -3397,6 +3473,35 @@ def run_train_tp(torch, kernels) -> dict:
                                           "train_tp", "the same 'tp' step without REMAT")
     run_multicard_tp(torch, images, labels, modes, one_rank)
     return paths
+
+
+def unheld_srformer(torch, name, case, ref, parts):
+    """The srformer's bf16 step: the parameters whose one-rank bf16
+    gradient is off the one-rank f32 step's (same weights and batch) by
+    more than BF16_PARAM_GRAD_TOL (‖err‖ / ‖ref‖), which the bf16 limit
+    cannot tell from a fault, printed, each against the one-rank bf16 step
+    beside that step's own error; returns the case and the reference
+    without them, for ``check_sharded``. ``proj_sr`` reaches its weights
+    through the instance norm, whose gradient takes out each channel's
+    mean, and the sum that is left cancels (SR_CONV_TOL), so bf16's
+    rounding moves it by a large share of its norm on one rank as on the
+    mesh (0.22-0.47 against f32 on one rank). The srformer's f32 pair
+    (``tp_srformer_f32``) holds every gradient."""
+    dev = torch.device("cuda")
+    exact = one_rank_ref(torch, torch.float32, "", parts, False, None, False,
+                         variant="srformer")[1]
+    loss, grads, params, lr = ref
+    rel = lambda a, b: ((a.to(dev) - b.to(dev)).norm() / b.to(dev).norm()).item()
+    own = {n: rel(g, exact[n]) for n, g in grads.items() if exact[n].norm() > 0}
+    apart = sorted(n for n, e in own.items() if e > BF16_PARAM_GRAD_TOL)
+    phase(name, f"bf16: {len(apart)} of {len(grads)} parameters off the one-rank f32 step by "
+                f"more than the bf16 limit on one rank, printed and not held here "
+                f"(‖err‖ / ‖ref‖ against the one-rank bf16 step; the one-rank bf16 step's "
+                f"own against its f32 step):")
+    for n in apart:
+        phase(name, f"  {n}: {rel(case['grads'][n], grads[n]):.3e}; own {own[n]:.3e}")
+    case = dict(case, grads={n: g for n, g in case["grads"].items() if n not in apart})
+    return case, (loss, {n: g for n, g in grads.items() if n not in apart}, params, lr)
 
 
 def remat_paths(torch, kernels, name, got, cases, twin, twin_what) -> dict:
@@ -3559,8 +3664,10 @@ def run_split_sharded(torch, kernels, name: str) -> dict:
     rows (20/17 chunk rows at stage 1); under 'fsdp' on a (2, 2) ('data',
     'spatial') mesh, each replica 4 images, its rows over 2 ranks, the
     parameters sliced over the data axis. The mesh is the entry point's
-    (``parallel.mesh_from_cfg``). Per part three cases: MODE 0 (SHARD_STEPS
-    steps and one more under torch.profiler), random shift (the recipe's
+    (``parallel.mesh_from_cfg``). Per part three cases: MODE 0 (one step and
+    one more under torch.profiler: the device time; the wall of a timed
+    step is not taken again, PERF.md §5 keeps the earlier reading), random
+    shift (the recipe's
     first draw of per-block modes, injected) and REMAT 'full'. Launches
     exact on rank 0 (SPLIT_PER_STEP: B7a 3, B7b 3, B3 9, B4 9 a step at H/3
     or H heads; B5h/B6h with random shift; B7a 6, B3 18 under REMAT); the
@@ -3581,7 +3688,7 @@ def run_split_sharded(torch, kernels, name: str) -> dict:
                  "TPU.PARAM_SHARDING", sharding]
     share = SPATIAL_BATCH // data
     split = dict(img=SPATIAL_IMG, step_batch=SPATIAL_BATCH)
-    cases = [shard_case(name, torch.bfloat16, "", SHARD_STEPS, False, share, modes,
+    cases = [shard_case(name, torch.bfloat16, "", 1, False, share, modes,
                         profile=True, clocked=False, **split),
              shard_case(f"{name}_shift", torch.bfloat16, "", 1, True, share, modes, **split),
              shard_case(f"{name}_remat", torch.bfloat16, "", 1, False, share, modes,
@@ -3625,6 +3732,116 @@ def run_split_sharded(torch, kernels, name: str) -> dict:
         shutil.rmtree(extra["cli"][extra["cli"].index("--output_dir") + 1], ignore_errors=True)
     run_multicard_split(torch, name, images, labels, modes, one_rank)
     return paths
+
+
+RESNET_SPATIAL_IMG, RESNET_SPATIAL_BATCH, RESNET_SPATIAL_PAIR = 1024, 8, 2
+
+
+def run_resnet_spatial(torch, kernels) -> dict:
+    """Part ``resnet_spatial``: ResNet-50 at 1024², batch 8, on a (1, 2)
+    ('data', 'spatial') mesh (``parallel.mesh_from_cfg``), two ranks sharing
+    the card over gloo, each the rows of 16 of the image's 32 blocks of 32
+    rows: its convolutions and max-pool read their halo rows from the other
+    rank (through the host), its BatchNorms and the global pool sum over
+    both. First the one-rank bf16 step in this process (median wall of
+    steps 2..3, device time under torch.profiler, peak memory). In the
+    spawn: SHARD_STEPS bf16 steps and one more under torch.profiler, then
+    one f32 step at RESNET_SPATIAL_PAIR images. The bf16 step's loss and
+    gradients are printed against the one-rank step's (a BatchNorm gradient
+    cancels, as resnet_fsdp prints it); each of the f32 step's gradients is
+    held, as part resnet holds the card's f32, to twice the same gradient's
+    own error in the one-rank f32 step against the one-rank f64 step
+    (‖err‖ / ‖ref‖; both one-rank steps in this process after the spawn)
+    plus 1e-5, and printed against the one-rank f32 step. No kernel of the port
+    runs (cuDNN's convolutions, as ``vil_tpu``'s XLA): every count 0.
+    Printed: walls, device time, the collectives and bytes a step, what
+    each rank holds and its peak. Returns {path: launches}."""
+    dev = torch.device("cuda")
+    img, batch, pair = RESNET_SPATIAL_IMG, RESNET_SPATIAL_BATCH, RESNET_SPATIAL_PAIR
+    gen = torch.Generator(device=dev).manual_seed(4)
+    images = torch.randn(batch, img, img, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+    one = dict(resnet=True, dtype=torch.bfloat16, img=img)
+    model = shard_model(torch, one, dev, None, "")
+    step = shard_step(torch, model, one, dev, None, False)
+    torch.cuda.reset_peak_memory_stats()
+    first = step(images, labels)["loss"].item()
+    bf16_ref = (first, {n: p.grad.clone() for n, p in model.named_parameters()})
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, labels)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    device, copies = step_device_ms(torch, lambda: step(images, labels))
+    one_rank = (statistics.median(secs), device, copies)
+    phase("resnet_spatial", f"one rank, ResNet-50 {img}^2 bf16 batch {batch}: step median "
+                            f"{one_rank[0] * 1e3:.3f} ms (steps 2..3); device {device:.3f} ms, "
+                            f"{copies:.3f} of it copies and fills (torch.profiler, one step); "
+                            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, step
+    torch.cuda.empty_cache()
+    mesh_opts = ["TPU.MESH_AXES", "['data', 'spatial']", "TPU.MESH_SHAPE", "[1, 2]",
+                 "TPU.PARAM_SHARDING", "replicated"]
+    cases = [shard_case("resnet_spatial", torch.bfloat16, "", SHARD_STEPS, False, batch, (),
+                        profile=True, clocked=False, resnet=True, img=img),
+             shard_case("resnet_spatial_f32", torch.float32, "", 1, False, pair, (),
+                        resnet=True, img=img)]
+    got = run_sharded(torch, "resnet_spatial", 2, 1, 1, cases, images, labels,
+                      mesh_opts=mesh_opts, batch=batch)
+    res, f32 = got["cases"]["resnet_spatial"], got["cases"]["resnet_spatial_f32"]
+    err, at = bf16_grad_worst({n: g.to(dev) for n, g in res["grads"].items()},
+                              {n: g.to(dev) for n, g in bf16_ref[1].items()})
+    phase("resnet_spatial", f"bf16 step against one rank (printed: the halves' BatchNorm sums "
+                            f"add in another order, and a BatchNorm gradient cancels): loss "
+                            f"{res['loss']:.6f} vs {bf16_ref[0]:.6f}, gradients max ‖err‖ / "
+                            f"‖ref‖ {err:.3e} at {at}")
+    if not math.isfinite(res["loss"]):
+        raise AssertionError(f"resnet_spatial: loss {res['loss']}")
+    # the f32 step against the one-rank f32 and f64 steps from the same weights
+    part = [(images[:pair], labels[:pair])]
+    refs = {dt: one_rank_ref(torch, dt, "", part, False, None, False, resnet=True, img=img)
+            for dt in (torch.float32, torch.float64)}
+    exact = {n: g.to(dev) for n, g in refs[torch.float64][1].items()}
+
+    def errs(grads):
+        return {n: ((g.to(dev).double() - exact[n]).norm() / exact[n].norm()).item()
+                for n, g in grads.items() if exact[n].norm() > 0}
+
+    split, own = errs(f32["grads"]), errs(refs[torch.float32][1])
+    share = {n: e / (2 * own[n] + 1e-5) for n, e in split.items()}  # of each leaf's limit
+    at = max(share, key=share.get)
+    split_at, one_at = max(split, key=split.get), max(own, key=own.get)
+    pair_err, pair_at = bf16_grad_worst(
+        {n: g.to(dev) for n, g in f32["grads"].items()},
+        {n: g.to(dev) for n, g in refs[torch.float32][1].items()})
+    loss_err = abs(f32["loss"] - refs[torch.float32][0])
+    phase("resnet_spatial", f"f32 step, batch {pair}: loss {f32['loss']:.6f} vs one rank "
+                            f"{refs[torch.float32][0]:.6f} (|err| {loss_err:.3e}, tol "
+                            f"{LOSS_TOL:g}); gradients against the one-rank f64 step, ‖err‖ / "
+                            f"‖ref‖, each leaf to twice the one-rank f32 step's own error "
+                            f"+ 1e-5: the largest share of its limit {share[at]:.3f} at {at} "
+                            f"(split {split[at]:.3e}, one rank {own[at]:.3e}); worst split f32 "
+                            f"{split[split_at]:.3e} at {split_at}, worst one-rank f32 "
+                            f"{own[one_at]:.3e} at {one_at}; split against the one-rank f32 "
+                            f"{pair_err:.3e} at {pair_at}")
+    if not (loss_err <= LOSS_TOL and share[at] <= 1.0):
+        raise AssertionError(f"resnet_spatial f32 step disagrees: loss {loss_err}, gradient "
+                             f"{at} {split[at]} > {2 * own[at] + 1e-5}")
+    phase("resnet_spatial", f"bf16: a step's {collectives_line(res['collectives'])} on rank 0")
+    held = ", ".join(f"{p / 2**20:.1f} + {m / 2**20:.1f} MiB (peak {pk / 2**30:.2f} GiB)"
+                     for p, m, pk in res["per_rank"])
+    med = statistics.median(res["secs"])
+    phase("resnet_spatial", f"bf16: step median {med * 1e3:.3f} ms on rank 0 (steps "
+                            f"2..{len(res['secs']) + 1}; one rank {one_rank[0] * 1e3:.3f} ms, "
+                            f"ratio {med / one_rank[0]:.3f}); device {res['device_ms']:.3f} ms a "
+                            f"step on rank 0, {res['copy_ms']:.3f} of it copies and fills "
+                            f"(torch.profiler, one step; one rank {one_rank[1]:.3f}, "
+                            f"{one_rank[2]:.3f}); parameters + optimizer moments held per rank "
+                            f"between steps, and peak memory: {held}")
+    return {"resnet_spatial": check_shard_launches(kernels, "resnet_spatial", res["launches"],
+                                                   {}, SHARD_STEPS)}
 
 
 def run_multicard_split(torch, name, images, labels, modes, one_rank):
@@ -5321,7 +5538,7 @@ PARTS = ("kernels", "serve", "train", "shift", "serve_fused", "train_fused", "se
          "efficient", "highres", "train_spatial", "experiment_spatial", "train_tp", "train_fsdp",
          "experiment_tp", "from_vil_tpu", "train_drop", "self_chunk", "train_remat", "resnet",
          "shift_spatial", "self_spatial", "experiment_spatial_shift", "spatial_options",
-         "train_spatial_tp", "train_spatial_fsdp")
+         "train_spatial_tp", "train_spatial_fsdp", "resnet_spatial")
 
 
 def only_arg(argv) -> "set | None":
@@ -5498,6 +5715,10 @@ def main() -> int:
         # (2, 2) ('data', 'spatial') mesh, the entry point on the second
         "train_spatial_tp": lambda: run_split_sharded(torch, kernels, "train_spatial_tp"),
         "train_spatial_fsdp": lambda: run_split_sharded(torch, kernels, "train_spatial_fsdp"),
+        # a ResNet on a spatial axis: ResNet-50 1024² on a (1, 2) ('data',
+        # 'spatial') mesh, halo convolutions and pooling, BatchNorm and the
+        # pool summed over the two ranks
+        "resnet_spatial": lambda: run_resnet_spatial(torch, kernels),
     }
     if only is None or "kernels" in only:
         t_part = time.perf_counter()
@@ -5511,7 +5732,8 @@ def main() -> int:
         if name == "serve_spatial":
             paths["serve_spatial"], paths["spatial_bwd"] = run()
         elif name in ("efficient", "highres", "train_tp", "train_fsdp", "experiment_tp",
-                      "spatial_options", "train_spatial_tp", "train_spatial_fsdp"):
+                      "spatial_options", "train_spatial_tp", "train_spatial_fsdp",
+                      "resnet_spatial"):
             paths.update(run())
         else:
             paths[name] = run()

@@ -120,30 +120,34 @@ MESHES = {
                             "TPU.PARAM_SHARDING", "fsdp"],
     "resnet_spatial": ["MODEL.ARCH", "resnet50", "TPU.MESH_AXES", "['data', 'spatial']",
                        "TPU.MESH_SHAPE", "[1, 2]", "TPU.PARAM_SHARDING", "replicated"],
+    "flat_opt_resnet_spatial": ["MODEL.ARCH", "resnet50", "TPU.MESH_AXES",
+                                "['data', 'spatial']", "TPU.MESH_SHAPE", "[1, 2]",
+                                "TPU.PARAM_SHARDING", "fsdp", "TPU.FLAT_OPT", "True"],
 }
 ALL_MESHES = ("data", "spatial", "tp", "fsdp", "model_beside_spatial", "fsdp_beside_spatial")
 OFF_THE_DATA_AXIS = {  # key → (the meshes it passes on, the configuration that refuses it)
-    "MODEL.ARCH": (("data", "tp", "fsdp"), "spatial"),
-    "TPU.REMAT": (ALL_MESHES, "resnet_spatial"),
-    "MODEL.VIT.DROP": (ALL_MESHES, "resnet_spatial"),
+    "MODEL.ARCH": (ALL_MESHES, "flat_opt_resnet_spatial"),
+    "TPU.REMAT": (ALL_MESHES + ("resnet_spatial",), "flat_opt_resnet_spatial"),
+    "MODEL.VIT.DROP": (ALL_MESHES + ("resnet_spatial",), "flat_opt_resnet_spatial"),
 }
 
 
 @pytest.mark.parametrize("key,value,item", [
     ("CKPT_BACKEND", "orbax", "A6"),
     ("TPU.STACKED_OPT", "True", "A13"),
-    ("MODEL.ARCH", "resnet50", "A12"),
-    ("TPU.REMAT", "full", "A12"),
+    pytest.param("MODEL.ARCH", "resnet50", "A13", id="MODEL.ARCH-resnet50-A12"),
+    pytest.param("TPU.REMAT", "full", "A13", id="TPU.REMAT-full-A12"),
     ("TPU.FLAT_OPT", "True", "A13"),
-    ("MODEL.VIT.DROP", "0.1", "A12"),
+    pytest.param("MODEL.VIT.DROP", "0.1", "A13", id="MODEL.VIT.DROP-0.1-A12"),
 ])
 def test_unported_keys_raise_naming_their_item(key, value, item):
     """A key that selects what the port lacks raises, naming its item. The
-    ResNet zoo passes on the data axis, under 'tp' and under 'fsdp', and
-    raises on a spatial axis (A12); TPU.REMAT and dropout pass on every mesh
-    the port runs (a model axis and FSDP beside a spatial axis among them),
-    and with them a configuration the port lacks (a ResNet on a spatial
-    axis) still raises naming A12."""
+    ResNet zoo, TPU.REMAT and dropout pass on every mesh the port runs (a
+    model axis and FSDP beside a spatial axis among them, and a ResNet on a
+    spatial axis), and with them a configuration the port lacks (the flat
+    optimizer state, on a ResNet's spatial mesh) still raises naming A13.
+    (Those three cases keep the ids they had when the ResNet on a spatial
+    axis raised naming A12.)"""
     cfg = get_default_cfg()
     check_ported(cfg)
     cfg.merge_from_file(os.path.join(REPO, YAMLS[0]))

@@ -1552,6 +1552,29 @@ def test_attention_family_serves_and_trains_through_the_kernels(cuda, family):
     assert _max_err(bf16[True], bf16[False]) <= 2.5e-2 * bf16[False].abs().max().item()
 
 
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_attention_family_under_tp_runs_the_dense_kernels_at_its_heads(cuda, family):
+    """Rank 0 of a model axis of 2 (no process group: the model group's
+    collectives are identities), a rank its H/2 heads: one f32 training
+    step launches B3 2 and B4 2 at one head (train_tp_families' keys), and
+    B1/B2 for the unshared ViL's sliding-chunk stages, the rest 0."""
+    from vil_tpu_torch import parallel
+    from vil_tpu_torch.train import engine, loss
+
+    kw, feats, chunked = FAMILIES[family]
+    model = MsViT(FAMILY_ARCH.format(*feats), img_size=64, num_classes=10, norm_embed=True,
+                  device=cuda, generator=torch.Generator().manual_seed(0),
+                  tp=parallel.TensorParallel(None, 2, 0), **{"sharew": True, **kw})
+    assert model.param_shards
+    step = engine.make_train_step(model, loss.cross_entropy,
+                                  torch.optim.AdamW(model.parameters()), device=cuda)
+    x = torch.randn(4, 64, 64, 3, device=cuda)
+    metrics = step(x, torch.randint(0, 10, (4,), device=cuda),
+                   torch.Generator(device=cuda).manual_seed(1))
+    assert torch.isfinite(metrics["loss"])
+    assert _launches() == [chunked, 2, chunked, 2] + [0] * 8  # B1, B3, B2, B4
+
+
 @pytest.mark.parametrize("family", ["linformer", "srformer", "performer"])
 def test_efficient_attention_on_the_card_matches_the_cpu(cuda, family):
     """Each efficient module in f32 on the card against itself on the CPU,

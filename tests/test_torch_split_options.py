@@ -51,10 +51,11 @@ from a seed (its REMAT 'full' model), loaded into the port.
   normalised updates amplify it step by step: 5.7e-5 at the second step,
   0.3 at the sixth, the run on the data axis without FSDP as far; the f64
   step above holds the ResNet under 'fsdp' itself).
-* Without a spawn: ``check_ported`` accepts what this slice ports, and a
-  model axis or FSDP beside a spatial axis, and still refuses a ResNet on
-  a spatial axis (A12), orbax (A6) and the flat or stacked optimizer
-  states (A13) on those meshes.
+* Without a spawn: ``check_ported`` accepts what this slice ports, a
+  model axis or FSDP beside a spatial axis and a ResNet on a spatial axis,
+  and still refuses orbax (A6) and the flat or stacked optimizer states
+  (A13) on those meshes; a ResNet on a one-rank spatial mesh runs the
+  classic forward.
 """
 import json
 import os
@@ -457,41 +458,51 @@ def test_trainer_at_world_2_matches_world_1(split_runs, ranks, name):
     ["TPU.REMAT", "full", "TPU.MESH_AXES", "['data','spatial','model']", "TPU.MESH_SHAPE",
      "[1,1,2]", "TPU.PARAM_SHARDING", "tp"],
     ["MODEL.VIT.DROP", "0.1", "TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]],
+    ["MODEL.ARCH", "resnet50", *MESHES["spatial"]],
+    ["MODEL.ARCH", "resnet50", "TPU.MESH_AXES", "['data','model','spatial']",
+     "TPU.MESH_SHAPE", "[1,1,1]"],
 ], ids=["remat_spatial", "remat_tp", "remat_fsdp", "drop_spatial", "drop_remat_tp",
-        "resnet_fsdp", "resnet_tp", "remat_model_beside_spatial", "drop_fsdp_beside_spatial"])
+        "resnet_fsdp", "resnet_tp", "remat_model_beside_spatial", "drop_fsdp_beside_spatial",
+        "resnet_spatial", "resnet_model_beside_spatial"])
 def test_check_ported_accepts(opts):
     check_ported(_cfg(opts))
 
 
 @pytest.mark.parametrize("opts,what", [
-    (["MODEL.ARCH", "resnet50", *MESHES["spatial"]], "a ResNet on a spatial axis: A12"),
-    (["MODEL.ARCH", "resnet50", "TPU.MESH_AXES", "['data','model','spatial']",
-      "TPU.MESH_SHAPE", "[1,1,1]"], "a ResNet on a spatial axis: A12"),
     (["CKPT_BACKEND", "orbax", "TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]],
      "orbax.*A6"),
     (["TPU.FLAT_OPT", "True", "TPU.MESH_AXES", "['data','spatial','model']",
       "TPU.MESH_SHAPE", "[1,1,1]", "TPU.PARAM_SHARDING", "tp"], "FLAT_OPT / STACKED_OPT.*A13"),
     (["TPU.STACKED_OPT", "True", "TPU.PARAM_SHARDING", "fsdp", *MESHES["spatial"]],
      "FLAT_OPT / STACKED_OPT.*A13"),
-], ids=["resnet_spatial", "model_beside_spatial", "fsdp_beside_spatial", "flat_opt_3d",
-        "stacked_opt_fsdp_spatial"])
+], ids=["fsdp_beside_spatial", "flat_opt_3d", "stacked_opt_fsdp_spatial"])
 def test_check_ported_still_refuses(opts, what):
-    """Beside a spatial axis a model axis and FSDP pass (the two meshes
-    ``tests/test_torch_mesh3d.py`` runs); a ResNet there, orbax and the flat
-    or stacked optimizer states still raise on them, naming their items."""
+    """Beside a spatial axis a model axis, FSDP and a ResNet pass (the
+    meshes ``tests/test_torch_mesh3d.py`` and ``tests/test_torch_mesh_models.py``
+    run); orbax and the flat or stacked optimizer states still raise on
+    them, naming their items."""
     with pytest.raises(NotImplementedError, match=what):
         check_ported(_cfg(opts))
 
 
-def test_resnet_on_a_spatial_axis_raises_in_build_model():
-    """The model refuses it too, without a process group (a one-rank mesh),
-    naming A12; on a model axis it builds whole."""
+def test_resnet_on_a_one_rank_spatial_mesh_equals_the_classic_forward():
+    """Without a process group (a one-rank spatial mesh) the ResNet builds,
+    its rows are the whole image, and its forward, training and eval, is
+    the classic one's bit for bit (every halo is the image's padding); on a
+    model axis it builds whole."""
     from vil_tpu_torch import parallel
 
     one = ["TPU.MESH_SHAPE", "[1,1]"]
     cfg = _cfg(_resnet_opts(*MESHES["spatial"], *one))
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_model(cfg, device="cpu", mesh=parallel.mesh_from_cfg(cfg))
+    mesh = parallel.mesh_from_cfg(cfg)
+    model = build_model(cfg, device="cpu", mesh=mesh, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, RESNET_IMG, RESNET_IMG, 3)).astype(np.float32))
+    assert model.spatial_split(1).image == ((0, RESNET_IMG),)
+    for train in (True, False):
+        model.train(train)
+        split = parallel.spatial_forward(model, parallel.shard_image(x, model), None)
+        assert torch.equal(split, model(x)), train
     cfg = _cfg(_resnet_opts(*MESHES["tp"], *one))
     model = build_model(cfg, device="cpu", mesh=parallel.mesh_from_cfg(cfg))
     assert not model.param_shards and model.partial_over_model() == []

@@ -19,26 +19,30 @@ def _resnet(cfg, name, dtype, device, generator, param_dtype, mesh) -> ResNet:
     """``vil_tpu``'s route for a ``RESNET_ZOO`` name: MODEL.PRETRAINED
     raises (it would need torchvision's hub), the computation in
     TPU.COMPUTE_DTYPE, the parameters in f32 (``vil_tpu`` passes no
-    PARAM_DTYPE to its ResNet); on a data axis of several replicas every
-    BatchNorm takes the global batch's statistics, over the data group.
-    On a model axis (TPU.PARAM_SHARDING 'tp') the ResNet is whole on every
-    model rank, which runs it on its replica's images: ``vil_tpu``'s plan
-    cuts no ResNet leaf, so GSPMD replicates it there. Under 'fsdp' the
-    caller slices it (``parallel.fully_shard``). A spatial axis raises."""
+    PARAM_DTYPE to its ResNet); on a data axis of several replicas, or a
+    spatial axis, every BatchNorm takes the global batch's statistics over
+    the whole image, over the ranks that hold different images or rows
+    (``Mesh.param_group``: the data axis, with the spatial axis where the
+    mesh has one). On a spatial axis each rank runs its rows of the
+    INPUT.IMAGE_SIZE images (``ResNet.spatial_split``). On a model axis
+    (TPU.PARAM_SHARDING 'tp') the ResNet is whole on every model rank, which
+    runs it on its replica's images (and rows): ``vil_tpu``'s plan cuts no
+    ResNet leaf, so GSPMD replicates it there. Under 'fsdp' the caller
+    slices it (``parallel.fully_shard``)."""
     if cfg.MODEL.PRETRAINED:
         raise ValueError("MODEL.PRETRAINED needs torchvision hub access; load local "
                          "weights via MODEL.MODEL_PATH (a torchvision .pth) instead")
-    if mesh is not None and mesh.spatial is not None:
-        raise NotImplementedError("a ResNet on a spatial axis is not ported (ROADMAP.md §A, "
-                                  "A12: halo convolutions, pooling and BatchNorm over the "
-                                  "spatial group)")
     if dtype is None:
         dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
     logger.info("=> creating torchvision-zoo model '%s'", name)
-    data = dict(group=mesh.data_group, group_size=mesh.data_size) if mesh is not None else {}
+    stats = {}
+    if mesh is not None:
+        rows = mesh.spatial.size if mesh.spatial is not None else 1
+        stats = dict(group=mesh.param_group, group_size=mesh.data_size * rows)
     return build_resnet(name, cfg.DATA.NUM_CLASSES, dtype, param_dtype or torch.float32,
                         device, input_mean=tuple(cfg.INPUT.MEAN),
-                        input_std=tuple(cfg.INPUT.STD), generator=generator, **data)
+                        input_std=tuple(cfg.INPUT.STD), generator=generator,
+                        img_size=cfg.INPUT.IMAGE_SIZE, **stats)
 
 
 def build_model(cfg, dtype=None, device=None, use_kernels=None,

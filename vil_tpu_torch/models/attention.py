@@ -66,9 +66,12 @@ model's ``tp``): a module whose heads divide by n holds this rank's H/n
 heads, with the query/key/value projections column-parallel and the output
 projection row-parallel (``parallel/tensor.py``), and calls the same kernels
 at H/n heads on C/n channels; its relative-position tables stay whole and it
-reads its heads' columns (bias (H/n, ...)). One whose heads do not divide
-computes whole on every rank. The fused block runs only unsplit: a split
-module takes the classic B1/B2 path, as ``vil_tpu`` does on a model axis.
+reads its heads' columns (bias (H/n, ...)). With unshared global weights
+(SHARE_W False) ``query_global`` and ``kv_global`` are column-parallel and
+``proj_global`` row-parallel too, and the only-global mode runs on the
+rank's heads in token layout. One whose heads do not divide computes whole
+on every rank. The fused block runs only unsplit: a split module takes the
+classic B1/B2 path, as ``vil_tpu`` does on a model axis.
 
 q is scaled by M^-½ before either kernel. With a gradient to take, the
 kernels run through their autograd Functions (forward with the log-sum-exp,
@@ -383,10 +386,6 @@ class VilAttention(RelativePositionBias, nn.Module):
         if only_glo and nglo < 1:
             raise ValueError("Nglo == 0 in the only global mode!")
         self.tp = tp if tp is not None and tp.splits(num_heads, name) else None
-        if self.tp is not None and (only_glo or not sharew):
-            raise NotImplementedError("the only-global mode and the unshared global weights "
-                                      "under tensor parallelism are not ported (ROADMAP.md "
-                                      "§A, A12)")
         if self.tp is not None and fused_block and use_kernels:
             logging.getLogger(__name__).warning(
                 "%s: the fused attention block has no head-split form; a split block runs "
@@ -403,10 +402,10 @@ class VilAttention(RelativePositionBias, nn.Module):
         self.query = Linear(dim, dim, cut="column", **tp_kw, **kw)
         self.kv = Linear(dim, 2 * dim, cut="column", pack=2, **tp_kw, **kw)
         self.proj = Linear(dim, dim, cut="row", **tp_kw, **kw)
-        if not sharew:  # the global branch's own weights
-            self.query_global = Linear(dim, dim, **kw)
-            self.kv_global = Linear(dim, 2 * dim, **kw)
-            self.proj_global = Linear(dim, dim, **kw)
+        if not sharew:  # the global branch's own weights, cut as the shared ones
+            self.query_global = Linear(dim, dim, cut="column", **tp_kw, **kw)
+            self.kv_global = Linear(dim, 2 * dim, cut="column", pack=2, **tp_kw, **kw)
+            self.proj_global = Linear(dim, dim, cut="row", **tp_kw, **kw)
         self._masks: dict = {}  # (nx, ny, mode 0, -1 or 1, device) → additive tables
         self._init_rpe(rpe, (4 * w - 1) ** 2, num_heads, nglo, device, param_dtype,
                        None if self.tp is None else self.tp.heads(num_heads))
@@ -549,16 +548,18 @@ class VilAttention(RelativePositionBias, nn.Module):
         check_eval_only(self, self.attn_drop, "attention dropout")
         if isinstance(x, tuple):
             raise ValueError("the only-global mode runs in token layout, not on chunks")
-        B, N, C = x.shape
+        B, N, _ = x.shape
         H, Nglo = self.num_heads, self.nglo
         if N != Nglo + nx * ny:
             raise ValueError("Global dimension does not match!")
-        q = split_heads(self.query(x[:, Nglo:]) * (C // H) ** -0.5, H)
+        if self.tp is not None:  # the input of the column-parallel projections
+            x = self.tp.copy(x)
+        q = split_heads(self.query(x[:, Nglo:]) * self.head_dim ** -0.5, H)
         k, v = self.kv.part(x, 0, 2), self.kv.part(x, 1, 2)  # (B, N, C)
         probs = softmax_max_sub(scores_f32(q, split_heads(k[:, :Nglo], H)))  # (B, H, Nloc, Nglo)
         x1 = self.proj(merge_heads(torch.matmul(probs.to(k.dtype), split_heads(v[:, :Nglo], H))))
         if not self.sharew:
             k, v = self.kv_global.part(x, 0, 2), self.kv_global.part(x, 1, 2)
-        loc = lambda t: t[:, Nglo:].reshape(B, 1, 1, N - Nglo, C)
+        loc = lambda t: t[:, Nglo:].reshape(B, 1, 1, N - Nglo, t.shape[-1])
         x0 = self._global(x[:, :Nglo], loc(k), loc(v), k[:, :Nglo], v[:, :Nglo])
         return self.proj_drop(torch.cat([x0, x1], dim=1), generator)

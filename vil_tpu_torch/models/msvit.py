@@ -157,9 +157,6 @@ class AttnBlock(nn.Module):
         common = dict(dim=dim, num_heads=num_heads, attn_drop=attn_drop, proj_drop=drop, **kw)
         kernels = dict(rpe=rpe, use_kernels=use_kernels)
         split = dict(tp=tp, name=name)
-        if tp is not None and tp.size > 1 and attn_type not in ("full", *LONGFORMER_TYPES):
-            raise NotImplementedError(f"the {attn_type} attention under tensor parallelism is "
-                                      f"not ported (ROADMAP.md §A, A12)")
         if attn_type == "full":
             self.attn = FullAttention(wx=wx, wy=wy, nglo=nglo, **kernels, **common, **split)
         elif attn_type in LONGFORMER_TYPES:
@@ -168,11 +165,11 @@ class AttnBlock(nn.Module):
                                      **common, **split)
         elif attn_type == "linformer":
             self.attn = LinformerAttention(seq_len=wx * wy + nglo, num_feats=num_feats,
-                                           share_kv=share_kv, **common)
+                                           share_kv=share_kv, **common, **split)
         elif attn_type == "srformer":
-            self.attn = SRAttention(rratio=num_feats, **common)
+            self.attn = SRAttention(rratio=num_feats, **common, **split)
         elif attn_type == "performer":
-            self.attn = PerformerAttention(nb_features=num_feats, **common)
+            self.attn = PerformerAttention(nb_features=num_feats, **common, **split)
         else:
             raise ValueError(f"Not supported attention type {attn_type}")
         self.droppath = DropPath(drop_path)
@@ -237,7 +234,8 @@ class MsViT(nn.Module):
     With ``tp`` (a ``parallel.TensorParallel`` context, TPU.PARAM_SHARDING
     'tp') the model is this model rank's shard: each attention and MLP
     block whose heads (hidden features) divide by the model axis holds its
-    rank's part (``parallel/tensor.py``); ``param_shards`` names each cut
+    rank's part (``parallel/tensor.py``), in every attention family and
+    mode; ``param_shards`` names each cut
     parameter's :class:`~vil_tpu_torch.parallel.tensor.Shard`, and the
     weights are those of the whole model from the same ``generator``.
     Weights are drawn by :meth:`init_weights` from ``generator``. ``mode``
@@ -325,12 +323,16 @@ class MsViT(nn.Module):
 
     def partial_over_model(self) -> list:
         """The parameters of which each model rank holds a part of the
-        gradient: the relative-position tables of the split blocks, each
-        rank's heads' columns. The training step sums them over the model
-        group (``parallel.average_gradients``)."""
-        return [t for mod in self.modules()
-                if isinstance(mod, (FullAttention, VilAttention)) and mod.rpe_heads is not None
-                for t in mod.rpe_tables()]
+        gradient: the relative-position tables of the split blocks (each
+        rank's heads' columns) and the split linformers' sequence
+        projections (each rank's heads' channels). The training step sums
+        them over the model group (``parallel.average_gradients``)."""
+        tables = [t for mod in self.modules()
+                  if isinstance(mod, (FullAttention, VilAttention)) and mod.rpe_heads is not None
+                  for t in mod.rpe_tables()]
+        return tables + [p for mod in self.modules()
+                         if isinstance(mod, LinformerAttention) and mod.tp is not None
+                         for p in (mod.proj_k, mod.proj_v) if p is not None]
 
     @property
     def depth(self) -> int:

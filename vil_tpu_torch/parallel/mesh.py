@@ -48,6 +48,13 @@ mesh under 'fsdp' the parameters are sliced over the data axis alone, whole
 across the spatial group: the gathers and the reduce-scatter run over the
 data group of a rank's spatial index, and each rank's row-partial gradients
 are summed over the spatial group before the reduce-scatter.
+
+A ResNet of the zoo runs on every one of these meshes: on a spatial axis
+each rank holds whole blocks of 32 image rows (``ResNet.spatial_split``),
+its convolutions and max-pool exchange halo rows with the neighbouring
+ranks (``parallel.spatial.ConvRows``), and its BatchNorm statistics and
+global pool are summed over the ranks that hold different images or rows
+(:attr:`Mesh.param_group`); on a model axis it is whole on every rank.
 """
 from __future__ import annotations
 
@@ -190,10 +197,11 @@ def mesh_from_cfg(cfg) -> Mesh:
     return Mesh(data_size, data_rank, spatial, model, data_group, param_group, replica_group)
 
 
-def average_gradients(params, data_size: int, group=None, partial=()) -> None:
+def average_gradients(params, divide: int, group=None, partial=()) -> None:
     """Sum every parameter's gradient over the ranks of ``group`` (all ranks
-    when None) in one all-reduce and divide by the data replicas: the
-    spatial ranks' partial gradients add up to their replica's
+    when None) in one all-reduce and divide by ``divide``, the data
+    replicas times the spatial ranks: the spatial ranks' partial gradients
+    of a loss each computes alike add up to D times their replica's
     (``parallel/spatial.py``), and the replicas' are averaged. On a model
     axis ``group`` is the ranks that hold the same parameters
     (``Mesh.param_group``: the data axis, with the spatial axis where the
@@ -207,10 +215,10 @@ def average_gradients(params, data_size: int, group=None, partial=()) -> None:
         return
     if partial and partial.size > 1:
         _sum_into([p.grad for p in partial.params if p.grad is not None], partial.group)
-    if get_world_size(group) == 1 and data_size == 1:
+    if get_world_size(group) == 1 and divide == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
-    _sum_into(grads, group, data_size)
+    _sum_into(grads, group, divide)
 
 
 def _sum_into(grads: list, group, divide: int = 1) -> None:
@@ -248,15 +256,17 @@ def fully_shard(model, mesh: Mesh, min_size: int = FSDP_MIN_SIZE) -> FullySharde
     return FullyShardedParams(model, mesh.data_group, min_size)
 
 
-def average_metrics(metrics: dict) -> dict:
-    """A dict of 0-d metric tensors averaged over all ranks in one
-    all-reduce: each data replica counted once, as its spatial ranks hold
-    the same values. Returned as it is at one rank."""
-    if get_world_size() == 1:
+def average_metrics(metrics: dict, group=None) -> dict:
+    """A dict of 0-d metric tensors averaged over the ranks of ``group``
+    (all ranks when None; a mesh's ``param_group``) in one all-reduce: each
+    data replica counted once, as its spatial and model ranks hold the same
+    values. Returned as it is at one rank."""
+    size = get_world_size(group)
+    if size == 1:
         return metrics
     stacked = torch.stack([v.float() for v in metrics.values()])
-    dist.all_reduce(stacked)
-    return dict(zip(metrics, stacked / get_world_size()))
+    dist.all_reduce(stacked, group=group)
+    return dict(zip(metrics, stacked / size))
 
 
 def broadcast_replica(t: torch.Tensor, replica) -> torch.Tensor:

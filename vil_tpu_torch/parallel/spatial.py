@@ -1,4 +1,5 @@
-"""Spatial (chunk-row) parallelism of the 2-D sliding-chunk attention.
+"""Spatial parallelism: the chunk rows of the 2-D sliding-chunk attention,
+and the row blocks of a convolutional net.
 
 Counterpart of ``vil_tpu/parallel/spatial.py``. The chunk-row axis ``mx`` of
 the stage-resident (B, mx, my, W², C) layout is split over the ranks of a
@@ -15,6 +16,13 @@ followed by the same local math with this rank's rows of the mask table.
 Global-token queries attend to every token, so their softmax is spread over
 the ranks: a maximum, the denominators and the P·V partials are reduced over
 the group (:func:`spatial_global_branch`).
+
+A convolutional net (the ResNet zoo) is split in whole blocks of its total
+stride (:func:`block_split`, ``ResNet.spatial_split``); each convolution and
+pooling layer reads the rows above and below its own that its kernel
+reaches (:class:`ConvRows`): a counted, non-cyclic exchange with the
+neighbouring ranks, the padding value at the image's edges, where
+``vil_tpu`` lets GSPMD split the height of the same XLA convolutions.
 
 The JAX functions run inside ``shard_map``; here each function runs on every
 rank of the group, on that rank's shard, and communicates through
@@ -33,9 +41,11 @@ on this rank's rows, so its gradient is a share of the first and the rows'
 part of the second, and one sum over the group makes it whole. The
 collectives are written to keep this:
 
-* a loss computed alike on every rank is seeded with 1/D
-  (``train.engine.TrainStep``); a loss summed over the ranks from their
-  rows needs no scale;
+* a loss computed alike on every rank gives D times its gradient when the
+  ranks' partials are summed: the training step divides the sum by D
+  (``train.engine.TrainStep``; dividing the sum rather than seeding 1/D
+  keeps the scale exact in the gradients' type); a loss summed over the
+  ranks from their rows needs no scale;
 * a replicated value meets this rank's rows as it is: identity both ways;
 * :func:`reduce_sum` (partial sums → their total on every rank) sums the
   partial gradients of the total back over the group;
@@ -86,6 +96,17 @@ class RowSplit:
     chunks: tuple[tuple[Span, ...], ...]
 
 
+def block_split(rows: int, unit: int, size: int) -> tuple[Span, ...]:
+    """``rows`` cut into blocks of ``unit`` (the last one short when
+    ``unit`` does not divide them), spread over ``size`` ranks as evenly as
+    they go, the first ranks taking one block more: every rank's [first,
+    last) rows. A rank may be left none; the callers raise for it."""
+    blocks = -(-rows // unit)
+    base, extra = divmod(blocks, size)
+    starts = [r * base + min(r, extra) for r in range(size + 1)]
+    return tuple((starts[r] * unit, min(starts[r + 1] * unit, rows)) for r in range(size))
+
+
 def row_split(img_rows: int, patches: Sequence[int], windows: Sequence[int],
               size: int) -> RowSplit:
     """Split ``img_rows`` input rows over ``size`` ranks so that every rank
@@ -104,9 +125,7 @@ def row_split(img_rows: int, patches: Sequence[int], windows: Sequence[int],
         cums.append(cum)
         unit = math.lcm(unit, w * cum)
     blocks = -(-img_rows // unit)
-    base, extra = divmod(blocks, size)
-    starts = [r * base + min(r, extra) for r in range(size + 1)]
-    image = tuple((starts[r] * unit, min(starts[r + 1] * unit, img_rows)) for r in range(size))
+    image = block_split(img_rows, unit, size)
     tokens, chunks = [], []
     for s, (cum, w) in enumerate(zip(cums, windows)):
         rows = tuple((lo // cum, hi // cum) for lo, hi in image)
@@ -213,8 +232,9 @@ def reduce_sum(t: torch.Tensor, ctx: Optional[SpatialContext]) -> torch.Tensor:
     return t if _local(ctx) else _ReduceSum.apply(t, ctx.group)
 
 
-def reduce_max(t: torch.Tensor, ctx: Optional[SpatialContext]) -> torch.Tensor:
-    """The elementwise maximum over the ranks, without a gradient."""
+def reduce_max(t: torch.Tensor, ctx) -> torch.Tensor:
+    """The elementwise maximum over the ranks of ``ctx``'s group (a
+    :class:`SpatialContext` or a ``TensorParallel``), without a gradient."""
     t = t.detach()
     if _local(ctx):
         return t
@@ -223,35 +243,50 @@ def reduce_max(t: torch.Tensor, ctx: Optional[SpatialContext]) -> torch.Tensor:
     return out
 
 
-def _shift(to_next: torch.Tensor, to_prev: torch.Tensor, group):
-    """Send ``to_next`` to the next rank and ``to_prev`` to the previous one
-    (cyclic); returns (what the previous rank sent on, what the next rank sent
-    back). Tags tell the two messages apart where next and previous are one
-    rank; NCCL, which ignores tags, pairs them in the order posted. A group
-    of one sends to itself under NCCL; gloo has no pair to its own rank, so
-    there the exchange is a copy. Gloo's point-to-point reads and writes host
-    memory, so card tensors (ranks sharing a card over gloo) pass through the
+def _exchange(to_prev: torch.Tensor, to_next: torch.Tensor, n_prev: int, n_next: int,
+              dim: int, group, cyclic: bool = False):
+    """Point-to-point exchange along ``dim``: send ``to_prev`` to the
+    previous rank and ``to_next`` to the next one, receive ``n_prev`` rows
+    from the previous rank and ``n_next`` from the next. Returns (from_prev,
+    from_next). Not ``cyclic``, the first rank has no previous and the last
+    no next, and a message of no rows is not sent (both sides know it: the
+    counts come from the split, which every rank holds); ``cyclic``, the
+    first rank's previous is the last. Tags tell the directions apart (down
+    0, up 1) where next and previous are one rank; NCCL, which ignores
+    tags, pairs them in the order posted. A group of one sends to itself
+    under NCCL; gloo has no pair to its own rank, so there the cyclic
+    exchange is a copy. Gloo's point-to-point reads and writes host memory,
+    so card tensors (ranks sharing a card over gloo) pass through the
     host."""
     d, r = dist.get_world_size(group), dist.get_rank(group)
-    if d == 1 and dist.get_backend(group) != "nccl":
+    if cyclic and d == 1 and dist.get_backend(group) != "nccl":
         return to_next.clone(), to_prev.clone()
     g = dist.group.WORLD if group is None else group
-    nxt, prv = (dist.get_global_rank(g, (r + 1) % d), dist.get_global_rank(g, (r - 1) % d))
-    device = to_next.device
+    prv = dist.get_global_rank(g, (r - 1) % d) if cyclic or r > 0 else None
+    nxt = dist.get_global_rank(g, (r + 1) % d) if cyclic or r + 1 < d else None
+    device = to_prev.device
     staged = device.type != "cpu" and dist.get_backend(group) == "gloo"
-    if staged:
-        to_next, to_prev = to_next.cpu(), to_prev.cpu()
-    to_next, to_prev = to_next.contiguous(), to_prev.contiguous()
-    from_prev, from_next = torch.empty_like(to_next), torch.empty_like(to_prev)
-    ops = [dist.P2POp(dist.isend, to_next, nxt, group, 0),
-           dist.P2POp(dist.isend, to_prev, prv, group, 1),
-           dist.P2POp(dist.irecv, from_prev, prv, group, 0),
-           dist.P2POp(dist.irecv, from_next, nxt, group, 1)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    if staged:
-        return from_prev.to(device), from_next.to(device)
-    return from_prev, from_next
+    host = (lambda t: t.cpu()) if staged else (lambda t: t)
+
+    def empty(n):
+        shape = list(to_prev.shape)
+        shape[dim] = n
+        return torch.empty(shape, dtype=to_prev.dtype, device="cpu" if staged else device)
+
+    from_prev, from_next = empty(n_prev), empty(n_next)
+    ops = []
+    if nxt is not None and to_next.shape[dim]:
+        ops.append(dist.P2POp(dist.isend, host(to_next).contiguous(), nxt, group, 0))
+    if prv is not None and to_prev.shape[dim]:
+        ops.append(dist.P2POp(dist.isend, host(to_prev).contiguous(), prv, group, 1))
+    if prv is not None and n_prev:
+        ops.append(dist.P2POp(dist.irecv, from_prev, prv, group, 0))
+    if nxt is not None and n_next:
+        ops.append(dist.P2POp(dist.irecv, from_next, nxt, group, 1))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return from_prev.to(device), from_next.to(device)
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -261,13 +296,13 @@ class _HaloExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group, ctx.shape = group, t.shape
-        return _shift(t[:, -1:], t[:, :1], group)
+        return _exchange(t[:, :1], t[:, -1:], 1, 1, 1, group, cyclic=True)
 
     @staticmethod
     def backward(ctx, g_top, g_bot):
         # g_top belongs to the previous rank's last row, g_bot to the next
         # rank's first
-        g_first, g_last = _shift(g_bot, g_top, ctx.group)
+        g_first, g_last = _exchange(g_top, g_bot, 1, 1, 1, ctx.group, cyclic=True)
         grad = g_top.new_zeros(ctx.shape)
         grad[:, :1] += g_first
         grad[:, -1:] += g_last
@@ -287,6 +322,145 @@ def halo_rows(t: torch.Tensor, group=None):
     if not is_distributed():
         return t[:, -1:], t[:, :1]
     return _HaloExchange.apply(t, group)
+
+
+# ------------------------------------------------- convolutions and pooling
+
+def _pad(t: torch.Tensor, n: int, fill: float, dim: int) -> torch.Tensor:
+    """``n`` rows of ``fill`` shaped as t's along ``dim``."""
+    shape = list(t.shape)
+    shape[dim] = n
+    return t.new_full(shape, fill)
+
+
+def _join(pieces: list, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The pieces' concatenation along ``dim`` in t's memory layout: a
+    channels-last t (the ResNet's activations) keeps its layout only when
+    every piece has it, and an empty piece would drop it."""
+    pieces = [p for p in pieces if p.shape[dim]]
+    if t.dim() == 4 and not t.is_contiguous() and t.is_contiguous(
+            memory_format=torch.channels_last):
+        pieces = [p.contiguous(memory_format=torch.channels_last) for p in pieces]
+    return torch.cat(pieces, dim=dim)
+
+
+@dataclass(frozen=True)
+class _Halo:
+    """What one rank's window of a layer takes: ``pad_top`` rows of the
+    padding value, ``take_prev`` rows from the previous rank, its own first
+    ``keep`` rows, ``take_next`` rows from the next rank, ``pad_bot`` rows of
+    padding; and what it gives: its first ``give_prev`` rows to the previous
+    rank, its last ``give_next`` to the next."""
+
+    pad_top: int
+    take_prev: int
+    keep: int
+    take_next: int
+    pad_bot: int
+    give_prev: int
+    give_next: int
+
+
+class _HaloWindow(torch.autograd.Function):
+    """A rank's rows → the window its layer reads (:class:`_Halo`); the
+    backward returns each neighbour row's gradient to the rank that owns
+    it, added there, and drops the padding's."""
+
+    @staticmethod
+    def forward(ctx, t, halo: _Halo, fill: float, dim: int, group):
+        ctx.halo, ctx.dim, ctx.group, ctx.rows = halo, dim, group, t.shape[dim]
+        n = t.shape[dim]
+        from_prev, from_next = _exchange(t.narrow(dim, 0, halo.give_prev),
+                                         t.narrow(dim, n - halo.give_next, halo.give_next),
+                                         halo.take_prev, halo.take_next, dim, group)
+        return _join([_pad(t, halo.pad_top, fill, dim), from_prev, t.narrow(dim, 0, halo.keep),
+                      from_next, _pad(t, halo.pad_bot, fill, dim)], t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, dim = ctx.halo, ctx.dim
+        _, g_prev, g_own, g_next, _ = g.split(
+            [h.pad_top, h.take_prev, h.keep, h.take_next, h.pad_bot], dim=dim)
+        # the previous rank's rows go back up, the next rank's down; the
+        # gradients of this rank's first and last rows come back
+        g_first, g_last = _exchange(g_prev, g_next, h.give_prev, h.give_next, dim, ctx.group)
+        shape = list(g.shape)
+        shape[dim] = ctx.rows
+        grad = g.new_zeros(shape)
+        grad.narrow(dim, 0, h.keep).add_(g_own)
+        grad.narrow(dim, 0, h.give_prev).add_(g_first)
+        grad.narrow(dim, ctx.rows - h.give_next, h.give_next).add_(g_last)
+        return grad, None, None, None, None
+
+
+@dataclass(frozen=True)
+class ConvRows:
+    """The rows of one resolution of a convolutional net whose image is
+    split by rows over a spatial group: ``spans[r]`` rank r's [first, last)
+    rows of the ``total``, ``ctx`` this rank's place in the group.
+
+    A layer of kernel k, stride s and padding p along the rows computes
+    output row o from input rows [o·s − p, o·s − p + k). Rank r computes the
+    output rows of its own input rows: [first/s, last/s), the last rank up to
+    the whole output's (total + 2p − k)/s + 1 (the first row of every rank
+    lies on the stride, as it does when the image is cut at multiples of
+    the net's total stride). So its layer reads input rows [first − p,
+    last − s − p + k): p rows above its own and k − s − p below, taken from
+    the neighbouring ranks, and outside the image the padding value (0 for
+    a convolution, −inf for max-pooling), exactly as the unsplit layer pads.
+    :meth:`window` builds those rows; the layer then runs with no padding
+    along the rows."""
+
+    spans: tuple[Span, ...]
+    total: int
+    ctx: SpatialContext
+
+    def after(self, k: int, s: int, p: int) -> "ConvRows":
+        """Every rank's output rows of a layer (k, s, p). Raises
+        ``ValueError`` when a rank's first row is not on the stride."""
+        if any(lo % s for lo, _ in self.spans):
+            raise ValueError(f"rows {self.spans} are not cut on the stride {s}")
+        out = (self.total + 2 * p - k) // s + 1
+        last = len(self.spans) - 1
+        spans = tuple((lo // s, out if r == last else hi // s)
+                      for r, (lo, hi) in enumerate(self.spans))
+        return ConvRows(spans, out, self.ctx)
+
+    def _halo(self, r: int, k: int, s: int, p: int) -> tuple[int, int, int, int, int]:
+        """Rank r's (pad_top, take_prev, keep, take_next, pad_bot)."""
+        (a, b), (o_lo, o_hi) = self.spans[r], self.after(k, s, p).spans[r]
+        lo, hi = o_lo * s - p, (o_hi - 1) * s - p + k
+        take_prev = a - max(lo, 0)
+        take_next = max(0, min(hi, self.total) - b)
+        return (max(0, -lo), take_prev, min(b, hi) - a, take_next,
+                max(0, hi - max(b, self.total)))
+
+    def window(self, t: torch.Tensor, k: int, s: int, p: int, fill: float = 0.0,
+               dim: int = 2) -> torch.Tensor:
+        """This rank's rows ``t`` (along ``dim``) → the input rows its
+        outputs of the layer (k, s, p) read, the neighbours' halo rows
+        exchanged (their gradients sent back in the backward) and the
+        image's edges padded with ``fill``. Raises ``ValueError`` when a
+        halo is larger than the neighbour's rows."""
+        D, r = len(self.spans), self.ctx.rank
+        halos = [self._halo(q, k, s, p) for q in range(D)]
+        rows = [hi - lo for lo, hi in self.spans]
+        for q, (_, above, _, below, _) in enumerate(halos):
+            if (q > 0 and above > rows[q - 1]) or (q + 1 < D and below > rows[q + 1]):
+                raise ValueError(f"a layer (kernel {k}, stride {s}, padding {p}) on rows "
+                                 f"{self.spans} of {self.total} needs more halo rows than a "
+                                 f"neighbour of rank {q} holds")
+        if t.shape[dim] != rows[r]:
+            raise ValueError(f"rank {r} holds {t.shape[dim]} rows, the split says {rows[r]}")
+        halo = _Halo(*halos[r], give_prev=halos[r - 1][3] if r > 0 else 0,
+                     give_next=halos[r + 1][1] if r + 1 < D else 0)
+        if _local(self.ctx) or D == 1 or not any(h[1] or h[3] for h in halos):
+            # no neighbour's row (a 1×1 layer reads none): padding alone
+            if not (halo.pad_top or halo.pad_bot):
+                return t.narrow(dim, 0, halo.keep)
+            return _join([_pad(t, halo.pad_top, fill, dim), t.narrow(dim, 0, halo.keep),
+                          _pad(t, halo.pad_bot, fill, dim)], t, dim)
+        return _HaloWindow.apply(t, halo, fill, dim, self.ctx.group)
 
 
 # --------------------------------------------------------------- attention

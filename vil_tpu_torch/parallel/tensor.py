@@ -11,11 +11,11 @@ rank's shard of the model and writes the collectives by hand:
 :class:`TensorParallel` context of n ranks holds this rank's part of its
 weights:
 
-* column-parallel ``qkv``, ``query``, ``kv``, ``fc1``: this rank's output
-  features, i.e. its H/n heads. A packed projection (``qkv`` 3C, ``kv`` 2C)
-  splits by block: rank r holds its slice of q, of k and of v, packed in
-  that order, so ``Linear.part`` cuts the local weight as it cuts the
-  whole one;
+* column-parallel ``qkv``, ``query``, ``kv``, ``query_global``,
+  ``kv_global``, ``fc1``: this rank's output features, i.e. its H/n heads.
+  A packed projection (``qkv`` 3C, ``kv`` and ``kv_global`` 2C) splits by
+  block: rank r holds its slice of q, of k and of v, packed in that order,
+  so ``Linear.part`` cuts the local weight as it cuts the whole one;
 * row-parallel ``proj``, ``proj_global``, ``fc2``: this rank's input
   features; the partial products are summed over the model group and the
   bias is added once, after the sum.
@@ -29,10 +29,13 @@ every model rank, and its parameters get the same, whole gradient there. A
 layer whose heads (or hidden features) do not divide by n keeps its weights
 whole and computes whole on every model rank, logged once, as ``_tp_spec``
 falls back to replicated. The relative-position tables stay whole and each
-split layer reads its heads' columns, so each model rank holds a part of
-their gradient: the training step sums those over the model group
-(:meth:`MsViT.partial_over_model`, ``parallel.average_gradients``) and
-every other gradient over the data replicas alone.
+split layer reads its heads' columns, and the linformer's sequence
+projections stay whole and each split layer applies them to its heads'
+channels, so each model rank holds a part of their gradient: the training
+step sums those over the model group (:meth:`MsViT.partial_over_model`,
+``parallel.average_gradients``) and every other gradient over the data
+replicas alone. The attention families (``models/attention_efficient.py``)
+and the unshared global weights use the same names and the same cuts.
 
 **FSDP** (``TPU.PARAM_SHARDING 'fsdp'``, :class:`FullyShardedParams`). A
 parameter of at least ``min_size`` elements that divides by the data axis
@@ -72,10 +75,13 @@ logger = logging.getLogger(__name__)
 
 # Linear layers whose OUTPUT features are split (column parallel) and whose
 # INPUT features are split (row parallel), by their flax module names
-COLUMN_PARALLEL = ("qkv", "query", "kv", "fc1")
+# (``vil_tpu``'s COLUMN_PARALLEL lacks query_global and kv_global: it keeps
+# them whole, where the port cuts them as the shared ones are cut; the math
+# and the whole-state checkpoints are the same)
+COLUMN_PARALLEL = ("qkv", "query", "kv", "query_global", "kv_global", "fc1")
 ROW_PARALLEL = ("proj", "proj_global", "fc2")
 # packed projections: the output concatenates q/k/v (k/v) blocks, each split
-PACK_FACTOR = {"qkv": 3, "kv": 2}
+PACK_FACTOR = {"qkv": 3, "kv": 2, "kv_global": 2}
 FSDP_MIN_SIZE = 2 ** 14  # vil_tpu's fsdp_sharding default
 
 
@@ -363,9 +369,10 @@ class FullyShardedParams:
         self.local = {}
 
     @torch.no_grad()
-    def reduce_scatter_gradients(self, data_size: int, partial_group=None) -> None:
+    def reduce_scatter_gradients(self, divide: int, partial_group=None) -> None:
         """The gathered parameters' gradients summed over the group in one
-        reduce-scatter, divided by ``data_size``, onto the slices; then
+        reduce-scatter, divided by ``divide`` (the data replicas, times the
+        spatial ranks beside a spatial axis), onto the slices; then
         every parameter back to its slice with its slice's gradient. With a
         ``partial_group`` (the spatial group, on a mesh with a spatial axis)
         each rank holds a part of every gradient: they are summed over it in
@@ -385,7 +392,7 @@ class FullyShardedParams:
                 self.shards[n].local_of(self.params[n].grad, r).reshape(-1).to(dtype)
                 for n in names]) for r in range(self.size)])
             mine = reduce_scatter_flat(send, self.group) if is_distributed() else send
-            mine /= data_size
+            mine /= divide
             sizes = [self.local[n].numel() for n in names]
             grads = {n: g.view(self.local[n].shape).to(self.params[n].grad.dtype)
                      for n, g in zip(names, mine.split(sizes))}

@@ -26,14 +26,17 @@ neighbour mode: the random-shift epochs of MODEL.VIT.MSVIT.MODE 1 too), or
 data and model axes with TPU.PARAM_SHARDING 'tp' (each rank b's share of the
 heads), or FSDP over the data axis ('fsdp'), or both beside a spatial axis:
 'tp' on data, spatial and model axes (a rank's heads of its rows), 'fsdp'
-on data and spatial axes; TPU.REMAT and MODEL.VIT.DROP on each of them,
-and a ResNet of the zoo on the data axis, under 'fsdp' and under 'tp'; rank
+on data and spatial axes; TPU.REMAT and MODEL.VIT.DROP on each of them;
+the linformer, srformer, performer, only-global and unshared-global
+attentions under 'tp'; and a ResNet of the zoo on every one of these
+meshes (on a spatial axis a rank's rows, whole on every model rank); rank
 0 alone logs and writes checkpoints, whole, which a run of any mesh or
 sharding resumes. Without torchrun it runs on one card in one process. To
 run on the CPU, build ``train.trainer.Trainer(cfg, device="cpu")`` instead.
-Still raising, each naming its ROADMAP item (``train.trainer.check_ported``):
-a ResNet on a spatial axis (A12), and ``--multi-host``: one host's cards
-(ROADMAP §A, A12).
+Still raising, each naming its ROADMAP item: ``--multi-host`` (one host's
+cards, A12); orbax checkpoints (A6) and TPU.FLAT_OPT / STACKED_OPT (A13)
+(``train.trainer.check_ported``); the fused attention block under the
+spatial split (A12, in the model).
 """
 from __future__ import annotations
 

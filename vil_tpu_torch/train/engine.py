@@ -12,9 +12,11 @@ On a ('data', 'spatial') mesh (``parallel.Mesh``) every rank of a data
 replica takes the replica's whole images, draws mixup, stochastic depth and
 dropout alike (keyed by the seed, the step and the replica, not the rank;
 each dropout mask is the whole value's, of which a rank keeps its rows), and
-runs the model on its rows; the loss, the same on every rank of the replica, is
-seeded with 1/D, and one all-reduce of the gradients over every rank makes
-them the global batch's (``parallel.average_gradients``).
+runs the model on its rows; the loss is the same on every rank of the
+replica, so the ranks' partial gradients sum to D times the replica's, and
+one all-reduce of the gradients over every rank, divided by the spatial
+ranks with the replicas, makes them the global batch's
+(``parallel.average_gradients``).
 
 On a ('data', 'model') mesh the model is each model rank's shard
 (TPU.PARAM_SHARDING 'tp', ``parallel/tensor.py``): every rank of a replica
@@ -28,8 +30,8 @@ their gradients onto the slices before the update.
 
 The two compose with the spatial axis: on a ('data', 'spatial', 'model')
 mesh under 'tp' a rank runs its heads of its rows, every rank of a replica
-(spatial × model) draws alike, the loss is seeded 1/D as on the spatial
-mesh, and the gradients are summed over the data and spatial axes
+(spatial × model) draws alike, the gradients are divided by D as on the
+spatial mesh, and summed over the data and spatial axes
 (``Mesh.param_group``); on a ('data', 'spatial') mesh under 'fsdp' the
 sliced parameters' row-partial gradients are summed over the spatial group,
 then reduce-scattered over the data group of the rank's spatial index.
@@ -181,12 +183,15 @@ class TrainStep:
         logits = model(images, generator=generator, mode=modes, **split).float()
         loss = self.criterion(logits, targets)
         self.optimizer.zero_grad(set_to_none=True)
-        # a loss computed alike on D ranks: each seeds its share of the
-        # partial gradients, which average_gradients sums
-        (loss if spatial is None else loss / spatial.size).backward()
+        # a loss computed alike on D ranks: each rank's partial gradients
+        # sum to D times the replica's, so the sums below divide by the
+        # spatial ranks with the replicas (after the sum, in the gradients'
+        # type: a seed of 1/D would be rounded to the f32 loss's)
+        loss.backward()
+        divide = (mesh.data_size if mesh else 1) * (spatial.size if spatial is not None else 1)
         fsdp = getattr(model, "fsdp", None)
         if fsdp is not None:  # the sliced parameters' gradients onto the slices
-            fsdp.reduce_scatter_gradients(mesh.data_size if mesh else 1,
+            fsdp.reduce_scatter_gradients(divide,
                                           spatial.group if spatial is not None else None)
         if mesh is not None:
             sliced = {id(p) for p in fsdp.params.values()} if fsdp is not None else set()
@@ -195,7 +200,7 @@ class TrainStep:
                 partial = Partial(tuple(model.partial_over_model()), mesh.model.group,
                                   mesh.model.size)
             average_gradients([p for p in model.parameters() if id(p) not in sliced],
-                              mesh.data_size, mesh.param_group, partial)
+                              divide, mesh.param_group, partial)
         lrs = ([self.schedule(self.step)] * len(self.base_lrs) if self.schedule is not None
                else self.base_lrs)
         for group, lr in zip(self.optimizer.param_groups, lrs):
@@ -208,7 +213,8 @@ class TrainStep:
             metrics["top1"] = correct[:, 0].mean() * 100
             metrics["top5"] = correct[:, 1].mean() * 100
         if mesh is not None:
-            metrics = average_metrics(metrics)  # the global batch's: the replicas' mean
+            # the global batch's: the replicas' mean
+            metrics = average_metrics(metrics, mesh.param_group)
         if self.random_shift:
             metrics["modes"] = modes
         return metrics

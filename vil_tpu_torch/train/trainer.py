@@ -41,14 +41,17 @@ shards its state; both beside a spatial axis too: 'tp' on a ('data',
 spatial index). Rank 0 alone writes checkpoints (gathered whole under
 sharding), ``config.yaml`` and the TensorBoard logs; every rank loads on
 resume. Keys that select what the port lacks raise (:func:`check_ported`),
-each naming its ROADMAP item: a ResNet on a spatial axis (A12), and the
-rest. TPU.REMAT and MODEL.VIT.DROP run on
+each naming its ROADMAP item: orbax (A6) and the flat or stacked optimizer
+states (A13). TPU.REMAT and MODEL.VIT.DROP run on
 every mesh: the recompute of a block re-issues its collectives, and each
-rank keeps its part of the masks the one-rank step draws. A ResNet of the
-zoo (MODEL.ARCH ``resnet50`` ...) trains and evaluates as a ViL does, on a
-data axis, under 'fsdp' and whole on every rank of a model axis, its
-BatchNorm buffers updated by the step and read by the eval; the
-random-shift switch never fires for it.
+rank keeps its part of the masks the one-rank step draws. The linformer,
+srformer and performer attentions, ONLY_GLOBAL and SHARE_W False run under
+'tp' too, a rank holding its heads. A ResNet of the zoo (MODEL.ARCH
+``resnet50`` ...) trains and evaluates as a ViL does, on a data axis, on a
+spatial axis (a rank's rows, halo convolutions and pooling, BatchNorm and
+the pool summed over the data and spatial ranks), under 'fsdp' and whole
+on every rank of a model axis, its BatchNorm buffers updated by the step
+and read by the eval; the random-shift switch never fires for it.
 The Trainer builds on the CUDA card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -81,19 +84,19 @@ logger = logging.getLogger(__name__)
 
 def check_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for a key that selects something the
-    port lacks, naming its ROADMAP §A item; such a key is never ignored: a
-    ResNet on a spatial axis (A12), orbax checkpoints (A6) and the flat or
-    stacked optimizer states (A13). Random shift, mode -1, SHARE_W False,
-    TPU.REMAT and MODEL.VIT.DROP pass on a spatial axis; TPU.REMAT and
-    MODEL.VIT.DROP under 'tp' and 'fsdp' too, and a ResNet under both; a
-    model axis ('tp') and FSDP beside a spatial axis. The fused block under
-    the split and the efficient families under 'tp' raise in the model
-    (A12).
+    port lacks, naming its ROADMAP §A item; such a key is never ignored:
+    orbax checkpoints (A6) and the flat or stacked optimizer states (A13).
+    Every model of the zoo passes on every mesh: random shift, mode -1,
+    SHARE_W False, TPU.REMAT and MODEL.VIT.DROP on a spatial axis, under
+    'tp' and 'fsdp', and beside a spatial axis; a ResNet on a spatial axis
+    (replicated, 'fsdp' and, whole on every model rank, 'tp'); the
+    linformer, srformer and performer attentions, ONLY_GLOBAL and SHARE_W
+    False under 'tp'. The fused block under the split raises in the model
+    (A12), ``--multi-host`` in ``run_experiment`` (A12).
     TPU.PARAM_SHARDING 'tp' without a model axis raises ``ValueError``, as
     ``vil_tpu``'s trainer does."""
     tpu = cfg.TPU
     axes = list(tpu.MESH_AXES)
-    resnet = cfg.MODEL.ARCH in RESNET_ZOO
     if tpu.PARAM_SHARDING not in ("replicated", "fsdp", "tp"):
         raise ValueError(f"TPU.PARAM_SHARDING {tpu.PARAM_SHARDING!r}: one of 'replicated', "
                          f"'fsdp', 'tp'")
@@ -103,9 +106,6 @@ def check_ported(cfg) -> None:
         (cfg.CKPT_BACKEND == "orbax",
          "CKPT_BACKEND 'orbax' (orbax writes OCDBT, which only tensorstore reads, and the "
          "card's host has no tensorstore: A6)"),
-        (resnet and "spatial" in axes,
-         f"MODEL.ARCH {cfg.MODEL.ARCH!r} on TPU.MESH_AXES {axes} (a ResNet on a spatial axis: "
-         f"A12, halo convolutions, pooling and BatchNorm over the spatial group)"),
         (bool(tpu.FLAT_OPT) or bool(tpu.STACKED_OPT), "TPU.FLAT_OPT / STACKED_OPT (A13)"),
     ]
     for bad, what in refused:
